@@ -7,10 +7,16 @@ Phases, each printing its own lines; any failed check raises and the script
 exits non-zero:
 
 1. device  — the card's name and `nvidia-smi` name/power limit;
-2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc);
+2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc) and
+   logs each kernel instance's registers, shared memory and spills (ptxas);
 3. kernels — each kernel against its plain PyTorch version on the card at the
    main path's shapes (one segment of each table: rel 1e-5 on sums, equal counts),
-   timed with CUDA events with the L2 cache flushed before every timed run;
+   timed with CUDA events with the L2 cache flushed before every timed run, and
+   under torch.profiler: `kernel_ms` is the kernel alone, and
+   `device_ops_per_call` the ops one eager call puts on the card, which must be
+   the design's one launch. The flush overwrites a 256 MiB buffer, so the
+   inputs come from HBM, behind dirty lines as on the path, whose operand
+   product writes its row just before the scan;
 4. path    — SSB lineorder generated from --seed, built with the package's writer,
    loaded, and queried through `execute_query` on the card: Q1.1, the dictionary
    GROUP BY, and a SUM over a frame-of-reference column. Each answer is held
@@ -51,6 +57,10 @@ QUERY_RUNS = 20                               # warm runs per query
 L2_FLUSH_BYTES = 256 << 20   # written before each timed run: > the H100's 50 MB L2
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
+KERNEL_SYMBOL = "masked_sums_kernel"
+DEVICE_OPS_PER_CALL = 1   # the design: one launch, no torch op after it
+PROFILED_CALLS = 10
+_OPERAND = {"f": "float", "h": "uint8", "t": "uint16"}   # Itanium codes
 
 
 def log(phase: str, **fields) -> None:
@@ -109,6 +119,67 @@ def graph_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
     return time_ms(graph.replay, flush, runs)
 
 
+def _profiled(step, calls: int) -> list:
+    """The card's ops (name, us) of `calls` runs of `step()`, under torch.profiler
+    with one warm-up cycle first, so the counted cycle starts with the
+    profiler's device tracing already running. The profiler's own step
+    annotations are not ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    ops = []
+
+    def ready(prof):
+        ops.extend((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                   and not e.name.startswith("ProfilerStep"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+            prof.step()
+    return ops
+
+
+def profile_call(fn, flush: torch.Tensor, calls: int = PROFILED_CALLS) -> tuple:
+    """(device ops per call, kernel ms) from torch.profiler: `calls` eager calls
+    back to back give every op a call puts on the card; a second window, with
+    L2 flushed before each call, gives the median time of the kernel alone with
+    its inputs in HBM. Raises unless one call is the design's count of ops."""
+
+    def flushed():
+        flush.zero_()
+        fn()
+
+    ops = _profiled(fn, calls)
+    if len(ops) != DEVICE_OPS_PER_CALL * calls:
+        raise AssertionError(f"one call puts {len(ops) / calls} ops on the card, "
+                             f"expected {DEVICE_OPS_PER_CALL}: "
+                             f"{sorted({name for name, _ in ops})}")
+    times = [us for name, us in _profiled(flushed, calls) if KERNEL_SYMBOL in name]
+    if len(times) != calls:
+        raise AssertionError(f"the profiler saw {len(times)} {KERNEL_SYMBOL} launches "
+                             f"for {calls} calls")
+    return len(ops) / calls, statistics.median(times) / 1e3
+
+
+def kernel_usage(log: str) -> dict:
+    """ptxas's registers, shared memory and spills per kernel instance."""
+    from pinot_tpu_torch.engine import cuda_lib
+    named = {}
+    for mangled, use in cuda_lib.ptxas_usage(log).items():
+        at = mangled.find(KERNEL_SYMBOL + "I")
+        if at >= 0:
+            code = mangled[at + len(KERNEL_SYMBOL) + 1]
+            named[f"{KERNEL_SYMBOL}<{_OPERAND.get(code, code)}>"] = use
+    if not named:
+        raise AssertionError(f"no {KERNEL_SYMBOL} instance in the ptxas log:\n{log}")
+    return named
+
+
 # -- phase 3: kernels against their plain versions ----------------------------
 
 def kernel_cases(n: int, n_for: int, gen: torch.Generator):
@@ -133,6 +204,10 @@ def kernel_cases(n: int, n_for: int, gen: torch.Generator):
     q11 = [(336, 671), (1, 3), (0, 23)]
     lo, hi = scan.INT32_MIN, scan.INT32_MAX
     r, rf = n - n // 8 - 3, n_for - n_for // 8 - 3   # ragged: no multiple of a block
+    wide_cols = (od, disc, qty, ids(7), ids(25), ids(50), ids(250), ids(1000))
+    wide_bands = q11 + [(0, 5), (3, 20), (0, 40), (10, 240), (0, 900)]
+    wide_rows = [row, revenue] + [(torch.rand(n, generator=gen) * 100).cuda()
+                                  for _ in range(6)]
     return [
         # (case, kernel name, args, main-path shape?)
         ("q11_1sum", "masked_sums", ((od, disc, qty), q11, [row]), True),
@@ -142,6 +217,7 @@ def kernel_cases(n: int, n_for: int, gen: torch.Generator):
         ("empty_mask", "masked_sums", ((od, disc, qty), [(1, 0)] * 3, [row]), False),
         ("one_sided", "masked_sums", ((od, disc, qty), [(lo, 671), (1, hi), (lo, 23)],
                                       [row]), False),
+        ("c8_k8", "masked_sums", (wide_cols, wide_bands, wide_rows), False),
         ("for_u8", "masked_sums_fused", ((fod, fdisc), q11[:2], [(1.0, d8)]), True),
         ("for_u16", "masked_sums_fused", ((fod, fdisc), q11[:2], [(-5.0, d16)]), False),
         ("for_u8_ragged", "masked_sums_fused",
@@ -171,7 +247,7 @@ def check_kernels(n: int, n_for: int, seed: int):
     fns = {"masked_sums": (scan.masked_sums, scan.masked_sums_plain),
            "masked_sums_fused": (scan.masked_sums_fused, scan.masked_sums_fused_plain)}
     gen = torch.Generator().manual_seed(seed)
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     results = {}
     for case, name, args, main in kernel_cases(n, n_for, gen):
         kernel, plain = fns[name]
@@ -193,17 +269,20 @@ def check_kernels(n: int, n_for: int, seed: int):
         plain_ms = graph_ms(lambda: plain(*args), flush)
         call_ms = time_ms(lambda: kernel(*args), flush)
         plain_call_ms = time_ms(lambda: plain(*args), flush)
+        ops_per_call, kernel_ms = profile_call(lambda: kernel(*args), flush)
         bms, by = bound(name, args)
         log("kernel_case", case=case, kernel=name, rows=int(args[0][0].shape[0]),
-            count=kc, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms,
-            call_ms=call_ms, plain_call_ms=plain_call_ms, bound_ms=bms, bound_by=by,
+            count=kc, max_abs_err=abs_err, max_rel_err=rel_err, ms=ms, plain_ms=plain_ms, kernel_ms=kernel_ms,
+            device_ops_per_call=ops_per_call, call_ms=call_ms,
+            plain_call_ms=plain_call_ms, bound_ms=bms, bound_by=by,
             pct_of_bound=100.0 * bms / ms)
         agg = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)
         agg["max_rel_err"] = max(agg["max_rel_err"], rel_err)
         if main:
-            agg.update(case=case, ms=ms, plain_ms=plain_ms, call_ms=call_ms,
-                       plain_call_ms=plain_call_ms, bound_ms=bms, bound_by=by)
+            agg.update(case=case, ms=ms, plain_ms=plain_ms,
+                       kernel_ms=kernel_ms, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                       bound_ms=bms, bound_by=by)
     return results
 
 
@@ -379,8 +458,8 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    cuda_lib.load("masked_sums")
-    log("build", seconds=time.perf_counter() - t0)
+    build_log = cuda_lib.build_log("masked_sums")
+    log("build", seconds=time.perf_counter() - t0, ptxas=kernel_usage(build_log))
 
     # phase 3: kernels against their plain versions, at the segment sizes of phase 4
     kstats = check_kernels(segment_rows(args.rows, SEGMENTS),
@@ -406,6 +485,7 @@ def main() -> int:
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
+                        "kernel_ms": s["kernel_ms"],
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
                         "shape_case": s["case"]})
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` compiles with `nvcc` into a shared library with a plain
 C interface, loaded with `ctypes`. The library lands in `pinot_tpu_torch/_build/`
 under a name keyed by a hash of its source and the compiler flags, so an edited
-source rebuilds and an unchanged one loads at once. There is no fallback: a
+source rebuilds and an unchanged one loads at once. The compiler's output, with
+ptxas's registers, shared memory and spills for every kernel, is kept beside
+the library (`build_log`, parsed by `ptxas_usage`). There is no fallback: a
 missing `nvcc` or a failed build raises.
 """
 
@@ -12,16 +14,17 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -58,6 +61,9 @@ def _compile(name: str, so: str) -> None:
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {out.returncode}):\n"
                            f"{out.stdout.decode(errors='replace')}")
+    with open(f"{tmp}.log", "wb") as f:
+        f.write(out.stdout)
+    os.replace(f"{tmp}.log", f"{so}.log")
     os.replace(tmp, so)   # atomic: a concurrent loader sees a whole file
 
 
@@ -72,3 +78,40 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(so)
             _libs[name] = lib
         return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building `csrc/<name>.cu` (built first if need be)."""
+    load(name)
+    with open(f"{_so_path(name)}.log", encoding="utf-8", errors="replace") as f:
+        return f.read()
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?, (\d+) bytes smem)?")
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) in a `-Xptxas -v` log: registers per thread,
+    static shared memory bytes, stack frame and spill bytes."""
+    usage: Dict[str, Dict[str, int]] = {}
+    entry: Optional[str] = None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            usage[entry].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            usage[entry].update(registers=int(m.group(1)),
+                                static_smem_bytes=int(m.group(2) or 0))
+    return usage

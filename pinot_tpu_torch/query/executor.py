@@ -150,14 +150,15 @@ class ServerQueryExecutor:
             for _, arg in operands:
                 base, deltas = block.for_form(arg.name)
                 for_rows.append((base, deltas[:n]))
-            sums, count = scan.masked_sums_fused(id_cols, bands, for_rows)
+            answer = scan.masked_sums_fused_answer(id_cols, bands, for_rows)
         else:
             env = {c: v[:n] for c, v in self._value_env(plan, block).items()}
             rows = [_as_rows(eval_device(arg, env), n, self.device).to(torch.float32)
                     for _, arg in operands]
-            sums, count = scan.masked_sums(id_cols, bands, rows)
-        outs = {"count": count.cpu().numpy()}
-        for (ai, _), s in zip(operands, sums.cpu().numpy()):
+            answer = scan.masked_sums_answer(id_cols, bands, rows)
+        host_sums, host_count = scan.answer_to_host(answer, len(operands))   # one copy
+        outs = {"count": host_count}
+        for (ai, _), s in zip(operands, host_sums):
             outs[f"{ai}.sum"] = s
         return self._decode_scalar_partials(plan, outs)
 

@@ -1,5 +1,8 @@
 """pinot_tpu_torch's CUDA scan kernels against their plain PyTorch versions.
 
+Row counts at and around the vector width, the 16-row group and one pipeline
+stage, the widest shape (8 mask columns, 8 sums), bitwise-equal answers over
+repeated calls, two streams and CUDA-graph replays, and the alignment check.
 Needs a CUDA card (`gpu` marker): the kernels have no CPU mode, so without a
 card every test here skips. Imports no JAX, so it runs on a machine without it:
 
@@ -70,3 +73,161 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         scan.masked_sums_fused([ids], [(0, 1)], [(0.0, ids)])
     with pytest.raises(ValueError, match="at most"):
         scan.masked_sums([ids] * 9, [(0, 1)] * 9, [])
+
+
+def _rows_for(token, n_mask, n_sums, itemsize):
+    """A row count, or one pipeline stage of that shape (+/- 1) at 2,097,152 rows."""
+    if isinstance(token, int):
+        return token
+    stage = scan.scan_plan(1 << 21, n_mask, n_sums, itemsize, 132,
+                           scan.kernel_shape()).rows_per_stage
+    return stage + {"stage-1": -1, "stage": 0, "stage+1": 1}[token]
+
+
+EDGE_ROWS = [0, 1, 3, 4, 15, 16, 17, 33, "stage-1", "stage", "stage+1", (1 << 21) - 3]
+
+
+def _assert_same(got, want):
+    ks, kc = got
+    ps, pc = want
+    assert int(kc) == int(pc)
+    torch.testing.assert_close(ks.cpu(), ps.cpu(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", EDGE_ROWS, ids=str)
+def test_cuda_kernels_at_edge_row_counts(cuda, token):
+    n = _rows_for(token, 3, 2, 4)
+    d = _data(max(n, 1), seed=7)
+    cols = [torch.from_numpy(d[k][:n]).to(cuda) for k in ("od", "disc", "qty")]
+    rows = [torch.from_numpy(d[k][:n]).to(cuda) for k in ("price", "rev")]
+    _assert_same(scan.masked_sums(cols, Q11_BANDS, rows),
+                 scan.masked_sums_plain(cols, Q11_BANDS, rows))
+    for delta, itemsize in (("d8", 1), ("d16", 2)):
+        m = _rows_for(token, 2, 1, itemsize)
+        dd = _data(max(m, 1), seed=8)
+        ids = [torch.from_numpy(dd[k][:m]).to(cuda) for k in ("od", "disc")]
+        for_rows = [(-3.0, torch.from_numpy(dd[delta][:m]).to(cuda))]
+        _assert_same(scan.masked_sums_fused(ids, Q11_BANDS[:2], for_rows),
+                     scan.masked_sums_fused_plain(ids, Q11_BANDS[:2], for_rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", [17, "stage+1", (1 << 21) - 3], ids=str)
+@pytest.mark.parametrize("operand", ["f32", "d8", "d16"])
+def test_cuda_kernels_eight_columns_eight_sums(cuda, token, operand):
+    itemsize = {"f32": 4, "d8": 1, "d16": 2}[operand]
+    n = _rows_for(token, 8, 8, itemsize)
+    rng = np.random.default_rng(n)
+    cards = [2353, 11, 50, 7, 25, 50, 250, 1000]
+    cols = [torch.from_numpy(rng.integers(0, c, n).astype(np.int32)).to(cuda) for c in cards]
+    bands = Q11_BANDS + [(0, 5), (3, 20), (0, 40), (10, 240), (0, 900)]
+    if operand == "f32":
+        rows = [torch.from_numpy(rng.uniform(-50, 500, n).astype(np.float32)).to(cuda)
+                for _ in range(8)]
+        _assert_same(scan.masked_sums(cols, bands, rows),
+                     scan.masked_sums_plain(cols, bands, rows))
+    else:
+        dt, hi = (np.uint8, 256) if operand == "d8" else (np.uint16, 1 << 16)
+        for_rows = [(float(j) - 4.0, torch.from_numpy(rng.integers(0, hi, n).astype(dt))
+                     .to(cuda)) for j in range(8)]
+        _assert_same(scan.masked_sums_fused(cols, bands, for_rows),
+                     scan.masked_sums_fused_plain(cols, bands, for_rows))
+
+
+def _bits(answer):
+    sums, count = answer
+    return sums.cpu().numpy().tobytes(), int(count)
+
+
+@pytest.mark.gpu
+def test_cuda_answers_are_bitwise_stable_over_calls_streams_and_graph_replays(cuda):
+    n = (1 << 21) - 3
+    d = _data(n, seed=5)
+    cols = [torch.from_numpy(d[k]).to(cuda) for k in ("od", "disc", "qty")]
+    rows = [torch.from_numpy(d[k]).to(cuda) for k in ("price", "rev")]
+    for_rows = [(1.0, torch.from_numpy(d["d8"]).to(cuda))]
+    calls = [lambda: scan.masked_sums(cols, Q11_BANDS, rows),
+             lambda: scan.masked_sums_fused(cols[:2], Q11_BANDS[:2], for_rows)]
+    for call in calls:
+        want = _bits(call())
+        assert all(_bits(call()) == want for _ in range(10))
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        answers = []
+        for i in range(6):   # the two streams in turn, each call on its own stream
+            with torch.cuda.stream(streams[i % 2]):
+                answers.append(call())
+        torch.cuda.synchronize()
+        assert all(_bits(a) == want for a in answers)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert _bits(captured) == want
+        assert _bits(call()) == want   # eager calls after the graph still start clean
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_reject_misaligned_views(cuda):
+    ids = torch.zeros(64, dtype=torch.int32, device=cuda)
+    row = torch.zeros(64, dtype=torch.float32, device=cuda)
+    d8 = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        scan.masked_sums([ids[1:]], [(0, 1)], [row[1:]])
+    with pytest.raises(ValueError, match="aligned"):
+        scan.masked_sums([ids[4:]], [(0, 1)], [row[1:61]])
+    with pytest.raises(ValueError, match="aligned"):
+        scan.masked_sums_fused([ids[:63]], [(0, 1)], [(0.0, d8[1:])])
+    # views at a 16-byte offset are taken
+    sums, count = scan.masked_sums([ids[4:]], [(0, 1)], [row[4:]])
+    assert int(count) == 60 and float(sums[0]) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_answer_reaches_the_host_in_one_copy(cuda):
+    d = _data(5000, seed=3)
+    cols = [torch.from_numpy(d[k]).to(cuda) for k in ("od", "disc", "qty")]
+    rows = [torch.from_numpy(d[k]).to(cuda) for k in ("price", "rev", "price")]
+    answer = scan.masked_sums_answer(cols, Q11_BANDS, rows)
+    sums, count = scan.answer_views(answer, 3)
+    host_sums, host_count = scan.answer_to_host(answer, 3)
+    assert host_count == int(count)
+    np.testing.assert_array_equal(host_sums, sums.cpu().numpy())
+    ps, pc = scan.masked_sums_plain(cols, Q11_BANDS, rows)
+    assert host_count == int(pc)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_captures_take_no_static_ticket_slot(cuda):
+    """More captures than there are static ticket slots, each graph released
+    after its replay: captured launches keep their ticket in the graph's memory."""
+    d = _data(4096, seed=9)
+    cols = [torch.from_numpy(d[k]).to(cuda) for k in ("od", "disc", "qty")]
+    rows = [torch.from_numpy(d["price"]).to(cuda)]
+    want = _bits(scan.masked_sums(cols, Q11_BANDS, rows))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scan.masked_sums(cols, Q11_BANDS, rows)
+    torch.cuda.current_stream().wait_stream(side)
+    for i in range(scan.kernel_shape().ticket_slots + 8):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = scan.masked_sums(cols, Q11_BANDS, rows)
+        graph.replay()
+        if i % 256 == 0:
+            torch.cuda.synchronize()
+            assert _bits(captured) == want
+        del graph, captured
+    torch.cuda.synchronize()
+    assert _bits(scan.masked_sums(cols, Q11_BANDS, rows)) == want

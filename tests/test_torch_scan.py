@@ -157,3 +157,90 @@ def test_count_is_exact_int64():
     sums, count = scan.masked_sums_plain([torch.from_numpy(d["qty"])], [(0, 49)], [])
     assert count.dtype == torch.int64 and int(count) == 4096
     assert sums.shape == (0,)
+
+
+# the shape csrc/masked_sums.cu reports through pinot_masked_sums_config
+SHAPE = scan.KernelShape(stages=4, ring_bytes=128 * 1024, group_rows=16, ticket_slots=1024)
+
+
+@pytest.mark.parametrize("itemsize", [4, 1, 2], ids=["f32", "u8", "u16"])
+def test_scan_plan_stages_are_whole_groups_within_the_ring(itemsize):
+    stages, ring, group = SHAPE.stages, SHAPE.ring_bytes, SHAPE.group_rows
+    for n_mask in range(scan.MAX_MASK_COLS + 1):
+        for n_sums in range(scan.MAX_SUMS + 1):
+            if n_mask + n_sums == 0:
+                continue
+            bytes_per_row = 4 * n_mask + itemsize * n_sums
+            for n in (0, 17, 5000, 1 << 21, 1 << 30):
+                plan = scan.scan_plan(n, n_mask, n_sums, itemsize, 132, SHAPE)
+                rows = plan.rows_per_stage
+                assert rows > 0 and rows % group == 0, (n_mask, n_sums, n, rows)
+                # every column's tile is a whole number of 16-byte units
+                assert rows * itemsize % 16 == 0 and rows * 4 % 16 == 0
+                assert stages * rows * bytes_per_row <= ring
+                # a block's range spans at least `stages` tiles while the ring has room
+                block_rows = -(-(n // 16) // plan.grid) * 16
+                if stages * (rows + 16) * bytes_per_row <= ring:
+                    assert stages * rows >= block_rows, (n_mask, n_sums, n)
+            # a segment of the main path fills the card; a large one fills the ring
+            assert scan.scan_plan(1 << 21, n_mask, n_sums, itemsize, 132, SHAPE).grid == 132
+            rows = scan.scan_plan(1 << 30, n_mask, n_sums, itemsize, 132, SHAPE).rows_per_stage
+            assert stages * (rows + group) * bytes_per_row > ring
+
+
+def test_scan_plan_grid_and_stage_rows():
+    assert scan.scan_plan(1 << 21, 3, 1, 4, 132, SHAPE).rows_per_stage == 2048   # Q1.1
+    assert scan.scan_plan(1 << 21, 2, 1, 1, 132, SHAPE).rows_per_stage == 3632   # FOR
+    block = scan.MIN_BLOCK_ROWS
+    for n, want in [(0, 1), (1, 1), (15, 1), (16, 1), (block + 15, 1), (2 * block, 2),
+                    (5 * block + 100, 5), (1 << 21, 132), ((1 << 21) - 3, 132)]:
+        assert scan.scan_plan(n, 3, 1, 4, 132, SHAPE).grid == want, n
+    with pytest.raises(ValueError):
+        scan.scan_plan(10, 0, 0, 4, 132, SHAPE)
+
+
+def test_answer_buffer_reaches_the_host_in_one_piece():
+    out = torch.zeros(1 + 2, dtype=torch.int64)   # count, then 3 f32 sums (+ pad)
+    sums, count = scan.answer_views(out, 3)
+    count.fill_(123456789012)
+    sums.copy_(torch.tensor([1.5, -2.25, 3e9]))
+    host_sums, host_count = scan.answer_to_host(out, 3)
+    assert host_count == 123456789012
+    np.testing.assert_array_equal(host_sums, np.array([1.5, -2.25, 3e9], dtype=np.float32))
+    assert host_sums.dtype == np.float32
+    host_sums, host_count = scan.answer_to_host(torch.zeros(1, dtype=torch.int64), 0)
+    assert host_count == 0 and host_sums.shape == (0,)
+
+
+def test_answers_on_the_cpu_hold_the_plain_versions():
+    d = _data(n=5000)
+    cols = [torch.from_numpy(d[k]) for k in ("od", "disc", "qty")]
+    rows = [torch.from_numpy(d["price"]), torch.from_numpy(d["price"]) * 2]
+    before = (scan.masked_sums.launches, scan.masked_sums_fused.launches)
+    sums, count = scan.answer_views(scan.masked_sums_answer(cols, Q11_BANDS, rows), 2)
+    ps, pc = scan.masked_sums_plain(cols, Q11_BANDS, rows)
+    assert torch.equal(sums, ps) and int(count) == int(pc)
+    for_rows = [(1.0, torch.from_numpy(d["d8"]))]
+    got = scan.answer_to_host(
+        scan.masked_sums_fused_answer(cols[:2], Q11_BANDS[:2], for_rows), 1)
+    ps, pc = scan.masked_sums_fused_plain(cols[:2], Q11_BANDS[:2], for_rows)
+    np.testing.assert_array_equal(got[0], ps.numpy())
+    assert got[1] == int(pc)
+    assert (scan.masked_sums.launches, scan.masked_sums_fused.launches) == before
+
+
+def test_ptxas_usage_reads_registers_smem_and_spills():
+    from pinot_tpu_torch.engine import cuda_lib
+    log = ("ptxas info    : Compiling entry function '_Z3fooILi1EEvv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z3fooILi1EEvv\n"
+           "    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 72 registers, used 1 barriers, 904 bytes smem, "
+           "624 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+           "ptxas info    : Used 12 registers, 388 bytes cmem[0]\n")
+    assert cuda_lib.ptxas_usage(log) == {
+        "_Z3fooILi1EEvv": {"stack_bytes": 16, "spill_store_bytes": 8,
+                           "spill_load_bytes": 4, "registers": 72,
+                           "static_smem_bytes": 904},
+        "_Z3barv": {"registers": 12, "static_smem_bytes": 0},
+    }
