@@ -10,7 +10,8 @@ exits non-zero:
 2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc) and
    logs each kernel instance's registers, shared memory and spills (ptxas);
 3. kernels — each kernel against its plain PyTorch version on the card at the
-   main path's shapes (one segment of each table: rel 1e-5 on sums, equal counts),
+   main paths' shapes (one segment of each table, and the whole stacked table
+   the set executor scans in one launch: rel 1e-5 on sums, equal counts),
    timed with CUDA events with the L2 cache flushed before every timed run, and
    under torch.profiler: `kernel_ms` is the kernel alone, and
    `device_ops_per_call` the ops one eager call puts on the card, which must be
@@ -22,7 +23,19 @@ exits non-zero:
    GROUP BY, and a SUM over a frame-of-reference column. Each answer is held
    against a numpy float64 oracle (rel 1e-5, abs 0.05), and the kernels' launch
    counters must show that Q1.1 and the FOR query ran through the kernels, once
-   per segment.
+   per segment;
+5. serve   — the same table through the stacked segment-set executor
+   (`parallel.MeshQueryExecutor`) and the serving pipeline
+   (`cluster.DeviceQueryPipeline`): Q1.1, the GROUP BY and a COUNT over one id
+   band, each held against the oracle with its warm median, min and max over
+   20 runs (a stacked Q1.1 or COUNT must be one `masked_sums` launch for the
+   whole table); `execute_many` over 64 copies of Q1.1 (rows/s); then 32
+   client threads x 12 queries through the pipeline, twice: cycling the three
+   (the mix of bench.py's e2e_device_bench), and cycling 32 literals of the
+   COUNT (which stack). Every answer is held against the oracle; each run
+   prints QPS, p50 latency and the pipeline's stats (its scan launches must
+   equal the kernel's launch counter). Under --trace, the stacked Q1.1's
+   device busy ms, idle share and top device ops.
 
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
@@ -54,12 +67,17 @@ TIMED_RUNS = 25
 SEGMENTS = 8                                  # bench.py's table: 8 segments
 FOR_ROWS, FOR_SEGMENTS = 4 * 1024 * 1024, 2   # the FOR query's table
 QUERY_RUNS = 20                               # warm runs per query
+SERVE_COUNT_QUERY = "SELECT COUNT(*) FROM lineorder WHERE lo_quantity < 10 LIMIT 5"
+MANY_COPIES = 64                              # queries in one execute_many
+SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT = 32, 12   # bench.py's e2e_device_bench
 L2_FLUSH_BYTES = 256 << 20   # written before each timed run: > the H100's 50 MB L2
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
 KERNEL_SYMBOL = "masked_sums_kernel"
 DEVICE_OPS_PER_CALL = 1   # the design: one launch, no torch op after it
 PROFILED_CALLS = 10
+PROFILER_MARGIN_S = 0.005   # idle time at each edge of a profiled window
+TRACED_RUNS = 10            # warm runs of a query in one --trace window
 _OPERAND = {"f": "float", "h": "uint8", "t": "uint16"}   # Itanium codes
 
 
@@ -80,6 +98,14 @@ def segment_rows(rows: int, segments: int) -> int:
     """Rows of the first segment `build_aligned_segments` cuts from `rows`: the
     `n` the executor hands the scan kernels for that table."""
     return int(np.linspace(0, rows, segments + 1, dtype=np.int64)[1])
+
+
+def stacked_rows(rows: int, segments: int) -> int:
+    """Rows of the set executor's stacked block for that table: one slot per
+    segment, each padded to the largest segment's padded size."""
+    from pinot_tpu_torch.engine.datablock import padded_rows
+    sizes = np.diff(np.linspace(0, rows, segments + 1, dtype=np.int64))
+    return segments * padded_rows(int(sizes.max()))
 
 
 def time_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
@@ -119,17 +145,19 @@ def graph_ms(fn, flush: torch.Tensor, runs: int = TIMED_RUNS) -> float:
     return time_ms(graph.replay, flush, runs)
 
 
-def _profiled(step, calls: int) -> list:
-    """The card's ops (name, us) of `calls` runs of `step()`, under torch.profiler
-    with one warm-up cycle first, so the counted cycle starts with the
-    profiler's device tracing already running. The profiler's own step
-    annotations are not ops."""
+def _profiled(step, calls: int) -> tuple:
+    """The card's ops of `calls` runs of `step()` under torch.profiler, as
+    (name, start us, end us), and the host wall seconds of those runs. One
+    warm-up cycle runs first, so that the counted cycle starts with the
+    profiler's device tracing already running, and each cycle idles
+    PROFILER_MARGIN_S at both edges, so that no op lies on the window's
+    boundary. The profiler's own step annotations are not ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     ops = []
 
     def ready(prof):
-        ops.extend((e.name, e.time_range.elapsed_us()) for e in prof.events()
+        ops.extend((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                    and not e.name.startswith("ProfilerStep"))
 
@@ -137,11 +165,15 @@ def _profiled(step, calls: int) -> list:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         for _ in range(2):
+            time.sleep(PROFILER_MARGIN_S)
+            t0 = time.perf_counter()
             for _ in range(calls):
                 step()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILER_MARGIN_S)
             prof.step()
-    return ops
+    return ops, wall
 
 
 def profile_call(fn, flush: torch.Tensor, calls: int = PROFILED_CALLS) -> tuple:
@@ -154,12 +186,13 @@ def profile_call(fn, flush: torch.Tensor, calls: int = PROFILED_CALLS) -> tuple:
         flush.zero_()
         fn()
 
-    ops = _profiled(fn, calls)
+    ops, _ = _profiled(fn, calls)
     if len(ops) != DEVICE_OPS_PER_CALL * calls:
         raise AssertionError(f"one call puts {len(ops) / calls} ops on the card, "
                              f"expected {DEVICE_OPS_PER_CALL}: "
-                             f"{sorted({name for name, _ in ops})}")
-    times = [us for name, us in _profiled(flushed, calls) if KERNEL_SYMBOL in name]
+                             f"{sorted({name for name, _, _ in ops})}")
+    times = [end - start for name, start, end in _profiled(flushed, calls)[0]
+             if KERNEL_SYMBOL in name]
     if len(times) != calls:
         raise AssertionError(f"the profiler saw {len(times)} {KERNEL_SYMBOL} launches "
                              f"for {calls} calls")
@@ -182,11 +215,13 @@ def kernel_usage(log: str) -> dict:
 
 # -- phase 3: kernels against their plain versions ----------------------------
 
-def kernel_cases(n: int, n_for: int, gen: torch.Generator):
-    """The main path's shapes: one SSB segment of n rows with Q1.1's three id
-    bands (lo_orderdate in 1993, lo_discount 1..3, lo_quantity < 25), and one
+def kernel_cases(n: int, n_for: int, n_stacked: int, gen: torch.Generator):
+    """The main paths' shapes: one SSB segment of n rows with Q1.1's three id
+    bands (lo_orderdate in 1993, lo_discount 1..3, lo_quantity < 25), one
     segment of the FOR table (n_for rows) with that query's two, over dict ids
-    with SSB's cardinalities."""
+    with SSB's cardinalities, and the whole stacked table (n_stacked rows),
+    which the set executor scans in one launch for Q1.1 (three bands, one
+    sum) and for the COUNT query (one band, no sum)."""
     from pinot_tpu_torch.engine import scan
 
     def ids(card, rows=n):
@@ -208,9 +243,15 @@ def kernel_cases(n: int, n_for: int, gen: torch.Generator):
     wide_bands = q11 + [(0, 5), (3, 20), (0, 40), (10, 240), (0, 900)]
     wide_rows = [row, revenue] + [(torch.rand(n, generator=gen) * 100).cuda()
                                   for _ in range(6)]
+    sod, sdisc, sqty = ids(2352, n_stacked), ids(11, n_stacked), ids(50, n_stacked)
+    srow = ((torch.rand(n_stacked, generator=gen, dtype=torch.float64) * 9999 + 1).float()
+            .cuda() * sdisc.float())
     return [
         # (case, kernel name, args, main-path shape?)
         ("q11_1sum", "masked_sums", ((od, disc, qty), q11, [row]), True),
+        ("q11_stacked", "masked_sums", ((sod, sdisc, sqty), q11, [srow]), True),
+        # the set path's COUNT (lo_quantity < 10): one band, no sum, 4 B/row
+        ("count_stacked", "masked_sums", ((sqty,), [(0, 8)], []), True),
         ("q11_2sums", "masked_sums", ((od, disc, qty), q11, [row, revenue]), False),
         ("ragged_n", "masked_sums",
          ((od[:r], disc[:r], qty[:r]), q11, [row[:r]]), False),
@@ -242,14 +283,14 @@ def bound(name: str, args) -> tuple:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def check_kernels(n: int, n_for: int, seed: int):
+def check_kernels(n: int, n_for: int, n_stacked: int, seed: int):
     from pinot_tpu_torch.engine import scan
     fns = {"masked_sums": (scan.masked_sums, scan.masked_sums_plain),
            "masked_sums_fused": (scan.masked_sums_fused, scan.masked_sums_fused_plain)}
     gen = torch.Generator().manual_seed(seed)
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     results = {}
-    for case, name, args, main in kernel_cases(n, n_for, gen):
+    for case, name, args, main in kernel_cases(n, n_for, n_stacked, gen):
         kernel, plain = fns[name]
         ks, kc = kernel(*args)
         ps, pc = plain(*args)
@@ -276,13 +317,19 @@ def check_kernels(n: int, n_for: int, seed: int):
             device_ops_per_call=ops_per_call, call_ms=call_ms,
             plain_call_ms=plain_call_ms, bound_ms=bms, bound_by=by,
             pct_of_bound=100.0 * bms / ms)
-        agg = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+        agg = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                        "cases": {}})
         agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)
         agg["max_rel_err"] = max(agg["max_rel_err"], rel_err)
         if main:
-            agg.update(case=case, ms=ms, plain_ms=plain_ms,
-                       kernel_ms=kernel_ms, call_ms=call_ms, plain_call_ms=plain_call_ms,
-                       bound_ms=bms, bound_by=by)
+            # the first main case (one segment) gives the kernel's headline
+            # numbers, as in earlier runs; every main case is kept under "cases"
+            numbers = dict(rows=int(args[0][0].shape[0]), ms=ms, plain_ms=plain_ms,
+                           kernel_ms=kernel_ms, call_ms=call_ms,
+                           plain_call_ms=plain_call_ms, bound_ms=bms, bound_by=by)
+            agg["cases"][case] = numbers
+            if "case" not in agg:
+                agg.update(case=case, **{k: v for k, v in numbers.items() if k != "rows"})
     return results
 
 
@@ -374,8 +421,7 @@ def run_path(args, work: str):
         result = execute_query(segs, sql)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        counts = {"masked_sums": scan.masked_sums.launches,
-                  "masked_sums_fused": scan.masked_sums_fused.launches}
+        counts = launch_counts()
         if counts != want_launches:
             raise AssertionError(f"{name}: kernel launches {counts}, expected {want_launches}")
         for k, v in counts.items():
@@ -401,24 +447,209 @@ def run_path(args, work: str):
         if args.trace:
             fields["trace"] = trace_query(lambda: execute_query(segs, sql))
         log("query", **fields)
+    return launches, table, cols
+
+
+# -- phase 5: serve --------------------------------------------------------------
+
+def oracle_count(c):
+    return [[int((c["lo_quantity"] < 10).sum())]]
+
+
+def warm_times(fn, runs: int = QUERY_RUNS) -> tuple:
+    """Host-clock times of `runs` calls of `fn`, each ending in a synchronize,
+    and the calls' results."""
+    times, results = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        results.append(fn())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"warm_median_ms": statistics.median(times) * 1e3,
+            "warm_min_ms": min(times) * 1e3, "warm_max_ms": max(times) * 1e3,
+            "warm_runs": runs, "median_s": statistics.median(times)}, results
+
+
+def launch_counts() -> dict:
+    from pinot_tpu_torch.engine import scan
+    return {"masked_sums": scan.masked_sums.launches,
+            "masked_sums_fused": scan.masked_sums_fused.launches}
+
+
+def run_serve(args, table, cols) -> dict:
+    """The stacked set executor and the serving pipeline over the path's table.
+    Returns the kernels' launches in the runs that were checked."""
+    from pinot_tpu_torch.engine import scan
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
+
+    rows = sum(s.num_docs for s in table)
+    mx = MeshQueryExecutor()
+    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    queries = [("q1_1", QUERY, oracle_q11, {"masked_sums": 1, "masked_sums_fused": 0}),
+               ("group_by", GROUP_QUERY, oracle_group,
+                {"masked_sums": 0, "masked_sums_fused": 0}),
+               ("count_quantity", SERVE_COUNT_QUERY, oracle_count,
+                {"masked_sums": 1, "masked_sums_fused": 0})]
+    for name, sql, oracle, want_launches in queries:
+        scan.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = mx.execute(table, sql)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != want_launches:
+            raise AssertionError(f"serve {name}: kernel launches {counts}, "
+                                 f"expected {want_launches} for the whole set")
+        add(counts)
+        want = oracle(cols)
+        if not rows_match(result.rows, want):
+            raise AssertionError(f"serve {name}: got {result.rows}, oracle {want}")
+        warm, results = warm_times(lambda: mx.execute(table, sql))
+        phases = [r.stats["phaseTimesMs"] for r in results]
+        fields = dict(query=name, rows=rows, segments=len(table), answer=result.rows,
+                      oracle=want, launches=counts, cold_s=cold_s,
+                      rows_per_s=rows / warm.pop("median_s"), **warm,
+                      phase_median_ms={k: statistics.median(p[k] for p in phases)
+                                       for k in phases[0]})
+        if args.trace and name == "q1_1":
+            fields["trace"] = trace_query(lambda: mx.execute(table, sql))
+        log("serve_query", **fields)
+    block = next(iter(mx._set_blocks.values()))
+    log("serve_block", s_pad=block.s_pad, rows_per_slot=block.rows,
+        pad_waste_pct=block.pad_waste_pct, stacked_columns=sorted(map(list, block._cache)))
+
+    # execute_many: every copy dispatched, then one fetch
+    want = oracle_q11(cols)
+    scan.reset_launch_counts()
+    results = mx.execute_many(table, [QUERY] * MANY_COPIES)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["masked_sums"] != MANY_COPIES:
+        raise AssertionError(f"execute_many: {counts} launches for {MANY_COPIES} queries")
+    add(counts)
+    bad = [r.rows for r in results if not rows_match(r.rows, want)]
+    if bad:
+        raise AssertionError(f"execute_many: {len(bad)} answers off the oracle: {bad[:3]}")
+    warm, _ = warm_times(lambda: mx.execute_many(table, [QUERY] * MANY_COPIES), runs=5)
+    med = warm.pop("median_s")
+    log("serve_many", copies=MANY_COPIES, launches=counts, queries_per_s=MANY_COPIES / med,
+        rows_per_s=MANY_COPIES * rows / med, **warm)
+
+    # the pipeline: client threads cycling the three queries, as e2e_device_bench
+    # does; then the COUNT with a literal per client and query, which stacks
+    quantity_counts = np.cumsum(np.bincount(cols["lo_quantity"], minlength=52))
+    mixes = {
+        "e2e_mix": [(QUERY, oracle_q11(cols)), (GROUP_QUERY, oracle_group(cols)),
+                    (SERVE_COUNT_QUERY, oracle_count(cols))],
+        "literals": [(f"SELECT COUNT(*) FROM lineorder WHERE lo_quantity < {q}",
+                      [[int(quantity_counts[q - 1])]]) for q in range(2, 2 + SERVE_CLIENTS)],
+    }
+    for mix, queries in mixes.items():
+        counts = serve_pipeline(mx, table, mix, queries)
+        add(counts)
     return launches
 
 
-def trace_query(fn) -> dict:
-    """One warm run under torch.profiler: wall ms, device-busy ms (the union of
-    the card's kernel and copy intervals), the idle share, and the kernels that
-    took the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def serve_pipeline(mx, table, mix: str, queries) -> dict:
+    """SERVE_CLIENTS threads, each sending SERVE_QUERIES_PER_CLIENT queries
+    through one DeviceQueryPipeline, client c's query i being queries[(c + i) %
+    len(queries)], every answer held against its oracle rows. Logs QPS, the
+    latency p50/p95 and the pipeline's stats, and returns the kernels' launches."""
+    import threading
+
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.engine import scan
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+
+    ctxs = [compile_query(sql, table[0].schema) for sql, _ in queries]
+    aggs = [[make_agg(f) for f in ctx.aggregations] for ctx in ctxs]
+
+    def answer(pipeline, q):
+        partial = pipeline.execute_partial(ctxs[q], table)
+        merged = merge_segment_results([partial], aggs[q])
+        return reduce_to_result(ctxs[q], merged, aggs[q], list(ctxs[q].group_by)).rows
+
+    solo_pipeline = DeviceQueryPipeline(mesh_exec=mx)
+    try:
+        solo = []
+        for qi in range(9):
+            t0 = time.perf_counter()
+            answer(solo_pipeline, qi % len(queries))
+            solo.append(time.perf_counter() - t0)
+    finally:
+        solo_pipeline.stop()
+
+    pipeline = DeviceQueryPipeline(mesh_exec=mx)
+    lat, failures = [], []
+    lock = threading.Lock()
+
+    def client(ci: int) -> None:
+        mine, wrong = [], []
+        for qi in range(SERVE_QUERIES_PER_CLIENT):
+            q = (ci + qi) % len(queries)
+            t0 = time.perf_counter()
+            try:
+                got = answer(pipeline, q)
+            except Exception as e:   # recorded, and the phase fails below
+                wrong.append(f"{queries[q][0][:48]}: {e!r}")
+                continue
+            mine.append(time.perf_counter() - t0)
+            if not rows_match(got, queries[q][1]):
+                wrong.append(f"{queries[q][0][:48]}: {got} vs {queries[q][1]}")
+        with lock:
+            lat.extend(mine)
+            failures.extend(wrong)
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
+    scan.reset_launch_counts()
+    try:
         t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = pipeline.stats()
+    finally:
+        pipeline.stop()
+    counts = launch_counts()
+    n_queries = SERVE_CLIENTS * SERVE_QUERIES_PER_CLIENT
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"pipeline {mix}: clients still running after 600 s")
+    if failures:
+        raise AssertionError(f"pipeline {mix}: {len(failures)} bad answers: {failures[:3]}")
+    if len(lat) != n_queries or stats["errors"] or stats["timeouts"]:
+        raise AssertionError(f"pipeline {mix}: {len(lat)} of {n_queries} answered, {stats}")
+    if counts["masked_sums"] != stats["scanLaunches"]:
+        raise AssertionError(f"pipeline {mix} reports {stats['scanLaunches']} scan "
+                             f"launches, the kernel counted {counts['masked_sums']}")
+    lat.sort()
+    log("serve_pipeline", mix=mix, distinct_queries=len(queries), clients=SERVE_CLIENTS,
+        queries=n_queries, wall_s=wall, qps=n_queries / wall,
+        p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
+        solo_p50_ms=statistics.median(solo) * 1e3, launches=counts, stats=stats)
+    return counts
+
+
+def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
+    """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
+    device-busy ms (the union of the card's kernel and copy intervals), the
+    idle share, and the ops that took the most device time. The profiler was
+    seen to drop ops from a window of one short run, so a trace covers several,
+    and the count of scan kernel events it saw is given, to be held against
+    the launches those runs made."""
+    spans, wall_s = _profiled(fn, runs)
+    wall_us = wall_s * 1e6 / runs
     busy_us, cur_start, cur_end = 0.0, None, None
-    for a, b in spans:
+    for _, a, b in sorted(spans, key=lambda s: s[1]):
         if cur_end is None or a > cur_end:
             busy_us += 0.0 if cur_end is None else cur_end - cur_start
             cur_start, cur_end = a, b
@@ -426,14 +657,15 @@ def trace_query(fn) -> dict:
             cur_end = max(cur_end, b)
     busy_us += 0.0 if cur_end is None else cur_end - cur_start
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, a, b in spans:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    busy_us /= runs
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+    return {"runs": runs, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
             "device_events": len(spans),
-            "top_device_ms": {k[:60]: v / 1e3 for k, v in top}}
+            "scan_kernel_events": sum(KERNEL_SYMBOL in name for name, _, _ in spans),
+            "top_device_ms": {k[:60]: v / 1e3 / runs for k, v in top}}
 
 
 def main() -> int:
@@ -461,15 +693,17 @@ def main() -> int:
     build_log = cuda_lib.build_log("masked_sums")
     log("build", seconds=time.perf_counter() - t0, ptxas=kernel_usage(build_log))
 
-    # phase 3: kernels against their plain versions, at the segment sizes of phase 4
+    # phase 3: kernels against their plain versions, at the shapes of phases 4 and 5
     kstats = check_kernels(segment_rows(args.rows, SEGMENTS),
-                           segment_rows(min(FOR_ROWS, args.rows), FOR_SEGMENTS), args.seed)
+                           segment_rows(min(FOR_ROWS, args.rows), FOR_SEGMENTS),
+                           stacked_rows(args.rows, SEGMENTS), args.seed)
 
-    # phase 4: the path
+    # phase 4: the path; phase 5: the set executor and the pipeline over its table
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
     try:
-        launches = run_path(args, work)
+        path_launches, table, cols = run_path(args, work)
+        serve_launches = run_serve(args, table, cols)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -481,13 +715,16 @@ def main() -> int:
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches[name],
+                        "replaces": sources[name][1],
+                        "launches": path_launches[name] + serve_launches[name],
+                        "launches_by_path": {"per_segment": path_launches[name],
+                                             "serve": serve_launches[name]},
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
                         "kernel_ms": s["kernel_ms"],
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
-                        "shape_case": s["case"]})
+                        "shape_case": s["case"], "cases": s["cases"]})
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

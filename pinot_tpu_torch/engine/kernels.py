@@ -69,6 +69,12 @@ class KernelSpec:
                     self.cmp_offset[i] = ("fscal", foff)
                     foff += len(leaf.operands)
 
+    def signature(self) -> Tuple:
+        """What decides the work the body does, without the runtime scalars:
+        two specs with one signature differ only in literals."""
+        return (self.filter.signature(), self.group_cols, self.num_keys_pad,
+                tuple((a.name, repr(a.arg), outs) for a, outs in self.aggs))
+
 
 @dataclass
 class KernelInputs:

@@ -74,18 +74,19 @@ class KernelShape:
 def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared and its shape read."""
     lib = cuda_lib.load("masked_sums")
-    if not hasattr(lib, "pinot_shape"):
-        for entry in _ENTRY.values():
-            fn = getattr(lib, entry)
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.pinot_masked_sums_setup.argtypes = (ctypes.c_int,)
-        lib.pinot_masked_sums_setup.restype = ctypes.c_int
-        lib.pinot_masked_sums_config.argtypes = (ctypes.c_void_p,)
-        lib.pinot_masked_sums_config.restype = None
-        config = (ctypes.c_int32 * 4)()
-        lib.pinot_masked_sums_config(config)
-        lib.pinot_shape = KernelShape(*config)
+    with _lock:
+        if not hasattr(lib, "pinot_shape"):
+            for entry in _ENTRY.values():
+                fn = getattr(lib, entry)
+                fn.argtypes = _ARGTYPES
+                fn.restype = ctypes.c_int
+            lib.pinot_masked_sums_setup.argtypes = (ctypes.c_int,)
+            lib.pinot_masked_sums_setup.restype = ctypes.c_int
+            lib.pinot_masked_sums_config.argtypes = (ctypes.c_void_p,)
+            lib.pinot_masked_sums_config.restype = None
+            config = (ctypes.c_int32 * 4)()
+            lib.pinot_masked_sums_config(config)
+            lib.pinot_shape = KernelShape(*config)
     return lib
 
 
@@ -212,7 +213,12 @@ def answer_views(answer: torch.Tensor, n_sums: int) -> Tuple[torch.Tensor, torch
 
 def answer_to_host(answer: torch.Tensor, n_sums: int) -> Tuple[np.ndarray, int]:
     """An answer buffer's `(sums float32[n_sums], count)` on the host: one copy."""
-    raw = answer.cpu().numpy()
+    return read_answer(answer.cpu().numpy(), n_sums)
+
+
+def read_answer(raw: np.ndarray, n_sums: int) -> Tuple[np.ndarray, int]:
+    """`(sums float32[n_sums], count)` of an answer buffer already on the host
+    (int64 words: the count, then the f32 sums)."""
     return raw[1:].view(np.float32)[:n_sums].copy(), int(raw[0])
 
 
@@ -282,7 +288,7 @@ def masked_sums_answer(mask_cols: Sequence[torch.Tensor], bands,
         return _plain_answer(*masked_sums_plain(mask_cols, bands, rows))
     answer = _launch(list(mask_cols), list(bands), list(rows), [0.0] * len(rows),
                      torch.float32)
-    masked_sums.launches += 1
+    _count_launch(masked_sums)
     return answer
 
 
@@ -298,7 +304,7 @@ def masked_sums_fused_answer(id_cols: Sequence[torch.Tensor], id_bands,
         raise ValueError(f"fused operands must all be uint8 or all uint16, got {dtypes}")
     answer = _launch(list(id_cols), list(id_bands), deltas,
                      [float(b) for b, _ in for_rows], next(iter(dtypes)))
-    masked_sums_fused.launches += 1
+    _count_launch(masked_sums_fused)
     return answer
 
 
@@ -329,9 +335,18 @@ masked_sums.launches = 0
 masked_sums_fused.launches = 0
 
 
+def _count_launch(wrapper) -> None:
+    """One launch more of `wrapper`'s kernel. Launches come from several
+    threads at once (a serving pipeline's dispatcher beside direct callers),
+    so the count is kept under the lock."""
+    with _lock:
+        wrapper.launches += 1
+
+
 def reset_launch_counts() -> None:
-    masked_sums.launches = 0
-    masked_sums_fused.launches = 0
+    with _lock:
+        masked_sums.launches = 0
+        masked_sums_fused.launches = 0
 
 
 def _packed(sums: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

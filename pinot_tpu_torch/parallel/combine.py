@@ -1,0 +1,493 @@
+"""Stacked segment-set execution: one pass over a whole aligned segment set.
+
+Counterpart of `pinot_tpu/parallel/combine.py` on one card. The JAX package
+stacks a segment set into `[S_pad, rows]` arrays, shards them over a device
+mesh and merges the devices' partials with `psum`/`pmin`/`pmax`. Here the mesh
+has one member, so the collectives have nothing to combine and disappear:
+
+    stacked columns [S_pad, rows] --one pass over S_pad * rows rows--> partials
+
+A set qualifies when its dictionaries agree (`dictHash`) on every column whose
+ids the plan compares or groups by (`aligned_dictionaries`), as for segments
+built by `segment.writer.build_aligned_segments`; then one plan, made on the
+first segment, holds for every segment. The pass is
+
+* the CUDA scan `scan.masked_sums` over the whole block, for a plan the
+  per-segment `scan_route` accepts and that has at least one id band
+  (`set_scan_route`): one launch for the set, one band set for every segment;
+* the plain-PyTorch body `engine.kernels.run_kernel` over the flattened block
+  for every other plan, with `valid` masking the fill rows.
+
+The serving pipeline (`cluster/device_server.py`) drives the prepared form:
+`prepare_partial` plans and builds inputs without touching the card,
+`dispatch_prepared` launches a batch (queries that differ only in literals
+run back to back as one stacked group), `fetch` copies a whole batch's outputs
+to the host at once.
+
+Not executed here, each raising NotImplementedError: sets whose dictionaries
+disagree (the JAX package's merged view), star-tree segments, mutable
+segments, selections (top-k), and a scan over more than INT32_MAX rows. A
+group-by partial is a state dict, not the JAX package's array-form
+`DensePartial`. A plan that needs no scan (metadata, pruned) is answered by
+the per-segment `ServerQueryExecutor`, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..engine import scan
+from ..engine.datablock import _narrow, padded_rows
+from ..engine.expr import eval_device
+from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
+from ..query.aggregates import make_agg
+from ..query.context import QueryContext, compile_query
+from ..query.dense_reduce import try_dense_decode
+from ..query.executor import (ServerQueryExecutor, _as_rows, _band_leaf_indices,
+                              _plan_vals_cols, _sum_operands, resolve_device, scan_route)
+from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
+                             plan_segment)
+from ..query.predicate import CmpLeaf, LutLeaf
+from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
+from ..query.result import ResultTable
+from ..segment.reader import ImmutableSegment
+MAX_SCAN_ROWS = scan.INT32_MAX   # rows one scan launch takes
+
+
+def set_scan_route(plan: SegmentPlan) -> Optional[str]:
+    """The scan a set plan runs through, or None for the plain body.
+
+    A plan that `scan_route` accepts runs `masked_sums` over the whole stacked
+    block when it has at least one id band: the fill rows hold the
+    out-of-dictionary id, which fails every band. A band-free plan would count
+    the fill, so it takes the plain body, whose `valid` masks it. FOR columns
+    are read decoded (their bases differ per segment), so `masked_sums_fused`
+    does not serve sets."""
+    if scan_route(plan) is None or not _band_leaf_indices(plan):
+        return None
+    return "masked_sums"
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy, finished before it returns, so that every
+    stream (the pipeline's included) may read the tensor."""
+    t = torch.from_numpy(arr).to(device)
+    if t.is_cuda:
+        torch.cuda.current_stream(device).synchronize()
+    return t
+
+
+@dataclass
+class ScanInputs:
+    """Runtime inputs of a set plan on the scan route."""
+
+    ids: List[torch.Tensor]            # band columns' stacked ids, flattened
+    bands: List[Tuple[int, int]]       # one inclusive id band per column
+    operands: List[Tuple[int, Any]]    # (agg index, argument) of each sum
+    env: Dict[str, torch.Tensor]       # stacked decoded value columns, flattened
+
+
+@dataclass
+class PreparedDispatch:
+    """A planned but not launched dispatch (the serving pipeline's unit).
+
+    Items with equal `dedupe_key` are identical dispatches and share one pass
+    and one fetched result. Items with equal `stack_key` run the same work
+    over the same block and differ only in literals: they launch as one
+    stacked group. `kind` is "agg" for a pass over the block, or "metadata"
+    for a plan answered without one (`decode` then ignores its argument)."""
+
+    kind: str
+    spec: Optional[KernelSpec]
+    route: Optional[str]               # "masked_sums", or None for the plain body
+    inputs: Union[ScanInputs, KernelInputs, None]
+    stack_key: Tuple
+    dedupe_key: Optional[Tuple]
+    stackable: bool
+    decode: Callable[[Dict[str, np.ndarray]], Any]
+    trim_keys: Tuple[int, int] = (0, 0)   # (num_keys_pad, num_keys_real) of group outputs
+
+
+class SegmentSetBlock:
+    """Stacked device columns of an aligned segment set: `[S_pad, rows]` tensors.
+
+    Each column is stacked on the host in numpy and copied to the card once,
+    on first use, then cached per (kind, column): repeated queries launch with
+    no host-to-device copy. Segment i's rows lie in row i of the block, then
+    fill: the out-of-dictionary id `cardinality` for ids, 0 for values, False
+    for `valid`. On one card the JAX package's slot padding and placement
+    over devices have nothing to do: `S_pad` is the segment count."""
+
+    def __init__(self, segments: Sequence[ImmutableSegment], device: torch.device):
+        self.segments = list(segments)
+        self.s_pad = len(self.segments)
+        self.device = device
+        self.seg_docs = tuple(s.num_docs for s in self.segments)
+        self.rows = max(padded_rows(n) for n in self.seg_docs)
+        cells = self.s_pad * self.rows
+        self.pad_waste_pct = (1.0 - sum(self.seg_docs) / cells) * 100.0
+        self._cache: Dict[Tuple[str, str], torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def _stack(self, kind: str, col: str, fill, per_seg) -> torch.Tensor:
+        key = (kind, col)
+        with self._lock:
+            if key not in self._cache:
+                parts = [np.asarray(per_seg(s)) for s in self.segments]
+                out = np.full((self.s_pad, self.rows), fill, dtype=parts[0].dtype)
+                for i, arr in enumerate(parts):
+                    out[i, :len(arr)] = arr
+                self._cache[key] = _to_device(out, self.device)
+            return self._cache[key]
+
+    def ids(self, col: str) -> torch.Tensor:
+        """int32 dict ids; fill rows hold the out-of-dictionary id `cardinality`."""
+        card = self.segments[0].column(col).cardinality
+        return self._stack("ids", col, card,
+                           lambda s: np.asarray(s.column(col).fwd).astype(np.int32))
+
+    def raw(self, col: str) -> torch.Tensor:
+        """Raw values of a column without a dictionary, narrowed to 32 bits."""
+        return self._stack("raw", col, 0, lambda s: _narrow(np.asarray(s.column(col).fwd)))
+
+    def decoded(self, col: str) -> torch.Tensor:
+        """Numeric values whatever the encoding, decoded on the host once: a
+        dict column through each segment's own dictionary, a raw (or FOR)
+        column as it is."""
+        if not any(s.column(col).has_dictionary for s in self.segments):
+            return self.raw(col)
+
+        def per_seg(s):
+            reader = s.column(col)
+            arr = np.asarray(reader.fwd)
+            if not reader.has_dictionary:
+                return _narrow(arr)
+            return _narrow(np.asarray(reader.dictionary.values))[arr.astype(np.int64)]
+        return self._stack("decoded", col, 0, per_seg)
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """bool: True for the segments' real rows."""
+        return self._stack("valid", "", False, lambda s: np.ones(s.num_docs, dtype=bool))
+
+
+class MeshQueryExecutor:
+    """Executes aggregation queries over aligned segment sets, one pass per set.
+
+    One executor may serve a `DeviceQueryPipeline` and direct callers of
+    `execute` at the same time. A direct caller launches on its thread's
+    current stream and the pipeline on its dispatcher's stream; the scan keeps
+    one finishing ticket per stream, and launches on one stream run in
+    order, so callers that share a stream share its ticket safely. Stacked
+    columns and constants are staged under a lock and finished before any
+    stream reads them. The scan's launch counters are kept under a lock too:
+    they count every thread's launches."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._fallback = ServerQueryExecutor(self.device)
+        self._set_blocks: Dict[Tuple, SegmentSetBlock] = {}
+        # content-addressed device constants (scattered-LUT tables): repeated
+        # queries launch with no host-to-device copy
+        self._const_cache: Dict[bytes, torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def _const(self, arr: np.ndarray) -> torch.Tensor:
+        key = arr.dtype.str.encode() + repr(arr.shape).encode() + arr.tobytes()
+        with self._lock:
+            dev = self._const_cache.get(key)
+            if dev is None:
+                if len(self._const_cache) > 4096:
+                    self._const_cache.clear()
+                dev = _to_device(arr, self.device)
+                self._const_cache[key] = dev
+            return dev
+
+    def _block_for(self, segments) -> SegmentSetBlock:
+        key = tuple(getattr(s, "path", s.name) for s in segments)
+        with self._lock:
+            block = self._set_blocks.get(key)
+            if block is None:
+                if len(self._set_blocks) >= 64:
+                    self._set_blocks.clear()
+                block = SegmentSetBlock(segments, self.device)
+                self._set_blocks[key] = block
+            return block
+
+    @staticmethod
+    def _compile(query, segments, schema) -> QueryContext:
+        if not isinstance(query, str):
+            return query
+        return compile_query(query, schema or (segments[0].schema if segments else None))
+
+    # ------------------------------------------------------------------
+    def execute(self, segments: Sequence[ImmutableSegment],
+                query: Union[str, QueryContext], schema=None) -> ResultTable:
+        t0 = time.perf_counter()
+        ctx = self._compile(query, segments, schema)
+        plan = self._plan_for_set(ctx, segments)
+        if plan is None or plan.kind != "device":
+            return self._fallback.execute(segments, ctx)
+        return self._execute_sharded(ctx, plan, segments, t0)
+
+    def _plan_for_set(self, ctx: QueryContext, segments) -> Optional[SegmentPlan]:
+        """The one plan the whole set runs (made on the first segment, with
+        the others as peers), or None for an empty set. A plan of another kind
+        than "device" goes to the per-segment executor."""
+        if not segments:
+            return None
+        for seg in segments:
+            if getattr(seg, "is_mutable", False):
+                raise NotImplementedError(
+                    "mutable (consuming) and upsert segments are not supported by "
+                    "pinot_tpu_torch")
+            if getattr(seg, "has_star_tree", False):
+                raise NotImplementedError(
+                    f"segment {seg.name} carries a star-tree, which pinot_tpu_torch "
+                    "does not execute (star-tree stacking is not ported)")
+        plan = plan_segment(ctx, segments[0], peers=segments[1:])
+        if plan.kind == "device" and not self._alignable(plan, segments):
+            raise NotImplementedError(
+                "segment set whose dictionaries disagree on a filtered or grouped "
+                "column: the merged-dictionary view is not ported to pinot_tpu_torch")
+        return plan
+
+    def _alignable(self, plan: SegmentPlan, segments) -> bool:
+        """Dict ids must agree across the set where the plan compares or groups
+        by them; decoded value columns use each segment's own dictionary."""
+        cols = set(plan.group_cols)
+        cols.update(leaf.col for leaf in plan.filter_prog.leaves if isinstance(leaf, LutLeaf))
+        return aligned_dictionaries(segments, cols)
+
+    def _execute_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
+                         t0: float) -> ResultTable:
+        """One query through the set path, with its host phases in
+        `stats["phaseTimesMs"]`: compile (SQL and the set's plan), prepare
+        (inputs), dispatch (launches; the plain body's `bincount` waits for
+        the card), fetch (waits for the card, then one copy), reduce."""
+        t1 = time.perf_counter()
+        p = self._prepare_sharded(ctx, plan, segments, partial=False)
+        t2 = time.perf_counter()
+        [(packed, finish, _)] = self.dispatch_prepared([p])
+        t3 = time.perf_counter()
+        host = finish(self.fetch([packed])[0])[0]
+        t4 = time.perf_counter()
+        result = p.decode(host)
+        marks = (t0, t1, t2, t3, t4, time.perf_counter())
+        result.stats["phaseTimesMs"] = {
+            name: round((b - a) * 1000, 3) for name, a, b in
+            zip(("compile", "prepare", "dispatch", "fetch", "reduce"), marks, marks[1:])}
+        return result
+
+    def execute_many(self, segments: Sequence[ImmutableSegment],
+                     queries: Sequence[Union[str, QueryContext]],
+                     schema=None) -> List[ResultTable]:
+        """Dispatch every query, then fetch all their outputs with one copy."""
+        results: List[Optional[ResultTable]] = [None] * len(queries)
+        pending = []   # (index, packed outputs, finish, decode)
+        for qi, query in enumerate(queries):
+            ctx = self._compile(query, segments, schema)
+            plan = self._plan_for_set(ctx, segments)
+            if plan is None or plan.kind != "device":
+                results[qi] = self._fallback.execute(segments, ctx)
+                continue
+            p = self._prepare_sharded(ctx, plan, segments, partial=False)
+            [(packed, finish, _)] = self.dispatch_prepared([p])
+            pending.append((qi, packed, finish, p.decode))
+        fetched = self.fetch([packed for _, packed, _, _ in pending])
+        for (qi, _, finish, decode), host in zip(pending, fetched):
+            results[qi] = decode(finish(host)[0])
+        return results
+
+    def dispatch_partial(self, ctx: QueryContext, segments):
+        """Plan and launch a server-level partial for the set. Returns
+        (packed device outputs, decode): `decode(host)`, with `host` this
+        launch's entry of `fetch`, gives the set's SegmentResult."""
+        p = self.prepare_partial(ctx, segments)
+        [(packed, finish, _)] = self.dispatch_prepared([p])
+        return packed, lambda host: p.decode(finish(host)[0])
+
+    # -- prepared dispatch (the serving pipeline's unit of work) -------
+    def prepare_partial(self, ctx: QueryContext, segments) -> PreparedDispatch:
+        """Plan a server-level partial and build its inputs, without a launch.
+        Its `decode` gives a SegmentResult (group partials are not trimmed by
+        ORDER BY: the broker merges every server's groups first)."""
+        if not ctx.is_aggregation_query and not ctx.distinct:
+            raise NotImplementedError(
+                "selection query (no aggregation) is not supported by pinot_tpu_torch: "
+                "device top-k is not ported")
+        plan = self._plan_for_set(ctx, segments)
+        if plan is None or plan.kind != "device":
+            partial = self._per_segment_partial(ctx, segments)
+            return PreparedDispatch(kind="metadata", spec=None, route=None, inputs=None,
+                                    stack_key=("metadata",), dedupe_key=None,
+                                    stackable=False, decode=lambda outs: partial)
+        return self._prepare_sharded(ctx, plan, segments, partial=True)
+
+    def _per_segment_partial(self, ctx: QueryContext, segments) -> SegmentResult:
+        """The per-segment executor's partial for a plan that needs no pass
+        (metadata answers, pruned sets); it raises for shapes it cannot run."""
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        merged = merge_segment_results(
+            [self._fallback.execute_segment(ctx, s) for s in segments], aggs)
+        if not segments:
+            merged.kind = "groups" if (ctx.group_by or ctx.distinct) else "scalar"
+        return merged
+
+    def _prepare_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
+                         partial: bool) -> PreparedDispatch:
+        build_device_geometry(plan)
+        block = self._block_for(segments)
+        spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
+                          tuple((a, a.device_outputs) for a in plan.aggs))
+        route = set_scan_route(plan)
+        env = {c: block.decoded(c).view(-1) for c in _plan_vals_cols(plan)}
+        iscal: List[int] = []
+        fscal: List[float] = []
+        luts = []
+        # scalars in leaf order: must mirror KernelSpec.__post_init__ routing
+        for leaf in plan.filter_prog.leaves:
+            if isinstance(leaf, LutLeaf):
+                if leaf.intervals is not None:
+                    for lo, hi in leaf.intervals:
+                        iscal.extend((int(lo), int(hi)))
+                else:
+                    luts.append(self._const(leaf.lut))
+            elif isinstance(leaf, CmpLeaf):
+                if leaf.is_int:
+                    iscal.extend(int(v) for v in leaf.operands)
+                else:
+                    fscal.extend(float(v) for v in leaf.operands)
+        if route is not None:
+            if block.s_pad * block.rows > MAX_SCAN_ROWS:
+                raise NotImplementedError(
+                    f"a scan over {block.s_pad} x {block.rows} stacked rows: the kernel takes "
+                    f"at most {MAX_SCAN_ROWS} rows in one launch, and splitting a set "
+                    "over several launches is not ported")
+            leaves = [plan.filter_prog.leaves[i] for i in _band_leaf_indices(plan)]
+            inputs = ScanInputs(ids=[block.ids(leaf.col).view(-1) for leaf in leaves],
+                                bands=[tuple(leaf.intervals[0]) for leaf in leaves],
+                                operands=_sum_operands(plan), env=env)
+        else:
+            ids_cols = set(plan.group_cols)
+            ids_cols.update(leaf.col for leaf in plan.filter_prog.leaves
+                            if isinstance(leaf, LutLeaf))
+            inputs = KernelInputs(ids={c: block.ids(c).view(-1) for c in ids_cols},
+                                  vals=env, luts=tuple(luts), iscal=iscal, fscal=fscal,
+                                  valid=block.valid.view(-1), strides=list(plan.strides))
+
+        def decode(outs):
+            if route is not None:
+                sums, count = scan.read_answer(outs["answer"], len(inputs.operands))
+                outs = {"count": count}
+                outs.update((f"{ai}.sum", s) for (ai, _), s in zip(inputs.operands, sums))
+            if plan.group_cols:
+                if not partial:
+                    dense = try_dense_decode(ctx, plan, outs)
+                    if dense is not None:
+                        return dense
+                seg_result = self._fallback._decode_group_partials(plan, outs)
+            else:
+                seg_result = self._fallback._decode_scalar_partials(plan, outs)
+            if partial:
+                return seg_result
+            merged = merge_segment_results([seg_result], plan.aggs)
+            group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
+                           else list(ctx.group_by))
+            return reduce_to_result(ctx, merged, plan.aggs, group_exprs)
+
+        # device operands are block-cached or content-addressed (`_const`), so
+        # object identity is content identity: two queries stack iff the same
+        # work reads the same device tensors (the literals ride the stack)
+        stack_key = ("agg", spec.signature(), route, id(block),
+                     tuple(id(t) for t in luts))
+        return PreparedDispatch(
+            "agg", spec, route, inputs, stack_key,
+            dedupe_key=stack_key + (tuple(iscal), tuple(fscal)), stackable=True,
+            decode=decode,
+            trim_keys=(plan.num_keys_pad, plan.num_keys_real) if plan.group_cols else (0, 0))
+
+    # ------------------------------------------------------------------
+    def dispatch_prepared(self, reps: Sequence[PreparedDispatch]):
+        """Launch a deduped batch of prepared dispatches.
+
+        Returns a list of launches `(packed outputs, finish, indices)`:
+        `indices` are the positions in `reps` one launch covers, and
+        `finish(host)` (with `host` the launch's entry of `fetch`) gives their
+        output dicts in that order. Stackable reps that share a `stack_key`
+        form one stacked group."""
+        groups: Dict[Tuple, List[int]] = {}
+        for i, p in enumerate(reps):
+            groups.setdefault(p.stack_key if p.stackable else ("solo", i), []).append(i)
+        launches = []
+        for idxs in groups.values():
+            ps = [reps[i] for i in idxs]
+            packed, unpack = self._pack(self._launch_stacked(ps), ps[0].trim_keys)
+            launches.append((packed, (lambda host, u=unpack, n=len(ps):
+                                      [u(host, b) for b in range(n)]), idxs))
+        return launches
+
+    def _launch_stacked(self, ps: List[PreparedDispatch]) -> List[Dict[str, torch.Tensor]]:
+        """One pass per prepared dispatch, back to back on the current stream:
+        B `masked_sums` launches over operand rows built once, or B runs of the
+        plain body. Returns each pass's device outputs."""
+        p0 = ps[0]
+        if p0.kind == "metadata":
+            return [{} for _ in ps]
+        if p0.route == "masked_sums":
+            ins = p0.inputs
+            n = ins.ids[0].shape[0]
+            rows = [_as_rows(eval_device(arg, ins.env), n, self.device).to(torch.float32)
+                    for _, arg in ins.operands]
+            return [{"answer": scan.masked_sums_answer(ins.ids, p.inputs.bands, rows)}
+                    for p in ps]
+        return [run_kernel(p.spec, p.inputs) for p in ps]
+
+    @staticmethod
+    def _pack(outs_list: List[Dict[str, torch.Tensor]], trim_keys: Tuple[int, int]):
+        """A launch's outputs, every pass's in order, as one list of device
+        tensors, with group outputs trimmed from `num_keys_pad + 1` keys to
+        `num_keys_real`. Returns (packed, unpack): `unpack(host, b)` gives pass
+        b's named outputs from the launch's entry of `fetch`."""
+        pad, real = trim_keys
+
+        def trimmed(v: torch.Tensor) -> torch.Tensor:
+            return v[:real] if pad and v.dim() and v.shape[0] == pad + 1 else v
+
+        names = sorted(outs_list[0])
+        packed = [trimmed(outs[name]) for outs in outs_list for name in names]
+
+        def unpack(host: List[np.ndarray], b: int) -> Dict[str, np.ndarray]:
+            return dict(zip(names, host[b * len(names):(b + 1) * len(names)]))
+
+        return packed, unpack
+
+    @staticmethod
+    def fetch(launches: Sequence[List[torch.Tensor]]) -> List[List[np.ndarray]]:
+        """A batch of launches' packed outputs on the host, with one
+        device-to-host copy: every tensor is concatenated as bytes (each part
+        padded to 8 bytes) on the current stream, copied, and split again on
+        the host."""
+        chunks, parts, offset = [], [], 0
+        for t in (t for packed in launches for t in packed):
+            if t.is_cuda:
+                # the allocator keeps the buffer until this stream is done with it
+                t.record_stream(torch.cuda.current_stream(t.device))
+            raw = t.reshape(-1).view(torch.uint8)
+            fill = -raw.numel() % 8
+            chunks.append(raw)
+            if fill:
+                chunks.append(raw.new_zeros(fill))
+            parts.append((offset, raw.numel(), t.dtype, tuple(t.shape)))
+            offset += raw.numel() + fill
+        host = torch.cat(chunks).cpu().numpy() if chunks else np.empty(0, np.uint8)
+        arrays = iter([host[start:start + nbytes]
+                       .view(torch.empty(0, dtype=dtype).numpy().dtype).reshape(shape)
+                       for start, nbytes, dtype, shape in parts])
+        return [[next(arrays) for _ in packed] for packed in launches]

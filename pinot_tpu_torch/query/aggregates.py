@@ -42,6 +42,13 @@ class AggFunc:
         """Result over zero rows (no group-by), mirroring reference defaults."""
         return None
 
+    def dense_values(self, get, counts: np.ndarray) -> np.ndarray:
+        """Finalized values over all occupied groups at once (the dense group
+        decode, `query/dense_reduce.py`): `get(name)` is this aggregation's
+        kernel output over the occupied keys, `counts` their row counts (each
+        above 0, so no state is empty)."""
+        raise NotImplementedError
+
 
 class CountAgg(AggFunc):
     name = "count"
@@ -58,6 +65,9 @@ class CountAgg(AggFunc):
 
     def finalize(self, state):
         return int(state)
+
+    def dense_values(self, get, counts):
+        return counts.astype(np.int64)
 
     def empty_result(self):
         return 0
@@ -83,6 +93,9 @@ class SumAgg(AggFunc):
     def finalize(self, state):
         return None if state is None else float(state)
 
+    def dense_values(self, get, counts):
+        return get("sum").astype(np.float64)
+
 
 class MinAgg(AggFunc):
     name = "min"
@@ -103,6 +116,9 @@ class MinAgg(AggFunc):
 
     def finalize(self, state):
         return None if state is None else float(state)
+
+    def dense_values(self, get, counts):
+        return get(self.device_outputs[0]).astype(np.float64)
 
 
 class MaxAgg(MinAgg):
@@ -139,6 +155,9 @@ class AvgAgg(AggFunc):
     def finalize(self, state):
         s, c = state
         return None if c == 0 else s / c
+
+    def dense_values(self, get, counts):
+        return get("sum").astype(np.float64) / counts
 
 
 _REGISTRY = {"count": CountAgg, "sum": SumAgg, "min": MinAgg, "max": MaxAgg,

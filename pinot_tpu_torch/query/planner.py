@@ -18,7 +18,7 @@ the host, and the device function set is what `engine/expr.eval_device` covers.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -51,17 +51,23 @@ class SegmentPlan:
     fallback_reason: str = ""
 
 
-def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
+def plan_segment(ctx: QueryContext, segment: ImmutableSegment,
+                 peers: Sequence[ImmutableSegment] = ()) -> SegmentPlan:
+    """Plan `segment`. `peers` are the other segments of a stacked set that
+    runs this one plan: a leaf then folds to a constant only where every
+    segment folds it the same way, and the device checks hold for each."""
     aggs = [make_agg(f) for f in ctx.aggregations]
     # DISTINCT rewrites to a group-by over the select expressions
     group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
                    else list(ctx.group_by))
 
     plan = SegmentPlan("host", segment, ctx, aggs, group_exprs)
-    _validate_single_value(ctx, segment)
+    members = [segment, *peers]
+    for seg in members:
+        _validate_single_value(ctx, seg)
 
     # -- filter compilation + constant-fold pruning ------------------------
-    plan.filter_prog = _fold_leaves(compile_filter(ctx.filter, segment), segment)
+    plan.filter_prog = _fold_leaves(compile_filter(ctx.filter, segment), members)
     if plan.filter_prog.tree == ("const", False):
         plan.kind = "empty"
         return plan
@@ -77,7 +83,7 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
         plan.kind = "metadata"
         return plan
 
-    reason = _device_feasible(plan, segment)
+    reason = next(filter(None, (_device_feasible(plan, seg) for seg in members)), "")
     if reason:
         plan.fallback_reason = reason
         return plan
@@ -99,27 +105,25 @@ def _validate_single_value(ctx: QueryContext, segment: ImmutableSegment) -> None
                     f"multi-value column {name!r} is not supported by pinot_tpu_torch")
 
 
-def _fold_leaves(prog: FilterProgram, segment: ImmutableSegment) -> FilterProgram:
+def _fold_leaves(prog: FilterProgram,
+                 segments: Sequence[ImmutableSegment]) -> FilterProgram:
     """Fold decidable leaves to constants — segment pruning for free: an EQ
     literal absent from the dictionary, or a range disjoint from a raw column's
-    [min, max] metadata, folds the whole tree to constant false."""
+    [min, max] metadata, folds the whole tree to constant false. A leaf folds
+    only where it folds to the same constant in every one of `segments`, and
+    a dictionary leaf only where they share its column's dictionary."""
 
     def fold(node):
         if node[0] == "leaf":
             leaf = prog.leaves[node[1]]
-            if isinstance(leaf, LutLeaf):
-                card = segment.column(leaf.col).cardinality
-                if not leaf.lut.any():
-                    return ("const", False)
-                if leaf.lut[:card].all():
-                    return ("const", True)
-            if isinstance(leaf, NullLeaf):
-                if not segment.column(leaf.col).meta.get("hasNulls", False):
-                    return ("const", leaf.negated)
-            if isinstance(leaf, CmpLeaf) and isinstance(leaf.expr, Identifier):
-                folded = _fold_cmp_minmax(leaf, segment)
-                if folded is not None:
-                    return ("const", folded)
+            if isinstance(leaf, LutLeaf) and len(segments) > 1 and \
+                    not aligned_dictionaries(segments, (leaf.col,)):
+                # the LUT indexes the first segment's dictionary: it decides
+                # nothing about a segment whose ids mean other values
+                return node
+            folded = {_fold_leaf(leaf, seg) for seg in segments}
+            if len(folded) == 1 and None not in folded:
+                return ("const", folded.pop())
             return node
         if node[0] in ("and", "or"):
             return (node[0], tuple(fold(c) for c in node[1]))
@@ -129,6 +133,39 @@ def _fold_leaves(prog: FilterProgram, segment: ImmutableSegment) -> FilterProgra
 
     prog.tree = _simplify(fold(prog.tree))
     return prog
+
+
+def aligned_dictionaries(segments: Sequence[ImmutableSegment], cols: Sequence[str]) -> bool:
+    """True iff every column in `cols` has identical dictionaries across segments."""
+    for col in cols:
+        hashes = set()
+        for seg in segments:
+            reader = seg.column(col)
+            if not reader.has_dictionary:
+                return False
+            h = reader.meta.get("dictHash")
+            if h is None:
+                return False
+            hashes.add((h, reader.cardinality))
+        if len(hashes) > 1:
+            return False
+    return True
+
+
+def _fold_leaf(leaf, segment: ImmutableSegment) -> Optional[bool]:
+    """The constant a leaf folds to on one segment, or None when it must scan."""
+    if isinstance(leaf, LutLeaf):
+        card = segment.column(leaf.col).cardinality
+        if not leaf.lut.any():
+            return False
+        if leaf.lut[:card].all():
+            return True
+    if isinstance(leaf, NullLeaf):
+        if not segment.column(leaf.col).meta.get("hasNulls", False):
+            return leaf.negated
+    if isinstance(leaf, CmpLeaf) and isinstance(leaf.expr, Identifier):
+        return _fold_cmp_minmax(leaf, segment)
+    return None
 
 
 def _fold_cmp_minmax(leaf: CmpLeaf, segment: ImmutableSegment):

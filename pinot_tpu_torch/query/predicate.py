@@ -65,6 +65,12 @@ class LutLeaf:
         if self.intervals is None:
             self.intervals = _lut_intervals(self.lut)
 
+    def signature(self) -> Tuple:
+        # the interval count is structural (the bounds are runtime inputs); a
+        # scattered LUT keys on its size only, its contents are runtime too
+        mode = len(self.intervals) if self.intervals is not None else "dense"
+        return ("lut", self.col, len(self.lut), mode)
+
 
 @dataclass
 class CmpLeaf:
@@ -77,11 +83,17 @@ class CmpLeaf:
     operands: List[Any]
     is_int: bool
 
+    def signature(self) -> Tuple:
+        return ("cmp", repr(self.expr), self.op, len(self.operands), self.is_int)
+
 
 @dataclass
 class NullLeaf:
     col: str
     negated: bool  # True for IS NOT NULL
+
+    def signature(self) -> Tuple:
+        return ("null", self.col, self.negated)
 
 
 Leaf = Union[LutLeaf, CmpLeaf, NullLeaf]
@@ -91,6 +103,10 @@ Leaf = Union[LutLeaf, CmpLeaf, NullLeaf]
 class FilterProgram:
     tree: FilterTree = ("const", True)
     leaves: List[Leaf] = field(default_factory=list)
+
+    def signature(self) -> Tuple:
+        """The program's structure without its literal operands."""
+        return (self.tree, tuple(leaf.signature() for leaf in self.leaves))
 
     @property
     def is_match_all(self) -> bool:

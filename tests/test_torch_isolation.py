@@ -65,14 +65,65 @@ def _imports(path):
             yield node.module
 
 
-def test_no_module_imports_jax_or_pinot_tpu():
+def _package_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pinot_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_module_imports_jax_or_pinot_tpu():
+    files = _package_files()
     assert len(files) > 20
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert not bad, bad
+
+
+def test_scan_covers_the_set_executor_and_the_pipeline():
+    rel = {os.path.relpath(f, REPO) for f in _package_files()}
+    for module in ("parallel/__init__.py", "parallel/combine.py",
+                   "cluster/__init__.py", "cluster/device_server.py",
+                   "query/dense_reduce.py"):
+        assert os.path.join("pinot_tpu_torch", module) in rel, module
+
+
+def test_subprocess_set_executor_and_pipeline_never_load_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import segments_from_columns
+        from pinot_tpu_torch.cluster import DeviceQueryPipeline
+        from pinot_tpu_torch.parallel import MeshQueryExecutor
+        from pinot_tpu_torch.query.context import compile_query
+        from pinot_tpu_torch.ssb import QUERY, make_columns, ssb_schema
+        segs = segments_from_columns(ssb_schema(), make_columns(5000, 1), {str(tmp_path)!r}, 3)
+        mx = MeshQueryExecutor(device="cpu")
+        print(mx.execute(segs, QUERY).rows)
+        pipeline = DeviceQueryPipeline(mesh_exec=mx)
+        try:
+            print(pipeline.execute_partial(compile_query(QUERY, segs[0].schema), segs).scalar)
+        finally:
+            pipeline.stop()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_set_executor_and_pipeline_without_cuda_raise(monkeypatch):
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshQueryExecutor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceQueryPipeline()
+    assert MeshQueryExecutor(device="cpu").device.type == "cpu"
 
 
 def test_default_device_without_cuda_raises(segs, monkeypatch):

@@ -231,3 +231,150 @@ def test_cuda_graph_captures_take_no_static_ticket_slot(cuda):
         del graph, captured
     torch.cuda.synchronize()
     assert _bits(scan.masked_sums(cols, Q11_BANDS, rows)) == want
+
+
+@pytest.mark.gpu
+def test_cuda_masked_sums_over_a_stacked_block_of_uneven_segments(cuda):
+    """The set executor's scan shape: segments of uneven sizes stacked into one
+    [S_pad, rows] block (rows = the largest segment's power of two), fill rows
+    holding the out-of-dictionary id, one launch over S_pad * rows rows."""
+    sizes = [(1 << 20) + 5, 300_000, 777_777, 5]
+    rows_per_slot = 1 << 21
+    card = (2353, 11, 50)
+    d = _data(sum(sizes), seed=21)
+    ids = [np.full((len(sizes), rows_per_slot), c, dtype=np.int32) for c in card]
+    price = np.zeros((len(sizes), rows_per_slot), dtype=np.float32)
+    start = 0
+    for slot, n in enumerate(sizes):
+        for block, key in zip(ids, ("od", "disc", "qty")):
+            block[slot, :n] = d[key][start:start + n]
+        price[slot, :n] = d["price"][start:start + n]
+        start += n
+    cols = [torch.from_numpy(b).to(cuda).view(-1) for b in ids]
+    rows = [torch.from_numpy(price).to(cuda).view(-1)]
+    before = scan.masked_sums.launches
+    ks, kc = scan.masked_sums(cols, Q11_BANDS, rows)
+    assert scan.masked_sums.launches - before == 1
+    ps, pc = scan.masked_sums_plain(cols, Q11_BANDS, rows)
+    assert int(kc) == int(pc)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-3)
+    m = np.ones(sum(sizes), dtype=bool)
+    for key, (lo, hi) in zip(("od", "disc", "qty"), Q11_BANDS):
+        m &= (d[key] >= lo) & (d[key] <= hi)
+    assert int(kc) == int(m.sum())    # the fill rows fail every band
+    np.testing.assert_allclose(float(ks[0]), float(d["price"][m].astype(np.float64).sum()),
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_pipeline_serves_a_stacked_group_on_its_streams(cuda, tmp_path):
+    """Four literals of one scan shape from four threads: one stacked group of
+    four launches on the dispatcher's stream, fetched on the fetcher's stream,
+    each answer equal to the per-segment executor's on the CPU."""
+    import threading
+    import time
+
+    from pinot_tpu_torch import execute_query, segments_from_columns
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.ssb import make_columns, ssb_schema
+
+    segs = segments_from_columns(ssb_schema(), make_columns(300_000, 3), str(tmp_path), 3)
+    sqls = [f"SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_quantity >= {q}"
+            for q in (5, 15, 25, 35)]
+    pipeline = DeviceQueryPipeline(mesh_exec=MeshQueryExecutor(cuda), start=False)
+    got = [None] * len(sqls)
+
+    def run(i):
+        ctx = compile_query(sqls[i], segs[0].schema)
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        merged = merge_segment_results([pipeline.execute_partial(ctx, segs)], aggs)
+        got[i] = reduce_to_result(ctx, merged, aggs, []).rows
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sqls))]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.time() + 30
+        while pipeline._q.qsize() < len(sqls) and time.time() < deadline:
+            time.sleep(0.005)
+        pipeline.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        s = pipeline.stats()
+    finally:
+        pipeline.stop()
+    assert (s["stackedLaunches"], s["scanLaunches"], s["errors"]) == (1, 4, 0)
+    for sql, rows in zip(sqls, got):
+        want = execute_query(segs, sql, device="cpu").rows
+        assert rows[0][0] == want[0][0]
+        np.testing.assert_allclose(rows[0][1], want[0][1], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_direct_execute_beside_the_pipeline(cuda, tmp_path):
+    """One executor on the card serves the pipeline (its dispatcher's stream)
+    and direct `execute` callers (their current stream) at once: every answer
+    equals the per-segment executor's on the CPU, and the kernel's launch
+    counter is the pipeline's `scanLaunches` plus one per direct query."""
+    import threading
+
+    from pinot_tpu_torch import execute_query, segments_from_columns
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.ssb import make_columns, ssb_schema
+
+    segs = segments_from_columns(ssb_schema(), make_columns(300_000, 5), str(tmp_path), 3)
+    sqls = [f"SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_quantity >= {q}"
+            for q in (5, 15, 25, 35)]
+    mx = MeshQueryExecutor(cuda)
+    mx.execute(segs, sqls[0])             # stages the block before the count starts
+    scan.reset_launch_counts()
+    pipeline = DeviceQueryPipeline(mesh_exec=mx)
+    rounds = 8
+    answers, errors = [], []
+
+    def serve(i):
+        try:
+            for r in range(rounds):
+                sql = sqls[(i + r) % len(sqls)]
+                ctx = compile_query(sql, segs[0].schema)
+                aggs = [make_agg(f) for f in ctx.aggregations]
+                merged = merge_segment_results([pipeline.execute_partial(ctx, segs)], aggs)
+                answers.append((sql, reduce_to_result(ctx, merged, aggs, []).rows))
+        except Exception as e:   # the test reports what a thread saw
+            errors.append(e)
+
+    def execute(i):
+        try:
+            for r in range(rounds):
+                sql = sqls[(i + r) % len(sqls)]
+                answers.append((sql, mx.execute(segs, sql).rows))
+        except Exception as e:
+            errors.append(e)
+
+    threads = ([threading.Thread(target=serve, args=(i,)) for i in range(4)]
+               + [threading.Thread(target=execute, args=(i,)) for i in range(2)])
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        s = pipeline.stats()
+    finally:
+        pipeline.stop()
+    assert not errors, errors
+    assert len(answers) == 6 * rounds and s["errors"] == 0
+    assert scan.masked_sums.launches == s["scanLaunches"] + 2 * rounds
+    want = {sql: execute_query(segs, sql, device="cpu").rows for sql in sqls}
+    for sql, rows in answers:
+        assert rows[0][0] == want[sql][0][0], sql
+        np.testing.assert_allclose(rows[0][1], want[sql][0][1], rtol=1e-5)
