@@ -35,7 +35,22 @@ exits non-zero:
    COUNT (which stack). Every answer is held against the oracle; each run
    prints QPS, p50 latency and the pipeline's stats (its scan launches must
    equal the kernel's launch counter). Under --trace, the stacked Q1.1's
-   device busy ms, idle share and top device ops.
+   device busy ms, idle share and top device ops;
+6. select  — selections and ORDER BY ... LIMIT over the same table, through
+   `execute_query` and the set executor: three device top-k queries (a double
+   key under an id band, match-all ascending, and an integer key with ~690
+   matching ties a value, more than the 265 candidates), a LIMIT without ORDER
+   BY, an ORDER BY on a key wider than 2^24 (the exact path) and a GROUP BY
+   over 500,000 keys trimmed to its top 10. Each answer is held against a
+   numpy oracle that orders ties by row; each prints its warm times, phases,
+   top-k launches (one per segment, none for the others) and `topkExact`. Then
+   32 client threads x 12 queries cycling the three top-k queries through the
+   pipeline (one stacked top-k launch per distinct query of a drain), and a
+   `select_case` line: the stacked top-k of the first query over the whole
+   table, its candidates held against numpy for the three top-k queries,
+   timed with L2 flushed, against the bound of the bytes it reads. Under
+   --trace, each query's device busy ms and idle share (not the per-segment
+   GROUP BY, whose runs take tens of seconds).
 
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
@@ -71,6 +86,24 @@ SERVE_COUNT_QUERY = "SELECT COUNT(*) FROM lineorder WHERE lo_quantity < 10 LIMIT
 MANY_COPIES = 64                              # queries in one execute_many
 SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT = 32, 12   # bench.py's e2e_device_bench
 L2_FLUSH_BYTES = 256 << 20   # written before each timed run: > the H100's 50 MB L2
+SELECT_QUERIES = [
+    # (id, sql, top-k launches per segment, answered by the exact path)
+    ("topk_desc", "SELECT lo_custkey, lo_revenue FROM lineorder WHERE lo_quantity >= 10 "
+     "ORDER BY lo_revenue DESC LIMIT 7", 1, False),
+    ("topk_all", "SELECT lo_suppkey, lo_extendedprice FROM lineorder "
+     "ORDER BY lo_extendedprice LIMIT 12", 1, False),
+    ("topk_ties", "SELECT lo_custkey, lo_orderdate, lo_revenue FROM lineorder "
+     "WHERE lo_quantity >= 10 ORDER BY lo_suppkey LIMIT 9", 1, False),
+    ("select_limit", "SELECT lo_region, lo_revenue FROM lineorder WHERE lo_quantity < 3 "
+     "LIMIT 10", 0, False),
+    ("order_exact", "SELECT lo_custkey, lo_orderdate FROM lineorder WHERE lo_quantity = 1 "
+     "AND lo_discount = 0 ORDER BY lo_orderdate DESC LIMIT 5", 0, True),
+    ("group_trim", "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder GROUP BY lo_custkey "
+     "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None),
+]
+# the per-segment GROUP BY over 500,000 keys decodes every segment's ~490,000
+# groups in Python (tens of seconds a run): two warm runs, not QUERY_RUNS
+GROUP_TRIM_PER_SEGMENT_RUNS = 2
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
 KERNEL_SYMBOL = "masked_sums_kernel"
@@ -564,7 +597,7 @@ def serve_pipeline(mx, table, mix: str, queries) -> dict:
     import threading
 
     from pinot_tpu_torch.cluster import DeviceQueryPipeline
-    from pinot_tpu_torch.engine import scan
+    from pinot_tpu_torch.engine import kernels, scan
     from pinot_tpu_torch.query.aggregates import make_agg
     from pinot_tpu_torch.query.context import compile_query
     from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
@@ -610,6 +643,7 @@ def serve_pipeline(mx, table, mix: str, queries) -> dict:
 
     threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
     scan.reset_launch_counts()
+    kernels.reset_topk_launches()
     try:
         t0 = time.perf_counter()
         for t in threads:
@@ -621,6 +655,7 @@ def serve_pipeline(mx, table, mix: str, queries) -> dict:
     finally:
         pipeline.stop()
     counts = launch_counts()
+    topk_launches = kernels.topk_launches()
     n_queries = SERVE_CLIENTS * SERVE_QUERIES_PER_CLIENT
     if any(t.is_alive() for t in threads):
         raise AssertionError(f"pipeline {mix}: clients still running after 600 s")
@@ -631,12 +666,173 @@ def serve_pipeline(mx, table, mix: str, queries) -> dict:
     if counts["masked_sums"] != stats["scanLaunches"]:
         raise AssertionError(f"pipeline {mix} reports {stats['scanLaunches']} scan "
                              f"launches, the kernel counted {counts['masked_sums']}")
+    if topk_launches != stats["topkLaunches"] or stats["topkExact"]:
+        raise AssertionError(f"pipeline {mix}: {topk_launches} top-k launches counted, "
+                             f"stats {stats['topkLaunches']}, {stats['topkExact']} exact")
     lat.sort()
     log("serve_pipeline", mix=mix, distinct_queries=len(queries), clients=SERVE_CLIENTS,
         queries=n_queries, wall_s=wall, qps=n_queries / wall,
         p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
-        solo_p50_ms=statistics.median(solo) * 1e3, launches=counts, stats=stats)
+        solo_p50_ms=statistics.median(solo) * 1e3, launches=counts,
+        topk_launches=topk_launches, stats=stats)
     return counts
+
+
+# -- phase 6: select ----------------------------------------------------------------
+
+def oracle_rows(c, mask, select, key=None, desc=False, limit=10):
+    """The first `limit` matching rows by `key` (ties by row index), as lists
+    of the `select` columns' values; without a key, in row order."""
+    idx = np.flatnonzero(mask)
+    if key is not None:
+        s = c[key][idx].astype(np.float64)
+        s = -s if desc else s
+        if len(s) > limit:   # keep every row that ties the limit-th key
+            keep = s <= np.partition(s, limit - 1)[limit - 1]
+            idx, s = idx[keep], s[keep]
+        idx = idx[np.argsort(s, kind="stable")]
+    return [[c[col][i] if c[col].dtype == object else c[col][i].item() for col in select]
+            for i in idx[:limit]]
+
+
+def oracle_group_trim(c):
+    sums = np.bincount(c["lo_custkey"], weights=c["lo_revenue"])
+    keys = np.flatnonzero(np.bincount(c["lo_custkey"]))
+    top = keys[np.argsort(-sums[keys], kind="stable")[:10]]
+    return [[int(k), float(sums[k])] for k in top]
+
+
+def select_oracles(c) -> dict:
+    everything = np.ones(len(c["lo_quantity"]), dtype=bool)
+    return {
+        "topk_desc": oracle_rows(c, c["lo_quantity"] >= 10, ["lo_custkey", "lo_revenue"],
+                                 "lo_revenue", True, 7),
+        "topk_all": oracle_rows(c, everything, ["lo_suppkey", "lo_extendedprice"],
+                                "lo_extendedprice", False, 12),
+        "topk_ties": oracle_rows(c, c["lo_quantity"] >= 10,
+                                 ["lo_custkey", "lo_orderdate", "lo_revenue"],
+                                 "lo_suppkey", False, 9),
+        "select_limit": oracle_rows(c, c["lo_quantity"] < 3, ["lo_region", "lo_revenue"]),
+        "order_exact": oracle_rows(c, (c["lo_quantity"] == 1) & (c["lo_discount"] == 0),
+                                   ["lo_custkey", "lo_orderdate"], "lo_orderdate", True, 5),
+        "group_trim": oracle_group_trim(c),
+    }
+
+
+def run_select(args, table, cols) -> None:
+    """Selections and top-k over the path's table: both entry points, the
+    pipeline's `topk` mix, and the stacked top-k timed alone."""
+    from pinot_tpu_torch import execute_query
+    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+
+    rows = sum(s.num_docs for s in table)
+    mx = MeshQueryExecutor()
+    t0 = time.perf_counter()
+    oracles = select_oracles(cols)
+    log("select_oracle", seconds=time.perf_counter() - t0)
+    for qid, sql, topk_per_segment, exact in SELECT_QUERIES:
+        want = oracles[qid]
+        for path, run in (("per_segment", lambda sql=sql: execute_query(table, sql)),
+                          ("set", lambda sql=sql: mx.execute(table, sql))):
+            # the path: counts set to 0 just before, read just after
+            scan.reset_launch_counts()
+            kernels.reset_topk_launches()
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            topk_launches, scans = kernels.topk_launches(), launch_counts()
+            if not rows_match(result.rows, want):
+                raise AssertionError(f"select {qid} ({path}): got {result.rows}, "
+                                     f"oracle {want}")
+            if topk_launches != topk_per_segment * len(table) or any(scans.values()):
+                raise AssertionError(f"select {qid} ({path}): {topk_launches} top-k "
+                                     f"launches, scans {scans}")
+            if result.stats.get("topkExact") != exact:
+                raise AssertionError(f"select {qid} ({path}): topkExact "
+                                     f"{result.stats.get('topkExact')}, expected {exact}")
+            runs = (GROUP_TRIM_PER_SEGMENT_RUNS
+                    if (qid, path) == ("group_trim", "per_segment") else QUERY_RUNS)
+            warm, results = warm_times(run, runs=runs)
+            bad = [r.rows for r in results if not rows_match(r.rows, want)]
+            if bad:
+                raise AssertionError(f"select {qid} ({path}): warm answers {bad[:2]}")
+            phases = [r.stats["phaseTimesMs"] for r in results]
+            warm.pop("median_s")
+            fields = dict(query=qid, path=path, rows=rows, segments=len(table),
+                          answer=result.rows, topk_launches=topk_launches,
+                          topk_exact=result.stats.get("topkExact"), cold_s=cold_s, **warm,
+                          phase_median_ms={k: statistics.median(p[k] for p in phases)
+                                           for k in phases[0]})
+            if args.trace and runs == QUERY_RUNS:
+                fields["trace"] = trace_query(run)
+            log("select_query", **fields)
+
+    # the pipeline: client threads cycling the three top-k queries
+    topk_queries = [(sql, oracles[qid]) for qid, sql, _, _ in SELECT_QUERIES
+                    if qid.startswith("topk_")]
+    serve_pipeline(mx, table, "topk", topk_queries)
+    select_case(mx, table, cols)
+
+
+def select_case(mx, table, cols) -> None:
+    """The stacked top-k of each top-k query over the whole table: its
+    candidates against numpy's stable order, then the first query's program
+    timed (L2 flushed, CUDA events), profiled, and held against its bound."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.query.context import compile_query
+
+    prepared = {}
+    for qid, sql, _, _ in SELECT_QUERIES:
+        if not qid.startswith("topk_"):
+            continue
+        p = prepared[qid] = mx.prepare_partial(compile_query(sql, table[0].schema), table)
+        if p.kind != "topk":
+            raise AssertionError(f"select_case {qid}: prepared {p.kind}, not topk")
+        order_expr, desc, kk = p.topk
+        outs = kernels.topk(p.spec, p.inputs, order_expr, desc, kk)
+        got = outs["idx"].cpu().numpy()
+        # numpy's stable order of the same f32 scores over the block's mask
+        mask = kernels.filter_mask(p.spec, p.inputs).cpu().numpy()
+        v = p.inputs.vals[order_expr.name].cpu().numpy().astype(np.float32)
+        score = np.where(mask, v if desc else -v, -np.inf).astype(np.float32)
+        want = np.argsort(-score.astype(np.float64), kind="stable")[:kk]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"select_case {qid}: the card's candidates differ from "
+                                 f"numpy's stable order at {np.flatnonzero(got != want)[:5]}")
+    qid = "topk_desc"
+    p = prepared[qid]
+    kk = p.topk[2]
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def call():
+        return kernels.topk(p.spec, p.inputs, *p.topk)
+
+    ms = time_ms(call, flush)
+    ops, wall = _profiled(call, PROFILED_CALLS)
+    busy_ms = sum(b - a for _, a, b in ops) / 1e3 / PROFILED_CALLS
+    by_name = {}
+    for name, a, b in ops:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (b - a) / 1e3 / PROFILED_CALLS
+    n = p.inputs.valid.numel()
+    read = [*p.inputs.ids.values(), p.inputs.vals[p.topk[0].name], p.inputs.valid]
+    nbytes = sum(t.numel() * t.element_size() for t in read) + kk * (8 + 1) + 8
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # per row: two band compares and their AND, the valid AND, isnan, its
+    # complement and AND, the sign and the select: ~9 f32-rate operations
+    ops_ms = n * 9 / PEAK_F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    log("select_case", query=qid, program="kernels.topk (plain torch: filter_mask, "
+        "torch.where, torch.topk over tie-broken int64 keys)",
+        replaces="pinot_tpu/engine/kernels.py:1123 (topk_kernel)", rows=n, candidates=kk,
+        ms=ms, device_busy_ms=busy_ms, device_ops_per_call=len(ops) / PROFILED_CALLS,
+        profiled_wall_ms=wall * 1e3 / PROFILED_CALLS,
+        launches_per_query={"per_segment": len(table), "stacked": 1},
+        bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+        pct_of_bound=100.0 * bound_ms / ms,
+        pct_of_bound_device_busy=100.0 * bound_ms / busy_ms if busy_ms else None,
+        top_device_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -673,7 +869,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20260729)
     ap.add_argument("--rows", type=int, default=16 * 1024 * 1024)
     ap.add_argument("--trace", action="store_true",
-                    help="also profile one warm run of each query (device idle share)")
+                    help="also profile warm runs of each query (device idle share)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -704,6 +900,7 @@ def main() -> int:
     try:
         path_launches, table, cols = run_path(args, work)
         serve_launches = run_serve(args, table, cols)
+        run_select(args, table, cols)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

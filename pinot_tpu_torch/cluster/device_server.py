@@ -11,6 +11,8 @@ no launch), then groups the prepared work before touching the card:
   * items with equal `stack_key` (the same work over the same stacked block,
     differing only in literals) launch as one stacked group: B passes queued
     back to back on the dispatcher's stream;
+  * a selection's stacked top-k (`kind == "topk"`) is deduped but never
+    stacked: one fused filter + top-k launch per distinct query;
   * everything a drain dispatched is fetched by a second thread, the fetcher,
     with one device-to-host copy, while the dispatcher already prepares and
     launches the next drain. At most MAX_INFLIGHT drains wait for the
@@ -20,6 +22,11 @@ On a card the dispatcher launches on a stream of its own and records an
 event after each drain; the fetcher waits for that event on its own stream
 before it copies, so it never reads outputs before they are written, and the
 caching allocator keeps each output until the fetcher's copy is done.
+
+A selection that the stacked top-k does not take (no ORDER BY, an expression
+or a wide integer key) is answered by the per-segment executor when it is
+prepared, and a top-k whose candidates NaN or -inf keys displaced is answered
+by the exact path when it is decoded; `stats()["topkExact"]` counts both.
 
 There is no fallback: a query shape the set executor does not run, a
 planning or launch error, or a caller's timeout resolves the caller's future
@@ -101,6 +108,8 @@ class DeviceQueryPipeline:
         self.timeouts = 0
         self.launches = 0           # launch groups: one per solo pass or stacked group
         self.scan_launches = 0      # masked_sums kernel launches those groups issued
+        self.topk_launches = 0      # stacked top-k launches
+        self.topk_exact = 0         # selections answered by the exact path
         self.dedupe_hits = 0
         self.stacked_launches = 0   # groups of more than one pass
         self._stage_ms: Dict[str, deque] = {s: deque(maxlen=512) for s in _STAGES}
@@ -249,8 +258,11 @@ class DeviceQueryPipeline:
                 t_prep = time.perf_counter()
                 p = self.mesh_exec.prepare_partial(item.ctx, item.segments)
                 prepare_s += time.perf_counter() - t_prep
-                if p.kind == "metadata":   # answered without a pass
+                if p.kind in ("metadata", "exact"):   # answered without a pass
                     answered += 1
+                    if p.kind == "exact":
+                        with self._lock:
+                            self.topk_exact += 1
                     _resolve(item.future, p.decode({}))
                     continue
             except Exception as e:   # the caller's future carries it, the loop goes on
@@ -279,6 +291,7 @@ class DeviceQueryPipeline:
             self.launches += len(launches)
             self.stacked_launches += sum(1 for _, _, idxs in launches if len(idxs) > 1)
             self.scan_launches += sum(1 for p in reps if getattr(p, "route", None))
+            self.topk_launches += sum(1 for p in reps if p.kind == "topk")
         entry = [(packed, finish, [rep_groups[i] for i in idxs])
                  for packed, finish, idxs in launches]
         return entry, answered + sum(len(g) for g in rep_groups)
@@ -334,6 +347,9 @@ class DeviceQueryPipeline:
                 except Exception as e:
                     self._fail(item, e)
                     continue
+                if getattr(r, "topk_exact", False):
+                    with self._lock:
+                        self.topk_exact += 1
                 _resolve(item.future, r)
 
     def stats(self) -> dict:
@@ -341,6 +357,7 @@ class DeviceQueryPipeline:
             out = {"batches": self.batches, "dispatched": self.dispatched,
                    "errors": self.errors, "timeouts": self.timeouts,
                    "launches": self.launches, "scanLaunches": self.scan_launches,
+                   "topkLaunches": self.topk_launches, "topkExact": self.topk_exact,
                    "dedupeHits": self.dedupe_hits,
                    "stackedLaunches": self.stacked_launches,
                    "meanBatch": round(self.dispatched / self.batches, 2)

@@ -17,12 +17,21 @@ The scalar shapes that reduce to masked sums over id bands do not come here:
 the executor sends them to the CUDA scan kernels of `engine/scan.py`. The JAX
 package's group-by regime ladder (one-hot matmul, chunked matmul, sort-based)
 is not ported: group-by runs in the one regime above.
+
+`topk` is the fused filter + top-k of a selection's `ORDER BY <column> LIMIT
+k`, the counterpart of `topk_kernel`: it picks candidate rows on the device so
+that only k row indices cross to the host. Among equal scores it keeps the
+lower row index, as `lax.top_k` does, so that the candidates and the host's
+stable sort agree on ties.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
 
 import torch
 
@@ -208,3 +217,66 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
                     ident = float("-inf") if v.dtype.is_floating_point else _INT_MAX_IDENT
                     out[f"{ai}.max"] = torch.where(mask, v, ident).max()
     return out
+
+
+_topk_lock = threading.Lock()
+_topk_launches = 0
+_LOW_WORD = (1 << 32) - 1
+
+
+def _tie_broken_key(score: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is the f32 scores' order, ties going to the lower
+    row index: the score's order-preserving bits in the high word, the
+    inverted row index in the low word. Every key is distinct, so `torch.topk`
+    has no tie left to order."""
+    bits = (score + 0.0).view(torch.int32)   # + 0.0 turns -0.0 into +0.0
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    rows = torch.arange(score.numel(), device=score.device, dtype=torch.int64)
+    return ordered * (1 << 32) + (_LOW_WORD - rows)
+
+
+def topk(spec: KernelSpec, inputs: KernelInputs, order_expr, desc: bool,
+         k: int) -> Dict[str, torch.Tensor]:
+    """The filter mask and the top k rows by `order_expr`, on the device.
+
+    Returns {"idx": int64[k'] row indices, best first; "count": int32 matching
+    rows; "ok": bool[k'] candidate usable (it matches and its key is not NaN);
+    "nanMatches": int32 matching rows whose key is NaN}, where k' = min(k,
+    rows). The score is `where(mask & ~isnan(v), v or -v, -inf)` in f32, so
+    only the candidate set is decided in f32: the caller re-sorts candidates
+    exactly on the host. `topk_launches()` counts calls."""
+    global _topk_launches
+    mask = filter_mask(spec, inputs).reshape(-1)
+    v = eval_device(order_expr, inputs.vals).reshape(-1).to(torch.float32)
+    nan = torch.isnan(v)
+    usable = mask & ~nan
+    score = torch.where(usable, v if desc else -v, float("-inf"))
+    _, idx = torch.topk(_tie_broken_key(score), min(k, score.numel()))
+    with _topk_lock:
+        _topk_launches += 1
+    return {"idx": idx, "count": mask.sum(dtype=torch.int32), "ok": usable[idx],
+            "nanMatches": (mask & nan).sum(dtype=torch.int32)}
+
+
+def topk_launches() -> int:
+    """Calls of `topk` since the last `reset_topk_launches`, on every thread."""
+    with _topk_lock:
+        return _topk_launches
+
+
+def reset_topk_launches() -> None:
+    global _topk_launches
+    with _topk_lock:
+        _topk_launches = 0
+
+
+def compute_topk(spec: KernelSpec, inputs: KernelInputs, order_expr, desc: bool,
+                 k: int) -> Tuple[np.ndarray, int, np.ndarray, int]:
+    """`topk` read back with one copy: (row indices, match count, usable flag
+    per index, NaN matches)."""
+    outs = topk(spec, inputs, order_expr, desc, k)
+    n = outs["idx"].numel()
+    host = torch.cat([outs["idx"], outs["ok"].to(torch.int64),
+                      torch.stack([outs["count"], outs["nanMatches"]]).to(torch.int64)]
+                     ).cpu().numpy()
+    return host[:n], int(host[2 * n]), host[n:2 * n].astype(bool), int(host[2 * n + 1])

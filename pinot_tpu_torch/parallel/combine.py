@@ -24,12 +24,22 @@ The serving pipeline (`cluster/device_server.py`) drives the prepared form:
 run back to back as one stacked group), `fetch` copies a whole batch's outputs
 to the host at once.
 
+Selections: `execute` and `execute_many` hand them to the per-segment
+`ServerQueryExecutor`, as the JAX package does. `prepare_partial` runs an
+`ORDER BY <column> LIMIT k` that passes `device_topk_screen` and whose key
+every segment can sort on the device as one fused filter + top-k
+(`kernels.topk`) over the whole stacked block; its decode gathers the
+candidates from the segments. Where NaN keys match, or NaN and -inf keys
+displaced candidates, the decode answers by the exact path over the same
+block (the device mask, every match gathered) and marks the partial
+`topk_exact`. Any other selection is the per-segment executor's partial.
+
 Not executed here, each raising NotImplementedError: sets whose dictionaries
 disagree (the JAX package's merged view), star-tree segments, mutable
-segments, selections (top-k), and a scan over more than INT32_MAX rows. A
-group-by partial is a state dict, not the JAX package's array-form
-`DensePartial`. A plan that needs no scan (metadata, pruned) is answered by
-the per-segment `ServerQueryExecutor`, as in the JAX package.
+segments, and a scan over more than INT32_MAX rows. A group-by partial is a
+state dict, not the JAX package's array-form `DensePartial`. A plan that
+needs no scan (metadata, pruned) is answered by the per-segment
+`ServerQueryExecutor`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,22 +52,36 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..engine import scan
+from ..engine import kernels, scan
 from ..engine.datablock import _narrow, padded_rows
 from ..engine.expr import eval_device
-from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
+from ..engine.kernels import KernelInputs, KernelSpec, filter_mask, run_kernel
 from ..query.aggregates import make_agg
 from ..query.context import QueryContext, compile_query
 from ..query.dense_reduce import try_dense_decode
-from ..query.executor import (ServerQueryExecutor, _as_rows, _band_leaf_indices,
-                              _plan_vals_cols, _sum_operands, resolve_device, scan_route)
+from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor, _as_rows,
+                              _band_leaf_indices, _plan_vals_cols, _sum_operands,
+                              require_device_mask, resolve_device, scan_route,
+                              selection_rows)
 from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
-                             plan_segment)
+                             plan_segment, topk_order_key_device_ok)
 from ..query.predicate import CmpLeaf, LutLeaf
 from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
 from ..query.result import ResultTable
 from ..segment.reader import ImmutableSegment
+from ..sql.ast import Identifier
+
 MAX_SCAN_ROWS = scan.INT32_MAX   # rows one scan launch takes
+
+
+def device_topk_screen(ctx: QueryContext) -> bool:
+    """Could this selection take the stacked top-k? One plain-column ORDER BY
+    and 0 < OFFSET + LIMIT <= MAX_DEVICE_TOPK. The rest of the check (the key's
+    type and bounds on every segment, aligned dictionaries) is made when the
+    dispatch is prepared."""
+    k = ctx.offset + ctx.limit
+    return (len(ctx.order_by) == 1 and isinstance(ctx.order_by[0].expr, Identifier)
+            and 0 < k <= MAX_DEVICE_TOPK)
 
 
 def set_scan_route(plan: SegmentPlan) -> Optional[str]:
@@ -100,8 +124,10 @@ class PreparedDispatch:
     Items with equal `dedupe_key` are identical dispatches and share one pass
     and one fetched result. Items with equal `stack_key` run the same work
     over the same block and differ only in literals: they launch as one
-    stacked group. `kind` is "agg" for a pass over the block, or "metadata"
-    for a plan answered without one (`decode` then ignores its argument)."""
+    stacked group. `kind` is "agg" for a pass over the block, "topk" for a
+    selection's fused filter + top-k over it (never stacked), "metadata" for a
+    plan answered without a pass, or "exact" for a selection the per-segment
+    executor answered (for both, `decode` ignores its argument)."""
 
     kind: str
     spec: Optional[KernelSpec]
@@ -112,6 +138,7 @@ class PreparedDispatch:
     stackable: bool
     decode: Callable[[Dict[str, np.ndarray]], Any]
     trim_keys: Tuple[int, int] = (0, 0)   # (num_keys_pad, num_keys_real) of group outputs
+    topk: Optional[Tuple] = None          # "topk": (order expression, desc, candidates)
 
 
 class SegmentSetBlock:
@@ -236,6 +263,13 @@ class MeshQueryExecutor:
             return self._fallback.execute(segments, ctx)
         return self._execute_sharded(ctx, plan, segments, t0)
 
+    @staticmethod
+    def _answered(kind: str, partial: SegmentResult) -> PreparedDispatch:
+        """A dispatch whose partial is already known: no pass over the block."""
+        return PreparedDispatch(kind=kind, spec=None, route=None, inputs=None,
+                                stack_key=(kind,), dedupe_key=None, stackable=False,
+                                decode=lambda outs: partial)
+
     def _plan_for_set(self, ctx: QueryContext, segments) -> Optional[SegmentPlan]:
         """The one plan the whole set runs (made on the first segment, with
         the others as peers), or None for an empty set. A plan of another kind
@@ -318,16 +352,15 @@ class MeshQueryExecutor:
         """Plan a server-level partial and build its inputs, without a launch.
         Its `decode` gives a SegmentResult (group partials are not trimmed by
         ORDER BY: the broker merges every server's groups first)."""
-        if not ctx.is_aggregation_query and not ctx.distinct:
-            raise NotImplementedError(
-                "selection query (no aggregation) is not supported by pinot_tpu_torch: "
-                "device top-k is not ported")
         plan = self._plan_for_set(ctx, segments)
+        if plan is not None and plan.kind == "selection":
+            require_device_mask(plan)
+            if device_topk_screen(ctx) and all(
+                    topk_order_key_device_ok(s, ctx.order_by[0].expr) for s in segments):
+                return self._prepare_topk(ctx, plan, segments)
+            return self._answered("exact", self._per_segment_partial(ctx, segments))
         if plan is None or plan.kind != "device":
-            partial = self._per_segment_partial(ctx, segments)
-            return PreparedDispatch(kind="metadata", spec=None, route=None, inputs=None,
-                                    stack_key=("metadata",), dedupe_key=None,
-                                    stackable=False, decode=lambda outs: partial)
+            return self._answered("metadata", self._per_segment_partial(ctx, segments))
         return self._prepare_sharded(ctx, plan, segments, partial=True)
 
     def _per_segment_partial(self, ctx: QueryContext, segments) -> SegmentResult:
@@ -337,21 +370,17 @@ class MeshQueryExecutor:
         merged = merge_segment_results(
             [self._fallback.execute_segment(ctx, s) for s in segments], aggs)
         if not segments:
-            merged.kind = "groups" if (ctx.group_by or ctx.distinct) else "scalar"
+            merged.kind = ("groups" if (ctx.group_by or ctx.distinct) else
+                           "scalar" if aggs else "selection")
         return merged
 
-    def _prepare_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
-                         partial: bool) -> PreparedDispatch:
-        build_device_geometry(plan)
-        block = self._block_for(segments)
-        spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
-                          tuple((a, a.device_outputs) for a in plan.aggs))
-        route = set_scan_route(plan)
-        env = {c: block.decoded(c).view(-1) for c in _plan_vals_cols(plan)}
+    def _set_inputs(self, plan: SegmentPlan, block: "SegmentSetBlock") -> KernelInputs:
+        """The plain body's inputs over the flattened stacked block: ids of the
+        compared and grouped columns, decoded value columns, scattered LUTs and
+        the literals in leaf order (mirroring KernelSpec.__post_init__)."""
         iscal: List[int] = []
         fscal: List[float] = []
         luts = []
-        # scalars in leaf order: must mirror KernelSpec.__post_init__ routing
         for leaf in plan.filter_prog.leaves:
             if isinstance(leaf, LutLeaf):
                 if leaf.intervals is not None:
@@ -364,6 +393,77 @@ class MeshQueryExecutor:
                     iscal.extend(int(v) for v in leaf.operands)
                 else:
                     fscal.extend(float(v) for v in leaf.operands)
+        ids_cols = set(plan.group_cols)
+        ids_cols.update(leaf.col for leaf in plan.filter_prog.leaves
+                        if isinstance(leaf, LutLeaf))
+        return KernelInputs(ids={c: block.ids(c).view(-1) for c in ids_cols},
+                            vals={c: block.decoded(c).view(-1)
+                                  for c in _plan_vals_cols(plan)},
+                            luts=tuple(luts), iscal=iscal, fscal=fscal,
+                            valid=block.valid.view(-1), strides=list(plan.strides))
+
+    def _prepare_topk(self, ctx: QueryContext, plan: SegmentPlan,
+                      segments) -> PreparedDispatch:
+        """The fused filter + top-k of a selection over the whole stacked block:
+        one launch, whose k + TOPK_SLACK candidate row ids (lower rows first
+        among equal keys) ride the batch's one copy."""
+        lut_cols = {leaf.col for leaf in plan.filter_prog.leaves if isinstance(leaf, LutLeaf)}
+        if not aligned_dictionaries(segments, lut_cols):
+            raise NotImplementedError(
+                "top-k over a segment set whose dictionaries disagree on a filtered "
+                "column: the merged-dictionary view is not ported to pinot_tpu_torch")
+        order = ctx.order_by[0]
+        block = self._block_for(segments)
+        spec = KernelSpec(plan.filter_prog, (), 1, ())
+        inputs = self._set_inputs(plan, block)
+        inputs.vals.setdefault(order.expr.name, block.decoded(order.expr.name).view(-1))
+        k = ctx.offset + ctx.limit
+        kk = min(k + TOPK_SLACK, block.s_pad * block.rows)
+        static = ("topk", spec.signature(), repr(order.expr), order.desc, kk, id(block))
+        return PreparedDispatch(
+            "topk", spec, None, inputs, stack_key=static,
+            dedupe_key=static + (tuple(id(t) for t in inputs.luts), tuple(inputs.iscal),
+                                 tuple(inputs.fscal)),
+            stackable=False,
+            decode=self._make_topk_decode(ctx, spec, inputs, segments, block, k, kk),
+            topk=(order.expr, order.desc, kk))
+
+    @staticmethod
+    def _make_topk_decode(ctx: QueryContext, spec: KernelSpec, inputs: KernelInputs,
+                          segments, block: "SegmentSetBlock", k: int, kk: int):
+        """decode(host outputs) of the stacked top-k: a selection partial of the
+        candidates, whose exact sort keys the reduce orders. A flat index of the
+        block is segment `idx // rows`, row `idx % rows`."""
+
+        def partial(flat: np.ndarray, count: int, exact: bool) -> SegmentResult:
+            seg_i, row_i = np.divmod(np.sort(flat), block.rows)
+            parts = [(segments[s], row_i[seg_i == s]) for s in np.unique(seg_i)]
+            rows, sort_keys = selection_rows(ctx, parts)
+            return SegmentResult("selection", rows=rows, sort_keys=sort_keys,
+                                 num_docs_scanned=count, topk_exact=exact)
+
+        def decode(outs: Dict[str, np.ndarray]) -> SegmentResult:
+            count = int(outs["count"])
+            keep = min(kk, count)
+            idx = outs["idx"][:keep][outs["ok"][:keep]]
+            if int(outs["nanMatches"]) or len(idx) < min(k, count):
+                # NaN keys match, or NaN and -inf keys displaced candidates:
+                # every match, gathered and sorted on the host, decides
+                flat = np.nonzero(filter_mask(spec, inputs).cpu().numpy())[0]
+                return partial(flat, len(flat), exact=True)
+            return partial(idx, count, exact=False)
+
+        return decode
+
+    def _prepare_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
+                         partial: bool) -> PreparedDispatch:
+        build_device_geometry(plan)
+        block = self._block_for(segments)
+        spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
+                          tuple((a, a.device_outputs) for a in plan.aggs))
+        route = set_scan_route(plan)
+        inputs = self._set_inputs(plan, block)
+        iscal, fscal, luts = inputs.iscal, inputs.fscal, inputs.luts
         if route is not None:
             if block.s_pad * block.rows > MAX_SCAN_ROWS:
                 raise NotImplementedError(
@@ -371,16 +471,9 @@ class MeshQueryExecutor:
                     f"at most {MAX_SCAN_ROWS} rows in one launch, and splitting a set "
                     "over several launches is not ported")
             leaves = [plan.filter_prog.leaves[i] for i in _band_leaf_indices(plan)]
-            inputs = ScanInputs(ids=[block.ids(leaf.col).view(-1) for leaf in leaves],
+            inputs = ScanInputs(ids=[inputs.ids[leaf.col] for leaf in leaves],
                                 bands=[tuple(leaf.intervals[0]) for leaf in leaves],
-                                operands=_sum_operands(plan), env=env)
-        else:
-            ids_cols = set(plan.group_cols)
-            ids_cols.update(leaf.col for leaf in plan.filter_prog.leaves
-                            if isinstance(leaf, LutLeaf))
-            inputs = KernelInputs(ids={c: block.ids(c).view(-1) for c in ids_cols},
-                                  vals=env, luts=tuple(luts), iscal=iscal, fscal=fscal,
-                                  valid=block.valid.view(-1), strides=list(plan.strides))
+                                operands=_sum_operands(plan), env=inputs.vals)
 
         def decode(outs):
             if route is not None:
@@ -392,7 +485,11 @@ class MeshQueryExecutor:
                     dense = try_dense_decode(ctx, plan, outs)
                     if dense is not None:
                         return dense
-                seg_result = self._fallback._decode_group_partials(plan, outs)
+                # an ORDER BY trim is exact for a full result only: a server
+                # partial stays whole, since the broker merges every server's
+                # groups before it orders them
+                seg_result = self._fallback._decode_group_partials(
+                    plan, outs, trim_global=not partial)
             else:
                 seg_result = self._fallback._decode_scalar_partials(plan, outs)
             if partial:
@@ -438,8 +535,10 @@ class MeshQueryExecutor:
         B `masked_sums` launches over operand rows built once, or B runs of the
         plain body. Returns each pass's device outputs."""
         p0 = ps[0]
-        if p0.kind == "metadata":
+        if p0.kind in ("metadata", "exact"):
             return [{} for _ in ps]
+        if p0.kind == "topk":
+            return [kernels.topk(p.spec, p.inputs, *p.topk) for p in ps]
         if p0.route == "masked_sums":
             ins = p0.inputs
             n = ins.ids[0].shape[0]

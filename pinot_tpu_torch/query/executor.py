@@ -7,12 +7,21 @@ Counterpart of `pinot_tpu/query/executor.py` (analog of the reference's
 * scalar plans whose filter is an AND of single dict-id bands and whose
   outputs are COUNT and plain SUMs (AVG included) run through the CUDA masked
   multi-sum scan (`engine/scan.py`), routed by `scan_route`;
-* every other device plan runs the plain-PyTorch body (`engine/kernels.py`).
+* every other device plan runs the plain-PyTorch body (`engine/kernels.py`);
+* selections take the filter mask on the device and gather the selected
+  rows on the host. An `ORDER BY <column> LIMIT k` whose key the device can
+  sort (`topk_order_key_device_ok`) picks its candidates with the fused
+  filter + top-k (`kernels.compute_topk`, k + TOPK_SLACK of them); any other
+  ORDER BY, and a top-k that NaN or -inf keys displaced, takes the exact
+  path: every match gathered and sorted on the host, counted in the result's
+  `stats["topkExact"]`. A selection without ORDER BY keeps the first
+  OFFSET + LIMIT matches of each segment.
 
 Shapes this package does not execute raise NotImplementedError with the
-plan's reason: host plans, selection queries, DISTINCT/HLL/theta/percentile/
-moment aggregations, star-trees, bitmap leaves, multi-value columns, null
-leaves, and mutable or upsert segments. Nothing falls back to another path.
+plan's reason: host plans (a selection filter among them),
+DISTINCT/HLL/theta/percentile/moment aggregations, star-trees, bitmap leaves,
+multi-value columns, null leaves, and mutable or upsert segments. Nothing
+falls back to another path.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
 no CUDA card they raise RuntimeError.
@@ -26,18 +35,27 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..engine import scan
+from ..engine import kernels, scan
 from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype
 from ..engine.expr import eval_device
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
 from ..segment.reader import ImmutableSegment
+from ..engine.expr import eval_host
+from ..segment.reader import ColumnReader
 from ..sql.ast import Identifier, identifiers_in
 from .aggregates import make_agg
 from .context import QueryContext, compile_query
-from .planner import SegmentPlan, build_device_geometry, plan_segment
+from .planner import (SegmentPlan, build_device_geometry, plan_segment,
+                      topk_order_key_device_ok)
 from .predicate import CmpLeaf, LutLeaf
 from .reduce import SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
+
+MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
+# candidates beyond k, so that f32 ties at the k-th key cannot evict a true
+# top-k row (the final order is exact: candidates re-sort on the host in f64)
+TOPK_SLACK = 256
+
 
 def resolve_device(device=None) -> torch.device:
     """The execution device: CUDA unless the caller names another. Asking for
@@ -62,9 +80,6 @@ class ServerQueryExecutor:
             if isinstance(query, str) else query
         if ctx.explain or ctx.analyze:
             raise NotImplementedError("EXPLAIN is not supported by pinot_tpu_torch")
-        if not ctx.is_aggregation_query and not ctx.distinct:
-            raise NotImplementedError(
-                "selection query (no aggregation) is not supported by pinot_tpu_torch")
         aggs = [make_agg(f) for f in ctx.aggregations]
         group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
                        else list(ctx.group_by))
@@ -73,7 +88,7 @@ class ServerQueryExecutor:
         t_scan = time.perf_counter()
         merged = merge_segment_results(results, aggs)
         if not results:
-            merged.kind = "groups" if group_exprs else "scalar"
+            merged.kind = "groups" if group_exprs else "scalar" if aggs else "selection"
         result = reduce_to_result(ctx, merged, aggs, group_exprs)
         result.stats["phaseTimesMs"] = {
             "compile": round((t_compile - t0) * 1000, 3),
@@ -98,12 +113,16 @@ class ServerQueryExecutor:
             return self._metadata_result(plan)
         if plan.kind == "device":
             return self._device_aggregate(plan)
+        if plan.kind == "selection":
+            return self._selection(plan)
         raise NotImplementedError(
             f"{plan.kind} plan is not supported by pinot_tpu_torch: {plan.fallback_reason}")
 
     def _empty_result(self, plan: SegmentPlan) -> SegmentResult:
         if plan.group_exprs:
             return SegmentResult("groups")
+        if not plan.ctx.is_aggregation_query:
+            return SegmentResult("selection")
         empty = np.empty(0, dtype=np.float64)
         return SegmentResult("scalar",
                              scalar=[a.host_state(empty) for a in plan.aggs] or None)
@@ -203,10 +222,16 @@ class ServerQueryExecutor:
             strides=list(plan.strides),
         )
 
-    def _decode_group_partials(self, plan: SegmentPlan, outs) -> SegmentResult:
+    def _decode_group_partials(self, plan: SegmentPlan, outs,
+                               trim_global: bool = False) -> SegmentResult:
+        """Group partials from dense outputs. With `trim_global` (outputs of
+        every segment, as the set executor's full result has them) an ORDER BY
+        on an aggregation decodes only the groups LIMIT can return."""
         seg = plan.segment
         counts = outs["count"][:plan.num_keys_real]
         occupied = np.nonzero(counts > 0)[0]
+        if trim_global:
+            occupied = _trim_occupied(plan, outs, occupied)
         # dense keys -> per-column dict ids -> values (vectorized per column)
         value_cols = []
         for j, col in enumerate(plan.group_cols):
@@ -227,6 +252,59 @@ class ServerQueryExecutor:
             result.groups[tuple(keys[row])] = states
         return result
 
+    # -- selection ---------------------------------------------------------
+    def _selection(self, plan: SegmentPlan) -> SegmentResult:
+        require_device_mask(plan)
+        ctx, seg = plan.ctx, plan.segment
+        topk = self._topk_candidates(plan)
+        if topk is not None:
+            idx, scanned = topk
+        else:
+            idx = np.nonzero(self._selection_mask(plan))[0]
+            if not ctx.order_by:
+                idx = idx[:ctx.offset + ctx.limit]   # early termination
+            scanned = len(idx)
+        rows, sort_keys = selection_rows(ctx, [(seg, idx)])
+        return SegmentResult("selection", rows=rows, sort_keys=sort_keys,
+                             num_docs_scanned=scanned,
+                             topk_exact=topk is None and bool(ctx.order_by))
+
+    def _topk_candidates(self, plan: SegmentPlan) -> Optional[Tuple[np.ndarray, int]]:
+        """(candidate row ids, match count) from the device top-k, or None for
+        the exact path: a key the device cannot sort, an unbounded LIMIT, or
+        candidates that NaN or -inf keys displaced. The candidates hold the
+        top k by f32 key plus TOPK_SLACK more, lower rows first among ties."""
+        ctx, seg = plan.ctx, plan.segment
+        k = ctx.offset + ctx.limit
+        if len(ctx.order_by) != 1 or not 0 < k <= MAX_DEVICE_TOPK:
+            return None
+        order = ctx.order_by[0]
+        if not topk_order_key_device_ok(seg, order.expr):
+            return None
+        block = block_for(seg, self.device)
+        spec = KernelSpec(plan.filter_prog, (), 1, ())
+        inputs = self._kernel_inputs(plan, spec, block)
+        if order.expr.name not in inputs.vals:
+            inputs.vals[order.expr.name] = block.values(order.expr.name)
+        idx, count, ok, nan_matches = kernels.compute_topk(
+            spec, inputs, order.expr, order.desc, k + TOPK_SLACK)
+        keep = min(len(idx), count)
+        idx, ok = idx[:keep], ok[:keep]
+        idx = idx[ok & (idx < seg.num_docs)]
+        if nan_matches or len(idx) < min(k, count):
+            return None
+        return idx, count
+
+    def _selection_mask(self, plan: SegmentPlan) -> np.ndarray:
+        """bool[num_docs]: the filter evaluated on the device."""
+        seg = plan.segment
+        if plan.filter_prog.is_match_all:
+            return np.ones(seg.num_docs, dtype=bool)
+        block = block_for(seg, self.device)
+        spec = KernelSpec(plan.filter_prog, (), 1, ())
+        mask = kernels.filter_mask(spec, self._kernel_inputs(plan, spec, block))
+        return mask[:seg.num_docs].cpu().numpy()
+
     def _decode_scalar_partials(self, plan: SegmentPlan, outs) -> SegmentResult:
         count = int(outs["count"])
         states: List[Any] = []
@@ -237,6 +315,104 @@ class ServerQueryExecutor:
                     o[out_name] = outs[f"{i}.{out_name}"]
             states.append(agg.state_from_device(o))
         return SegmentResult("scalar", scalar=states, num_docs_scanned=count)
+
+
+# -- selection rows ---------------------------------------------------------------
+
+def require_device_mask(plan: SegmentPlan) -> None:
+    """Raise for a selection whose filter the device cannot evaluate."""
+    if plan.fallback_reason:
+        raise NotImplementedError(
+            f"selection whose filter needs the host mask ({plan.fallback_reason}): "
+            "host_filter_mask is not ported to pinot_tpu_torch (ROADMAP queue 1 item 5)")
+
+
+def _take(reader: ColumnReader, rows: np.ndarray) -> np.ndarray:
+    """The column's values at `rows`, decoded on the host."""
+    ids = np.asarray(reader.fwd)[rows]
+    return reader.dictionary.take(ids.astype(np.int64)) if reader.has_dictionary else ids
+
+
+def _cell(v):
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
+    """(rows, sort keys) of the rows `parts` names, a list of (segment, row
+    ids) taken in order: the select list and the ORDER BY values, evaluated on
+    the host over the gathered columns."""
+    needed = set()
+    for e, _ in ctx.select_items:
+        needed.update(identifiers_in(e))
+    for o in ctx.order_by:
+        needed.update(identifiers_in(o.expr))
+    n = sum(len(rows) for _, rows in parts)
+    env = {c: np.concatenate([_take(seg.column(c), rows) for seg, rows in parts])
+           if parts else np.empty(0) for c in needed}
+
+    def column(e):
+        v = eval_host(e, env)
+        return np.full(n, v, dtype=object) if np.ndim(v) == 0 else np.asarray(v)
+
+    out_cols = [column(e) for e, _ in ctx.select_items]
+    rows = [tuple(_cell(c[i]) for c in out_cols) for i in range(n)]
+    sort_cols = [column(o.expr) for o in ctx.order_by]
+    sort_keys = [tuple(_cell(c[i]) for c in sort_cols) for i in range(n)] \
+        if sort_cols else []
+    return rows, sort_keys
+
+
+# -- exact group trim -------------------------------------------------------------
+
+def group_trim_spec(ctx: QueryContext, plan: SegmentPlan):
+    """(agg index, desc, k) when a GROUP BY's ORDER BY can trim to its top k
+    groups from device outputs alone; None otherwise.
+
+    Exact only against outputs of every segment: per-segment partial sums can
+    rank groups otherwise than their totals. Requires one ORDER BY key that is
+    one of the query's aggregations, no HAVING (it could bring back trimmed
+    groups) and no DISTINCT rewrite."""
+    if ctx.having is not None or ctx.distinct or len(ctx.order_by) != 1:
+        return None
+    k = ctx.offset + ctx.limit
+    if not 0 < k <= MAX_DEVICE_TOPK:
+        return None
+    o = ctx.order_by[0]
+    for i, call in enumerate(ctx.aggregations):
+        if repr(o.expr) == repr(call):
+            outs = plan.aggs[i].device_outputs
+            if outs in (("count",), ("sum",), ("min",), ("max",), ("sum", "count")):
+                return i, o.desc, k
+    return None
+
+
+def _trim_occupied(plan: SegmentPlan, outs, occupied: np.ndarray) -> np.ndarray:
+    """The occupied dense keys the reduce can return: the k best by the ORDER
+    BY aggregation, ties at the k-th going to the lower keys, in key order.
+    The reduce's stable sort then orders them as it orders the untrimmed
+    groups. A NaN score keeps every group (the sort's order of NaN is not a
+    ranking)."""
+    trim = group_trim_spec(plan.ctx, plan)
+    if trim is None or len(occupied) <= trim[2]:
+        return occupied
+    i, desc, k = trim
+    names = plan.aggs[i].device_outputs
+    counts = outs["count"][:plan.num_keys_real][occupied].astype(np.float64)
+    if names == ("count",):
+        score = counts
+    elif names == ("sum", "count"):   # AVG
+        score = outs[f"{i}.sum"][:plan.num_keys_real][occupied].astype(np.float64) \
+            / np.maximum(counts, 1)
+    else:
+        score = np.asarray(outs[f"{i}.{names[0]}"][:plan.num_keys_real][occupied],
+                           dtype=np.float64)
+    if np.isnan(score).any():
+        return occupied
+    s = -score if desc else score
+    kth = np.partition(s, k - 1)[k - 1]
+    better = np.nonzero(s < kth)[0]
+    ties = np.nonzero(s == kth)[0][:k - len(better)]
+    return occupied[np.sort(np.concatenate([better, ties]))]
 
 
 # -- routing ----------------------------------------------------------------------

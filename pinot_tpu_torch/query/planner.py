@@ -9,7 +9,10 @@ segment's plan is one of
 * `device`   — filter + aggregate on the device (`engine/kernels.py`, `engine/scan.py`);
 * `host`     — a shape the device path does not cover; this package has no host
   path yet, so the executor raises NotImplementedError with `fallback_reason`;
-* `selection`— a query without aggregation; not executed by this package yet.
+* `selection`— a query without aggregation: the filter mask (or the fused
+  filter + top-k) on the device, then gather and order on the host. A
+  selection whose filter needs the host mask keeps its reason in
+  `fallback_reason`, and the executor raises NotImplementedError.
 
 Unlike the JAX planner there is no small-scan rule sending small segments to
 the host, and the device function set is what `engine/expr.eval_device` covers.
@@ -74,7 +77,8 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment,
 
     if not ctx.is_aggregation_query and not ctx.distinct:
         plan.kind = "selection"
-        plan.fallback_reason = "selection query"
+        plan.fallback_reason = next(
+            filter(None, (_filter_device_feasible(plan, seg) for seg in members)), "")
         return plan
 
     # -- metadata-only answers ----------------------------------------------
@@ -240,7 +244,11 @@ def _device_feasible(plan: SegmentPlan, segment: ImmutableSegment) -> str:
             err = _expr_device_ok(arg, segment)
             if err:
                 return err
+    return _filter_device_feasible(plan, segment)
 
+
+def _filter_device_feasible(plan: SegmentPlan, segment: ImmutableSegment) -> str:
+    """Empty string if the device can evaluate the plan's filter mask; else the reason."""
     for leaf in _live_leaves(plan.filter_prog):
         if isinstance(leaf, CmpLeaf):
             err = _expr_device_ok(leaf.expr, segment)
@@ -291,6 +299,26 @@ def _expr_device_ok(e: Expr, segment: ImmutableSegment) -> str:
                     return err
         return ""
     return check(e)
+
+
+def topk_order_key_device_ok(seg: ImmutableSegment, order_expr: Expr) -> bool:
+    """True when `order_expr` is a device-sortable ORDER BY key on `seg`.
+
+    Requires a plain single-value numeric column (an expression key like a*b
+    can leave f32 precision without column bounds showing it) that the device
+    can evaluate; an integer key also needs known min/max within 2^24, so
+    that the f32 candidate pass cannot misorder it. Shared by the per-segment
+    top-k and the set executor's, so that both paths agree on eligibility."""
+    if not isinstance(order_expr, Identifier) or _expr_device_ok(order_expr, seg):
+        return False
+    reader = seg.column(order_expr.name)
+    if reader.is_multi_value:
+        return False
+    if np.dtype(reader.data_type.numpy_dtype).kind in "iu":
+        mn, mx = reader.min_value, reader.max_value
+        if mn is None or mx is None or max(abs(float(mn)), abs(float(mx))) >= (1 << 24):
+            return False
+    return True
 
 
 def build_device_geometry(plan: SegmentPlan) -> None:

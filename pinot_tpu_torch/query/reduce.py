@@ -1,10 +1,13 @@
 """Combine + reduce: merge per-segment partials, finalize, project, HAVING/ORDER/LIMIT.
 
 A subset of `pinot_tpu/query/reduce.py` (analog of the reference's combine
-operators and broker reduce): the value-keyed merge of group and scalar
-partials and the final reduce. Group keys are decoded to values before
-leaving a segment, so partials merge whatever each segment's dictionaries are.
-The array-form `DensePartial`, GAPFILL and selection reduce are not ported.
+operators and broker reduce): the value-keyed merge of group, scalar and
+selection partials and the final reduce. Group keys are decoded to values
+before leaving a segment, so partials merge whatever each segment's
+dictionaries are. A selection partial carries its rows with their exact sort
+keys, and the reduce re-sorts the merged rows (`_sort_key`, a stable sort, so
+rows with equal keys keep their merge order) before OFFSET and LIMIT. The
+array-form `DensePartial` and GAPFILL are not ported.
 """
 
 from __future__ import annotations
@@ -25,10 +28,15 @@ from .result import ResultTable
 class SegmentResult:
     """Partial result of one segment (reference: IntermediateResultsBlock)."""
 
-    kind: str  # "groups" | "scalar"
+    kind: str  # "groups" | "scalar" | "selection"
     groups: Dict[Tuple, List[Any]] = field(default_factory=dict)  # key values -> agg states
     scalar: Optional[List[Any]] = None                            # agg states (no group-by)
     num_docs_scanned: int = 0
+    rows: List[Tuple] = field(default_factory=list)       # selection: select-list cells
+    sort_keys: List[Tuple] = field(default_factory=list)  # selection: ORDER BY values
+    # selection: an ORDER BY answered by the exact path (every match gathered
+    # on the host) instead of the device top-k
+    topk_exact: bool = False
 
 
 def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> SegmentResult:
@@ -49,7 +57,7 @@ def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> 
                     for i, agg in enumerate(aggs):
                         cur[i] = agg.merge(cur[i], states[i])
         out.groups = merged
-    else:
+    elif kind == "scalar":
         merged_states: Optional[List[Any]] = None
         for r in results:
             if r.scalar is None:
@@ -60,6 +68,11 @@ def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> 
                 for i, agg in enumerate(aggs):
                     merged_states[i] = agg.merge(merged_states[i], r.scalar[i])
         out.scalar = merged_states
+    else:
+        for r in results:
+            out.rows.extend(r.rows)
+            out.sort_keys.extend(r.sort_keys)
+            out.topk_exact = out.topk_exact or r.topk_exact
     return out
 
 
@@ -73,6 +86,8 @@ def _object_array(vals: List[Any]) -> np.ndarray:
 def reduce_to_result(ctx: QueryContext, merged: SegmentResult, aggs: List[AggFunc],
                      group_exprs: List[Expr]) -> ResultTable:
     """Broker-side reduce: finalize states, post-aggregate, HAVING, ORDER BY, LIMIT."""
+    if merged.kind == "selection":
+        return _reduce_selection(ctx, merged)
     env: Dict[str, np.ndarray] = {}
     if merged.kind == "groups":
         keys = list(merged.groups.keys())
@@ -110,6 +125,17 @@ def reduce_to_result(ctx: QueryContext, merged: SegmentResult, aggs: List[AggFun
     return ResultTable([name for _, name in ctx.select_items], _pyify(rows),
                        {"numDocsScanned": merged.num_docs_scanned,
                         "numGroupsTotal": n if merged.kind == "groups" else None})
+
+
+def _reduce_selection(ctx: QueryContext, merged: SegmentResult) -> ResultTable:
+    order = list(range(len(merged.rows)))
+    if ctx.order_by:
+        order.sort(key=lambda i: _sort_key(list(merged.sort_keys[i]), ctx.order_by))
+    order = order[ctx.offset:ctx.offset + ctx.limit]
+    rows = [list(merged.rows[i]) for i in order]
+    return ResultTable([name for _, name in ctx.select_items], _pyify(rows),
+                       {"numDocsScanned": merged.num_docs_scanned,
+                        "topkExact": merged.topk_exact})
 
 
 class _Reverse:

@@ -45,6 +45,9 @@ def test_subprocess_import_and_query_never_loads_jax(tmp_path):
         segs = segments_from_columns(ssb_schema(), make_columns(5000, 1), {str(tmp_path)!r}, 2)
         print(execute_query(segs, QUERY, device="cpu").rows)
         print(execute_query(segs, GROUP_QUERY, device="cpu").rows)
+        print(execute_query(segs, "SELECT lo_custkey, lo_revenue FROM lineorder "
+                            "WHERE lo_quantity >= 10 ORDER BY lo_revenue DESC LIMIT 7",
+                            device="cpu").rows)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
         print("BAD", bad)
@@ -84,7 +87,7 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
     rel = {os.path.relpath(f, REPO) for f in _package_files()}
     for module in ("parallel/__init__.py", "parallel/combine.py",
                    "cluster/__init__.py", "cluster/device_server.py",
-                   "query/dense_reduce.py"):
+                   "query/dense_reduce.py", "query/executor.py", "engine/kernels.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 
@@ -103,6 +106,10 @@ def test_subprocess_set_executor_and_pipeline_never_load_jax(tmp_path):
         pipeline = DeviceQueryPipeline(mesh_exec=mx)
         try:
             print(pipeline.execute_partial(compile_query(QUERY, segs[0].schema), segs).scalar)
+            topk = ("SELECT lo_custkey, lo_revenue FROM lineorder WHERE lo_quantity >= 10 "
+                    "ORDER BY lo_revenue DESC LIMIT 7")
+            print(pipeline.execute_partial(compile_query(topk, segs[0].schema), segs).rows)
+            print(pipeline.stats()["topkLaunches"])
         finally:
             pipeline.stop()
         bad = sorted(m for m in sys.modules
@@ -113,6 +120,7 @@ def test_subprocess_set_executor_and_pipeline_never_load_jax(tmp_path):
                          timeout=300, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert out.stdout.splitlines()[-2] == "1", out.stdout   # the stacked top-k ran
 
 
 def test_set_executor_and_pipeline_without_cuda_raise(monkeypatch):
@@ -139,12 +147,13 @@ def test_default_device_without_cuda_raises(segs, monkeypatch):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT lo_region, lo_revenue FROM lineorder WHERE lo_discount = 3 LIMIT 5",
+    # a selection whose filter needs the host mask (ROADMAP queue 1 item 5)
+    "SELECT lo_region, lo_revenue FROM lineorder WHERE SQRT(lo_revenue) > 100 LIMIT 5",
     "SELECT DISTINCTCOUNT(lo_suppkey) FROM lineorder WHERE lo_discount = 3",
     "SELECT COUNT(DISTINCT lo_suppkey) FROM lineorder",
     "SELECT DISTINCTCOUNTHLL(lo_orderdate) FROM lineorder WHERE lo_quantity < 25",
     "SELECT PERCENTILE90(lo_revenue) FROM lineorder",
-    "SELECT VARIANCE(lo_revenue) FROM lineorder",
+    "SELECT VARPOP(lo_revenue) FROM lineorder",
     "SELECT lo_custkey + 1, COUNT(*) FROM lineorder GROUP BY lo_custkey + 1",
     "SELECT SUM(lo_revenue) FROM lineorder WHERE JSON_MATCH(lo_region, '\"$.a\"=1')",
 ], ids=["selection", "distinctcount", "count_distinct", "hll", "percentile",

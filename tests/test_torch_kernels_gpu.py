@@ -378,3 +378,63 @@ def test_cuda_direct_execute_beside_the_pipeline(cuda, tmp_path):
     for sql, rows in answers:
         assert rows[0][0] == want[sql][0][0], sql
         np.testing.assert_allclose(rows[0][1], want[sql][0][1], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_topk_keeps_the_lower_row_among_ties(cuda):
+    """`torch.topk` on the card promises no order among equal values; the
+    top-k's key breaks every tie by row, so the candidates are the stable
+    order's first k, as on the CPU, where far more rows tie than k."""
+    from pinot_tpu_torch.engine import kernels
+
+    rng = np.random.default_rng(3)
+    score = rng.integers(0, 4, (1 << 22) + 13).astype(np.float32)
+    score[rng.integers(0, len(score), 1000)] = -np.inf
+    for k in (9 + 256, 4096):
+        want = np.argsort(-score, kind="stable")[:k]
+        for dev in (cuda, torch.device("cpu")):
+            key = kernels._tie_broken_key(torch.from_numpy(score).to(dev))
+            got = torch.topk(key, k).indices.cpu().numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_selection_ties_match_the_cpu_on_every_path(cuda, tmp_path):
+    """A key with ~10,000 tied matching rows a value, far more than k + 256:
+    the per-segment path, the set executor and the pipeline's stacked top-k on
+    the card return the CPU's rows, in the stable order by row."""
+    from pinot_tpu_torch import execute_query, segments_from_columns
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.ssb import make_columns, ssb_schema
+
+    c = make_columns(300_000, 5)
+    c["lo_suppkey"] = (c["lo_suppkey"] % 24).astype(np.int32)
+    segs = segments_from_columns(ssb_schema(), c, str(tmp_path), 3)
+    m = c["lo_quantity"] >= 10
+    idx = np.nonzero(m)[0]
+    for desc in (False, True):
+        sql = ("SELECT lo_custkey, lo_orderdate, lo_revenue FROM lineorder "
+               f"WHERE lo_quantity >= 10 ORDER BY lo_suppkey {'DESC' if desc else ''} LIMIT 9")
+        v = c["lo_suppkey"][idx].astype(np.int64)
+        top = idx[np.argsort(-v if desc else v, kind="stable")[:9]]
+        want = [[int(c["lo_custkey"][i]), int(c["lo_orderdate"][i]),
+                 float(c["lo_revenue"][i])] for i in top]
+        assert execute_query(segs, sql, device="cpu").rows == want
+        kernels.reset_topk_launches()
+        assert execute_query(segs, sql).rows == want
+        assert MeshQueryExecutor(cuda).execute(segs, sql).rows == want
+        pipeline = DeviceQueryPipeline(mesh_exec=MeshQueryExecutor(cuda))
+        try:
+            ctx = compile_query(sql, segs[0].schema)
+            partial = pipeline.execute_partial(ctx, segs)
+            s = pipeline.stats()
+        finally:
+            pipeline.stop()
+        rows = reduce_to_result(ctx, merge_segment_results([partial], []), [], []).rows
+        assert rows == want
+        assert (s["topkLaunches"], s["topkExact"]) == (1, 0)
+        assert kernels.topk_launches() == 2 * len(segs) + 1

@@ -305,7 +305,10 @@ def test_star_tree_mutable_and_selection_raise(sets):
         mx.execute(segs[:2] + [StarTree(segs[2])], QUERY)
     with pytest.raises(NotImplementedError, match="mutable"):
         mx.execute(segs[:2] + [Mutable(segs[2])], QUERY)
-    selection = "SELECT lo_region, lo_revenue FROM lineorder WHERE lo_discount = 3 LIMIT 5"
+    # selections run (tests/test_torch_selection.py); one whose filter needs
+    # the host mask is not ported
+    selection = ("SELECT lo_region, lo_revenue FROM lineorder WHERE SQRT(lo_revenue) > 100 "
+                 "LIMIT 5")
     with pytest.raises(NotImplementedError, match="selection"):
         mx.execute(segs, selection)
     with pytest.raises(NotImplementedError, match="selection"):
