@@ -42,7 +42,8 @@ exits non-zero:
    matching ties a value, more than the 265 candidates), a LIMIT without ORDER
    BY, an ORDER BY on a key wider than 2^24 (the exact path) and a GROUP BY
    over 500,000 keys trimmed to its top 10. Each answer is held against a
-   numpy oracle that orders ties by row; each prints its warm times, phases,
+   numpy oracle that orders ties by row; each prints its warm times (10 runs;
+   none for the per-segment GROUP BY over 500,000 keys: its cold run), phases,
    top-k launches (one per segment, none for the others) and `topkExact`. Then
    32 client threads x 12 queries cycling the three top-k queries through the
    pipeline (one stacked top-k launch per distinct query of a drain), and a
@@ -50,9 +51,27 @@ exits non-zero:
    table, its candidates held against numpy for the three top-k queries,
    timed with L2 flushed, against the bound of the bytes it reads. Under
    --trace, each query's device busy ms and idle share (not the per-segment
-   GROUP BY, whose runs take tens of seconds).
+   GROUP BY, whose runs take tens of seconds);
+7. join    — the dimension tables (`supplier`, `customer`, `region`, from
+   --seed) built with the package's writer, and the four star-join and
+   IN-subquery queries of `ssb.JOIN_QUERIES` through
+   `multistage.execute_multistage` over them and the same lineorder table.
+   Each answer is held against a numpy float64 oracle; each query must run
+   the device build and probe (`joinBuildMs` and `joinProbeMs` present,
+   `joinServedHostTier` absent) in its intended regime, by the join
+   programs' launch counters, and the four together must cover both regimes
+   and both exchanges. Each prints its cold and warm times, host phases,
+   `joinStrategy`, launches, joined rows and `joinSkewPct` (under --trace,
+   device busy ms and idle share). Then a `join_case` line per program and
+   shape: the four device programs alone at bench.py's join shapes (a
+   1,048,576-row probe against 1,000, 100,000 and 2,000,000 unique build keys,
+   and a zipf-1.5 probe at 100,000), each output equal to numpy's, timed with
+   L2 flushed against the bound of the bytes it moves.
 
-It prints a `{"kernels": [...]}` line, the nvidia-smi line, and as its last line
+It prints a `seconds` line (each phase's wall seconds and the total), a
+`{"kernels": [...]}` line (with the kernels' launches per path;
+the join phase launches neither scan kernel: its leaf filters are the plain
+mask and its device programs are torch code), the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
 """
@@ -78,6 +97,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 SUM_RTOL = 1e-5
 ORACLE_RTOL, ORACLE_ATOL = 1e-5, 0.05   # the reference's device tolerance
+# the join answers: both the port and the oracle sum joined rows on the host
+# in float64, so a lost or doubled joined row must fail (the CPU tests' REL)
+JOIN_RTOL, JOIN_ATOL = 1e-9, 0.0
 TIMED_RUNS = 25
 SEGMENTS = 8                                  # bench.py's table: 8 segments
 FOR_ROWS, FOR_SEGMENTS = 4 * 1024 * 1024, 2   # the FOR query's table
@@ -101,9 +123,20 @@ SELECT_QUERIES = [
     ("group_trim", "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder GROUP BY lo_custkey "
      "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None),
 ]
-# the per-segment GROUP BY over 500,000 keys decodes every segment's ~490,000
-# groups in Python (tens of seconds a run): two warm runs, not QUERY_RUNS
-GROUP_TRIM_PER_SEGMENT_RUNS = 2
+JOIN_WARM_RUNS = 3
+# query: (device regime, exchange) each must run in
+JOIN_EXPECT = {"join_supplier": ("scatter", "broadcast"),
+               "join_customer": ("scatter", "partitioned"),
+               "join_region": ("sort", "broadcast"),
+               "semi_in": ("scatter", "broadcast")}
+JOIN_PROBE_ROWS = 1 << 20                         # bench.py's join_bench shapes
+JOIN_BUILD_KEYS = (1000, 100_000, 2_000_000)
+JOIN_ZIPF_KEYS, JOIN_ZIPF_S = 100_000, 1.5
+# the select phase's warm runs, cut from QUERY_RUNS to leave room for the join
+# phase; the per-segment GROUP BY over 500,000 keys decodes every segment's
+# ~490,000 groups in Python (17-19 s a run): its cold run alone
+SELECT_RUNS = 10
+GROUP_TRIM_PER_SEGMENT_RUNS = 0
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
 KERNEL_SYMBOL = "masked_sums_kernel"
@@ -299,6 +332,14 @@ def kernel_cases(n: int, n_for: int, n_stacked: int, gen: torch.Generator):
     ]
 
 
+def roofline(nbytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the f32 rate."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def bound(name: str, args) -> tuple:
     """(bound_ms, bound_by): each input read once and each output written once
     over the memory rate, against ~2 compares + 1 AND per band and a multiply and
@@ -311,9 +352,7 @@ def bound(name: str, args) -> tuple:
     ops_per_row = 3 * len(cols) + 2 * len(operands) + 1
     if name == "masked_sums_fused":
         ops_per_row += 2 * len(operands)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n * ops_per_row / PEAK_F32_OPS_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return roofline(nbytes, n * ops_per_row)
 
 
 def check_kernels(n: int, n_for: int, n_stacked: int, seed: int):
@@ -391,7 +430,7 @@ def oracle_for(c):
     return [[float(c["lo_quantity"][m].astype(np.float64).sum()), int(m.sum())]]
 
 
-def rows_match(got, want) -> bool:
+def rows_match(got, want, rtol=ORACLE_RTOL, atol=ORACLE_ATOL) -> bool:
     if len(got) != len(want):
         return False
     for rg, rw in zip(got, want):
@@ -399,7 +438,7 @@ def rows_match(got, want) -> bool:
             return False
         for x, y in zip(rg, rw):
             if isinstance(y, float):
-                if not math.isclose(float(x), y, rel_tol=ORACLE_RTOL, abs_tol=ORACLE_ATOL):
+                if not math.isclose(float(x), y, rel_tol=rtol, abs_tol=atol):
                     return False
             elif x != y:
                 return False
@@ -753,19 +792,19 @@ def run_select(args, table, cols) -> None:
                 raise AssertionError(f"select {qid} ({path}): topkExact "
                                      f"{result.stats.get('topkExact')}, expected {exact}")
             runs = (GROUP_TRIM_PER_SEGMENT_RUNS
-                    if (qid, path) == ("group_trim", "per_segment") else QUERY_RUNS)
-            warm, results = warm_times(run, runs=runs)
+                    if (qid, path) == ("group_trim", "per_segment") else SELECT_RUNS)
+            warm, results = warm_times(run, runs=runs) if runs else ({}, [result])
             bad = [r.rows for r in results if not rows_match(r.rows, want)]
             if bad:
                 raise AssertionError(f"select {qid} ({path}): warm answers {bad[:2]}")
             phases = [r.stats["phaseTimesMs"] for r in results]
-            warm.pop("median_s")
+            warm.pop("median_s", None)
             fields = dict(query=qid, path=path, rows=rows, segments=len(table),
                           answer=result.rows, topk_launches=topk_launches,
                           topk_exact=result.stats.get("topkExact"), cold_s=cold_s, **warm,
                           phase_median_ms={k: statistics.median(p[k] for p in phases)
                                            for k in phases[0]})
-            if args.trace and runs == QUERY_RUNS:
+            if args.trace and runs == SELECT_RUNS:
                 fields["trace"] = trace_query(run)
             log("select_query", **fields)
 
@@ -818,11 +857,9 @@ def select_case(mx, table, cols) -> None:
     n = p.inputs.valid.numel()
     read = [*p.inputs.ids.values(), p.inputs.vals[p.topk[0].name], p.inputs.valid]
     nbytes = sum(t.numel() * t.element_size() for t in read) + kk * (8 + 1) + 8
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     # per row: two band compares and their AND, the valid AND, isnan, its
     # complement and AND, the sign and the select: ~9 f32-rate operations
-    ops_ms = n * 9 / PEAK_F32_OPS_PER_S * 1e3
-    bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    bound_ms, bound_by = roofline(nbytes, n * 9)
     log("select_case", query=qid, program="kernels.topk (plain torch: filter_mask, "
         "torch.where, torch.topk over tie-broken int64 keys)",
         replaces="pinot_tpu/engine/kernels.py:1123 (topk_kernel)", rows=n, candidates=kk,
@@ -833,6 +870,254 @@ def select_case(mx, table, cols) -> None:
         pct_of_bound=100.0 * bound_ms / ms,
         pct_of_bound_device_busy=100.0 * bound_ms / busy_ms if busy_ms else None,
         top_device_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+
+
+# -- phase 7: join -------------------------------------------------------------------
+
+def join_oracles(c, supplier, customer) -> dict:
+    """numpy float64 answers of `ssb.JOIN_QUERIES` over the generated columns.
+    Each dimension table's key is its row number, so a join is a gather."""
+    from pinot_tpu_torch.ssb import REGIONS
+    rev = c["lo_revenue"]
+
+    def codes(values):
+        names = sorted(set(values.tolist()))
+        lookup = {v: i for i, v in enumerate(names)}
+        return np.array([lookup[v] for v in values], dtype=np.int64), names
+
+    def grouped(keys, sel, names, with_count):
+        sums = np.bincount(keys[sel], weights=rev[sel], minlength=len(names))
+        counts = np.bincount(keys[sel], minlength=len(names))
+        return [[name, float(sums[i])] + ([int(counts[i])] if with_count else [])
+                for i, name in enumerate(names) if counts[i]][:25]
+
+    sk, ck = c["lo_suppkey"].astype(np.int64), c["lo_custkey"].astype(np.int64)
+    year_1993 = (c["lo_orderdate"] >= 19930101) & (c["lo_orderdate"] <= 19931231)
+    out = {}
+
+    s_nation, s_names = codes(supplier["s_nation"])
+    sel = ((c["lo_discount"] >= 1) & (c["lo_discount"] <= 3)
+           & (supplier["s_region"] == "AMERICA")[sk])
+    out["join_supplier"] = grouped(s_nation[sk], sel, s_names, True)
+
+    c_nation, c_names = codes(customer["c_nation"])
+    wanted = np.isin(customer["c_mktsegment"], ["BUILDING", "MACHINERY"])
+    inside = ck < len(wanted)
+    sel = year_1993 & inside
+    sel[sel] = wanted[ck[sel]]
+    out["join_customer"] = grouped(np.where(inside, c_nation[np.minimum(ck, len(wanted) - 1)],
+                                            0), sel, c_names, False)
+
+    sel = np.flatnonzero(year_1993 & (c["lo_quantity"] < 25))
+    rows = []
+    for key, name in enumerate(REGIONS):
+        g = sel[c["lo_region"][sel] == name]
+        if len(g):
+            rows.append([key, len(g), float(rev[g].sum())])
+    out["join_region"] = rows
+
+    sel = (c["lo_quantity"] < 25) & (supplier["s_nation"] == "JAPAN")[sk]
+    out["semi_in"] = [[int(sel.sum()), float(rev[sel].sum())]]
+    return out
+
+
+def join_tables(args, table, work) -> tuple:
+    """The dimension tables built as segments with the package's writer, with
+    the lineorder table: (tables, schemas, dimension columns)."""
+    from pinot_tpu_torch import segments_from_columns
+    from pinot_tpu_torch import ssb
+
+    t0 = time.perf_counter()
+    dims = {"supplier": (ssb.supplier_schema(), ssb.make_supplier(seed=args.seed)),
+            "customer": (ssb.customer_schema(), ssb.make_customer(seed=args.seed)),
+            "region": (ssb.region_schema(), ssb.make_region())}
+    tables, schemas = {"lineorder": table}, {"lineorder": table[0].schema}
+    for name, (schema, cols) in dims.items():
+        tables[name] = segments_from_columns(schema, cols, os.path.join(work, name), 1)
+        schemas[name] = schema
+    log("join_data", seconds=time.perf_counter() - t0,
+        rows={k: sum(s.num_docs for s in v) for k, v in tables.items()})
+    return tables, schemas, {k: v[1] for k, v in dims.items()}
+
+
+def regime_of(launches: dict, joins: int) -> str:
+    """The regime a query's `joins` partitioned join stages ran: "scatter" or
+    "sort" when every partition's build and probe took it on the device (one
+    launch of each program per partition and stage), else "mixed" or "none"
+    (a partition under the rows floor joins on the host and launches none)."""
+    from pinot_tpu_torch.multistage.runtime import DEFAULT_PARTITIONS
+
+    want = DEFAULT_PARTITIONS * joins
+    scatter = launches["scatter_build"] + launches["scatter_probe"]
+    sort = launches["sort_build"] + launches["sorted_probe"]
+    if launches["scatter_build"] == launches["scatter_probe"] == want and not sort:
+        return "scatter"
+    if launches["sort_build"] == launches["sorted_probe"] == want and not scatter:
+        return "sort"
+    return "mixed" if scatter or sort else "none"
+
+
+def run_join(args, table, cols, work) -> dict:
+    """The join queries through execute_multistage on the card, then the device
+    programs alone (`join_case`). Returns the scan kernels' launches in the
+    join runs (none expected: nothing on this path calls them)."""
+    from pinot_tpu_torch.engine import join_kernels as jk
+    from pinot_tpu_torch.engine import scan
+    from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
+    from pinot_tpu_torch.ssb import JOIN_QUERIES
+
+    tables, schemas, dims = join_tables(args, table, work)
+    t0 = time.perf_counter()
+    oracles = join_oracles(cols, dims["supplier"], dims["customer"])
+    log("join_oracle", seconds=time.perf_counter() - t0)
+    scan_fn = make_segment_scan(tables)
+    rows = sum(s.num_docs for s in table)
+    seen = set()
+    scan_launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    for qid, sql in JOIN_QUERIES.items():
+        def run(sql=sql):
+            return execute_multistage(sql, scan_fn, schemas.get)
+        # the path: counts set to 0 just before, read just after
+        scan.reset_launch_counts()
+        jk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches, scans = jk.launch_counts(), launch_counts()
+        for k, v in scans.items():
+            scan_launches[k] += v
+        if not rows_match(result.rows, oracles[qid], JOIN_RTOL, JOIN_ATOL):
+            raise AssertionError(f"join {qid}: got {result.rows}, oracle {oracles[qid]}")
+        stats = result.stats
+        strategy = stats.get("joinStrategy", "")
+        regime = regime_of(launches, len(strategy.split(",")))
+        if "joinBuildMs" not in stats or "joinProbeMs" not in stats \
+                or "joinServedHostTier" in stats:
+            raise AssertionError(f"join {qid} did not run the device build and probe: {stats}")
+        if (regime, strategy) != JOIN_EXPECT[qid]:
+            raise AssertionError(f"join {qid}: regime {regime} ({launches}), exchange "
+                                 f"{strategy}; expected {JOIN_EXPECT[qid]}")
+        seen.update((regime, strategy))
+        warm, results = warm_times(run, runs=JOIN_WARM_RUNS)
+        bad = [r.rows for r in results
+               if not rows_match(r.rows, oracles[qid], JOIN_RTOL, JOIN_ATOL)]
+        if bad:
+            raise AssertionError(f"join {qid}: warm answers {bad[:2]}")
+        warm.pop("median_s")
+        phases = [dict(r.stats["phaseTimesMs"], build=r.stats["joinBuildMs"],
+                       probe=r.stats["joinProbeMs"]) for r in results]
+        # a partitioned exchange whose every probe bucket is hot (skew 100%)
+        # salts every probe row and copies the whole build side to each
+        # partition: it ran the partitioned code, but no row moved by its hash
+        replicated = strategy == "partitioned" and stats.get("joinSkewPct", 0) >= 100
+        fields = dict(query=qid, lineorder_rows=rows, answer=result.rows,
+                      join_strategy=strategy, regime=regime, launches=launches,
+                      exchange=("partitioned, build replicated (every bucket hot)"
+                                if replicated else strategy),
+                      joined_rows=stats["numDocsScanned"],
+                      join_skew_pct=stats.get("joinSkewPct"),
+                      join_shuffle_bytes=stats.get("joinShuffleBytes"),
+                      cold_s=cold_s, cold_build_ms=stats["joinBuildMs"],
+                      cold_probe_ms=stats["joinProbeMs"], **warm,
+                      # build and probe: joinBuildMs and joinProbeMs, host wall
+                      # summed over the partitions (inside `join`)
+                      phase_median_ms={k: statistics.median(p[k] for p in phases)
+                                       for k in phases[0]})
+        if args.trace:
+            fields["trace"] = trace_query(run, runs=JOIN_WARM_RUNS)
+        log("join_query", **fields)
+    # "partitioned" is the exchange that ran; whether its hash split rows is
+    # the `exchange` field of each join_query line
+    if not {"scatter", "sort", "broadcast", "partitioned"} <= seen:
+        raise AssertionError(f"the join queries covered only {sorted(seen)}")
+    join_cases(args.seed)
+    return scan_launches
+
+
+def _zipf_keys(rng, n: int, card: int, s) -> np.ndarray:
+    """bench.py's `_zipf_probe`: keys in [0, card), uniform when `s` is None,
+    else drawn from a zipf(s) rank distribution."""
+    if s is None:
+        return rng.integers(0, card, n).astype(np.int64)
+    p = np.arange(1, card + 1, dtype=np.float64) ** (-float(s))
+    p /= p.sum()
+    return rng.choice(card, size=n, p=p).astype(np.int64)
+
+
+def join_cases(seed: int) -> None:
+    """The four device programs alone at bench.py's join shapes, on the card:
+    each output against numpy (exactly), each timed with L2 flushed against
+    the bound of the bytes it must move (inputs read once, outputs written
+    once) and of its compares at the f32 rate, and profiled: the device busy
+    ms and ops of one call."""
+    from pinot_tpu_torch.engine import join_kernels as jk
+    from pinot_tpu_torch.multistage.runtime import stable_hash_codes
+
+    rng = np.random.default_rng([seed, 17])
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dev = torch.device("cuda")
+    shapes = [(card, None) for card in JOIN_BUILD_KEYS] + [(JOIN_ZIPF_KEYS, JOIN_ZIPF_S)]
+    for card, zipf in shapes:
+        m, n = card, JOIN_PROBE_ROWS
+        lk = _zipf_keys(rng, n, card, zipf)
+        bcodes = jk.fold_codes32(stable_hash_codes({"k": np.arange(card)}, ["k"]))
+        pcodes = jk.fold_codes32(stable_hash_codes({"k": lk}, ["k"]))
+        shape = dict(build_keys=m, probe_rows=n, probe="zipf-1.5" if zipf else "uniform")
+
+        # sort-merge: numpy's stable order of the same order-preserving int32 codes
+        b_dev, p_dev = jk.device_codes(bcodes, dev), jk.device_codes(pcodes, dev)
+        srt, order = jk.sort_build_program(b_dev)
+        lo, cnt, hist = jk.sorted_probe_program(srt, p_dev)
+        b_np = bcodes.astype(np.int64)
+        want_order = np.argsort(b_np, kind="stable")
+        s_np = b_np[want_order]
+        p_np = pcodes.astype(np.int64)
+        want_lo = np.searchsorted(s_np, p_np, "left")
+        want_cnt = np.searchsorted(s_np, p_np, "right") - want_lo
+        want_hist = np.bincount(p_np & 255, minlength=256)
+        checks = {"order": (order, want_order), "lo": (lo, want_lo), "cnt": (cnt, want_cnt),
+                  "hist": (hist, want_hist)}
+        skew = {"sort": jk.skew_pct_from_hist(hist.cpu().numpy())}
+        cases = [("sort_build", lambda: jk.sort_build_program(b_dev),
+                  *roofline(m * (4 + 4 + 8), m * max(1.0, math.log2(m)))),
+                 ("sorted_probe", lambda: jk.sorted_probe_program(srt, p_dev),
+                  *roofline(n * (4 + 8 + 8) + m * 4 + 256 * 8, 2 * n * math.log2(m) + n))]
+
+        if card <= jk.SCATTER_TABLE_CAP:
+            bslots = np.arange(card, dtype=np.int32)
+            pslots = lk.astype(np.int32)
+            bs_dev = torch.from_numpy(bslots).to(dev)
+            ps_dev = torch.from_numpy(pslots).to(dev)
+            table, max_count = jk.scatter_build_program(bs_dev, card)
+            cand, shist = jk.scatter_probe_program(table, ps_dev)
+            want_table = np.full(card, -1, dtype=np.int64)
+            want_table[bslots] = np.arange(card)
+            checks.update({"max_count": (max_count.reshape(1), np.ones(1)),
+                           "table": (table, want_table), "cand": (cand, want_table[pslots]),
+                           "scatter_hist": (shist, np.bincount(pslots & 255, minlength=256))})
+            skew["scatter"] = jk.skew_pct_from_hist(shist.cpu().numpy())
+            cases += [("scatter_build", lambda: jk.scatter_build_program(bs_dev, card),
+                       *roofline(m * 4 + card * 4 + 4, 2 * m)),
+                      ("scatter_probe", lambda: jk.scatter_probe_program(table, ps_dev),
+                       *roofline(n * 4 + card * 4 + n * 4 + 256 * 8, 4 * n))]
+        torch.cuda.synchronize()
+        for name, (got, want) in checks.items():
+            got = got.cpu().numpy().astype(np.int64)
+            if not np.array_equal(got, want.astype(np.int64)):
+                raise AssertionError(f"join_case {shape}: {name} differs from numpy at "
+                                     f"{np.flatnonzero(got != want)[:5]}")
+        if zipf and not all(v > 0 for v in skew.values()):
+            raise AssertionError(f"join_case {shape}: joinSkewPct {skew} on the zipf probe")
+        for program, fn, bound_ms, bound_by in cases:
+            ms = time_ms(fn, flush)
+            ops, _ = _profiled(fn, PROFILED_CALLS)
+            log("join_case", program=program, **shape, ms=ms,
+                device_busy_ms=sum(b - a for _, a, b in ops) / 1e3 / PROFILED_CALLS,
+                device_ops_per_call=len(ops) / PROFILED_CALLS, bound_ms=bound_ms,
+                bound_by=bound_by, pct_of_bound=100.0 * bound_ms / ms,
+                skew_pct=skew["scatter" if program.startswith("scatter") else "sort"],
+                outputs_equal_numpy=sorted(checks))
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -878,6 +1163,12 @@ def main() -> int:
         return 2
     from pinot_tpu_torch.engine import cuda_lib
 
+    started = time.perf_counter()
+    seconds = {}
+
+    def lap(phase: str, t0: float) -> None:
+        seconds[phase] = time.perf_counter() - t0
+
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -890,17 +1181,29 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0, ptxas=kernel_usage(build_log))
 
     # phase 3: kernels against their plain versions, at the shapes of phases 4 and 5
+    t0 = time.perf_counter()
     kstats = check_kernels(segment_rows(args.rows, SEGMENTS),
                            segment_rows(min(FOR_ROWS, args.rows), FOR_SEGMENTS),
                            stacked_rows(args.rows, SEGMENTS), args.seed)
+    lap("kernels", t0)
 
-    # phase 4: the path; phase 5: the set executor and the pipeline over its table
+    # phase 4: the path; phase 5: the set executor and the pipeline over its
+    # table; phase 6: selections; phase 7: joins
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
     try:
+        t0 = time.perf_counter()
         path_launches, table, cols = run_path(args, work)
+        lap("path", t0)
+        t0 = time.perf_counter()
         serve_launches = run_serve(args, table, cols)
+        lap("serve", t0)
+        t0 = time.perf_counter()
         run_select(args, table, cols)
+        lap("select", t0)
+        t0 = time.perf_counter()
+        join_launches = run_join(args, table, cols, work)
+        lap("join", t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -913,15 +1216,18 @@ def main() -> int:
         s = kstats[name]
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1],
-                        "launches": path_launches[name] + serve_launches[name],
+                        "launches": (path_launches[name] + serve_launches[name]
+                                     + join_launches[name]),
                         "launches_by_path": {"per_segment": path_launches[name],
-                                             "serve": serve_launches[name]},
+                                             "serve": serve_launches[name],
+                                             "join": join_launches[name]},
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
                         "kernel_ms": s["kernel_ms"],
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
                         "shape_case": s["case"], "cases": s["cases"]})
+    log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,6 +8,7 @@ segment directories as `pinot_tpu`.
     from pinot_tpu_torch import execute_query, load_segment
     result = execute_query(segments, "SELECT COUNT(*) FROM t WHERE x < 5")
 
+Joins and IN-subqueries run through `pinot_tpu_torch.multistage.execute_multistage`.
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
 

@@ -1,0 +1,113 @@
+"""Per-query execution statistics: the keys the multistage join path records.
+
+A subset of `pinot_tpu/query/stats.py`: the typed record (`ExecutionStats`),
+the thread-local "current record" slot (`collect_stats`, `current_stats`) and
+the accounting hooks `record` and `record_max`, with the join keys and
+`scanRowsAvoided`. Accounting sites record into whatever record is active on
+their thread, and do nothing when none is; a worker thread serving one query
+re-installs that query's record with `collect_stats(st)`.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional
+
+# docs never scanned because their segment was pruned (here: by the join's
+# build-key derived filter)
+SCAN_ROWS_AVOIDED = "scanRowsAvoided"
+# device hash join: wall time in the build-side sort / scatter programs and
+# the probe programs (summed across join partitions), bytes exchanged between
+# join stages, probe segments skipped by the build-key derived filter, and
+# joins the admission gate priced off the device (served by the host join)
+JOIN_BUILD_MS = "joinBuildMs"
+JOIN_PROBE_MS = "joinProbeMs"
+JOIN_SHUFFLE_BYTES = "joinShuffleBytes"
+NUM_SEGMENTS_PRUNED_BY_JOIN_KEY = "numSegmentsPrunedByJoinKey"
+JOIN_SERVED_HOST_TIER = "joinServedHostTier"
+# worst probe-key skew any join partition saw (hot-bucket excess percentage
+# of the probe-hash histogram); max-merged
+JOIN_SKEW_PCT = "joinSkewPct"
+
+# keys that merge by MAXIMUM: a skew percentage summed over partitions means
+# nothing; the worst partition bounds the stage
+MAX_KEYS = (JOIN_SKEW_PCT,)
+
+
+class ExecutionStats:
+    """One query's execution accounting: a flat dict of summable counters."""
+
+    __slots__ = ("counters", "_lock")
+
+    def __init__(self):
+        self.counters: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def add(self, key: str, n: float = 1) -> None:
+        with self._lock:
+            self.counters[key] = self.counters.get(key, 0) + n
+
+    def set_max(self, key: str, v: float) -> None:
+        """Keep the maximum seen for a max-merged key (no-op when `v` loses)."""
+        with self._lock:
+            cur = self.counters.get(key)
+            self.counters[key] = v if cur is None else max(cur, v)
+
+    def merge(self, other: "ExecutionStats") -> None:
+        """Fold another record into this one: every key sums, except
+        MAX_KEYS, which keep the maximum of the sides that carry the key."""
+        with other._lock:
+            src = dict(other.counters)
+        with self._lock:
+            for k, v in src.items():
+                if k in MAX_KEYS:
+                    cur = self.counters.get(k)
+                    self.counters[k] = v if cur is None else max(cur, v)
+                else:
+                    self.counters[k] = self.counters.get(k, 0) + v
+
+    def to_public_dict(self) -> Dict[str, object]:
+        """Export of the counters recorded (unlike the JAX package's, no key
+        is zero-filled, so an absent key means the path never ran): ints for
+        counts, floats rounded to 3 decimals for `*Ms` and `*Pct`."""
+        with self._lock:
+            return {k: round(float(v), 3) if k.endswith(("Ms", "Pct")) else int(v)
+                    for k, v in self.counters.items()}
+
+
+# -- thread-local current record ---------------------------------------------------
+
+_local = threading.local()
+
+
+def current_stats() -> Optional[ExecutionStats]:
+    return getattr(_local, "stats", None)
+
+
+def record(key: str, n: float = 1) -> None:
+    """Add to the active record, if any."""
+    st = getattr(_local, "stats", None)
+    if st is not None:
+        st.add(key, n)
+
+
+def record_max(key: str, v: float) -> None:
+    """Keep the largest value seen by the active record, if any."""
+    st = getattr(_local, "stats", None)
+    if st is not None:
+        st.set_max(key, v)
+
+
+@contextmanager
+def collect_stats(st: Optional[ExecutionStats] = None) -> Iterator[ExecutionStats]:
+    """Install a record (a fresh one by default) as this thread's active
+    stats for the scope; a worker thread passes its query's record."""
+    st = st if st is not None else ExecutionStats()
+    prev = getattr(_local, "stats", None)
+    _local.stats = st
+    try:
+        yield st
+    finally:
+        _local.stats = prev
+

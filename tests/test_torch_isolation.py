@@ -3,7 +3,8 @@
 * A fresh interpreter imports pinot_tpu_torch, builds a table and answers a
   query on the CPU without `jax` or `pinot_tpu` ever entering sys.modules.
 * No module of the package, nor chip_smoke.py, imports either (AST scan).
-* Without CUDA the default-device entry points raise RuntimeError.
+* Without CUDA the default-device entry points (the join path's too) raise
+  RuntimeError.
 * Unported shapes raise NotImplementedError instead of taking another path.
 """
 
@@ -48,6 +49,13 @@ def test_subprocess_import_and_query_never_loads_jax(tmp_path):
         print(execute_query(segs, "SELECT lo_custkey, lo_revenue FROM lineorder "
                             "WHERE lo_quantity >= 10 ORDER BY lo_revenue DESC LIMIT 7",
                             device="cpu").rows)
+        from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
+        from pinot_tpu_torch.ssb import JOIN_QUERIES, make_supplier, supplier_schema
+        sup = segments_from_columns(supplier_schema(), make_supplier(), {str(tmp_path)!r}, 1)
+        scan = make_segment_scan({{"lineorder": segs, "supplier": sup}}, device="cpu")
+        schemas = {{"lineorder": ssb_schema(), "supplier": supplier_schema()}}
+        result = execute_multistage(JOIN_QUERIES["join_supplier"], scan, schemas.get)
+        print(result.rows, result.stats["joinStrategy"], "joinBuildMs" in result.stats)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
         print("BAD", bad)
@@ -56,6 +64,7 @@ def test_subprocess_import_and_query_never_loads_jax(tmp_path):
                          timeout=300, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert out.stdout.splitlines()[-2].endswith("broadcast True"), out.stdout  # the join ran
 
 
 def _imports(path):
@@ -87,7 +96,10 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
     rel = {os.path.relpath(f, REPO) for f in _package_files()}
     for module in ("parallel/__init__.py", "parallel/combine.py",
                    "cluster/__init__.py", "cluster/device_server.py",
-                   "query/dense_reduce.py", "query/executor.py", "engine/kernels.py"):
+                   "query/dense_reduce.py", "query/executor.py", "engine/kernels.py",
+                   "multistage/__init__.py", "multistage/planner.py",
+                   "multistage/runtime.py", "engine/join_kernels.py", "query/stats.py",
+                   "cluster/tiering.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 
@@ -144,6 +156,25 @@ def test_default_device_without_cuda_raises(segs, monkeypatch):
         ServerQueryExecutor(device="cuda")
     # the CPU only when asked for
     assert ServerQueryExecutor(device="cpu").device.type == "cpu"
+
+
+def test_join_entry_points_without_cuda_raise(segs, monkeypatch):
+    from pinot_tpu_torch.multistage import execute_multistage, hash_join, make_segment_scan
+    from pinot_tpu_torch.multistage.planner import JoinSpec
+    from pinot_tpu_torch.ssb import JOIN_QUERIES, supplier_schema
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tables = {"lineorder": segs, "supplier": []}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_segment_scan(tables)
+    schemas = {"lineorder": ssb_schema(), "supplier": supplier_schema()}.get
+    block = {"k": np.arange(4)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hash_join(block, block, JoinSpec("r", "inner", ["k"], ["k"]))
+    # the CPU only when asked for; execute_multistage joins on its scan's device
+    scan = make_segment_scan(tables, device="cpu")
+    assert scan.device.type == "cpu"
+    assert execute_multistage(JOIN_QUERIES["join_supplier"], scan, schemas).rows == []
 
 
 @pytest.mark.parametrize("sql", [

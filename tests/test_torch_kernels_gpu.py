@@ -438,3 +438,141 @@ def test_cuda_selection_ties_match_the_cpu_on_every_path(cuda, tmp_path):
         assert rows == want
         assert (s["topkLaunches"], s["topkExact"]) == (1, 0)
         assert kernels.topk_launches() == 2 * len(segs) + 1
+
+
+# -- the multistage join's device programs (plain torch on the card) ----------------
+
+def _numpy_sort_merge(build, probe):
+    order = np.argsort(build.astype(np.int64), kind="stable")
+    s = build.astype(np.int64)[order]
+    p = probe.astype(np.int64)
+    lo = np.searchsorted(s, p, "left")
+    return order, lo, np.searchsorted(s, p, "right") - lo, np.bincount(p & 255, minlength=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", [(1000, 1 << 20), (100_003, 4099), (1, 7)])
+def test_cuda_join_sort_programs_match_numpy(cuda, m, n):
+    """The sort build and the sorted probe on the card against numpy's stable
+    argsort and searchsorted over the uint32 codes, with duplicate codes and
+    real codes of 0xFFFFFFFF, 0x80000000 and 0x7FFFFFFF (the sign flip's
+    edges), which must order as uint32 do."""
+    from pinot_tpu_torch.engine import join_kernels as jk
+
+    rng = np.random.default_rng(m)
+    build = rng.integers(0, 1 << 32, m, dtype=np.uint64).astype(np.uint32)
+    build[::5] = build[0]
+    edges = np.array([0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0], dtype=np.uint32)
+    build[1::7] = edges[np.arange(len(build[1::7])) % 4]
+    probe = np.concatenate([build[rng.integers(0, m, n // 2)], edges,
+                            rng.integers(0, 1 << 32, n - n // 2, dtype=np.uint64)
+                            .astype(np.uint32)])
+    srt, order = jk.sort_build_program(jk.device_codes(build, cuda))
+    lo, cnt, hist = jk.sorted_probe_program(srt, jk.device_codes(probe, cuda))
+    torch.cuda.synchronize()
+    for got, want in zip((order, lo, cnt, hist), _numpy_sort_merge(build, probe)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    # the host function on the card equals it on the CPU
+    on_card = jk.sort_merge_probe(build, probe, device=cuda)
+    on_cpu = jk.sort_merge_probe(build, probe, device="cpu")
+    for got, want in zip(on_card[:3], on_cpu[:3]):
+        np.testing.assert_array_equal(got, want)
+    assert on_card[3] == on_cpu[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [1000, 100_000, 1 << 20])
+def test_cuda_join_scatter_programs_match_numpy(cuda, size):
+    """The scatter build and probe on the card: the table of unique slots,
+    out-of-range build rows dropped, max occupancy, candidates and the
+    histogram against numpy; a duplicate slot makes `scatter_probe` decline."""
+    from pinot_tpu_torch.engine import join_kernels as jk
+
+    rng = np.random.default_rng(size)
+    m = size // 2
+    build = rng.permutation(size)[:m].astype(np.int32)
+    build[:7] = size                              # null rows
+    probe = rng.integers(-5, size + 5, 1 << 20).astype(np.int32)
+    table, max_count = jk.scatter_build_program(torch.from_numpy(build).to(cuda), size)
+    cand, hist = jk.scatter_probe_program(table, torch.from_numpy(probe).to(cuda))
+    torch.cuda.synchronize()
+    want = np.full(size, -1, dtype=np.int64)
+    live = build < size
+    want[build[live]] = np.flatnonzero(live)
+    np.testing.assert_array_equal(table.cpu().numpy(), want)
+    assert int(max_count) == 1
+    ok = (probe >= 0) & (probe < size)
+    np.testing.assert_array_equal(cand.cpu().numpy(),
+                                  np.where(ok, want[np.where(ok, probe, 0)], -1))
+    np.testing.assert_array_equal(hist.cpu().numpy(),
+                                  np.bincount(probe[ok] & 255, minlength=256))
+    build[8] = build[9]
+    assert jk.scatter_probe(build, probe, size, device=cuda) is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi", "anti"])
+def test_cuda_hash_join_matches_the_cpu(cuda, how):
+    """`hash_join` with the device route forced: the card's rows equal the
+    CPU's, in order, in both regimes (unique integer keys scatter, duplicate
+    and string keys sort)."""
+    from pinot_tpu_torch.engine import join_kernels as jk
+    from pinot_tpu_torch.multistage import configure_device_join, hash_join
+    from pinot_tpu_torch.multistage.planner import JoinSpec
+    from pinot_tpu_torch.multistage.runtime import _DEVICE_JOIN
+
+    rng = np.random.default_rng(7)
+    univ = np.array([f"k{i}" for i in range(300)], dtype=object)
+    cases = {
+        "scatter": ({"lk": rng.integers(0, 5000, 40_000).astype(np.int64)},
+                    {"rk": rng.permutation(6000)[:4000].astype(np.int32),
+                     "w": rng.uniform(0, 1, 4000)}),
+        "sort": ({"lk": rng.integers(0, 500, 40_000).astype(np.float64)},
+                 {"rk": rng.integers(0, 500, 3000).astype(np.int64),
+                  "w": rng.uniform(0, 1, 3000)}),
+        "sort_str": ({"lk": univ[rng.integers(0, 300, 20_000)]},
+                     {"rk": univ[rng.integers(0, 300, 700)], "w": rng.uniform(0, 1, 700)}),
+    }
+    saved = dict(_DEVICE_JOIN)
+    configure_device_join(min_rows=0)
+    try:
+        spec = JoinSpec("r", how, ["lk"], ["rk"])
+        for name, (left, right) in cases.items():
+            jk.reset_launch_counts()
+            got = hash_join(left, right, spec, device=cuda)
+            regime = "scatter" if name == "scatter" else "sort"
+            assert jk.launch_counts()[f"{regime}_build"] >= 1
+            want = hash_join(left, right, spec, device="cpu")
+            assert list(got) == list(want)
+            for c in want:
+                np.testing.assert_array_equal(got[c], want[c])
+    finally:
+        configure_device_join(**saved)
+
+
+@pytest.mark.gpu
+def test_cuda_join_queries_match_the_cpu(cuda, tmp_path):
+    """The chip smoke's four join queries over a small lineorder: the card's
+    rows equal the CPU's and the numpy oracle, through execute_multistage."""
+    import math
+
+    from pinot_tpu_torch import segments_from_columns, ssb
+    from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
+
+    lo = ssb.make_columns(400_000, 11)
+    dims = {"supplier": (ssb.supplier_schema(), ssb.make_supplier(seed=11)),
+            "customer": (ssb.customer_schema(), ssb.make_customer(seed=11)),
+            "region": (ssb.region_schema(), ssb.make_region())}
+    tables = {"lineorder": segments_from_columns(ssb.ssb_schema(), lo,
+                                                 str(tmp_path / "lo"), 3)}
+    schemas = {"lineorder": ssb.ssb_schema()}
+    for name, (schema, cols) in dims.items():
+        tables[name] = segments_from_columns(schema, cols, str(tmp_path / name), 1)
+        schemas[name] = schema
+    for qid, sql in ssb.JOIN_QUERIES.items():
+        got = execute_multistage(sql, make_segment_scan(tables), schemas.get)
+        want = execute_multistage(sql, make_segment_scan(tables, device="cpu"), schemas.get)
+        assert len(got.rows) == len(want.rows), qid
+        for rg, rw in zip(got.rows, want.rows):
+            assert all(x == y or math.isclose(x, y, rel_tol=1e-9) for x, y in zip(rg, rw)), qid
+        assert "joinBuildMs" in got.stats and "joinServedHostTier" not in got.stats, qid
