@@ -66,12 +66,34 @@ exits non-zero:
    shape: the four device programs alone at bench.py's join shapes (a
    1,048,576-row probe against 1,000, 100,000 and 2,000,000 unique build keys,
    and a zipf-1.5 probe at 100,000), each output equal to numpy's, timed with
-   L2 flushed against the bound of the bytes it moves.
+   L2 flushed against the bound of the bytes it moves. A partitioned exchange
+   that finds every bucket hot (skew 100%) fails the phase;
+8. realtime — one committed segment's worth of new lineorder rows (the
+   table's rows / 8, from --seed + 1) produced as PCB1 blocks of 16,384 rows
+   into a `MemoryStream`, and pumped, 16 blocks a step, into a consuming
+   segment that stages its chunks on the card and flushes at that size.
+   After every step, Q1.1, the GROUP BY and two `lo_region = 'ASIA'` sums
+   (a raw f32 row through `masked_sums`, a raw integer column in FOR form
+   through `masked_sums_fused`) run over the consuming view through
+   `execute_query`, and Q1.1, the GROUP BY and the f32 sum over the table
+   plus the view through the set executor (the merged-dictionary view). Every
+   answer is held against numpy over exactly the rows the pump acknowledged
+   (rel 1e-5, abs 0.05; counts exactly), each query's launches against its
+   route; a `realtime_step` line gives the pump's ms and rows/s, the staging
+   ms, the view's attach ms, each query's cold ms and warm median (5 runs)
+   with phases (the mixed set's first query after growth pays the merged
+   view in `compile` and the restack in `prepare`), the staged device bytes
+   and the launches. Then the segment is committed (`build_immutable`),
+   loaded, and queried as the ninth segment (`realtime_commit`), and a
+   `realtime_case` line per kernel runs the view's scan against its plain
+   version (`ms` with L2 flushed against its bound). Under --trace, the
+   last step's f32 sum is traced over the view and over the mixed set.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path;
 the join phase launches neither scan kernel: its leaf filters are the plain
-mask and its device programs are torch code), the nvidia-smi line, and as its last line
+mask and its device programs are torch code; the realtime phase must launch
+both), the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
 """
@@ -124,6 +146,15 @@ SELECT_QUERIES = [
      "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None),
 ]
 JOIN_WARM_RUNS = 3
+REALTIME_BLOCK_ROWS = 16_384   # bench.py's _ingest_topic_blocks block
+REALTIME_STEP_BLOCKS = 16      # blocks one pump step takes: 262,144 rows
+REALTIME_WARM_RUNS = 5
+REALTIME_F32_QUERY = ("SELECT SUM(lo_revenue), COUNT(*) FROM lineorder "
+                      "WHERE lo_region = 'ASIA'")
+REALTIME_CUSTKEY_QUERY = ("SELECT SUM(lo_revenue), COUNT(*) FROM lineorder "
+                          "WHERE lo_custkey < 250000")
+REALTIME_FOR_QUERY = ("SELECT SUM(lo_quantity), COUNT(*) FROM lineorder "
+                      "WHERE lo_region = 'ASIA'")
 # query: (device regime, exchange) each must run in
 JOIN_EXPECT = {"join_supplier": ("scatter", "broadcast"),
                "join_customer": ("scatter", "partitioned"),
@@ -592,7 +623,7 @@ def run_serve(args, table, cols) -> dict:
         if args.trace and name == "q1_1":
             fields["trace"] = trace_query(lambda: mx.execute(table, sql))
         log("serve_query", **fields)
-    block = next(iter(mx._set_blocks.values()))
+    _, block = next(iter(mx._set_blocks.values()))
     log("serve_block", s_pad=block.s_pad, rows_per_slot=block.rows,
         pad_waste_pct=block.pad_waste_pct, stacked_columns=sorted(map(list, block._cache)))
 
@@ -1009,12 +1040,13 @@ def run_join(args, table, cols, work) -> dict:
                        probe=r.stats["joinProbeMs"]) for r in results]
         # a partitioned exchange whose every probe bucket is hot (skew 100%)
         # salts every probe row and copies the whole build side to each
-        # partition: it ran the partitioned code, but no row moved by its hash
-        replicated = strategy == "partitioned" and stats.get("joinSkewPct", 0) >= 100
+        # partition: no row would move by its hash
+        if strategy == "partitioned" and stats.get("joinSkewPct", 0) >= 100:
+            raise AssertionError(f"join {qid}: the partitioned exchange found every "
+                                 f"bucket hot (joinSkewPct {stats['joinSkewPct']})")
         fields = dict(query=qid, lineorder_rows=rows, answer=result.rows,
                       join_strategy=strategy, regime=regime, launches=launches,
-                      exchange=("partitioned, build replicated (every bucket hot)"
-                                if replicated else strategy),
+                      exchange=strategy,
                       joined_rows=stats["numDocsScanned"],
                       join_skew_pct=stats.get("joinSkewPct"),
                       join_shuffle_bytes=stats.get("joinShuffleBytes"),
@@ -1027,8 +1059,6 @@ def run_join(args, table, cols, work) -> dict:
         if args.trace:
             fields["trace"] = trace_query(run, runs=JOIN_WARM_RUNS)
         log("join_query", **fields)
-    # "partitioned" is the exchange that ran; whether its hash split rows is
-    # the `exchange` field of each join_query line
     if not {"scatter", "sort", "broadcast", "partitioned"} <= seen:
         raise AssertionError(f"the join queries covered only {sorted(seen)}")
     join_cases(args.seed)
@@ -1120,6 +1150,255 @@ def join_cases(seed: int) -> None:
                 outputs_equal_numpy=sorted(checks))
 
 
+# -- phase 8: realtime ---------------------------------------------------------------
+
+def oracle_region_sum(c, col: str, region: str = "ASIA"):
+    m = c["lo_region"] == region
+    return [[float(c[col][m].astype(np.float64).sum()), int(m.sum())]]
+
+
+def oracle_custkey(c):
+    m = c["lo_custkey"] < 250000
+    return [[float(c["lo_revenue"][m].sum()), int(m.sum())]]
+
+
+def add_rows(a, b):
+    """One query's oracle answers over two disjoint row sets, added: grouped
+    rows (a string key, then sums and counts) key by key, scalar rows cell by
+    cell."""
+    if any(isinstance(r[0], str) for r in a + b):
+        groups = {}
+        for r in a + b:
+            g = groups.setdefault(r[0], [r[0]] + [0] * (len(r) - 1))
+            for j in range(1, len(r)):
+                g[j] += r[j]
+        return [groups[k] for k in sorted(groups)][:10]
+    return [[x + y for x, y in zip(ra, rb)] for ra, rb in zip(a, b)]
+
+
+def realtime_queries():
+    """(id, sql, numpy oracle, kernel launches of one run over a view, over
+    the mixed set). On the consuming view lo_orderdate, lo_discount and
+    lo_quantity are raw, so Q1.1 and the GROUP BY compare values and run the
+    plain body; the two `lo_region = 'ASIA'` sums take the scans: a raw f32
+    row through `masked_sums`, a raw integer column in FOR form through
+    `masked_sums_fused`. Over the mixed set every member is decoded on the
+    host, so the f32 sum is one `masked_sums` launch in global-id space and
+    the FOR sum is not run there."""
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
+    none = {"masked_sums": 0, "masked_sums_fused": 0}
+    return [
+        ("q1_1", QUERY, oracle_q11, none, none),
+        ("group_by", GROUP_QUERY, oracle_group, none, none),
+        ("scan_f32", REALTIME_F32_QUERY, lambda c: oracle_region_sum(c, "lo_revenue"),
+         {"masked_sums": 1, "masked_sums_fused": 0}, {"masked_sums": 1, "masked_sums_fused": 0}),
+        ("scan_for", REALTIME_FOR_QUERY, lambda c: oracle_region_sum(c, "lo_quantity"),
+         {"masked_sums": 0, "masked_sums_fused": 1}, None),
+    ]
+
+
+def run_realtime(args, table, cols, work) -> tuple:
+    """A consuming segment fed from a PCB1 block stream, queried after every
+    pump step on the card, alone and beside the table; then committed and
+    queried as the ninth immutable segment. Returns the kernels' launches in
+    the checked runs and each kernel's `realtime_case` numbers."""
+    from pinot_tpu_torch import execute_query, load_segment
+    from pinot_tpu_torch.engine import datablock, scan
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.parallel import MeshQueryExecutor, aligned_dictionaries
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.ssb import QUERY, make_columns, ssb_schema
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+
+    n_rt = segment_rows(args.rows, SEGMENTS)   # one committed segment of the table
+    schema = ssb_schema()
+    t0 = time.perf_counter()
+    rt = make_columns(n_rt, args.seed + 1)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = [encode_columnar_block(schema, {c: v[lo:lo + REALTIME_BLOCK_ROWS]
+                                             for c, v in rt.items()})
+              for lo in range(0, n_rt, REALTIME_BLOCK_ROWS)]
+    encode_s = time.perf_counter() - t0
+    MemoryStream.reset_all()
+    stream = MemoryStream.create("lineorder_rt", 1)
+    for blob in blocks:
+        stream.produce(blob, partition=0)
+    cfg = TableConfig("lineorder", stream=StreamConfig(
+        topic="lineorder_rt", decoder="columnar",
+        properties={"realtime.ingest.device.staging": "true"}, flush_threshold_rows=n_rt))
+    consumer = RealtimePartitionConsumer("lineorder__0__0__20261017T0000Z", cfg, schema, 0,
+                                         work)
+    store = consumer.mutable
+    staging_s = [0.0]
+    stage_chunk = store._stage_chunk
+
+    def timed_stage(*a):   # the staging copies, timed apart inside each pump
+        t = time.perf_counter()
+        stage_chunk(*a)
+        staging_s[0] += time.perf_counter() - t
+    store._stage_chunk = timed_stage
+    log("realtime_data", rows=n_rt, seed=args.seed + 1, blocks=len(blocks),
+        block_rows=REALTIME_BLOCK_ROWS, step_blocks=REALTIME_STEP_BLOCKS,
+        block_bytes=sum(len(b) for b in blocks), flush_threshold_rows=n_rt,
+        generate_s=gen_s, encode_s=encode_s)
+
+    queries = realtime_queries()
+    table_want = {qid: oracle(cols) for qid, _, oracle, _, mixed in queries if mixed}
+    mx = MeshQueryExecutor()
+    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+
+    def checked(label, run, want, want_launches):
+        """One cold run with the counts set to 0 just before and read just
+        after, held against the oracle; then REALTIME_WARM_RUNS warm runs."""
+        scan.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if counts != want_launches:
+            raise AssertionError(f"{label}: kernel launches {counts}, expected {want_launches}")
+        for k, v in counts.items():
+            launches[k] += v
+        if not rows_match(res.rows, want):
+            raise AssertionError(f"{label}: got {res.rows}, oracle {want}")
+        warm, results = warm_times(run, runs=REALTIME_WARM_RUNS)
+        bad = [r.rows for r in results if not rows_match(r.rows, want)]
+        if bad:
+            raise AssertionError(f"{label}: warm answers {bad[:2]}, oracle {want}")
+        warm.pop("median_s")
+        return dict(answer=res.rows, cold_ms=cold_ms, **warm, launches=counts,
+                    phase_ms=res.stats["phaseTimesMs"],
+                    warm_phase_median_ms={k: statistics.median(r.stats["phaseTimesMs"][k]
+                                                               for r in results)
+                                          for k in res.stats["phaseTimesMs"]})
+
+    acked, step = 0, 0
+    while not consumer.end_criteria_reached():
+        staging_s[0] = 0.0
+        t0 = time.perf_counter()
+        got = consumer.pump(max_messages=REALTIME_STEP_BLOCKS)
+        torch.cuda.synchronize()
+        pump_s = time.perf_counter() - t0
+        if got == 0:
+            raise AssertionError(f"the pump indexed nothing at {acked} of {n_rt} rows")
+        acked += got
+        part = {c: v[:acked] for c, v in rt.items()}
+        t0 = time.perf_counter()
+        view = consumer.query_segment()
+        torch.cuda.synchronize()
+        attach_ms = (time.perf_counter() - t0) * 1e3
+        if view.num_docs != acked or store.num_docs != acked:
+            raise AssertionError(f"the view holds {view.num_docs} rows, the store "
+                                 f"{store.num_docs}; the pump acknowledged {acked}")
+        fields = {"view": {}, "mixed": {}}
+        for qid, sql, oracle, on_view, on_mixed in queries:
+            want = oracle(part)
+            fields["view"][qid] = checked(f"realtime view {qid} at {acked} rows",
+                                          lambda sql=sql: execute_query([view], sql),
+                                          want, on_view)
+            if on_mixed is not None:
+                members = table + [view]
+                fields["mixed"][qid] = checked(
+                    f"realtime mixed {qid} at {acked} rows",
+                    lambda sql=sql: mx.execute(members, sql),
+                    add_rows(table_want[qid], want), on_mixed)
+        _, merged = mx._plan_for_set(compile_query(REALTIME_F32_QUERY, schema),
+                                     table + [view])
+        if merged is None:
+            raise AssertionError("the mixed set did not take the merged view")
+        if args.trace and consumer.end_criteria_reached():
+            fields["view"]["scan_f32"]["trace"] = trace_query(
+                lambda: execute_query([view], REALTIME_F32_QUERY))
+            fields["mixed"]["scan_f32"]["trace"] = trace_query(
+                lambda: mx.execute(table + [view], REALTIME_F32_QUERY))
+        staged = [t for chunks in store._dev_chunks.values() if chunks for t in chunks]
+        blk = view._device_blocks[datablock.device_key(store.device)]
+        log("realtime_step", step=step, rows=acked, pumped_rows=got, pump_ms=pump_s * 1e3,
+            rows_per_s=got / pump_s, staging_ms=staging_s[0] * 1e3, attach_ms=attach_ms,
+            staged_device_bytes=sum(t.numel() * t.element_size() for t in staged),
+            view_block_bytes=sum(t.numel() * t.element_size() for t in blk._raw.values()),
+            staged_columns=sorted(blk._raw), unstaged_columns=sorted(
+                c for c, chunks in store._dev_chunks.items() if chunks is None),
+            **fields)
+        step += 1
+
+    # commit: the consuming segment written and loaded as the ninth segment
+    t0 = time.perf_counter()
+    committed = load_segment(consumer.build_immutable())
+    build_s = time.perf_counter() - t0
+    nine = table + [committed]
+    # Q1.1's filtered columns hold every value in each segment, so their
+    # dictionaries agree and the nine stay aligned for it (one scan over the
+    # stacked set); lo_custkey's do not (its 500,000 keys are not all in one
+    # segment): that query takes the merged view, and its id band the scan
+    # where lo_custkey is dictionary-encoded in all nine (a compare on the
+    # decoded values, the plain body, where one of them holds it raw)
+    custkey_dicts = all(s.column("lo_custkey").has_dictionary for s in nine)
+    for qid, sql, oracle in (
+            ("q1_1", QUERY, oracle_q11),
+            ("custkey", REALTIME_CUSTKEY_QUERY, oracle_custkey)):
+        want = add_rows(oracle(cols), oracle(rt))
+        _, merged = mx._plan_for_set(compile_query(sql, schema), nine)
+        want_merged = qid == "custkey" and not aligned_dictionaries(nine, ["lo_custkey"])
+        if (merged is not None) != want_merged:
+            raise AssertionError(f"realtime committed {qid}: merged view {merged}, "
+                                 f"expected one: {want_merged}")
+        line = checked(f"realtime committed {qid}", lambda sql=sql: mx.execute(nine, sql),
+                       want, {"masked_sums": int(qid == "q1_1" or custkey_dicts),
+                              "masked_sums_fused": 0})
+        log("realtime_commit", query=qid, rows=committed.num_docs, build_s=build_s,
+            segments=len(nine), merged_view=merged is not None, oracle=want, **line)
+    cases = realtime_cases(view)
+    store.release_device()
+    return launches, cases
+
+
+def realtime_cases(view) -> dict:
+    """Each scan kernel over the consuming view's block at its full size,
+    against its plain version (sums at rel 1e-5, counts equal), timed with
+    L2 flushed, against the bound of the bytes it reads."""
+    from pinot_tpu_torch.engine import datablock, scan
+
+    block = datablock.block_for(view, torch.device("cuda"))
+    n = view.num_docs
+    asia = view.column("lo_region").dictionary.index_of("ASIA")
+    ids = [block.ids("lo_region")[:n]]
+    base, deltas = block.for_form("lo_quantity")
+    cases = {"masked_sums": (ids, [(asia, asia)], [block.raw("lo_revenue")[:n]]),
+             "masked_sums_fused": (ids, [(asia, asia)], [(float(base), deltas[:n])])}
+    fns = {"masked_sums": (scan.masked_sums, scan.masked_sums_plain),
+           "masked_sums_fused": (scan.masked_sums_fused, scan.masked_sums_fused_plain)}
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, args in cases.items():
+        kernel, plain = fns[name]
+        ks, kc = kernel(*args)
+        ps, pc = plain(*args)
+        torch.cuda.synchronize()
+        ks, ps = ks.double().cpu(), ps.double().cpu()
+        abs_err = float((ks - ps).abs().max())
+        rel_err = 0.0 if abs_err == 0.0 else float(((ks - ps).abs() / ps.abs()).max())
+        if int(kc) != int(pc) or rel_err > SUM_RTOL:
+            raise AssertionError(f"realtime_case {name}: kernel {ks.tolist()} count {int(kc)} "
+                                 f"vs plain {ps.tolist()} count {int(pc)}")
+        bms, by = bound(name, args)
+        numbers = dict(rows=n, count=int(kc), max_abs_err=abs_err, max_rel_err=rel_err,
+                       ms=graph_ms(lambda: kernel(*args), flush),
+                       plain_ms=graph_ms(lambda: plain(*args), flush),
+                       call_ms=time_ms(lambda: kernel(*args), flush),
+                       plain_call_ms=time_ms(lambda: plain(*args), flush),
+                       bound_ms=bms, bound_by=by, library_ms=None)
+        numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+        log("realtime_case", kernel=name, shape="consuming view, lo_region = 'ASIA'",
+            **numbers)
+        out[name] = numbers
+    return out
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -1188,7 +1467,7 @@ def main() -> int:
     lap("kernels", t0)
 
     # phase 4: the path; phase 5: the set executor and the pipeline over its
-    # table; phase 6: selections; phase 7: joins
+    # table; phase 6: selections; phase 7: joins; phase 8: realtime
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
     try:
@@ -1204,6 +1483,12 @@ def main() -> int:
         t0 = time.perf_counter()
         join_launches = run_join(args, table, cols, work)
         lap("join", t0)
+        t0 = time.perf_counter()
+        realtime_launches, realtime_numbers = run_realtime(args, table, cols, work)
+        lap("realtime", t0)
+        missing = [k for k, v in realtime_launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"the realtime path launched no {missing}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1217,16 +1502,18 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1],
                         "launches": (path_launches[name] + serve_launches[name]
-                                     + join_launches[name]),
+                                     + join_launches[name] + realtime_launches[name]),
                         "launches_by_path": {"per_segment": path_launches[name],
                                              "serve": serve_launches[name],
-                                             "join": join_launches[name]},
+                                             "join": join_launches[name],
+                                             "realtime": realtime_launches[name]},
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
                         "kernel_ms": s["kernel_ms"],
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
-                        "shape_case": s["case"], "cases": s["cases"]})
+                        "shape_case": s["case"],
+                        "cases": dict(s["cases"], realtime_view=realtime_numbers[name])})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
     print(smi, flush=True)

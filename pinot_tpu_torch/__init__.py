@@ -8,7 +8,9 @@ segment directories as `pinot_tpu`.
     from pinot_tpu_torch import execute_query, load_segment
     result = execute_query(segments, "SELECT COUNT(*) FROM t WHERE x < 5")
 
-Joins and IN-subqueries run through `pinot_tpu_torch.multistage.execute_multistage`.
+Joins and IN-subqueries run through `pinot_tpu_torch.multistage.execute_multistage`;
+realtime ingestion (a stream partition consumed into a consuming segment that
+stages its chunks on the card) through `pinot_tpu_torch.ingest`.
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
 

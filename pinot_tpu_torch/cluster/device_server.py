@@ -25,8 +25,11 @@ caching allocator keeps each output until the fetcher's copy is done.
 
 A selection that the stacked top-k does not take (no ORDER BY, an expression
 or a wide integer key) is answered by the per-segment executor when it is
-prepared, and a top-k whose candidates NaN or -inf keys displaced is answered
-by the exact path when it is decoded; `stats()["topkExact"]` counts both.
+prepared, and a top-k whose candidates NaN or -inf keys displaced, or whose
+DOUBLE keys tie in f32 at the candidates' cut, is answered by the exact path
+when it is decoded; `stats()["topkExact"]` counts both. A set that holds
+consuming views or segments committed apart is prepared on the set
+executor's merged-dictionary view.
 
 There is no fallback: a query shape the set executor does not run, a
 planning or launch error, or a caller's timeout resolves the caller's future

@@ -110,6 +110,16 @@ class SegmentBlock:
             self._raw[col] = self._put(padded)
         return self._raw[col]
 
+    def put_raw(self, col: str, tensor: torch.Tensor) -> None:
+        """Install a resident raw column, in the layout `raw` builds: padded
+        to the block's rows with zeros, narrowed to 32 bits, on its device."""
+        if tensor.shape != (self.padded,) or tensor.device.type != self.device.type \
+                or tensor.dtype not in (torch.int32, torch.float32):
+            raise ValueError(f"{col}: a raw column is {self.padded} int32 or float32 "
+                             f"rows on {self.device}, not {tuple(tensor.shape)} "
+                             f"{tensor.dtype} on {tensor.device}")
+        self._raw[col] = tensor
+
     def dict_values(self, col: str) -> torch.Tensor:
         """Decode table: dictionary values padded to `lut_size(card)` (invalid id -> 0)."""
         if col not in self._dict_vals:
@@ -147,10 +157,20 @@ class SegmentBlock:
         return self.dict_values(col)[self.ids(col)]
 
 
+def device_key(device) -> str:
+    """The key of a device's block in a segment's `_device_blocks`. A bare
+    "cuda" names the current card, so it and that card's "cuda:<n>" share one
+    key."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def block_for(segment: ImmutableSegment, device: torch.device) -> SegmentBlock:
     """The segment's cached block on `device`, created on first use."""
     blocks = segment.__dict__.setdefault("_device_blocks", {})
-    key = str(device)
+    key = device_key(device)
     if key not in blocks:
         blocks[key] = SegmentBlock(segment, device)
     return blocks[key]

@@ -835,9 +835,15 @@ def _partition_join_sides(left: Block, lcodes: np.ndarray, right: Block,
     probe rows are salted round-robin across partitions and the matching hot
     build rows replicated to every partition: a zipf key no longer pins the
     whole stage on one partition. Returns (probe_parts, build_parts,
-    skew_pct)."""
+    skew_pct).
+
+    Buckets and partitions come from the codes mixed by `fold_codes32`: a
+    numeric key's stable hash is its float64 bits, whose low bits are zero
+    for every integer below 2^45, so the raw codes' low bits would put every
+    integer key in bucket 0 and partition 0."""
     n = len(lcodes)
-    bucket = (lcodes & np.uint64(_SKEW_BUCKETS - 1)).astype(np.int64)
+    lmix, rmix = jk.fold_codes32(lcodes), jk.fold_codes32(rcodes)
+    bucket = (lmix & np.uint32(_SKEW_BUCKETS - 1)).astype(np.int64)
     hist = np.bincount(bucket, minlength=_SKEW_BUCKETS) if n else \
         np.zeros(_SKEW_BUCKETS, dtype=np.int64)
     skew_pct = 0.0
@@ -846,8 +852,8 @@ def _partition_join_sides(left: Block, lcodes: np.ndarray, right: Block,
         uniform = 1.0 / _SKEW_BUCKETS
         skew_pct = max(0.0, 100.0 * (top - uniform) / (1.0 - uniform))
 
-    lpid = (lcodes % np.uint64(p)).astype(np.int64)
-    rpid = (rcodes % np.uint64(p)).astype(np.int64)
+    lpid = (lmix % np.uint32(p)).astype(np.int64)
+    rpid = (rmix % np.uint32(p)).astype(np.int64)
     hot_buckets = np.zeros(_SKEW_BUCKETS, dtype=bool)
     if (p > 1 and n and how in _BUILD_REPLICABLE
             and skew_pct > JOIN_SKEW_HOT_BUCKET_PCT):
@@ -856,7 +862,7 @@ def _partition_join_sides(left: Block, lcodes: np.ndarray, right: Block,
         # salt: hot probe rows deal round-robin instead of hashing
         lpid[hot_l] = np.arange(len(hot_l)) % p
 
-    rbucket = (rcodes & np.uint64(_SKEW_BUCKETS - 1)).astype(np.int64)
+    rbucket = (rmix & np.uint32(_SKEW_BUCKETS - 1)).astype(np.int64)
     rhot = hot_buckets[rbucket]
     lparts, rparts = [], []
     for i in range(p):

@@ -1,4 +1,4 @@
-"""Stacked segment-set execution: one pass over a whole aligned segment set.
+"""Stacked segment-set execution: one pass over a whole segment set.
 
 Counterpart of `pinot_tpu/parallel/combine.py` on one card. The JAX package
 stacks a segment set into `[S_pad, rows]` arrays, shards them over a device
@@ -7,10 +7,14 @@ has one member, so the collectives have nothing to combine and disappear:
 
     stacked columns [S_pad, rows] --one pass over S_pad * rows rows--> partials
 
-A set qualifies when its dictionaries agree (`dictHash`) on every column whose
-ids the plan compares or groups by (`aligned_dictionaries`), as for segments
-built by `segment.writer.build_aligned_segments`; then one plan, made on the
-first segment, holds for every segment. The pass is
+A set whose dictionaries agree (`dictHash`) on every column whose ids the
+plan compares or groups by (`aligned_dictionaries`), as for segments built by
+`segment.writer.build_aligned_segments`, runs one plan made on the first
+segment. Any other set (segments committed apart, consuming views) is planned
+on a `merged.MergedSegmentView`: one global dictionary per column, each
+member's ids remapped to it on the host as the set block is stacked. The view
+and the block are cached by the members' identity with their row counts as
+the subkey, so a consuming member that grew replaces them. The pass is
 
 * the CUDA scan `scan.masked_sums` over the whole block, for a plan the
   per-segment `scan_route` accepts and that has at least one id band
@@ -26,17 +30,18 @@ to the host at once.
 
 Selections: `execute` and `execute_many` hand them to the per-segment
 `ServerQueryExecutor`, as the JAX package does. `prepare_partial` runs an
-`ORDER BY <column> LIMIT k` that passes `device_topk_screen` and whose key
-every segment can sort on the device as one fused filter + top-k
-(`kernels.topk`) over the whole stacked block; its decode gathers the
-candidates from the segments. Where NaN keys match, or NaN and -inf keys
-displaced candidates, the decode answers by the exact path over the same
+`ORDER BY <column> LIMIT k` that passes `device_topk_screen`, whose key
+every segment can sort on the device and whose filtered columns' dictionaries
+agree as one fused filter + top-k (`kernels.topk`) over the whole stacked
+block; its decode gathers the candidates from the segments. Where NaN keys
+match, NaN and -inf keys displaced candidates, or DOUBLE keys tie in f32 at
+the candidates' cut, the decode answers by the exact path over the same
 block (the device mask, every match gathered) and marks the partial
 `topk_exact`. Any other selection is the per-segment executor's partial.
 
-Not executed here, each raising NotImplementedError: sets whose dictionaries
-disagree (the JAX package's merged view), star-tree segments, mutable
-segments, and a scan over more than INT32_MAX rows. A group-by partial is a
+Not executed here, each raising NotImplementedError: star-tree segments,
+mutable segments (they need the host path), and a scan over more than
+INT32_MAX rows. A group-by partial is a
 state dict, not the JAX package's array-form `DensePartial`. A plan that
 needs no scan (metadata, pruned) is answered by the per-segment
 `ServerQueryExecutor`, as in the JAX package.
@@ -60,16 +65,18 @@ from ..query.aggregates import make_agg
 from ..query.context import QueryContext, compile_query
 from ..query.dense_reduce import try_dense_decode
 from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor, _as_rows,
-                              _band_leaf_indices, _plan_vals_cols, _sum_operands,
+                              _band_leaf_indices, _plan_vals_cols, _sum_operands, _take,
+                              f32_tie_at_the_cut, mutable_segment_reason,
                               require_device_mask, resolve_device, scan_route,
                               selection_rows)
 from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
-                             plan_segment, topk_order_key_device_ok)
+                             plan_segment, topk_key_exact_in_f32, topk_order_key_device_ok)
 from ..query.predicate import CmpLeaf, LutLeaf
 from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
 from ..query.result import ResultTable
 from ..segment.reader import ImmutableSegment
 from ..sql.ast import Identifier
+from .merged import MergedSegmentView, view_key
 
 MAX_SCAN_ROWS = scan.INT32_MAX   # rows one scan launch takes
 
@@ -142,20 +149,27 @@ class PreparedDispatch:
 
 
 class SegmentSetBlock:
-    """Stacked device columns of an aligned segment set: `[S_pad, rows]` tensors.
+    """Stacked device columns of a segment set: `[S_pad, rows]` tensors.
 
     Each column is stacked on the host in numpy and copied to the card once,
     on first use, then cached per (kind, column): repeated queries launch with
     no host-to-device copy. Segment i's rows lie in row i of the block, then
     fill: the out-of-dictionary id `cardinality` for ids, 0 for values, False
     for `valid`. On one card the JAX package's slot padding and placement
-    over devices have nothing to do: `S_pad` is the segment count."""
+    over devices have nothing to do: `S_pad` is the segment count.
 
-    def __init__(self, segments: Sequence[ImmutableSegment], device: torch.device):
+    With a `MergedSegmentView` (an unaligned set), ids are the view's global
+    ids, each member's remapped on the host as it is stacked, and every
+    member is sliced to the row count the view froze."""
+
+    def __init__(self, segments: Sequence[ImmutableSegment], device: torch.device,
+                 view: Optional[MergedSegmentView] = None):
         self.segments = list(segments)
         self.s_pad = len(self.segments)
         self.device = device
-        self.seg_docs = tuple(s.num_docs for s in self.segments)
+        self.view = view
+        self.seg_docs = view.seg_docs if view is not None \
+            else tuple(s.num_docs for s in self.segments)
         self.rows = max(padded_rows(n) for n in self.seg_docs)
         cells = self.s_pad * self.rows
         self.pad_waste_pct = (1.0 - sum(self.seg_docs) / cells) * 100.0
@@ -166,7 +180,8 @@ class SegmentSetBlock:
         key = (kind, col)
         with self._lock:
             if key not in self._cache:
-                parts = [np.asarray(per_seg(s)) for s in self.segments]
+                parts = [np.asarray(per_seg(i, s))[:n]
+                         for i, (s, n) in enumerate(zip(self.segments, self.seg_docs))]
                 out = np.full((self.s_pad, self.rows), fill, dtype=parts[0].dtype)
                 for i, arr in enumerate(parts):
                     out[i, :len(arr)] = arr
@@ -174,14 +189,22 @@ class SegmentSetBlock:
             return self._cache[key]
 
     def ids(self, col: str) -> torch.Tensor:
-        """int32 dict ids; fill rows hold the out-of-dictionary id `cardinality`."""
-        card = self.segments[0].column(col).cardinality
-        return self._stack("ids", col, card,
-                           lambda s: np.asarray(s.column(col).fwd).astype(np.int32))
+        """int32 dict ids in the plan's id space (a merged view's global ids);
+        fill rows hold the out-of-dictionary id `cardinality`."""
+        if self.view is None:
+            card = self.segments[0].column(col).cardinality
+            return self._stack("ids", col, card,
+                               lambda i, s: np.asarray(s.column(col).fwd).astype(np.int32))
+        mc = self.view.column(col)
+        remaps = mc.remaps
+        return self._stack("ids", col, mc.cardinality,
+                           lambda i, s: mc.local_ids(i).astype(np.int32)
+                           if remaps[i] is None else remaps[i][mc.local_ids(i)])
 
     def raw(self, col: str) -> torch.Tensor:
         """Raw values of a column without a dictionary, narrowed to 32 bits."""
-        return self._stack("raw", col, 0, lambda s: _narrow(np.asarray(s.column(col).fwd)))
+        return self._stack("raw", col, 0,
+                           lambda i, s: _narrow(np.asarray(s.column(col).fwd)))
 
     def decoded(self, col: str) -> torch.Tensor:
         """Numeric values whatever the encoding, decoded on the host once: a
@@ -190,7 +213,7 @@ class SegmentSetBlock:
         if not any(s.column(col).has_dictionary for s in self.segments):
             return self.raw(col)
 
-        def per_seg(s):
+        def per_seg(i, s):
             reader = s.column(col)
             arr = np.asarray(reader.fwd)
             if not reader.has_dictionary:
@@ -201,7 +224,8 @@ class SegmentSetBlock:
     @property
     def valid(self) -> torch.Tensor:
         """bool: True for the segments' real rows."""
-        return self._stack("valid", "", False, lambda s: np.ones(s.num_docs, dtype=bool))
+        return self._stack("valid", "", False,
+                           lambda i, s: np.ones(self.seg_docs[i], dtype=bool))
 
 
 class MeshQueryExecutor:
@@ -219,7 +243,10 @@ class MeshQueryExecutor:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._fallback = ServerQueryExecutor(self.device)
-        self._set_blocks: Dict[Tuple, SegmentSetBlock] = {}
+        # stable set identity -> (view_key, block) and (view_key, merged
+        # view): a consuming member that grew replaces its stale entries
+        self._set_blocks: Dict[Tuple, Tuple[Tuple, SegmentSetBlock]] = {}
+        self._views: Dict[Tuple, Tuple[Tuple, MergedSegmentView]] = {}
         # content-addressed device constants (scattered-LUT tables): repeated
         # queries launch with no host-to-device copy
         self._const_cache: Dict[bytes, torch.Tensor] = {}
@@ -236,16 +263,30 @@ class MeshQueryExecutor:
                 self._const_cache[key] = dev
             return dev
 
-    def _block_for(self, segments) -> SegmentSetBlock:
-        key = tuple(getattr(s, "path", s.name) for s in segments)
+    def _cached(self, cache: Dict, stable: Tuple, segments, make):
+        """`cache[stable]`'s value, made anew when the members' `view_key`
+        changed (a consuming member grew) or was never seen."""
+        vkey = view_key(segments)
         with self._lock:
-            block = self._set_blocks.get(key)
-            if block is None:
-                if len(self._set_blocks) >= 64:
-                    self._set_blocks.clear()
-                block = SegmentSetBlock(segments, self.device)
-                self._set_blocks[key] = block
-            return block
+            entry = cache.get(stable)
+            if entry is None or entry[0] != vkey:
+                if len(cache) >= 64:
+                    cache.clear()
+                entry = (vkey, make())
+                cache[stable] = entry
+            return entry[1]
+
+    def _block_for(self, segments, view: Optional[MergedSegmentView] = None
+                   ) -> SegmentSetBlock:
+        stable = (tuple(getattr(s, "path", s.name) for s in segments), view is not None)
+        return self._cached(self._set_blocks, stable, segments,
+                            lambda: SegmentSetBlock(segments, self.device, view))
+
+    def _merged_view(self, segments) -> MergedSegmentView:
+        """The set's merged view, cached as its block is."""
+        stable = tuple(getattr(s, "path", s.name) for s in segments)
+        return self._cached(self._views, stable, segments,
+                            lambda: MergedSegmentView(segments))
 
     @staticmethod
     def _compile(query, segments, schema) -> QueryContext:
@@ -258,10 +299,10 @@ class MeshQueryExecutor:
                 query: Union[str, QueryContext], schema=None) -> ResultTable:
         t0 = time.perf_counter()
         ctx = self._compile(query, segments, schema)
-        plan = self._plan_for_set(ctx, segments)
+        plan, view = self._plan_for_set(ctx, segments)
         if plan is None or plan.kind != "device":
             return self._fallback.execute(segments, ctx)
-        return self._execute_sharded(ctx, plan, segments, t0)
+        return self._execute_sharded(ctx, plan, segments, view, t0)
 
     @staticmethod
     def _answered(kind: str, partial: SegmentResult) -> PreparedDispatch:
@@ -270,27 +311,29 @@ class MeshQueryExecutor:
                                 stack_key=(kind,), dedupe_key=None, stackable=False,
                                 decode=lambda outs: partial)
 
-    def _plan_for_set(self, ctx: QueryContext, segments) -> Optional[SegmentPlan]:
-        """The one plan the whole set runs (made on the first segment, with
-        the others as peers), or None for an empty set. A plan of another kind
-        than "device" goes to the per-segment executor."""
+    def _plan_for_set(self, ctx: QueryContext, segments
+                      ) -> Tuple[Optional[SegmentPlan], Optional[MergedSegmentView]]:
+        """(plan, view): the one plan the whole set runs, and None for an
+        aligned set or the `MergedSegmentView` it was planned on. An aligned
+        set's plan is made on the first segment, with the others as peers; a
+        device plan whose compared or grouped columns' dictionaries disagree
+        (segments committed apart, consuming views) is made again on the
+        merged view, in global-id space. (None, None) for an empty set. A plan
+        of another kind than "device" goes to the per-segment executor."""
         if not segments:
-            return None
+            return None, None
         for seg in segments:
             if getattr(seg, "is_mutable", False):
-                raise NotImplementedError(
-                    "mutable (consuming) and upsert segments are not supported by "
-                    "pinot_tpu_torch")
+                raise NotImplementedError(mutable_segment_reason(seg))
             if getattr(seg, "has_star_tree", False):
                 raise NotImplementedError(
                     f"segment {seg.name} carries a star-tree, which pinot_tpu_torch "
                     "does not execute (star-tree stacking is not ported)")
         plan = plan_segment(ctx, segments[0], peers=segments[1:])
-        if plan.kind == "device" and not self._alignable(plan, segments):
-            raise NotImplementedError(
-                "segment set whose dictionaries disagree on a filtered or grouped "
-                "column: the merged-dictionary view is not ported to pinot_tpu_torch")
-        return plan
+        if plan.kind != "device" or self._alignable(plan, segments):
+            return plan, None
+        view = self._merged_view(segments)
+        return plan_segment(ctx, view), view
 
     def _alignable(self, plan: SegmentPlan, segments) -> bool:
         """Dict ids must agree across the set where the plan compares or groups
@@ -300,13 +343,13 @@ class MeshQueryExecutor:
         return aligned_dictionaries(segments, cols)
 
     def _execute_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
-                         t0: float) -> ResultTable:
+                         view: Optional[MergedSegmentView], t0: float) -> ResultTable:
         """One query through the set path, with its host phases in
         `stats["phaseTimesMs"]`: compile (SQL and the set's plan), prepare
         (inputs), dispatch (launches; the plain body's `bincount` waits for
         the card), fetch (waits for the card, then one copy), reduce."""
         t1 = time.perf_counter()
-        p = self._prepare_sharded(ctx, plan, segments, partial=False)
+        p = self._prepare_sharded(ctx, plan, segments, view, partial=False)
         t2 = time.perf_counter()
         [(packed, finish, _)] = self.dispatch_prepared([p])
         t3 = time.perf_counter()
@@ -327,11 +370,11 @@ class MeshQueryExecutor:
         pending = []   # (index, packed outputs, finish, decode)
         for qi, query in enumerate(queries):
             ctx = self._compile(query, segments, schema)
-            plan = self._plan_for_set(ctx, segments)
+            plan, view = self._plan_for_set(ctx, segments)
             if plan is None or plan.kind != "device":
                 results[qi] = self._fallback.execute(segments, ctx)
                 continue
-            p = self._prepare_sharded(ctx, plan, segments, partial=False)
+            p = self._prepare_sharded(ctx, plan, segments, view, partial=False)
             [(packed, finish, _)] = self.dispatch_prepared([p])
             pending.append((qi, packed, finish, p.decode))
         fetched = self.fetch([packed for _, packed, _, _ in pending])
@@ -352,16 +395,20 @@ class MeshQueryExecutor:
         """Plan a server-level partial and build its inputs, without a launch.
         Its `decode` gives a SegmentResult (group partials are not trimmed by
         ORDER BY: the broker merges every server's groups first)."""
-        plan = self._plan_for_set(ctx, segments)
+        plan, view = self._plan_for_set(ctx, segments)
         if plan is not None and plan.kind == "selection":
             require_device_mask(plan)
-            if device_topk_screen(ctx) and all(
+            # the plan's id bands hold set-wide only where the filtered
+            # columns' dictionaries agree: otherwise the per-segment executor
+            lut_cols = {leaf.col for leaf in plan.filter_prog.leaves
+                        if isinstance(leaf, LutLeaf)}
+            if device_topk_screen(ctx) and aligned_dictionaries(segments, lut_cols) and all(
                     topk_order_key_device_ok(s, ctx.order_by[0].expr) for s in segments):
                 return self._prepare_topk(ctx, plan, segments)
             return self._answered("exact", self._per_segment_partial(ctx, segments))
         if plan is None or plan.kind != "device":
             return self._answered("metadata", self._per_segment_partial(ctx, segments))
-        return self._prepare_sharded(ctx, plan, segments, partial=True)
+        return self._prepare_sharded(ctx, plan, segments, view, partial=True)
 
     def _per_segment_partial(self, ctx: QueryContext, segments) -> SegmentResult:
         """The per-segment executor's partial for a plan that needs no pass
@@ -407,11 +454,6 @@ class MeshQueryExecutor:
         """The fused filter + top-k of a selection over the whole stacked block:
         one launch, whose k + TOPK_SLACK candidate row ids (lower rows first
         among equal keys) ride the batch's one copy."""
-        lut_cols = {leaf.col for leaf in plan.filter_prog.leaves if isinstance(leaf, LutLeaf)}
-        if not aligned_dictionaries(segments, lut_cols):
-            raise NotImplementedError(
-                "top-k over a segment set whose dictionaries disagree on a filtered "
-                "column: the merged-dictionary view is not ported to pinot_tpu_torch")
         order = ctx.order_by[0]
         block = self._block_for(segments)
         spec = KernelSpec(plan.filter_prog, (), 1, ())
@@ -442,13 +484,26 @@ class MeshQueryExecutor:
             return SegmentResult("selection", rows=rows, sort_keys=sort_keys,
                                  num_docs_scanned=count, topk_exact=exact)
 
+        exact_key = all(topk_key_exact_in_f32(s, ctx.order_by[0].expr) for s in segments)
+
+        def f32_tie(idx: np.ndarray, count: int) -> bool:
+            """The candidates were cut, on a key that is not exact in f32, and
+            the k-th and the last candidate share an f32 score."""
+            if count <= kk or exact_key:
+                return False
+            col = ctx.order_by[0].expr.name
+            kth, last = (_take(segments[s].column(col), np.array([r]))[0]
+                         for s, r in zip(*np.divmod(idx[[k - 1, -1]], block.rows)))
+            return f32_tie_at_the_cut(kth, last)
+
         def decode(outs: Dict[str, np.ndarray]) -> SegmentResult:
             count = int(outs["count"])
             keep = min(kk, count)
             idx = outs["idx"][:keep][outs["ok"][:keep]]
-            if int(outs["nanMatches"]) or len(idx) < min(k, count):
-                # NaN keys match, or NaN and -inf keys displaced candidates:
-                # every match, gathered and sorted on the host, decides
+            if int(outs["nanMatches"]) or len(idx) < min(k, count) or f32_tie(idx, count):
+                # NaN keys match, NaN and -inf keys displaced candidates, or
+                # DOUBLE keys tie in f32 at the cut: every match, gathered and
+                # sorted on the host, decides
                 flat = np.nonzero(filter_mask(spec, inputs).cpu().numpy())[0]
                 return partial(flat, len(flat), exact=True)
             return partial(idx, count, exact=False)
@@ -456,9 +511,10 @@ class MeshQueryExecutor:
         return decode
 
     def _prepare_sharded(self, ctx: QueryContext, plan: SegmentPlan, segments,
-                         partial: bool) -> PreparedDispatch:
+                         view: Optional[MergedSegmentView], partial: bool
+                         ) -> PreparedDispatch:
         build_device_geometry(plan)
-        block = self._block_for(segments)
+        block = self._block_for(segments, view)
         spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
                           tuple((a, a.device_outputs) for a in plan.aggs))
         route = set_scan_route(plan)

@@ -12,16 +12,22 @@ Counterpart of `pinot_tpu/query/executor.py` (analog of the reference's
   rows on the host. An `ORDER BY <column> LIMIT k` whose key the device can
   sort (`topk_order_key_device_ok`) picks its candidates with the fused
   filter + top-k (`kernels.compute_topk`, k + TOPK_SLACK of them); any other
-  ORDER BY, and a top-k that NaN or -inf keys displaced, takes the exact
-  path: every match gathered and sorted on the host, counted in the result's
-  `stats["topkExact"]`. A selection without ORDER BY keeps the first
+  ORDER BY, a top-k that NaN or -inf keys displaced, and one whose DOUBLE
+  keys tie in f32 at the candidates' cut (`f32_tie_at_the_cut`), takes the
+  exact path: every match gathered and sorted on the host, counted in the
+  result's `stats["topkExact"]`. A selection without ORDER BY keeps the first
   OFFSET + LIMIT matches of each segment.
+
+A consuming segment's view that stages on the device
+(`segment.mutable_device.ConsumingView`, `is_mutable=False`) runs as an
+immutable segment does, its block already holding the staged chunks.
 
 Shapes this package does not execute raise NotImplementedError with the
 plan's reason: host plans (a selection filter among them),
 DISTINCT/HLL/theta/percentile/moment aggregations, star-trees, bitmap leaves,
-multi-value columns, null leaves, and mutable or upsert segments. Nothing
-falls back to another path.
+multi-value columns, null leaves, and mutable segments (a consuming segment
+without staging, an upsert segment), which need the host aggregation path.
+Nothing falls back to another path.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
 no CUDA card they raise RuntimeError.
@@ -46,7 +52,7 @@ from ..sql.ast import Identifier, identifiers_in
 from .aggregates import make_agg
 from .context import QueryContext, compile_query
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
-                      topk_order_key_device_ok)
+                      topk_key_exact_in_f32, topk_order_key_device_ok)
 from .predicate import CmpLeaf, LutLeaf
 from .reduce import SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
@@ -55,6 +61,16 @@ MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
 # top-k row (the final order is exact: candidates re-sort on the host in f64)
 TOPK_SLACK = 256
+
+
+def mutable_segment_reason(segment) -> str:
+    """Why a mutable segment is refused: the JAX package plans a mutable
+    segment on the host, and this package has no host aggregation path."""
+    return (f"segment {segment.name} is mutable (a consuming segment without device "
+            "staging, or an upsert segment): it needs the host aggregation path, which "
+            "is not ported to pinot_tpu_torch (ROADMAP queue 1 item 2); a "
+            "DeviceMutableSegment with device_staging=True serves its query_view() "
+            "on the device")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,8 +116,7 @@ class ServerQueryExecutor:
     # -- per-segment execution --------------------------------------------
     def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment) -> SegmentResult:
         if getattr(segment, "is_mutable", False):
-            raise NotImplementedError(
-                "mutable (consuming) and upsert segments are not supported by pinot_tpu_torch")
+            raise NotImplementedError(mutable_segment_reason(segment))
         if getattr(segment, "has_star_tree", False):
             raise NotImplementedError(
                 f"segment {segment.name} carries a star-tree, which pinot_tpu_torch "
@@ -293,6 +308,10 @@ class ServerQueryExecutor:
         idx = idx[ok & (idx < seg.num_docs)]
         if nan_matches or len(idx) < min(k, count):
             return None
+        if count > k + TOPK_SLACK and not topk_key_exact_in_f32(seg, order.expr):
+            kth, last = _take(seg.column(order.expr.name), idx[[k - 1, -1]])
+            if f32_tie_at_the_cut(kth, last):
+                return None
         return idx, count
 
     def _selection_mask(self, plan: SegmentPlan) -> np.ndarray:
@@ -318,6 +337,15 @@ class ServerQueryExecutor:
 
 
 # -- selection rows ---------------------------------------------------------------
+
+def f32_tie_at_the_cut(kth, last) -> bool:
+    """True when the k-th candidate and the last one share an f32 score, so
+    that rows outside the candidates may tie them in f32 and still be larger
+    in f64: the candidates then decide nothing, and the exact path answers.
+    A row outside with a strictly smaller f32 score is strictly smaller,
+    since rounding to f32 keeps order."""
+    return np.float32(kth) == np.float32(last)
+
 
 def require_device_mask(plan: SegmentPlan) -> None:
     """Raise for a selection whose filter the device cannot evaluate."""

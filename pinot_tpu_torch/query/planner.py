@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..engine.expr import DEVICE_FUNCS
+from ..schema import DataType
 from ..segment.reader import ImmutableSegment
 from ..sql.ast import Expr, Function, Identifier, identifiers_in
 from .aggregates import AggFunc, make_agg
@@ -103,8 +104,7 @@ def _validate_single_value(ctx: QueryContext, segment: ImmutableSegment) -> None
         exprs.append(ctx.filter)
     for e in exprs:
         for name in identifiers_in(e):
-            if name in segment.metadata["columns"] and \
-                    segment.column(name).is_multi_value:
+            if name in segment.column_names and segment.column(name).is_multi_value:
                 raise NotImplementedError(
                     f"multi-value column {name!r} is not supported by pinot_tpu_torch")
 
@@ -319,6 +319,16 @@ def topk_order_key_device_ok(seg: ImmutableSegment, order_expr: Expr) -> bool:
         if mn is None or mx is None or max(abs(float(mn)), abs(float(mx))) >= (1 << 24):
             return False
     return True
+
+
+def topk_key_exact_in_f32(seg: ImmutableSegment, order_expr: Expr) -> bool:
+    """True when every value of a device-sortable ORDER BY key is exact in f32,
+    so that its f32 ties are true ties: a FLOAT column, or an integer column
+    within 2^24 (`topk_order_key_device_ok`). A DOUBLE column is not: values
+    that differ may round to one f32 score."""
+    if not isinstance(order_expr, Identifier):
+        return False
+    return seg.column(order_expr.name).data_type is not DataType.DOUBLE
 
 
 def build_device_geometry(plan: SegmentPlan) -> None:

@@ -10,6 +10,7 @@ device form is an int32 dict-id tensor.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional
@@ -64,6 +65,26 @@ class DataType(Enum):
             DataType.JSON: "null",
             DataType.BYTES: b"",
         }[self]
+
+
+    def coerce(self, value: Any) -> Any:
+        """Coerce an ingested Python value to this type (the reference's
+        DataTypeTransformer); None becomes the type's default null."""
+        if value is None:
+            return self.default_null
+        if self in (DataType.INT, DataType.LONG, DataType.TIMESTAMP):
+            return int(value)
+        if self in (DataType.FLOAT, DataType.DOUBLE):
+            return float(value)
+        if self is DataType.BOOLEAN:
+            if isinstance(value, str):
+                return 1 if value.lower() in ("true", "1", "t", "yes") else 0
+            return int(bool(value))
+        if self is DataType.BYTES:
+            return bytes.fromhex(value) if isinstance(value, str) else bytes(value)
+        if self is DataType.JSON:
+            return value if isinstance(value, str) else json.dumps(value)
+        return str(value)
 
 
 class FieldRole(Enum):

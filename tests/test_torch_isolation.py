@@ -99,8 +99,67 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "query/dense_reduce.py", "query/executor.py", "engine/kernels.py",
                    "multistage/__init__.py", "multistage/planner.py",
                    "multistage/runtime.py", "engine/join_kernels.py", "query/stats.py",
-                   "cluster/tiering.py"):
+                   "cluster/tiering.py", "table.py", "ingest/__init__.py",
+                   "ingest/vectorized.py", "ingest/stream.py", "ingest/transform.py",
+                   "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
+
+
+def test_subprocess_realtime_consumer_and_mixed_set_never_load_jax(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import execute_query, segments_from_columns
+        from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+        from pinot_tpu_torch.ingest.stream import MemoryStream
+        from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+        from pinot_tpu_torch.parallel import MeshQueryExecutor
+        from pinot_tpu_torch.ssb import QUERY, make_columns, ssb_schema
+        from pinot_tpu_torch.table import StreamConfig, TableConfig
+        schema = ssb_schema()
+        segs = segments_from_columns(schema, make_columns(5000, 1), {str(tmp_path)!r}, 2)
+        cols = make_columns(3000, 2)
+        stream = MemoryStream.create("lo", 1)
+        for lo in range(0, 3000, 1000):
+            stream.produce(encode_columnar_block(
+                schema, {{c: v[lo:lo + 1000] for c, v in cols.items()}}), partition=0)
+        cfg = TableConfig("lineorder", stream=StreamConfig(
+            topic="lo", decoder="columnar",
+            properties={{"realtime.ingest.device.staging": "true"}}))
+        consumer = RealtimePartitionConsumer("lineorder__0__0__20261017T0000Z", cfg, schema,
+                                             0, {str(tmp_path)!r}, device="cpu")
+        print(consumer.pump())
+        view = consumer.query_segment()
+        print(execute_query([view], QUERY, device="cpu").rows)
+        print(MeshQueryExecutor(device="cpu").execute(segs + [view], QUERY).rows)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert out.stdout.splitlines()[0] == "3000", out.stdout
+
+
+def test_realtime_entry_points_without_cuda_raise(monkeypatch):
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceMutableSegment("s", ssb_schema(), device_staging=True)
+    MemoryStream.create("iso_lo", 1)
+    cfg = TableConfig("lineorder", stream=StreamConfig(
+        topic="iso_lo", properties={"realtime.ingest.device.staging": "true"}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RealtimePartitionConsumer("lineorder__0__0__20261017T0000Z", cfg, ssb_schema(), 0,
+                                  "unused")
+    # the CPU only when asked for
+    assert DeviceMutableSegment("s", ssb_schema(), device_staging=True,
+                                device="cpu").device.type == "cpu"
 
 
 def test_subprocess_set_executor_and_pipeline_never_load_jax(tmp_path):

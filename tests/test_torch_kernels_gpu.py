@@ -576,3 +576,53 @@ def test_cuda_join_queries_match_the_cpu(cuda, tmp_path):
         for rg, rw in zip(got.rows, want.rows):
             assert all(x == y or math.isclose(x, y, rel_tol=1e-9) for x, y in zip(rg, rw)), qid
         assert "joinBuildMs" in got.stats and "joinServedHostTier" not in got.stats, qid
+
+
+@pytest.mark.gpu
+def test_cuda_staged_view_block_equals_the_host_built_block(cuda):
+    """A consuming segment staged on the card: its view's block (the staged
+    chunks joined on the card, zero-padded) equals the block the same view
+    builds from its host columns, column by column and dtype by dtype; the
+    epoch-ms column stays unstaged; and both scan kernels answer over the
+    view as the CPU does."""
+    from pinot_tpu_torch import execute_query
+    from pinot_tpu_torch.engine import datablock
+    from pinot_tpu_torch.ingest.vectorized import decode_columnar_block, encode_columnar_block
+    from pinot_tpu_torch.schema import DataType, Schema, date_time, dimension, metric
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    schema = Schema("events", [dimension("site", DataType.STRING),
+                               metric("clicks", DataType.LONG),
+                               metric("cost", DataType.DOUBLE),
+                               metric("score", DataType.INT),
+                               date_time("ts", DataType.LONG)])
+    rng = np.random.default_rng(3)
+    n = 70_001
+    cols = {"site": [f"s{k}" for k in rng.integers(0, 23, n)],
+            "clicks": rng.integers(-500, 5000, n), "cost": rng.random(n) * 90,
+            "score": rng.integers(-100, 100, n), "ts": 1700000000000 + np.arange(n)}
+    stores = {dev: DeviceMutableSegment("seg0", schema, device_staging=True, device=dev)
+              for dev in ("cuda", "cpu")}
+    for lo in range(0, n, 16_384):
+        blob = encode_columnar_block(schema, {c: v[lo:lo + 16_384] for c, v in cols.items()})
+        for store in stores.values():
+            store.index_arrays(decode_columnar_block(blob))
+    view = stores["cuda"].query_view()
+    blk = datablock.block_for(view, cuda)
+    assert blk is view._device_blocks[datablock.device_key(cuda)] and set(blk._raw) == {
+        "clicks", "cost", "score"}
+    # a bare "cuda" and the current card's index name the same staged block
+    assert datablock.block_for(view, torch.device("cuda", torch.cuda.current_device())) is blk
+    host = datablock.SegmentBlock(view, cuda)
+    for col in ("clicks", "cost", "score"):
+        staged, built = blk.raw(col), host.raw(col)
+        assert staged.is_cuda and staged.dtype == built.dtype
+        assert torch.equal(staged, built), col
+    before = (scan.masked_sums.launches, scan.masked_sums_fused.launches)
+    for sql in ("SELECT SUM(cost), COUNT(*) FROM events WHERE site = 's3'",
+                "SELECT SUM(score), COUNT(*) FROM events WHERE site = 's3'"):
+        got = execute_query([view], sql).rows
+        want = execute_query([stores["cpu"].query_view()], sql, device="cpu").rows
+        assert got[0][1] == want[0][1]
+        assert got[0][0] == pytest.approx(want[0][0], rel=1e-5)
+    assert (scan.masked_sums.launches, scan.masked_sums_fused.launches) == \
+        (before[0] + 1, before[1] + 1)

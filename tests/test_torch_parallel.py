@@ -141,7 +141,8 @@ def test_set_executor_matches_reference(sets, jax_mesh1, jax_mesh8, qid, sql, ta
     assert _rows_match(got, ref8), (qid, got, ref8)
     assert _rows_match(got, per_segment), (qid, got, per_segment)
     ctx = compile_query(sql, segs[0].schema)
-    plan = MeshQueryExecutor(device="cpu")._plan_for_set(ctx, segs)
+    plan, view = MeshQueryExecutor(device="cpu")._plan_for_set(ctx, segs)
+    assert view is None   # aligned: no merged view
     assert combine.set_scan_route(plan) == route
 
 
@@ -237,13 +238,28 @@ def test_peers_decide_folding(tmp_path, cols):
     assert _rows_match(execute_query(segs, sql, device="cpu").rows, want)
 
 
-def test_unaligned_set_raises(tmp_path, cols):
+def test_unaligned_set_raises(tmp_path, cols, jax_mesh1, monkeypatch):
+    """Two segments built apart have dictionaries of their own. The set no
+    longer raises: it is planned on the merged-dictionary view and stacked in
+    global-id space, one launch for Q1.1, and answers as the reference's set
+    executor (its merged view too) and the per-segment path do."""
     a = segments_from_columns(ssb_schema(), {k: v[:3000] for k, v in cols.items()},
                               str(tmp_path / "a"), 1)
     b = segments_from_columns(ssb_schema(), {k: v[3000:5000] for k, v in cols.items()},
                               str(tmp_path / "b"), 1)
-    with pytest.raises(NotImplementedError, match="merged"):
-        MeshQueryExecutor(device="cpu").execute(a + b, QUERY)
+    jax_segs = [jax_load(s.path) for s in a + b]
+    mx = MeshQueryExecutor(device="cpu")
+    scans = _spy(monkeypatch, scan, "masked_sums_answer")
+    # the GROUP BY filters on lo_orderdate, whose dictionaries differ
+    group_by_date = GROUP_QUERY.replace("WHERE", "WHERE lo_orderdate < 19950101 AND")
+    for sql, route in ((QUERY, "masked_sums"), (group_by_date, None)):
+        plan, view = mx._plan_for_set(compile_query(sql, a[0].schema), a + b)
+        assert view is not None and combine.set_scan_route(plan) == route
+        del scans[:]
+        got = mx.execute(a + b, sql).rows
+        assert len(scans) == (1 if route else 0)
+        assert _rows_match(got, jax_mesh1.execute(jax_segs, sql).rows), sql
+        assert _rows_match(got, execute_query(a + b, sql, device="cpu").rows), sql
 
 
 @pytest.mark.parametrize("first_segment", ["matches_all", "matches_none"])
@@ -252,9 +268,10 @@ def test_unaligned_set_raises_where_the_first_segment_folds(tmp_path, cols, firs
     the first segment alone would fold to a constant (every row matches, or
     no value of its dictionary does) while it matches only part of the
     second. The set must not fold it by the first segment's dictionary: it
-    raises, as any unaligned set does. The per-segment path answers. (The
-    second segment has fewer dates than the first, so the first one's id
-    table covers all of its ids.)"""
+    is planned on the merged view, whose global dictionary folds nothing
+    here, and answers as the per-segment path and numpy do. (The second
+    segment has fewer dates than the first, so the first one's id table
+    covers all of its ids.)"""
     dates = cols["lo_orderdate"]
     cut = int(np.median(dates[:3000]))
     low = dates[:3000] <= cut
@@ -282,8 +299,10 @@ def test_unaligned_set_raises_where_the_first_segment_folds(tmp_path, cols, firs
         m = second["lo_orderdate"] == value
         want = (second["lo_revenue"][m].sum(), int(m.sum()))
     assert 0 < m.sum() < len(m)   # part of the second segment matches
-    with pytest.raises(NotImplementedError, match="merged"):
-        MeshQueryExecutor(device="cpu").execute(a + b, sql)
+    mx = MeshQueryExecutor(device="cpu")
+    plan, view = mx._plan_for_set(compile_query(sql, a[0].schema), a + b)
+    assert view is not None and plan.kind == "device"
+    assert _rows_match(mx.execute(a + b, sql).rows, [[float(want[0]), want[1]]])
     assert _rows_match(execute_query(a + b, sql, device="cpu").rows,
                        [[float(want[0]), want[1]]])
 

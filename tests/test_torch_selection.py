@@ -382,3 +382,46 @@ def test_one_drain_serves_top_k_exact_and_aggregation_items(tables, monkeypatch)
     assert fetches == [4]   # TOPK_DESC, TOPK_ALL, QUERY, GROUP_QUERY
     assert (stats["batches"], stats["topkLaunches"], stats["topkExact"]) == (1, 2, 1)
     assert stats["dedupeHits"] == 2 and stats["stackedLaunches"] == 0
+
+
+@pytest.mark.parametrize("raw, n_segments", [(True, 1), (True, 3), (False, 1), (False, 3)],
+                         ids=["raw-1", "raw-3", "dict-1", "dict-3"])
+def test_double_keys_that_tie_in_f32_take_the_exact_path(tmp_path, monkeypatch, raw,
+                                                         n_segments):
+    """700 DOUBLE keys 1.0 + i * 1e-12 all round to the f32 score 1.0: more than
+    k + TOPK_SLACK of them tie in f32, and the largest doubles sit at the
+    highest rows, which the candidate pass (lower rows first among ties) never
+    keeps. Every entry point answers rows 699, 698, 697, as numpy and the
+    reference's host path do: where the candidates were cut, by the exact path."""
+    from pinot_tpu.schema import DataType as JType
+    from pinot_tpu.schema import dimension as jdim
+    from pinot_tpu.schema import metric as jmetric
+    n = 700
+    cols = {"id": np.arange(n, dtype=np.int32), "d": 1.0 + np.arange(n) * 1e-12}
+    assert len(np.unique(cols["d"].astype(np.float32))) == 1 and n > 3 + TOPK_SLACK
+    schema = JSchema("t", [jdim("id", JType.INT), jmetric("d", JType.DOUBLE)])
+    config = JaxConfig(raw_cardinality_fraction=0.7 if raw else 1.0)
+    paths = jax_build(schema, cols, str(tmp_path), "t", n_segments, config=config)
+    jax_segs, segs = [jax_load(p) for p in paths], [load_segment(p) for p in paths]
+    assert segs[0].column("d").has_dictionary is not raw
+    sql = "SELECT id, d FROM t ORDER BY d DESC LIMIT 3"
+    want = [[i, float(cols["d"][i])] for i in (699, 698, 697)]
+    host = JaxExecutor(use_device=False).execute(jax_segs, sql).rows
+    assert [[r[0], r[1]] for r in host] == want
+
+    def exact(rows):
+        return [[r[0], r[1]] for r in rows] == want
+
+    # per segment, the candidates are cut only where a segment holds more
+    # than k + TOPK_SLACK rows (one segment of 700; not three of ~233)
+    cut = n_segments == 1
+    calls = _spy(monkeypatch, "topk")
+    res = execute_query(segs, sql, device="cpu")
+    assert exact(res.rows), res.rows
+    assert res.stats["topkExact"] is cut and len(calls) == n_segments
+    res = MeshQueryExecutor(device="cpu").execute(segs, sql)
+    assert exact(res.rows), res.rows
+    assert res.stats["topkExact"] is cut
+    served, stats = _pipeline_rows(segs, sql)
+    assert exact(served), served
+    assert stats["topkLaunches"] == 1 and stats["topkExact"] == 1
