@@ -87,13 +87,32 @@ exits non-zero:
    loaded, and queried as the ninth segment (`realtime_commit`), and a
    `realtime_case` line per kernel runs the view's scan against its plain
    version (`ms` with L2 flushed against its bound). Under --trace, the
-   last step's f32 sum is traced over the view and over the mixed set.
+   last step's f32 sum is traced over the view and over the mixed set;
+9. expr    — the expression library and the host path over the same table.
+   Six device function families (arithmetic, CASE, comparisons and logic,
+   math, trig, datetime on lo_orderdate read as epoch ms) through
+   `eval_device` on the card against `eval_host` in float64/int64 over the
+   same 32-bit values (integers and booleans exactly, f32 at rel 1e-5, trig
+   and exp with abs 1e-6 too): an `expr_device` line each with rows, max
+   error and the call's ms. Then device-routed queries (a SUM(CASE ...) under
+   an id band, which must launch `masked_sums` once per segment and once over
+   the set; a filter of device math; a GROUP BY of AVG(power()) and
+   MAX(abs())), each per segment and over the set against numpy (rel 1e-5,
+   abs 0.05) with plan kind `device`, 10 warm runs: `expr_query` lines.
+   Host-routed queries (a GROUP BY on an expression, string functions in the
+   filter and the GROUP BY, a selection and a join whose leaf filters need
+   the host mask), with plan kind `host` (or a selection's host-mask reason)
+   and no kernel launch, against numpy at rel 1e-9, 3 warm runs:
+   `expr_host_query` lines. Last, 2,097,152 rows pumped into a consuming
+   segment without staging: Q1.1 and the GROUP BY over its view (host plans)
+   and over the table plus the view (the merged view): `expr_consuming`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path;
 the join phase launches neither scan kernel: its leaf filters are the plain
 mask and its device programs are torch code; the realtime phase must launch
-both), the nvidia-smi line, and as its last line
+both; the expr phase's device queries `masked_sums`, its host queries none),
+the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
 """
@@ -1357,11 +1376,39 @@ def run_realtime(args, table, cols, work) -> tuple:
     return launches, cases
 
 
+def scan_case(name: str, args, flush: torch.Tensor) -> dict:
+    """One scan kernel on `args` against its plain version (sums at rel 1e-5,
+    counts equal), timed with L2 flushed (graph replay and eager call),
+    against the bound of the bytes it reads. Raises on a disagreement."""
+    from pinot_tpu_torch.engine import scan
+
+    kernel, plain = {"masked_sums": (scan.masked_sums, scan.masked_sums_plain),
+                     "masked_sums_fused": (scan.masked_sums_fused,
+                                           scan.masked_sums_fused_plain)}[name]
+    ks, kc = kernel(*args)
+    ps, pc = plain(*args)
+    torch.cuda.synchronize()
+    ks, ps = ks.double().cpu(), ps.double().cpu()
+    abs_err = float((ks - ps).abs().max())
+    rel_err = 0.0 if abs_err == 0.0 else float(((ks - ps).abs() / ps.abs()).max())
+    if int(kc) != int(pc) or rel_err > SUM_RTOL:
+        raise AssertionError(f"{name}: kernel {ks.tolist()} count {int(kc)} "
+                             f"vs plain {ps.tolist()} count {int(pc)}")
+    bms, by = bound(name, args)
+    numbers = dict(rows=int(args[0][0].shape[0]), count=int(kc), max_abs_err=abs_err,
+                   max_rel_err=rel_err, ms=graph_ms(lambda: kernel(*args), flush),
+                   plain_ms=graph_ms(lambda: plain(*args), flush),
+                   call_ms=time_ms(lambda: kernel(*args), flush),
+                   plain_call_ms=time_ms(lambda: plain(*args), flush),
+                   bound_ms=bms, bound_by=by, library_ms=None)
+    numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+    return numbers
+
+
 def realtime_cases(view) -> dict:
     """Each scan kernel over the consuming view's block at its full size,
-    against its plain version (sums at rel 1e-5, counts equal), timed with
-    L2 flushed, against the bound of the bytes it reads."""
-    from pinot_tpu_torch.engine import datablock, scan
+    against its plain version (`scan_case`)."""
+    from pinot_tpu_torch.engine import datablock
 
     block = datablock.block_for(view, torch.device("cuda"))
     n = view.num_docs
@@ -1370,33 +1417,384 @@ def realtime_cases(view) -> dict:
     base, deltas = block.for_form("lo_quantity")
     cases = {"masked_sums": (ids, [(asia, asia)], [block.raw("lo_revenue")[:n]]),
              "masked_sums_fused": (ids, [(asia, asia)], [(float(base), deltas[:n])])}
-    fns = {"masked_sums": (scan.masked_sums, scan.masked_sums_plain),
-           "masked_sums_fused": (scan.masked_sums_fused, scan.masked_sums_fused_plain)}
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {}
     for name, args in cases.items():
-        kernel, plain = fns[name]
-        ks, kc = kernel(*args)
-        ps, pc = plain(*args)
-        torch.cuda.synchronize()
-        ks, ps = ks.double().cpu(), ps.double().cpu()
-        abs_err = float((ks - ps).abs().max())
-        rel_err = 0.0 if abs_err == 0.0 else float(((ks - ps).abs() / ps.abs()).max())
-        if int(kc) != int(pc) or rel_err > SUM_RTOL:
-            raise AssertionError(f"realtime_case {name}: kernel {ks.tolist()} count {int(kc)} "
-                                 f"vs plain {ps.tolist()} count {int(pc)}")
-        bms, by = bound(name, args)
-        numbers = dict(rows=n, count=int(kc), max_abs_err=abs_err, max_rel_err=rel_err,
-                       ms=graph_ms(lambda: kernel(*args), flush),
-                       plain_ms=graph_ms(lambda: plain(*args), flush),
-                       call_ms=time_ms(lambda: kernel(*args), flush),
-                       plain_call_ms=time_ms(lambda: plain(*args), flush),
-                       bound_ms=bms, bound_by=by, library_ms=None)
-        numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+        numbers = scan_case(name, args, flush)
         log("realtime_case", kernel=name, shape="consuming view, lo_region = 'ASIA'",
             **numbers)
         out[name] = numbers
     return out
+
+
+# -- phase 9: expr ---------------------------------------------------------------------
+
+# device function families: each expression is evaluated with eval_device on the
+# card and eval_host in float64/int64 over the same (32-bit) column values
+EXPR_FAMILIES = [
+    ("arithmetic", ["lo_quantity * lo_discount + lo_orderdate % 97 - lo_quantity",
+                    "lo_extendedprice * lo_discount + lo_revenue / 7"]),
+    ("case", ["CASE WHEN lo_discount BETWEEN 1 AND 3 THEN lo_extendedprice * lo_discount "
+              "WHEN lo_quantity > 40 THEN lo_revenue ELSE 0 END",
+              "CASE WHEN lo_quantity < 10 THEN 1 WHEN lo_quantity < 30 THEN 2 ELSE 3 END"]),
+    ("compare_logic", ["(lo_quantity < 25 AND lo_discount IN (1, 3, 5)) "
+                       "OR NOT lo_extendedprice > 5000.5",
+                       "lo_orderdate BETWEEN 19930101 AND 19931231 "
+                       "AND lo_discount NOT IN (0, 10)",
+                       "lo_revenue >= lo_extendedprice"]),
+    ("math", ["sqrt(lo_revenue) + ln(lo_quantity) * power(lo_discount, 2) "
+              "+ floor(lo_extendedprice / 100) + abs(lo_discount - 5)",
+              "sign(lo_discount - 5) * greatest(lo_quantity, lo_discount) "
+              "+ least(lo_quantity, 20) + ceil(lo_quantity / 7)"]),
+    ("trig", ["sin(lo_discount / 10) + cos(lo_quantity) * atan2(lo_revenue, lo_extendedprice) "
+              "+ tanh(lo_quantity / 50.0)",
+              "exp(lo_discount / 10) - radians(lo_quantity) + sinh(lo_discount / 20)"]),
+    # lo_orderdate read as epoch milliseconds: an int32 column, within the
+    # planner's guard (x 100 stays below 2^31)
+    ("datetime", ["hour(lo_orderdate) * 10000000 + minute(lo_orderdate) * 100000 "
+                  "+ second(lo_orderdate) * 1000 + millisecond(lo_orderdate)",
+                  "toepochseconds(lo_orderdate * 100) + dayofmonth(lo_orderdate * 100) * 7 "
+                  "+ week(lo_orderdate * 100) + dayofweek(lo_orderdate * 100) "
+                  "+ toepochhoursbucket(lo_orderdate * 100, 6)"]),
+]
+EXPR_RTOL = 1e-5                       # f32 results against the f64 oracle
+EXPR_TRIG_ATOL = 1e-6                  # trig and exp: rel 1e-5 with abs 1e-6
+EXPR_DEVICE_RUNS = 5
+EXPR_QUERY_RUNS = 10                   # warm runs of a device-routed query
+EXPR_HOST_RUNS = 3                     # warm runs of a host-routed query
+EXPR_CONSUMING_ROWS = 2_097_152        # rows pumped into the consumer without staging
+EXPR_CASE_SUM = ("SELECT SUM(CASE WHEN lo_discount BETWEEN 1 AND 3 THEN lo_extendedprice "
+                 "* lo_discount ELSE 0 END), COUNT(*) FROM lineorder WHERE lo_quantity < 25")
+EXPR_MATH_FILTER = ("SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                    "WHERE floor(lo_extendedprice / 100) > 50 AND mod(lo_orderdate, 100) = 15")
+EXPR_GROUP_MATH = ("SELECT lo_region, AVG(power(lo_discount, 2)), "
+                   "MAX(abs(lo_revenue - lo_extendedprice)) FROM lineorder "
+                   "GROUP BY lo_region ORDER BY lo_region")
+EXPR_GROUP_EXPR = ("SELECT lo_orderdate / 10000, COUNT(*), SUM(lo_revenue) FROM lineorder "
+                   "GROUP BY lo_orderdate / 10000 ORDER BY 1 LIMIT 100")
+EXPR_STRING = ("SELECT substr(lo_region, 0, 2), COUNT(*), SUM(lo_quantity) FROM lineorder "
+               "WHERE length(lo_region) > 4 GROUP BY substr(lo_region, 0, 2) ORDER BY 1")
+EXPR_HOST_SELECT = ("SELECT lo_region, lo_revenue FROM lineorder WHERE length(lo_region) = 4 "
+                    "AND lo_quantity < 3 ORDER BY lo_revenue DESC LIMIT 10")
+EXPR_HOST_JOIN = ("SELECT s.s_nation, SUM(l.lo_revenue), COUNT(*) FROM lineorder l "
+                  "JOIN supplier s ON l.lo_suppkey = s.s_suppkey "
+                  "WHERE strpos(s.s_city, 'A') = 0 AND l.lo_discount BETWEEN 1 AND 3 "
+                  "GROUP BY s.s_nation ORDER BY s.s_nation LIMIT 25")
+
+
+def oracle_case_sum(c):
+    m = c["lo_quantity"] < 25
+    d = c["lo_discount"]
+    v = np.where((d >= 1) & (d <= 3), c["lo_extendedprice"] * d, 0.0)
+    return [[float(v[m].sum()), int(m.sum())]]
+
+
+def oracle_math_filter(c):
+    m = (np.floor(c["lo_extendedprice"] / 100) > 50) & (c["lo_orderdate"] % 100 == 15)
+    return [[int(m.sum()), float(c["lo_revenue"][m].sum())]]
+
+
+def oracle_group_math(c):
+    from pinot_tpu_torch.ssb import REGIONS
+    d2 = c["lo_discount"].astype(np.float64) ** 2
+    gap = np.abs(c["lo_revenue"] - c["lo_extendedprice"])
+    return [[r, float(d2[g].mean()), float(gap[g].max())]
+            for r in sorted(REGIONS) for g in [c["lo_region"] == r] if g.any()]
+
+
+def oracle_group_expr(c):
+    keys, inv = np.unique(c["lo_orderdate"] / 10000, return_inverse=True)
+    counts = np.bincount(inv)
+    sums = np.bincount(inv, weights=c["lo_revenue"])
+    return [[float(keys[i]), int(counts[i]), float(sums[i])] for i in range(min(100, len(keys)))]
+
+
+def oracle_string(c):
+    from pinot_tpu_torch.ssb import REGIONS
+    rows = {}
+    for r in REGIONS:
+        g = c["lo_region"] == r
+        if len(r) > 4 and g.any():
+            row = rows.setdefault(r[:2], [r[:2], 0, 0.0])
+            row[1] += int(g.sum())
+            row[2] += float(c["lo_quantity"][g].astype(np.float64).sum())
+    return [rows[k] for k in sorted(rows)]
+
+
+def oracle_host_select(c):
+    from pinot_tpu_torch.ssb import REGIONS
+    mask = c["lo_quantity"] < 3
+    mask &= np.logical_or.reduce([c["lo_region"] == r for r in REGIONS if len(r) == 4])
+    return oracle_rows(c, mask, ["lo_region", "lo_revenue"], "lo_revenue", True, 10)
+
+
+def oracle_host_join(c, supplier):
+    starts = np.array([city.find("A") == 0 for city in supplier["s_city"]])
+    nation = np.asarray(supplier["s_nation"], dtype=object)
+    sk = c["lo_suppkey"].astype(np.int64)
+    sel = (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3) & starts[sk]
+    names = sorted(set(nation[starts].tolist()))
+    lookup = {n: i for i, n in enumerate(names)}
+    keys = np.array([lookup.get(n, 0) for n in nation], dtype=np.int64)[sk]
+    sums = np.bincount(keys[sel], weights=c["lo_revenue"][sel], minlength=len(names))
+    counts = np.bincount(keys[sel], minlength=len(names))
+    return [[n, float(sums[i]), int(counts[i])] for i, n in enumerate(names) if counts[i]][:25]
+
+
+def expr_device_families(cols) -> dict:
+    """Each family's expressions through eval_device on the card and eval_host
+    on the host over the same 32-bit column values; one `expr_device` line
+    each, with each expression's call ms (host clock around the call and a
+    synchronize, median of EXPR_DEVICE_RUNS). `max_rel_err` is taken over
+    every row, those the absolute tolerance admits too (trig rows near 0).
+    Returns {family: max relative error}."""
+    from pinot_tpu_torch.engine.datablock import _narrow
+    from pinot_tpu_torch.engine.expr import eval_device, eval_host
+    from pinot_tpu_torch.sql.parser import Parser
+
+    numeric = [c for c, v in cols.items() if v.dtype != object]
+    dev32 = {c: _narrow(cols[c]) for c in numeric}
+    host = {c: v.astype(np.float64 if v.dtype.kind == "f" else np.int64)
+            for c, v in dev32.items()}
+    dev = {c: torch.from_numpy(v).cuda() for c, v in dev32.items()}
+    torch.cuda.synchronize()
+    out = {}
+    for family, exprs in EXPR_FAMILIES:
+        atol = EXPR_TRIG_ATOL if family == "trig" else 0.0
+        max_abs = max_rel = 0.0
+        ms, dtypes = [], []
+        for sql in exprs:
+            e = Parser(sql).expression()
+            got = eval_device(e, dev)
+            torch.cuda.synchronize()
+            if got.device != dev[numeric[0]].device or got.numel() != len(host[numeric[0]]):
+                raise AssertionError(f"expr_device {family}: {sql} gave {got.shape} "
+                                     f"on {got.device}")
+            times = []
+            for _ in range(EXPR_DEVICE_RUNS):
+                t0 = time.perf_counter()
+                eval_device(e, dev)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms.append(statistics.median(times))
+            want = np.asarray(eval_host(e, host))
+            g = got.cpu().numpy()
+            dtypes.append(str(g.dtype))
+            if g.dtype.kind in "biu":
+                bad = int((g.astype(np.int64) != want.astype(np.int64)).sum())
+                if bad:
+                    raise AssertionError(f"expr_device {family}: {sql}: {bad} rows differ")
+                continue
+            err = np.abs(g.astype(np.float64) - want)
+            rel = err / np.maximum(np.abs(want), np.finfo(np.float64).tiny)
+            over = err > EXPR_RTOL * np.abs(want) + atol
+            if over.any():
+                i = int(np.argmax(over))
+                raise AssertionError(f"expr_device {family}: {sql}: {int(over.sum())} rows "
+                                     f"past rel {EXPR_RTOL} abs {atol}; row {i}: "
+                                     f"{g[i]} vs {want[i]}")
+            max_abs = max(max_abs, float(err.max()))
+            max_rel = max(max_rel, float(np.where(err > 0, rel, 0).max()))
+        log("expr_device", family=family, expressions=exprs, rows=len(host[numeric[0]]),
+            dtypes=dtypes, max_abs_err=max_abs, max_rel_err=max_rel, rtol=EXPR_RTOL,
+            atol=atol, call_ms_median=ms, runs=EXPR_DEVICE_RUNS)
+        out[family] = max_rel
+    del dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def expr_case(seg, device: torch.device) -> dict:
+    """`masked_sums` over one segment with the CASE sum's work: its id band
+    (lo_quantity < 25) and the operand row `eval_device` builds from the CASE
+    expression, against its plain version (`scan_case`)."""
+    from pinot_tpu_torch.engine import datablock
+    from pinot_tpu_torch.engine.expr import eval_device
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import plan_segment
+
+    plan = plan_segment(compile_query(EXPR_CASE_SUM, seg.schema), seg)
+    [leaf] = plan.filter_prog.leaves
+    block = datablock.block_for(seg, device)
+    n = seg.num_docs
+    env = {c: block.values(c)[:n] for c in ("lo_discount", "lo_extendedprice")}
+    row = eval_device(plan.aggs[0].arg, env).to(torch.float32).contiguous()
+    args = ([block.ids(leaf.col)[:n]], [tuple(leaf.intervals[0])], [row])
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    numbers = scan_case("masked_sums", args, flush)
+    log("expr_case", kernel="masked_sums",
+        shape="one segment, lo_quantity < 25 band + the CASE operand row", **numbers)
+    return numbers
+
+
+def run_expr(args, table, cols, work) -> tuple:
+    """Device expressions against the host evaluator; device- and host-routed
+    queries per segment and over the set; a consuming segment without
+    staging, alone and beside the table. Returns the scan kernels' launches of
+    the checked runs by path, "expr" (device-routed queries and the mixed
+    set) and "host" (host-routed queries: none expected), and the
+    `expr_case` numbers."""
+    from pinot_tpu_torch import execute_query, segments_from_columns, ssb
+    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+
+    expr_device_families(cols)
+    schema = table[0].schema
+    rows = sum(s.num_docs for s in table)
+    mx = MeshQueryExecutor()
+    launches = {"expr": {"masked_sums": 0, "masked_sums_fused": 0},
+                "host": {"masked_sums": 0, "masked_sums_fused": 0}}
+    none = {"masked_sums": 0, "masked_sums_fused": 0}
+
+    def checked(path, label, run, want, want_launches, runs, rtol=ORACLE_RTOL,
+                atol=ORACLE_ATOL, trace=False):
+        """One cold run with the counts set to 0 just before and read just
+        after (the top-k launches too: a host route launches none), held
+        against the oracle; then `runs` warm runs."""
+        scan.reset_launch_counts()
+        kernels.reset_topk_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        topk = kernels.topk_launches()
+        if counts != want_launches or (path == "host" and topk):
+            raise AssertionError(f"{label}: kernel launches {counts}, top-k {topk}, "
+                                 f"expected {want_launches}")
+        for k, v in counts.items():
+            launches[path][k] += v
+        if not rows_match(res.rows, want, rtol, atol):
+            raise AssertionError(f"{label}: got {res.rows[:12]}, oracle {want[:12]}")
+        fields = dict(answer=res.rows[:12], answer_rows=len(res.rows), cold_ms=cold_ms,
+                      launches=counts, topk_launches=topk,
+                      cold_phase_ms=res.stats.get("phaseTimesMs"))
+        if runs:
+            warm, results = warm_times(run, runs=runs)
+            bad = [r.rows[:4] for r in results if not rows_match(r.rows, want, rtol, atol)]
+            if bad:
+                raise AssertionError(f"{label}: warm answers {bad[:2]}, oracle {want[:4]}")
+            warm.pop("median_s")
+            fields.update(warm)
+            fields["warm_phase_median_ms"] = {
+                k: statistics.median(r.stats["phaseTimesMs"][k] for r in results)
+                for k in res.stats["phaseTimesMs"]}
+        if trace and args.trace:
+            fields["trace"] = trace_query(run)
+        return fields
+
+    def kinds(sql, segs):
+        ctx = compile_query(sql, schema)
+        plans = [plan_segment(ctx, s) for s in segs]
+        return sorted({p.kind for p in plans}), sorted({p.fallback_reason for p in plans})
+
+    # device-routed queries: per segment and over the set
+    device_queries = [
+        ("case_sum", EXPR_CASE_SUM, oracle_case_sum,
+         {"masked_sums": len(table), "masked_sums_fused": 0},
+         {"masked_sums": 1, "masked_sums_fused": 0}),
+        ("math_filter", EXPR_MATH_FILTER, oracle_math_filter, none, none),
+        ("group_math", EXPR_GROUP_MATH, oracle_group_math, none, none),
+    ]
+    for qid, sql, oracle, seg_launches, set_launches in device_queries:
+        want = oracle(cols)
+        seg_kinds, _ = kinds(sql, table)
+        set_plan, _ = mx._plan_for_set(compile_query(sql, schema), table)
+        if seg_kinds != ["device"] or set_plan.kind != "device":
+            raise AssertionError(f"expr {qid}: plans {seg_kinds} per segment, "
+                                 f"{set_plan.kind} over the set; expected device")
+        for path, run, want_launches in (
+                ("per_segment", lambda sql=sql: execute_query(table, sql), seg_launches),
+                ("set", lambda sql=sql: mx.execute(table, sql), set_launches)):
+            line = checked("expr", f"expr {qid} {path}", run, want, want_launches,
+                           EXPR_QUERY_RUNS, trace=True)
+            log("expr_query", query=qid, path=path, plan_kind="device", rows=rows,
+                segments=len(table), oracle=want[:12], **line)
+    case = expr_case(table[0], mx.device)
+
+    # host-routed queries
+    sup_cols = ssb.make_supplier(seed=args.seed)
+    supplier = segments_from_columns(ssb.supplier_schema(), sup_cols,
+                                     os.path.join(work, "expr_supplier"), 1)
+    tables = {"lineorder": table, "supplier": supplier}
+    schemas = {"lineorder": schema, "supplier": ssb.supplier_schema()}
+    scan_fn = make_segment_scan(tables)
+    host_queries = [
+        ("group_expr", EXPR_GROUP_EXPR, oracle_group_expr(cols), "host"),
+        ("string_fns", EXPR_STRING, oracle_string(cols), "host"),
+        ("host_mask_select", EXPR_HOST_SELECT, oracle_host_select(cols), "selection"),
+    ]
+    for qid, sql, want, kind in host_queries:
+        seg_kinds, reasons = kinds(sql, table)
+        if seg_kinds != [kind] or "" in reasons:
+            raise AssertionError(f"expr host {qid}: plans {seg_kinds}, reasons {reasons}")
+        for path, run, runs in (
+                ("per_segment", lambda sql=sql: execute_query(table, sql), EXPR_HOST_RUNS),
+                ("set", lambda sql=sql: mx.execute(table, sql), 0)):
+            line = checked("host", f"expr host {qid} {path}", run, want, none, runs,
+                           JOIN_RTOL, JOIN_ATOL)
+            log("expr_host_query", query=qid, path=path, plan_kind=kind,
+                fallback_reason=reasons[0], rows=rows, segments=len(table), **line)
+    sup_ctx = compile_query("SELECT s_nation FROM supplier WHERE strpos(s_city, 'A') = 0",
+                            schemas["supplier"])
+    reason = plan_segment(sup_ctx, supplier[0]).fallback_reason
+    if not reason:
+        raise AssertionError("expr host join: the supplier leaf took the device mask")
+    line = checked("host", "expr host join", lambda: execute_multistage(
+        EXPR_HOST_JOIN, scan_fn, schemas.get), oracle_host_join(cols, sup_cols), none,
+        EXPR_HOST_RUNS, JOIN_RTOL, JOIN_ATOL)
+    log("expr_host_query", query="host_mask_join", path="multistage", plan_kind="selection",
+        fallback_reason=reason, rows=rows, **line)
+
+    # a consuming segment without staging: host plans alone, the merged view
+    # beside the table
+    n_rt = EXPR_CONSUMING_ROWS
+    rt = ssb.make_columns(n_rt, args.seed + 2)
+    MemoryStream.reset_all()
+    stream = MemoryStream.create("lineorder_expr", 1)
+    for lo in range(0, n_rt, REALTIME_BLOCK_ROWS):
+        stream.produce(encode_columnar_block(schema, {c: v[lo:lo + REALTIME_BLOCK_ROWS]
+                                                      for c, v in rt.items()}), partition=0)
+    cfg = TableConfig("lineorder", stream=StreamConfig(topic="lineorder_expr",
+                                                       decoder="columnar"))
+    consumer = RealtimePartitionConsumer("lineorder__0__1__20261017T0000Z", cfg, schema, 0,
+                                         work)
+    t0 = time.perf_counter()
+    got = consumer.pump(max_messages=n_rt // REALTIME_BLOCK_ROWS + 1)
+    pump_s = time.perf_counter() - t0
+    view = consumer.query_segment()
+    if got != n_rt or view.num_docs != n_rt or not view.is_mutable:
+        raise AssertionError(f"expr consuming: pumped {got}, view {view.num_docs} rows, "
+                             f"mutable {view.is_mutable}")
+    log("expr_consuming_data", rows=n_rt, seed=args.seed + 2, pump_ms=pump_s * 1e3,
+        rows_per_s=n_rt / pump_s, device_staging=False)
+    for qid, sql, oracle in (("q1_1", ssb.QUERY, oracle_q11),
+                             ("group_by", ssb.GROUP_QUERY, oracle_group)):
+        seg_kinds, reasons = kinds(sql, [view])
+        if seg_kinds != ["host"]:
+            raise AssertionError(f"expr consuming {qid}: view plan {seg_kinds} {reasons}")
+        line = checked("host", f"expr consuming {qid} view", lambda sql=sql: execute_query(
+            [view], sql), oracle(rt), none, EXPR_HOST_RUNS)
+        log("expr_consuming", query=qid, path="view", plan_kind="host",
+            fallback_reason=reasons[0], rows=n_rt, **line)
+        members = table + [view]
+        _, merged = mx._plan_for_set(compile_query(sql, schema), members)
+        if merged is None:
+            raise AssertionError(f"expr consuming {qid}: the mixed set took no merged view")
+        # on the merged view the consuming member's numeric columns have no
+        # dictionary, so these filters compare values: the plain body
+        line = checked("expr", f"expr consuming {qid} mixed", lambda: mx.execute(members, sql),
+                       add_rows(oracle(cols), oracle(rt)), none, EXPR_HOST_RUNS)
+        log("expr_consuming", query=qid, path="mixed_set", plan_kind="device",
+            rows=rows + n_rt, segments=len(members), merged_view=True, **line)
+    return launches, case
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -1467,7 +1865,8 @@ def main() -> int:
     lap("kernels", t0)
 
     # phase 4: the path; phase 5: the set executor and the pipeline over its
-    # table; phase 6: selections; phase 7: joins; phase 8: realtime
+    # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
+    # expressions and the host path
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
     try:
@@ -1489,6 +1888,12 @@ def main() -> int:
         missing = [k for k, v in realtime_launches.items() if v == 0]
         if missing:
             raise AssertionError(f"the realtime path launched no {missing}")
+        t0 = time.perf_counter()
+        expr_launches, expr_numbers = run_expr(args, table, cols, work)
+        lap("expr", t0)
+        if any(expr_launches["host"].values()) or not expr_launches["expr"]["masked_sums"]:
+            raise AssertionError(f"expr phase launches {expr_launches}: the host path must "
+                                 "launch no scan, the CASE sum masked_sums")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1502,18 +1907,24 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1],
                         "launches": (path_launches[name] + serve_launches[name]
-                                     + join_launches[name] + realtime_launches[name]),
+                                     + join_launches[name] + realtime_launches[name]
+                                     + expr_launches["expr"][name]
+                                     + expr_launches["host"][name]),
                         "launches_by_path": {"per_segment": path_launches[name],
                                              "serve": serve_launches[name],
                                              "join": join_launches[name],
-                                             "realtime": realtime_launches[name]},
+                                             "realtime": realtime_launches[name],
+                                             "expr": expr_launches["expr"][name],
+                                             "host": expr_launches["host"][name]},
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
                         "kernel_ms": s["kernel_ms"],
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
                         "shape_case": s["case"],
-                        "cases": dict(s["cases"], realtime_view=realtime_numbers[name])})
+                        "cases": dict(s["cases"], realtime_view=realtime_numbers[name],
+                                      **({"expr_case_operand": expr_numbers}
+                                         if name == "masked_sums" else {}))})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,10 @@
 """pinot_tpu_torch: the PyTorch/CUDA counterpart of `pinot_tpu`.
 
 Answers aggregation SQL over immutable offline segments on a CUDA card, with
-the scan hot loop as a hand-written CUDA kernel (`csrc/masked_sums.cu`). The
+the scan hot loop as a hand-written CUDA kernel (`csrc/masked_sums.cu`) and
+the expression library of the JAX planner's device functions in torch; the
+shapes that planner sends to the host (expression group keys, string and
+JSON functions, consuming segments) run on the host in numpy, as there. The
 package imports nothing of `pinot_tpu` or JAX; it reads and writes the same
 segment directories as `pinot_tpu`.
 

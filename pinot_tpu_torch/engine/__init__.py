@@ -1,2 +1,3 @@
-"""Device execution: segment blocks, expression evaluation, the aggregation body
-and the CUDA scan kernels."""
+"""Device execution: segment blocks, the expression library (device and host
+evaluators, and the datetime, string, JSON and geo functions), the
+aggregation body and the CUDA scan kernels."""

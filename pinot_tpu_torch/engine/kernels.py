@@ -13,6 +13,11 @@ Output names and dtypes are the ones the executor's decoders read: "count"
 int32, and "{i}.sum" float32, "{i}.min" / "{i}.max" in the argument's dtype
 for aggregation i. Group-by outputs hold `num_keys_pad + 1` entries.
 
+Compare leaves and aggregate arguments are any device expression
+(`expr.eval_device`): CASE values mixing int32 and float32, math, trig and
+calendar functions. A boolean argument (`SUM(a > b)`) aggregates as float32
+0/1, as the JAX body's does, and a constant one is broadcast to the rows.
+
 The scalar shapes that reduce to masked sums over id bands do not come here:
 the executor sends them to the CUDA scan kernels of `engine/scan.py`. The JAX
 package's group-by regime ladder (one-hot matmul, chunked matmul, sort-based)
@@ -139,7 +144,9 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
         v = eval_device(leaf.expr, inputs.vals)
         arr_name, off = spec.cmp_offset[i]
         sc = inputs.iscal if arr_name == "iscal" else inputs.fscal
-        return _compare(v, leaf.op, sc, off, len(leaf.operands))
+        m = _compare(v, leaf.op, sc, off, len(leaf.operands))
+        return m.expand_as(inputs.valid) if isinstance(m, torch.Tensor) \
+            else torch.full_like(inputs.valid, bool(m))
 
     def tree_mask(node) -> torch.Tensor:
         kind = node[0]
@@ -161,13 +168,21 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
 
 
 def _agg_rows(agg: AggFunc, vals, n: int, device):
-    """The aggregation argument as a length-n tensor (None for COUNT(*))."""
+    """The aggregation argument as a length-n tensor (None for COUNT(*)); a
+    boolean one as float32 0/1."""
     if agg.arg is None or (isinstance(agg.arg, Identifier) and agg.arg.name == "*"):
         return None
-    v = eval_device(agg.arg, vals)
+    return as_rows(eval_device(agg.arg, vals), n, device)
+
+
+def as_rows(v, n: int, device) -> torch.Tensor:
+    """A device expression's value as n rows: a constant broadcast, a boolean
+    as float32 0/1."""
     if not isinstance(v, torch.Tensor):
         v = torch.full((n,), v, device=device)
-    return v
+    elif v.dim() == 0:
+        v = v.to(device).expand(n)
+    return v.to(torch.float32) if v.dtype == torch.bool else v
 
 
 def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor]:

@@ -21,9 +21,10 @@ another) and its views run on the device path.
 Not ported: the completion protocol with the controller (`maybe_complete`
 raises NotImplementedError once the flush thresholds are reached),
 `RealtimeTableManager`, upsert and dedup, the row-append `MutableSegment`
-(every consumer here indexes into a `DeviceMutableSegment`), ingestion
-filters and transforms (NotImplementedError), and the socket broker's
-splicing fetch.
+(every consumer here indexes into a `DeviceMutableSegment`), and the socket
+broker's splicing fetch. The stream properties `filterExpr` and
+`columnTransforms` configure the `TransformPipeline`: with either, a block
+lane's batches go through it as column lists before they are indexed.
 """
 
 from __future__ import annotations
@@ -90,8 +91,16 @@ class RealtimePartitionConsumer:
         indexed = 0
         if self.block_decoder is not None:
             self.last_decode_path = "blocks"
+            # arrays index directly unless the table configures a filter or
+            # transforms: then each block goes through the pipeline as lists
+            direct = self.pipeline.filter_expr is None and not self.pipeline.column_transforms
             for m in batch.messages:
-                indexed += self.mutable.index_arrays(self.block_decoder.decode_one(m.value))
+                cb = self.block_decoder.decode_one(m.value)
+                if direct:
+                    indexed += self.mutable.index_arrays(cb)
+                else:
+                    indexed += self.mutable.index_batch(
+                        self.pipeline.apply(cb.to_lists(self.schema)))
         elif batch.messages:
             self.last_decode_path = "batch"
             rows = [self.decoder(m.value) for m in batch.messages]

@@ -1,10 +1,12 @@
-"""Record transform pipeline: type coercion of decoded row batches.
+"""Record transform pipeline: filter -> expression transforms -> type coercion.
 
-A trimmed copy of `pinot_tpu/ingest/transform.py` (the analog of the
-reference's `CompositeTransformer`): the DataTypeTransformer step alone. The
-JAX package's filter and expression transforms evaluate SQL expressions on
-the host, whose evaluator this package does not have (ROADMAP queue 1 item
-2): a pipeline that asks for either raises NotImplementedError.
+Counterpart of `pinot_tpu/ingest/transform.py` (analog of the reference's
+ordered transformer chain, `CompositeTransformer.java:33`: FilterTransformer
+-> ExpressionTransformer -> DataTypeTransformer). Transform and filter
+expressions are SQL expressions parsed by this package's parser and
+evaluated with `engine.expr.eval_host`, so ingestion-time and query-time
+functions are one registry (the reference shares its `FunctionRegistry`
+between both for the same reason).
 """
 
 from __future__ import annotations
@@ -13,29 +15,63 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..engine.expr import eval_host
 from ..schema import DataType, Schema
+from ..sql.parser import Parser
+
+
+def _parse_expr(text: str):
+    p = Parser(text)
+    e = p.expression()
+    if p.cur.kind != "EOF":
+        raise ValueError(f"trailing input in expression {text!r}")
+    return e
 
 
 class TransformPipeline:
-    """Coerces column batches (dict of lists or arrays) to the schema's types."""
+    """Vectorized over row batches (a dict of column lists or arrays)."""
 
     def __init__(self, schema: Schema, filter_expr: Optional[str] = None,
                  column_transforms: Optional[Dict[str, str]] = None):
-        if filter_expr or column_transforms:
-            raise NotImplementedError(
-                "ingestion filters and column transforms need the host expression "
-                "evaluator, which is not ported to pinot_tpu_torch")
+        """`filter_expr`: rows it matches are DROPPED (the reference's
+        FilterTransformer: filterFunction selects the records to skip).
+        `column_transforms`: dest column -> SQL expression over source fields."""
         self.schema = schema
+        self.filter_expr = _parse_expr(filter_expr) if filter_expr else None
+        self.column_transforms = {dest: _parse_expr(src)
+                                  for dest, src in (column_transforms or {}).items()}
 
     def apply(self, columns: Dict[str, Any]) -> Dict[str, List[Any]]:
         """Schema columns only, each value coerced to its type, None kept as
         None (so that the segment records a null) and NaN read as null."""
         n = len(next(iter(columns.values()))) if columns else 0
-        out: Dict[str, List[Any]] = {}
+        env = {k: _as_array(v) for k, v in columns.items()}
+        # schema columns coerced first, so that filters and transforms see
+        # typed values even from string inputs; other fields stay raw for the
+        # transforms to consume
+        coerced = set()
         for spec in self.schema.fields:
-            vals = columns.get(spec.name)
-            out[spec.name] = [None] * n if vals is None else _coerce_list(spec, list(vals))
-        return out
+            if spec.name in env:
+                env[spec.name] = _as_array(_coerce_list(spec, env[spec.name].tolist()))
+                coerced.add(spec.name)
+        for dest, expr in self.column_transforms.items():
+            out = eval_host(expr, env)
+            env[dest] = np.full(n, out, dtype=object) if np.isscalar(out) else _as_array(out)
+        if self.filter_expr is not None:
+            keep = ~np.asarray(eval_host(self.filter_expr, env), dtype=bool)
+            env = {k: v[keep] for k, v in env.items()}
+            n = int(keep.sum())
+        out_cols: Dict[str, List[Any]] = {}
+        for spec in self.schema.fields:
+            if spec.name not in env:
+                out_cols[spec.name] = [None] * n
+                continue
+            vals = env[spec.name].tolist()
+            if spec.name in coerced and spec.name not in self.column_transforms:
+                out_cols[spec.name] = vals
+            else:
+                out_cols[spec.name] = _coerce_list(spec, vals)
+        return out_cols
 
 
 def _coerce_list(spec, vals: list) -> list:
@@ -61,6 +97,14 @@ def rows_to_all_columns(rows: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
     for r in rows:
         keys.update(r)
     return {k: [r.get(k) for r in rows] for k in keys}
+
+
+def _as_array(v) -> np.ndarray:
+    if isinstance(v, np.ndarray):
+        return v
+    arr = np.empty(len(v), dtype=object)
+    arr[:] = v
+    return arr
 
 
 def _is_nan(v: Any) -> bool:

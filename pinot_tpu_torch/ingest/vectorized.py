@@ -51,6 +51,28 @@ class ColumnarBatch:
         self.n = n
         self.cols = cols
 
+    def to_lists(self, schema: Schema) -> Dict[str, List[Any]]:
+        """Python column lists with None at null rows: the shape of
+        `TransformPipeline.apply`, for a table whose ingestion filter or
+        transforms the arrays cannot take."""
+        out: Dict[str, List[Any]] = {}
+        for spec in schema.fields:
+            rep = self.cols.get(spec.name)
+            if rep is None:
+                out[spec.name] = [None] * self.n
+                continue
+            if rep[0] == "num":
+                _, arr, base, nulls = rep
+                vals = widen_num(arr, base, spec.data_type).tolist()
+            else:
+                _, values, ids, nulls = rep
+                vals = [values[i] for i in ids.tolist()]
+            if nulls is not None and nulls.any():
+                for i in np.nonzero(nulls)[0].tolist():
+                    vals[i] = None
+            out[spec.name] = vals
+        return out
+
 
 def widen_num(arr: np.ndarray, base: Optional[int], data_type: DataType) -> np.ndarray:
     """A (possibly frame-of-reference) numeric array in the wide dtype of its

@@ -40,7 +40,8 @@ from ..engine.expr import eval_host
 from ..query import stats as qstats
 from ..query.aggregates import AggFunc, make_agg
 from ..query.context import QueryContext
-from ..query.executor import ServerQueryExecutor, require_device_mask, resolve_device
+from ..query.executor import ServerQueryExecutor, resolve_device
+from ..query.executor import _take as _take_rows
 from ..query.planner import plan_segment
 from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
 from ..query.result import ResultTable
@@ -1077,10 +1078,10 @@ def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTabl
 def make_segment_scan(tables: Dict[str, List], device=None) -> ScanFn:
     """Leaf-scan provider over in-memory segment lists, on `device` (CUDA
     unless the caller names another): the filter as the single-stage
-    executor's device selection mask, then only the needed columns gathered
-    on the host (reference: leaf stages compile to `ServerQueryRequest` on the
-    v1 engine). A filter the device mask cannot evaluate raises
-    NotImplementedError, as a selection does.
+    executor's selection mask (on the device, or the host filter mask where
+    the plan says the device cannot evaluate it), then only the needed
+    columns of the matching rows decoded on the host (reference: leaf stages
+    compile to `ServerQueryRequest` on the v1 engine).
 
     Takes the `derived` build-key filter besides the scan's own: segments whose metadata folds the derived filter to constant
     false are skipped AND attributed to `numSegmentsPrunedByJoinKey`: the
@@ -1110,11 +1111,10 @@ def make_segment_scan(tables: Dict[str, List], device=None) -> ScanFn:
                     qstats.record(qstats.NUM_SEGMENTS_PRUNED_BY_JOIN_KEY)
                     qstats.record(qstats.SCAN_ROWS_AVOIDED, seg.num_docs)
                 continue
-            require_device_mask(plan)
             mask = executor._selection_mask(plan)
             idx = np.nonzero(mask[:seg.num_docs])[0]
             for c in columns:
-                out[c].append(np.asarray(seg.column(c).values())[idx])
+                out[c].append(_take_rows(seg.column(c), idx))
         return {c: (np.concatenate([a.astype(object) for a in arrs])
                     if arrs and any(a.dtype == object for a in arrs)
                     else np.concatenate(arrs) if arrs else np.empty(0))

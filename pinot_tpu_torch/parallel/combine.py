@@ -10,9 +10,12 @@ has one member, so the collectives have nothing to combine and disappear:
 A set whose dictionaries agree (`dictHash`) on every column whose ids the
 plan compares or groups by (`aligned_dictionaries`), as for segments built by
 `segment.writer.build_aligned_segments`, runs one plan made on the first
-segment. Any other set (segments committed apart, consuming views) is planned
-on a `merged.MergedSegmentView`: one global dictionary per column, each
-member's ids remapped to it on the host as the set block is stacked. The view
+segment. Any other set (segments committed apart, consuming views), and any
+set with a mutable member (a consuming segment without device staging), is
+planned on a `merged.MergedSegmentView`, as in the JAX package: one global
+dictionary per column, each member's ids remapped to it on the host as the
+set block is stacked, a mutable member's ids and dictionary from one
+snapshot and its columns materialized on the host at each growth step. The view
 and the block are cached by the members' identity with their row counts as
 the subkey, so a consuming member that grew replaces them. The pass is
 
@@ -37,14 +40,14 @@ block; its decode gathers the candidates from the segments. Where NaN keys
 match, NaN and -inf keys displaced candidates, or DOUBLE keys tie in f32 at
 the candidates' cut, the decode answers by the exact path over the same
 block (the device mask, every match gathered) and marks the partial
-`topk_exact`. Any other selection is the per-segment executor's partial.
+`topk_exact`. Any other selection (one whose filter needs the host mask, or
+over a mutable member, among them) is the per-segment executor's partial.
 
-Not executed here, each raising NotImplementedError: star-tree segments,
-mutable segments (they need the host path), and a scan over more than
-INT32_MAX rows. A group-by partial is a
-state dict, not the JAX package's array-form `DensePartial`. A plan that
-needs no scan (metadata, pruned) is answered by the per-segment
-`ServerQueryExecutor`, as in the JAX package.
+Not executed here, each raising NotImplementedError: star-tree segments and
+a scan over more than INT32_MAX rows. A group-by partial is a state dict, not
+the JAX package's array-form `DensePartial`. A plan that needs no scan
+(metadata, pruned) or that the planner marks host is answered by the
+per-segment `ServerQueryExecutor`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,10 +67,9 @@ from ..engine.kernels import KernelInputs, KernelSpec, filter_mask, run_kernel
 from ..query.aggregates import make_agg
 from ..query.context import QueryContext, compile_query
 from ..query.dense_reduce import try_dense_decode
-from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor, _as_rows,
+from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor,
                               _band_leaf_indices, _plan_vals_cols, _sum_operands, _take,
-                              f32_tie_at_the_cut, mutable_segment_reason,
-                              require_device_mask, resolve_device, scan_route,
+                              f32_tie_at_the_cut, resolve_device, scan_route,
                               selection_rows)
 from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
                              plan_segment, topk_key_exact_in_f32, topk_order_key_device_ok)
@@ -133,7 +135,8 @@ class PreparedDispatch:
     over the same block and differ only in literals: they launch as one
     stacked group. `kind` is "agg" for a pass over the block, "topk" for a
     selection's fused filter + top-k over it (never stacked), "metadata" for a
-    plan answered without a pass, or "exact" for a selection the per-segment
+    plan the per-segment executor answered without a pass over the block
+    (metadata, pruned and host plans), or "exact" for a selection the per-segment
     executor answered (for both, `decode` ignores its argument)."""
 
     kind: str
@@ -318,20 +321,20 @@ class MeshQueryExecutor:
         set's plan is made on the first segment, with the others as peers; a
         device plan whose compared or grouped columns' dictionaries disagree
         (segments committed apart, consuming views) is made again on the
-        merged view, in global-id space. (None, None) for an empty set. A plan
-        of another kind than "device" goes to the per-segment executor."""
+        merged view, in global-id space; a set with a mutable member is planned
+        on the merged view from the start. (None, None) for an empty set. A
+        plan of another kind than "device" goes to the per-segment executor."""
         if not segments:
             return None, None
         for seg in segments:
-            if getattr(seg, "is_mutable", False):
-                raise NotImplementedError(mutable_segment_reason(seg))
             if getattr(seg, "has_star_tree", False):
                 raise NotImplementedError(
                     f"segment {seg.name} carries a star-tree, which pinot_tpu_torch "
                     "does not execute (star-tree stacking is not ported)")
-        plan = plan_segment(ctx, segments[0], peers=segments[1:])
-        if plan.kind != "device" or self._alignable(plan, segments):
-            return plan, None
+        if not any(getattr(s, "is_mutable", False) for s in segments):
+            plan = plan_segment(ctx, segments[0], peers=segments[1:])
+            if plan.kind != "device" or self._alignable(plan, segments):
+                return plan, None
         view = self._merged_view(segments)
         return plan_segment(ctx, view), view
 
@@ -397,12 +400,14 @@ class MeshQueryExecutor:
         ORDER BY: the broker merges every server's groups first)."""
         plan, view = self._plan_for_set(ctx, segments)
         if plan is not None and plan.kind == "selection":
-            require_device_mask(plan)
             # the plan's id bands hold set-wide only where the filtered
-            # columns' dictionaries agree: otherwise the per-segment executor
+            # columns' dictionaries agree, and the device mask only where the
+            # plan has no host reason and no member is mutable: otherwise the
+            # per-segment executor
             lut_cols = {leaf.col for leaf in plan.filter_prog.leaves
                         if isinstance(leaf, LutLeaf)}
-            if device_topk_screen(ctx) and aligned_dictionaries(segments, lut_cols) and all(
+            if device_topk_screen(ctx) and not plan.fallback_reason and view is None \
+                    and aligned_dictionaries(segments, lut_cols) and all(
                     topk_order_key_device_ok(s, ctx.order_by[0].expr) for s in segments):
                 return self._prepare_topk(ctx, plan, segments)
             return self._answered("exact", self._per_segment_partial(ctx, segments))
@@ -412,7 +417,8 @@ class MeshQueryExecutor:
 
     def _per_segment_partial(self, ctx: QueryContext, segments) -> SegmentResult:
         """The per-segment executor's partial for a plan that needs no pass
-        (metadata answers, pruned sets); it raises for shapes it cannot run."""
+        over the block (metadata answers, pruned sets, host plans); it raises
+        for shapes it cannot run."""
         aggs = [make_agg(f) for f in ctx.aggregations]
         merged = merge_segment_results(
             [self._fallback.execute_segment(ctx, s) for s in segments], aggs)
@@ -598,7 +604,7 @@ class MeshQueryExecutor:
         if p0.route == "masked_sums":
             ins = p0.inputs
             n = ins.ids[0].shape[0]
-            rows = [_as_rows(eval_device(arg, ins.env), n, self.device).to(torch.float32)
+            rows = [kernels.as_rows(eval_device(arg, ins.env), n, self.device).to(torch.float32)
                     for _, arg in ins.operands]
             return [{"answer": scan.masked_sums_answer(ins.ids, p.inputs.bands, rows)}
                     for p in ps]

@@ -1,33 +1,43 @@
-"""Per-server query executor: plan + run each segment on the device, combine, reduce.
+"""Per-server query executor: plan + run each segment, combine, reduce.
 
 Counterpart of `pinot_tpu/query/executor.py` (analog of the reference's
 `ServerQueryExecutorV1Impl.processQuery`). Each segment is planned
-(`planner.py`) and executed on a torch device:
+(`planner.py`) and executed:
 
-* scalar plans whose filter is an AND of single dict-id bands and whose
-  outputs are COUNT and plain SUMs (AVG included) run through the CUDA masked
-  multi-sum scan (`engine/scan.py`), routed by `scan_route`;
+* scalar device plans whose filter is an AND of single dict-id bands and
+  whose outputs are COUNT and plain SUMs (AVG included) run through the CUDA
+  masked multi-sum scan (`engine/scan.py`), routed by `scan_route`; a SUM
+  argument may be any device expression (`expr.eval_device`), evaluated into
+  the scan's operand row;
 * every other device plan runs the plain-PyTorch body (`engine/kernels.py`);
+* host plans run `_host_aggregate`: the filter mask (`host_filter_mask`) and
+  the arguments and group keys (`expr.eval_host`, with the whole function
+  library) in numpy, grouped by `_factorize_keys`. The planner marks a plan
+  host exactly where the JAX planner does, so nothing the device can run
+  comes here;
 * selections take the filter mask on the device and gather the selected
-  rows on the host. An `ORDER BY <column> LIMIT k` whose key the device can
-  sort (`topk_order_key_device_ok`) picks its candidates with the fused
-  filter + top-k (`kernels.compute_topk`, k + TOPK_SLACK of them); any other
-  ORDER BY, a top-k that NaN or -inf keys displaced, and one whose DOUBLE
-  keys tie in f32 at the candidates' cut (`f32_tie_at_the_cut`), takes the
-  exact path: every match gathered and sorted on the host, counted in the
-  result's `stats["topkExact"]`. A selection without ORDER BY keeps the first
-  OFFSET + LIMIT matches of each segment.
+  rows on the host; a selection whose filter the device cannot evaluate (the
+  plan's `fallback_reason`) takes `host_filter_mask`. An `ORDER BY <column>
+  LIMIT k` whose key the device can sort (`topk_order_key_device_ok`) and
+  whose mask the device evaluates picks its candidates with the fused filter
+  + top-k (`kernels.compute_topk`, k + TOPK_SLACK of them); any other ORDER
+  BY, a top-k that NaN or -inf keys displaced, and one whose DOUBLE keys tie
+  in f32 at the candidates' cut (`f32_tie_at_the_cut`), takes the exact path:
+  every match gathered and sorted on the host, counted in the result's
+  `stats["topkExact"]`. A selection without ORDER BY keeps the first OFFSET +
+  LIMIT matches of each segment.
 
-A consuming segment's view that stages on the device
+A consuming segment without device staging is mutable: it is planned on the
+host, its dictionary leaves rebuilt against one `dict_snapshot` of its
+readers. A consuming segment's view that stages on the device
 (`segment.mutable_device.ConsumingView`, `is_mutable=False`) runs as an
 immutable segment does, its block already holding the staged chunks.
 
-Shapes this package does not execute raise NotImplementedError with the
-plan's reason: host plans (a selection filter among them),
-DISTINCT/HLL/theta/percentile/moment aggregations, star-trees, bitmap leaves,
-multi-value columns, null leaves, and mutable segments (a consuming segment
-without staging, an upsert segment), which need the host aggregation path.
-Nothing falls back to another path.
+Shapes this package does not execute raise NotImplementedError with their
+reason: DISTINCT/HLL/theta/percentile/moment aggregations, star-trees,
+multi-value columns, IS NULL leaves, JSON_MATCH/TEXT_MATCH/IN_ID_SET.
+Nothing falls back to another path: the host runs only what the planner
+marks host.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
 no CUDA card they raise RuntimeError.
@@ -36,18 +46,16 @@ no CUDA card they raise RuntimeError.
 from __future__ import annotations
 
 import time
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..engine import kernels, scan
 from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype
-from ..engine.expr import eval_device
+from ..engine.expr import eval_device, eval_host
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
-from ..segment.reader import ImmutableSegment
-from ..engine.expr import eval_host
-from ..segment.reader import ColumnReader
+from ..segment.reader import ColumnReader, ImmutableSegment
 from ..sql.ast import Identifier, identifiers_in
 from .aggregates import make_agg
 from .context import QueryContext, compile_query
@@ -61,16 +69,6 @@ MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
 # top-k row (the final order is exact: candidates re-sort on the host in f64)
 TOPK_SLACK = 256
-
-
-def mutable_segment_reason(segment) -> str:
-    """Why a mutable segment is refused: the JAX package plans a mutable
-    segment on the host, and this package has no host aggregation path."""
-    return (f"segment {segment.name} is mutable (a consuming segment without device "
-            "staging, or an upsert segment): it needs the host aggregation path, which "
-            "is not ported to pinot_tpu_torch (ROADMAP queue 1 item 2); a "
-            "DeviceMutableSegment with device_staging=True serves its query_view() "
-            "on the device")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -115,8 +113,6 @@ class ServerQueryExecutor:
 
     # -- per-segment execution --------------------------------------------
     def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment) -> SegmentResult:
-        if getattr(segment, "is_mutable", False):
-            raise NotImplementedError(mutable_segment_reason(segment))
         if getattr(segment, "has_star_tree", False):
             raise NotImplementedError(
                 f"segment {segment.name} carries a star-tree, which pinot_tpu_torch "
@@ -130,8 +126,7 @@ class ServerQueryExecutor:
             return self._device_aggregate(plan)
         if plan.kind == "selection":
             return self._selection(plan)
-        raise NotImplementedError(
-            f"{plan.kind} plan is not supported by pinot_tpu_torch: {plan.fallback_reason}")
+        return self._host_aggregate(plan)
 
     def _empty_result(self, plan: SegmentPlan) -> SegmentResult:
         if plan.group_exprs:
@@ -187,7 +182,7 @@ class ServerQueryExecutor:
             answer = scan.masked_sums_fused_answer(id_cols, bands, for_rows)
         else:
             env = {c: v[:n] for c, v in self._value_env(plan, block).items()}
-            rows = [_as_rows(eval_device(arg, env), n, self.device).to(torch.float32)
+            rows = [kernels.as_rows(eval_device(arg, env), n, self.device).to(torch.float32)
                     for _, arg in operands]
             answer = scan.masked_sums_answer(id_cols, bands, rows)
         host_sums, host_count = scan.answer_to_host(answer, len(operands))   # one copy
@@ -267,9 +262,55 @@ class ServerQueryExecutor:
             result.groups[tuple(keys[row])] = states
         return result
 
+    # -- host aggregation ---------------------------------------------------
+    def _host_aggregate(self, plan: SegmentPlan) -> SegmentResult:
+        """A host plan in numpy: the filter mask, then the arguments and group
+        keys evaluated over the decoded columns, grouped by dense codes of
+        the factorized keys (the host mirror of the device's dense keys)."""
+        seg = plan.segment
+        mask = host_filter_mask(plan, seg)
+        idx = np.nonzero(mask)[0]
+        env = _host_env(plan, seg, len(mask))
+
+        def arg_values(agg) -> np.ndarray:
+            if agg.arg is None or (isinstance(agg.arg, Identifier) and agg.arg.name == "*"):
+                return np.zeros(len(idx))
+            return _rows_of(eval_host(agg.arg, env), len(mask))[idx]
+
+        if not plan.group_exprs:
+            states = [a.host_state(arg_values(a)) for a in plan.aggs]
+            return SegmentResult("scalar", scalar=states, num_docs_scanned=len(idx))
+
+        key_arrays = [_rows_of(eval_host(g, env), len(mask))[idx] for g in plan.group_exprs]
+        arg_arrays = [arg_values(a) for a in plan.aggs]
+        value_dicts = []
+        combined = np.zeros(len(idx), dtype=np.int64)
+        stride = 1
+        for arr in key_arrays:
+            codes, values = _factorize_keys(arr)
+            combined += codes * stride
+            value_dicts.append(values)
+            stride *= max(len(values), 1)
+        uniq_keys, inverse = np.unique(combined, return_inverse=True)
+        order = np.argsort(inverse, kind="stable")
+        bounds = np.zeros(len(uniq_keys) + 1, dtype=np.int64)
+        np.cumsum(np.bincount(inverse, minlength=len(uniq_keys)), out=bounds[1:])
+
+        result = SegmentResult("groups", num_docs_scanned=len(idx))
+        for g, dense in enumerate(uniq_keys):
+            gidx = order[bounds[g]:bounds[g + 1]]
+            key = []
+            rem = int(dense)
+            for values in value_dicts:
+                card = max(len(values), 1)
+                key.append(_cell(values[rem % card]))
+                rem //= card
+            result.groups[tuple(key)] = [a.host_state(arg_arrays[i][gidx])
+                                         for i, a in enumerate(plan.aggs)]
+        return result
+
     # -- selection ---------------------------------------------------------
     def _selection(self, plan: SegmentPlan) -> SegmentResult:
-        require_device_mask(plan)
         ctx, seg = plan.ctx, plan.segment
         topk = self._topk_candidates(plan)
         if topk is not None:
@@ -291,7 +332,7 @@ class ServerQueryExecutor:
         top k by f32 key plus TOPK_SLACK more, lower rows first among ties."""
         ctx, seg = plan.ctx, plan.segment
         k = ctx.offset + ctx.limit
-        if len(ctx.order_by) != 1 or not 0 < k <= MAX_DEVICE_TOPK:
+        if len(ctx.order_by) != 1 or not 0 < k <= MAX_DEVICE_TOPK or plan.fallback_reason:
             return None
         order = ctx.order_by[0]
         if not topk_order_key_device_ok(seg, order.expr):
@@ -315,10 +356,13 @@ class ServerQueryExecutor:
         return idx, count
 
     def _selection_mask(self, plan: SegmentPlan) -> np.ndarray:
-        """bool[num_docs]: the filter evaluated on the device."""
+        """bool[num_docs]: the filter evaluated on the device, or on the host
+        where the plan says the device cannot (`fallback_reason`)."""
         seg = plan.segment
         if plan.filter_prog.is_match_all:
             return np.ones(seg.num_docs, dtype=bool)
+        if plan.fallback_reason:
+            return host_filter_mask(plan, seg)
         block = block_for(seg, self.device)
         spec = KernelSpec(plan.filter_prog, (), 1, ())
         mask = kernels.filter_mask(spec, self._kernel_inputs(plan, spec, block))
@@ -347,16 +391,15 @@ def f32_tie_at_the_cut(kth, last) -> bool:
     return np.float32(kth) == np.float32(last)
 
 
-def require_device_mask(plan: SegmentPlan) -> None:
-    """Raise for a selection whose filter the device cannot evaluate."""
-    if plan.fallback_reason:
-        raise NotImplementedError(
-            f"selection whose filter needs the host mask ({plan.fallback_reason}): "
-            "host_filter_mask is not ported to pinot_tpu_torch (ROADMAP queue 1 item 5)")
-
-
 def _take(reader: ColumnReader, rows: np.ndarray) -> np.ndarray:
-    """The column's values at `rows`, decoded on the host."""
+    """The column's values at `rows`, decoded on the host. A consuming
+    segment's reader decodes through one `dict_snapshot`: its ids and its
+    dictionary must come from the same growth step."""
+    snapshot = getattr(reader, "dict_snapshot", None)
+    if snapshot is not None:
+        _, d, ids = snapshot()
+        if d is not None:
+            return d.take(np.asarray(ids)[rows].astype(np.int64))
     ids = np.asarray(reader.fwd)[rows]
     return reader.dictionary.take(ids.astype(np.int64)) if reader.has_dictionary else ids
 
@@ -378,16 +421,130 @@ def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
     env = {c: np.concatenate([_take(seg.column(c), rows) for seg, rows in parts])
            if parts else np.empty(0) for c in needed}
 
-    def column(e):
-        v = eval_host(e, env)
-        return np.full(n, v, dtype=object) if np.ndim(v) == 0 else np.asarray(v)
-
-    out_cols = [column(e) for e, _ in ctx.select_items]
+    out_cols = [_rows_of(eval_host(e, env), n) for e, _ in ctx.select_items]
     rows = [tuple(_cell(c[i]) for c in out_cols) for i in range(n)]
-    sort_cols = [column(o.expr) for o in ctx.order_by]
+    sort_cols = [_rows_of(eval_host(o.expr, env), n) for o in ctx.order_by]
     sort_keys = [tuple(_cell(c[i]) for c in sort_cols) for i in range(n)] \
         if sort_cols else []
     return rows, sort_keys
+
+
+# -- host filter and environment ----------------------------------------------------
+
+def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
+    """bool[num_docs]: the compiled filter program evaluated with numpy, with
+    the device filter's LUT and compare semantics, so that the two agree by
+    construction (the single-value branches of the JAX package's
+    `host_filter_mask`)."""
+    prog = plan.filter_prog
+    n = seg.num_docs
+    if prog is None or prog.is_match_all:
+        return np.ones(n, dtype=bool)
+    env = _host_env(plan, seg, n)
+
+    def leaf_mask(i: int) -> np.ndarray:
+        leaf = prog.leaves[i]
+        if isinstance(leaf, LutLeaf):
+            reader = seg.column(leaf.col)
+            snapshot = getattr(reader, "dict_snapshot", None)
+            if snapshot is not None:
+                # a consuming reader: the LUT, rebuilt from the leaf's
+                # predicate, and the ids from ONE snapshot (ids remap as the
+                # sorted dictionary grows)
+                _, d, ids = snapshot()
+                m = leaf.rebuild_lut(d, len(d))[np.asarray(ids).astype(np.int64)]
+                return np.pad(m, (0, max(0, n - len(m))))[:n]
+            return leaf.lut[np.asarray(reader.fwd).astype(np.int64)]
+        v = np.asarray(eval_host(leaf.expr, env))
+        ops = leaf.operands
+        if leaf.op == "eq":
+            return v == ops[0]
+        if leaf.op == "gte":
+            return v >= ops[0]
+        if leaf.op == "lte":
+            return v <= ops[0]
+        if leaf.op == "gt":
+            return v > ops[0]
+        if leaf.op == "lt":
+            return v < ops[0]
+        if leaf.op == "between":
+            return (v >= ops[0]) & (v <= ops[1])
+        m = v == ops[0]
+        for o in ops[1:]:
+            m = m | (v == o)
+        return m
+
+    def walk(node) -> np.ndarray:
+        kind = node[0]
+        if kind == "const":
+            return np.full(n, node[1], dtype=bool)
+        if kind == "leaf":
+            return np.broadcast_to(leaf_mask(node[1]), (n,))
+        if kind == "not":
+            return ~walk(node[1])
+        masks = [walk(c) for c in node[1]]
+        out = masks[0]
+        for m in masks[1:]:
+            out = (out & m) if kind == "and" else (out | m)
+        return out
+
+    return walk(prog.tree)
+
+
+def _host_env(plan: SegmentPlan, seg: ImmutableSegment, n: int) -> Dict[str, np.ndarray]:
+    """Decoded columns (the first `n` rows) for host expression evaluation:
+    those the group keys, the aggregate arguments and the compare leaves read."""
+    needed = set()
+    for g in plan.group_exprs:
+        needed.update(identifiers_in(g))
+    for a in plan.aggs:
+        if a.arg is not None:
+            needed.update(identifiers_in(a.arg))
+    for leaf in plan.filter_prog.leaves:
+        if isinstance(leaf, CmpLeaf):
+            needed.update(identifiers_in(leaf.expr))
+    return {c: seg.column(c).values()[:n] for c in needed}
+
+
+def _rows_of(v, n: int) -> np.ndarray:
+    """An evaluated expression as n rows (a constant broadcast)."""
+    return np.full(n, v, dtype=object) if np.ndim(v) == 0 else np.asarray(v)
+
+
+def _factorize_keys(arr: np.ndarray):
+    """Null-aware dense codes for host group-by keys: (codes, values), the
+    values sorted as np.unique sorts them.
+
+    SQL groups all nulls (None in object arrays, NaN in float arrays) into ONE
+    group whose key surfaces as None; np.unique alone cannot sort None against
+    str. Nulls get the trailing code len(values)-1 -> None. An object array
+    is factorized through a dict, then only its distinct values are sorted:
+    np.unique would sort every row with Python comparisons."""
+    n = len(arr)
+    if arr.dtype == object:
+        isnull = np.fromiter((v is None for v in arr), dtype=bool, count=n)
+        index: Dict[Any, int] = {}
+        first = np.fromiter((index.setdefault(v, len(index)) for v in arr[~isnull]),
+                            dtype=np.int64, count=n - int(isnull.sum()))
+        distinct = list(index)
+        order = sorted(range(len(distinct)), key=distinct.__getitem__)
+        rank = np.empty(len(distinct), dtype=np.int64)
+        rank[order] = np.arange(len(distinct))
+        uniq = [distinct[i] for i in order]
+        inv = np.zeros(n, dtype=np.int64)
+        inv[~isnull] = rank[first]
+    elif arr.dtype.kind == "f":
+        isnull = np.isnan(arr)
+        uniq, inv = np.unique(np.where(isnull, 0.0, arr), return_inverse=True)
+    else:
+        isnull = np.zeros(n, dtype=bool)
+        uniq, inv = np.unique(arr, return_inverse=True)
+    codes = inv.astype(np.int64).reshape(n)
+    values = list(uniq)
+    if isnull.any():
+        codes[isnull] = len(values)
+        values.append(None)
+    return codes, values
 
 
 # -- exact group trim -------------------------------------------------------------
@@ -524,10 +681,6 @@ def scan_route(plan: SegmentPlan) -> Optional[str]:
         if len(widths) == 1:
             return "masked_sums_fused"
     return "masked_sums"
-
-
-def _as_rows(v, n: int, device) -> torch.Tensor:
-    return v if isinstance(v, torch.Tensor) else torch.full((n,), v, device=device)
 
 
 def execute_query(segments: Sequence[ImmutableSegment], sql: str, schema=None,

@@ -7,8 +7,11 @@ into a boolean lookup table (LUT) over dict ids, usually one or a few
 contiguous id intervals. Predicates over raw numeric columns and expressions
 compile to comparisons with scalar operands.
 
-Not compiled by this package (NotImplementedError): JSON_MATCH, TEXT_MATCH,
-IN_ID_SET and geo predicates.
+A distance predicate over two coordinate columns is rewritten to elementwise
+haversine math (`engine.geo_fns.rewrite_geo`) and compiles to a comparison
+leaf like any expression; the geo cell index that pre-filters it in the JAX
+package is not ported. Not compiled by this package (NotImplementedError):
+JSON_MATCH, TEXT_MATCH and IN_ID_SET, which need their indexes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 
 from ..engine.datablock import lut_size
+from ..engine.geo_fns import rewrite_geo
 from ..segment.reader import ColumnReader, ImmutableSegment
 from ..sql.ast import Expr, Function, Identifier, Literal
 from .context import QueryValidationError
@@ -33,8 +37,7 @@ FilterTree = Tuple
 # this the common case: EQ is one run, RANGE is one run, small IN-lists are <= k runs.
 MAX_LUT_INTERVALS = 8
 
-_UNPORTED_PREDICATES = {"json_match", "text_match", "in_id_set", "inidset",
-                        "stwithin", "stcontains", "stequals"}
+_UNPORTED_PREDICATES = {"json_match", "text_match", "in_id_set", "inidset"}
 
 
 def _lut_intervals(lut: np.ndarray) -> Optional[List[Tuple[int, int]]]:
@@ -60,10 +63,19 @@ class LutLeaf:
     col: str
     lut: np.ndarray  # bool[lut_size(card)] — padding ids map to False
     intervals: Optional[List[Tuple[int, int]]] = field(default=None)
+    # source predicate (op + literal values), kept so that the LUT can be
+    # rebuilt against another dictionary snapshot (a consuming segment's ids
+    # remap as its sorted dictionary grows). Not part of signature().
+    op: Optional[str] = field(default=None)
+    values: Optional[List[Any]] = field(default=None)
 
     def __post_init__(self):
         if self.intervals is None:
             self.intervals = _lut_intervals(self.lut)
+
+    def rebuild_lut(self, dictionary, cardinality: int) -> np.ndarray:
+        """The same predicate resolved against another dictionary snapshot."""
+        return build_lut(self.op, self.values, dictionary, cardinality)
 
     def signature(self) -> Tuple:
         # the interval count is structural (the bounds are runtime inputs); a
@@ -152,6 +164,9 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
            for n in _walk(e)):
         raise NotImplementedError(
             f"predicate {e!r} is not supported by pinot_tpu_torch")
+    if name in ("stwithin", "stcontains", "stequals"):
+        # a boolean geo function used bare as a predicate: compare it to true
+        return _compile_predicate(Function("eq", (e, Literal(1))), seg, leaves)
     return _compile_predicate(e, seg, leaves)
 
 
@@ -171,6 +186,9 @@ def _compile_predicate(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -
         if e.name in flip:
             lhs, rhs = rhs[0], [lhs]
             e = Function(flip[e.name], (lhs, *rhs))
+    # after the flip, so that `r > stdistance(...)` rewrites too: a distance
+    # over coordinate columns becomes elementwise device haversine math
+    lhs = rewrite_geo(lhs)
     if not all(isinstance(r, Literal) for r in rhs):
         raise QueryValidationError(f"predicate operands must be literals: {e!r}")
     values = [r.value for r in rhs]
@@ -179,7 +197,8 @@ def _compile_predicate(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -
     if isinstance(lhs, Identifier):
         reader = seg.column(lhs.name)
         if reader.has_dictionary:
-            leaves.append(LutLeaf(lhs.name, _build_lut(e.name, values, reader)))
+            leaves.append(LutLeaf(lhs.name, _build_lut(e.name, values, reader),
+                                  op=e.name, values=values))
             return ("leaf", len(leaves) - 1)
 
     # raw column / expression predicate -> comparison leaf

@@ -15,8 +15,9 @@ float32). `query_view()` then hands the planner a `ConsumingView` with
 chunks, so a consuming segment's queries run the same device path as an
 immutable segment's. A column whose values leave the int32 range (epoch-ms
 timestamps) stops staging; a failed device copy raises. Without staging the
-view is mutable, and the executor refuses it: that needs the host
-aggregation path, which this package does not have.
+view is mutable: the per-segment executor plans it on the host, its readers'
+`dict_snapshot()` binding each dictionary to its ids, and the set executor
+plans a set holding it on the merged-dictionary view (`parallel/merged.py`).
 
 Concurrency: one writer (the consumer's pump) and many readers. The writer
 appends each column's chunk, then the chunk's row count (`_chunk_rows`), and

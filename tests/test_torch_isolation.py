@@ -236,8 +236,18 @@ def test_join_entry_points_without_cuda_raise(segs, monkeypatch):
     assert execute_multistage(JOIN_QUERIES["join_supplier"], scan, schemas).rows == []
 
 
+_HOST_SHAPES = {
+    # a selection filtered by a device function (SQRT), and a GROUP BY on an
+    # expression (a host plan): both run, and are held against numpy here
+    # (tests/test_torch_host.py holds such shapes against the reference)
+    "selection": lambda c: [[r, v] for r, v in zip(c["lo_region"], c["lo_revenue"])
+                            if np.sqrt(v) > 100][:5],
+    "host_group_expr": lambda c: {k + 1: int((c["lo_custkey"] == k).sum())
+                                  for k in np.unique(c["lo_custkey"])},
+}
+
+
 @pytest.mark.parametrize("sql", [
-    # a selection whose filter needs the host mask (ROADMAP queue 1 item 5)
     "SELECT lo_region, lo_revenue FROM lineorder WHERE SQRT(lo_revenue) > 100 LIMIT 5",
     "SELECT DISTINCTCOUNT(lo_suppkey) FROM lineorder WHERE lo_discount = 3",
     "SELECT COUNT(DISTINCT lo_suppkey) FROM lineorder",
@@ -248,9 +258,21 @@ def test_join_entry_points_without_cuda_raise(segs, monkeypatch):
     "SELECT SUM(lo_revenue) FROM lineorder WHERE JSON_MATCH(lo_region, '\"$.a\"=1')",
 ], ids=["selection", "distinctcount", "count_distinct", "hll", "percentile",
         "variance", "host_group_expr", "json_match"])
-def test_unported_shapes_raise_not_implemented(segs, sql):
-    with pytest.raises(NotImplementedError):
-        execute_query(segs, sql, device="cpu")
+def test_unported_shapes_raise_not_implemented(segs, sql, request):
+    """Unported aggregations and JSON_MATCH raise; the two shapes this package
+    now runs answer as numpy does."""
+    case = request.node.callspec.id
+    if case not in _HOST_SHAPES:
+        with pytest.raises(NotImplementedError):
+            execute_query(segs, sql, device="cpu")
+        return
+    cols = make_columns(4000, seed=5)
+    rows = execute_query(segs, sql, device="cpu").rows
+    want = _HOST_SHAPES[case](cols)
+    if case == "selection":
+        assert [[r, float(v)] for r, v in rows] == [[r, float(v)] for r, v in want]
+    else:
+        assert len(rows) == 10 and all(want[int(k)] == n for k, n in rows), rows
 
 
 def test_null_leaf_raises_not_implemented(tmp_path):
@@ -267,13 +289,21 @@ def test_null_leaf_raises_not_implemented(tmp_path):
 
 
 def test_star_tree_and_mutable_segments_raise(segs):
-    class Mutable:
-        is_mutable = True
-        name = "consuming"
-        schema = segs[0].schema
+    """A star-tree raises; a mutable (non-staging consuming) segment is planned
+    on the host and answers."""
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
 
-    with pytest.raises(NotImplementedError, match="mutable"):
-        execute_query([Mutable()], "SELECT COUNT(*) FROM lineorder", device="cpu")
+    cols = make_columns(500, seed=6)
+    mutable = DeviceMutableSegment("consuming", ssb_schema())
+    mutable.index_batch({c: v.tolist() for c, v in cols.items()})
+    sql = "SELECT COUNT(*), SUM(lo_quantity) FROM lineorder WHERE lo_discount < 5"
+    plan = plan_segment(compile_query(sql, ssb_schema()), mutable)
+    assert (plan.kind, plan.fallback_reason) == ("host", "mutable (consuming) segment")
+    m = cols["lo_discount"] < 5
+    assert execute_query([mutable], sql, device="cpu").rows == [
+        [int(m.sum()), float(cols["lo_quantity"][m].sum())]]
 
     class StarTree:
         def __init__(self, seg):

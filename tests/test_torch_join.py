@@ -397,14 +397,17 @@ def test_an_error_in_a_device_program_propagates(monkeypatch):
 def test_host_expressions_match_the_reference(expr):
     """`eval_host` over a joined block with nulls as NaN and None, against the
     reference's `eval_expr`, as `_null_safe_mask`, residual ON terms,
-    post-filters and aggregate arguments use it."""
+    post-filters and aggregate arguments use it. CASE is held against
+    np.where instead: the reference's CASE fold reads each WHEN one argument
+    to the left of its place (tests/test_torch_expr.py)."""
     block = {"a.x": np.array([1.0, np.nan, 3.0, 2.0, 4.0]),
              "b.y": np.array([3.0, 1.0, np.nan, 2.0, 5.0]),
              "b.s": np.array(["p", None, "q", "r", "p"], dtype=object)}
     e = parse_query(f"SELECT {expr} FROM t").select[0][0]
     je = jax_parse(f"SELECT {expr} FROM t").select[0][0]
-    np.testing.assert_array_equal(np.asarray(eval_host(e, block)),
-                                  np.asarray(eval_expr(je, block, np)))
+    want = (np.where(block["a.x"] > 2, block["b.y"], 0) if expr.startswith("CASE")
+            else np.asarray(eval_expr(je, block, np)))
+    np.testing.assert_array_equal(np.asarray(eval_host(e, block)), want)
     if np.asarray(eval_host(e, block)).dtype == bool:
         np.testing.assert_array_equal(rt._null_safe_mask(e, block),
                                       jax_rt._null_safe_mask(je, block))

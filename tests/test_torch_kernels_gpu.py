@@ -626,3 +626,65 @@ def test_cuda_staged_view_block_equals_the_host_built_block(cuda):
         assert got[0][0] == pytest.approx(want[0][0], rel=1e-5)
     assert (scan.masked_sums.launches, scan.masked_sums_fused.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+# -- device expressions (engine/expr.eval_device) ----------------------------------
+
+# one expression per name of expr.DEVICE_FUNCS over the columns of
+# `device_expr_columns`; tests/test_torch_expr.py holds the same cases against
+# the JAX package on the CPU
+DEVICE_EXPR_CASES = {
+    "plus": "i + p", "minus": "f - i", "times": "i * 3000000",   # the int32 product wraps
+    "divide": "i / p", "mod": "mod(i, 7)", "eq": "k = 3", "neq": "k <> 3", "gt": "i > p",
+    "gte": "k >= 0", "lt": "f < i", "lte": "k <= -2",
+    "and": "k > 0 AND p < 50", "or": "k > 5 OR f < 0", "not": "NOT (i > 0 OR p < 50)",
+    "in": "k IN (1, 2, 3, 5)", "not_in": "k NOT IN (1, 2)", "between": "i BETWEEN -10 AND 400",
+    "case": "CASE WHEN k > 0 THEN i * 2 WHEN f < 0 THEN f ELSE 0 END",
+    "cast": "CAST(f * 10 AS INT)",
+    # a Python-scalar divisor: true division, not a reciprocal multiply (21 / 7)
+    "abs": "abs(i)", "ceil": "ceil(p / 7)", "floor": "floor(i / 100)", "exp": "exp(u)",
+    "ln": "ln(p)", "log": "log(p)", "log10": "log10(p)", "log2": "log2(p)", "sqrt": "sqrt(p)",
+    "power": "power(i, 2)", "round": "round(f, 1)", "least": "least(i, 3.5, p)",
+    "greatest": "greatest(i, p, 10)", "sign": "sign(k)", "truncate": "truncate(f, 1)",
+    "sin": "sin(f)", "cos": "cos(i)", "tan": "tan(u)", "asin": "asin(u)", "acos": "acos(u)",
+    "atan": "atan(f)", "sinh": "sinh(u)", "cosh": "cosh(u)", "tanh": "tanh(f)",
+    "cot": "cot(u)", "atan2": "atan2(f, i)", "degrees": "degrees(i)", "radians": "radians(f)",
+}
+for _fn in ("year", "quarter", "month", "monthofyear", "day", "dayofmonth", "dayofyear",
+            "doy", "dayofweek", "dow", "week", "weekofyear", "yearofweek", "yow", "hour",
+            "minute", "second", "millisecond", "toepochseconds", "toepochminutes",
+            "toepochhours", "toepochdays"):
+    DEVICE_EXPR_CASES[_fn] = f"{_fn}(ts)"
+for _unit, _size in (("seconds", 10), ("minutes", 15), ("hours", 2), ("days", 7)):
+    DEVICE_EXPR_CASES[f"toepoch{_unit}bucket"] = f"toepoch{_unit}bucket(ts, {_size})"
+
+
+def device_expr_columns(n: int, seed: int = 17) -> dict:
+    """Seeded device columns as the device holds them: int32 and float32; `ts`
+    spans the whole int32 range the planner admits (negatives included)."""
+    rng = np.random.default_rng(seed)
+    return {"i": rng.integers(-1000, 1000, n).astype(np.int32),
+            "k": rng.integers(-10, 10, n).astype(np.int32),
+            "p": rng.integers(1, 100, n).astype(np.int32),
+            "f": rng.normal(0, 10, n).astype(np.float32),
+            "u": rng.uniform(-0.9, 0.9, n).astype(np.float32),
+            "ts": rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DEVICE_EXPR_CASES))
+def test_cuda_eval_device_matches_the_cpu(cuda, name):
+    """Each device function on CUDA tensors against the same on CPU tensors:
+    the same dtype, integers and booleans equal, floats at rel 1e-5 (CUDA's
+    transcendental functions round otherwise than the CPU's)."""
+    from pinot_tpu_torch.engine.expr import eval_device
+    from pinot_tpu_torch.sql.parser import Parser
+    cols = device_expr_columns(1 << 16)
+    e = Parser(DEVICE_EXPR_CASES[name]).expression()
+    got = eval_device(e, {c: torch.from_numpy(v).to(cuda) for c, v in cols.items()})
+    want = eval_device(e, {c: torch.from_numpy(v) for c, v in cols.items()})
+    assert got.is_cuda and got.dtype == want.dtype
+    if want.dtype.is_floating_point:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6, equal_nan=True)
+    else:
+        assert torch.equal(got.cpu(), want)

@@ -307,7 +307,13 @@ def test_unaligned_set_raises_where_the_first_segment_folds(tmp_path, cols, firs
                        [[float(want[0]), want[1]]])
 
 
-def test_star_tree_mutable_and_selection_raise(sets):
+def test_star_tree_mutable_and_selection_raise(sets, cols):
+    """A star-tree member raises. A mutable member (a consuming segment
+    without staging) plans the set on the merged view, as the JAX set executor
+    does, and answers as the immutable set does; a selection whose filter
+    needs the host mask is the per-segment executor's partial."""
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+
     _, segs = sets["equal", "main"]
 
     class StarTree:
@@ -315,23 +321,23 @@ def test_star_tree_mutable_and_selection_raise(sets):
             self.__dict__.update(seg.__dict__)
             self.has_star_tree = True
 
-    class Mutable(StarTree):
-        is_mutable = True
-        has_star_tree = False
-
     mx = MeshQueryExecutor(device="cpu")
     with pytest.raises(NotImplementedError, match="star-tree"):
         mx.execute(segs[:2] + [StarTree(segs[2])], QUERY)
-    with pytest.raises(NotImplementedError, match="mutable"):
-        mx.execute(segs[:2] + [Mutable(segs[2])], QUERY)
-    # selections run (tests/test_torch_selection.py); one whose filter needs
-    # the host mask is not ported
-    selection = ("SELECT lo_region, lo_revenue FROM lineorder WHERE SQRT(lo_revenue) > 100 "
+    lo, hi = BOUNDS["equal"][2], BOUNDS["equal"][3]
+    mutable = DeviceMutableSegment("consuming", ssb_schema())
+    mutable.index_batch({c: v[lo:hi].tolist() for c, v in cols.items()})
+    mixed = segs[:2] + [mutable] + segs[3:]
+    for sql in (QUERY, GROUP_QUERY):
+        plan, view = mx._plan_for_set(compile_query(sql, segs[0].schema), mixed)
+        assert view is not None and plan.kind == "device"
+        assert _rows_match(mx.execute(mixed, sql).rows, mx.execute(segs, sql).rows), sql
+    selection = ("SELECT lo_region, lo_revenue FROM lineorder WHERE LENGTH(lo_region) > 4 "
                  "LIMIT 5")
-    with pytest.raises(NotImplementedError, match="selection"):
-        mx.execute(segs, selection)
-    with pytest.raises(NotImplementedError, match="selection"):
-        mx.prepare_partial(compile_query(selection, segs[0].schema), segs)
+    want = [[r, v] for r, v in zip(cols["lo_region"], cols["lo_revenue"].tolist())
+            if len(r) > 4][:5]
+    assert _rows_match(mx.execute(segs, selection).rows, want)
+    assert mx.prepare_partial(compile_query(selection, segs[0].schema), segs).kind == "exact"
 
 
 def test_dispatch_partial_matches_prepared_partials(sets):

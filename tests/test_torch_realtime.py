@@ -305,15 +305,21 @@ def test_queries_over_a_staged_view_match_the_reference_and_numpy(staged, monkey
 
 
 def test_a_store_without_staging_raises_naming_the_host_path():
+    """A store without staging (and its view) is mutable: the per-segment
+    executor plans it on the host, the set executor on the merged view, and
+    both answer as numpy and the reference do. Multi-value columns raise."""
     n = 800
-    ours, _, _ = _both(_columns(n), n, staging=False)
+    cols = _columns(n, null_every=7)
+    ours, ref, _ = _both(cols, n, staging=False)
     view = ours.query_view()
     assert view.is_mutable
-    for segs in ([view], [ours]):
-        with pytest.raises(NotImplementedError, match="host aggregation path"):
-            execute_query(segs, SQLS[0], device=CPU)
-        with pytest.raises(NotImplementedError, match="host aggregation path"):
-            MeshQueryExecutor(device=CPU).execute(segs, SQLS[0])
+    for sql in SQLS:
+        want = _oracle(cols, sql)
+        assert _match(JaxExecutor().execute([ref.query_view()],
+                                            jax_compile(sql, _jax_schema())).rows, want)
+        for segs in ([view], [ours]):
+            assert _match(execute_query(segs, sql, device=CPU).rows, want), sql
+            assert _match(MeshQueryExecutor(device=CPU).execute(segs, sql).rows, want), sql
     with pytest.raises(NotImplementedError, match="multi-value"):
         DeviceMutableSegment("mv", Schema("t", [dimension("tags", DataType.STRING,
                                                           single_value=False)]))

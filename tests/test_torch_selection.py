@@ -326,15 +326,30 @@ def test_group_trim_on_the_dense_decode_returns_the_untrimmed_first_k(tables, co
     assert _rows_match(res.rows, _group_trim_oracle(cols))
 
 
-def test_selection_whose_filter_needs_the_host_mask_raises(tables):
-    _, segs = tables["raw"]
-    sql = ("SELECT lo_revenue FROM lineorder WHERE SQRT(lo_revenue) > 100 "
+def test_selection_whose_filter_needs_the_host_mask_raises(tables, cols, monkeypatch):
+    """A filter the device cannot evaluate (a string function) takes the host
+    filter mask on every path, as in the JAX package: no device top-k, the
+    exact path, and numpy's rows and the reference's."""
+    from pinot_tpu.query.context import compile_query as jax_compile
+    from pinot_tpu.query.planner import plan_segment as jax_plan
+    from pinot_tpu_torch.query.planner import plan_segment
+
+    jax_segs, segs = tables["raw"]
+    sql = ("SELECT lo_revenue FROM lineorder WHERE LENGTH(lo_region) > 4 "
            "ORDER BY lo_revenue LIMIT 3")
-    with pytest.raises(NotImplementedError, match="host mask"):
-        execute_query(segs, sql, device="cpu")
     ctx = compile_query(sql, segs[0].schema)
-    with pytest.raises(NotImplementedError, match="host mask"):
-        MeshQueryExecutor(device="cpu").prepare_partial(ctx, segs)
+    assert {plan_segment(ctx, s).fallback_reason for s in segs} == {
+        "non-numeric column lo_region in expression"}
+    assert {jax_plan(jax_compile(sql, jax_segs[0].schema), s).kind
+            for s in jax_segs} == {"selection"}
+    topk = _spy(monkeypatch, "topk")
+    keep = np.array([len(r) > 4 for r in cols["lo_region"]])
+    want = [[v] for v in sorted(cols["lo_revenue"][keep].tolist())[:3]]
+    got = execute_query(segs, sql, device="cpu")
+    assert _rows_match(got.rows, want) and got.stats["topkExact"]
+    assert _rows_match(JaxExecutor().execute(jax_segs, sql).rows, want)
+    assert MeshQueryExecutor(device="cpu").prepare_partial(ctx, segs).kind == "exact"
+    assert topk == []
 
 
 def test_execute_many_answers_selections_beside_aggregations(tables):
