@@ -102,16 +102,39 @@ exits non-zero:
    Host-routed queries (a GROUP BY on an expression, string functions in the
    filter and the GROUP BY, a selection and a join whose leaf filters need
    the host mask), with plan kind `host` (or a selection's host-mask reason)
-   and no kernel launch, against numpy at rel 1e-9, 3 warm runs:
+   and no kernel launch, against numpy at rel 1e-9, 1 warm run:
    `expr_host_query` lines. Last, 2,097,152 rows pumped into a consuming
    segment without staging: Q1.1 and the GROUP BY over its view (host plans)
-   and over the table plus the view (the merged view): `expr_consuming`.
+   and over the table plus the view (the merged view): `expr_consuming`;
+10. aggs   — the aggregation library over the same table. Device-routed
+   families (the `distinct` output: DISTINCTCOUNT and COUNT(DISTINCT) under
+   Q1.1's filter, DISTINCTCOUNTHLL(lo_custkey), the theta sketch, the
+   t-digest p95; the power sums: VAR_POP, STDDEV_SAMP, SKEWNESS, KURTOSIS of
+   lo_discount; DISTINCTCOUNT and VAR_SAMP by lo_region), per segment and
+   over the set, plan kind `device`, 10 warm runs: exact answers equal numpy,
+   moments at rel 1e-5 (skewness abs 1e-4), each sketch (HLL, theta,
+   t-digest) equal to the same path run with `device="cpu"` and within its
+   own error of numpy's exact value (5%; one lo_discount step).
+   Host-routed ones (KURTOSIS(lo_quantity) past the f32 power-sum budget,
+   PERCENTILE, MODE, DISTINCTCOUNT(lo_custkey) by lo_region past the grouped
+   presence cap, COVAR_POP), plan kind `host`, 1 warm run, rel 1e-9. IDSET
+   (a host plan) feeding an IN_ID_SET filter (a device LUT leaf); a join with
+   DISTINCTCOUNT in its final aggregation; 2,097,152 rows pumped into a
+   staged consuming segment: DISTINCTCOUNT over its view and beside the
+   table; 32 clients x 12 queries cycling the device queries through the
+   pipeline, each answer equal to the set executor's. None of these plans
+   reaches a scan kernel (the phase checks every count is 0): `aggs_query`,
+   `aggs_consuming` and `serve_pipeline` lines; then `aggs_case` lines, the
+   presence and power-sum ops alone at one segment's and the stacked
+   table's shapes and masks (CUDA events, L2 flushed) against their bytes
+   bound, with `torch.bincount`'s time beside the presence's.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path;
 the join phase launches neither scan kernel: its leaf filters are the plain
 mask and its device programs are torch code; the realtime phase must launch
-both; the expr phase's device queries `masked_sums`, its host queries none),
+both; the expr phase's device queries `masked_sums`, its host queries none;
+the aggs phase none),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -457,9 +480,13 @@ def check_kernels(n: int, n_for: int, n_stacked: int, seed: int):
 
 # -- phase 4: the path -------------------------------------------------------------
 
+def q11_mask(c):
+    return ((c["lo_orderdate"] >= 19930101) & (c["lo_orderdate"] <= 19931231)
+            & (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3) & (c["lo_quantity"] < 25))
+
+
 def oracle_q11(c):
-    m = ((c["lo_orderdate"] >= 19930101) & (c["lo_orderdate"] <= 19931231)
-         & (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3) & (c["lo_quantity"] < 25))
+    m = q11_mask(c)
     return [[float((c["lo_extendedprice"][m] * c["lo_discount"][m]).sum())]]
 
 
@@ -678,11 +705,12 @@ def run_serve(args, table, cols) -> dict:
     return launches
 
 
-def serve_pipeline(mx, table, mix: str, queries) -> dict:
+def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_ATOL) -> dict:
     """SERVE_CLIENTS threads, each sending SERVE_QUERIES_PER_CLIENT queries
     through one DeviceQueryPipeline, client c's query i being queries[(c + i) %
-    len(queries)], every answer held against its oracle rows. Logs QPS, the
-    latency p50/p95 and the pipeline's stats, and returns the kernels' launches."""
+    len(queries)], every answer held against its oracle rows (floats at
+    `rtol`, `atol`). Logs QPS, the latency p50/p95 and the pipeline's stats,
+    and returns the kernels' launches."""
     import threading
 
     from pinot_tpu_torch.cluster import DeviceQueryPipeline
@@ -724,7 +752,7 @@ def serve_pipeline(mx, table, mix: str, queries) -> dict:
                 wrong.append(f"{queries[q][0][:48]}: {e!r}")
                 continue
             mine.append(time.perf_counter() - t0)
-            if not rows_match(got, queries[q][1]):
+            if not rows_match(got, queries[q][1], rtol, atol):
                 wrong.append(f"{queries[q][0][:48]}: {got} vs {queries[q][1]}")
         with lock:
             lat.extend(mine)
@@ -1461,7 +1489,7 @@ EXPR_RTOL = 1e-5                       # f32 results against the f64 oracle
 EXPR_TRIG_ATOL = 1e-6                  # trig and exp: rel 1e-5 with abs 1e-6
 EXPR_DEVICE_RUNS = 5
 EXPR_QUERY_RUNS = 10                   # warm runs of a device-routed query
-EXPR_HOST_RUNS = 3                     # warm runs of a host-routed query
+EXPR_HOST_RUNS = 1                     # warm runs of a host-routed query
 EXPR_CONSUMING_ROWS = 2_097_152        # rows pumped into the consumer without staging
 EXPR_CASE_SUM = ("SELECT SUM(CASE WHEN lo_discount BETWEEN 1 AND 3 THEN lo_extendedprice "
                  "* lo_discount ELSE 0 END), COUNT(*) FROM lineorder WHERE lo_quantity < 25")
@@ -1797,6 +1825,419 @@ def run_expr(args, table, cols, work) -> tuple:
     return launches, case
 
 
+# -- phase 10: aggs --------------------------------------------------------------------
+
+AGGS_DEVICE_RUNS = 10          # warm runs of a device-routed aggregation query
+AGGS_HOST_RUNS = 1             # warm runs of a host-routed one (seconds a run)
+AGGS_CONSUMING_ROWS = 2_097_152
+AGGS_SKEW_ATOL = 1e-4          # skewness lies near 0: rel 1e-5 or abs 1e-4
+AGGS_SKETCH_REL = 0.05         # HLL (p = 12) and theta (k = 4096) against the exact count
+AGGS_TDIGEST_ABS = 1.0         # the p95 t-digest within one lo_discount step
+Q11_WHERE = ("lo_orderdate BETWEEN 19930101 AND 19931231 AND lo_discount BETWEEN 1 AND 3 "
+             "AND lo_quantity < 25")
+AGGS_DEVICE = {
+    "distinctcount": ("SELECT DISTINCTCOUNT(lo_suppkey), COUNT(DISTINCT lo_discount) "
+                      f"FROM lineorder WHERE {Q11_WHERE}"),
+    "hll": "SELECT DISTINCTCOUNTHLL(lo_custkey) FROM lineorder",
+    "theta": "SELECT DISTINCTCOUNTTHETASKETCH(lo_suppkey) FROM lineorder WHERE lo_quantity < 25",
+    "tdigest": "SELECT PERCENTILETDIGEST(lo_discount, 95) FROM lineorder WHERE lo_quantity < 25",
+    "moments": ("SELECT VAR_POP(lo_discount), STDDEV_SAMP(lo_discount), SKEWNESS(lo_discount), "
+                "KURTOSIS(lo_discount) FROM lineorder WHERE lo_quantity < 25"),
+    "group_distinct": ("SELECT lo_region, DISTINCTCOUNT(lo_suppkey), VAR_SAMP(lo_discount) "
+                       "FROM lineorder GROUP BY lo_region ORDER BY lo_region"),
+}
+AGGS_SKETCHES = ("hll", "theta", "tdigest")
+AGGS_HOST = {
+    "kurtosis_quantity": "SELECT KURTOSIS(lo_quantity) FROM lineorder",
+    "percentile": "SELECT PERCENTILE(lo_revenue, 99) FROM lineorder",
+    "mode": "SELECT MODE(lo_quantity) FROM lineorder",
+    "group_custkey": ("SELECT lo_region, DISTINCTCOUNT(lo_custkey) FROM lineorder "
+                      "GROUP BY lo_region ORDER BY lo_region"),
+    "covar": "SELECT COVAR_POP(lo_revenue, lo_extendedprice) FROM lineorder",
+}
+AGGS_IDSET = ("SELECT IDSET(lo_suppkey) FROM lineorder "
+              "WHERE lo_quantity = 7 AND lo_discount = 3 AND lo_region = 'ASIA'")
+AGGS_IN_ID_SET = ("SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder "
+                  "WHERE IN_ID_SET(lo_suppkey, '{}') = 1 AND lo_quantity > 40 "
+                  "GROUP BY lo_region ORDER BY lo_region")
+AGGS_JOIN = ("SELECT s.s_nation, DISTINCTCOUNT(l.lo_custkey), COUNT(*) FROM lineorder l "
+             "JOIN supplier s ON l.lo_suppkey = s.s_suppkey "
+             "WHERE s.s_region = 'AMERICA' AND l.lo_discount BETWEEN 1 AND 3 "
+             "GROUP BY s.s_nation ORDER BY s.s_nation LIMIT 25")
+AGGS_CONSUMING = {
+    # the view's lo_region is a dictionary column: the device presence, alone
+    # and on the merged view beside the table
+    "view_region": ("SELECT DISTINCTCOUNT(lo_region), COUNT(*) FROM lineorder "
+                    "WHERE lo_quantity < 25"),
+    # the view's lo_suppkey is raw: the view plans on the host, the table's
+    # segments on the device
+    "mixed_suppkey": ("SELECT DISTINCTCOUNT(lo_suppkey), DISTINCTCOUNT(lo_region) "
+                      "FROM lineorder WHERE lo_quantity < 25"),
+}
+
+
+def cells_match(got, want, rtol: float, atols=()) -> bool:
+    """Rows equal: non-floats exactly, floats at `rtol` or column j's abs
+    tolerance `atols[j]` (0 where not given)."""
+    if len(got) != len(want):
+        return False
+    for rg, rw in zip(got, want):
+        if len(rg) != len(rw):
+            return False
+        for j, (x, y) in enumerate(zip(rg, rw)):
+            if isinstance(y, float):
+                atol = atols[j] if j < len(atols) else 0.0
+                if x is None or not math.isclose(float(x), y, rel_tol=rtol, abs_tol=atol):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def aggs_oracles(c) -> dict:
+    """qid -> (oracle rows, check(rows)) in numpy float64 over the table's rows:
+    exact answers equal, moments at rel 1e-5 (skewness also abs 1e-4), host
+    floats at rel 1e-9, sketches within their own error of the exact value."""
+    from pinot_tpu_torch.ssb import REGIONS
+    m25 = c["lo_quantity"] < 25
+    d = c["lo_discount"][m25].astype(np.float64)
+    z = (d - d.mean()) / d.std()
+    q = c["lo_quantity"].astype(np.float64)
+    zq = (q - q.mean()) / q.std()
+    rev, ext = c["lo_revenue"], c["lo_extendedprice"]
+    m = q11_mask(c)
+    exact_custkeys = len(np.unique(c["lo_custkey"]))
+    exact_suppkeys = len(np.unique(c["lo_suppkey"][m25]))
+    p95 = float(np.percentile(d, 95))
+    region = {r: c["lo_region"] == r for r in sorted(REGIONS)}
+    out = {
+        "distinctcount": [[len(np.unique(c["lo_suppkey"][m])),
+                           len(np.unique(c["lo_discount"][m]))]],
+        "hll": [[exact_custkeys]], "theta": [[exact_suppkeys]], "tdigest": [[p95]],
+        "moments": [[float(d.var()), float(d.std(ddof=1)), float((z ** 3).mean()),
+                     float((z ** 4).mean() - 3.0)]],
+        "group_distinct": [[r, len(np.unique(c["lo_suppkey"][g])),
+                            float(c["lo_discount"][g].astype(np.float64).var(ddof=1))]
+                           for r, g in region.items()],
+        "kurtosis_quantity": [[float((zq ** 4).mean() - 3.0)]],
+        "percentile": [[float(np.percentile(rev, 99))]],
+        "mode": [[float(np.argmax(np.bincount(c["lo_quantity"])))]],
+        "group_custkey": [[r, len(np.unique(c["lo_custkey"][g]))] for r, g in region.items()],
+        "covar": [[float(np.mean((rev - rev.mean()) * (ext - ext.mean())))]],
+    }
+
+    def near(want, rel):
+        return lambda rows: len(rows) == 1 and abs(rows[0][0] - want) <= rel * want
+
+    checks = {
+        "hll": near(exact_custkeys, AGGS_SKETCH_REL),
+        "theta": near(exact_suppkeys, AGGS_SKETCH_REL),
+        "tdigest": lambda rows: len(rows) == 1 and abs(rows[0][0] - p95) <= AGGS_TDIGEST_ABS,
+        "moments": lambda rows: cells_match(rows, out["moments"], ORACLE_RTOL,
+                                            (0.0, 0.0, AGGS_SKEW_ATOL)),
+        "group_distinct": lambda rows: cells_match(rows, out["group_distinct"], ORACLE_RTOL),
+    }
+    return {qid: (want, checks.get(qid, lambda rows, want=want: cells_match(
+        rows, want, JOIN_RTOL))) for qid, want in out.items()}
+
+
+def run_aggs(args, table, cols, work) -> tuple:
+    """The aggregation library over the table: device-routed families (the
+    `distinct` output and the power sums) per segment and over the set, each
+    sketch equal to the same run on the CPU; host-routed ones; IDSET feeding
+    IN_ID_SET; a join's final DISTINCTCOUNT; a staged consuming view alone and
+    beside the table; a pipeline mix; then `aggs_case` lines. Returns the scan
+    kernels' launches of the checked runs (none: no plan here reaches the
+    scan) and the `aggs_case` numbers."""
+    from pinot_tpu_torch import execute_query, segments_from_columns, ssb
+    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.idset import IdSet
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+
+    schema = table[0].schema
+    rows = sum(s.num_docs for s in table)
+    t0 = time.perf_counter()
+    oracles = aggs_oracles(cols)
+    log("aggs_data", rows=rows, segments=len(table), oracle_s=time.perf_counter() - t0)
+    mx, cpu_mx = MeshQueryExecutor(), MeshQueryExecutor(device="cpu")
+    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+
+    def checked(label, run, check, runs, trace=False):
+        """One cold run with the counts set to 0 just before and read just
+        after (none of these plans launches a scan or a top-k), held by
+        `check`; then `runs` warm runs, each held too."""
+        scan.reset_launch_counts()
+        kernels.reset_topk_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts, topk = launch_counts(), kernels.topk_launches()
+        for k, v in counts.items():
+            launches[k] += v
+        if any(counts.values()) or topk:
+            raise AssertionError(f"{label}: kernel launches {counts}, top-k {topk}: "
+                                 "the aggregation library reaches no scan")
+        if not check(res.rows):
+            raise AssertionError(f"{label}: got {res.rows[:12]}")
+        fields = dict(answer=res.rows[:12], answer_rows=len(res.rows), cold_ms=cold_ms,
+                      launches=counts, cold_phase_ms=res.stats.get("phaseTimesMs"))
+        if runs:
+            warm, results = warm_times(run, runs=runs)
+            bad = [r.rows[:4] for r in results if not check(r.rows)]
+            if bad:
+                raise AssertionError(f"{label}: warm answers {bad[:2]}")
+            warm.pop("median_s")
+            fields.update(warm)
+            phases = [r.stats["phaseTimesMs"] for r in results if "phaseTimesMs" in r.stats]
+            if phases:
+                fields["warm_phase_median_ms"] = {
+                    k: statistics.median(p[k] for p in phases) for k in phases[0]}
+        if trace and args.trace:
+            fields["trace"] = trace_query(run)
+        return fields, res.rows
+
+    def kinds(sql, segs):
+        ctx = compile_query(sql, schema)
+        plans = [plan_segment(ctx, s) for s in segs]
+        return [p.kind for p in plans], sorted({p.fallback_reason for p in plans})
+
+    # device routes: per segment and over the set; a sketch's answer equals
+    # the same path's on the CPU (the same states from the same segments)
+    set_answers = {}
+    for qid, sql in AGGS_DEVICE.items():
+        want, check = oracles[qid]
+        seg_kinds, _ = kinds(sql, table)
+        set_plan, _ = mx._plan_for_set(compile_query(sql, schema), table)
+        if set(seg_kinds) != {"device"} or set_plan.kind != "device":
+            raise AssertionError(f"aggs {qid}: plans {seg_kinds} per segment, "
+                                 f"{set_plan.kind} over the set; expected device")
+        for path, run, cpu_run in (
+                ("per_segment", lambda sql=sql: execute_query(table, sql),
+                 lambda sql=sql: execute_query(table, sql, device="cpu")),
+                ("set", lambda sql=sql: mx.execute(table, sql),
+                 lambda sql=sql: cpu_mx.execute(table, sql))):
+            line, got = checked(f"aggs {qid} {path}", run, check, AGGS_DEVICE_RUNS, trace=True)
+            if qid in AGGS_SKETCHES:
+                t0 = time.perf_counter()
+                on_cpu = cpu_run().rows
+                line["cpu_ms"] = (time.perf_counter() - t0) * 1e3
+                if got != on_cpu:
+                    raise AssertionError(f"aggs {qid} {path}: {got} on the card, {on_cpu} "
+                                         "on the CPU")
+                line["equals_cpu"] = True
+            if path == "set":
+                set_answers[qid] = got
+            log("aggs_query", query=qid, path=path, plan_kind="device", rows=rows,
+                segments=len(table), oracle=want, **line)
+
+    # host routes: per segment (the set executor hands a host plan to the same
+    # per-segment executor: its plan is checked, not run again)
+    for qid, sql in AGGS_HOST.items():
+        want, check = oracles[qid]
+        seg_kinds, reasons = kinds(sql, table)
+        set_plan, _ = mx._plan_for_set(compile_query(sql, schema), table)
+        if set(seg_kinds) != {"host"} or "" in reasons or set_plan.kind != "host":
+            raise AssertionError(f"aggs host {qid}: plans {seg_kinds} {reasons}, set "
+                                 f"{set_plan.kind}")
+        line, _ = checked(f"aggs host {qid}", lambda sql=sql: execute_query(table, sql), check,
+                          AGGS_HOST_RUNS)
+        log("aggs_query", query=qid, path="per_segment", plan_kind="host",
+            fallback_reason=reasons[0], set_plan_kind=set_plan.kind, rows=rows,
+            segments=len(table), oracle=want, **line)
+
+    # IDSET (a host plan) feeding IN_ID_SET (a device LUT leaf)
+    idset_rows = (cols["lo_quantity"] == 7) & (cols["lo_discount"] == 3) & (
+        cols["lo_region"] == "ASIA")
+    want_ids = np.unique(cols["lo_suppkey"][idset_rows])
+    line, got = checked("aggs idset", lambda: execute_query(table, AGGS_IDSET), lambda rows: (
+        np.array_equal(IdSet.deserialize(rows[0][0]).values, want_ids)), AGGS_HOST_RUNS)
+    line["answer"] = f"IdSet of {len(want_ids)} values, {len(got[0][0])} base64 chars"
+    log("aggs_query", query="idset", path="per_segment", plan_kind=kinds(AGGS_IDSET, table)[0][0],
+        rows=rows, **line)
+    in_sql = AGGS_IN_ID_SET.format(got[0][0])
+    m = np.isin(cols["lo_suppkey"], want_ids) & (cols["lo_quantity"] > 40)
+    want = [[r, int((m & (cols["lo_region"] == r)).sum()),
+             float(cols["lo_revenue"][m & (cols["lo_region"] == r)].sum())]
+            for r in sorted(set(cols["lo_region"][m]))]
+    seg_kinds, _ = kinds(in_sql, table)
+    if set(seg_kinds) != {"device"}:
+        raise AssertionError(f"aggs in_id_set: plans {seg_kinds}")
+    for path, run in (("per_segment", lambda: execute_query(table, in_sql)),
+                      ("set", lambda: mx.execute(table, in_sql))):
+        line, _ = checked(f"aggs in_id_set {path}", run, lambda rows: rows_match(rows, want),
+                          AGGS_DEVICE_RUNS)
+        log("aggs_query", query="in_id_set", path=path, plan_kind="device", rows=rows,
+            id_set_values=len(want_ids), oracle=want, **line)
+
+    # a join's final aggregation
+    sup = ssb.make_supplier(seed=args.seed)
+    supplier = segments_from_columns(ssb.supplier_schema(), sup,
+                                     os.path.join(work, "aggs_supplier"), 1)
+    schemas = {"lineorder": schema, "supplier": ssb.supplier_schema()}
+    scan_fn = make_segment_scan({"lineorder": table, "supplier": supplier})
+    nation = np.asarray(sup["s_nation"])[cols["lo_suppkey"]]
+    jm = (np.asarray(sup["s_region"])[cols["lo_suppkey"]] == "AMERICA") & (
+        cols["lo_discount"] >= 1) & (cols["lo_discount"] <= 3)
+    want = [[n, len(np.unique(cols["lo_custkey"][jm & (nation == n)])),
+             int((jm & (nation == n)).sum())] for n in sorted(set(nation[jm]))]
+    line, _ = checked("aggs join", lambda: execute_multistage(AGGS_JOIN, scan_fn, schemas.get),
+                      lambda rows: rows == want, AGGS_HOST_RUNS)
+    log("aggs_query", query="join_distinctcount", path="multistage", rows=rows, oracle=want,
+        **line)
+
+    # a staged consuming view: alone, and beside the table
+    n_rt = AGGS_CONSUMING_ROWS
+    rt = ssb.make_columns(n_rt, args.seed + 3)
+    MemoryStream.reset_all()
+    stream = MemoryStream.create("lineorder_aggs", 1)
+    for lo in range(0, n_rt, REALTIME_BLOCK_ROWS):
+        stream.produce(encode_columnar_block(schema, {c: v[lo:lo + REALTIME_BLOCK_ROWS]
+                                                      for c, v in rt.items()}), partition=0)
+    cfg = TableConfig("lineorder", stream=StreamConfig(
+        topic="lineorder_aggs", decoder="columnar",
+        properties={"realtime.ingest.device.staging": "true"}, flush_threshold_rows=n_rt))
+    consumer = RealtimePartitionConsumer("lineorder__0__2__20261017T0000Z", cfg, schema, 0,
+                                         work)
+    t0 = time.perf_counter()
+    pumped = consumer.pump(max_messages=n_rt // REALTIME_BLOCK_ROWS + 1)
+    pump_ms = (time.perf_counter() - t0) * 1e3
+    view = consumer.query_segment()
+    if pumped != n_rt or view.num_docs != n_rt or view.is_mutable:
+        raise AssertionError(f"aggs consuming: pumped {pumped}, view {view.num_docs} rows, "
+                             f"mutable {view.is_mutable}")
+    both = {c: np.concatenate([cols[c], rt[c]]) for c in cols}
+    members = table + [view]
+
+    def consuming_oracle(qid, c):
+        m = c["lo_quantity"] < 25
+        if qid == "view_region":
+            return [[len(np.unique(c["lo_region"][m])), int(m.sum())]]
+        return [[len(np.unique(c["lo_suppkey"][m])), len(np.unique(c["lo_region"][m]))]]
+
+    # (query, path, its members, their rows, the plan kinds per member, and
+    # over the set: the set plan's kind, planned on the merged view)
+    consuming_runs = [
+        ("view_region", "view", [view], rt, ["device"], None),
+        ("view_region", "mixed_set", members, both, ["device"] * len(members),
+         ("device", True)),
+        ("mixed_suppkey", "mixed_set", members, both, ["device"] * len(table) + ["host"],
+         ("host", False))]
+    for qid, path, segs, c, want_kinds, want_set in consuming_runs:
+        sql, want = AGGS_CONSUMING[qid], consuming_oracle(qid, c)
+        seg_kinds = kinds(sql, segs)[0]
+        set_plan = None
+        if want_set is not None:
+            plan, merged = mx._plan_for_set(compile_query(sql, schema), segs)
+            set_plan = (plan.kind, merged is not None)
+        if (seg_kinds, set_plan) != (want_kinds, want_set):
+            raise AssertionError(f"aggs consuming {qid} {path}: plans {seg_kinds}, set "
+                                 f"plan and merged view {set_plan}")
+        run = (lambda sql=sql: execute_query(segs, sql)) if path == "view" else \
+            (lambda sql=sql: mx.execute(segs, sql))
+        line, _ = checked(f"aggs consuming {qid} {path}", run,
+                          lambda rows, want=want: rows == want, AGGS_DEVICE_RUNS)
+        log("aggs_consuming", query=qid, path=path, member_plan_kinds=sorted(set(seg_kinds)),
+            set_plan_kind_merged_view=set_plan, rows=sum(s.num_docs for s in segs),
+            pump_ms=pump_ms, oracle=want, **line)
+
+    # the pipeline: client threads cycling the device queries; every answer
+    # equal to the set executor's
+    counts = serve_pipeline(mx, table, "aggs", [(AGGS_DEVICE[q], set_answers[q])
+                                                for q in AGGS_DEVICE], rtol=0.0, atol=0.0)
+    for k, v in counts.items():
+        launches[k] += v
+    return launches, aggs_cases(table, mx)
+
+
+def aggs_cases(table, mx) -> dict:
+    """The `distinct` op and the power sums alone, at the main path's shapes
+    (one segment; the stacked table) and masks (every row: the HLL query's;
+    Q1.1's filter from the path's own `filter_mask`: the DISTINCTCOUNT
+    query's), timed with CUDA events and L2 flushed, against the bound of
+    their bytes: each input read once (the int32 ids or values, the bool
+    mask, the int64 group key) and each output written once (int32 counts;
+    three f32 sums). `library_ms`: `torch.bincount` of the same masked ids,
+    one call that computes the same counts; `extra_bin_ms`: the same counts
+    with the masked rows sent to one extra bin (`index_add_` of ones)."""
+    from pinot_tpu_torch.engine.datablock import block_for, lut_size
+    from pinot_tpu_torch.engine.kernels import _power_rows, distinct_counts, filter_mask
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor, kernel_spec
+    from pinot_tpu_torch.query.planner import build_device_geometry, plan_segment
+
+    dev = mx.device
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    seg = table[0]
+    plan = plan_segment(compile_query(AGGS_DEVICE["distinctcount"], seg.schema), seg,
+                        peers=table[1:])
+    build_device_geometry(plan)
+    spec = kernel_spec(plan)
+    block, stacked = block_for(seg, dev), mx._block_for(table)
+    seg_inputs = ServerQueryExecutor(dev)._kernel_inputs(plan, spec, block)
+    shapes = {"one segment": (block.ids, block.values, block.valid,
+                              filter_mask(spec, seg_inputs)),
+              "stacked set": (lambda c: stacked.ids(c).view(-1),
+                              lambda c: stacked.decoded(c).view(-1), stacked.valid.view(-1),
+                              filter_mask(spec, mx._set_inputs(plan, stacked)))}
+    sizes = {c: lut_size(seg.column(c).cardinality)
+             for c in ("lo_custkey", "lo_suppkey", "lo_discount")}
+    out = {}
+    for shape, (ids_of, values_of, valid, q11) in shapes.items():
+        n = valid.numel()
+        key = torch.where(valid, ids_of("lo_region").long(), 8)
+        disc = values_of("lo_discount")
+
+        def presence(col, mask):
+            ids, size = ids_of(col), sizes[col]
+
+            def extra_bin():
+                rows = torch.where(mask, ids.long(), size)
+                return torch.zeros(size + 1, dtype=torch.int32, device=dev).index_add_(
+                    0, rows, torch.ones_like(rows, dtype=torch.int32))
+            return (lambda: distinct_counts(mask, ids, size),
+                    lambda: torch.bincount(torch.where(mask, ids.long(), size),
+                                           minlength=size + 1),
+                    extra_bin, 5 * n + 4 * size, n)
+
+        def power_sums():
+            return [torch.where(valid, _power_rows(disc, p), 0.0).sum().to(torch.float32)
+                    for p in (2, 3, 4)]
+
+        supp, size = ids_of("lo_suppkey"), sizes["lo_suppkey"]
+        cases = {
+            "presence lo_custkey, every row": presence("lo_custkey", valid),
+            "presence lo_suppkey, Q1.1 filter": presence("lo_suppkey", q11),
+            "presence lo_discount, Q1.1 filter": presence("lo_discount", q11),
+            "grouped lo_suppkey by lo_region": (
+                lambda: distinct_counts(valid, supp, size, key, 9),
+                lambda: torch.bincount(key * size + supp.long(), minlength=9 * size),
+                None, 13 * n + 4 * 9 * size, 2 * n),
+            "power sums 2-4 lo_discount": (power_sums, None, None, 5 * n + 12, 10 * n),
+        }
+        for op, (fn, library, extra_bin, nbytes, ops) in cases.items():
+            fn()
+            torch.cuda.synchronize()
+            bms, by = roofline(nbytes, ops)
+            numbers = dict(rows=n, ms=time_ms(fn, flush), bound_ms=bms, bound_by=by,
+                           library_ms=time_ms(library, flush) if library else None)
+            if extra_bin is not None:
+                if not torch.equal(extra_bin()[:-1], fn()):
+                    raise AssertionError(f"aggs_case {op}, {shape}: the forms disagree")
+                numbers["extra_bin_ms"] = time_ms(extra_bin, flush)
+            numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+            log("aggs_case", op=op, shape=shape, **numbers)
+            out[f"{op}, {shape}"] = numbers
+    return out
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -1866,7 +2307,7 @@ def main() -> int:
 
     # phase 4: the path; phase 5: the set executor and the pipeline over its
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
-    # expressions and the host path
+    # expressions and the host path; phase 10: the aggregation library
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
     try:
@@ -1894,6 +2335,12 @@ def main() -> int:
         if any(expr_launches["host"].values()) or not expr_launches["expr"]["masked_sums"]:
             raise AssertionError(f"expr phase launches {expr_launches}: the host path must "
                                  "launch no scan, the CASE sum masked_sums")
+        t0 = time.perf_counter()
+        aggs_launches, _ = run_aggs(args, table, cols, work)
+        lap("aggs", t0)
+        if any(aggs_launches.values()):
+            raise AssertionError(f"aggs phase launches {aggs_launches}: the aggregation "
+                                 "library reaches no scan")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1909,13 +2356,15 @@ def main() -> int:
                         "launches": (path_launches[name] + serve_launches[name]
                                      + join_launches[name] + realtime_launches[name]
                                      + expr_launches["expr"][name]
-                                     + expr_launches["host"][name]),
+                                     + expr_launches["host"][name]
+                                     + aggs_launches[name]),
                         "launches_by_path": {"per_segment": path_launches[name],
                                              "serve": serve_launches[name],
                                              "join": join_launches[name],
                                              "realtime": realtime_launches[name],
                                              "expr": expr_launches["expr"][name],
-                                             "host": expr_launches["host"][name]},
+                                             "host": expr_launches["host"][name],
+                                             "aggs": aggs_launches[name]},
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,

@@ -1,17 +1,29 @@
 """The plain-PyTorch aggregation body: filter mask + group key + partial aggregates.
 
 Counterpart of the scalar and group-by branches of `_make_body` in
-`pinot_tpu/engine/kernels.py`, limited to COUNT, SUM, MIN and MAX outputs:
+`pinot_tpu/engine/kernels.py`, with its count, sum, power-sum, min, max and
+distinct outputs:
 
     mask     = filter_tree(id-interval compares | LUT lookups | value compares) & valid
     key      = sum(group_ids * strides)     (dense dict-id keys; masked rows go to the
                                              overflow bucket `num_keys_pad`)
     partials = bincount / index_add_ / scatter_reduce over key   (group-by)
              | masked reductions                                 (scalar)
+    distinct = int32 index_add_ over dict ids (scalar: of the mask; grouped:
+                                             over key * size + ids)
 
 Output names and dtypes are the ones the executor's decoders read: "count"
-int32, and "{i}.sum" float32, "{i}.min" / "{i}.max" in the argument's dtype
-for aggregation i. Group-by outputs hold `num_keys_pad + 1` entries.
+int32, and "{i}.sum" and "{i}.sum2".."{i}.sum4" float32 (masked sums of the
+f32 argument's powers, accumulated in float64), "{i}.min" / "{i}.max" in the
+argument's dtype, and "{i}.distinct" int32 for aggregation i. Group-by
+outputs hold `num_keys_pad + 1` entries; a grouped distinct is
+`[num_keys_pad + 1, size]` per-dict-id row counts. The scalar distinct is
+`[size]`: the counts where the aggregation `wants_id_counts` (the t-digest),
+0/1 presence otherwise. `size` is `KernelSpec.distinct_lut_sizes[i]`, the padded LUT size
+of the argument's dictionary (`datablock.lut_size`), so that fill rows, whose
+id is the cardinality, land inside it. Integer counts are exact at any row
+count, so the JAX body's f32 guard and its scatter branch have no
+counterpart here.
 
 Compare leaves and aggregate arguments are any device expression
 (`expr.eval_device`): CASE values mixing int32 and float32, math, trig and
@@ -48,6 +60,9 @@ from .expr import eval_device
 _INT_MIN_IDENT = (1 << 31) - 1   # identity for a masked-out min over int32
 _INT_MAX_IDENT = -(1 << 31)      # identity for a masked-out max over int32
 
+# kernel outputs that are masked sums of integer powers of the argument
+POWER_SUMS = {"sum": 1, "sum2": 2, "sum3": 3, "sum4": 4}
+
 
 @dataclass
 class KernelSpec:
@@ -58,6 +73,7 @@ class KernelSpec:
     group_cols: Tuple[str, ...]            # dict-encoded group-by columns
     num_keys_pad: int   # >= product of real cardinalities
     aggs: Tuple[Tuple[AggFunc, Tuple[str, ...]], ...]  # (func, device outputs)
+    distinct_lut_sizes: Dict[int, int] = field(default_factory=dict)  # agg idx -> lut size
 
     # per-leaf input routing, computed in __post_init__
     lut_index: Dict[int, int] = field(default_factory=dict)        # scattered LUTs
@@ -87,7 +103,8 @@ class KernelSpec:
         """What decides the work the body does, without the runtime scalars:
         two specs with one signature differ only in literals."""
         return (self.filter.signature(), self.group_cols, self.num_keys_pad,
-                tuple((a.name, repr(a.arg), outs) for a, outs in self.aggs))
+                tuple((a.name, repr(a.arg), outs) for a, outs in self.aggs),
+                tuple(sorted(self.distinct_lut_sizes.items())))
 
 
 @dataclass
@@ -185,6 +202,35 @@ def as_rows(v, n: int, device) -> torch.Tensor:
     return v.to(torch.float32) if v.dtype == torch.bool else v
 
 
+def _power_rows(v: torch.Tensor, p: int) -> torch.Tensor:
+    """The f32 argument raised to `p`, in float64 by multiplications (each
+    rounded once, as IEEE requires), so that the card and the CPU build the
+    same rows."""
+    x = v.to(torch.float32).to(torch.float64)
+    x2 = x * x
+    return {2: x2, 3: x2 * x, 4: x2 * x2}[p]
+
+
+def distinct_counts(mask: torch.Tensor, ids: torch.Tensor, size: int,
+                    key: torch.Tensor = None, num_seg: int = 1) -> torch.Tensor:
+    """int32 row counts per dict id of the rows `mask` keeps: `[size]`, or with
+    a group `key` (masked rows already at the overflow key) `[num_seg, size]`
+    over the combined space `key * size + ids`. The scalar form adds the mask
+    (0 or 1) at each row's own id, so that the filtered-out rows, most rows
+    under a selective filter, spread over the ids instead of meeting in one
+    bin. Integer `index_add_` into a fixed number of bins: exact at any row
+    count, and nothing waits for the card (`torch.bincount` reads its
+    input's min and max back to the host on CUDA; boolean indexing would too)."""
+    ids = ids.long()
+    if key is None:
+        counts = torch.zeros(size, dtype=torch.int32, device=ids.device)
+        return counts.index_add_(0, ids, mask.to(torch.int32))
+    rows = key * size + ids
+    counts = torch.zeros(num_seg * size, dtype=torch.int32, device=ids.device)
+    counts.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+    return counts.view(num_seg, size)
+
+
 def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor]:
     """Filter + aggregate one segment; returns the named device outputs."""
     mask = filter_mask(spec, inputs)
@@ -198,14 +244,20 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
         key = torch.where(mask, key, spec.num_keys_pad).long()
         out["count"] = torch.bincount(key, minlength=num_seg).to(torch.int32)
         for ai, (agg, outs) in enumerate(spec.aggs):
+            if "distinct" in outs:
+                out[f"{ai}.distinct"] = distinct_counts(
+                    mask, inputs.ids[agg.arg.name], spec.distinct_lut_sizes[ai], key, num_seg)
+                continue
             v = _agg_rows(agg, inputs.vals, n, device)
             for o in outs:
-                if o == "sum":
-                    # f32 sums of f32 rows, accumulated in f64: index_add_ adds one
-                    # row at a time into each bucket
+                if o in POWER_SUMS:
+                    # sums of the rows (sum2..sum4: the f32 argument's powers),
+                    # accumulated in f64: index_add_ adds one row at a time
+                    # into each bucket
+                    rows = v.to(torch.float64) if o == "sum" else _power_rows(v, POWER_SUMS[o])
                     acc = torch.zeros(num_seg, dtype=torch.float64, device=device)
-                    acc.index_add_(0, key, v.to(torch.float64))
-                    out[f"{ai}.sum"] = acc.to(torch.float32)
+                    acc.index_add_(0, key, rows)
+                    out[f"{ai}.{o}"] = acc.to(torch.float32)
                 elif o in ("min", "max"):
                     is_min = o == "min"
                     if v.dtype.is_floating_point:
@@ -219,12 +271,21 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
         fmask = mask.to(torch.float32)
         out["count"] = mask.sum(dtype=torch.int32)
         for ai, (agg, outs) in enumerate(spec.aggs):
+            if "distinct" in outs:
+                counts = distinct_counts(mask, inputs.ids[agg.arg.name],
+                                         spec.distinct_lut_sizes[ai])
+                out[f"{ai}.distinct"] = counts if agg.wants_id_counts \
+                    else (counts > 0).to(torch.int32)
+                continue
             if outs == ("count",):
                 continue
             v = _agg_rows(agg, inputs.vals, n, device)
             for o in outs:
                 if o == "sum":
                     out[f"{ai}.sum"] = (v.to(torch.float32) * fmask).sum()
+                elif o in POWER_SUMS:
+                    rows = _power_rows(v, POWER_SUMS[o])
+                    out[f"{ai}.{o}"] = torch.where(mask, rows, 0.0).sum().to(torch.float32)
                 elif o == "min":
                     ident = float("inf") if v.dtype.is_floating_point else _INT_MIN_IDENT
                     out[f"{ai}.min"] = torch.where(mask, v, ident).min()

@@ -8,9 +8,9 @@ has one member, so the collectives have nothing to combine and disappear:
     stacked columns [S_pad, rows] --one pass over S_pad * rows rows--> partials
 
 A set whose dictionaries agree (`dictHash`) on every column whose ids the
-plan compares or groups by (`aligned_dictionaries`), as for segments built by
-`segment.writer.build_aligned_segments`, runs one plan made on the first
-segment. Any other set (segments committed apart, consuming views), and any
+plan compares, groups by or counts (`aligned_dictionaries`), as for segments
+built by `segment.writer.build_aligned_segments`, runs one plan made on the
+first segment. Any other set (segments committed apart, consuming views), and any
 set with a mutable member (a consuming segment without device staging), is
 planned on a `merged.MergedSegmentView`, as in the JAX package: one global
 dictionary per column, each member's ids remapped to it on the host as the
@@ -69,8 +69,8 @@ from ..query.context import QueryContext, compile_query
 from ..query.dense_reduce import try_dense_decode
 from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor,
                               _band_leaf_indices, _plan_vals_cols, _sum_operands, _take,
-                              f32_tie_at_the_cut, resolve_device, scan_route,
-                              selection_rows)
+                              distinct_cols, f32_tie_at_the_cut, kernel_spec,
+                              resolve_device, scan_route, selection_rows)
 from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
                              plan_segment, topk_key_exact_in_f32, topk_order_key_device_ok)
 from ..query.predicate import CmpLeaf, LutLeaf
@@ -339,9 +339,10 @@ class MeshQueryExecutor:
         return plan_segment(ctx, view), view
 
     def _alignable(self, plan: SegmentPlan, segments) -> bool:
-        """Dict ids must agree across the set where the plan compares or groups
-        by them; decoded value columns use each segment's own dictionary."""
-        cols = set(plan.group_cols)
+        """Dict ids must agree across the set where the plan compares, groups
+        by or counts them (a `distinct` output); decoded value columns use
+        each segment's own dictionary."""
+        cols = set(plan.group_cols) | distinct_cols(plan)
         cols.update(leaf.col for leaf in plan.filter_prog.leaves if isinstance(leaf, LutLeaf))
         return aligned_dictionaries(segments, cols)
 
@@ -429,8 +430,9 @@ class MeshQueryExecutor:
 
     def _set_inputs(self, plan: SegmentPlan, block: "SegmentSetBlock") -> KernelInputs:
         """The plain body's inputs over the flattened stacked block: ids of the
-        compared and grouped columns, decoded value columns, scattered LUTs and
-        the literals in leaf order (mirroring KernelSpec.__post_init__)."""
+        compared, grouped and distinct-counted columns, decoded value columns,
+        scattered LUTs and the literals in leaf order (mirroring
+        KernelSpec.__post_init__)."""
         iscal: List[int] = []
         fscal: List[float] = []
         luts = []
@@ -446,7 +448,7 @@ class MeshQueryExecutor:
                     iscal.extend(int(v) for v in leaf.operands)
                 else:
                     fscal.extend(float(v) for v in leaf.operands)
-        ids_cols = set(plan.group_cols)
+        ids_cols = set(plan.group_cols) | distinct_cols(plan)
         ids_cols.update(leaf.col for leaf in plan.filter_prog.leaves
                         if isinstance(leaf, LutLeaf))
         return KernelInputs(ids={c: block.ids(c).view(-1) for c in ids_cols},
@@ -521,8 +523,7 @@ class MeshQueryExecutor:
                          ) -> PreparedDispatch:
         build_device_geometry(plan)
         block = self._block_for(segments, view)
-        spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
-                          tuple((a, a.device_outputs) for a in plan.aggs))
+        spec = kernel_spec(plan)
         route = set_scan_route(plan)
         inputs = self._set_inputs(plan, block)
         iscal, fscal, luts = inputs.iscal, inputs.fscal, inputs.luts
@@ -613,9 +614,10 @@ class MeshQueryExecutor:
     @staticmethod
     def _pack(outs_list: List[Dict[str, torch.Tensor]], trim_keys: Tuple[int, int]):
         """A launch's outputs, every pass's in order, as one list of device
-        tensors, with group outputs trimmed from `num_keys_pad + 1` keys to
-        `num_keys_real`. Returns (packed, unpack): `unpack(host, b)` gives pass
-        b's named outputs from the launch's entry of `fetch`."""
+        tensors, with group outputs (a grouped distinct's `[num_keys_pad + 1,
+        size]` too) trimmed from `num_keys_pad + 1` keys to `num_keys_real`.
+        Returns (packed, unpack): `unpack(host, b)` gives pass b's named
+        outputs from the launch's entry of `fetch`."""
         pad, real = trim_keys
 
         def trimmed(v: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,12 @@ outputs of a whole segment set in numpy instead:
 
 It applies only to FULL results (the set executor's outputs for every
 segment): server partials that merge with other servers keep the state-dict
-form. It declines (returns None) for HAVING, DISTINCT rewrites, post-
-aggregation arithmetic in the select list, or an ORDER BY that is not a plain
-group column or aggregation reference.
+form. It declines (returns None) for aggregations without `dense_values`
+(sketch and value-set states, among them every `distinct` output), HAVING,
+DISTINCT rewrites, post-aggregation arithmetic in the select list, or an
+ORDER BY that is not a plain group column or aggregation reference. Where
+`dense_values` gives NaN for a null (`dense_nan_is_null`: VAR_SAMP of a
+single row), the row holds None, as the scalar `finalize` gives.
 
 ORDER BY on a group column sorts by dict ids: dictionaries are sorted, so id
 order is value order.
@@ -25,8 +28,13 @@ from typing import Optional
 
 import numpy as np
 
+from .aggregates import AggFunc
 from .context import QueryContext
 from .result import ResultTable
+
+
+def _dense_capable(agg) -> bool:
+    return type(agg).dense_values is not AggFunc.dense_values
 
 
 def try_dense_decode(ctx: QueryContext, plan, outs) -> Optional[ResultTable]:
@@ -34,6 +42,8 @@ def try_dense_decode(ctx: QueryContext, plan, outs) -> Optional[ResultTable]:
     if not plan.group_cols or ctx.having is not None or ctx.distinct:
         return None
     if len(ctx.group_by) != len(plan.group_cols):
+        return None
+    if not all(_dense_capable(a) for a in plan.aggs):
         return None
 
     group_reprs = {repr(g): j for j, g in enumerate(ctx.group_by)}
@@ -95,6 +105,7 @@ def try_dense_decode(ctx: QueryContext, plan, outs) -> Optional[ResultTable]:
     # -- materialize only the emitted slice ---------------------------------
     # rows build through one object ndarray + C-level tolist(), not a Python loop
     table = np.empty((len(take), len(sel)), dtype=object)
+    nan_null_cols = []
     for ci, (kind, idx) in enumerate(sel):
         if kind == "group":
             ids_j = ids_for(idx)[take].astype(np.int64)
@@ -102,6 +113,13 @@ def try_dense_decode(ctx: QueryContext, plan, outs) -> Optional[ResultTable]:
             table[:, ci] = plan.segment.column(col).dictionary.take(ids_j).tolist()
         else:
             table[:, ci] = np.asarray(agg_for(idx))[take].tolist()
-    return ResultTable([name for _, name in ctx.select_items], table.tolist(),
+            if plan.aggs[idx].dense_nan_is_null:
+                nan_null_cols.append(ci)
+    rows = table.tolist()
+    for ci in nan_null_cols:
+        for r in rows:
+            if isinstance(r[ci], float) and r[ci] != r[ci]:
+                r[ci] = None
+    return ResultTable([name for _, name in ctx.select_items], rows,
                        {"numDocsScanned": num_docs, "numGroups": len(occupied),
                         "denseReduce": True})

@@ -9,7 +9,10 @@ Counterpart of `pinot_tpu/query/executor.py` (analog of the reference's
   masked multi-sum scan (`engine/scan.py`), routed by `scan_route`; a SUM
   argument may be any device expression (`expr.eval_device`), evaluated into
   the scan's operand row;
-* every other device plan runs the plain-PyTorch body (`engine/kernels.py`);
+* every other device plan runs the plain-PyTorch body (`engine/kernels.py`),
+  whose `distinct` output (per-dict-id counts or presence of the filtered
+  rows, scalar or per group) the decode turns into DISTINCTCOUNT, HLL, theta
+  and t-digest states through the argument's dictionary;
 * host plans run `_host_aggregate`: the filter mask (`host_filter_mask`) and
   the arguments and group keys (`expr.eval_host`, with the whole function
   library) in numpy, grouped by `_factorize_keys`. The planner marks a plan
@@ -34,8 +37,8 @@ readers. A consuming segment's view that stages on the device
 immutable segment does, its block already holding the staged chunks.
 
 Shapes this package does not execute raise NotImplementedError with their
-reason: DISTINCT/HLL/theta/percentile/moment aggregations, star-trees,
-multi-value columns, IS NULL leaves, JSON_MATCH/TEXT_MATCH/IN_ID_SET.
+reason: star-trees, multi-value columns and the `*MV` aggregations, IS NULL
+leaves, JSON_MATCH/TEXT_MATCH, and IN_ID_SET over a raw column.
 Nothing falls back to another path: the host runs only what the planner
 marks host.
 
@@ -52,7 +55,7 @@ import numpy as np
 import torch
 
 from ..engine import kernels, scan
-from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype
+from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype, lut_size
 from ..engine.expr import eval_device, eval_host
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
 from ..segment.reader import ColumnReader, ImmutableSegment
@@ -146,8 +149,8 @@ class ServerQueryExecutor:
                 states.append(seg.num_docs)
             else:
                 reader = seg.column(agg.arg.name)
-                states.append(float(reader.min_value) if agg.name == "min"
-                              else float(reader.max_value))
+                mn, mx = float(reader.min_value), float(reader.max_value)
+                states.append({"min": mn, "max": mx}.get(agg.name, (mn, mx)))
         return SegmentResult("scalar", scalar=states, num_docs_scanned=0)
 
     # -- device aggregation -------------------------------------------------
@@ -157,8 +160,7 @@ class ServerQueryExecutor:
         route = scan_route(plan)
         if route is not None:
             return self._scan_aggregate(plan, route, block)
-        spec = KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
-                          tuple((a, a.device_outputs) for a in plan.aggs))
+        spec = kernel_spec(plan)
         outs = run_kernel(spec, self._kernel_inputs(plan, spec, block))
         outs = {k: v.cpu().numpy() for k, v in outs.items()}
         if plan.group_cols:
@@ -207,7 +209,7 @@ class ServerQueryExecutor:
 
     def _kernel_inputs(self, plan: SegmentPlan, spec: KernelSpec,
                        block: SegmentBlock) -> KernelInputs:
-        ids_cols = set(plan.group_cols)
+        ids_cols = set(plan.group_cols) | distinct_cols(plan)
         luts = []
         iscal: List[int] = []
         fscal: List[float] = []
@@ -251,9 +253,14 @@ class ServerQueryExecutor:
 
         result = SegmentResult("groups")
         result.num_docs_scanned = int(counts.sum())
+        readers = {i: seg.column(agg.arg.name) for i, agg in enumerate(plan.aggs)
+                   if "distinct" in agg.device_outputs}
         for row, k in enumerate(occupied):
             states = []
             for i, agg in enumerate(plan.aggs):
+                if i in readers:
+                    states.append(_distinct_state(agg, readers[i], outs[f"{i}.distinct"][k]))
+                    continue
                 o = {"count": int(counts[k])}
                 for out_name in agg.device_outputs:
                     if out_name != "count":
@@ -372,12 +379,40 @@ class ServerQueryExecutor:
         count = int(outs["count"])
         states: List[Any] = []
         for i, agg in enumerate(plan.aggs):
+            if "distinct" in agg.device_outputs:
+                states.append(_distinct_state(agg, plan.segment.column(agg.arg.name),
+                                              outs[f"{i}.distinct"]))
+                continue
             o = {"count": count}
             for out_name in agg.device_outputs:
                 if out_name != "count":
                     o[out_name] = outs[f"{i}.{out_name}"]
             states.append(agg.state_from_device(o))
         return SegmentResult("scalar", scalar=states, num_docs_scanned=count)
+
+
+def _distinct_state(agg, reader: ColumnReader, counts: np.ndarray):
+    """An aggregation's state from its `distinct` output over one group (or
+    the scalar): the per-id counts where it wants them, else the ids present."""
+    counts = np.asarray(counts[:reader.cardinality])
+    if agg.wants_id_counts:
+        return agg.state_from_id_counts(reader.dictionary, counts)
+    return agg.state_from_present_ids(reader.dictionary, np.nonzero(counts > 0)[0])
+
+
+def distinct_cols(plan: SegmentPlan) -> set:
+    """Columns whose dict ids a `distinct` output counts."""
+    return {a.arg.name for a in plan.aggs if "distinct" in a.device_outputs}
+
+
+def kernel_spec(plan: SegmentPlan) -> KernelSpec:
+    """The plain body's spec of a device aggregation plan: its filter, group
+    geometry and outputs, and for each `distinct` output the padded LUT size
+    of its argument's dictionary (a merged view's global one on the set path)."""
+    sizes = {i: lut_size(plan.segment.column(a.arg.name).cardinality)
+             for i, a in enumerate(plan.aggs) if "distinct" in a.device_outputs}
+    return KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
+                      tuple((a, a.device_outputs) for a in plan.aggs), sizes)
 
 
 # -- selection rows ---------------------------------------------------------------
@@ -604,12 +639,14 @@ def _trim_occupied(plan: SegmentPlan, outs, occupied: np.ndarray) -> np.ndarray:
 
 def _plan_vals_cols(plan: SegmentPlan) -> set:
     """Columns the plan reads as values (not as dict ids): filter compare
-    expressions plus aggregate arguments."""
+    expressions plus aggregate arguments other than a `distinct` output's."""
     cols = set()
     for leaf in plan.filter_prog.leaves:
         if isinstance(leaf, CmpLeaf):
             cols.update(identifiers_in(leaf.expr))
     for agg in plan.aggs:
+        if "distinct" in agg.device_outputs:
+            continue   # read as dict ids (`distinct_cols`)
         if agg.arg is not None and not (isinstance(agg.arg, Identifier)
                                         and agg.arg.name == "*"):
             cols.update(identifiers_in(agg.arg))

@@ -36,17 +36,25 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..engine.datablock import lut_size
 from ..engine.expr import DEVICE_FUNCS
 from ..schema import DataType
 from ..segment.reader import ImmutableSegment
 from ..sql.ast import Expr, Function, Identifier, identifiers_in
-from .aggregates import AggFunc, make_agg
+from .aggregates import AggContext, AggFunc, make_agg
 from .context import QueryContext
 from .predicate import CmpLeaf, FilterProgram, LutLeaf, NullLeaf, _simplify, compile_filter
 
 # dense group-key cap, the JAX planner's value: keys past it need a sort-based
 # grouping this package does not have yet
 MAX_DEVICE_GROUP_KEYS = 1 << 21
+# grouped distinct presence matrix cap: (padded keys) x (dict-id lut) int32 cells
+MAX_GROUPED_DISTINCT_CELLS = 1 << 22
+# device power sums are masked sums of f32 powers: the device path is taken
+# only when max|x|^p stays within this budget, so that the centered-moment
+# subtraction at finalize is not cancellation noise (the JAX planner's value);
+# larger columns (epoch timestamps, ids) take the f64 host path
+POWER_SUM_F32_LIMIT = float(1 << 20)
 
 
 @dataclass
@@ -80,6 +88,8 @@ def plan_segment(ctx: QueryContext, segment: ImmutableSegment,
     members = [segment, *peers]
     for seg in members:
         _validate_single_value(ctx, seg)
+        for agg in aggs:
+            agg.validate_args(seg)
 
     # -- filter compilation + constant-fold pruning ------------------------
     plan.filter_prog = _fold_leaves(compile_filter(ctx.filter, segment), members)
@@ -252,7 +262,7 @@ def _metadata_answerable(agg: AggFunc, segment: ImmutableSegment) -> bool:
     if agg.name == "count" and (agg.arg is None or
                                 (isinstance(agg.arg, Identifier) and agg.arg.name == "*")):
         return True
-    if agg.name in ("min", "max") and isinstance(agg.arg, Identifier):
+    if agg.name in ("min", "max", "minmaxrange") and isinstance(agg.arg, Identifier):
         reader = segment.column(agg.arg.name)
         return reader.data_type.is_numeric and reader.min_value is not None
     return False
@@ -276,12 +286,60 @@ def _device_feasible(plan: SegmentPlan, segment: ImmutableSegment) -> str:
     plan.group_cols = tuple(cols)
 
     for agg in plan.aggs:
-        arg = agg.arg
-        if arg is not None and not (isinstance(arg, Identifier) and arg.name == "*"):
-            err = _expr_device_ok(arg, segment)
-            if err:
-                return err
+        err = _agg_device_feasible(agg, segment, bool(cols), num_keys)
+        if err:
+            return err
     return _filter_device_feasible(plan, segment)
+
+
+def _agg_device_feasible(agg: AggFunc, segment: ImmutableSegment, group_by: bool,
+                         num_keys: int) -> str:
+    """Empty string if the device can compute this aggregation's outputs; else
+    the reason. The JAX planner's gate: the aggregation's own `device_ok`, the
+    f32 power-sum budget, the grouped presence matrix's cap; a distinct
+    output over a dictionary column reads ids, so its values' type does not
+    matter, and any other argument must be a device expression."""
+    arg = agg.arg
+    star = arg is None or (isinstance(arg, Identifier) and arg.name == "*")
+    arg_is_dict = isinstance(arg, Identifier) and not star and \
+        segment.column(arg.name).has_dictionary
+    arg_numeric = not isinstance(arg, Identifier) or star or \
+        segment.column(arg.name).data_type.is_numeric
+    if not agg.device_ok(AggContext(group_by, arg_is_dict, arg_numeric)):
+        return f"aggregation {agg.name} not device-supported here"
+    err = _power_sum_f32_safe(agg, segment)
+    if err:
+        return err
+    if arg_is_dict and "distinct" in agg.device_outputs:
+        if group_by:
+            # the [keys, ids] count matrix on the device (padded keys <= 2x
+            # the real product)
+            cells = 2 * num_keys * lut_size(segment.column(arg.name).cardinality)
+            if cells > MAX_GROUPED_DISTINCT_CELLS:
+                return (f"grouped {agg.name} presence matrix "
+                        f"({cells} cells) exceeds device cap")
+        return ""
+    return "" if star else _expr_device_ok(arg, segment)
+
+
+def _power_sum_f32_safe(agg: AggFunc, segment: ImmutableSegment) -> str:
+    """Empty string unless the aggregation's power sums could leave the f32
+    budget (`POWER_SUM_F32_LIMIT`) on this segment; then the reason."""
+    powers = [p for o, p in (("sum2", 2), ("sum3", 3), ("sum4", 4))
+              if o in agg.device_outputs]
+    if not powers:
+        return ""
+    if not isinstance(agg.arg, Identifier):
+        return f"{agg.name} over an expression: unknown bounds for f32 power sums"
+    reader = segment.column(agg.arg.name)
+    mn, mx = reader.min_value, reader.max_value
+    if mn is None or mx is None:
+        return f"{agg.name}: no column bounds to prove f32 power sums safe"
+    max_abs = max(abs(float(mn)), abs(float(mx)))
+    if max_abs ** max(powers) > POWER_SUM_F32_LIMIT:
+        return (f"{agg.name}: |{agg.arg.name}|^{max(powers)} exceeds f32 "
+                f"precision budget (host f64 path)")
+    return ""
 
 
 def _filter_device_feasible(plan: SegmentPlan, segment: ImmutableSegment) -> str:

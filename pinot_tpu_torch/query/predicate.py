@@ -10,8 +10,13 @@ compile to comparisons with scalar operands.
 A distance predicate over two coordinate columns is rewritten to elementwise
 haversine math (`engine.geo_fns.rewrite_geo`) and compiles to a comparison
 leaf like any expression; the geo cell index that pre-filters it in the JAX
-package is not ported. Not compiled by this package (NotImplementedError):
-JSON_MATCH, TEXT_MATCH and IN_ID_SET, which need their indexes.
+package is not ported. `IN_ID_SET(col, 'literal')` (bare, or compared to 1
+or 0) over a dictionary column resolves the serialized `IdSet` against the
+sorted dictionary into a LUT leaf (`op="idset"`), evaluated on the device as
+any dictionary predicate is. Not compiled by this package
+(NotImplementedError): JSON_MATCH and TEXT_MATCH, which need their indexes,
+and IN_ID_SET over a raw column, which the JAX package evaluates as a
+doc-set leaf (doc-set leaves are not ported).
 """
 
 from __future__ import annotations
@@ -37,7 +42,18 @@ FilterTree = Tuple
 # this the common case: EQ is one run, RANGE is one run, small IN-lists are <= k runs.
 MAX_LUT_INTERVALS = 8
 
-_UNPORTED_PREDICATES = {"json_match", "text_match", "in_id_set", "inidset"}
+_UNPORTED_PREDICATES = {"json_match", "text_match"}
+_ID_SET_PREDICATES = {"in_id_set", "inidset"}
+
+
+def _as_bool(v) -> Optional[bool]:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in ("true", "false"):
+        return v.lower() == "true"
+    return None
 
 
 def _lut_intervals(lut: np.ndarray) -> Optional[List[Tuple[int, int]]]:
@@ -154,6 +170,14 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
         return ("not", _compile_node(e.args[0], seg, leaves))
     if name in _NEGATIONS:
         return ("not", _compile_node(Function(_NEGATIONS[name], e.args), seg, leaves))
+    if name == "eq" and len(e.args) == 2:
+        # `IN_ID_SET(col, '...') = 1` / `= 0`, the reference's comparison form
+        # of a boolean transform function: the bare predicate or its negation
+        for fn, lit in (e.args, e.args[::-1]):
+            if isinstance(fn, Function) and fn.name in _ID_SET_PREDICATES \
+                    and isinstance(lit, Literal) and _as_bool(lit.value) is not None:
+                node = _compile_node(fn, seg, leaves)
+                return node if _as_bool(lit.value) else ("not", node)
     if name in ("is_null", "is_not_null"):
         col = e.args[0]
         if not isinstance(col, Identifier):
@@ -164,10 +188,34 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
            for n in _walk(e)):
         raise NotImplementedError(
             f"predicate {e!r} is not supported by pinot_tpu_torch")
+    if name in _ID_SET_PREDICATES:
+        return _compile_id_set(e, seg, leaves)
     if name in ("stwithin", "stcontains", "stequals"):
         # a boolean geo function used bare as a predicate: compare it to true
         return _compile_predicate(Function("eq", (e, Literal(1))), seg, leaves)
     return _compile_predicate(e, seg, leaves)
+
+
+def _compile_id_set(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterTree:
+    """Membership against a serialized IdSet literal (reference:
+    InIdSetTransformFunction): a LUT over the column's sorted dictionary."""
+    from .idset import IdSet, IdSetError
+    if len(e.args) != 2 or not isinstance(e.args[0], Identifier) \
+            or not isinstance(e.args[1], Literal):
+        raise QueryValidationError(f"IN_ID_SET(column, 'serialized-idset') expected: {e!r}")
+    col, lit = e.args[0], e.args[1]
+    try:
+        ids = IdSet.deserialize(str(lit.value))
+    except IdSetError as exc:
+        raise QueryValidationError(str(exc)) from exc
+    reader = seg.column(col.name)
+    if not reader.has_dictionary:
+        raise NotImplementedError(
+            f"IN_ID_SET over raw column {col.name!r} is not supported by pinot_tpu_torch "
+            "(it needs a doc-set leaf)")
+    lut = build_lut("idset", [ids], reader.dictionary, reader.cardinality)
+    leaves.append(LutLeaf(col.name, lut, op="idset", values=[ids]))
+    return ("leaf", len(leaves) - 1)
 
 
 def _walk(e: Expr):
@@ -216,7 +264,10 @@ def _build_lut(op: str, values: List[Any], reader: ColumnReader) -> np.ndarray:
 def build_lut(op: str, values: List[Any], d, cardinality: int) -> np.ndarray:
     """Resolve a predicate against a sorted dictionary into a bool LUT over ids."""
     lut = np.zeros(lut_size(cardinality), dtype=bool)
-    if op == "eq":
+    if op == "idset":
+        if cardinality:
+            lut[:cardinality] = values[0].contains(d._np_values)
+    elif op == "eq":
         i = d.index_of(values[0])
         if i >= 0:
             lut[i] = True

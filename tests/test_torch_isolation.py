@@ -236,14 +236,28 @@ def test_join_entry_points_without_cuda_raise(segs, monkeypatch):
     assert execute_multistage(JOIN_QUERIES["join_supplier"], scan, schemas).rows == []
 
 
-_HOST_SHAPES = {
-    # a selection filtered by a device function (SQRT), and a GROUP BY on an
-    # expression (a host plan): both run, and are held against numpy here
-    # (tests/test_torch_host.py holds such shapes against the reference)
-    "selection": lambda c: [[r, v] for r, v in zip(c["lo_region"], c["lo_revenue"])
-                            if np.sqrt(v) > 100][:5],
-    "host_group_expr": lambda c: {k + 1: int((c["lo_custkey"] == k).sum())
-                                  for k in np.unique(c["lo_custkey"])},
+def _hll_within(c):
+    """The HLL estimate (p = 12) within 5% of the exact distinct count."""
+    exact = len(np.unique(c["lo_orderdate"][c["lo_quantity"] < 25]))
+    return lambda rows: abs(rows[0][0] - exact) <= 0.05 * exact
+
+
+_ANSWERED = {
+    # a selection filtered by a device function (SQRT), a GROUP BY on an
+    # expression (a host plan) and the aggregation library: each runs, and is
+    # held against numpy here (tests/test_torch_host.py and
+    # tests/test_torch_aggregates.py hold such shapes against the reference)
+    "selection": lambda c: lambda rows: [[r, float(v)] for r, v in rows] == [
+        [r, float(v)] for r, v in zip(c["lo_region"], c["lo_revenue"]) if np.sqrt(v) > 100][:5],
+    "distinctcount": lambda c: lambda rows: rows == [
+        [len(np.unique(c["lo_suppkey"][c["lo_discount"] == 3]))]],
+    "count_distinct": lambda c: lambda rows: rows == [[len(np.unique(c["lo_suppkey"]))]],
+    "hll": _hll_within,
+    "percentile": lambda c: lambda rows: rows == [[float(np.percentile(c["lo_revenue"], 90))]],
+    "variance": lambda c: lambda rows: np.isclose(rows[0][0], np.var(c["lo_revenue"]),
+                                                  rtol=1e-9, atol=0.0),
+    "host_group_expr": lambda c: lambda rows: len(rows) == 10 and all(
+        int((c["lo_custkey"] == k - 1).sum()) == n for k, n in rows),
 }
 
 
@@ -259,20 +273,15 @@ _HOST_SHAPES = {
 ], ids=["selection", "distinctcount", "count_distinct", "hll", "percentile",
         "variance", "host_group_expr", "json_match"])
 def test_unported_shapes_raise_not_implemented(segs, sql, request):
-    """Unported aggregations and JSON_MATCH raise; the two shapes this package
-    now runs answer as numpy does."""
+    """JSON_MATCH raises; the shapes this package now runs (the aggregation
+    library among them) answer as numpy does."""
     case = request.node.callspec.id
-    if case not in _HOST_SHAPES:
+    if case not in _ANSWERED:
         with pytest.raises(NotImplementedError):
             execute_query(segs, sql, device="cpu")
         return
-    cols = make_columns(4000, seed=5)
     rows = execute_query(segs, sql, device="cpu").rows
-    want = _HOST_SHAPES[case](cols)
-    if case == "selection":
-        assert [[r, float(v)] for r, v in rows] == [[r, float(v)] for r, v in want]
-    else:
-        assert len(rows) == 10 and all(want[int(k)] == n for k, n in rows), rows
+    assert _ANSWERED[case](make_columns(4000, seed=5))(rows), rows
 
 
 def test_null_leaf_raises_not_implemented(tmp_path):

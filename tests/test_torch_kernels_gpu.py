@@ -688,3 +688,86 @@ def test_cuda_eval_device_matches_the_cpu(cuda, name):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6, equal_nan=True)
     else:
         assert torch.equal(got.cpu(), want)
+
+
+# -- the aggregation library's device outputs (engine/kernels.run_kernel) ------------
+
+AGG_OUTPUT_QUERIES = {
+    "scalar": ("SELECT DISTINCTCOUNT(lo_suppkey), PERCENTILETDIGEST(lo_discount, 95), "
+               "KURTOSIS(lo_discount), SKEWNESS(lo_quantity), DISTINCTCOUNTHLL(lo_custkey) "
+               "FROM lineorder WHERE lo_quantity < 25 AND lo_region <> 'ASIA'"),
+    "grouped": ("SELECT lo_region, DISTINCTCOUNT(lo_suppkey), PERCENTILETDIGEST(lo_quantity, 50), "
+                "VAR_SAMP(lo_discount), KURTOSIS(lo_discount) FROM lineorder "
+                "WHERE lo_discount > 2 GROUP BY lo_region ORDER BY lo_region"),
+}
+
+
+@pytest.fixture(scope="module")
+def agg_table(tmp_path_factory):
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    paths = build_aligned_segments(ssb.ssb_schema(), ssb.make_columns(300_007, 23),
+                                   str(tmp_path_factory.mktemp("gpu_aggs")), "lineorder", 3,
+                                   SegmentGeneratorConfig(raw_cardinality_fraction=1.0))
+    return [load_segment(p) for p in paths]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(AGG_OUTPUT_QUERIES))
+def test_cuda_distinct_and_power_sum_outputs_match_the_cpu(cuda, agg_table, shape):
+    """`run_kernel`'s distinct output (presence, per-id counts, per group) on
+    CUDA equals the CPU's exactly, and its power sums at rel 1e-6; over one
+    segment and over the stacked set; the answers through both executors
+    equal the CPU's (sketches bit for bit, moments at rel 1e-6)."""
+    from pinot_tpu_torch import execute_query
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.engine.kernels import run_kernel
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor, kernel_spec
+    from pinot_tpu_torch.query.planner import build_device_geometry, plan_segment
+    sql = AGG_OUTPUT_QUERIES[shape]
+    seg = agg_table[0]
+    plan = plan_segment(compile_query(sql, seg.schema), seg)
+    assert plan.kind == "device"
+    build_device_geometry(plan)
+    spec = kernel_spec(plan)
+    card, cpu = (run_kernel(spec, ServerQueryExecutor(dev)._kernel_inputs(
+        plan, spec, block_for(seg, dev))) for dev in (cuda, torch.device("cpu")))
+    assert set(card) == set(cpu)
+    names = sorted(cpu)
+    assert any(k.endswith(".distinct") for k in names) and any(k.endswith(".sum4") for k in names)
+    for name in names:
+        got, want = card[name], cpu[name]
+        assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape, name
+        if want.dtype.is_floating_point:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
+        else:
+            assert torch.equal(got.cpu(), want), name
+    for run in (lambda d: execute_query(agg_table, sql, device=d),
+                lambda d: MeshQueryExecutor(device=d).execute(agg_table, sql)):
+        got, want = run(cuda).rows, run("cpu").rows
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert x == pytest.approx(y, rel=1e-6) if isinstance(y, float) else x == y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size, ids_card", [(16, 11), (32768, 20_000), (1 << 19, 500_000)])
+def test_cuda_distinct_counts_equal_bincount(cuda, size, ids_card):
+    """The sync-free int32 `index_add_` counts equal `torch.bincount` of the
+    same masked ids on the card, scalar and over a combined group key."""
+    from pinot_tpu_torch.engine.kernels import distinct_counts
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n = (1 << 21) + 13
+    ids = torch.randint(0, ids_card, (n,), device=cuda, generator=gen, dtype=torch.int32)
+    mask = torch.rand(n, device=cuda, generator=gen) < 0.3
+    want = torch.bincount(torch.where(mask, ids.long(), size), minlength=size + 1)[:size]
+    assert torch.equal(distinct_counts(mask, ids, size), want.to(torch.int32))
+    num_seg = 6
+    key = torch.where(mask, torch.randint(0, 5, (n,), device=cuda, generator=gen), 5)
+    grouped = torch.bincount(key * size + ids.long(), minlength=num_seg * size)
+    assert torch.equal(distinct_counts(mask, ids, size, key, num_seg),
+                       grouped.view(num_seg, size).to(torch.int32))
