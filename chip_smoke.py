@@ -42,7 +42,7 @@ exits non-zero:
    matching ties a value, more than the 265 candidates), a LIMIT without ORDER
    BY, an ORDER BY on a key wider than 2^24 (the exact path) and a GROUP BY
    over 500,000 keys trimmed to its top 10. Each answer is held against a
-   numpy oracle that orders ties by row; each prints its warm times (10 runs;
+   numpy oracle that orders ties by row; each prints its warm times (5 runs;
    none for the per-segment GROUP BY over 500,000 keys: its cold run), phases,
    top-k launches (one per segment, none for the others) and `topkExact`. Then
    32 client threads x 12 queries cycling the three top-k queries through the
@@ -102,7 +102,7 @@ exits non-zero:
    Host-routed queries (a GROUP BY on an expression, string functions in the
    filter and the GROUP BY, a selection and a join whose leaf filters need
    the host mask), with plan kind `host` (or a selection's host-mask reason)
-   and no kernel launch, against numpy at rel 1e-9, 1 warm run:
+   and no kernel launch, against numpy at rel 1e-9, their cold run alone:
    `expr_host_query` lines. Last, 2,097,152 rows pumped into a consuming
    segment without staging: Q1.1 and the GROUP BY over its view (host plans)
    and over the table plus the view (the merged view): `expr_consuming`;
@@ -117,7 +117,8 @@ exits non-zero:
    own error of numpy's exact value (5%; one lo_discount step).
    Host-routed ones (KURTOSIS(lo_quantity) past the f32 power-sum budget,
    PERCENTILE, MODE, DISTINCTCOUNT(lo_custkey) by lo_region past the grouped
-   presence cap, COVAR_POP), plan kind `host`, 1 warm run, rel 1e-9. IDSET
+   presence cap, COVAR_POP), plan kind `host`, their cold run alone, rel
+   1e-9. IDSET
    (a host plan) feeding an IN_ID_SET filter (a device LUT leaf); a join with
    DISTINCTCOUNT in its final aggregation; 2,097,152 rows pumped into a
    staged consuming segment: DISTINCTCOUNT over its view and beside the
@@ -129,12 +130,37 @@ exits non-zero:
    table's shapes and masks (CUDA events, L2 flushed) against their bytes
    bound, with `torch.bincount`'s time beside the presence's.
 
+11. index  — the filter indexes and star-trees: lineorder from --seed again,
+   built with the port's writer with both of bench.py's star-trees
+   ([lo_region, lo_discount] and [lo_orderdate, lo_discount], SUM__lo_revenue,
+   on one table where bench.py builds two), inverted indexes on lo_region,
+   lo_discount and lo_quantity, a range index on lo_orderdate, lo_custkey
+   raw with a bloom filter and lo_revenue raw. Per segment, over the set and through the
+   pipeline, each against numpy (counts exactly, rel 1e-5, abs 0.05): the
+   STAR_QUERY (a star plan on every segment; beside it the same query over
+   phase 4's table), the high-cardinality tree's GROUP BY lo_orderdate (the
+   stacked device star path over the set), an all-bitmap filter (one
+   `bitmap_filter` launch per segment, one for the set), a mixed one,
+   IN_ID_SET over the raw lo_custkey (a doc-set leaf), the in-range key absent
+   from the most segments (pruned there by their bloom filters), a key past
+   the maximum (every plan pruned, no launch), a selection whose host mask
+   reads the inverted postings, and IS NULL / IS NOT NULL over a 2,097,152-row
+   segment (seed + 4) with 1% of lo_revenue null: `index_query` lines with
+   warm times (10 runs), phases and launches. Then `bitmap_case` lines (the
+   kernel against its plain version in its three modes, one segment and the
+   stacked set, L2 flushed, against the bound of the words it reads) and
+   `crossover` lines (bitmap leaves against LUT and interval leaves at
+   lo_quantity selectivities 1/50 to 25/50, end to end and the row mask
+   alone; the set's per-segment star loop against the stacked device star
+   path).
+
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path;
 the join phase launches neither scan kernel: its leaf filters are the plain
 mask and its device programs are torch code; the realtime phase must launch
 both; the expr phase's device queries `masked_sums`, its host queries none;
-the aggs phase none),
+the aggs phase none; bitmap_filter's earlier paths count every run of the
+phase, its index path the checked runs),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -187,7 +213,7 @@ SELECT_QUERIES = [
     ("group_trim", "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder GROUP BY lo_custkey "
      "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None),
 ]
-JOIN_WARM_RUNS = 3
+JOIN_WARM_RUNS = 2     # cut from 3 to leave room for the index phase
 REALTIME_BLOCK_ROWS = 16_384   # bench.py's _ingest_topic_blocks block
 REALTIME_STEP_BLOCKS = 16      # blocks one pump step takes: 262,144 rows
 REALTIME_WARM_RUNS = 5
@@ -208,7 +234,7 @@ JOIN_ZIPF_KEYS, JOIN_ZIPF_S = 100_000, 1.5
 # the select phase's warm runs, cut from QUERY_RUNS to leave room for the join
 # phase; the per-segment GROUP BY over 500,000 keys decodes every segment's
 # ~490,000 groups in Python (17-19 s a run): its cold run alone
-SELECT_RUNS = 10
+SELECT_RUNS = 5     # cut from 10 to leave room for the index phase
 GROUP_TRIM_PER_SEGMENT_RUNS = 0
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
@@ -1489,7 +1515,8 @@ EXPR_RTOL = 1e-5                       # f32 results against the f64 oracle
 EXPR_TRIG_ATOL = 1e-6                  # trig and exp: rel 1e-5 with abs 1e-6
 EXPR_DEVICE_RUNS = 5
 EXPR_QUERY_RUNS = 10                   # warm runs of a device-routed query
-EXPR_HOST_RUNS = 1                     # warm runs of a host-routed query
+EXPR_HOST_RUNS = 0                     # warm runs of a host-routed query (its cold run
+                                       # alone: seconds a run, host-bound)
 EXPR_CONSUMING_ROWS = 2_097_152        # rows pumped into the consumer without staging
 EXPR_CASE_SUM = ("SELECT SUM(CASE WHEN lo_discount BETWEEN 1 AND 3 THEN lo_extendedprice "
                  "* lo_discount ELSE 0 END), COUNT(*) FROM lineorder WHERE lo_quantity < 25")
@@ -1828,7 +1855,8 @@ def run_expr(args, table, cols, work) -> tuple:
 # -- phase 10: aggs --------------------------------------------------------------------
 
 AGGS_DEVICE_RUNS = 10          # warm runs of a device-routed aggregation query
-AGGS_HOST_RUNS = 1             # warm runs of a host-routed one (seconds a run)
+AGGS_HOST_RUNS = 0             # warm runs of a host-routed one (seconds a run: its
+                               # cold run alone)
 AGGS_CONSUMING_ROWS = 2_097_152
 AGGS_SKEW_ATOL = 1e-4          # skewness lies near 0: rel 1e-5 or abs 1e-4
 AGGS_SKETCH_REL = 0.05         # HLL (p = 12) and theta (k = 4096) against the exact count
@@ -2176,8 +2204,8 @@ def aggs_cases(table, mx) -> dict:
     dev = mx.device
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     seg = table[0]
-    plan = plan_segment(compile_query(AGGS_DEVICE["distinctcount"], seg.schema), seg,
-                        peers=table[1:])
+    ctx = compile_query(AGGS_DEVICE["distinctcount"], seg.schema)
+    plan = plan_segment(ctx, seg, peers=table[1:])
     build_device_geometry(plan)
     spec = kernel_spec(plan)
     block, stacked = block_for(seg, dev), mx._block_for(table)
@@ -2186,7 +2214,7 @@ def aggs_cases(table, mx) -> dict:
                               filter_mask(spec, seg_inputs)),
               "stacked set": (lambda c: stacked.ids(c).view(-1),
                               lambda c: stacked.decoded(c).view(-1), stacked.valid.view(-1),
-                              filter_mask(spec, mx._set_inputs(plan, stacked)))}
+                              filter_mask(spec, mx._set_inputs(plan, spec, stacked, ctx)))}
     sizes = {c: lut_size(seg.column(c).cardinality)
              for c in ("lo_custkey", "lo_suppkey", "lo_discount")}
     out = {}
@@ -2236,6 +2264,416 @@ def aggs_cases(table, mx) -> dict:
             log("aggs_case", op=op, shape=shape, **numbers)
             out[f"{op}, {shape}"] = numbers
     return out
+
+
+# -- phase 11: index --------------------------------------------------------------
+
+INDEX_RUNS = 10                 # warm runs of each index-phase query and path
+INDEX_CROSSOVER_RUNS = 5        # warm runs of each crossover regime
+INDEX_NULL_ROWS = 2_097_152     # the null table: one segment
+INDEX_NULL_FRACTION = 0.01
+INDEX_CONFIG = dict(inverted_index_columns=["lo_region", "lo_discount", "lo_quantity"],
+                    range_index_columns=["lo_orderdate"], bloom_filter_columns=["lo_custkey"],
+                    # lo_revenue raw too: at 16M rows the writer would give its ~6M
+                    # values a dictionary, and the mixed tree needs a compare leaf
+                    no_dictionary_columns=["lo_custkey", "lo_revenue"],
+                    # bench.py's two star-tree tables, on one table here
+                    star_tree_configs=[
+                        {"dimensionsSplitOrder": ["lo_region", "lo_discount"],
+                         "functionColumnPairs": ["SUM__lo_revenue"]},
+                        {"dimensionsSplitOrder": ["lo_orderdate", "lo_discount"],
+                         "functionColumnPairs": ["SUM__lo_revenue"]}])
+INDEX_HC_QUERY = ("SELECT lo_orderdate, SUM(lo_revenue), COUNT(*), AVG(lo_revenue) "
+                  "FROM lineorder WHERE lo_discount BETWEEN 1 AND 3 GROUP BY lo_orderdate "
+                  "ORDER BY lo_orderdate LIMIT 10")
+INDEX_BITMAP_QUERY = ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
+                      "WHERE lo_discount = 2 AND lo_quantity IN (1, 7, 13) GROUP BY lo_region "
+                      "ORDER BY lo_region")
+INDEX_MIXED_QUERY = ("SELECT COUNT(*), SUM(lo_extendedprice) FROM lineorder "
+                     "WHERE lo_discount = 2 AND lo_revenue > 30000")
+INDEX_IDSET_QUERY = ("SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder "
+                     "WHERE IN_ID_SET(lo_custkey, '{}') = 1 GROUP BY lo_region "
+                     "ORDER BY lo_region")
+INDEX_ABSENT_QUERY = "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_custkey = {}"
+INDEX_HOST_MASK_SELECT = ("SELECT lo_custkey, lo_revenue FROM lineorder WHERE lo_quantity = 7 "
+                          "AND lo_discount = 3 AND COALESCE(lo_revenue, 0) > 40000 "
+                          "ORDER BY lo_custkey, lo_revenue LIMIT 20")
+INDEX_NULL_QUERIES = {
+    "is_null": "SELECT COUNT(*), SUM(lo_quantity) FROM lineorder WHERE lo_revenue IS NULL",
+    "is_not_null": ("SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                    "WHERE lo_revenue IS NOT NULL AND lo_discount < 4"),
+}
+INDEX_CROSSOVER_QUANTITIES = (1, 5, 12, 25)     # lo_quantity <= q: selectivity q / 50
+BITMAP_SOURCE = ("pinot_tpu_torch/csrc/bitmap_filter.cu", "pinot_tpu/engine/kernels.py:416")
+BITMAP_LIBRARY_NOTE = ("library_ms is null: torch has no popcount and no bitwise-OR "
+                       "reduction, so no single PyTorch call evaluates a filter tree over "
+                       "packed words")
+
+
+def bitmap_launches() -> int:
+    from pinot_tpu_torch.engine import bitmap
+    return bitmap.bitmap_filter.launches
+
+
+def reset_bitmap_launches() -> None:
+    from pinot_tpu_torch.engine import bitmap
+    bitmap.reset_launch_counts()
+
+
+def index_launches() -> dict:
+    return dict(launch_counts(), bitmap_filter=bitmap_launches())
+
+
+def reset_index_launches() -> None:
+    from pinot_tpu_torch.engine import scan
+    scan.reset_launch_counts()
+    reset_bitmap_launches()
+
+
+def index_oracles(c, idset_keys, pruned_key) -> dict:
+    """numpy float64 answers of the index phase's queries over the table."""
+    from pinot_tpu_torch.ssb import REGIONS
+
+    def by_region(m, cells):
+        return [[r] + cells(m & (c["lo_region"] == r)) for r in sorted(REGIONS)
+                if (m & (c["lo_region"] == r)).any()]
+
+    disc13 = (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3)
+    dates = np.unique(c["lo_orderdate"][disc13])[:10]
+    hc = [[int(d), float(c["lo_revenue"][disc13 & (c["lo_orderdate"] == d)].sum()),
+           int((disc13 & (c["lo_orderdate"] == d)).sum()),
+           float(c["lo_revenue"][disc13 & (c["lo_orderdate"] == d)].mean())] for d in dates]
+    bm = (c["lo_discount"] == 2) & np.isin(c["lo_quantity"], [1, 7, 13])
+    mixed = (c["lo_discount"] == 2) & (c["lo_revenue"] > 30000)
+    ids = np.isin(c["lo_custkey"], idset_keys)
+    sel = (c["lo_quantity"] == 7) & (c["lo_discount"] == 3) & (c["lo_revenue"] > 40000)
+    idx = np.nonzero(sel)[0]
+    idx = idx[np.lexsort((c["lo_revenue"][idx], c["lo_custkey"][idx]))][:20]
+    return {
+        "star_query": by_region(disc13, lambda g: [float(c["lo_revenue"][g].sum())])[:10],
+        "star_hc": hc,
+        "all_bitmap": by_region(bm, lambda g: [float(c["lo_revenue"][g].sum()), int(g.sum())]),
+        "mixed": [[int(mixed.sum()), float(c["lo_extendedprice"][mixed].sum())]],
+        "in_id_set_raw": by_region(ids, lambda g: [int(g.sum()),
+                                                   float(c["lo_revenue"][g].sum())]),
+        "bloom_pruned": [[int((c["lo_custkey"] == pruned_key).sum()),
+                          float(c["lo_revenue"][c["lo_custkey"] == pruned_key].sum())
+                          if (c["lo_custkey"] == pruned_key).any() else None]],
+        "host_mask_select": [[int(c["lo_custkey"][i]), float(c["lo_revenue"][i])] for i in idx],
+    }
+
+
+def null_oracles(c, null) -> dict:
+    nn = ~null & (c["lo_discount"] < 4)
+    return {"is_null": [[int(null.sum()), float(c["lo_quantity"][null].sum())]],
+            "is_not_null": [[int(nn.sum()), float(c["lo_revenue"][nn].sum())]]}
+
+
+def index_rows_match(got, want) -> bool:
+    """rows_match, with a None cell (an empty SUM) held exactly."""
+    if len(got) != len(want) or any(len(g) != len(w) for g, w in zip(got, want)):
+        return False
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if y is None or x is None:
+                if x is not y:
+                    return False
+            elif not rows_match([[x]], [[y]]):
+                return False
+    return True
+
+
+def bitmap_cases(block, stacked) -> dict:
+    """`bitmap_filter` against `bitmap_filter_plain` on the card, on the index
+    table's words: the bitmap query's main-path shape (lo_discount = 2 AND
+    lo_quantity IN (1, 7, 13), "mask" mode: one segment, and the stacked set
+    in one launch), and one lo_discount leaf of k = 1, 3 and 11 selected rows in
+    all three modes (one segment; k = 3 stacked too). Each output equal to the
+    plain version's; `ms` and `plain_ms` device time (CUDA graph replay, L2
+    flushed), `call_ms` an eager call; the bound is the words read once (k + 1
+    rows of W words) and the output written once (W words, 32 W bytes, or 8)
+    over the memory rate."""
+    from pinot_tpu_torch.engine import bitmap
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=block.device)
+    shapes = {"one segment": (block.bitmap_words, block.valid_words),
+              "stacked set": (stacked.bitmap_words, stacked.valid_words.view(-1))}
+    cases = []
+    for shape, (words_of, valid_words) in shapes.items():
+        cases.append((f"bitmap_query, {shape}", [0, 1, bitmap.AND],
+                      [bitmap.BitmapLeaf(words_of("lo_discount"), (2,)),
+                       bitmap.BitmapLeaf(words_of("lo_quantity"), (0, 6, 12))],
+                      valid_words, ("mask",), True))
+        for k in ((1, 3, 11) if shape == "one segment" else (3,)):
+            cases.append((f"lo_discount k={k}, {shape}", [0],
+                          [bitmap.BitmapLeaf(words_of("lo_discount"), tuple(range(k)))],
+                          valid_words, ("words", "mask", "count"), False))
+    out = {}
+    for case, program, leaves, valid_words, modes, main in cases:
+        n_words = int(valid_words.numel())
+        k = sum(len(leaf.rows) for leaf in leaves)
+        for mode in modes:
+            def kernel():
+                return bitmap.bitmap_filter(program, leaves, valid_words, mode)
+
+            def plain():
+                return bitmap.bitmap_filter_plain(program, leaves, valid_words, mode)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"bitmap_case {case}, {mode}: the kernel's output "
+                                     "differs from the plain version's")
+            written = {"words": 4 * n_words, "mask": 32 * n_words, "count": 8}[mode]
+            bms, by = roofline(4 * (k + 1) * n_words + written, 0)
+            numbers = dict(words=n_words, rows=32 * n_words, selected_rows=k,
+                           equal=True, max_abs_err=0.0, ms=graph_ms(kernel, flush),
+                           plain_ms=graph_ms(plain, flush), call_ms=time_ms(kernel, flush),
+                           bound_ms=bms, bound_by=by)
+            numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+            log("bitmap_case", case=case, mode=mode, main_path=main, **numbers)
+            out[f"{case}, {mode}"] = numbers
+    return out
+
+
+def run_index(args, plain_table, cols, work) -> tuple:
+    """Phase 11: lineorder from --seed rebuilt with the port's writer with both
+    of bench.py's star-trees, inverted indexes on lo_region, lo_discount and
+    lo_quantity, a range index on lo_orderdate, lo_custkey raw with a bloom
+    filter and lo_revenue raw; its queries per segment, over the set and through the pipeline
+    against numpy; IS NULL over a null table; the `bitmap_case` lines and the
+    `crossover` lines. Returns (launches of the checked runs by kernel,
+    launches by route, bitmap_case numbers)."""
+    from pinot_tpu_torch import execute_query, load_segment, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.parallel import MeshQueryExecutor, combine
+    from pinot_tpu_torch.query import planner
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.idset import IdSet
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.query.startree_exec import try_star_tree
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+
+    schema = ssb.ssb_schema()
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(schema, cols, os.path.join(work, "index"), "lineorder",
+                                   SEGMENTS, SegmentGeneratorConfig(**INDEX_CONFIG))
+    build_s = time.perf_counter() - t0
+    table = [load_segment(p) for p in paths]
+    records = [[t.num_records for t in s.star_trees] for s in table]
+    # IN_ID_SET: the customers of one region's lo_quantity = 7 AND lo_discount = 3
+    # rows. Bloom pruning: at 16M rows nearly every key of [0, 500,000) lies in
+    # every segment, so no key inside min/max is absent from the whole table;
+    # the in-range key absent from the most segments is pruned by their bloom
+    # filters (min/max cannot decide it), and a key past the maximum is pruned
+    # everywhere
+    pick = (cols["lo_quantity"] == 7) & (cols["lo_discount"] == 3) & (cols["lo_region"] == "ASIA")
+    idset_keys = np.unique(cols["lo_custkey"][pick])
+    literal = IdSet.from_values(idset_keys).serialize()
+    bounds = np.linspace(0, len(cols["lo_custkey"]), SEGMENTS + 1, dtype=np.int64)
+    absent_in = np.zeros(ssb.VERY_HIGH_CARD_KEYS, dtype=np.int64)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        present = np.zeros(ssb.VERY_HIGH_CARD_KEYS, dtype=bool)
+        present[cols["lo_custkey"][lo:hi]] = True
+        absent_in += ~present
+    pruned_key = int(np.argmax(absent_in))
+    absent_key = int(cols["lo_custkey"].max()) + 1
+    oracles = index_oracles(cols, idset_keys, pruned_key)
+    log("index_data", rows=sum(s.num_docs for s in table), segments=len(table),
+        build_s=build_s, star_records=records, idset_keys=int(len(idset_keys)),
+        pruned_key=pruned_key, pruned_key_absent_in=int(absent_in[pruned_key]),
+        absent_key=absent_key, index_types={c: table[0].column(c).index_types
+                                            for c in table[0].column_names})
+
+    t0 = time.perf_counter()
+    null_cols = ssb.make_columns(INDEX_NULL_ROWS, args.seed + 4)
+    null = np.zeros(INDEX_NULL_ROWS, dtype=bool)
+    null[np.random.default_rng(args.seed + 4).choice(
+        INDEX_NULL_ROWS, int(INDEX_NULL_ROWS * INDEX_NULL_FRACTION), replace=False)] = True
+    stored = null_cols["lo_revenue"].astype(object)
+    stored[null] = None
+    null_table = [load_segment(SegmentBuilder(schema).build(
+        dict(null_cols, lo_revenue=stored), os.path.join(work, "nulls"), "lineorder_0"))]
+    log("index_null_data", rows=INDEX_NULL_ROWS, nulls=int(null.sum()),
+        build_s=time.perf_counter() - t0)
+
+    mx = MeshQueryExecutor()
+    launches = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    by_route = {}
+
+    def served(segs, sql):
+        ctx = compile_query(sql, segs[0].schema)
+        pipeline = DeviceQueryPipeline(mesh_exec=mx)
+        try:
+            partial = pipeline.execute_partial(ctx, segs)
+        finally:
+            pipeline.stop()
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        return reduce_to_result(ctx, merge_segment_results([partial], aggs), aggs,
+                                list(ctx.group_by))
+
+    routes = {"per_segment": lambda segs, sql: execute_query(segs, sql),
+              "set": lambda segs, sql: mx.execute(segs, sql),
+              "pipeline": served}
+
+    def checked(qid, sql, segs, want, expect):
+        """Each route: one cold run with the counts set to 0 just before and
+        read just after, held against the oracle and `expect(route, counts)`
+        (None when the counts are right, else the reason); INDEX_RUNS warm runs
+        on the per-segment and set routes."""
+        for route, run in routes.items():
+            reset_index_launches()
+            t0 = time.perf_counter()
+            result = run(segs, sql)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            counts = index_launches()
+            if not index_rows_match(result.rows, want):
+                raise AssertionError(f"index {qid} ({route}): got {result.rows}, "
+                                     f"oracle {want}")
+            fault = expect(route, counts)
+            if fault:
+                raise AssertionError(f"index {qid} ({route}): launches {counts}: {fault}")
+            for k, v in counts.items():
+                launches[k] += v
+                by_route.setdefault(route, {}).setdefault(k, 0)
+                by_route[route][k] += v
+            fields = dict(query=qid, route=route, rows=sum(s.num_docs for s in segs),
+                          answer=result.rows[:10], oracle=want[:10], launches=counts,
+                          cold_ms=cold_ms)
+            if route != "pipeline":
+                warm, results = warm_times(lambda: run(segs, sql), runs=INDEX_RUNS)
+                warm.pop("median_s")
+                phases = [r.stats["phaseTimesMs"] for r in results]
+                fields.update(warm, phase_median_ms={
+                    k: statistics.median(p[k] for p in phases) for k in phases[0]})
+            log("index_query", **fields)
+
+    def no_scan(route, counts):
+        return "a scan ran" if counts["masked_sums"] or counts["masked_sums_fused"] else None
+
+    def bitmap_once_per_pass(route, counts):
+        want = len(table) if route == "per_segment" else 1
+        if counts["bitmap_filter"] != want:
+            return f"expected {want} bitmap_filter launches"
+        return no_scan(route, counts)
+
+    def nothing(route, counts):
+        return "a kernel ran" if any(counts.values()) else None
+
+    # 1. STAR_QUERY from the small tree on every segment, beside phase 4's plain table
+    ctx = compile_query(ssb.STAR_QUERY, schema)
+    fits = [try_star_tree(ctx, s) for s in table]
+    if any(p is None or p.tree.dims != ["lo_region", "lo_discount"] for p in fits):
+        raise AssertionError("STAR_QUERY: not every segment's plan is a star plan on the "
+                             "[lo_region, lo_discount] tree")
+    checked("star_query", ssb.STAR_QUERY, table, oracles["star_query"], no_scan)
+    checked("star_query_plain_table", ssb.STAR_QUERY, plain_table, oracles["star_query"],
+            no_scan)
+    # 2. the high-cardinality tree: the stacked device star path over the set
+    plan, _ = mx._plan_for_set(compile_query(INDEX_HC_QUERY, schema), table)
+    if not isinstance(plan, combine.StarSetPlan):
+        raise AssertionError(f"star_hc: the set plan is {type(plan).__name__}, not the "
+                             "stacked device star path")
+    checked("star_hc", INDEX_HC_QUERY, table, oracles["star_hc"], no_scan)
+    # 3. the all-bitmap tree; 4. a mixed tree
+    checked("all_bitmap", INDEX_BITMAP_QUERY, table, oracles["all_bitmap"],
+            bitmap_once_per_pass)
+    checked("mixed", INDEX_MIXED_QUERY, table, oracles["mixed"], bitmap_once_per_pass)
+    # 5. IN_ID_SET over the raw column (a doc-set leaf); 6. bloom-pruned EQ
+    checked("in_id_set_raw", INDEX_IDSET_QUERY.format(literal), table,
+            oracles["in_id_set_raw"], no_scan)
+    pruned = INDEX_ABSENT_QUERY.format(pruned_key)
+    ctx = compile_query(pruned, schema)
+    kinds = [planner.plan_segment(ctx, s).kind for s in table]
+    want = ["empty" if not s.column("lo_custkey").bloom_filter.might_contain(pruned_key)
+            else "device" for s in table]
+    if kinds != want or "empty" not in kinds:
+        raise AssertionError(f"bloom_pruned: plans {kinds}, expected {want}")
+    log("index_bloom_pruned", key=pruned_key, plans=kinds)
+    checked("bloom_pruned", pruned, table, oracles["bloom_pruned"], no_scan)
+    absent = INDEX_ABSENT_QUERY.format(absent_key)
+    ctx = compile_query(absent, schema)
+    kinds = [planner.plan_segment(ctx, s).kind for s in table]
+    if kinds != ["empty"] * len(table):
+        raise AssertionError(f"absent_key: plans {kinds}, expected every segment empty")
+    checked("absent_key", absent, table, [[0, None]], nothing)
+    # 7. a selection whose host mask reads the inverted postings
+    ctx = compile_query(INDEX_HOST_MASK_SELECT, schema)
+    plan = planner.plan_segment(ctx, table[0])
+    postings = [leaf.col for leaf in plan.filter_prog.leaves
+                if hasattr(leaf, "lut") and table[0].column(leaf.col).inverted_index
+                .match_count_for_ids(np.flatnonzero(leaf.lut)) * 8 <= table[0].num_docs]
+    if not plan.fallback_reason or postings != ["lo_quantity", "lo_discount"]:
+        raise AssertionError(f"host_mask_select: reason {plan.fallback_reason!r}, "
+                             f"postings leaves {postings}")
+    log("index_host_mask", reason=plan.fallback_reason, postings_leaves=postings)
+    checked("host_mask_select", INDEX_HOST_MASK_SELECT, table, oracles["host_mask_select"],
+            nothing)
+    # 8. IS NULL / IS NOT NULL over the null table
+    for qid, sql in INDEX_NULL_QUERIES.items():
+        checked(qid, sql, null_table, null_oracles(null_cols, null)[qid], no_scan)
+
+    # the kernel against its plain version at the path's shapes
+    cases = bitmap_cases(block_for(table[0], mx.device), mx._block_for(table))
+
+    # crossovers: bitmap leaves against LUT/interval leaves, and the set's
+    # per-segment star loop against the stacked device star path
+    def regime_ms(run, runs=INDEX_CROSSOVER_RUNS):
+        run()
+        torch.cuda.synchronize()
+        warm, results = warm_times(run, runs=runs)
+        return warm["warm_median_ms"], results[0].rows
+
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=mx.device)
+    seg0, block0 = table[0], block_for(table[0], mx.device)
+    saved_cap = planner.BITMAP_SEL_CAP
+    try:
+        for q in INDEX_CROSSOVER_QUANTITIES:
+            sql = ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder WHERE "
+                   f"lo_discount = 2 AND lo_quantity BETWEEN 1 AND {q} GROUP BY lo_region "
+                   "ORDER BY lo_region")
+            numbers, answers = {}, []
+            for regime, cap in (("bitmap", 1.0), ("lut", 0.0)):
+                planner.BITMAP_SEL_CAP = cap
+                for route in ("per_segment", "set"):
+                    ms, rows = regime_ms(lambda: routes[route](table, sql))
+                    numbers[f"{regime}_{route}_ms"] = ms
+                    answers.append(rows)
+                # the filter alone on one segment: the row mask from the bitmap
+                # kernel, or from the id compares
+                plan = planner.plan_segment(compile_query(sql, schema), seg0)
+                plan.bitmap_leaves = planner.select_bitmap_leaves(plan, seg0)
+                spec = kernels.KernelSpec(plan.filter_prog, (), 1, (),
+                                          bitmap_leaves=plan.bitmap_leaves)
+                inputs = ServerQueryExecutor(mx.device)._kernel_inputs(plan, spec, block0)
+                numbers[f"{regime}_mask_ms"] = time_ms(
+                    lambda: kernels.filter_mask(spec, inputs), flush)
+                numbers[f"{regime}_leaves"] = len(plan.bitmap_leaves)
+            if any(not index_rows_match(a, answers[0]) for a in answers):
+                raise AssertionError(f"crossover lo_quantity <= {q}: the regimes disagree")
+            log("crossover", kind="bitmap_vs_lut", query=sql, selectivity=q / 50,
+                discount_selectivity=1 / 11, **numbers)
+    finally:
+        planner.BITMAP_SEL_CAP = saved_cap
+    for qid, sql in (("star_query", ssb.STAR_QUERY), ("star_hc", INDEX_HC_QUERY)):
+        # the set's two star regimes: the per-segment executor's loop over the
+        # trees, and the stacked pass over the record tables
+        numbers, answers = {}, []
+        for regime, run in (("loop", lambda: mx._fallback.execute(table, sql)),
+                            ("stacked", lambda: mx.execute(table, sql))):
+            ms, rows = regime_ms(run)
+            numbers[f"{regime}_ms"] = ms
+            answers.append(rows)
+        if not index_rows_match(answers[0], answers[1]):
+            raise AssertionError(f"crossover {qid}: the star regimes disagree")
+        log("crossover", kind="star_loop_vs_stacked", query=qid,
+            records=sum(p.tree.num_records for p in
+                        mx._star_fit_plans(compile_query(sql, schema), table)), **numbers)
+    return launches, by_route, cases
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -2293,10 +2731,12 @@ def main() -> int:
     log("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # phase 2: build
+    # phase 2: build (one nvcc per source, started together)
     t0 = time.perf_counter()
-    build_log = cuda_lib.build_log("masked_sums")
-    log("build", seconds=time.perf_counter() - t0, ptxas=kernel_usage(build_log))
+    cuda_lib.build(["masked_sums", "bitmap_filter"])
+    log("build", seconds=time.perf_counter() - t0,
+        ptxas=kernel_usage(cuda_lib.build_log("masked_sums")),
+        ptxas_bitmap_filter=cuda_lib.ptxas_usage(cuda_lib.build_log("bitmap_filter")))
 
     # phase 3: kernels against their plain versions, at the shapes of phases 4 and 5
     t0 = time.perf_counter()
@@ -2307,40 +2747,44 @@ def main() -> int:
 
     # phase 4: the path; phase 5: the set executor and the pipeline over its
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
-    # expressions and the host path; phase 10: the aggregation library
+    # expressions and the host path; phase 10: the aggregation library; phase
+    # 11: the filter indexes and star-trees. bitmap_filter's launches are
+    # counted over each earlier phase whole (bitmap_by_phase), and over the
+    # checked runs of the index phase.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
+    bitmap_by_phase = {}
+
+    def phase(name, fn, *a):
+        reset_bitmap_launches()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        lap(name, t0)
+        bitmap_by_phase[name] = bitmap_launches()
+        return out
+
     try:
-        t0 = time.perf_counter()
-        path_launches, table, cols = run_path(args, work)
-        lap("path", t0)
-        t0 = time.perf_counter()
-        serve_launches = run_serve(args, table, cols)
-        lap("serve", t0)
-        t0 = time.perf_counter()
-        run_select(args, table, cols)
-        lap("select", t0)
-        t0 = time.perf_counter()
-        join_launches = run_join(args, table, cols, work)
-        lap("join", t0)
-        t0 = time.perf_counter()
-        realtime_launches, realtime_numbers = run_realtime(args, table, cols, work)
-        lap("realtime", t0)
+        path_launches, table, cols = phase("path", run_path, args, work)
+        serve_launches = phase("serve", run_serve, args, table, cols)
+        phase("select", run_select, args, table, cols)
+        join_launches = phase("join", run_join, args, table, cols, work)
+        realtime_launches, realtime_numbers = phase("realtime", run_realtime, args, table,
+                                                    cols, work)
         missing = [k for k, v in realtime_launches.items() if v == 0]
         if missing:
             raise AssertionError(f"the realtime path launched no {missing}")
-        t0 = time.perf_counter()
-        expr_launches, expr_numbers = run_expr(args, table, cols, work)
-        lap("expr", t0)
+        expr_launches, expr_numbers = phase("expr", run_expr, args, table, cols, work)
         if any(expr_launches["host"].values()) or not expr_launches["expr"]["masked_sums"]:
             raise AssertionError(f"expr phase launches {expr_launches}: the host path must "
                                  "launch no scan, the CASE sum masked_sums")
-        t0 = time.perf_counter()
-        aggs_launches, _ = run_aggs(args, table, cols, work)
-        lap("aggs", t0)
+        aggs_launches, _ = phase("aggs", run_aggs, args, table, cols, work)
         if any(aggs_launches.values()):
             raise AssertionError(f"aggs phase launches {aggs_launches}: the aggregation "
                                  "library reaches no scan")
+        index_launches_, index_by_route, bitmap_numbers = phase("index", run_index, args,
+                                                                table, cols, work)
+        if not index_launches_["bitmap_filter"]:
+            raise AssertionError("the index phase launched no bitmap_filter")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2351,20 +2795,14 @@ def main() -> int:
     kernels = []
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
+        by_path = {"per_segment": path_launches[name], "serve": serve_launches[name],
+                   "join": join_launches[name], "realtime": realtime_launches[name],
+                   "expr": expr_launches["expr"][name], "host": expr_launches["host"][name],
+                   "aggs": aggs_launches[name], "index": index_launches_[name]}
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1],
-                        "launches": (path_launches[name] + serve_launches[name]
-                                     + join_launches[name] + realtime_launches[name]
-                                     + expr_launches["expr"][name]
-                                     + expr_launches["host"][name]
-                                     + aggs_launches[name]),
-                        "launches_by_path": {"per_segment": path_launches[name],
-                                             "serve": serve_launches[name],
-                                             "join": join_launches[name],
-                                             "realtime": realtime_launches[name],
-                                             "expr": expr_launches["expr"][name],
-                                             "host": expr_launches["host"][name],
-                                             "aggs": aggs_launches[name]},
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": s["bound_by"], "library_ms": None,
@@ -2374,6 +2812,20 @@ def main() -> int:
                         "cases": dict(s["cases"], realtime_view=realtime_numbers[name],
                                       **({"expr_case_operand": expr_numbers}
                                          if name == "masked_sums" else {}))})
+    head = bitmap_numbers["bitmap_query, one segment, mask"]
+    by_path = {("per_segment" if k == "path" else k): v for k, v in bitmap_by_phase.items()}
+    by_path["index"] = index_launches_["bitmap_filter"]
+    kernels.append({"name": "bitmap_filter", "route": "cuda", "source": BITMAP_SOURCE[0],
+                    "replaces": BITMAP_SOURCE[1], "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "launches_by_route_index": {r: c["bitmap_filter"]
+                                                for r, c in index_by_route.items()},
+                    "max_abs_err": max(c["max_abs_err"] for c in bitmap_numbers.values()),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": None, "library_note": BITMAP_LIBRARY_NOTE,
+                    "call_ms": head["call_ms"],
+                    "shape_case": "bitmap_query, one segment, mask", "cases": bitmap_numbers})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
     print(smi, flush=True)

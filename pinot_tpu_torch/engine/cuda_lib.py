@@ -18,7 +18,8 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -65,6 +66,15 @@ def _compile(name: str, so: str) -> None:
         f.write(out.stdout)
     os.replace(f"{tmp}.log", f"{so}.log")
     os.replace(tmp, so)   # atomic: a concurrent loader sees a whole file
+
+
+def build(names: Sequence[str]) -> None:
+    """Compile every listed source that is not built yet: one nvcc process
+    each, all started together."""
+    todo = [(name, _so_path(name)) for name in names if not os.path.exists(_so_path(name))]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            list(pool.map(lambda job: _compile(*job), todo))
 
 
 def load(name: str) -> ctypes.CDLL:

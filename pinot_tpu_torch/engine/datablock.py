@@ -12,6 +12,10 @@ Padding contract (the same as the JAX package's):
 * raw columns pad with 0; the block's `valid` mask excludes padding rows;
 * 64-bit columns narrow to 32 bits (int64 -> int32, float64 -> float32): device
   arithmetic is 32-bit, and the planner keeps columns outside int32 off the device.
+
+Packed words (`valid_words`, `bitmap_words`) hold 32 rows each, row r in word
+r >> 5 at bit r & 31, as uint32 bit patterns in int32 tensors (torch has no
+bitwise ops on uint32); the bitmap filter kernel reads them as uint32.
 """
 
 from __future__ import annotations
@@ -46,6 +50,28 @@ def lut_size(cardinality: int) -> int:
     return _pow2(cardinality + 1)
 
 
+# Bitmap filter indexes exist only for single-value dictionary columns up to
+# this cardinality (the JAX package's bound): the words take card * padded / 8
+# bytes, and past a few dozen values the id compare reads fewer bytes.
+BITMAP_MAX_CARD = 64
+
+
+def pack_words(mask: np.ndarray, padded: int) -> np.ndarray:
+    """bool rows -> int32[padded // 32] packed words (row r at word r >> 5,
+    bit r & 31); rows past `len(mask)` are 0."""
+    bits = np.zeros(padded, dtype=bool)
+    bits[:len(mask)] = mask
+    return np.packbits(bits, bitorder="little").view("<i4")
+
+
+def id_bitmap_words(ids: np.ndarray, cardinality: int, padded: int) -> np.ndarray:
+    """int32[cardinality, padded // 32]: row c holds the packed membership of
+    dict id c. Ids outside [0, cardinality) (a star-tree record's star id)
+    set no bit."""
+    ids = np.asarray(ids)
+    return np.stack([pack_words(ids == c, padded) for c in range(cardinality)])
+
+
 def for_delta_dtype(reader: ColumnReader) -> Optional[np.dtype]:
     """The delta dtype (uint8 or uint16) of a raw integer column's
     frame-of-reference form, decided from metadata alone; None when the column
@@ -77,6 +103,9 @@ class SegmentBlock:
         self._dict_vals: Dict[str, torch.Tensor] = {}
         self._for: Dict[str, Optional[Tuple[int, torch.Tensor]]] = {}
         self._valid: Optional[torch.Tensor] = None
+        self._valid_words: Optional[torch.Tensor] = None
+        self._null: Dict[str, torch.Tensor] = {}
+        self._bitmaps: Dict[str, Optional[torch.Tensor]] = {}
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -89,6 +118,43 @@ class SegmentBlock:
             v[:self.num_docs] = True
             self._valid = self._put(v)
         return self._valid
+
+    @property
+    def valid_words(self) -> torch.Tensor:
+        """`valid` packed: int32[padded // 32], in the layout of `bitmap_words`.
+        The bitmap filter ANDs it onto every result, so that a NOT, which sets
+        the padding rows' bits, never counts them."""
+        if self._valid_words is None:
+            self._valid_words = self._put(pack_words(np.ones(self.num_docs, dtype=bool),
+                                                     self.padded))
+        return self._valid_words
+
+    def bitmap_words(self, col: str) -> Optional[torch.Tensor]:
+        """The column's bitmap filter index, int32[cardinality, padded // 32]
+        (`id_bitmap_words`), built on the host from the forward ids once and
+        kept on the device; None for a column without one (no dictionary, or
+        a cardinality past BITMAP_MAX_CARD). A filter leaf reads only the
+        rows of the ids it selects, so its words scale with its selectivity."""
+        if col not in self._bitmaps:
+            reader = self.segment.column(col)
+            card = reader.cardinality
+            if not reader.has_dictionary or not 0 < card <= BITMAP_MAX_CARD \
+                    or reader.is_multi_value:
+                self._bitmaps[col] = None
+            else:
+                self._bitmaps[col] = self._put(id_bitmap_words(
+                    np.asarray(reader.fwd)[:self.num_docs], card, self.padded))
+        return self._bitmaps[col]
+
+    def null_mask(self, col: str) -> torch.Tensor:
+        """bool[padded]: True where the stored value is a filled-in null."""
+        if col not in self._null:
+            nb = self.segment.column(col).null_bitmap
+            padded = np.zeros(self.padded, dtype=bool)
+            if nb is not None:
+                padded[:self.num_docs] = nb[:self.num_docs]
+            self._null[col] = self._put(padded)
+        return self._null[col]
 
     def ids(self, col: str) -> torch.Tensor:
         """Padded int32 dict ids of a single-value dict-encoded column."""

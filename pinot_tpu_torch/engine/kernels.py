@@ -4,7 +4,8 @@ Counterpart of the scalar and group-by branches of `_make_body` in
 `pinot_tpu/engine/kernels.py`, with its count, sum, power-sum, min, max and
 distinct outputs:
 
-    mask     = filter_tree(id-interval compares | LUT lookups | value compares) & valid
+    mask     = filter_tree(id-interval compares | LUT lookups | value compares
+                           | bitmap leaves | null bitmaps | doc sets) & valid
     key      = sum(group_ids * strides)     (dense dict-id keys; masked rows go to the
                                              overflow bucket `num_keys_pad`)
     partials = bincount / index_add_ / scatter_reduce over key   (group-by)
@@ -12,8 +13,20 @@ distinct outputs:
     distinct = int32 index_add_ over dict ids (scalar: of the mask; grouped:
                                              over key * size + ids)
 
+Bitmap leaves (`KernelSpec.bitmap_leaves`, chosen by
+`planner.select_bitmap_leaves`) read a dictionary column's packed bitmap
+index instead of its ids, through the CUDA kernel of `engine/bitmap.py`:
+when every leaf of the tree is one, the kernel evaluates the whole tree in
+the word domain and writes the row mask ("mask" mode); in a mixed tree each
+bitmap leaf's words ("words" mode) are unpacked into rows and combined with
+the other leaves there. `compute_filter_count` counts an all-bitmap tree's
+rows without a row mask ("count" mode). Null leaves read the column's null
+bitmap, doc-set leaves a host-resolved bool row.
+
 Output names and dtypes are the ones the executor's decoders read: "count"
-int32, and "{i}.sum" and "{i}.sum2".."{i}.sum4" float32 (masked sums of the
+int32, "{i}.sum" float32 (float64 for an integer argument: an exact int64
+sum, so that a star-tree's COUNT(*) slot, SUM($count), stays exact at any
+row count) and "{i}.sum2".."{i}.sum4" float32 (masked sums of the
 f32 argument's powers, accumulated in float64), "{i}.min" / "{i}.max" in the
 argument's dtype, and "{i}.distinct" int32 for aggregation i. Group-by
 outputs hold `num_keys_pad + 1` entries; a grouped distinct is
@@ -46,15 +59,16 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 import torch
 
 from ..query.aggregates import AggFunc
-from ..query.predicate import CmpLeaf, FilterProgram, LutLeaf
+from ..query.predicate import CmpLeaf, DocSetLeaf, FilterProgram, LutLeaf, NullLeaf
 from ..sql.ast import Identifier
+from .bitmap import BitmapLeaf, bitmap_filter, pack_valid, unpack_words, word_program
 from .expr import eval_device
 
 _INT_MIN_IDENT = (1 << 31) - 1   # identity for a masked-out min over int32
@@ -74,16 +88,24 @@ class KernelSpec:
     num_keys_pad: int   # >= product of real cardinalities
     aggs: Tuple[Tuple[AggFunc, Tuple[str, ...]], ...]  # (func, device outputs)
     distinct_lut_sizes: Dict[int, int] = field(default_factory=dict)  # agg idx -> lut size
+    # LutLeaf indices evaluated over the bitmap index (KernelInputs.bitmaps)
+    bitmap_leaves: Tuple[int, ...] = ()
 
     # per-leaf input routing, computed in __post_init__
     lut_index: Dict[int, int] = field(default_factory=dict)        # scattered LUTs
     lut_interval: Dict[int, Tuple[int, int]] = field(default_factory=dict)  # (ioff, n)
     cmp_offset: Dict[int, Tuple[str, int]] = field(default_factory=dict)
+    bitmap_index: Dict[int, int] = field(default_factory=dict)     # -> KernelInputs.bitmaps
+    docset_index: Dict[int, int] = field(default_factory=dict)     # -> KernelInputs.docsets
 
     def __post_init__(self):
         luts = ioff = foff = 0
         for i, leaf in enumerate(self.filter.leaves):
-            if isinstance(leaf, LutLeaf):
+            if i in self.bitmap_leaves:
+                self.bitmap_index[i] = len(self.bitmap_index)
+            elif isinstance(leaf, DocSetLeaf):
+                self.docset_index[i] = len(self.docset_index)
+            elif isinstance(leaf, LutLeaf):
                 if leaf.intervals is not None:
                     # interval bounds ride the int scalar list: [lo0, hi0, lo1, hi1, ...]
                     self.lut_interval[i] = (ioff, len(leaf.intervals))
@@ -104,7 +126,14 @@ class KernelSpec:
         two specs with one signature differ only in literals."""
         return (self.filter.signature(), self.group_cols, self.num_keys_pad,
                 tuple((a.name, repr(a.arg), outs) for a, outs in self.aggs),
-                tuple(sorted(self.distinct_lut_sizes.items())))
+                tuple(sorted(self.distinct_lut_sizes.items())), self.bitmap_leaves)
+
+    def word_program(self) -> Optional[List[int]]:
+        """The whole filter tree as a bitmap program (`bitmap.word_program`)
+        when every leaf it reads is a bitmap leaf; None otherwise."""
+        if self.filter.tree[0] == "const" or not self.bitmap_index:
+            return None
+        return word_program(self.filter.tree, self.bitmap_index)
 
 
 @dataclass
@@ -118,6 +147,14 @@ class KernelInputs:
     fscal: List[float]               # float compare operands
     valid: torch.Tensor              # bool[padded]
     strides: List[int]               # dense-key strides (empty for scalar aggregation)
+    nulls: Dict[str, torch.Tensor] = field(default_factory=dict)   # bool[padded] per column
+    docsets: Tuple[torch.Tensor, ...] = ()   # bool[padded] per DocSetLeaf, leaf order
+    bitmaps: Tuple[BitmapLeaf, ...] = ()     # per bitmap leaf, leaf order
+    # `valid` packed (bitmap.pack_valid); None: packed from `valid` when needed
+    valid_words: Optional[torch.Tensor] = None
+
+    def packed_valid(self) -> torch.Tensor:
+        return self.valid_words if self.valid_words is not None else pack_valid(self.valid)
 
 
 def _compare(v, op: str, sc: Sequence, off: int, n_operands: int):
@@ -147,6 +184,15 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
 
     def leaf_mask(i: int) -> torch.Tensor:
         leaf = leaves[i]
+        if i in spec.bitmap_index:
+            # a mixed tree: this leaf's words, unpacked into rows
+            return unpack_words(bitmap_filter(
+                [0], [inputs.bitmaps[spec.bitmap_index[i]]], inputs.packed_valid(), "words"))
+        if isinstance(leaf, NullLeaf):
+            m = inputs.nulls[leaf.col]
+            return ~m if leaf.negated else m
+        if isinstance(leaf, DocSetLeaf):
+            return inputs.docsets[spec.docset_index[i]]
         if isinstance(leaf, LutLeaf):
             col_ids = inputs.ids[leaf.col]
             if i in spec.lut_interval:
@@ -181,7 +227,22 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
 
     if spec.filter.is_match_all:
         return inputs.valid
+    program = spec.word_program()
+    if program is not None:
+        # every leaf is a bitmap leaf: the whole tree in the word domain
+        return bitmap_filter(program, inputs.bitmaps, inputs.packed_valid(), "mask")
     return tree_mask(spec.filter.tree) & inputs.valid
+
+
+def compute_filter_count(spec: KernelSpec, inputs: KernelInputs) -> Optional[int]:
+    """The rows an all-bitmap filter keeps, counted in the word domain (the
+    kernel's "count" mode: no row mask is written), or None when the tree
+    reads a leaf that is not a bitmap leaf. The JAX package's popcount path;
+    as there, the served COUNT route does not call it."""
+    program = spec.word_program()
+    if program is None:
+        return None
+    return int(bitmap_filter(program, inputs.bitmaps, inputs.packed_valid(), "count"))
 
 
 def _agg_rows(agg: AggFunc, vals, n: int, device):
@@ -250,7 +311,12 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
                 continue
             v = _agg_rows(agg, inputs.vals, n, device)
             for o in outs:
-                if o in POWER_SUMS:
+                if o == "sum" and not v.dtype.is_floating_point:
+                    # an integer argument: exact int64 sums
+                    acc = torch.zeros(num_seg, dtype=torch.int64, device=device)
+                    acc.index_add_(0, key, v.to(torch.int64))
+                    out[f"{ai}.sum"] = acc.to(torch.float64)
+                elif o in POWER_SUMS:
                     # sums of the rows (sum2..sum4: the f32 argument's powers),
                     # accumulated in f64: index_add_ adds one row at a time
                     # into each bucket
@@ -281,7 +347,10 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
                 continue
             v = _agg_rows(agg, inputs.vals, n, device)
             for o in outs:
-                if o == "sum":
+                if o == "sum" and not v.dtype.is_floating_point:
+                    out[f"{ai}.sum"] = torch.where(mask, v, 0).sum(dtype=torch.int64).to(
+                        torch.float64)
+                elif o == "sum":
                     out[f"{ai}.sum"] = (v.to(torch.float32) * fmask).sum()
                 elif o in POWER_SUMS:
                     rows = _power_rows(v, POWER_SUMS[o])

@@ -36,11 +36,21 @@ readers. A consuming segment's view that stages on the device
 (`segment.mutable_device.ConsumingView`, `is_mutable=False`) runs as an
 immutable segment does, its block already holding the staged chunks.
 
+A segment with a star-tree that fits the query (`startree_exec.try_star_tree`)
+answers from the tree's record table: the slot query runs over the tree's
+view with the traversal's record mask as `valid_docs` (which keeps it off
+the scan route: the scan reads id bands only), and `reassemble` turns the
+slot states back into the query's. Device plans whose filter the scan does
+not take evaluate their selective dictionary leaves over the bitmap index
+(`planner.select_bitmap_leaves`, the kernel of `engine/bitmap.py`); null
+leaves read the column's null bitmap, doc-set leaves (IN_ID_SET over a raw
+column) a host mask. A selective dictionary leaf of the host filter mask
+reads the inverted index's postings instead of the forward index.
+
 Shapes this package does not execute raise NotImplementedError with their
-reason: star-trees, multi-value columns and the `*MV` aggregations, IS NULL
-leaves, JSON_MATCH/TEXT_MATCH, and IN_ID_SET over a raw column.
-Nothing falls back to another path: the host runs only what the planner
-marks host.
+reason: multi-value columns and the `*MV` aggregations, and JSON_MATCH/
+TEXT_MATCH. Nothing falls back to another path: the host runs only what the
+planner marks host.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
 no CUDA card they raise RuntimeError.
@@ -55,6 +65,7 @@ import numpy as np
 import torch
 
 from ..engine import kernels, scan
+from ..engine.bitmap import BitmapLeaf
 from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype, lut_size
 from ..engine.expr import eval_device, eval_host
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
@@ -63,10 +74,11 @@ from ..sql.ast import Identifier, identifiers_in
 from .aggregates import make_agg
 from .context import QueryContext, compile_query
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
-                      topk_key_exact_in_f32, topk_order_key_device_ok)
-from .predicate import CmpLeaf, LutLeaf
+                      select_bitmap_leaves, topk_key_exact_in_f32, topk_order_key_device_ok)
+from .predicate import CmpLeaf, DocSetLeaf, LutLeaf, NullLeaf
 from .reduce import SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
+from .startree_exec import reassemble, try_star_tree
 
 MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
@@ -115,12 +127,18 @@ class ServerQueryExecutor:
         return result
 
     # -- per-segment execution --------------------------------------------
-    def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment) -> SegmentResult:
-        if getattr(segment, "has_star_tree", False):
-            raise NotImplementedError(
-                f"segment {segment.name} carries a star-tree, which pinot_tpu_torch "
-                "does not execute")
-        plan = plan_segment(ctx, segment)
+    def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment,
+                        valid_docs: Optional[np.ndarray] = None) -> SegmentResult:
+        """One segment's partial; `valid_docs` restricts it to the rows it sets.
+        A star-tree that fits the query answers instead of the rows (not under
+        a valid-doc mask: pre-aggregated records cannot honour one)."""
+        if valid_docs is None and not getattr(segment, "is_mutable", False):
+            stp = try_star_tree(ctx, segment)
+            if stp is not None:
+                sub = self.execute_segment(stp.ctx2, stp.tree.view, valid_docs=stp.record_mask)
+                reassemble(stp, sub)
+                return sub
+        plan = plan_segment(ctx, segment, valid_docs=valid_docs)
         if plan.kind == "empty":
             return self._empty_result(plan)
         if plan.kind == "metadata":
@@ -160,6 +178,7 @@ class ServerQueryExecutor:
         route = scan_route(plan)
         if route is not None:
             return self._scan_aggregate(plan, route, block)
+        plan.bitmap_leaves = select_bitmap_leaves(plan, plan.segment)
         spec = kernel_spec(plan)
         outs = run_kernel(spec, self._kernel_inputs(plan, spec, block))
         outs = {k: v.cpu().numpy() for k, v in outs.items()}
@@ -210,12 +229,13 @@ class ServerQueryExecutor:
     def _kernel_inputs(self, plan: SegmentPlan, spec: KernelSpec,
                        block: SegmentBlock) -> KernelInputs:
         ids_cols = set(plan.group_cols) | distinct_cols(plan)
-        luts = []
-        iscal: List[int] = []
-        fscal: List[float] = []
-        # scalars in leaf order: must mirror KernelSpec.__post_init__ routing
-        for leaf in plan.filter_prog.leaves:
-            if isinstance(leaf, LutLeaf):
+        luts, iscal, fscal, docsets, bitmaps = [], [], [], [], []
+        nulls = {}
+        # in leaf order: must mirror KernelSpec.__post_init__ routing
+        for i, leaf in enumerate(plan.filter_prog.leaves):
+            if i in spec.bitmap_index:
+                bitmaps.append(bitmap_leaf(block.bitmap_words(leaf.col), leaf))
+            elif isinstance(leaf, LutLeaf):
                 ids_cols.add(leaf.col)
                 if leaf.intervals is not None:
                     for lo, hi in leaf.intervals:
@@ -224,15 +244,33 @@ class ServerQueryExecutor:
                     luts.append(torch.from_numpy(leaf.lut).to(self.device))
             elif isinstance(leaf, CmpLeaf):
                 (iscal if leaf.is_int else fscal).extend(leaf.operands)
+            elif isinstance(leaf, NullLeaf):
+                nulls[leaf.col] = block.null_mask(leaf.col)
+            elif isinstance(leaf, DocSetLeaf):
+                docsets.append(self._padded_rows(leaf.mask, block))
+        valid, valid_words = block.valid, block.valid_words
+        if plan.valid_docs is not None:
+            valid = valid & self._padded_rows(plan.valid_docs, block)
+            valid_words = None    # packed from `valid` when a bitmap leaf needs it
         return KernelInputs(
             ids={c: block.ids(c) for c in ids_cols},
             vals=self._value_env(plan, block),
             luts=tuple(luts),
             iscal=[int(v) for v in iscal],
             fscal=[float(v) for v in fscal],
-            valid=block.valid,
+            valid=valid,
             strides=list(plan.strides),
+            nulls=nulls,
+            docsets=tuple(docsets),
+            bitmaps=tuple(bitmaps),
+            valid_words=valid_words,
         )
+
+    def _padded_rows(self, mask: np.ndarray, block: SegmentBlock) -> torch.Tensor:
+        """A host row mask as a bool tensor of the block's padded rows."""
+        padded = np.zeros(block.padded, dtype=bool)
+        padded[:min(len(mask), block.num_docs)] = mask[:block.num_docs]
+        return torch.from_numpy(padded).to(self.device)
 
     def _decode_group_partials(self, plan: SegmentPlan, outs,
                                trim_global: bool = False) -> SegmentResult:
@@ -276,6 +314,8 @@ class ServerQueryExecutor:
         the factorized keys (the host mirror of the device's dense keys)."""
         seg = plan.segment
         mask = host_filter_mask(plan, seg)
+        if plan.valid_docs is not None:
+            mask = mask & plan.valid_docs[:len(mask)]
         idx = np.nonzero(mask)[0]
         env = _host_env(plan, seg, len(mask))
 
@@ -345,7 +385,8 @@ class ServerQueryExecutor:
         if not topk_order_key_device_ok(seg, order.expr):
             return None
         block = block_for(seg, self.device)
-        spec = KernelSpec(plan.filter_prog, (), 1, ())
+        plan.bitmap_leaves = select_bitmap_leaves(plan, seg)
+        spec = KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves)
         inputs = self._kernel_inputs(plan, spec, block)
         if order.expr.name not in inputs.vals:
             inputs.vals[order.expr.name] = block.values(order.expr.name)
@@ -366,12 +407,14 @@ class ServerQueryExecutor:
         """bool[num_docs]: the filter evaluated on the device, or on the host
         where the plan says the device cannot (`fallback_reason`)."""
         seg = plan.segment
-        if plan.filter_prog.is_match_all:
+        if plan.filter_prog.is_match_all and plan.valid_docs is None:
             return np.ones(seg.num_docs, dtype=bool)
         if plan.fallback_reason:
-            return host_filter_mask(plan, seg)
+            mask = host_filter_mask(plan, seg)
+            return mask if plan.valid_docs is None else mask & plan.valid_docs[:len(mask)]
         block = block_for(seg, self.device)
-        spec = KernelSpec(plan.filter_prog, (), 1, ())
+        plan.bitmap_leaves = select_bitmap_leaves(plan, seg)
+        spec = KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves)
         mask = kernels.filter_mask(spec, self._kernel_inputs(plan, spec, block))
         return mask[:seg.num_docs].cpu().numpy()
 
@@ -412,7 +455,15 @@ def kernel_spec(plan: SegmentPlan) -> KernelSpec:
     sizes = {i: lut_size(plan.segment.column(a.arg.name).cardinality)
              for i, a in enumerate(plan.aggs) if "distinct" in a.device_outputs}
     return KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
-                      tuple((a, a.device_outputs) for a in plan.aggs), sizes)
+                      tuple((a, a.device_outputs) for a in plan.aggs), sizes,
+                      bitmap_leaves=plan.bitmap_leaves)
+
+
+def bitmap_leaf(words: torch.Tensor, leaf: LutLeaf) -> BitmapLeaf:
+    """A bitmap leaf's kernel input: its column's word matrix and the dict
+    ids its LUT selects."""
+    card = int(words.shape[-2])
+    return BitmapLeaf(words, tuple(int(r) for r in np.flatnonzero(leaf.lut[:card])))
 
 
 # -- selection rows ---------------------------------------------------------------
@@ -466,11 +517,20 @@ def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
 
 # -- host filter and environment ----------------------------------------------------
 
+# a selective dictionary leaf of the host mask reads its inverted index's
+# postings when they hold at most num_docs / INVERTED_MASK_DIVISOR docs (the
+# JAX package's rule): O(matches) instead of the O(docs) forward gather
+INVERTED_MASK_DIVISOR = 8
+
+
 def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
     """bool[num_docs]: the compiled filter program evaluated with numpy, with
     the device filter's LUT and compare semantics, so that the two agree by
     construction (the single-value branches of the JAX package's
-    `host_filter_mask`)."""
+    `host_filter_mask`). A dictionary leaf of an immutable segment with an
+    inverted index sets its docs from the postings when they are few
+    (`INVERTED_MASK_DIVISOR`); a null leaf reads the null bitmap, a doc-set
+    leaf its host mask."""
     prog = plan.filter_prog
     n = seg.num_docs
     if prog is None or prog.is_match_all:
@@ -489,7 +549,21 @@ def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
                 _, d, ids = snapshot()
                 m = leaf.rebuild_lut(d, len(d))[np.asarray(ids).astype(np.int64)]
                 return np.pad(m, (0, max(0, n - len(m))))[:n]
+            inv = getattr(reader, "inverted_index", None)
+            if inv is not None:
+                match_ids = np.flatnonzero(leaf.lut[:min(inv.cardinality, len(leaf.lut))])
+                if inv.match_count_for_ids(match_ids) * INVERTED_MASK_DIVISOR <= n:
+                    mask = np.zeros(n, dtype=bool)
+                    docs = inv.doc_ids_for_ids(match_ids)
+                    mask[docs[docs < n]] = True
+                    return mask
             return leaf.lut[np.asarray(reader.fwd).astype(np.int64)]
+        if isinstance(leaf, NullLeaf):
+            nb = seg.column(leaf.col).null_bitmap
+            m = np.zeros(n, dtype=bool) if nb is None else np.asarray(nb)[:n]
+            return ~m if leaf.negated else m
+        if isinstance(leaf, DocSetLeaf):
+            return leaf.mask[:n]
         v = np.asarray(eval_host(leaf.expr, env))
         ops = leaf.operands
         if leaf.op == "eq":
@@ -702,8 +776,9 @@ def scan_route(plan: SegmentPlan) -> Optional[str]:
     "masked_sums_fused" when every sum operand is a bare column in FOR form
     (one delta width for all); "masked_sums" for any other scalar plan whose
     filter is an AND of single-interval dict-id bands and whose outputs are
-    counts and plain sums."""
-    if plan.kind != "device" or plan.group_exprs:
+    counts and plain sums, and whose rows are not restricted by `valid_docs`
+    (a star-tree's record mask: the scan reads id bands only)."""
+    if plan.kind != "device" or plan.group_exprs or plan.valid_docs is not None:
         return None
     leaves = _band_leaf_indices(plan)
     operands = _sum_operands(plan)

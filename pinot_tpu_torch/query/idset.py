@@ -181,6 +181,11 @@ class IdSet:
                 idx_c = np.minimum(np.searchsorted(vi, fl), len(vi) - 1)
                 out[np.flatnonzero(lo)] = vi[idx_c] == fl
             return out
+        if self.kind == "i8" and (flat.dtype.kind == "i" or
+                                  (flat.dtype.kind == "u" and flat.dtype.itemsize < 8)):
+            # integer probes: exact in int64, and np.isin's table or sort pass
+            # beats a searchsorted of random probes (cache misses) ~10x
+            return np.isin(flat, vals)
         # sorted-set membership via searchsorted: O(n log card), no hash build
         idx = np.searchsorted(vals, flat)
         idx_c = np.minimum(idx, len(vals) - 1)

@@ -13,14 +13,16 @@ leaf like any expression; the geo cell index that pre-filters it in the JAX
 package is not ported. `IN_ID_SET(col, 'literal')` (bare, or compared to 1
 or 0) over a dictionary column resolves the serialized `IdSet` against the
 sorted dictionary into a LUT leaf (`op="idset"`), evaluated on the device as
-any dictionary predicate is. Not compiled by this package
-(NotImplementedError): JSON_MATCH and TEXT_MATCH, which need their indexes,
-and IN_ID_SET over a raw column, which the JAX package evaluates as a
-doc-set leaf (doc-set leaves are not ported).
+any dictionary predicate is. Over a raw column it resolves on the host into a
+per-doc mask, a `DocSetLeaf`, which the device filter reads as one bool row.
+IS NULL and IS NOT NULL compile to `NullLeaf`s over the column's null
+bitmap. Not compiled by this package (NotImplementedError): JSON_MATCH and
+TEXT_MATCH, which need their indexes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple, Union
@@ -124,7 +126,24 @@ class NullLeaf:
         return ("null", self.col, self.negated)
 
 
-Leaf = Union[LutLeaf, CmpLeaf, NullLeaf]
+@dataclass
+class DocSetLeaf:
+    """A predicate resolved on the host into a per-doc mask: IN_ID_SET over a
+    raw column (the JAX package's JSON_MATCH and TEXT_MATCH too). The mask is
+    a runtime input of the device filter, one padded bool row.
+
+    `cache_token` identifies the mask's contents on a given immutable segment
+    (the kind and every predicate parameter); the set path caches its stacked
+    masks under it. Not part of `signature()`: the mask is a runtime input."""
+    col: str
+    mask: np.ndarray   # bool[num_docs]
+    cache_token: str = ""
+
+    def signature(self) -> Tuple:
+        return ("docset", self.col)
+
+
+Leaf = Union[LutLeaf, CmpLeaf, NullLeaf, DocSetLeaf]
 
 
 @dataclass
@@ -198,7 +217,8 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
 
 def _compile_id_set(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterTree:
     """Membership against a serialized IdSet literal (reference:
-    InIdSetTransformFunction): a LUT over the column's sorted dictionary."""
+    InIdSetTransformFunction): a LUT over a dictionary column's sorted
+    dictionary, a host doc mask over a raw column."""
     from .idset import IdSet, IdSetError
     if len(e.args) != 2 or not isinstance(e.args[0], Identifier) \
             or not isinstance(e.args[1], Literal):
@@ -210,9 +230,11 @@ def _compile_id_set(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> F
         raise QueryValidationError(str(exc)) from exc
     reader = seg.column(col.name)
     if not reader.has_dictionary:
-        raise NotImplementedError(
-            f"IN_ID_SET over raw column {col.name!r} is not supported by pinot_tpu_torch "
-            "(it needs a doc-set leaf)")
+        # the serialized literal is the set: its digest addresses the mask
+        digest = hashlib.sha1(str(lit.value).encode()).hexdigest()
+        leaves.append(DocSetLeaf(col.name, ids.contains(reader.values()),
+                                 cache_token=f"idset:{digest}"))
+        return ("leaf", len(leaves) - 1)
     lut = build_lut("idset", [ids], reader.dictionary, reader.cardinality)
     leaves.append(LutLeaf(col.name, lut, op="idset", values=[ids]))
     return ("leaf", len(leaves) - 1)

@@ -12,7 +12,10 @@ Layout (one directory per segment):
         cols/<col>.dict.npy  # numeric dictionary (sorted values)
         cols/<col>.dict.blob / .dictoff.npy   # string dictionary: utf-8 blob + int64 offsets
         cols/<col>.nulls.npy # packed null bitmap (np.packbits)
-        startree/*           # star-tree pre-aggregated tensors (not read by this package)
+        cols/<col>.inv.npz   # inverted index (CSR posting lists per dict id)
+        cols/<col>.rng.npz   # bit-sliced range index
+        cols/<col>.bloom.npy # bloom filter bit array
+        startree/*           # star-tree pre-aggregated record tables and node arrays
 
 Dict ids are stored byte-aligned at minimal width (uint8/uint16/int32), and every
 file is little-endian numpy, mmap-able via `np.load(..., mmap_mode='r')`.
@@ -37,6 +40,9 @@ DICT_NUMERIC_SUFFIX = ".dict.npy"
 DICT_BLOB_SUFFIX = ".dict.blob"
 DICT_OFFSETS_SUFFIX = ".dictoff.npy"
 NULLS_SUFFIX = ".nulls.npy"
+INVERTED_SUFFIX = ".inv.npz"
+RANGE_SUFFIX = ".rng.npz"
+BLOOM_SUFFIX = ".bloom.npy"
 
 FORMAT_VERSION = 1
 

@@ -1,0 +1,65 @@
+"""Inverted index: dict id -> sorted posting list of doc ids.
+
+A copy of the immutable half of `pinot_tpu/segment/indexes/inverted.py` (analog
+of the reference's `BitmapInvertedIndexReader`), writing and reading the same
+`.inv.npz` file: CSR posting lists (one `argsort` builds all of them), int32
+doc ids grouped by dict id, and int64 offsets per id. The filter uses the
+postings in two ways: `match_count_for_ids` estimates a leaf's selectivity
+from the offsets alone (`planner.select_bitmap_leaves`), and a selective leaf's
+host mask is built from its postings instead of a forward-index gather
+(`executor.host_filter_mask`).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+
+def create_inverted_index(path: str, dict_ids: np.ndarray, cardinality: int) -> None:
+    """Write the postings of a single-value column's dict ids (entry position
+    is the doc id)."""
+    dict_ids = np.asarray(dict_ids)
+    order = np.argsort(dict_ids, kind="stable")   # entries grouped by dict id, ascending
+    counts = np.bincount(dict_ids.astype(np.int64), minlength=cardinality)
+    offsets = np.zeros(cardinality + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    np.savez(path, doc_ids=order.astype(np.int32), offsets=offsets)
+
+
+class InvertedIndexReader:
+    def __init__(self, path: str):
+        data = np.load(path)
+        self._doc_ids = data["doc_ids"]
+        self._offsets = data["offsets"]
+
+    @property
+    def cardinality(self) -> int:
+        return len(self._offsets) - 1
+
+    def doc_ids_for(self, dict_id: int) -> np.ndarray:
+        return self._doc_ids[self._offsets[dict_id]:self._offsets[dict_id + 1]]
+
+    def doc_ids_for_ids(self, dict_ids: Sequence[int]) -> np.ndarray:
+        """Union of the posting lists of an id set, sorted."""
+        parts = [self.doc_ids_for(i) for i in dict_ids]
+        if not parts:
+            return np.empty(0, dtype=np.int32)
+        return np.sort(np.concatenate(parts))
+
+    def doc_ids_for_range(self, lo: int, hi: int) -> np.ndarray:
+        """Union for dict ids in [lo, hi): one contiguous slice of the CSR layout."""
+        if lo >= hi:
+            return np.empty(0, dtype=np.int32)
+        return np.sort(self._doc_ids[self._offsets[lo]:self._offsets[hi]])
+
+    def match_count_for_range(self, lo: int, hi: int) -> int:
+        """Docs matching ids in [lo, hi), from the offsets alone."""
+        if lo >= hi:
+            return 0
+        return int(self._offsets[hi] - self._offsets[lo])
+
+    def match_count_for_ids(self, dict_ids: Sequence[int]) -> int:
+        ids = np.asarray(dict_ids, dtype=np.int64)
+        return int(np.sum(self._offsets[ids + 1] - self._offsets[ids]))

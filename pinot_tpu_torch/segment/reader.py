@@ -1,9 +1,11 @@
 """Immutable segment loading and column readers.
 
 A subset of `pinot_tpu/segment/reader.py` (analog of the reference's
-`ImmutableSegmentLoader.load()` and forward-index reader SPI) without the
-auxiliary index readers. Columns are `np.load(..., mmap_mode='r')`-mapped on
-first touch and moved to the device lazily by `engine/datablock.py`.
+`ImmutableSegmentLoader.load()` and forward-index reader SPI) with the
+inverted, range and bloom index readers and the segment's star-trees. Columns
+are `np.load(..., mmap_mode='r')`-mapped on first touch and moved to the
+device lazily by `engine/datablock.py`. The json, text, fst and geo indexes
+are not read.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import numpy as np
 from ..schema import DataType, Schema
 from . import format as fmt
 from .dictionary import Dictionary
+from .indexes.bloom import BloomFilterReader
+from .indexes.inverted import InvertedIndexReader
+from .indexes.range import RangeIndexReader
 
 
 class ColumnReader:
@@ -71,6 +76,28 @@ class ColumnReader:
         v = self.meta.get("maxValue")
         return bytes.fromhex(v) if v is not None and self.data_type is DataType.BYTES else v
 
+    @property
+    def index_types(self) -> List[str]:
+        return self.meta.get("indexes", [])
+
+    @cached_property
+    def inverted_index(self) -> Optional[InvertedIndexReader]:
+        if "inverted" not in self.index_types:
+            return None
+        return InvertedIndexReader(self._prefix + fmt.INVERTED_SUFFIX)
+
+    @cached_property
+    def range_index(self) -> Optional[RangeIndexReader]:
+        if "range" not in self.index_types:
+            return None
+        return RangeIndexReader(self._prefix + fmt.RANGE_SUFFIX)
+
+    @cached_property
+    def bloom_filter(self) -> Optional[BloomFilterReader]:
+        if "bloom" not in self.index_types:
+            return None
+        return BloomFilterReader(self._prefix + fmt.BLOOM_SUFFIX)
+
     @cached_property
     def null_bitmap(self) -> Optional[np.ndarray]:
         """bool[num_docs] of null positions, or None."""
@@ -106,9 +133,14 @@ class ImmutableSegment:
 
     @property
     def has_star_tree(self) -> bool:
-        """True when the segment carries star-tree pre-aggregations (built by
-        the JAX package); this package does not execute them."""
+        """True when the segment carries star-tree pre-aggregations."""
         return os.path.isdir(os.path.join(self.path, fmt.STARTREE_DIR))
+
+    @cached_property
+    def star_trees(self) -> list:
+        """The segment's loaded star-trees (`startree.StarTree`), in build order."""
+        from .startree import load_star_trees
+        return load_star_trees(self)
 
     def __repr__(self) -> str:
         return f"ImmutableSegment({self.name!r}, docs={self.num_docs})"

@@ -2,10 +2,13 @@
 
 A subset of `pinot_tpu/segment/writer.py` that writes the same on-disk format:
 the dict-vs-raw decision, sorted dictionaries, minimal-width forward indexes,
-null bitmaps and dictionary-aligned segment sets. Auxiliary indexes (inverted,
-range, bloom, json, text, fst, geo), star-trees, chunk compression and
-multi-value columns are not written by this package; configuring any of them
-raises `NotImplementedError`.
+null bitmaps, dictionary-aligned segment sets, the inverted, range and bloom
+indexes (`indexes/`), the bloom payload that rides a column's metadata
+(`bloomHex`: every dictionary column up to 1,024 values, and a raw column
+with a bloom index), and star-trees (`startree.build_star_tree`, built over
+the written segment). The json, text, fst and geo indexes, chunk compression
+and multi-value columns are not written by this package; configuring any of
+them raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ import numpy as np
 from ..schema import DataType, FieldSpec, Schema
 from . import format as fmt
 from .dictionary import Dictionary, build_dictionary
+from .indexes.bloom import bloom_hex, create_bloom_filter
+from .indexes.inverted import create_inverted_index
+from .indexes.range import create_range_index
 
 
 @dataclass
@@ -31,22 +37,24 @@ class SegmentGeneratorConfig:
     no_dictionary_columns: List[str] = field(default_factory=list)
     # raw-encode numeric columns whose cardinality exceeds this fraction of num_docs
     raw_cardinality_fraction: float = 0.7
-    # options of the JAX package's config that this package does not write
+    # inverted and range indexes are built for dictionary columns only, bloom
+    # filters for any column
     inverted_index_columns: List[str] = field(default_factory=list)
     range_index_columns: List[str] = field(default_factory=list)
     bloom_filter_columns: List[str] = field(default_factory=list)
+    # star-tree pre-aggregations: `startree.StarTreeIndexConfig`s, or their
+    # JSON form (dicts)
+    star_tree_configs: List[Any] = field(default_factory=list)
+    # options of the JAX package's config that this package does not write
     json_index_columns: List[str] = field(default_factory=list)
     text_index_columns: List[str] = field(default_factory=list)
     fst_index_columns: List[str] = field(default_factory=list)
-    star_tree_configs: List[Any] = field(default_factory=list)
     geo_index_pairs: List[str] = field(default_factory=list)
     raw_compression: str = ""
 
     def check_supported(self) -> None:
-        for name in ("inverted_index_columns", "range_index_columns",
-                     "bloom_filter_columns", "json_index_columns",
-                     "text_index_columns", "fst_index_columns",
-                     "star_tree_configs", "geo_index_pairs", "raw_compression"):
+        for name in ("json_index_columns", "text_index_columns", "fst_index_columns",
+                     "geo_index_pairs", "raw_compression"):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"SegmentGeneratorConfig.{name} is not supported by "
@@ -101,6 +109,14 @@ class SegmentBuilder:
             "creationTimeMs": int(time.time() * 1000),
             "crc": fmt.segment_crc(seg_dir),
         })
+        if self.config.star_tree_configs:
+            from .reader import load_segment
+            from .startree import StarTreeIndexConfig, build_star_tree
+            built = load_segment(seg_dir)
+            for i, st_cfg in enumerate(self.config.star_tree_configs):
+                if isinstance(st_cfg, dict):
+                    st_cfg = StarTreeIndexConfig.from_json(st_cfg)
+                build_star_tree(built, st_cfg, i)
         return seg_dir
 
     # ------------------------------------------------------------------
@@ -149,6 +165,7 @@ class SegmentBuilder:
             use_dict = dictionary.cardinality <= self.config.raw_cardinality_fraction * num_docs
 
         meta: Dict[str, Any] = {"dataType": data_type.value, "totalDocs": num_docs}
+        indexes: List[str] = []
         if use_dict:
             if dictionary is None:
                 dictionary, dict_ids = build_dictionary(raw, data_type)
@@ -172,6 +189,12 @@ class SegmentBuilder:
                 # segments with equal dictHash share dict-id space
                 "dictHash": _dict_hash(dictionary),
             })
+            if name in self.config.inverted_index_columns:
+                create_inverted_index(prefix + fmt.INVERTED_SUFFIX, dict_ids, card)
+                indexes.append("inverted")
+            if name in self.config.range_index_columns:
+                create_range_index(prefix + fmt.RANGE_SUFFIX, dict_ids, card)
+                indexes.append("range")
         else:
             arr = np.asarray(raw, dtype=data_type.numpy_dtype)
             np.save(prefix + fmt.FWD_SUFFIX, arr)
@@ -184,11 +207,40 @@ class SegmentBuilder:
                 "maxValue": _jsonable(arr.max() if num_docs else None),
             })
 
+        if name in self.config.bloom_filter_columns:
+            create_bloom_filter(prefix + fmt.BLOOM_SUFFIX,
+                                dictionary.values if use_dict else raw)
+            indexes.append("bloom")
+        if use_dict or name in self.config.bloom_filter_columns:
+            hx = _meta_bloom_hex(dictionary.values if use_dict else raw, deduped=use_dict)
+            if hx is not None:
+                meta["bloomHex"] = hx
         if null_mask is not None and null_mask.any():
             np.save(prefix + fmt.NULLS_SUFFIX, fmt.pack_bitmap(null_mask))
             meta["hasNulls"] = True
-        meta["indexes"] = []
+        meta["indexes"] = indexes
         return meta
+
+
+# distinct values past which a column's metadata carries no bloom payload (the
+# JAX writer's bound: pruning wants small catalog entries)
+_META_BLOOM_MAX_CARD = 1024
+
+
+def _meta_bloom_hex(values, deduped: bool) -> Optional[str]:
+    """The hex bloom payload of a column's metadata (`bloomHex`), or None past
+    `_META_BLOOM_MAX_CARD` distinct values."""
+    if deduped:
+        vals = list(values)
+    else:
+        try:
+            vals = list(dict.fromkeys(values.tolist() if isinstance(values, np.ndarray)
+                                      else values))
+        except TypeError:   # unhashable cells: no metadata copy
+            return None
+    if len(vals) > _META_BLOOM_MAX_CARD:
+        return None
+    return bloom_hex(vals)
 
 
 def _encode_with_fixed_dict(raw, dictionary: Dictionary, name: str) -> np.ndarray:

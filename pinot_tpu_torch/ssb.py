@@ -41,6 +41,12 @@ GROUP_QUERY = ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
                "WHERE lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25 "
                "GROUP BY lo_region ORDER BY lo_region LIMIT 10")
 
+# bench.py's star-tree query: its filter and group key are split dimensions of
+# the star-tree [lo_region, lo_discount] with SUM__lo_revenue
+STAR_QUERY = ("SELECT lo_region, SUM(lo_revenue) FROM lineorder "
+              "WHERE lo_discount BETWEEN 1 AND 3 "
+              "GROUP BY lo_region ORDER BY lo_region LIMIT 10")
+
 # a SUM over a raw integer column stored frame-of-reference (lo_quantity built
 # with no dictionary: uint8 deltas, base 1)
 FOR_QUERY = ("SELECT SUM(lo_quantity), COUNT(*) FROM lineorder "

@@ -302,15 +302,27 @@ def test_idset_feeds_an_in_id_set_filter_on_the_device(env, col, form):
 
 
 def test_in_id_set_over_a_raw_column_raises(tmp_path):
+    """IN_ID_SET over a raw column (a doc-set leaf: the serialized set
+    resolved on the host into a row mask) answers as the JAX package does, per
+    segment and over the set, bare and compared to 1 or 0."""
     cols = ssb.make_columns(3000, SEED)
-    segs = [load_segment(p) for p in build_aligned_segments(
-        ssb.ssb_schema(), cols, str(tmp_path), "lineorder", 1)]
+    paths = build_aligned_segments(ssb.ssb_schema(), cols, str(tmp_path), "lineorder", 2)
+    segs = [load_segment(p) for p in paths]
     assert not segs[0].column("lo_custkey").has_dictionary
     literal = _idset_literal(segs, "SELECT IDSET(lo_custkey) FROM lineorder "
                                    "WHERE lo_quantity = 7")
-    with pytest.raises(NotImplementedError, match="raw column"):
-        execute_query(segs, f"SELECT COUNT(*) FROM lineorder "
-                            f"WHERE IN_ID_SET(lo_custkey, '{literal}') = 1", device=CPU)
+    keys = np.unique(cols["lo_custkey"][cols["lo_quantity"] == 7])
+    jax_segs = [jax_load(p) for p in paths]
+    mx = MeshQueryExecutor(device=CPU)
+    for form, keep in (("", True), (" = 1", True), (" = 0", False)):
+        sql = (f"SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+               f"WHERE IN_ID_SET(lo_custkey, '{literal}'){form} AND lo_quantity > 3")
+        m = (np.isin(cols["lo_custkey"], keys) == keep) & (cols["lo_quantity"] > 3)
+        want = JaxExecutor().execute(jax_segs, sql).rows
+        assert want[0][0] == int(m.sum())
+        for got in (execute_query(segs, sql, device=CPU).rows, mx.execute(segs, sql).rows):
+            assert got[0][0] == want[0][0]
+            assert math.isclose(got[0][1], want[0][1], rel_tol=1e-6)
 
 
 JOIN_SQL = ("SELECT s.s_nation, DISTINCTCOUNT(l.lo_custkey), COUNT(DISTINCT l.lo_discount), "

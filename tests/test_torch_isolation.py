@@ -285,24 +285,29 @@ def test_unported_shapes_raise_not_implemented(segs, sql, request):
 
 
 def test_null_leaf_raises_not_implemented(tmp_path):
+    """IS NULL and IS NOT NULL over a column with nulls answer (the device
+    filter's null leaf); a column without nulls folds them at plan time."""
     schema = Schema("t", [dimension("s", DataType.STRING), metric("v", DataType.DOUBLE)])
     path = SegmentBuilder(schema).build({"s": ["a", None, "b", "a"],
                                          "v": np.array([1.0, 2.0, 3.0, 4.0])},
                                         str(tmp_path), "t_0")
     t = [load_segment(path)]
-    with pytest.raises(NotImplementedError, match="null"):
-        execute_query(t, "SELECT SUM(v) FROM t WHERE s IS NULL", device="cpu")
+    assert execute_query(t, "SELECT SUM(v) FROM t WHERE s IS NULL", device="cpu").rows == [[2.0]]
+    assert execute_query(t, "SELECT COUNT(*), SUM(v) FROM t WHERE s IS NOT NULL",
+                         device="cpu").rows == [[3, 8.0]]
     # a column without nulls folds IS NULL at plan time and runs
     assert execute_query(t, "SELECT COUNT(*) FROM t WHERE v IS NOT NULL AND v > 1",
                          device="cpu").rows == [[3]]
 
 
-def test_star_tree_and_mutable_segments_raise(segs):
-    """A star-tree raises; a mutable (non-staging consuming) segment is planned
+def test_star_tree_and_mutable_segments_raise(segs, tmp_path):
+    """A star-tree segment answers from its record table, as the same rows
+    without the tree do; a mutable (non-staging consuming) segment is planned
     on the host and answers."""
     from pinot_tpu_torch.query.context import compile_query
     from pinot_tpu_torch.query.planner import plan_segment
     from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig
 
     cols = make_columns(500, seed=6)
     mutable = DeviceMutableSegment("consuming", ssb_schema())
@@ -314,12 +319,12 @@ def test_star_tree_and_mutable_segments_raise(segs):
     assert execute_query([mutable], sql, device="cpu").rows == [
         [int(m.sum()), float(cols["lo_quantity"][m].sum())]]
 
-    class StarTree:
-        def __init__(self, seg):
-            self.__dict__.update(seg.__dict__)
-            self.has_star_tree = True
-            self.name = seg.name
-            self.schema = seg.schema
-
-    with pytest.raises(NotImplementedError, match="star-tree"):
-        execute_query([StarTree(segs[0])], "SELECT COUNT(*) FROM lineorder", device="cpu")
+    config = SegmentGeneratorConfig(star_tree_configs=[{
+        "dimensionsSplitOrder": ["lo_region"], "functionColumnPairs": ["SUM__lo_revenue"]}])
+    star = [load_segment(SegmentBuilder(ssb_schema(), config).build(
+        make_columns(4000, seed=5), str(tmp_path), "star_0"))]
+    assert star[0].has_star_tree
+    sql = "SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder GROUP BY lo_region"
+    got, want = (execute_query(t, sql, device="cpu").rows for t in (star, segs))
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    assert np.allclose([r[2] for r in got], [r[2] for r in want], rtol=1e-6)

@@ -771,3 +771,114 @@ def test_cuda_distinct_counts_equal_bincount(cuda, size, ids_card):
     grouped = torch.bincount(key * size + ids.long(), minlength=num_seg * size)
     assert torch.equal(distinct_counts(mask, ids, size, key, num_seg),
                        grouped.view(num_seg, size).to(torch.int32))
+
+
+def _bitmap_case(dev, segments: int, words: int, cards, ks, seed: int):
+    """Random word matrices ([S, card, W] per leaf) with k selected rows each,
+    and valid words whose last segment ends 1,000 rows early."""
+    from pinot_tpu_torch.engine.bitmap import BitmapLeaf, pack_valid
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for card, k in zip(cards, ks):
+        w = rng.integers(0, 1 << 32, (segments, card, words), dtype=np.uint64).astype(np.uint32)
+        rows = tuple(sorted(rng.choice(card, k, replace=False).tolist()))
+        leaves.append(BitmapLeaf(torch.from_numpy(w.view(np.int32)).to(dev)
+                                 if segments > 1 else
+                                 torch.from_numpy(w[0].view(np.int32)).to(dev), rows))
+    valid = np.ones(segments * words * 32, dtype=bool)
+    valid[-1000:] = False
+    return leaves, pack_valid(torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments, words", [(1, 65_536), (8, 65_536), (1, 1_001), (3, 4_099),
+                                             (2, 7)], ids=["segment", "stacked", "odd_words",
+                                                           "odd_stacked", "tiny"])
+def test_cuda_bitmap_filter_matches_its_plain_version(cuda, segments, words):
+    """`bitmap_filter` on the card equals `bitmap_filter_plain` in all three
+    modes, on one segment and on a stacked set, with W a multiple of 4 (the
+    16-byte path) or not (W not a multiple of the block either), for an
+    all-bitmap tree with NOT and an empty leaf; one launch per call, counted."""
+    from pinot_tpu_torch.engine import bitmap
+    leaves, valid_words = _bitmap_case(cuda, segments, words, (11, 50, 5, 64), (3, 12, 0, 64),
+                                       seed=segments * 7 + words)
+    programs = [[0], [0, 1, bitmap.AND], [0, 1, bitmap.NOT, bitmap.OR, 2, bitmap.OR, 3,
+                                          bitmap.AND, bitmap.NOT]]
+    for program in programs:
+        for mode in ("words", "mask", "count"):
+            before = bitmap.bitmap_filter.launches
+            got = bitmap.bitmap_filter(program, leaves, valid_words, mode)
+            torch.cuda.synchronize()
+            assert bitmap.bitmap_filter.launches == before + 1
+            want = bitmap.bitmap_filter_plain(program, leaves, valid_words, mode)
+            assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got, want), (program, mode)
+
+
+@pytest.mark.gpu
+def test_cuda_bitmap_filter_refuses_what_it_does_not_take(cuda):
+    from pinot_tpu_torch.engine import bitmap
+    leaves, valid_words = _bitmap_case(cuda, 1, 64, (11,), (3,), seed=3)
+    with pytest.raises(ValueError):
+        bitmap.bitmap_filter([0], leaves, valid_words[:-1], "mask")
+    with pytest.raises(ValueError):
+        bitmap.bitmap_filter([0], [bitmap.BitmapLeaf(leaves[0].words, (11,))], valid_words,
+                             "mask")
+    with pytest.raises(ValueError):
+        bitmap.bitmap_filter([0] * 17 + [bitmap.AND] * 16, leaves * 17, valid_words, "count")
+
+
+@pytest.fixture(scope="module")
+def index_table(tmp_path_factory):
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    config = SegmentGeneratorConfig(
+        inverted_index_columns=["lo_region", "lo_discount", "lo_quantity"],
+        range_index_columns=["lo_orderdate"], bloom_filter_columns=["lo_custkey"],
+        star_tree_configs=[
+            {"dimensionsSplitOrder": ["lo_region", "lo_discount"],
+             "functionColumnPairs": ["SUM__lo_revenue"]},
+            {"dimensionsSplitOrder": ["lo_orderdate", "lo_discount"],
+             "functionColumnPairs": ["SUM__lo_revenue"]}])
+    paths = build_aligned_segments(ssb.ssb_schema(), ssb.make_columns(400_003, 29),
+                                   str(tmp_path_factory.mktemp("gpu_index")), "lineorder", 4,
+                                   config)
+    return [load_segment(p) for p in paths]
+
+
+INDEX_QUERIES = {
+    "star_query": ("SELECT lo_region, SUM(lo_revenue) FROM lineorder "
+                   "WHERE lo_discount BETWEEN 1 AND 3 GROUP BY lo_region ORDER BY lo_region"),
+    "star_hc": ("SELECT lo_orderdate, SUM(lo_revenue), COUNT(*), AVG(lo_revenue) FROM lineorder "
+                "WHERE lo_discount BETWEEN 1 AND 3 GROUP BY lo_orderdate "
+                "ORDER BY lo_orderdate LIMIT 10"),
+    "all_bitmap": ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
+                   "WHERE lo_discount = 2 AND lo_quantity IN (1, 7, 13) GROUP BY lo_region "
+                   "ORDER BY lo_region"),
+    "mixed": ("SELECT COUNT(*), SUM(lo_extendedprice) FROM lineorder "
+              "WHERE lo_discount = 2 AND lo_revenue > 30000"),
+    "not_bitmap": ("SELECT lo_discount, COUNT(*) FROM lineorder "
+                   "WHERE NOT lo_quantity IN (3, 4, 5) AND lo_region = 'ASIA' "
+                   "GROUP BY lo_discount ORDER BY lo_discount"),
+    "bitmap_topk": ("SELECT lo_custkey, lo_revenue FROM lineorder "
+                    "WHERE lo_quantity = 7 AND lo_discount = 3 ORDER BY lo_revenue DESC LIMIT 5"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(INDEX_QUERIES))
+def test_cuda_star_tree_and_bitmap_queries_match_the_cpu(cuda, index_table, name):
+    """Star-tree and bitmap-filter queries on the card, per segment and over
+    the set (the stacked device star path for the star queries), equal the
+    same calls on the CPU (counts exactly, sums rel 1e-6)."""
+    from pinot_tpu_torch import execute_query
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    sql = INDEX_QUERIES[name]
+    for run in (lambda d: execute_query(index_table, sql, device=d),
+                lambda d: MeshQueryExecutor(device=d).execute(index_table, sql)):
+        got, want = run(cuda).rows, run("cpu").rows
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert x == pytest.approx(y, rel=1e-6) if isinstance(y, float) else x == y

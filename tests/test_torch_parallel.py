@@ -308,22 +308,27 @@ def test_unaligned_set_raises_where_the_first_segment_folds(tmp_path, cols, firs
 
 
 def test_star_tree_mutable_and_selection_raise(sets, cols):
-    """A star-tree member raises. A mutable member (a consuming segment
-    without staging) plans the set on the merged view, as the JAX set executor
-    does, and answers as the immutable set does; a selection whose filter
-    needs the host mask is the per-segment executor's partial."""
+    """A set where only some members have a star-tree takes the set scan and
+    answers as the set without trees does (the star path needs every member
+    to fit). A mutable member (a consuming segment without staging) plans the
+    set on the merged view, as the JAX set executor does, and answers as the
+    immutable set does; a selection whose filter needs the host mask is the
+    per-segment executor's partial."""
     from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    from pinot_tpu_torch.segment.reader import ImmutableSegment
 
     _, segs = sets["equal", "main"]
 
-    class StarTree:
+    class StarTree(ImmutableSegment):
+        has_star_tree = True
+        star_trees = []
+
         def __init__(self, seg):
             self.__dict__.update(seg.__dict__)
-            self.has_star_tree = True
 
     mx = MeshQueryExecutor(device="cpu")
-    with pytest.raises(NotImplementedError, match="star-tree"):
-        mx.execute(segs[:2] + [StarTree(segs[2])], QUERY)
+    mixed_trees = segs[:2] + [StarTree(segs[2])] + segs[3:]
+    assert _rows_match(mx.execute(mixed_trees, QUERY).rows, mx.execute(segs, QUERY).rows)
     lo, hi = BOUNDS["equal"][2], BOUNDS["equal"][3]
     mutable = DeviceMutableSegment("consuming", ssb_schema())
     mutable.index_batch({c: v[lo:hi].tolist() for c, v in cols.items()})

@@ -153,15 +153,51 @@ def test_segments_from_columns_loads_a_table(tmp_path):
 
 
 @pytest.mark.parametrize("config", [
-    SegmentGeneratorConfig(inverted_index_columns=["lo_region"]),
-    SegmentGeneratorConfig(bloom_filter_columns=["lo_region"]),
-    SegmentGeneratorConfig(range_index_columns=["lo_discount"]),
-    SegmentGeneratorConfig(star_tree_configs=[{"dimensionsSplitOrder": ["lo_region"]}]),
     SegmentGeneratorConfig(raw_compression="zlib"),
-], ids=["inverted", "bloom", "range", "star_tree", "compression"])
+    SegmentGeneratorConfig(json_index_columns=["lo_region"]),
+    SegmentGeneratorConfig(text_index_columns=["lo_region"]),
+    SegmentGeneratorConfig(fst_index_columns=["lo_region"]),
+    SegmentGeneratorConfig(geo_index_pairs=["lo_discount,lo_quantity"]),
+], ids=["compression", "json", "text", "fst", "geo"])
 def test_writer_rejects_unported_indexes(config):
     with pytest.raises(NotImplementedError):
         SegmentBuilder(ssb_schema(), config)
+
+
+@pytest.mark.parametrize("config, col, index", [
+    (SegmentGeneratorConfig(inverted_index_columns=["lo_region"]), "lo_region", "inverted"),
+    (SegmentGeneratorConfig(bloom_filter_columns=["lo_region"]), "lo_region", "bloom"),
+    (SegmentGeneratorConfig(range_index_columns=["lo_discount"]), "lo_discount", "range"),
+    (SegmentGeneratorConfig(star_tree_configs=[{"dimensionsSplitOrder": ["lo_region"],
+                                                "functionColumnPairs": ["SUM__lo_revenue"]}]),
+     None, "star_tree"),
+], ids=["inverted", "bloom", "range", "star_tree"])
+def test_writer_builds_ported_indexes(tmp_path, config, col, index):
+    """The indexes the port writes: the JAX reader loads each, and reads what
+    the port's reader reads."""
+    cols = make_columns(3000, seed=4)
+    path = SegmentBuilder(ssb_schema(), config).build(cols, str(tmp_path), "idx_0")
+    ours, ref = load_segment(path), jax_load(path)
+    if index == "star_tree":
+        assert ours.has_star_tree and len(ours.star_trees) == len(ref.star_trees) == 1
+        a, b = ours.star_trees[0], ref.star_trees[0]
+        assert a.num_records == b.num_records and a.dims == b.dims
+        for k in b.metric_arrays:
+            np.testing.assert_array_equal(a.metric_arrays[k], b.metric_arrays[k])
+        return
+    assert ours.column(col).index_types == ref.column(col).index_types == [index]
+    r_ours, r_ref = ours.column(col), ref.column(col)
+    if index == "inverted":
+        for i in range(r_ref.cardinality):
+            np.testing.assert_array_equal(r_ours.inverted_index.doc_ids_for(i),
+                                          r_ref.inverted_index.doc_ids_for(i))
+    elif index == "bloom":
+        for v in ["ASIA", "EUROPE", "NOWHERE", "AFRIC"]:
+            assert r_ours.bloom_filter.might_contain(v) == r_ref.bloom_filter.might_contain(v)
+    else:
+        for lo, hi in [(0, 3), (2, 11), (5, 5)]:
+            np.testing.assert_array_equal(r_ours.range_index.mask_range(lo, hi),
+                                          r_ref.range_index.mask_range(lo, hi))
 
 
 def test_writer_rejects_multi_value_columns():
