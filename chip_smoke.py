@@ -150,17 +150,20 @@ exits non-zero:
    kernel against its plain version in its three modes, one segment and the
    stacked set, L2 flushed, against the bound of the words it reads) and
    `crossover` lines (bitmap leaves against LUT and interval leaves at
-   lo_quantity selectivities 1/50 to 25/50, end to end and the row mask
-   alone; the set's per-segment star loop against the stacked device star
-   path).
+   lo_quantity selectivities 1/50 to 49/50, in an all-bitmap tree and in a
+   mixed one, end to end and the row mask alone; the set's per-segment star
+   loop against the stacked device star path).
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
-`{"kernels": [...]}` line (with the kernels' launches per path;
-the join phase launches neither scan kernel: its leaf filters are the plain
-mask and its device programs are torch code; the realtime phase must launch
-both; the expr phase's device queries `masked_sums`, its host queries none;
-the aggs phase none; bitmap_filter's earlier paths count every run of the
-phase, its index path the checked runs),
+`{"kernels": [...]}` line (with the kernels' launches per path, each path's
+count summed over its checked runs: the counts set to 0 just before a run,
+read just after and held to the run's expected count; the pipeline traffic
+adds its scan launches, held to the pipeline's own count. The join phase
+launches neither scan kernel: its leaf filters are the plain mask and its
+device programs are torch code; the realtime phase must launch both; the
+expr phase's device queries `masked_sums`, its host queries none; the aggs
+phase no scan; `bitmap_filter` where a plain-body filter or a selection's
+device mask reads bitmap leaves, one launch per mask),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -169,6 +172,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -199,19 +203,21 @@ MANY_COPIES = 64                              # queries in one execute_many
 SERVE_CLIENTS, SERVE_QUERIES_PER_CLIENT = 32, 12   # bench.py's e2e_device_bench
 L2_FLUSH_BYTES = 256 << 20   # written before each timed run: > the H100's 50 MB L2
 SELECT_QUERIES = [
-    # (id, sql, top-k launches per segment, answered by the exact path)
+    # (id, sql, top-k launches per segment, answered by the exact path, the
+    # filter's bitmap_filter launches per mask: 1 where the device mask reads
+    # bitmap leaves (planner.select_bitmap_leaves), one all-bitmap tree)
     ("topk_desc", "SELECT lo_custkey, lo_revenue FROM lineorder WHERE lo_quantity >= 10 "
-     "ORDER BY lo_revenue DESC LIMIT 7", 1, False),
+     "ORDER BY lo_revenue DESC LIMIT 7", 1, False, 0),
     ("topk_all", "SELECT lo_suppkey, lo_extendedprice FROM lineorder "
-     "ORDER BY lo_extendedprice LIMIT 12", 1, False),
+     "ORDER BY lo_extendedprice LIMIT 12", 1, False, 0),
     ("topk_ties", "SELECT lo_custkey, lo_orderdate, lo_revenue FROM lineorder "
-     "WHERE lo_quantity >= 10 ORDER BY lo_suppkey LIMIT 9", 1, False),
+     "WHERE lo_quantity >= 10 ORDER BY lo_suppkey LIMIT 9", 1, False, 0),
     ("select_limit", "SELECT lo_region, lo_revenue FROM lineorder WHERE lo_quantity < 3 "
-     "LIMIT 10", 0, False),
+     "LIMIT 10", 0, False, 1),
     ("order_exact", "SELECT lo_custkey, lo_orderdate FROM lineorder WHERE lo_quantity = 1 "
-     "AND lo_discount = 0 ORDER BY lo_orderdate DESC LIMIT 5", 0, True),
+     "AND lo_discount = 0 ORDER BY lo_orderdate DESC LIMIT 5", 0, True, 1),
     ("group_trim", "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder GROUP BY lo_custkey "
-     "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None),
+     "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None, 0),
 ]
 JOIN_WARM_RUNS = 2     # cut from 3 to leave room for the index phase
 REALTIME_BLOCK_ROWS = 16_384   # bench.py's _ingest_topic_blocks block
@@ -228,6 +234,12 @@ JOIN_EXPECT = {"join_supplier": ("scatter", "broadcast"),
                "join_customer": ("scatter", "partitioned"),
                "join_region": ("sort", "broadcast"),
                "semi_in": ("scatter", "broadcast")}
+# query: (bitmap_filter launches of one run per lineorder segment, and over
+# the dimension table's one segment): a leaf whose filter reads bitmap leaves
+# masks each of its segments once (here only the supplier leaves' s_region =
+# 'AMERICA' and s_nation = 'JAPAN'; lineorder's leaves are denser than the cap)
+JOIN_BITMAP = {"join_supplier": (0, 1), "join_customer": (0, 0), "join_region": (0, 0),
+               "semi_in": (0, 1)}
 JOIN_PROBE_ROWS = 1 << 20                         # bench.py's join_bench shapes
 JOIN_BUILD_KEYS = (1000, 100_000, 2_000_000)
 JOIN_ZIPF_KEYS, JOIN_ZIPF_S = 100_000, 1.5
@@ -550,7 +562,6 @@ def rows_match(got, want, rtol=ORACLE_RTOL, atol=ORACLE_ATOL) -> bool:
 
 def run_path(args, work: str):
     from pinot_tpu_torch import execute_query, load_segment
-    from pinot_tpu_torch.engine import scan
     from pinot_tpu_torch.segment.writer import (SegmentGeneratorConfig,
                                                 build_aligned_segments)
     from pinot_tpu_torch.ssb import (FOR_QUERY, GROUP_QUERY, QUERY, make_columns,
@@ -580,18 +591,16 @@ def run_path(args, work: str):
         for_segments=FOR_SEGMENTS, for_build_s=for_build_s)
 
     queries = [
-        ("q1_1", QUERY, table, cols, oracle_q11, {"masked_sums": len(table),
-                                                  "masked_sums_fused": 0}),
-        ("group_by", GROUP_QUERY, table, cols, oracle_group,
-         {"masked_sums": 0, "masked_sums_fused": 0}),
+        ("q1_1", QUERY, table, cols, oracle_q11, counts_of(masked_sums=len(table))),
+        ("group_by", GROUP_QUERY, table, cols, oracle_group, counts_of()),
         ("for_sum", FOR_QUERY, for_table, for_cols, oracle_for,
-         {"masked_sums": 0, "masked_sums_fused": len(for_table)}),
+         counts_of(masked_sums_fused=len(for_table))),
     ]
-    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    launches = counts_of()
     for name, sql, segs, c, oracle, want_launches in queries:
         rows = sum(s.num_docs for s in segs)
         # the path: counts set to 0 just before, read just after
-        scan.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         result = execute_query(segs, sql)
         torch.cuda.synchronize()
@@ -646,33 +655,44 @@ def warm_times(fn, runs: int = QUERY_RUNS) -> tuple:
 
 
 def launch_counts() -> dict:
-    from pinot_tpu_torch.engine import scan
+    """Each kernel's launch count (its wrapper adds one where it launches)."""
+    from pinot_tpu_torch.engine import bitmap, scan
     return {"masked_sums": scan.masked_sums.launches,
-            "masked_sums_fused": scan.masked_sums_fused.launches}
+            "masked_sums_fused": scan.masked_sums_fused.launches,
+            "bitmap_filter": bitmap.bitmap_filter.launches}
+
+
+def reset_launch_counts() -> None:
+    from pinot_tpu_torch.engine import bitmap, scan
+    scan.reset_launch_counts()
+    bitmap.reset_launch_counts()
+
+
+def counts_of(masked_sums: int = 0, masked_sums_fused: int = 0, bitmap_filter: int = 0) -> dict:
+    """The launches a checked run must make, by kernel."""
+    return {"masked_sums": masked_sums, "masked_sums_fused": masked_sums_fused,
+            "bitmap_filter": bitmap_filter}
 
 
 def run_serve(args, table, cols) -> dict:
     """The stacked set executor and the serving pipeline over the path's table.
     Returns the kernels' launches in the runs that were checked."""
-    from pinot_tpu_torch.engine import scan
     from pinot_tpu_torch.parallel import MeshQueryExecutor
     from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
 
     rows = sum(s.num_docs for s in table)
     mx = MeshQueryExecutor()
-    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    launches = counts_of()
 
     def add(counts):
         for k, v in counts.items():
             launches[k] += v
 
-    queries = [("q1_1", QUERY, oracle_q11, {"masked_sums": 1, "masked_sums_fused": 0}),
-               ("group_by", GROUP_QUERY, oracle_group,
-                {"masked_sums": 0, "masked_sums_fused": 0}),
-               ("count_quantity", SERVE_COUNT_QUERY, oracle_count,
-                {"masked_sums": 1, "masked_sums_fused": 0})]
+    queries = [("q1_1", QUERY, oracle_q11, counts_of(masked_sums=1)),
+               ("group_by", GROUP_QUERY, oracle_group, counts_of()),
+               ("count_quantity", SERVE_COUNT_QUERY, oracle_count, counts_of(masked_sums=1))]
     for name, sql, oracle, want_launches in queries:
-        scan.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         result = mx.execute(table, sql)
         torch.cuda.synchronize()
@@ -701,11 +721,11 @@ def run_serve(args, table, cols) -> dict:
 
     # execute_many: every copy dispatched, then one fetch
     want = oracle_q11(cols)
-    scan.reset_launch_counts()
+    reset_launch_counts()
     results = mx.execute_many(table, [QUERY] * MANY_COPIES)
     torch.cuda.synchronize()
     counts = launch_counts()
-    if counts["masked_sums"] != MANY_COPIES:
+    if counts != counts_of(masked_sums=MANY_COPIES):
         raise AssertionError(f"execute_many: {counts} launches for {MANY_COPIES} queries")
     add(counts)
     bad = [r.rows for r in results if not rows_match(r.rows, want)]
@@ -735,12 +755,15 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
     """SERVE_CLIENTS threads, each sending SERVE_QUERIES_PER_CLIENT queries
     through one DeviceQueryPipeline, client c's query i being queries[(c + i) %
     len(queries)], every answer held against its oracle rows (floats at
-    `rtol`, `atol`). Logs QPS, the latency p50/p95 and the pipeline's stats,
-    and returns the kernels' launches."""
+    `rtol`, `atol`). Logs QPS, the latency p50/p95, the pipeline's stats and
+    every kernel's launches; returns the scan kernels' launches, which are held
+    to the pipeline's own count (bitmap_filter's are logged only: copies of a
+    query deduplicated in one drain share one pass, so no count per query
+    holds)."""
     import threading
 
     from pinot_tpu_torch.cluster import DeviceQueryPipeline
-    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.query.aggregates import make_agg
     from pinot_tpu_torch.query.context import compile_query
     from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
@@ -785,7 +808,7 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
             failures.extend(wrong)
 
     threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
-    scan.reset_launch_counts()
+    reset_launch_counts()
     kernels.reset_topk_launches()
     try:
         t0 = time.perf_counter()
@@ -818,7 +841,7 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
         p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
         solo_p50_ms=statistics.median(solo) * 1e3, launches=counts,
         topk_launches=topk_launches, stats=stats)
-    return counts
+    return {k: v for k, v in counts.items() if k != "bitmap_filter"}
 
 
 # -- phase 6: select ----------------------------------------------------------------
@@ -862,11 +885,14 @@ def select_oracles(c) -> dict:
     }
 
 
-def run_select(args, table, cols) -> None:
+def run_select(args, table, cols) -> dict:
     """Selections and top-k over the path's table: both entry points, the
-    pipeline's `topk` mix, and the stacked top-k timed alone."""
+    pipeline's `topk` mix, and the stacked top-k timed alone. Returns the
+    kernels' launches in the checked runs: no scan; a bitmap_filter launch for
+    each mask that reads bitmap leaves (each segment's, or the stacked top-k's
+    one over the set)."""
     from pinot_tpu_torch import execute_query
-    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.parallel import MeshQueryExecutor
 
     rows = sum(s.num_docs for s in table)
@@ -874,12 +900,14 @@ def run_select(args, table, cols) -> None:
     t0 = time.perf_counter()
     oracles = select_oracles(cols)
     log("select_oracle", seconds=time.perf_counter() - t0)
-    for qid, sql, topk_per_segment, exact in SELECT_QUERIES:
+    launches = counts_of()
+    for qid, sql, topk_per_segment, exact, bitmap_per_mask in SELECT_QUERIES:
         want = oracles[qid]
         for path, run in (("per_segment", lambda sql=sql: execute_query(table, sql)),
                           ("set", lambda sql=sql: mx.execute(table, sql))):
+            masks = len(table) if path == "per_segment" or not topk_per_segment else 1
             # the path: counts set to 0 just before, read just after
-            scan.reset_launch_counts()
+            reset_launch_counts()
             kernels.reset_topk_launches()
             t0 = time.perf_counter()
             result = run()
@@ -889,9 +917,13 @@ def run_select(args, table, cols) -> None:
             if not rows_match(result.rows, want):
                 raise AssertionError(f"select {qid} ({path}): got {result.rows}, "
                                      f"oracle {want}")
-            if topk_launches != topk_per_segment * len(table) or any(scans.values()):
+            if topk_launches != topk_per_segment * len(table) or \
+                    scans != counts_of(bitmap_filter=bitmap_per_mask * masks):
                 raise AssertionError(f"select {qid} ({path}): {topk_launches} top-k "
-                                     f"launches, scans {scans}")
+                                     f"launches, kernel launches {scans}, expected "
+                                     f"{counts_of(bitmap_filter=bitmap_per_mask * masks)}")
+            for k, v in scans.items():
+                launches[k] += v
             if result.stats.get("topkExact") != exact:
                 raise AssertionError(f"select {qid} ({path}): topkExact "
                                      f"{result.stats.get('topkExact')}, expected {exact}")
@@ -904,7 +936,7 @@ def run_select(args, table, cols) -> None:
             phases = [r.stats["phaseTimesMs"] for r in results]
             warm.pop("median_s", None)
             fields = dict(query=qid, path=path, rows=rows, segments=len(table),
-                          answer=result.rows, topk_launches=topk_launches,
+                          answer=result.rows, topk_launches=topk_launches, launches=scans,
                           topk_exact=result.stats.get("topkExact"), cold_s=cold_s, **warm,
                           phase_median_ms={k: statistics.median(p[k] for p in phases)
                                            for k in phases[0]})
@@ -913,10 +945,11 @@ def run_select(args, table, cols) -> None:
             log("select_query", **fields)
 
     # the pipeline: client threads cycling the three top-k queries
-    topk_queries = [(sql, oracles[qid]) for qid, sql, _, _ in SELECT_QUERIES
+    topk_queries = [(sql, oracles[qid]) for qid, sql, _, _, _ in SELECT_QUERIES
                     if qid.startswith("topk_")]
     serve_pipeline(mx, table, "topk", topk_queries)
     select_case(mx, table, cols)
+    return launches
 
 
 def select_case(mx, table, cols) -> None:
@@ -927,7 +960,7 @@ def select_case(mx, table, cols) -> None:
     from pinot_tpu_torch.query.context import compile_query
 
     prepared = {}
-    for qid, sql, _, _ in SELECT_QUERIES:
+    for qid, sql, _, _, _ in SELECT_QUERIES:
         if not qid.startswith("topk_"):
             continue
         p = prepared[qid] = mx.prepare_partial(compile_query(sql, table[0].schema), table)
@@ -1063,10 +1096,9 @@ def regime_of(launches: dict, joins: int) -> str:
 
 def run_join(args, table, cols, work) -> dict:
     """The join queries through execute_multistage on the card, then the device
-    programs alone (`join_case`). Returns the scan kernels' launches in the
-    join runs (none expected: nothing on this path calls them)."""
+    programs alone (`join_case`). Returns the kernels' launches in the checked
+    join runs: no scan, and JOIN_BITMAP's bitmap_filter launches."""
     from pinot_tpu_torch.engine import join_kernels as jk
-    from pinot_tpu_torch.engine import scan
     from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
     from pinot_tpu_torch.ssb import JOIN_QUERIES
 
@@ -1077,20 +1109,24 @@ def run_join(args, table, cols, work) -> dict:
     scan_fn = make_segment_scan(tables)
     rows = sum(s.num_docs for s in table)
     seen = set()
-    scan_launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    checked_launches = counts_of()
     for qid, sql in JOIN_QUERIES.items():
         def run(sql=sql):
             return execute_multistage(sql, scan_fn, schemas.get)
         # the path: counts set to 0 just before, read just after
-        scan.reset_launch_counts()
+        reset_launch_counts()
         jk.reset_launch_counts()
         t0 = time.perf_counter()
         result = run()
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
         launches, scans = jk.launch_counts(), launch_counts()
+        per_segment, dimension = JOIN_BITMAP[qid]
+        want_scans = counts_of(bitmap_filter=per_segment * len(table) + dimension)
+        if scans != want_scans:
+            raise AssertionError(f"join {qid}: kernel launches {scans}, expected {want_scans}")
         for k, v in scans.items():
-            scan_launches[k] += v
+            checked_launches[k] += v
         if not rows_match(result.rows, oracles[qid], JOIN_RTOL, JOIN_ATOL):
             raise AssertionError(f"join {qid}: got {result.rows}, oracle {oracles[qid]}")
         stats = result.stats
@@ -1119,6 +1155,7 @@ def run_join(args, table, cols, work) -> dict:
                                  f"bucket hot (joinSkewPct {stats['joinSkewPct']})")
         fields = dict(query=qid, lineorder_rows=rows, answer=result.rows,
                       join_strategy=strategy, regime=regime, launches=launches,
+                      kernel_launches=scans,
                       exchange=strategy,
                       joined_rows=stats["numDocsScanned"],
                       join_skew_pct=stats.get("joinSkewPct"),
@@ -1135,7 +1172,7 @@ def run_join(args, table, cols, work) -> dict:
     if not {"scatter", "sort", "broadcast", "partitioned"} <= seen:
         raise AssertionError(f"the join queries covered only {sorted(seen)}")
     join_cases(args.seed)
-    return scan_launches
+    return checked_launches
 
 
 def _zipf_keys(rng, n: int, card: int, s) -> np.ndarray:
@@ -1259,14 +1296,13 @@ def realtime_queries():
     host, so the f32 sum is one `masked_sums` launch in global-id space and
     the FOR sum is not run there."""
     from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
-    none = {"masked_sums": 0, "masked_sums_fused": 0}
     return [
-        ("q1_1", QUERY, oracle_q11, none, none),
-        ("group_by", GROUP_QUERY, oracle_group, none, none),
+        ("q1_1", QUERY, oracle_q11, counts_of(), counts_of()),
+        ("group_by", GROUP_QUERY, oracle_group, counts_of(), counts_of()),
         ("scan_f32", REALTIME_F32_QUERY, lambda c: oracle_region_sum(c, "lo_revenue"),
-         {"masked_sums": 1, "masked_sums_fused": 0}, {"masked_sums": 1, "masked_sums_fused": 0}),
+         counts_of(masked_sums=1), counts_of(masked_sums=1)),
         ("scan_for", REALTIME_FOR_QUERY, lambda c: oracle_region_sum(c, "lo_quantity"),
-         {"masked_sums": 0, "masked_sums_fused": 1}, None),
+         counts_of(masked_sums_fused=1), None),
     ]
 
 
@@ -1276,7 +1312,7 @@ def run_realtime(args, table, cols, work) -> tuple:
     queried as the ninth immutable segment. Returns the kernels' launches in
     the checked runs and each kernel's `realtime_case` numbers."""
     from pinot_tpu_torch import execute_query, load_segment
-    from pinot_tpu_torch.engine import datablock, scan
+    from pinot_tpu_torch.engine import datablock
     from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
     from pinot_tpu_torch.ingest.stream import MemoryStream
     from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
@@ -1321,12 +1357,12 @@ def run_realtime(args, table, cols, work) -> tuple:
     queries = realtime_queries()
     table_want = {qid: oracle(cols) for qid, _, oracle, _, mixed in queries if mixed}
     mx = MeshQueryExecutor()
-    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    launches = counts_of()
 
     def checked(label, run, want, want_launches):
         """One cold run with the counts set to 0 just before and read just
         after, held against the oracle; then REALTIME_WARM_RUNS warm runs."""
-        scan.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
@@ -1421,8 +1457,7 @@ def run_realtime(args, table, cols, work) -> tuple:
             raise AssertionError(f"realtime committed {qid}: merged view {merged}, "
                                  f"expected one: {want_merged}")
         line = checked(f"realtime committed {qid}", lambda sql=sql: mx.execute(nine, sql),
-                       want, {"masked_sums": int(qid == "q1_1" or custkey_dicts),
-                              "masked_sums_fused": 0})
+                       want, counts_of(masked_sums=int(qid == "q1_1" or custkey_dicts)))
         log("realtime_commit", query=qid, rows=committed.num_docs, build_s=build_s,
             segments=len(nine), merged_view=merged is not None, oracle=want, **line)
     cases = realtime_cases(view)
@@ -1690,7 +1725,7 @@ def run_expr(args, table, cols, work) -> tuple:
     set) and "host" (host-routed queries: none expected), and the
     `expr_case` numbers."""
     from pinot_tpu_torch import execute_query, segments_from_columns, ssb
-    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
     from pinot_tpu_torch.ingest.stream import MemoryStream
     from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
@@ -1704,16 +1739,15 @@ def run_expr(args, table, cols, work) -> tuple:
     schema = table[0].schema
     rows = sum(s.num_docs for s in table)
     mx = MeshQueryExecutor()
-    launches = {"expr": {"masked_sums": 0, "masked_sums_fused": 0},
-                "host": {"masked_sums": 0, "masked_sums_fused": 0}}
-    none = {"masked_sums": 0, "masked_sums_fused": 0}
+    launches = {"expr": counts_of(), "host": counts_of()}
+    none = counts_of()
 
     def checked(path, label, run, want, want_launches, runs, rtol=ORACLE_RTOL,
                 atol=ORACLE_ATOL, trace=False):
         """One cold run with the counts set to 0 just before and read just
         after (the top-k launches too: a host route launches none), held
         against the oracle; then `runs` warm runs."""
-        scan.reset_launch_counts()
+        reset_launch_counts()
         kernels.reset_topk_launches()
         t0 = time.perf_counter()
         res = run()
@@ -1752,9 +1786,8 @@ def run_expr(args, table, cols, work) -> tuple:
 
     # device-routed queries: per segment and over the set
     device_queries = [
-        ("case_sum", EXPR_CASE_SUM, oracle_case_sum,
-         {"masked_sums": len(table), "masked_sums_fused": 0},
-         {"masked_sums": 1, "masked_sums_fused": 0}),
+        ("case_sum", EXPR_CASE_SUM, oracle_case_sum, counts_of(masked_sums=len(table)),
+         counts_of(masked_sums=1)),
         ("math_filter", EXPR_MATH_FILTER, oracle_math_filter, none, none),
         ("group_math", EXPR_GROUP_MATH, oracle_group_math, none, none),
     ]
@@ -1974,11 +2007,12 @@ def run_aggs(args, table, cols, work) -> tuple:
     `distinct` output and the power sums) per segment and over the set, each
     sketch equal to the same run on the CPU; host-routed ones; IDSET feeding
     IN_ID_SET; a join's final DISTINCTCOUNT; a staged consuming view alone and
-    beside the table; a pipeline mix; then `aggs_case` lines. Returns the scan
-    kernels' launches of the checked runs (none: no plan here reaches the
-    scan) and the `aggs_case` numbers."""
+    beside the table; a pipeline mix; then `aggs_case` lines. Returns the
+    kernels' launches of the checked runs (no scan: no plan here reaches it;
+    bitmap_filter where a filter reads bitmap leaves) and the `aggs_case`
+    numbers."""
     from pinot_tpu_torch import execute_query, segments_from_columns, ssb
-    from pinot_tpu_torch.engine import kernels, scan
+    from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
     from pinot_tpu_torch.ingest.stream import MemoryStream
     from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
@@ -1995,13 +2029,14 @@ def run_aggs(args, table, cols, work) -> tuple:
     oracles = aggs_oracles(cols)
     log("aggs_data", rows=rows, segments=len(table), oracle_s=time.perf_counter() - t0)
     mx, cpu_mx = MeshQueryExecutor(), MeshQueryExecutor(device="cpu")
-    launches = {"masked_sums": 0, "masked_sums_fused": 0}
+    launches = counts_of()
 
-    def checked(label, run, check, runs, trace=False):
+    def checked(label, run, check, runs, trace=False, bitmap=0):
         """One cold run with the counts set to 0 just before and read just
-        after (none of these plans launches a scan or a top-k), held by
-        `check`; then `runs` warm runs, each held too."""
-        scan.reset_launch_counts()
+        after (none of these plans launches a scan or a top-k; `bitmap`
+        bitmap_filter launches), held by `check`; then `runs` warm runs, each
+        held too."""
+        reset_launch_counts()
         kernels.reset_topk_launches()
         t0 = time.perf_counter()
         res = run()
@@ -2010,9 +2045,10 @@ def run_aggs(args, table, cols, work) -> tuple:
         counts, topk = launch_counts(), kernels.topk_launches()
         for k, v in counts.items():
             launches[k] += v
-        if any(counts.values()) or topk:
-            raise AssertionError(f"{label}: kernel launches {counts}, top-k {topk}: "
-                                 "the aggregation library reaches no scan")
+        if counts != counts_of(bitmap_filter=bitmap) or topk:
+            raise AssertionError(f"{label}: kernel launches {counts}, top-k {topk}; expected "
+                                 f"{counts_of(bitmap_filter=bitmap)}: the aggregation "
+                                 "library reaches no scan")
         if not check(res.rows):
             raise AssertionError(f"{label}: got {res.rows[:12]}")
         fields = dict(answer=res.rows[:12], answer_rows=len(res.rows), cold_ms=cold_ms,
@@ -2098,10 +2134,11 @@ def run_aggs(args, table, cols, work) -> tuple:
     seg_kinds, _ = kinds(in_sql, table)
     if set(seg_kinds) != {"device"}:
         raise AssertionError(f"aggs in_id_set: plans {seg_kinds}")
-    for path, run in (("per_segment", lambda: execute_query(table, in_sql)),
-                      ("set", lambda: mx.execute(table, in_sql))):
+    # lo_quantity > 40 is a bitmap leaf beside the id-set LUT: one launch a mask
+    for path, run, bitmap in (("per_segment", lambda: execute_query(table, in_sql), len(table)),
+                              ("set", lambda: mx.execute(table, in_sql), 1)):
         line, _ = checked(f"aggs in_id_set {path}", run, lambda rows: rows_match(rows, want),
-                          AGGS_DEVICE_RUNS)
+                          AGGS_DEVICE_RUNS, bitmap=bitmap)
         log("aggs_query", query="in_id_set", path=path, plan_kind="device", rows=rows,
             id_set_values=len(want_ids), oracle=want, **line)
 
@@ -2116,8 +2153,9 @@ def run_aggs(args, table, cols, work) -> tuple:
         cols["lo_discount"] >= 1) & (cols["lo_discount"] <= 3)
     want = [[n, len(np.unique(cols["lo_custkey"][jm & (nation == n)])),
              int((jm & (nation == n)).sum())] for n in sorted(set(nation[jm]))]
+    # the supplier leaf's s_region = 'AMERICA': one all-bitmap mask
     line, _ = checked("aggs join", lambda: execute_multistage(AGGS_JOIN, scan_fn, schemas.get),
-                      lambda rows: rows == want, AGGS_HOST_RUNS)
+                      lambda rows: rows == want, AGGS_HOST_RUNS, bitmap=1)
     log("aggs_query", query="join_distinctcount", path="multistage", rows=rows, oracle=want,
         **line)
 
@@ -2303,31 +2341,21 @@ INDEX_NULL_QUERIES = {
     "is_not_null": ("SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
                     "WHERE lo_revenue IS NOT NULL AND lo_discount < 4"),
 }
-INDEX_CROSSOVER_QUANTITIES = (1, 5, 12, 25)     # lo_quantity <= q: selectivity q / 50
+# lo_quantity <= q: selectivity q / 50 (q = 50 would fold to match-all)
+INDEX_CROSSOVER_QUANTITIES = (1, 5, 12, 25, 37, 49)
+INDEX_CROSSOVER_TREES = {
+    # an all-bitmap tree: one launch evaluates it in the word domain
+    "all_bitmap": ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder WHERE "
+                   "lo_discount = 2 AND lo_quantity BETWEEN 1 AND {q} GROUP BY lo_region "
+                   "ORDER BY lo_region"),
+    # a mixed tree: the bitmap leaf's row mask, then a value compare in torch
+    "mixed": ("SELECT COUNT(*), SUM(lo_extendedprice) FROM lineorder WHERE "
+              "lo_quantity BETWEEN 1 AND {q} AND lo_revenue > 30000"),
+}
 BITMAP_SOURCE = ("pinot_tpu_torch/csrc/bitmap_filter.cu", "pinot_tpu/engine/kernels.py:416")
 BITMAP_LIBRARY_NOTE = ("library_ms is null: torch has no popcount and no bitwise-OR "
                        "reduction, so no single PyTorch call evaluates a filter tree over "
                        "packed words")
-
-
-def bitmap_launches() -> int:
-    from pinot_tpu_torch.engine import bitmap
-    return bitmap.bitmap_filter.launches
-
-
-def reset_bitmap_launches() -> None:
-    from pinot_tpu_torch.engine import bitmap
-    bitmap.reset_launch_counts()
-
-
-def index_launches() -> dict:
-    return dict(launch_counts(), bitmap_filter=bitmap_launches())
-
-
-def reset_index_launches() -> None:
-    from pinot_tpu_torch.engine import scan
-    scan.reset_launch_counts()
-    reset_bitmap_launches()
 
 
 def index_oracles(c, idset_keys, pruned_key) -> dict:
@@ -2499,7 +2527,7 @@ def run_index(args, plain_table, cols, work) -> tuple:
         build_s=time.perf_counter() - t0)
 
     mx = MeshQueryExecutor()
-    launches = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    launches = counts_of()
     by_route = {}
 
     def served(segs, sql):
@@ -2517,24 +2545,26 @@ def run_index(args, plain_table, cols, work) -> tuple:
               "set": lambda segs, sql: mx.execute(segs, sql),
               "pipeline": served}
 
-    def checked(qid, sql, segs, want, expect):
+    def checked(qid, sql, segs, want, bitmap_per_pass):
         """Each route: one cold run with the counts set to 0 just before and
-        read just after, held against the oracle and `expect(route, counts)`
-        (None when the counts are right, else the reason); INDEX_RUNS warm runs
-        on the per-segment and set routes."""
+        read just after, held against the oracle and the expected launches (no
+        scan; `bitmap_per_pass` bitmap_filter launches for each segment's
+        pass, or for the set's one pass); INDEX_RUNS warm runs on the
+        per-segment and set routes."""
         for route, run in routes.items():
-            reset_index_launches()
+            reset_launch_counts()
             t0 = time.perf_counter()
             result = run(segs, sql)
             torch.cuda.synchronize()
             cold_ms = (time.perf_counter() - t0) * 1e3
-            counts = index_launches()
+            counts = launch_counts()
             if not index_rows_match(result.rows, want):
                 raise AssertionError(f"index {qid} ({route}): got {result.rows}, "
                                      f"oracle {want}")
-            fault = expect(route, counts)
-            if fault:
-                raise AssertionError(f"index {qid} ({route}): launches {counts}: {fault}")
+            passes = len(segs) if route == "per_segment" else 1
+            if counts != counts_of(bitmap_filter=bitmap_per_pass * passes):
+                raise AssertionError(f"index {qid} ({route}): launches {counts}, expected "
+                                     f"{counts_of(bitmap_filter=bitmap_per_pass * passes)}")
             for k, v in counts.items():
                 launches[k] += v
                 by_route.setdefault(route, {}).setdefault(k, 0)
@@ -2550,40 +2580,31 @@ def run_index(args, plain_table, cols, work) -> tuple:
                     k: statistics.median(p[k] for p in phases) for k in phases[0]})
             log("index_query", **fields)
 
-    def no_scan(route, counts):
-        return "a scan ran" if counts["masked_sums"] or counts["masked_sums_fused"] else None
-
-    def bitmap_once_per_pass(route, counts):
-        want = len(table) if route == "per_segment" else 1
-        if counts["bitmap_filter"] != want:
-            return f"expected {want} bitmap_filter launches"
-        return no_scan(route, counts)
-
-    def nothing(route, counts):
-        return "a kernel ran" if any(counts.values()) else None
-
+    # one bitmap_filter launch a pass where the filter reads bitmap leaves:
+    # the all-bitmap tree, the mixed tree's one bitmap leaf (lo_discount
+    # BETWEEN 1 AND 3 and lo_discount < 4 are denser than the cap)
     # 1. STAR_QUERY from the small tree on every segment, beside phase 4's plain table
     ctx = compile_query(ssb.STAR_QUERY, schema)
     fits = [try_star_tree(ctx, s) for s in table]
     if any(p is None or p.tree.dims != ["lo_region", "lo_discount"] for p in fits):
         raise AssertionError("STAR_QUERY: not every segment's plan is a star plan on the "
                              "[lo_region, lo_discount] tree")
-    checked("star_query", ssb.STAR_QUERY, table, oracles["star_query"], no_scan)
+    checked("star_query", ssb.STAR_QUERY, table, oracles["star_query"], 0)
     checked("star_query_plain_table", ssb.STAR_QUERY, plain_table, oracles["star_query"],
-            no_scan)
+            0)
     # 2. the high-cardinality tree: the stacked device star path over the set
     plan, _ = mx._plan_for_set(compile_query(INDEX_HC_QUERY, schema), table)
     if not isinstance(plan, combine.StarSetPlan):
         raise AssertionError(f"star_hc: the set plan is {type(plan).__name__}, not the "
                              "stacked device star path")
-    checked("star_hc", INDEX_HC_QUERY, table, oracles["star_hc"], no_scan)
+    checked("star_hc", INDEX_HC_QUERY, table, oracles["star_hc"], 0)
     # 3. the all-bitmap tree; 4. a mixed tree
     checked("all_bitmap", INDEX_BITMAP_QUERY, table, oracles["all_bitmap"],
-            bitmap_once_per_pass)
-    checked("mixed", INDEX_MIXED_QUERY, table, oracles["mixed"], bitmap_once_per_pass)
+            1)
+    checked("mixed", INDEX_MIXED_QUERY, table, oracles["mixed"], 1)
     # 5. IN_ID_SET over the raw column (a doc-set leaf); 6. bloom-pruned EQ
     checked("in_id_set_raw", INDEX_IDSET_QUERY.format(literal), table,
-            oracles["in_id_set_raw"], no_scan)
+            oracles["in_id_set_raw"], 0)
     pruned = INDEX_ABSENT_QUERY.format(pruned_key)
     ctx = compile_query(pruned, schema)
     kinds = [planner.plan_segment(ctx, s).kind for s in table]
@@ -2592,13 +2613,13 @@ def run_index(args, plain_table, cols, work) -> tuple:
     if kinds != want or "empty" not in kinds:
         raise AssertionError(f"bloom_pruned: plans {kinds}, expected {want}")
     log("index_bloom_pruned", key=pruned_key, plans=kinds)
-    checked("bloom_pruned", pruned, table, oracles["bloom_pruned"], no_scan)
+    checked("bloom_pruned", pruned, table, oracles["bloom_pruned"], 0)
     absent = INDEX_ABSENT_QUERY.format(absent_key)
     ctx = compile_query(absent, schema)
     kinds = [planner.plan_segment(ctx, s).kind for s in table]
     if kinds != ["empty"] * len(table):
         raise AssertionError(f"absent_key: plans {kinds}, expected every segment empty")
-    checked("absent_key", absent, table, [[0, None]], nothing)
+    checked("absent_key", absent, table, [[0, None]], 0)
     # 7. a selection whose host mask reads the inverted postings
     ctx = compile_query(INDEX_HOST_MASK_SELECT, schema)
     plan = planner.plan_segment(ctx, table[0])
@@ -2609,11 +2630,10 @@ def run_index(args, plain_table, cols, work) -> tuple:
         raise AssertionError(f"host_mask_select: reason {plan.fallback_reason!r}, "
                              f"postings leaves {postings}")
     log("index_host_mask", reason=plan.fallback_reason, postings_leaves=postings)
-    checked("host_mask_select", INDEX_HOST_MASK_SELECT, table, oracles["host_mask_select"],
-            nothing)
+    checked("host_mask_select", INDEX_HOST_MASK_SELECT, table, oracles["host_mask_select"], 0)
     # 8. IS NULL / IS NOT NULL over the null table
     for qid, sql in INDEX_NULL_QUERIES.items():
-        checked(qid, sql, null_table, null_oracles(null_cols, null)[qid], no_scan)
+        checked(qid, sql, null_table, null_oracles(null_cols, null)[qid], 0)
 
     # the kernel against its plain version at the path's shapes
     cases = bitmap_cases(block_for(table[0], mx.device), mx._block_for(table))
@@ -2632,10 +2652,9 @@ def run_index(args, plain_table, cols, work) -> tuple:
     seg0, block0 = table[0], block_for(table[0], mx.device)
     saved_cap = planner.BITMAP_SEL_CAP
     try:
-        for q in INDEX_CROSSOVER_QUANTITIES:
-            sql = ("SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder WHERE "
-                   f"lo_discount = 2 AND lo_quantity BETWEEN 1 AND {q} GROUP BY lo_region "
-                   "ORDER BY lo_region")
+        for (tree, shape), q in itertools.product(INDEX_CROSSOVER_TREES.items(),
+                                                  INDEX_CROSSOVER_QUANTITIES):
+            sql = shape.format(q=q)
             numbers, answers = {}, []
             for regime, cap in (("bitmap", 1.0), ("lut", 0.0)):
                 planner.BITMAP_SEL_CAP = cap
@@ -2644,19 +2663,24 @@ def run_index(args, plain_table, cols, work) -> tuple:
                     numbers[f"{regime}_{route}_ms"] = ms
                     answers.append(rows)
                 # the filter alone on one segment: the row mask from the bitmap
-                # kernel, or from the id compares
+                # kernel, or from the id compares; an eager call (host
+                # overhead included) and its device time (graph replay)
                 plan = planner.plan_segment(compile_query(sql, schema), seg0)
                 plan.bitmap_leaves = planner.select_bitmap_leaves(plan, seg0)
                 spec = kernels.KernelSpec(plan.filter_prog, (), 1, (),
                                           bitmap_leaves=plan.bitmap_leaves)
                 inputs = ServerQueryExecutor(mx.device)._kernel_inputs(plan, spec, block0)
-                numbers[f"{regime}_mask_ms"] = time_ms(
-                    lambda: kernels.filter_mask(spec, inputs), flush)
+
+                def mask(spec=spec, inputs=inputs):
+                    return kernels.filter_mask(spec, inputs)
+                numbers[f"{regime}_mask_ms"] = time_ms(mask, flush)
+                numbers[f"{regime}_mask_device_ms"] = graph_ms(mask, flush)
                 numbers[f"{regime}_leaves"] = len(plan.bitmap_leaves)
             if any(not index_rows_match(a, answers[0]) for a in answers):
-                raise AssertionError(f"crossover lo_quantity <= {q}: the regimes disagree")
-            log("crossover", kind="bitmap_vs_lut", query=sql, selectivity=q / 50,
-                discount_selectivity=1 / 11, **numbers)
+                raise AssertionError(f"crossover {tree} lo_quantity <= {q}: the regimes "
+                                     "disagree")
+            log("crossover", kind="bitmap_vs_lut", tree=tree, query=sql, selectivity=q / 50,
+                **numbers)
     finally:
         planner.BITMAP_SEL_CAP = saved_cap
     for qid, sql in (("star_query", ssb.STAR_QUERY), ("star_hc", INDEX_HC_QUERY)):
@@ -2748,42 +2772,41 @@ def main() -> int:
     # phase 4: the path; phase 5: the set executor and the pipeline over its
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
     # expressions and the host path; phase 10: the aggregation library; phase
-    # 11: the filter indexes and star-trees. bitmap_filter's launches are
-    # counted over each earlier phase whole (bitmap_by_phase), and over the
-    # checked runs of the index phase.
+    # 11: the filter indexes and star-trees. Each phase returns every
+    # kernel's launches in its checked runs: the counts set to 0 just before
+    # a run and read just after, each held to the run's expected count.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
-    bitmap_by_phase = {}
 
     def phase(name, fn, *a):
-        reset_bitmap_launches()
         t0 = time.perf_counter()
         out = fn(*a)
         lap(name, t0)
-        bitmap_by_phase[name] = bitmap_launches()
         return out
 
     try:
         path_launches, table, cols = phase("path", run_path, args, work)
         serve_launches = phase("serve", run_serve, args, table, cols)
-        phase("select", run_select, args, table, cols)
+        select_launches = phase("select", run_select, args, table, cols)
         join_launches = phase("join", run_join, args, table, cols, work)
         realtime_launches, realtime_numbers = phase("realtime", run_realtime, args, table,
                                                     cols, work)
-        missing = [k for k, v in realtime_launches.items() if v == 0]
+        missing = [k for k in ("masked_sums", "masked_sums_fused")
+                   if realtime_launches[k] == 0]
         if missing:
             raise AssertionError(f"the realtime path launched no {missing}")
         expr_launches, expr_numbers = phase("expr", run_expr, args, table, cols, work)
-        if any(expr_launches["host"].values()) or not expr_launches["expr"]["masked_sums"]:
+        if expr_launches["host"]["masked_sums"] or expr_launches["host"]["masked_sums_fused"] \
+                or not expr_launches["expr"]["masked_sums"]:
             raise AssertionError(f"expr phase launches {expr_launches}: the host path must "
                                  "launch no scan, the CASE sum masked_sums")
         aggs_launches, _ = phase("aggs", run_aggs, args, table, cols, work)
-        if any(aggs_launches.values()):
+        if aggs_launches["masked_sums"] or aggs_launches["masked_sums_fused"]:
             raise AssertionError(f"aggs phase launches {aggs_launches}: the aggregation "
                                  "library reaches no scan")
-        index_launches_, index_by_route, bitmap_numbers = phase("index", run_index, args,
+        index_launches, index_by_route, bitmap_numbers = phase("index", run_index, args,
                                                                 table, cols, work)
-        if not index_launches_["bitmap_filter"]:
+        if not index_launches["bitmap_filter"]:
             raise AssertionError("the index phase launched no bitmap_filter")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2793,12 +2816,16 @@ def main() -> int:
                "masked_sums_fused": ("pinot_tpu_torch/csrc/masked_sums.cu",
                                      "pinot_tpu/engine/pallas_scan.py:94")}
     kernels = []
+
+    def launches_by_path(name):
+        return {"per_segment": path_launches[name], "serve": serve_launches[name],
+                "select": select_launches[name], "join": join_launches[name],
+                "realtime": realtime_launches[name], "expr": expr_launches["expr"][name],
+                "host": expr_launches["host"][name], "aggs": aggs_launches[name],
+                "index": index_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
-        by_path = {"per_segment": path_launches[name], "serve": serve_launches[name],
-                   "join": join_launches[name], "realtime": realtime_launches[name],
-                   "expr": expr_launches["expr"][name], "host": expr_launches["host"][name],
-                   "aggs": aggs_launches[name], "index": index_launches_[name]}
+        by_path = launches_by_path(name)
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1],
                         "launches": sum(by_path.values()),
@@ -2813,8 +2840,7 @@ def main() -> int:
                                       **({"expr_case_operand": expr_numbers}
                                          if name == "masked_sums" else {}))})
     head = bitmap_numbers["bitmap_query, one segment, mask"]
-    by_path = {("per_segment" if k == "path" else k): v for k, v in bitmap_by_phase.items()}
-    by_path["index"] = index_launches_["bitmap_filter"]
+    by_path = launches_by_path("bitmap_filter")
     kernels.append({"name": "bitmap_filter", "route": "cuda", "source": BITMAP_SOURCE[0],
                     "replaces": BITMAP_SOURCE[1], "launches": sum(by_path.values()),
                     "launches_by_path": by_path,

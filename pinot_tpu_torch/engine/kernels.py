@@ -18,10 +18,10 @@ Bitmap leaves (`KernelSpec.bitmap_leaves`, chosen by
 index instead of its ids, through the CUDA kernel of `engine/bitmap.py`:
 when every leaf of the tree is one, the kernel evaluates the whole tree in
 the word domain and writes the row mask ("mask" mode); in a mixed tree each
-bitmap leaf's words ("words" mode) are unpacked into rows and combined with
-the other leaves there. `compute_filter_count` counts an all-bitmap tree's
-rows without a row mask ("count" mode). Null leaves read the column's null
-bitmap, doc-set leaves a host-resolved bool row.
+bitmap leaf is a one-leaf program whose row mask the kernel writes ("mask"
+mode again), combined with the other leaves in torch. `compute_filter_count`
+counts an all-bitmap tree's rows without a row mask ("count" mode). Null
+leaves read the column's null bitmap, doc-set leaves a host-resolved bool row.
 
 Output names and dtypes are the ones the executor's decoders read: "count"
 int32, "{i}.sum" float32 (float64 for an integer argument: an exact int64
@@ -68,7 +68,7 @@ import torch
 from ..query.aggregates import AggFunc
 from ..query.predicate import CmpLeaf, DocSetLeaf, FilterProgram, LutLeaf, NullLeaf
 from ..sql.ast import Identifier
-from .bitmap import BitmapLeaf, bitmap_filter, pack_valid, unpack_words, word_program
+from .bitmap import BitmapLeaf, bitmap_filter, pack_valid, word_program
 from .expr import eval_device
 
 _INT_MIN_IDENT = (1 << 31) - 1   # identity for a masked-out min over int32
@@ -185,9 +185,9 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
     def leaf_mask(i: int) -> torch.Tensor:
         leaf = leaves[i]
         if i in spec.bitmap_index:
-            # a mixed tree: this leaf's words, unpacked into rows
-            return unpack_words(bitmap_filter(
-                [0], [inputs.bitmaps[spec.bitmap_index[i]]], inputs.packed_valid(), "words"))
+            # a mixed tree: this leaf alone, its rows written by the kernel
+            return bitmap_filter([0], [inputs.bitmaps[spec.bitmap_index[i]]],
+                                 inputs.packed_valid(), "mask")
         if isinstance(leaf, NullLeaf):
             m = inputs.nulls[leaf.col]
             return ~m if leaf.negated else m

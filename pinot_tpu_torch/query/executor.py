@@ -78,7 +78,7 @@ from .planner import (SegmentPlan, build_device_geometry, plan_segment,
 from .predicate import CmpLeaf, DocSetLeaf, LutLeaf, NullLeaf
 from .reduce import SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
-from .startree_exec import reassemble, try_star_tree
+from .startree_exec import StarTreePlan, reassemble, try_star_tree
 
 MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
@@ -103,7 +103,10 @@ class ServerQueryExecutor:
         self.device = resolve_device(device)
 
     def execute(self, segments: Sequence[ImmutableSegment],
-                query: Union[str, QueryContext], schema=None) -> ResultTable:
+                query: Union[str, QueryContext], schema=None,
+                star_plans: Optional[Sequence[StarTreePlan]] = None) -> ResultTable:
+        """`star_plans`: each segment's StarTreePlan, already traversed (the
+        set executor's), or None to fit each segment here."""
         t0 = time.perf_counter()
         ctx = compile_query(query, schema or (segments[0].schema if segments else None)) \
             if isinstance(query, str) else query
@@ -113,7 +116,9 @@ class ServerQueryExecutor:
         group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
                        else list(ctx.group_by))
         t_compile = time.perf_counter()
-        results = [self.execute_segment(ctx, seg) for seg in segments]
+        results = [self.execute_segment(ctx, seg, star=None if star_plans is None
+                                        else star_plans[i])
+                   for i, seg in enumerate(segments)]
         t_scan = time.perf_counter()
         merged = merge_segment_results(results, aggs)
         if not results:
@@ -128,12 +133,14 @@ class ServerQueryExecutor:
 
     # -- per-segment execution --------------------------------------------
     def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment,
-                        valid_docs: Optional[np.ndarray] = None) -> SegmentResult:
+                        valid_docs: Optional[np.ndarray] = None,
+                        star: Optional[StarTreePlan] = None) -> SegmentResult:
         """One segment's partial; `valid_docs` restricts it to the rows it sets.
         A star-tree that fits the query answers instead of the rows (not under
-        a valid-doc mask: pre-aggregated records cannot honour one)."""
+        a valid-doc mask: pre-aggregated records cannot honour one); `star` is
+        that fit when the caller has already traversed the tree."""
         if valid_docs is None and not getattr(segment, "is_mutable", False):
-            stp = try_star_tree(ctx, segment)
+            stp = star if star is not None else try_star_tree(ctx, segment)
             if stp is not None:
                 sub = self.execute_segment(stp.ctx2, stp.tree.view, valid_docs=stp.record_mask)
                 reassemble(stp, sub)

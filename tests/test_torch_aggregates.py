@@ -582,7 +582,7 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     import torch
 
     import chip_smoke
-    from pinot_tpu_torch.engine import join_kernels, scan
+    from pinot_tpu_torch.engine import join_kernels, kernels, scan
     from pinot_tpu_torch.multistage import runtime
     from pinot_tpu_torch.parallel import combine
     from pinot_tpu_torch.query import executor
@@ -593,17 +593,18 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0}
-    for name, key in (("masked_sums_answer", "masked_sums"),
-                      ("masked_sums_fused_answer", "masked_sums_fused")):
-        real = getattr(scan, name)
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
+                              (scan, "masked_sums_fused_answer", "masked_sums_fused"),
+                              (kernels, "bitmap_filter", "bitmap_filter")):
+        real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
             counts[_key] += 1
             return _real(*args)
-        monkeypatch.setattr(scan, name, counted)
-    monkeypatch.setattr(scan, "reset_launch_counts", lambda: counts.update(
-        masked_sums=0, masked_sums_fused=0))
+        monkeypatch.setattr(module, name, counted)
+    monkeypatch.setattr(chip_smoke, "reset_launch_counts",
+                        lambda: counts.update(dict.fromkeys(counts, 0)))
     monkeypatch.setattr(chip_smoke, "launch_counts", lambda: dict(counts))
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, flush: (fn(), 1.0)[1])
     for name, value in (("L2_FLUSH_BYTES", 8), ("AGGS_CONSUMING_ROWS", 32_768),
@@ -618,6 +619,8 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     class Args:
         seed, trace = SEED, False
     launches, cases = chip_smoke.run_aggs(Args(), table, cols, str(tmp_path))
-    assert launches == {"masked_sums": 0, "masked_sums_fused": 0}
+    # the IN_ID_SET query's lo_quantity > 40 leaf (one mask per segment, one
+    # over the set) and the join's supplier leaf read the bitmap index
+    assert launches == {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 10}
     assert {k.rsplit(", ", 1)[1] for k in cases} == {"one segment", "stacked set"}
     assert all(c["bound_by"] == "bytes" and c["bound_ms"] > 0 for c in cases.values())

@@ -411,7 +411,7 @@ def test_the_smoke_expr_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     import torch
 
     import chip_smoke
-    from pinot_tpu_torch.engine import join_kernels
+    from pinot_tpu_torch.engine import join_kernels, kernels
     from pinot_tpu_torch.multistage import runtime
     from pinot_tpu_torch.parallel import combine
     from pinot_tpu_torch.query import executor
@@ -423,17 +423,18 @@ def test_the_smoke_expr_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0}
-    for name, key in (("masked_sums_answer", "masked_sums"),
-                      ("masked_sums_fused_answer", "masked_sums_fused")):
-        real = getattr(scan, name)
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
+                              (scan, "masked_sums_fused_answer", "masked_sums_fused"),
+                              (kernels, "bitmap_filter", "bitmap_filter")):
+        real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
             counts[_key] += 1
             return _real(*args)
-        monkeypatch.setattr(scan, name, counted)
-    monkeypatch.setattr(scan, "reset_launch_counts", lambda: counts.update(
-        masked_sums=0, masked_sums_fused=0))
+        monkeypatch.setattr(module, name, counted)
+    monkeypatch.setattr(chip_smoke, "reset_launch_counts",
+                        lambda: counts.update(dict.fromkeys(counts, 0)))
     monkeypatch.setattr(chip_smoke, "launch_counts", lambda: dict(counts))
     monkeypatch.setattr(chip_smoke, "EXPR_CONSUMING_ROWS", 32_768)
     # the expr_case timing (CUDA graphs and events, a 256 MiB L2 flush)
@@ -449,7 +450,7 @@ def test_the_smoke_expr_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     class Args:
         seed, trace = SEED, False
     launches, case = chip_smoke.run_expr(Args(), table, cols, str(tmp_path))
-    assert launches == {"expr": {"masked_sums": 9, "masked_sums_fused": 0},
-                        "host": {"masked_sums": 0, "masked_sums_fused": 0}}
+    assert launches == {"expr": {"masked_sums": 9, "masked_sums_fused": 0, "bitmap_filter": 0},
+                        "host": {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}}
     m = cols["lo_quantity"][:table[0].num_docs] < 25
     assert case["rows"] == table[0].num_docs and case["count"] == int(m.sum())

@@ -249,14 +249,25 @@ def test_compute_filter_count_equals_the_mask_sum(env):
     "SELECT COUNT(*) FROM lineorder WHERE lo_suppkey = 17 AND lo_orderdate < 19940101",
 ], ids=IDS + ["dense", "two_columns", "high_card"])
 def test_select_bitmap_leaves_picks_the_jax_leaves(env, sql):
-    from pinot_tpu.engine.calibrate import get_caps
-    assert BITMAP_SEL_CAP == get_caps().bitmap_sel_cap
-    for seg, jseg in zip(env["segs"], env["jax"]):
-        plan = plan_segment(compile_query(sql, seg.schema), seg)
-        jplan = jax_plan(jax_compile(sql, jseg.schema), jseg)
-        assert plan.kind == jplan.kind
-        if plan.kind != "empty":
-            assert select_bitmap_leaves(plan, seg) == jax_select_bitmap_leaves(jplan, jseg)
+    """The port's rule is the JAX planner's: held at the port's cap (set on
+    the H100) and at the JAX package's default (the TPU's)."""
+    from pinot_tpu.engine import calibrate
+    from pinot_tpu_torch.query import planner
+    old = calibrate.get_caps()
+    try:
+        for cap in (BITMAP_SEL_CAP, old.bitmap_sel_cap):
+            calibrate.set_caps(calibrate.KernelCaps(**{**old.__dict__, "bitmap_sel_cap": cap}))
+            planner.BITMAP_SEL_CAP = cap
+            for seg, jseg in zip(env["segs"], env["jax"]):
+                plan = plan_segment(compile_query(sql, seg.schema), seg)
+                jplan = jax_plan(jax_compile(sql, jseg.schema), jseg)
+                assert plan.kind == jplan.kind
+                if plan.kind != "empty":
+                    assert select_bitmap_leaves(plan, seg) == \
+                        jax_select_bitmap_leaves(jplan, jseg)
+    finally:
+        calibrate.set_caps(old)
+        planner.BITMAP_SEL_CAP = BITMAP_SEL_CAP
 
 
 def _oracle(cols, qid):
@@ -332,8 +343,9 @@ def test_bitmap_filters_match_the_reference_and_numpy(env, qid, sql):
 def test_bitmap_leaves_launch_on_the_served_paths(env, monkeypatch):
     """The plain body's selective dictionary leaves go through
     `bitmap.bitmap_filter`: the whole tree in "mask" mode when every leaf is a
-    bitmap leaf (one call per segment, one for the set), "words" per bitmap
-    leaf in a mixed tree; the scan's band plans never call it."""
+    bitmap leaf (one call per segment, one for the set), and a one-leaf
+    "mask" call per bitmap leaf in a mixed tree; the scan's band plans never
+    call it."""
     calls = []
     real = bitmap.bitmap_filter
 
@@ -350,7 +362,7 @@ def test_bitmap_leaves_launch_on_the_served_paths(env, monkeypatch):
     assert calls == [("mask", 2, 3)]
     calls.clear()
     execute_query(segs, QUERIES[2][1], device=CPU)
-    assert calls == [("words", 1, 2)] * SEGMENTS
+    assert calls == [("mask", 1, 2)] * SEGMENTS
     calls.clear()
     execute_query(segs, "SELECT COUNT(*) FROM lineorder WHERE lo_discount = 2", device=CPU)
     assert calls == []
@@ -469,19 +481,19 @@ def test_the_smoke_index_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     for module in (executor, combine):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    counts = {"bitmap_filter": 0}
-    real = bitmap.bitmap_filter
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
+                              (scan, "masked_sums_fused_answer", "masked_sums_fused"),
+                              (kernels, "bitmap_filter", "bitmap_filter")):
+        real = getattr(module, name)
 
-    def counted(*args):
-        counts["bitmap_filter"] += 1
-        return real(*args)
-    monkeypatch.setattr(kernels, "bitmap_filter", counted)
-    monkeypatch.setattr(chip_smoke, "bitmap_launches", lambda: counts["bitmap_filter"])
-    monkeypatch.setattr(chip_smoke, "reset_bitmap_launches",
-                        lambda: counts.update(bitmap_filter=0))
-    monkeypatch.setattr(chip_smoke, "launch_counts", lambda: {
-        "masked_sums": scan.masked_sums.launches,
-        "masked_sums_fused": scan.masked_sums_fused.launches})
+        def counted(*args, _real=real, _key=key):
+            counts[_key] += 1
+            return _real(*args)
+        monkeypatch.setattr(module, name, counted)
+    monkeypatch.setattr(chip_smoke, "reset_launch_counts",
+                        lambda: counts.update(dict.fromkeys(counts, 0)))
+    monkeypatch.setattr(chip_smoke, "launch_counts", lambda: dict(counts))
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, flush: (fn(), 1.0)[1])
     monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, flush: (fn(), 1.0)[1])
     for name, value in (("L2_FLUSH_BYTES", 8), ("INDEX_RUNS", 1), ("INDEX_CROSSOVER_RUNS", 1),

@@ -200,6 +200,38 @@ def test_the_stacked_star_path_matches_the_jax_mesh(env, monkeypatch):
                            jmx.execute(env["jax"], sql).rows)
 
 
+@pytest.mark.parametrize("route", ["set", "execute_many", "pipeline"])
+def test_a_set_whose_slot_plans_do_not_stack_traverses_each_tree_once(env, monkeypatch,
+                                                                      route):
+    """When the slot plans do not stack, the set plans a StarLoopPlan and the
+    per-segment executor answers from its fits: each tree is traversed once
+    per query, and the answer is the stacked path's."""
+    from pinot_tpu_torch.query import executor
+    segs, sql = env["segs"], ssb.STAR_QUERY
+    mx = MeshQueryExecutor(device=CPU)
+    want = mx.execute(segs, sql).rows
+    calls = []
+
+    def counted(module):
+        real = module.try_star_tree
+
+        def fit(ctx, segment):
+            calls.append(segment)
+            return real(ctx, segment)
+        monkeypatch.setattr(module, "try_star_tree", fit)
+    counted(combine)
+    counted(executor)
+    monkeypatch.setattr(MeshQueryExecutor, "_plan_star_device", lambda self, plans: None)
+    assert isinstance(mx._plan_for_set(compile_query(sql, segs[0].schema), segs)[0],
+                      combine.StarLoopPlan)
+    calls.clear()
+    got = {"set": lambda: mx.execute(segs, sql).rows,
+           "execute_many": lambda: mx.execute_many(segs, [sql])[0].rows,
+           "pipeline": lambda: _served(segs, sql, mx)}[route]()
+    assert _rows_match(got, want), (got, want)
+    assert len(calls) == len(segs) and {id(s) for s in calls} == {id(s) for s in segs}
+
+
 def test_star_randomized_differential(env):
     """Random queries over the trees' dimensions and stored aggregations: the
     star answers (per segment and stacked) equal the plain rows'."""
