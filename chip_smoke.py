@@ -98,7 +98,7 @@ exits non-zero:
    an id band, which must launch `masked_sums` once per segment and once over
    the set; a filter of device math; a GROUP BY of AVG(power()) and
    MAX(abs())), each per segment and over the set against numpy (rel 1e-5,
-   abs 0.05) with plan kind `device`, 10 warm runs: `expr_query` lines.
+   abs 0.05) with plan kind `device`, 5 warm runs: `expr_query` lines.
    Host-routed queries (a GROUP BY on an expression, string functions in the
    filter and the GROUP BY, a selection and a join whose leaf filters need
    the host mask), with plan kind `host` (or a selection's host-mask reason)
@@ -111,7 +111,7 @@ exits non-zero:
    Q1.1's filter, DISTINCTCOUNTHLL(lo_custkey), the theta sketch, the
    t-digest p95; the power sums: VAR_POP, STDDEV_SAMP, SKEWNESS, KURTOSIS of
    lo_discount; DISTINCTCOUNT and VAR_SAMP by lo_region), per segment and
-   over the set, plan kind `device`, 10 warm runs: exact answers equal numpy,
+   over the set, plan kind `device`, 5 warm runs: exact answers equal numpy,
    moments at rel 1e-5 (skewness abs 1e-4), each sketch (HLL, theta,
    t-digest) equal to the same path run with `device="cpu"` and within its
    own error of numpy's exact value (5%; one lo_discount step).
@@ -146,13 +146,42 @@ exits non-zero:
    the maximum (every plan pruned, no launch), a selection whose host mask
    reads the inverted postings, and IS NULL / IS NOT NULL over a 2,097,152-row
    segment (seed + 4) with 1% of lo_revenue null: `index_query` lines with
-   warm times (10 runs), phases and launches. Then `bitmap_case` lines (the
+   warm times (5 runs), phases and launches. Then `bitmap_case` lines (the
    kernel against its plain version in its three modes, one segment and the
    stacked set, L2 flushed, against the bound of the words it reads) and
    `crossover` lines (bitmap leaves against LUT and interval leaves at
    lo_quantity selectivities 1/50 to 49/50, in an all-bitmap tree and in a
    mixed one, end to end and the row mask alone; the set's per-segment star
    loop against the stacked device star path).
+12. search — the search indexes and chunk-compressed raw columns: lineorder
+   from --seed + 5 (524,288 rows in 4 aligned segments) with `ssb`'s
+   search columns (a githubEvents-like JSON payload, a zipf comment, SSB's
+   customer name, a clustered point with 0.1% nulls), built with a JSON index
+   on lo_payload, a text index on lo_comment, an FST index on lo_custname, a
+   geo index on (lo_lng, lo_lat) at 0.1 degree, an inverted index on
+   lo_discount and its four raw columns zlib-compressed (`search_build`
+   lines: each index's build seconds and bytes, compressed against raw
+   bytes); and a copy without the search indexes and without compression.
+   These builds (and phase 4's FOR table rebuilt with zlib, and the
+   consuming rows) run in 4 worker processes the smoke starts with phase 4.
+   `ssb.SEARCH_QUERIES` (JSON_MATCH on a path, an array with a range and a
+   presence test; TEXT_MATCH as a term or a phrase by lo_region, a prefix, a
+   regex, `= 0`, beside `lo_discount = 2` (a bitmap leaf: one
+   `bitmap_filter` launch a pass) and under an ORDER BY ... LIMIT 10;
+   REGEXP_LIKE through the FST index, its LUT equal to the copy's; the
+   distance predicate at 1, 10 and 100 km, its cell candidates a superset of
+   the matches) per segment, over the set and through the pipeline on both
+   tables: every answer against numpy (Python json and re, f64 haversine;
+   counts exactly, sums rel 1e-5, abs 0.05; a distance within 10 m of the
+   radius may fall either way in f32) and the table's against the copy's,
+   every checked cold run held to its exact launches (`search_query` lines,
+   5 warm runs on the indexed table, whose warm runs must decompress no
+   chunk). Q1.1 over the compressed table launches `masked_sums` as the
+   copy does, and the FOR query over phase 4's FOR table rebuilt with zlib
+   `masked_sums_fused` once per segment as phase 4's table does. Last,
+   262,144 rows pumped as JSON rows into a staged consuming segment: the
+   JSON and the TEXT query over its view and beside the table (the GROUP BY
+   takes the set's per-segment pre-bail): `search_consuming`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -163,7 +192,8 @@ launches neither scan kernel: its leaf filters are the plain mask and its
 device programs are torch code; the realtime phase must launch both; the
 expr phase's device queries `masked_sums`, its host queries none; the aggs
 phase no scan; `bitmap_filter` where a plain-body filter or a selection's
-device mask reads bitmap leaves, one launch per mask),
+device mask reads bitmap leaves, one launch per mask; the search phase all
+three),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -172,9 +202,11 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -631,7 +663,7 @@ def run_path(args, work: str):
         if args.trace:
             fields["trace"] = trace_query(lambda: execute_query(segs, sql))
         log("query", **fields)
-    return launches, table, cols
+    return launches, table, cols, for_table
 
 
 # -- phase 5: serve --------------------------------------------------------------
@@ -1549,7 +1581,7 @@ EXPR_FAMILIES = [
 EXPR_RTOL = 1e-5                       # f32 results against the f64 oracle
 EXPR_TRIG_ATOL = 1e-6                  # trig and exp: rel 1e-5 with abs 1e-6
 EXPR_DEVICE_RUNS = 5
-EXPR_QUERY_RUNS = 10                   # warm runs of a device-routed query
+EXPR_QUERY_RUNS = 5    # warm runs of a device-routed query (cut from 10 for the search phase)
 EXPR_HOST_RUNS = 0                     # warm runs of a host-routed query (its cold run
                                        # alone: seconds a run, host-bound)
 EXPR_CONSUMING_ROWS = 2_097_152        # rows pumped into the consumer without staging
@@ -1887,7 +1919,7 @@ def run_expr(args, table, cols, work) -> tuple:
 
 # -- phase 10: aggs --------------------------------------------------------------------
 
-AGGS_DEVICE_RUNS = 10          # warm runs of a device-routed aggregation query
+AGGS_DEVICE_RUNS = 5   # warm runs of a device-routed query (cut from 10 for the search phase)
 AGGS_HOST_RUNS = 0             # warm runs of a host-routed one (seconds a run: its
                                # cold run alone)
 AGGS_CONSUMING_ROWS = 2_097_152
@@ -2306,7 +2338,7 @@ def aggs_cases(table, mx) -> dict:
 
 # -- phase 11: index --------------------------------------------------------------
 
-INDEX_RUNS = 10                 # warm runs of each index-phase query and path
+INDEX_RUNS = 5         # warm runs of each query and path (cut from 10 for the search phase)
 INDEX_CROSSOVER_RUNS = 5        # warm runs of each crossover regime
 INDEX_NULL_ROWS = 2_097_152     # the null table: one segment
 INDEX_NULL_FRACTION = 0.01
@@ -2700,6 +2732,436 @@ def run_index(args, plain_table, cols, work) -> tuple:
     return launches, by_route, cases
 
 
+# -- phase 12: search -------------------------------------------------------------
+
+# 4 segments of 131,072 rows: the deployment's 2,097,152 halved twice, because
+# the JSON and text builds are Python per document: the indexed table's build
+# passes 90 s at 2,097,152 rows, and at 1,048,576 the phase put the smoke past
+# its time limit (PERF.md)
+SEARCH_ROWS = 524_288
+SEARCH_SEGMENTS = 4
+SEARCH_RUNS = 5                  # warm runs of each query on the indexed table
+SEARCH_VIEW_ROWS = 262_144       # rows pumped into the consuming segment
+SEARCH_RAW = ["lo_extendedprice", "lo_revenue", "lo_lng", "lo_lat"]
+SEARCH_INDEXES = dict(json_index_columns=["lo_payload"], text_index_columns=["lo_comment"],
+                      fst_index_columns=["lo_custname"], geo_index_pairs=["lo_lng,lo_lat"])
+SEARCH_RADII_M = (1_000.0, 10_000.0, 100_000.0)
+# a distance this close to the radius may compare either way in f32 (the
+# device narrows the coordinates to f32: ~1.1 m at 180 degrees)
+SEARCH_GEO_BAND_M = 10.0
+SEARCH_SOURCE = ("Apache Pinot docs: JSON index, Text search support, FST index, "
+                 "Geospatial (H3 index), Forward index (raw compressionCodec)")
+
+
+def search_masks(c) -> dict:
+    """The row masks of the search queries' filters, from Python's json over
+    the payloads and re over the comments and names: no index code."""
+    import re
+    from pinot_tpu_torch import ssb
+    n = len(c["lo_revenue"])
+    docs = [json.loads(d) for d in c["lo_payload"]]
+
+    def rows(pred):
+        return np.fromiter(map(pred, docs), dtype=bool, count=n)
+
+    def comment(word_rx):
+        rx = re.compile(r"(?:^| )(?:%s)(?: |$)" % word_rx)
+        return np.fromiter((rx.search(s) is not None for s in c["lo_comment"]),
+                           dtype=bool, count=n)
+    names, inverse = np.unique(c["lo_custname"].astype(str), return_inverse=True)
+    name_rx = re.compile(ssb.SEARCH_CUSTNAME_REGEX)
+    term = comment(re.escape(ssb.SEARCH_TERM))
+    return {
+        "json_type": rows(lambda d: d["type"] == "PushEvent"),
+        "json_array_range": rows(lambda d: "t3" in d["tags"] and d["qty"] > 40),
+        "json_presence": rows(lambda d: "org" in d["actor"]),
+        "text_term": term,
+        "text_or": term | comment(re.escape(ssb.SEARCH_PHRASE)),
+        "text_prefix": comment(re.escape(ssb.SEARCH_PREFIX) + "[a-z0-9_]*"),
+        "text_regex": comment(ssb.SEARCH_REGEX),
+        "regexp_fst": np.array([name_rx.search(s) is not None for s in names])[inverse],
+    }
+
+
+def search_answers(c, m) -> dict:
+    """numpy float64 answers of `ssb.SEARCH_QUERIES` (but the distance query)
+    from the masks of `search_masks`."""
+    from pinot_tpu_torch.ssb import REGIONS
+    rev = c["lo_revenue"]
+
+    def count_sum(mask):
+        return [[int(mask.sum()), float(rev[mask].sum()) if mask.any() else None]]
+    term = m["text_term"]
+    top = np.nonzero(term)[0]
+    top = top[np.argsort(-rev[top], kind="stable")][:10]
+    out = {qid: count_sum(m[qid]) for qid in ("json_type", "json_array_range",
+                                              "json_presence", "text_prefix",
+                                              "text_regex", "regexp_fst")}
+    out.update(
+        text_or=[[r, int((m["text_or"] & (c["lo_region"] == r)).sum()),
+                  float(rev[m["text_or"] & (c["lo_region"] == r)].sum())]
+                 for r in sorted(REGIONS) if (m["text_or"] & (c["lo_region"] == r)).any()],
+        text_not=count_sum(~m["text_or"]),
+        text_mixed=count_sum(term & (c["lo_discount"] == 2)),
+        text_select=[[int(c["lo_custkey"][i]), float(rev[i])] for i in top])
+    return out
+
+
+def stored_points(c, schema):
+    """lo_lng, lo_lat as the table stores them: a null as the column's null value."""
+    return [np.array([schema.field_spec(col).null_value if v is None else v for v in c[col]],
+                     dtype=np.float64) for col in ("lo_lng", "lo_lat")]
+
+
+def haversine_m(lng, lat, lng0, lat0):
+    """Great-circle distance in metres, float64 (the mean Earth radius of the
+    reference's ST_DISTANCE)."""
+    p1, p2 = np.radians(lat), math.radians(lat0)
+    a = (np.sin((p2 - p1) / 2) ** 2
+         + np.cos(p1) * math.cos(p2) * np.sin(np.radians(lng0 - lng) / 2) ** 2)
+    return 2 * 6371008.8 * np.arcsin(np.sqrt(np.minimum(a, 1.0)))
+
+
+def build_search_table(rows: int, segments: int, seed: int, out: str) -> tuple:
+    """In a worker process: the search table with its JSON, text, FST and geo
+    indexes, an inverted index on lo_discount and its raw columns
+    zlib-compressed, each index builder timed inside the writer. Returns
+    (paths, generate s, build s, build s by index)."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment import writer
+    from pinot_tpu_torch.segment.indexes import geo
+    t0 = time.perf_counter()
+    cols = ssb.make_search_columns(rows, seed)
+    gen_s = time.perf_counter() - t0
+    build_s = {}
+    for module, name, kind in ((writer, "create_json_index", "json"),
+                               (writer, "create_text_index", "text"),
+                               (writer, "create_fst_index", "fst"),
+                               (geo, "create_geo_index", "geo"),
+                               (writer, "write_chunked", "compression")):
+        def clocked(*a, _real=getattr(module, name), _kind=kind, **k):
+            t = time.perf_counter()
+            out = _real(*a, **k)
+            build_s[_kind] = build_s.get(_kind, 0.0) + time.perf_counter() - t
+            return out
+        setattr(module, name, clocked)   # this worker's modules only
+    t0 = time.perf_counter()
+    paths = writer.build_aligned_segments(
+        ssb.search_schema(), cols, out, "lineorder", segments, writer.SegmentGeneratorConfig(
+            inverted_index_columns=["lo_discount"], no_dictionary_columns=SEARCH_RAW,
+            raw_compression="zlib", **SEARCH_INDEXES))
+    return paths, gen_s, time.perf_counter() - t0, build_s
+
+
+def build_search_copy(rows: int, segments: int, seed: int, out: str) -> tuple:
+    """In a worker process: the search table's copy without the search
+    indexes and without compression, from the same seed, with the oracle's
+    masks and the stored points over its rows. Returns (paths, build s,
+    masks, oracle s, (lng, lat))."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    cols = ssb.make_search_columns(rows, seed)
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(ssb.search_schema(), cols, out, "lineorder", segments,
+                                   SegmentGeneratorConfig(inverted_index_columns=["lo_discount"],
+                                                          no_dictionary_columns=SEARCH_RAW))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masks = search_masks(cols)
+    return (paths, build_s, masks, time.perf_counter() - t0,
+            stored_points(cols, ssb.search_schema()))
+
+
+def build_for_zlib(main_rows: int, for_rows: int, seed: int, out: str) -> tuple:
+    """In a worker process: phase 4's FOR table (its first `for_rows` rows,
+    lo_quantity raw) with its raw columns zlib-compressed. Returns (paths,
+    build s)."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    cols = {k: v[:for_rows] for k, v in ssb.make_columns(main_rows, seed).items()}
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(ssb.ssb_schema(), cols, out, "lineorder", FOR_SEGMENTS,
+                                   SegmentGeneratorConfig(no_dictionary_columns=["lo_quantity"],
+                                                          raw_compression="zlib"))
+    return paths, time.perf_counter() - t0
+
+
+def make_search_view_rows(rows: int, seed: int) -> tuple:
+    """In a worker process: the consuming segment's rows as JSON row messages
+    (the JSON lane: the block codec carries no JSON column) and the oracle's
+    masks over them. Returns (messages, masks)."""
+    from pinot_tpu_torch import ssb
+    schema, cols = ssb.search_schema(), ssb.make_search_columns(rows, seed)
+    names = [f.name for f in schema.fields]
+    messages = [json.dumps(dict(zip(names, row)))
+                for row in zip(*[cols[n].tolist() for n in names])]
+    return messages, search_masks(cols)
+
+
+def start_search_builds(pool, args, work) -> dict:
+    """Submit phase 12's builds to `pool` (worker processes): the indexed
+    search table, its copy with the oracle's masks, phase 4's FOR table with
+    zlib, and the consuming rows. They are Python-bound; the smoke submits
+    them when it starts, so that they run beside the earlier phases, and
+    phase 12 waits for what is not done. Returns the futures by name."""
+    return {
+        "table": pool.submit(build_search_table, SEARCH_ROWS, SEARCH_SEGMENTS, args.seed + 5,
+                             os.path.join(work, "search")),
+        "copy": pool.submit(build_search_copy, SEARCH_ROWS, SEARCH_SEGMENTS, args.seed + 5,
+                            os.path.join(work, "search_copy")),
+        "for_zlib": pool.submit(build_for_zlib, args.rows, FOR_ROWS, args.seed,
+                                os.path.join(work, "for_zlib")),
+        "view": pool.submit(make_search_view_rows, SEARCH_VIEW_ROWS, args.seed + 6)}
+
+
+def run_search(args, main_cols, for_table, work, jobs) -> tuple:
+    """Phase 12: the search indexes. lineorder from --seed + 5 with a JSON
+    payload, a comment, a customer name and a point, built with JSON, text,
+    FST and geo indexes, an inverted index on lo_discount and its raw columns
+    chunk-compressed with zlib; and a copy without the search indexes and
+    without compression. Each query per segment, over the set and through the
+    pipeline on both, against numpy and against each other, each checked run
+    held to its exact launches; the distance predicate at three radii;
+    REGEXP_LIKE's LUT from the FST index against the copy's; Q1.1 over the
+    compressed table and the FOR query over phase 4's FOR table rebuilt with
+    zlib; then 262,144 rows pumped into a staged consuming segment, queried
+    alone and beside the table. The tables, the oracle's masks and the
+    consuming rows come from `jobs` (`start_search_builds`). Returns
+    (launches of the checked runs by kernel, launches by route)."""
+    from pinot_tpu_torch import execute_query, load_segment, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query import predicate
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.segment import compression
+    from pinot_tpu_torch.segment.indexes.fst import required_literals
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+
+    schema = ssb.search_schema()
+    t0 = time.perf_counter()
+    paths, gen_s, table_s, build_s = jobs["table"].result()
+    copy_paths, copy_s, masks, oracle_s, (lng, lat) = jobs["copy"].result()
+    for_paths, for_s = jobs["for_zlib"].result()
+    waited_s = time.perf_counter() - t0
+    table = [load_segment(p) for p in paths]
+    copy = [load_segment(p) for p in copy_paths]
+    for_zlib = [load_segment(p) for p in for_paths]
+    cols = ssb.make_columns(SEARCH_ROWS, args.seed + 5)   # the search table's base columns
+
+    def sizes(segs, suffix):
+        return sum(os.path.getsize(os.path.join(s.path, "cols", f)) for s in segs
+                   for f in os.listdir(os.path.join(s.path, "cols")) if f.endswith(suffix))
+    compressed = {c: sizes(table, f"{c}.fwdc.bin") for c in SEARCH_RAW}
+    raw_bytes = {c: sizes(copy, f"{c}.fwd.npy") for c in SEARCH_RAW}
+    log("search_data", rows=SEARCH_ROWS, segments=SEARCH_SEGMENTS, seed=args.seed + 5,
+        source=SEARCH_SOURCE, generate_s=gen_s,
+        index_types={c: table[0].column(c).index_types for c in table[0].column_names
+                     if table[0].column(c).index_types},
+        geo_indexes=table[0].metadata.get("geoIndexes"))
+    for kind, suffix in (("json", ".json.npz"), ("text", ".text.npz"), ("fst", ".fst.npz"),
+                         ("geo", ".geo.npz")):
+        log("search_build", index=kind, build_s=build_s.get(kind, 0.0),
+            index_bytes=sizes(table, suffix))
+    log("search_build", index="compression", codec="zlib", build_s=build_s["compression"],
+        compressed_bytes=compressed, raw_bytes=raw_bytes,
+        ratio={c: raw_bytes[c] / compressed[c] for c in SEARCH_RAW})
+    log("search_build", index="all", table_build_s=table_s, copy_build_s=copy_s,
+        for_table_zlib_build_s=for_s, waited_for_workers_s=waited_s,
+        for_compressed_columns=[c for c in for_zlib[0].column_names
+                                if for_zlib[0].column(c).meta.get("compression")])
+    answers = search_answers(cols, masks)
+    log("search_oracle", seconds=oracle_s, matches={k: int(v.sum()) for k, v in masks.items()})
+
+    mx = MeshQueryExecutor()
+    launches = counts_of()
+    by_route = {}
+
+    def served(segs, sql):
+        ctx = compile_query(sql, segs[0].schema)
+        pipeline = DeviceQueryPipeline(mesh_exec=mx)
+        try:
+            partial = pipeline.execute_partial(ctx, segs)
+        finally:
+            pipeline.stop()
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        return reduce_to_result(ctx, merge_segment_results([partial], aggs), aggs,
+                                list(ctx.group_by))
+
+    routes = {"per_segment": lambda segs, sql: execute_query(segs, sql),
+              "set": lambda segs, sql: mx.execute(segs, sql),
+              "pipeline": served}
+    zlib_calls = [0]
+    codec = compression.CODECS["zlib"]
+
+    def counted_decompress(blob, _real=codec[1]):
+        zlib_calls[0] += 1
+        return _real(blob)
+    compression.CODECS["zlib"] = (codec[0], counted_decompress)
+
+    def checked(label, qid, sql, segs, want, per_pass, set_pass=None, runs=SEARCH_RUNS):
+        """Each route: one cold run with the counts set to 0 just before and
+        read just after, held against `want` and the expected launches
+        (`per_pass` for each segment's pass, `set_pass` (default: the same)
+        for the set's one pass); `runs` warm runs on the per-segment and set
+        routes, which must decompress no chunk. Returns each route's rows."""
+        plan = plan_segment(compile_query(sql, segs[0].schema), segs[0])
+        got = {}
+        for route, run in routes.items():
+            reset_launch_counts()
+            zlib_calls[0] = 0
+            t0 = time.perf_counter()
+            result = run(segs, sql)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            if not (want(result.rows) if callable(want) else index_rows_match(result.rows, want)):
+                raise AssertionError(f"search {qid} on the {label} ({route}): got "
+                                     f"{result.rows}, oracle {want}")
+            one = per_pass if route == "per_segment" else (set_pass or per_pass)
+            passes = len(segs) if route == "per_segment" else 1
+            expect = {k: v * passes for k, v in one.items()}
+            if counts != expect:
+                raise AssertionError(f"search {qid} on the {label} ({route}): launches "
+                                     f"{counts}, expected {expect}")
+            for k, v in counts.items():
+                launches[k] += v
+                by_route.setdefault(route, counts_of())[k] += v
+            fields = dict(query=qid, table=label, route=route,
+                          rows=sum(s.num_docs for s in segs), plan=plan.kind,
+                          leaves=[type(leaf).__name__ for leaf in plan.filter_prog.leaves],
+                          answer=result.rows[:10], launches=counts, cold_ms=cold_ms,
+                          cold_decompress_calls=zlib_calls[0])
+            if route != "pipeline" and runs:
+                zlib_calls[0] = 0
+                warm, results = warm_times(lambda: run(segs, sql), runs=runs)
+                warm.pop("median_s")
+                if zlib_calls[0]:
+                    raise AssertionError(f"search {qid} ({route}): warm runs decompressed "
+                                         f"{zlib_calls[0]} chunks")
+                phases = [r.stats["phaseTimesMs"] for r in results]
+                fields.update(warm, phase_median_ms={
+                    k: statistics.median(p[k] for p in phases) for k in phases[0]})
+            log("search_query", **fields)
+            got[route] = result.rows
+        return got
+
+    def both(qid, sql, want, per_pass=None, set_pass=None):
+        """The query on the indexed table (warm runs too) and on the copy
+        (cold runs): equal answers, equal launches."""
+        per_pass = per_pass or counts_of()
+        ours = checked("table", qid, sql, table, want, per_pass, set_pass)
+        theirs = checked("copy", qid, sql, copy, want, per_pass, set_pass, runs=0)
+        for route in ours:
+            if not index_rows_match(ours[route], theirs[route]):
+                raise AssertionError(f"search {qid} ({route}): the table answers "
+                                     f"{ours[route]}, the copy {theirs[route]}")
+
+    try:
+        # 1-2. JSON_MATCH; 3-5. TEXT_MATCH (the mixed tree's lo_discount = 2
+        # leaf is a bitmap leaf: one bitmap_filter launch a pass)
+        for qid, sql in ssb.SEARCH_QUERIES.items():
+            if qid in ("regexp_fst", "geo_distance"):
+                continue
+            both(qid, sql, answers[qid],
+                 counts_of(bitmap_filter=1) if qid == "text_mixed" else None)
+        # 6. REGEXP_LIKE through the FST index: the copy's LUT, fewer regex calls
+        sql = ssb.SEARCH_QUERIES["regexp_fst"]
+        luts = [plan_segment(compile_query(sql, schema), s[0]).filter_prog.leaves[0].lut
+                for s in (table, copy)]
+        if not np.array_equal(luts[0], luts[1]):
+            raise AssertionError("regexp_fst: the FST index's LUT differs from the copy's")
+        reader = table[0].column("lo_custname")
+        lut_ms = {}
+        for how, fst in (("fst", reader.fst_index), ("scan", None)):
+            t0 = time.perf_counter()
+            predicate.build_lut("regexp_like", [ssb.SEARCH_CUSTNAME_REGEX],
+                                reader.dictionary, reader.cardinality, fst_index=fst)
+            lut_ms[how] = (time.perf_counter() - t0) * 1e3
+        cands = reader.fst_index.candidate_ids(ssb.SEARCH_CUSTNAME_REGEX)
+        log("search_regex", pattern=ssb.SEARCH_CUSTNAME_REGEX,
+            required_literals=required_literals(ssb.SEARCH_CUSTNAME_REGEX),
+            dictionary=reader.cardinality, candidates=int(len(cands)),
+            matches=int(luts[0].sum()), lut_ms=lut_ms)
+        both("regexp_fst", sql, answers["regexp_fst"])
+        # 7. the distance predicate: the geo cell candidates (a superset of the
+        # exact matches) ANDed with the exact compare, and the compare alone
+        null_lng = schema.field_spec("lo_lng").null_value
+        i0 = int(np.flatnonzero(lng != null_lng)[0])   # the first stored point
+        x, y = float(lng[i0]), float(lat[i0])
+        dist = haversine_m(lng, lat, x, y)
+        for r in SEARCH_RADII_M:
+            sql = ssb.SEARCH_QUERIES["geo_distance"].format(lng=repr(x), lat=repr(y), r=r)
+            lo, hi = (int((dist < r + d).sum()) for d in (-SEARCH_GEO_BAND_M, SEARCH_GEO_BAND_M))
+            candidates, bounds = 0, [0]
+            for s in table:
+                bounds.append(bounds[-1] + s.num_docs)
+                cand = s.geo_index("lo_lng", "lo_lat").candidate_mask(x, y, r, s.num_docs)
+                if (dist[bounds[-2]:bounds[-1]] < r + SEARCH_GEO_BAND_M)[~cand].any():
+                    raise AssertionError(f"geo r={r}: a match lies outside the candidates")
+                candidates += int(cand.sum())
+            got = {label: checked(label, f"geo_{r:g}m", sql, segs,
+                                  lambda rows: len(rows) == 1 and lo <= rows[0][0] <= hi,
+                                  counts_of(), runs=SEARCH_RUNS if label == "table" else 0)
+                   for label, segs in (("table", table), ("copy", copy))}
+            if got["table"] != got["copy"]:
+                raise AssertionError(f"geo r={r}: the table counts {got['table']}, the copy "
+                                     f"{got['copy']}")
+            log("search_geo", radius_m=r, center=[x, y], candidates=candidates,
+                exact=int((dist < r).sum()), band=[lo, hi], counts=got["table"])
+        # 8. the compressed raw columns keep their scan routes: Q1.1 over the
+        # search table, the FOR query over phase 4's FOR table rebuilt with zlib
+        both("q1_1_compressed", ssb.QUERY, oracle_q11(cols), counts_of(masked_sums=1))
+        for_cols = {k: v[:FOR_ROWS] for k, v in main_cols.items()}
+        got = [checked(label, "for_sum", ssb.FOR_QUERY, segs, oracle_for(for_cols),
+                       counts_of(masked_sums_fused=1), counts_of(masked_sums=1),
+                       runs=SEARCH_RUNS if label == "for_zlib" else 0)
+               for label, segs in (("for_zlib", for_zlib), ("for_table", for_table))]
+        if any(not index_rows_match(got[0][route], got[1][route]) for route in got[0]):
+            raise AssertionError(f"for_sum: the zlib table answers {got[0]}, phase 4's {got[1]}")
+    finally:
+        compression.CODECS["zlib"] = codec
+
+    # 9. a staged consuming segment, alone and beside the table
+    messages, rt_masks = jobs["view"].result()
+    rt = ssb.make_columns(SEARCH_VIEW_ROWS, args.seed + 6)   # its base columns
+    MemoryStream.reset_all()
+    stream = MemoryStream.create("lineorder_search", 1)
+    for msg in messages:
+        stream.produce(msg, partition=0)
+    consumer = RealtimePartitionConsumer(
+        "lineorder__0__0__20261017T0000Z", TableConfig("lineorder", stream=StreamConfig(
+            topic="lineorder_search", decoder="json",
+            properties={"realtime.ingest.device.staging": "true"})), schema, 0, work)
+    t0 = time.perf_counter()
+    while consumer.mutable.num_docs < SEARCH_VIEW_ROWS:
+        if not consumer.pump():
+            raise AssertionError(f"the pump stopped at {consumer.mutable.num_docs} rows")
+    pump_s = time.perf_counter() - t0
+    view = consumer.query_segment()
+    rt_answers = search_answers(rt, rt_masks)
+    both_cols = {k: np.concatenate([cols[k], rt[k]]) for k in cols}
+    both_answers = search_answers(both_cols, {k: np.concatenate([masks[k], rt_masks[k]])
+                                             for k in masks})
+    for qid in ("json_type", "text_or"):
+        sql = ssb.SEARCH_QUERIES[qid]
+        plan, merged = mx._plan_for_set(compile_query(sql, schema), table + [view])
+        if qid == "text_or" and (plan, merged) != (None, None):
+            raise AssertionError("text_or over the table and the view: the set did not take "
+                                 "the per-segment pre-bail")
+        checked("view", qid, sql, [view], rt_answers[qid], counts_of())
+        checked("table_and_view", qid, sql, table + [view], both_answers[qid], counts_of())
+        log("search_consuming", query=qid, view_rows=view.num_docs, pump_s=pump_s,
+            set_plan="per-segment pre-bail" if plan is None else type(plan).__name__ + (
+                " (merged view)" if merged is not None else " (stacked)"))
+    consumer.mutable.release_device()
+    return launches, by_route
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -2772,11 +3234,16 @@ def main() -> int:
     # phase 4: the path; phase 5: the set executor and the pipeline over its
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
     # expressions and the host path; phase 10: the aggregation library; phase
-    # 11: the filter indexes and star-trees. Each phase returns every
+    # 11: the filter indexes and star-trees; phase 12: the search indexes and
+    # compressed raw columns. Each phase returns every
     # kernel's launches in its checked runs: the counts set to 0 just before
     # a run and read just after, each held to the run's expected count.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
+    # phase 12's tables build in worker processes beside the earlier phases
+    search_pool = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))   # one per build
+    search_jobs = start_search_builds(search_pool, args, work)
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -2785,7 +3252,7 @@ def main() -> int:
         return out
 
     try:
-        path_launches, table, cols = phase("path", run_path, args, work)
+        path_launches, table, cols, for_table = phase("path", run_path, args, work)
         serve_launches = phase("serve", run_serve, args, table, cols)
         select_launches = phase("select", run_select, args, table, cols)
         join_launches = phase("join", run_join, args, table, cols, work)
@@ -2808,7 +3275,13 @@ def main() -> int:
                                                                 table, cols, work)
         if not index_launches["bitmap_filter"]:
             raise AssertionError("the index phase launched no bitmap_filter")
+        search_launches, search_by_route = phase("search", run_search, args, cols, for_table,
+                                                 work, search_jobs)
+        if not all(search_launches.values()):
+            raise AssertionError(f"the search phase launches {search_launches}: each kernel "
+                                 "must run on its path")
     finally:
+        search_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 
     sources = {"masked_sums": ("pinot_tpu_torch/csrc/masked_sums.cu",
@@ -2822,7 +3295,7 @@ def main() -> int:
                 "select": select_launches[name], "join": join_launches[name],
                 "realtime": realtime_launches[name], "expr": expr_launches["expr"][name],
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
-                "index": index_launches[name]}
+                "index": index_launches[name], "search": search_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -2846,6 +3319,8 @@ def main() -> int:
                     "launches_by_path": by_path,
                     "launches_by_route_index": {r: c["bitmap_filter"]
                                                 for r, c in index_by_route.items()},
+                    "launches_by_route_search": {r: c["bitmap_filter"]
+                                                 for r, c in search_by_route.items()},
                     "max_abs_err": max(c["max_abs_err"] for c in bitmap_numbers.values()),
                     "ms": head["ms"], "plain_ms": head["plain_ms"],
                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -21,7 +21,9 @@ another) and its views run on the device path.
 Not ported: the completion protocol with the controller (`maybe_complete`
 raises NotImplementedError once the flush thresholds are reached),
 `RealtimeTableManager`, upsert and dedup, the row-append `MutableSegment`
-(every consumer here indexes into a `DeviceMutableSegment`), and the socket
+(every consumer here indexes into a `DeviceMutableSegment`; a table whose
+indexing config names text or inverted index columns, which need it, raises
+ValueError), and the socket
 broker's splicing fetch. The stream properties `filterExpr` and
 `columnTransforms` configure the `TransformPipeline`: with either, a block
 lane's batches go through it as column lists before they are indexed.
@@ -34,7 +36,7 @@ import time
 from typing import Optional
 
 from ..segment.mutable_device import ConsumingView, DeviceMutableSegment
-from ..segment.writer import SegmentBuilder
+from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
 from ..table import TableConfig
 from .stream import MemoryStreamConsumer, get_decoder
 from .transform import TransformPipeline, rows_to_all_columns
@@ -65,8 +67,10 @@ class RealtimePartitionConsumer:
         stream_cfg = table_cfg.stream
         props = stream_cfg.properties or {}
         staging = str(props.get("realtime.ingest.device.staging", "false")).lower() == "true"
-        self.mutable = DeviceMutableSegment(segment_name, schema, device_staging=staging,
-                                            device=device)
+        self.mutable = DeviceMutableSegment(
+            segment_name, schema, device_staging=staging, device=device,
+            text_index_columns=table_cfg.indexing.text_index_columns,
+            inverted_index_columns=table_cfg.indexing.inverted_index_columns)
         self.pipeline = TransformPipeline(schema, props.get("filterExpr"),
                                           props.get("columnTransforms"))
         self.partition = parse_llc_name(segment_name)["partition"]
@@ -135,8 +139,9 @@ class RealtimePartitionConsumer:
 
     def build_immutable(self) -> str:
         """Write the consuming segment as an immutable segment directory from
-        its column arrays (the reference's RealtimeSegmentConverter); returns
-        the directory."""
-        return SegmentBuilder(self.schema).build(
+        its column arrays (the reference's RealtimeSegmentConverter), with the
+        table's indexing config; returns the directory."""
+        return SegmentBuilder(self.schema, SegmentGeneratorConfig.from_indexing(
+            self.table_cfg.indexing)).build(
             self.mutable.snapshot_arrays(), os.path.join(self.data_dir, "realtime_build"),
             self.segment_name)

@@ -48,7 +48,12 @@ class MergedColumnReader:
 
     Dictionary-encoded in every member: the merged global dictionary and the
     remaps. Otherwise a metadata proxy (merged min/max/nulls) over the raw
-    columns."""
+    columns. The members' auxiliary indexes stay per segment: the set
+    executor sends a JSON_MATCH or TEXT_MATCH to the per-segment executor
+    before it builds a view."""
+
+    json_index = None
+    text_index = None
 
     def __init__(self, name: str, readers: Sequence[Any], seg_docs: Sequence[int]):
         self.name = name

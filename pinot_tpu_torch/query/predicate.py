@@ -4,20 +4,23 @@ A subset of `pinot_tpu/query/predicate.py` (analog of the reference's predicate
 evaluators, `pinot-core/.../operator/filter/predicate/`). Every predicate over
 a dict-encoded column is resolved host-side against the *sorted dictionary*
 into a boolean lookup table (LUT) over dict ids, usually one or a few
-contiguous id intervals. Predicates over raw numeric columns and expressions
-compile to comparisons with scalar operands.
+contiguous id intervals; REGEXP_LIKE over a column with an FST index narrows
+the dictionary scan to the index's candidates first. Predicates over raw
+numeric columns and expressions compile to comparisons with scalar operands.
 
 A distance predicate over two coordinate columns is rewritten to elementwise
 haversine math (`engine.geo_fns.rewrite_geo`) and compiles to a comparison
-leaf like any expression; the geo cell index that pre-filters it in the JAX
-package is not ported. `IN_ID_SET(col, 'literal')` (bare, or compared to 1
-or 0) over a dictionary column resolves the serialized `IdSet` against the
-sorted dictionary into a LUT leaf (`op="idset"`), evaluated on the device as
-any dictionary predicate is. Over a raw column it resolves on the host into a
-per-doc mask, a `DocSetLeaf`, which the device filter reads as one bool row.
+leaf like any expression; where the segment has a geo cell index over the
+column pair, the index's candidate mask (a `DocSetLeaf`) is ANDed with it.
+JSON_MATCH and TEXT_MATCH resolve on the host into a per-doc mask, a
+`DocSetLeaf`, through the column's JSON or text index, or, over a column
+without one (a consuming segment's), by scanning its values.
+`IN_ID_SET(col, 'literal')` over a dictionary column resolves the serialized
+`IdSet` against the sorted dictionary into a LUT leaf (`op="idset"`), and
+over a raw column into a `DocSetLeaf`. Those four may be used bare or
+compared to 1 or 0. The device filter reads a `DocSetLeaf` as one bool row.
 IS NULL and IS NOT NULL compile to `NullLeaf`s over the column's null
-bitmap. Not compiled by this package (NotImplementedError): JSON_MATCH and
-TEXT_MATCH, which need their indexes.
+bitmap.
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from typing import Any, List, Optional, Tuple, Union
 import numpy as np
 
 from ..engine.datablock import lut_size
-from ..engine.geo_fns import rewrite_geo
+from ..engine.geo_fns import distance_predicate_parts, rewrite_geo
+from ..segment.indexes.fst import ids_matching_regex_indexed
+from ..segment.indexes.jsonidx import InMemoryJsonIndex
+from ..segment.indexes.text import InMemoryTextIndex
 from ..segment.reader import ColumnReader, ImmutableSegment
 from ..sql.ast import Expr, Function, Identifier, Literal
 from .context import QueryValidationError
@@ -44,8 +50,9 @@ FilterTree = Tuple
 # this the common case: EQ is one run, RANGE is one run, small IN-lists are <= k runs.
 MAX_LUT_INTERVALS = 8
 
-_UNPORTED_PREDICATES = {"json_match", "text_match"}
 _ID_SET_PREDICATES = {"in_id_set", "inidset"}
+# boolean transform functions, used bare or as `f(...) = 1` / `= 0`
+_BOOL_PREDICATES = _ID_SET_PREDICATES | {"json_match", "text_match"}
 
 
 def _as_bool(v) -> Optional[bool]:
@@ -128,9 +135,9 @@ class NullLeaf:
 
 @dataclass
 class DocSetLeaf:
-    """A predicate resolved on the host into a per-doc mask: IN_ID_SET over a
-    raw column (the JAX package's JSON_MATCH and TEXT_MATCH too). The mask is
-    a runtime input of the device filter, one padded bool row.
+    """A predicate resolved on the host into a per-doc mask: JSON_MATCH,
+    TEXT_MATCH, a geo cell index's candidates, IN_ID_SET over a raw column.
+    The mask is a runtime input of the device filter, one padded bool row.
 
     `cache_token` identifies the mask's contents on a given immutable segment
     (the kind and every predicate parameter); the set path caches its stacked
@@ -190,10 +197,10 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
     if name in _NEGATIONS:
         return ("not", _compile_node(Function(_NEGATIONS[name], e.args), seg, leaves))
     if name == "eq" and len(e.args) == 2:
-        # `IN_ID_SET(col, '...') = 1` / `= 0`, the reference's comparison form
+        # `TEXT_MATCH(col, '...') = 1` / `= 0`, the reference's comparison form
         # of a boolean transform function: the bare predicate or its negation
         for fn, lit in (e.args, e.args[::-1]):
-            if isinstance(fn, Function) and fn.name in _ID_SET_PREDICATES \
+            if isinstance(fn, Function) and fn.name in _BOOL_PREDICATES \
                     and isinstance(lit, Literal) and _as_bool(lit.value) is not None:
                 node = _compile_node(fn, seg, leaves)
                 return node if _as_bool(lit.value) else ("not", node)
@@ -203,12 +210,13 @@ def _compile_node(e: Expr, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterT
             raise QueryValidationError("IS NULL requires a plain column")
         leaves.append(NullLeaf(col.name, negated=(name == "is_not_null")))
         return ("leaf", len(leaves) - 1)
-    if any(isinstance(n, Function) and n.name in _UNPORTED_PREDICATES
-           for n in _walk(e)):
-        raise NotImplementedError(
-            f"predicate {e!r} is not supported by pinot_tpu_torch")
+    if name in ("json_match", "text_match"):
+        return _compile_search(e, seg, leaves)
     if name in _ID_SET_PREDICATES:
         return _compile_id_set(e, seg, leaves)
+    geo = _try_geo_predicate(e, seg, leaves)
+    if geo is not None:
+        return geo
     if name in ("stwithin", "stcontains", "stequals"):
         # a boolean geo function used bare as a predicate: compare it to true
         return _compile_predicate(Function("eq", (e, Literal(1))), seg, leaves)
@@ -240,11 +248,60 @@ def _compile_id_set(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> F
     return ("leaf", len(leaves) - 1)
 
 
-def _walk(e: Expr):
-    yield e
-    if isinstance(e, Function):
-        for a in e.args:
-            yield from _walk(a)
+def _compile_search(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterTree:
+    """JSON_MATCH / TEXT_MATCH: the column's index resolves the filter into a
+    doc mask; a column without the index (a consuming segment's) is scanned."""
+    name = e.name
+    if len(e.args) != 2 or not isinstance(e.args[0], Identifier) \
+            or not isinstance(e.args[1], Literal):
+        raise QueryValidationError(f"{name.upper()}(column, 'filter') expected: {e!r}")
+    col, query = e.args[0].name, str(e.args[1].value)
+    reader = seg.column(col)
+    idx = getattr(reader, "json_index" if name == "json_match" else "text_index", None)
+    try:
+        mask = (idx if idx is not None else _scan_index(reader, name)).match(query)
+    except (ValueError, IndexError, KeyError) as exc:
+        raise QueryValidationError(f"{name.upper()}: {exc}") from exc
+    leaves.append(DocSetLeaf(col, mask, cache_token=f"{name}:{query}"))
+    return ("leaf", len(leaves) - 1)
+
+
+def _scan_index(reader, name: str):
+    """The scan resolution of a column without a JSON or text index: the
+    postings its values build (`json_match_scan` / `text_match_scan`, the JAX
+    package's fallback), kept on the reader with the row count they cover, so
+    that a column's later queries at that count do not scan it again (the
+    JAX package scans on every query)."""
+    kept = reader.__dict__.setdefault("_scan_indexes", {})
+    entry = kept.get(name)
+    if entry is None or entry[0] != reader.num_docs:
+        build = InMemoryJsonIndex if name == "json_match" else InMemoryTextIndex
+        entry = (reader.num_docs, build(list(reader.values())))
+        kept[name] = entry
+    return entry[1]
+
+
+def _try_geo_predicate(e: Function, seg: ImmutableSegment,
+                       leaves: List[Leaf]) -> Optional[FilterTree]:
+    """`ST_DISTANCE(ST_POINT(lngCol, latCol), <const point>) < r` over a
+    segment with a geo cell index on the column pair: the index's candidate
+    mask ANDed with the exact haversine compare (the reference's H3 coarse
+    cover and exact refine, H3IndexFilterOperator). None for any other
+    predicate, and for a segment without the index: the predicate then
+    compiles to the compare alone."""
+    parts = distance_predicate_parts(e)
+    if parts is None:
+        return None
+    lng_col, lat_col, cx, cy, radius = parts
+    getter = getattr(seg, "geo_index", None)
+    geo_idx = getter(lng_col, lat_col) if getter is not None else None
+    if geo_idx is None:
+        return None
+    exact = _compile_predicate(e, seg, leaves)
+    leaves.append(DocSetLeaf(f"{lng_col},{lat_col}",
+                             geo_idx.candidate_mask(cx, cy, radius, seg.num_docs),
+                             cache_token=f"geo:{cx!r}:{cy!r}:{radius!r}"))
+    return ("and", (("leaf", len(leaves) - 1), exact))
 
 
 def _compile_predicate(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> FilterTree:
@@ -280,11 +337,16 @@ def _compile_predicate(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -
 
 
 def _build_lut(op: str, values: List[Any], reader: ColumnReader) -> np.ndarray:
-    return build_lut(op, values, reader.dictionary, reader.cardinality)
+    return build_lut(op, values, reader.dictionary, reader.cardinality,
+                     fst_index=getattr(reader, "fst_index", None))
 
 
-def build_lut(op: str, values: List[Any], d, cardinality: int) -> np.ndarray:
-    """Resolve a predicate against a sorted dictionary into a bool LUT over ids."""
+def build_lut(op: str, values: List[Any], d, cardinality: int,
+              fst_index=None) -> np.ndarray:
+    """Resolve a predicate against a sorted dictionary into a bool LUT over ids.
+    REGEXP_LIKE with an `fst_index` runs the regex on the index's candidates
+    only, and over the whole dictionary when the pattern has no literal the
+    index can use."""
     lut = np.zeros(lut_size(cardinality), dtype=bool)
     if op == "idset":
         if cardinality:
@@ -307,7 +369,12 @@ def build_lut(op: str, values: List[Any], d, cardinality: int) -> np.ndarray:
     elif op == "like":
         lut[d.ids_matching_like(str(values[0]))] = True
     elif op == "regexp_like":
-        lut[d.ids_matching_regex(str(values[0]))] = True
+        ids = None
+        if fst_index is not None:
+            ids = ids_matching_regex_indexed(fst_index, d.values, str(values[0]))
+        if ids is None:
+            ids = d.ids_matching_regex(str(values[0]))
+        lut[ids] = True
     else:
         raise QueryValidationError(f"unsupported predicate {op} on dictionary column")
     return lut

@@ -9,12 +9,17 @@ Layout (one directory per segment):
         metadata.json        # segment + per-column metadata
         creation.meta.json   # creation time, crc
         cols/<col>.fwd.npy   # forward index: minimal-width dict ids, or raw values
+        cols/<col>.fwdc.bin  # chunk-compressed raw forward index (compression.py)
         cols/<col>.dict.npy  # numeric dictionary (sorted values)
         cols/<col>.dict.blob / .dictoff.npy   # string dictionary: utf-8 blob + int64 offsets
         cols/<col>.nulls.npy # packed null bitmap (np.packbits)
         cols/<col>.inv.npz   # inverted index (CSR posting lists per dict id)
         cols/<col>.rng.npz   # bit-sliced range index
         cols/<col>.bloom.npy # bloom filter bit array
+        cols/<col>.json.npz  # JSON index: flattened path/value keys, CSR postings
+        cols/<col>.text.npz  # text index: token postings with positions
+        cols/<col>.fst.npz   # trigram regex prefilter over the dictionary
+        cols/<lng>__<lat>.geo.npz   # geo grid-cell index of a coordinate pair
         startree/*           # star-tree pre-aggregated record tables and node arrays
 
 Dict ids are stored byte-aligned at minimal width (uint8/uint16/int32), and every
@@ -36,6 +41,7 @@ COLS_DIR = "cols"
 STARTREE_DIR = "startree"
 
 FWD_SUFFIX = ".fwd.npy"
+FWD_COMPRESSED_SUFFIX = ".fwdc.bin"  # chunk-compressed raw forward index
 DICT_NUMERIC_SUFFIX = ".dict.npy"
 DICT_BLOB_SUFFIX = ".dict.blob"
 DICT_OFFSETS_SUFFIX = ".dictoff.npy"
@@ -43,6 +49,9 @@ NULLS_SUFFIX = ".nulls.npy"
 INVERTED_SUFFIX = ".inv.npz"
 RANGE_SUFFIX = ".rng.npz"
 BLOOM_SUFFIX = ".bloom.npy"
+JSON_SUFFIX = ".json.npz"
+TEXT_SUFFIX = ".text.npz"
+FST_SUFFIX = ".fst.npz"  # trigram regex prefilter over the dictionary
 
 FORMAT_VERSION = 1
 

@@ -1,2 +1,2 @@
-"""Auxiliary per-column indexes: inverted, range and bloom (copies of
-`pinot_tpu/segment/indexes/` with the same files on disk)."""
+"""Auxiliary per-column indexes: inverted, range, bloom, JSON, text, FST and
+geo (copies of `pinot_tpu/segment/indexes/` with the same files on disk)."""

@@ -27,7 +27,7 @@ and reads only the chunks it covers.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,6 +111,11 @@ class DeviceColumnReader:
         return not self.data_type.is_numeric
 
     is_multi_value = False
+    # a consuming segment keeps no auxiliary index: JSON_MATCH and TEXT_MATCH
+    # over it resolve by scanning `values()`
+    json_index = None
+    text_index = None
+    inverted_index = None
 
     @property
     def num_docs(self) -> int:
@@ -222,12 +227,21 @@ class DeviceMutableSegment:
     `index_batch(columns)` (the JSON lane), `query_view()` and
     `snapshot_arrays()` (the commit). `device` is where staged chunks go:
     CUDA unless the caller names another device, and without a card asking
-    for CUDA raises."""
+    for CUDA raises. A realtime text or inverted index (`text_index_columns`,
+    `inverted_index_columns` naming a column of the schema) raises ValueError,
+    as in the JAX package: those are per-row indexes of its row-append
+    consuming segment, which this package does not have."""
 
     is_mutable = True
 
     def __init__(self, name: str, schema: Schema, device_staging: bool = False,
-                 device=None):
+                 device=None, text_index_columns: Sequence[str] = (),
+                 inverted_index_columns: Sequence[str] = ()):
+        if any(schema.has_column(c) for c in (*text_index_columns, *inverted_index_columns)):
+            raise ValueError(
+                "DeviceMutableSegment does not maintain realtime text/inverted indexes "
+                "(per-row by nature): the row-append MutableSegment keeps them, and it "
+                "is not ported to pinot_tpu_torch")
         for f in schema.fields:
             if not f.single_value:
                 raise NotImplementedError(

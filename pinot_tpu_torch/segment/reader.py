@@ -2,10 +2,11 @@
 
 A subset of `pinot_tpu/segment/reader.py` (analog of the reference's
 `ImmutableSegmentLoader.load()` and forward-index reader SPI) with the
-inverted, range and bloom index readers and the segment's star-trees. Columns
-are `np.load(..., mmap_mode='r')`-mapped on first touch and moved to the
-device lazily by `engine/datablock.py`. The json, text, fst and geo indexes
-are not read.
+inverted, range, bloom, JSON, text and FST index readers, the geo cell
+indexes and the segment's star-trees. Columns are `np.load(...,
+mmap_mode='r')`-mapped on first touch and moved to the device lazily by
+`engine/datablock.py`; a chunk-compressed raw column is a
+`compression.ChunkedArrayReader`, decoded once when first read whole.
 """
 
 from __future__ import annotations
@@ -18,14 +19,19 @@ import numpy as np
 
 from ..schema import DataType, Schema
 from . import format as fmt
+from .compression import ChunkedArrayReader
 from .dictionary import Dictionary
 from .indexes.bloom import BloomFilterReader
+from .indexes.fst import FstIndexReader
 from .indexes.inverted import InvertedIndexReader
+from .indexes.jsonidx import JsonIndexReader
 from .indexes.range import RangeIndexReader
+from .indexes.text import TextIndexReader
 
 
 class ColumnReader:
-    """Per-column access: forward index (dict ids or raw), dictionary, null bitmap."""
+    """Per-column access: forward index (dict ids or raw), dictionary, null
+    bitmap and auxiliary indexes."""
 
     def __init__(self, seg_dir: str, name: str, meta: Dict[str, Any]):
         self._prefix = os.path.join(seg_dir, fmt.COLS_DIR, name)
@@ -39,14 +45,14 @@ class ColumnReader:
 
     @cached_property
     def fwd(self) -> np.ndarray:
-        """Dict ids (minimal-width uint) if dict-encoded, else raw values."""
+        """Dict ids (minimal-width uint) if dict-encoded, else raw values. A
+        chunk-compressed column's reader is its array surface: a slice decodes
+        only the covering chunks, `np.asarray()` decodes the whole column once."""
         if self.is_multi_value:
             raise NotImplementedError(
                 f"multi-value column {self.name!r} is not supported by pinot_tpu_torch")
         if self.meta.get("compression"):
-            raise NotImplementedError(
-                f"chunk-compressed column {self.name!r} is not supported by "
-                "pinot_tpu_torch")
+            return ChunkedArrayReader(self._prefix + fmt.FWD_COMPRESSED_SUFFIX)
         return np.load(self._prefix + fmt.FWD_SUFFIX, mmap_mode="r")
 
     @cached_property
@@ -99,6 +105,24 @@ class ColumnReader:
         return BloomFilterReader(self._prefix + fmt.BLOOM_SUFFIX)
 
     @cached_property
+    def json_index(self) -> Optional[JsonIndexReader]:
+        if "json" not in self.index_types:
+            return None
+        return JsonIndexReader(self._prefix + fmt.JSON_SUFFIX, self.num_docs)
+
+    @cached_property
+    def text_index(self) -> Optional[TextIndexReader]:
+        if "text" not in self.index_types:
+            return None
+        return TextIndexReader(self._prefix + fmt.TEXT_SUFFIX, self.num_docs)
+
+    @cached_property
+    def fst_index(self) -> Optional[FstIndexReader]:
+        if "fst" not in self.index_types:
+            return None
+        return FstIndexReader(self._prefix + fmt.FST_SUFFIX)
+
+    @cached_property
     def null_bitmap(self) -> Optional[np.ndarray]:
         """bool[num_docs] of null positions, or None."""
         if not self.meta.get("hasNulls"):
@@ -119,6 +143,7 @@ class ImmutableSegment:
         self.name: str = self.metadata["segmentName"]
         self.num_docs: int = self.metadata["totalDocs"]
         self._columns: Dict[str, ColumnReader] = {}
+        self._geo_cache: Dict[tuple, Any] = {}
 
     def column(self, name: str) -> ColumnReader:
         if name not in self._columns:
@@ -141,6 +166,20 @@ class ImmutableSegment:
         """The segment's loaded star-trees (`startree.StarTree`), in build order."""
         from .startree import load_star_trees
         return load_star_trees(self)
+
+    def geo_index(self, lng_col: str, lat_col: str):
+        """The `GeoIndexReader` of a (lng, lat) column pair, or None."""
+        key = (lng_col, lat_col)
+        if key not in self._geo_cache:
+            # imported here: indexes.geo needs engine.geo_fns, whose expression
+            # library imports the segment package
+            from .indexes.geo import GeoIndexReader, geo_index_path
+            self._geo_cache[key] = next(
+                (GeoIndexReader(geo_index_path(os.path.join(self.path, fmt.COLS_DIR, ""),
+                                               lng_col, lat_col))
+                 for g in self.metadata.get("geoIndexes", [])
+                 if (g["lngColumn"], g["latColumn"]) == key), None)
+        return self._geo_cache[key]
 
     def __repr__(self) -> str:
         return f"ImmutableSegment({self.name!r}, docs={self.num_docs})"

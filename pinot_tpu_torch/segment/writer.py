@@ -2,13 +2,14 @@
 
 A subset of `pinot_tpu/segment/writer.py` that writes the same on-disk format:
 the dict-vs-raw decision, sorted dictionaries, minimal-width forward indexes,
-null bitmaps, dictionary-aligned segment sets, the inverted, range and bloom
-indexes (`indexes/`), the bloom payload that rides a column's metadata
-(`bloomHex`: every dictionary column up to 1,024 values, and a raw column
-with a bloom index), and star-trees (`startree.build_star_tree`, built over
-the written segment). The json, text, fst and geo indexes, chunk compression
-and multi-value columns are not written by this package; configuring any of
-them raises `NotImplementedError`.
+chunk-compressed raw forward indexes (`raw_compression`, `compression.py`),
+null bitmaps, dictionary-aligned segment sets, the inverted, range, bloom,
+JSON, text and FST indexes and the geo cell index of a coordinate pair
+(`indexes/`), the bloom payload that rides a column's metadata (`bloomHex`:
+every dictionary column up to 1,024 values, and a raw column with a bloom
+index), and star-trees (`startree.build_star_tree`, built over the written
+segment). Multi-value columns are not written by this package; a schema with
+one raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -24,10 +25,14 @@ import numpy as np
 
 from ..schema import DataType, FieldSpec, Schema
 from . import format as fmt
+from .compression import write_chunked
 from .dictionary import Dictionary, build_dictionary
 from .indexes.bloom import bloom_hex, create_bloom_filter
+from .indexes.fst import create_fst_index
 from .indexes.inverted import create_inverted_index
+from .indexes.jsonidx import create_json_index
 from .indexes.range import create_range_index
+from .indexes.text import create_text_index
 
 
 @dataclass
@@ -45,20 +50,32 @@ class SegmentGeneratorConfig:
     # star-tree pre-aggregations: `startree.StarTreeIndexConfig`s, or their
     # JSON form (dicts)
     star_tree_configs: List[Any] = field(default_factory=list)
-    # options of the JAX package's config that this package does not write
     json_index_columns: List[str] = field(default_factory=list)
     text_index_columns: List[str] = field(default_factory=list)
+    # trigram regex prefilters over dictionary columns (not BYTES)
     fst_index_columns: List[str] = field(default_factory=list)
+    # geo cell indexes over (lngColumn, latColumn) pairs, as "lng,lat" strings
+    # (the reference's H3 index config; see indexes/geo.py)
     geo_index_pairs: List[str] = field(default_factory=list)
+    geo_resolution_deg: float = 0.1
+    # chunk compression codec of raw (no-dictionary) forward indexes: "" for
+    # uncompressed npy, else one of `compression.CODECS`
     raw_compression: str = ""
 
-    def check_supported(self) -> None:
-        for name in ("json_index_columns", "text_index_columns", "fst_index_columns",
-                     "geo_index_pairs", "raw_compression"):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"SegmentGeneratorConfig.{name} is not supported by "
-                    "pinot_tpu_torch (build such segments with pinot_tpu)")
+    @staticmethod
+    def from_indexing(idx) -> "SegmentGeneratorConfig":
+        """A table's `IndexingConfig` (`table.py`) as the writer's config."""
+        return SegmentGeneratorConfig(
+            no_dictionary_columns=list(idx.no_dictionary_columns),
+            inverted_index_columns=list(idx.inverted_index_columns),
+            range_index_columns=list(idx.range_index_columns),
+            bloom_filter_columns=list(idx.bloom_filter_columns),
+            json_index_columns=list(idx.json_index_columns),
+            text_index_columns=list(idx.text_index_columns),
+            fst_index_columns=list(idx.fst_index_columns),
+            geo_index_pairs=list(idx.geo_index_pairs),
+            raw_compression=idx.raw_compression,
+            star_tree_configs=list(idx.star_tree_configs))
 
 
 class SegmentBuilder:
@@ -67,7 +84,6 @@ class SegmentBuilder:
     def __init__(self, schema: Schema, config: Optional[SegmentGeneratorConfig] = None):
         self.schema = schema
         self.config = config or SegmentGeneratorConfig()
-        self.config.check_supported()
         for spec in schema.fields:
             if not spec.single_value:
                 raise NotImplementedError(
@@ -95,6 +111,8 @@ class SegmentBuilder:
                 raw = [spec.null_value] * num_docs
             fixed = (fixed_dictionaries or {}).get(spec.name)
             col_meta[spec.name] = self._write_column(cols_dir, spec, raw, num_docs, fixed)
+        geo_meta = [self._write_geo_index(cols_dir, pair, columns, num_docs)
+                    for pair in self.config.geo_index_pairs]
 
         meta = {
             "formatVersion": fmt.FORMAT_VERSION,
@@ -104,6 +122,8 @@ class SegmentBuilder:
             "schema": self.schema.to_json(),
             "columns": col_meta,
         }
+        if geo_meta:
+            meta["geoIndexes"] = geo_meta
         fmt.write_json(os.path.join(seg_dir, fmt.SEGMENT_METADATA_FILE), meta)
         fmt.write_json(os.path.join(seg_dir, fmt.CREATION_META_FILE), {
             "creationTimeMs": int(time.time() * 1000),
@@ -120,6 +140,28 @@ class SegmentBuilder:
         return seg_dir
 
     # ------------------------------------------------------------------
+    def _write_geo_index(self, cols_dir: str, pair: str, columns, num_docs: int
+                         ) -> Dict[str, Any]:
+        """The geo cell index of a "lng,lat" column pair, over the values the
+        columns store: nulls as the spec's null fill, as `_write_column` writes
+        them, so that the index buckets every row where the column holds it."""
+        # imported here: indexes.geo needs engine.geo_fns, whose expression
+        # library imports the segment package
+        from .indexes.geo import create_geo_index, geo_index_path
+        lng_col, lat_col = [c.strip() for c in pair.split(",")]
+
+        def coord(col: str) -> np.ndarray:
+            spec = self.schema.field_spec(col)
+            raw = columns.get(col)
+            vals = ([spec.null_value] * num_docs if raw is None else
+                    [spec.null_value if v is None else v for v in raw])
+            return np.asarray(vals, dtype=np.float64)
+
+        create_geo_index(geo_index_path(os.path.join(cols_dir, ""), lng_col, lat_col),
+                         coord(lng_col), coord(lat_col), self.config.geo_resolution_deg)
+        return {"lngColumn": lng_col, "latColumn": lat_col,
+                "resolution": self.config.geo_resolution_deg}
+
     def _num_docs(self, columns: Dict[str, Any]) -> int:
         sizes = {len(v) for v in columns.values()}
         if len(sizes) > 1:
@@ -195,9 +237,19 @@ class SegmentBuilder:
             if name in self.config.range_index_columns:
                 create_range_index(prefix + fmt.RANGE_SUFFIX, dict_ids, card)
                 indexes.append("range")
+            if name in self.config.fst_index_columns and data_type is not DataType.BYTES:
+                # not over BYTES: the index must never change an answer, and
+                # REGEXP_LIKE without it matches no bytes value
+                create_fst_index(prefix + fmt.FST_SUFFIX, list(dictionary.values))
+                indexes.append("fst")
         else:
             arr = np.asarray(raw, dtype=data_type.numpy_dtype)
-            np.save(prefix + fmt.FWD_SUFFIX, arr)
+            codec = self.config.raw_compression
+            if codec:
+                write_chunked(prefix + fmt.FWD_COMPRESSED_SUFFIX, arr, codec)
+                meta["compression"] = codec
+            else:
+                np.save(prefix + fmt.FWD_SUFFIX, arr)
             meta.update({
                 "hasDictionary": False,
                 "cardinality": -1,
@@ -215,6 +267,12 @@ class SegmentBuilder:
             hx = _meta_bloom_hex(dictionary.values if use_dict else raw, deduped=use_dict)
             if hx is not None:
                 meta["bloomHex"] = hx
+        if name in self.config.json_index_columns:
+            create_json_index(prefix + fmt.JSON_SUFFIX, raw)
+            indexes.append("json")
+        if name in self.config.text_index_columns:
+            create_text_index(prefix + fmt.TEXT_SUFFIX, raw)
+            indexes.append("text")
         if null_mask is not None and null_mask.any():
             np.save(prefix + fmt.NULLS_SUFFIX, fmt.pack_bitmap(null_mask))
             meta["hasNulls"] = True

@@ -11,6 +11,12 @@ lineorder row finds its customer; SF10 would have 300,000) and `region`
 (the 5 names of `lo_region`). Nations, cities and market segments follow
 the SSB specification: 5 nations per region, a city is the nation's first 9
 characters and a digit.
+
+`search_schema` / `make_search_columns`: lineorder with the columns Apache
+Pinot's search indexes serve, shaped after its documentation's examples: a
+JSON payload like the githubEvents quickstart's (`lo_payload`), a free-text
+comment (`lo_comment`), SSB's customer name (`lo_custname`, the FST index's
+REGEXP_LIKE target) and a point (`lo_lng`, `lo_lat`, the geo index's pair).
 """
 
 from __future__ import annotations
@@ -161,3 +167,130 @@ def make_customer(n: int = VERY_HIGH_CARD_KEYS, seed: int = 20260729) -> Dict[st
 def make_region() -> Dict[str, np.ndarray]:
     return {"r_regionkey": np.arange(len(REGIONS), dtype=np.int32),
             "r_name": np.array(REGIONS, dtype=object)}
+
+
+# -- the search table -------------------------------------------------------
+
+# the githubEvents quickstart's event types
+EVENT_TYPES = ("PushEvent", "PullRequestEvent", "IssuesEvent", "IssueCommentEvent",
+               "WatchEvent", "ForkEvent", "CreateEvent", "DeleteEvent", "ReleaseEvent",
+               "PublicEvent", "MemberEvent", "GollumEvent")
+SEARCH_USERS = 100_000          # actor.login values
+SEARCH_ORGS = 1_000             # actor.org values
+SEARCH_ORG_MISSING = 0.10       # share of payloads without actor.org
+SEARCH_TAGS = 20                # tags[*]: 0-4 of t0..t19
+SEARCH_VOCABULARY = 10_000      # lo_comment's words, drawn zipf(1.2)
+SEARCH_ZIPF = 1.2
+SEARCH_WORDS = (4, 16)          # words per comment, inclusive
+SEARCH_CENTERS = 500            # point clusters
+SEARCH_SPREAD_M = 20_000.0      # a cluster's standard deviation
+SEARCH_NULL_POINTS = 0.001      # share of rows whose lo_lng and lo_lat are null
+_SYLLABLES = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+
+
+def search_word(i: int) -> str:
+    """The vocabulary's i-th word (rank i + 1 of the zipf draw): 2 or 3
+    syllables, lowercase letters only."""
+    n = len(_SYLLABLES)
+    parts = [_SYLLABLES[(i // n ** k) % n] for k in range(3 if i >= n * n else 2)]
+    return "".join(reversed(parts))
+
+
+def search_schema() -> Schema:
+    return Schema("lineorder", ssb_schema().fields + [
+        dimension("lo_payload", DataType.JSON),
+        dimension("lo_comment", DataType.STRING),
+        dimension("lo_custname", DataType.STRING),
+        metric("lo_lng", DataType.DOUBLE),
+        metric("lo_lat", DataType.DOUBLE),
+    ])
+
+
+def _joined(pieces: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """One string per row from a flat array of string pieces, row i being
+    pieces[ends[i-1]:ends[i]] concatenated (no piece holds a newline)."""
+    tail = np.zeros(len(pieces), dtype=bool)
+    tail[ends - 1] = True
+    text = "".join(np.where(tail, pieces + "\n", pieces).tolist())
+    return np.array(text.split("\n")[:-1], dtype=object)
+
+
+def make_search_columns(n: int, seed: int = 20260729) -> Dict[str, np.ndarray]:
+    """`make_columns(n, seed)` plus the search columns, from the same seed.
+    `lo_payload` is JSON text as `json.dumps` writes it; `lo_lng` / `lo_lat`
+    are object arrays with None for a null point."""
+    cols = make_columns(n, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def ints(k, size):
+        return np.array([str(i) for i in range(k)], dtype=object)[rng.integers(0, k, size)]
+
+    n_tags = rng.integers(0, 5, n)
+    tags = ('"t' + ints(SEARCH_TAGS, (n, 4)) + '"').tolist()
+    tag_lists = np.array(["[" + ", ".join(row[:k]) + "]" for row, k in zip(tags, n_tags.tolist())],
+                         dtype=object)
+    org = np.where(rng.random(n) >= SEARCH_ORG_MISSING,
+                   '", "org": "org' + ints(SEARCH_ORGS, n) + '"}', '"}')
+    payload = ('{"type": "' + np.array(EVENT_TYPES, dtype=object)[
+        rng.integers(0, len(EVENT_TYPES), n)] + '", "actor": {"login": "user'
+        + ints(SEARCH_USERS, n) + org + ', "tags": ' + tag_lists + ', "qty": '
+        + ints(101, n) + "}")
+    counts = rng.integers(SEARCH_WORDS[0], SEARCH_WORDS[1] + 1, n)
+    words = (rng.zipf(SEARCH_ZIPF, int(counts.sum())) - 1) % SEARCH_VOCABULARY
+    vocab = np.array([search_word(i) for i in range(SEARCH_VOCABULARY)], dtype=object)
+    ends = np.cumsum(counts)
+    pieces = vocab[words]
+    pieces[np.setdiff1d(np.arange(len(words)), ends - 1)] += " "
+    comment = _joined(pieces, ends)
+    centers = np.stack([rng.uniform(-180.0, 180.0, SEARCH_CENTERS),
+                        rng.uniform(-60.0, 70.0, SEARCH_CENTERS)], axis=1)
+    which = rng.integers(0, SEARCH_CENTERS, n)
+    lat = np.clip(centers[which, 1] + rng.normal(0.0, SEARCH_SPREAD_M / 111_320.0, n),
+                  -89.0, 89.0)
+    dlng = rng.normal(0.0, SEARCH_SPREAD_M / 111_320.0, n) / np.cos(np.radians(lat))
+    lng = (centers[which, 0] + dlng + 180.0) % 360.0 - 180.0
+    null = rng.random(n) < SEARCH_NULL_POINTS
+    lng_o, lat_o = lng.astype(object), lat.astype(object)
+    lng_o[null] = None
+    lat_o[null] = None
+    cols.update(lo_payload=payload, lo_comment=comment,
+                lo_custname=np.array([f"Customer#{k:09d}" for k in range(VERY_HIGH_CARD_KEYS)],
+                                     dtype=object)[cols["lo_custkey"]],
+                lo_lng=lng_o, lo_lat=lat_o)
+    return cols
+
+
+# the search queries over `search_schema`'s table: (id, sql); the distance
+# query takes the center and the radius in metres as {lng}, {lat}, {r}
+SEARCH_TERM = search_word(50)                      # ~1.6% of comments
+SEARCH_PHRASE = f"{search_word(1)} {search_word(2)}"
+SEARCH_PREFIX = "bo"
+SEARCH_REGEX = "ke[dk]u"
+SEARCH_TEXT = f'{SEARCH_TERM} OR "{SEARCH_PHRASE}"'
+SEARCH_CUSTNAME_REGEX = "00123.5"                  # requires the literal "00123"
+SEARCH_QUERIES = {
+    "json_type": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                 "WHERE JSON_MATCH(lo_payload, '\"$.type\"=''PushEvent''')",
+    "json_array_range": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                        "WHERE JSON_MATCH(lo_payload, '\"$.tags[*]\"=''t3'' AND \"$.qty\" > 40')",
+    "json_presence": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                     "WHERE JSON_MATCH(lo_payload, '\"$.actor.org\" IS NOT NULL')",
+    "text_or": "SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder "
+               f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_TEXT}') "
+               "GROUP BY lo_region ORDER BY lo_region",
+    "text_prefix": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                   f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_PREFIX}*')",
+    "text_regex": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                  f"WHERE TEXT_MATCH(lo_comment, '/{SEARCH_REGEX}/')",
+    "text_not": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_TEXT}') = 0",
+    "text_mixed": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                  f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_TERM}') AND lo_discount = 2",
+    "text_select": "SELECT lo_custkey, lo_revenue FROM lineorder "
+                   f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_TERM}') "
+                   "ORDER BY lo_revenue DESC LIMIT 10",
+    "regexp_fst": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                  f"WHERE REGEXP_LIKE(lo_custname, '{SEARCH_CUSTNAME_REGEX}')",
+    "geo_distance": "SELECT COUNT(*) FROM lineorder WHERE ST_DISTANCE(ST_POINT(lo_lng, "
+                    "lo_lat, 1), ST_POINT({lng}, {lat}, 1)) < {r}",
+}

@@ -5,10 +5,12 @@
 * No module of the package, nor chip_smoke.py, imports either (AST scan).
 * Without CUDA the default-device entry points (the join path's too) raise
   RuntimeError.
-* Unported shapes raise NotImplementedError instead of taking another path.
+* Unported shapes raise NotImplementedError instead of taking another path;
+  the shapes once refused answer as numpy (or the JAX package) does.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -101,7 +103,10 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "multistage/runtime.py", "engine/join_kernels.py", "query/stats.py",
                    "cluster/tiering.py", "table.py", "ingest/__init__.py",
                    "ingest/vectorized.py", "ingest/stream.py", "ingest/transform.py",
-                   "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py"):
+                   "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py",
+                   "segment/compression.py", "segment/indexes/jsonidx.py",
+                   "segment/indexes/text.py", "segment/indexes/fst.py",
+                   "segment/indexes/geo.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 
@@ -258,6 +263,9 @@ _ANSWERED = {
                                                   rtol=1e-9, atol=0.0),
     "host_group_expr": lambda c: lambda rows: len(rows) == 10 and all(
         int((c["lo_custkey"] == k - 1).sum()) == n for k, n in rows),
+    # JSON_MATCH over a JSON column with a JSON index (the search table)
+    "json_match_index": lambda c: lambda rows: rows == [[int(sum(
+        json.loads(d)["type"] == "PushEvent" for d in c["lo_payload"]))]],
 }
 
 
@@ -270,15 +278,36 @@ _ANSWERED = {
     "SELECT VARPOP(lo_revenue) FROM lineorder",
     "SELECT lo_custkey + 1, COUNT(*) FROM lineorder GROUP BY lo_custkey + 1",
     "SELECT SUM(lo_revenue) FROM lineorder WHERE JSON_MATCH(lo_region, '\"$.a\"=1')",
+    "SELECT COUNT(*) FROM lineorder WHERE JSON_MATCH(lo_payload, '\"$.type\"=''PushEvent''')",
 ], ids=["selection", "distinctcount", "count_distinct", "hll", "percentile",
-        "variance", "host_group_expr", "json_match"])
-def test_unported_shapes_raise_not_implemented(segs, sql, request):
-    """JSON_MATCH raises; the shapes this package now runs (the aggregation
-    library among them) answer as numpy does."""
+        "variance", "host_group_expr", "json_match", "json_match_index"])
+def test_unported_shapes_raise_not_implemented(segs, sql, request, tmp_path):
+    """The shapes this package once refused (the aggregation library, JSON_MATCH
+    among them) answer as numpy does. JSON_MATCH over a column that holds no
+    JSON does what the JAX package does there: the same answer (no document
+    parses, so none matches), or the same error."""
     case = request.node.callspec.id
-    if case not in _ANSWERED:
-        with pytest.raises(NotImplementedError):
-            execute_query(segs, sql, device="cpu")
+    if case == "json_match":
+        from pinot_tpu.query.executor import ServerQueryExecutor as JaxExecutor
+        from pinot_tpu.segment import load_segment as jax_load
+        jax_segs = [jax_load(s.path) for s in segs]
+        try:
+            want = JaxExecutor().execute(jax_segs, sql).rows
+        except Exception as exc:   # the port must raise the same
+            with pytest.raises(type(exc)):
+                execute_query(segs, sql, device="cpu")
+            return
+        assert execute_query(segs, sql, device="cpu").rows == want == [[None]]
+        return
+    if case == "json_match_index":
+        from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig
+        from pinot_tpu_torch.ssb import make_search_columns, search_schema
+        cols = make_search_columns(3000, seed=5)
+        table = segments_from_columns(search_schema(), cols, str(tmp_path), 2,
+                                      SegmentGeneratorConfig(json_index_columns=["lo_payload"]))
+        assert table[0].column("lo_payload").json_index is not None
+        rows = execute_query(table, sql, device="cpu").rows
+        assert _ANSWERED[case](cols)(rows), rows
         return
     rows = execute_query(segs, sql, device="cpu").rows
     assert _ANSWERED[case](make_columns(4000, seed=5))(rows), rows

@@ -882,3 +882,69 @@ def test_cuda_star_tree_and_bitmap_queries_match_the_cpu(cuda, index_table, name
         for g, w in zip(got, want):
             for x, y in zip(g, w):
                 assert x == pytest.approx(y, rel=1e-6) if isinstance(y, float) else x == y
+
+
+@pytest.fixture(scope="module")
+def search_table(tmp_path_factory):
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    cols = ssb.make_search_columns(100_003, 31)
+    config = SegmentGeneratorConfig(
+        json_index_columns=["lo_payload"], text_index_columns=["lo_comment"],
+        fst_index_columns=["lo_custname"], geo_index_pairs=["lo_lng,lo_lat"],
+        inverted_index_columns=["lo_discount"], raw_compression="zlib",
+        no_dictionary_columns=["lo_extendedprice", "lo_revenue", "lo_lng", "lo_lat"])
+    paths = build_aligned_segments(ssb.search_schema(), cols,
+                                   str(tmp_path_factory.mktemp("gpu_search")), "lineorder", 4,
+                                   config)
+    return cols, [load_segment(p) for p in paths]
+
+
+def _search_sql(name, cols):
+    from pinot_tpu_torch import ssb
+    if not name.startswith("geo_"):
+        return ssb.SEARCH_QUERIES[name]
+    i = next(i for i, v in enumerate(cols["lo_lng"]) if v is not None)
+    return ssb.SEARCH_QUERIES["geo_distance"].format(
+        lng=repr(float(cols["lo_lng"][i])), lat=repr(float(cols["lo_lat"][i])),
+        r=float(name.split("_")[1]))
+
+
+SEARCH_SHAPES = ["json_type", "json_array_range", "json_presence", "text_or", "text_prefix",
+                 "text_regex", "text_not", "text_mixed", "text_select", "regexp_fst",
+                 "geo_10000", "geo_100000", "q1_1", "for_sum"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SEARCH_SHAPES)
+def test_cuda_search_queries_match_the_cpu(cuda, search_table, name):
+    """The search phase's query shapes on the card, per segment, over the set
+    and over a staged consuming view, equal the same calls on the CPU (counts
+    exactly, sums rel 1e-6; a distance count by at most 2 rows: a distance
+    within metres of the radius may compare either way in f32)."""
+    from pinot_tpu_torch import execute_query, ssb
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    cols, table = search_table
+    sql = {"q1_1": ssb.QUERY, "for_sum": ssb.FOR_QUERY}.get(name) or _search_sql(name, cols)
+    views = {}
+    for dev in (cuda, torch.device("cpu")):
+        store = DeviceMutableSegment("lineorder__0__0__20261019T0000Z", ssb.search_schema(),
+                                     device_staging=True, device=dev)
+        store.index_batch({c: list(v[:20_000]) for c, v in cols.items()})
+        views[dev.type] = store.query_view()
+    runs = (lambda d: execute_query(table, sql, device=d),
+            lambda d: MeshQueryExecutor(device=d).execute(table, sql),
+            lambda d: execute_query([views[torch.device(d).type]], sql, device=d))
+    for run in runs:
+        got, want = run(cuda).rows, run("cpu").rows
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                if name.startswith("geo_"):
+                    assert abs(x - y) <= 2
+                elif isinstance(y, float):
+                    assert x == pytest.approx(y, rel=1e-6)
+                else:
+                    assert x == y
