@@ -182,6 +182,24 @@ exits non-zero:
    262,144 rows pumped as JSON rows into a staged consuming segment: the
    JSON and the TEXT query over its view and beside the table (the GROUP BY
    takes the set's per-segment pre-bail): `search_consuming`.
+13. mv    — multi-value columns: lineorder from --seed + 7 (4,194,304 rows in 4
+   aligned segments) with a STRING multi-value lo_tags (0-4 of 20 tags,
+   zipf 1.2), an INT multi-value lo_codes (1-6 of 1,000 codes, zipf 1.1) and
+   a unique lo_orderkey (`ssb.make_mv_columns`), inverted indexes on lo_tags
+   and lo_discount and a bloom filter on lo_codes, built in a worker process
+   the smoke starts with phase 4. `ssb.MV_QUERIES` (any-value filters,
+   NOT and !=, a mixed tree whose lo_discount = 2 is a bitmap leaf, Q1.1,
+   GROUP BY lo_tags (the host explode), the *MV aggregations, a selection
+   with multi-value cells, ARRAYLENGTH) per segment, over the set and through
+   the pipeline (the host-routed ones per segment and over the set), each
+   against numpy over the CSR arrays (a row matches if any value does, NOT
+   negates the row; counts exactly, sums rel 1e-5, abs 0.05, the HLL within
+   5%) and held to its exact launches (`masked_sums` only for Q1.1,
+   `bitmap_filter` only for the mixed tree): `mv_query` lines with 5 warm
+   runs on the device routes. Then 262,144 JSON rows (seed + 8) pumped into
+   a staged consuming segment, queried alone and beside the table (every
+   route per segment): `mv_consuming`. Last, `mv_case` lines: the any-value
+   mask alone (torch) by graph replay against its bytes bound.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -193,7 +211,7 @@ device programs are torch code; the realtime phase must launch both; the
 expr phase's device queries `masked_sums`, its host queries none; the aggs
 phase no scan; `bitmap_filter` where a plain-body filter or a selection's
 device mask reads bitmap leaves, one launch per mask; the search phase all
-three),
+three; the mv phase `masked_sums` and `bitmap_filter`),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -3162,6 +3180,328 @@ def run_search(args, main_cols, for_table, work, jobs) -> tuple:
     return launches, by_route
 
 
+# -- phase 13: mv ------------------------------------------------------------------------
+
+MV_ROWS = 4_194_304              # cut from bench.py's 16,777,216 rows (PERF.md section 4)
+MV_SEGMENTS = 4
+MV_RUNS = 5                      # warm runs of each device-routed query and route
+MV_VIEW_ROWS = 262_144           # rows pumped into the consuming segment
+MV_CONFIG = dict(inverted_index_columns=["lo_tags", "lo_discount"],
+                 bloom_filter_columns=["lo_codes"])
+MV_SOURCE = ("Apache Pinot docs: Schema (multi-value dimension fields, singleValueField "
+             "false), Filtering on multi-value columns, Aggregation functions (*MV)")
+MV_HLL_REL = 0.05               # DISTINCTCOUNTHLLMV (p = 12) against the exact count
+# the checked runs' launches by query, a pass: Q1.1 takes the scan, the mixed
+# tree's lo_discount = 2 (1/11 of the rows) is a bitmap leaf, the rest none
+MV_PASS_LAUNCHES = {"q1_1": dict(masked_sums=1), "mixed": dict(bitmap_filter=1)}
+MV_HOST = ("group_tags", "mv_aggs", "arraylength")       # host-routed: per segment
+MV_VIEW_QUERIES = ("tags_eq", "not_eq", "codes_band_tags_in", "mixed", "group_tags")
+
+
+def build_mv_table(rows: int, segments: int, seed: int, out: str) -> tuple:
+    """In a worker process: the multi-value lineorder table (`ssb.make_mv_columns`)
+    in `segments` aligned segments with MV_CONFIG's indexes. Returns (paths,
+    generate s, build s)."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    t0 = time.perf_counter()
+    cols = ssb.make_mv_columns(rows, seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(ssb.mv_schema(), cols, out, "lineorder", segments,
+                                   SegmentGeneratorConfig(**MV_CONFIG))
+    return paths, gen_s, time.perf_counter() - t0
+
+
+def make_mv_view_rows(rows: int, seed: int) -> list:
+    """In a worker process: the consuming segment's rows as JSON row messages
+    (the block codec carries no multi-value column)."""
+    from pinot_tpu_torch import ssb
+    cols = ssb.make_mv_columns(rows, seed)
+    names = [f.name for f in ssb.mv_schema().fields]
+    lists = [cols[n] if isinstance(cols[n], list) else cols[n].tolist() for n in names]
+    return [json.dumps(dict(zip(names, row))) for row in zip(*lists)]
+
+
+def start_mv_builds(pool, args, work) -> dict:
+    """Submit phase 13's table build and consuming rows to `pool`."""
+    return {"table": pool.submit(build_mv_table, MV_ROWS, MV_SEGMENTS, args.seed + 7,
+                                 os.path.join(work, "mv")),
+            "view": pool.submit(make_mv_view_rows, MV_VIEW_ROWS, args.seed + 8)}
+
+
+def csr_any(hits: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """bool per row of a CSR column: does any of its values hit? (a row
+    without values: no)"""
+    cs = np.zeros(len(hits) + 1, dtype=np.int64)
+    np.cumsum(hits, out=cs[1:])
+    return cs[offsets[1:]] > cs[offsets[:-1]]
+
+
+def mv_oracles(c, csr) -> dict:
+    """Every `ssb.MV_QUERIES` answer from numpy over the base columns and the
+    multi-value columns' CSR arrays, with the JAX package's semantics: a row
+    matches if any of its values does, NOT negates the row, an empty tag row
+    holds the one value "null", a GROUP BY counts a row once per value."""
+    from pinot_tpu_torch import ssb
+    tags, tag_off = csr["lo_tags"]
+    codes, code_off = csr["lo_codes"]
+    tag_counts = np.diff(tag_off)
+    rev = c["lo_revenue"]
+
+    def count_sum(m):
+        return [[int(m.sum()), float(rev[m].sum())]]
+    has = {k: csr_any(tags == k, tag_off) for k in (0, 1, 3, 7)}
+    out = {
+        "tags_eq": count_sum(has[3]),
+        "codes_band_tags_in": count_sum(csr_any((codes >= 100) & (codes <= 180), code_off)
+                                        & (has[1] | has[7])),
+        "not_eq": count_sum(~has[0]),
+        "neq": count_sum(~has[0]),
+        "mixed": count_sum((c["lo_discount"] == 2) & has[3]),
+        "q1_1": oracle_q11(c),
+        "arraylength": count_sum(np.maximum(tag_counts, 1) >= 2),
+    }
+    row_of_tag = np.repeat(np.arange(len(tag_counts)), tag_counts)
+    groups = {f"t{k}": (int(n), float(w)) for k, (n, w) in enumerate(zip(
+        np.bincount(tags, minlength=ssb.MV_TAGS),
+        np.bincount(tags, weights=rev[row_of_tag], minlength=ssb.MV_TAGS))) if n}
+    empty = tag_counts == 0
+    if empty.any():
+        groups["null"] = (int(empty.sum()), float(rev[empty].sum()))
+    out["group_tags"] = [[k, n, w] for k, (n, w) in sorted(groups.items())][:30]
+    flat = codes.astype(np.float64)
+    out["mv_aggs"] = [[len(codes), float(flat.sum()), float(flat.min()), float(flat.max()),
+                       float(flat.mean()), int(len(np.unique(codes))), None,
+                       float(np.percentile(flat, 50))]]
+    hit = np.flatnonzero(csr_any(codes == 7, code_off))[:10]
+    out["selection"] = [[int(c["lo_orderkey"][i]),
+                         [f"t{k}" for k in tags[tag_off[i]:tag_off[i + 1]]] or ["null"]]
+                        for i in hit]
+    return out
+
+
+def mv_answer_ok(qid: str, got, want) -> bool:
+    """`want` held exactly where it is a count, at the smoke's tolerances on
+    sums; DISTINCTCOUNTHLLMV within MV_HLL_REL of the exact distinct count."""
+    if qid != "mv_aggs":
+        return rows_match(got, want)
+    if len(got) != 1 or len(got[0]) != len(want[0]):
+        return False
+    hll, exact = got[0][6], want[0][5]
+    return abs(hll - exact) <= MV_HLL_REL * exact and rows_match(
+        [got[0][:6] + got[0][7:]], [want[0][:6] + want[0][7:]])
+
+
+def mv_cases(table, mx) -> dict:
+    """The any-value mask alone (torch: the JAX body's multi-value branch),
+    by graph replay with L2 flushed, for one-interval leaves (`lo_tags =
+    't3'`, `lo_codes BETWEEN 100 AND 180`) and a LUT gather (nine scattered
+    tags), on one segment's block and the stacked set's, against the bound of
+    its bytes: the [P, W] int32 ids read once and P bool rows written."""
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.executor import mask_spec
+    from pinot_tpu_torch.query.planner import plan_segment
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=mx.device)
+    out = {}
+    for qid, col, where in (("tags_eq", "lo_tags", "lo_tags = 't3'"),
+                            ("tags_in9", "lo_tags", "lo_tags IN ('t1', 't3', 't5', 't7', 't9', "
+                                                    "'t11', 't13', 't15', 't17')"),
+                            ("codes_band", "lo_codes", "lo_codes BETWEEN 100 AND 180")):
+        sql = f"SELECT lo_orderkey FROM lineorder WHERE {where} LIMIT 10"
+        plan = plan_segment(compile_query(sql, table[0].schema), table[0])
+        spec = mask_spec(plan)
+        block = block_for(table[0], mx.device)
+        stacked = mx._block_for(table)
+        inputs = {"one segment": mx._fallback._kernel_inputs(plan, spec, block),
+                  "stacked set": mx._set_inputs(plan, spec, stacked, plan.ctx)}
+        for shape, ins in inputs.items():
+            ids = ins.ids[col]
+            p, w = ids.shape
+            mask = kernels.filter_mask(spec, ins)
+            torch.cuda.synchronize()
+            bound_ms, bound_by = roofline(p * w * 4 + p, p * w * 2)
+            ms = graph_ms(lambda: kernels.filter_mask(spec, ins), flush)
+            numbers = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                           rows=int(p), width=int(w), matches=int(mask.sum()),
+                           leaf="interval" if plan.filter_prog.leaves[0].intervals else "lut")
+            log("mv_case", query=qid, shape=shape, **numbers)
+            out[f"{qid}, {shape}"] = numbers
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mv(args, work, jobs) -> tuple:
+    """Phase 13: multi-value columns. lineorder from --seed + 7 (4,194,304
+    rows in 4 aligned segments) with a STRING multi-value lo_tags, an INT
+    multi-value lo_codes and a unique lo_orderkey, inverted indexes on lo_tags
+    and lo_discount and a bloom filter on lo_codes, built in a worker the
+    smoke starts first. `ssb.MV_QUERIES` per segment, over the set and through
+    the pipeline (host-routed ones per segment and over the set), each against
+    numpy over the CSR arrays, each checked cold run held to its exact
+    launches; then 262,144 JSON rows (seed + 8) pumped into a staged
+    consuming segment, queried alone and beside the table; then `mv_case`
+    lines. Returns (launches of the checked runs by kernel, launches by
+    route, the mask cases)."""
+    from pinot_tpu_torch import execute_query, load_segment, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.table import StreamConfig, TableConfig
+
+    schema = ssb.mv_schema()
+    t0 = time.perf_counter()
+    paths, gen_s, build_s = jobs["table"].result()
+    waited_s = time.perf_counter() - t0
+    table = [load_segment(p) for p in paths]
+    t0 = time.perf_counter()
+    cols = dict(ssb.make_columns(MV_ROWS, args.seed + 7))
+    cols["lo_orderkey"] = np.arange(1, MV_ROWS + 1, dtype=np.int32)
+    csr = ssb.make_mv_csr(MV_ROWS, args.seed + 7)
+    answers = mv_oracles(cols, csr)
+    oracle_s = time.perf_counter() - t0
+    tags = table[0].column("lo_tags")
+    log("mv_data", rows=MV_ROWS, segments=MV_SEGMENTS, seed=args.seed + 7, source=MV_SOURCE,
+        generate_s=gen_s, build_s=build_s, waited_for_worker_s=waited_s, oracle_s=oracle_s,
+        values={c: int(len(csr[c][0])) for c in csr},
+        max_num_values={c: [s.column(c).max_num_values for s in table] for c in csr},
+        cardinality={c: table[0].column(c).cardinality for c in csr},
+        index_types={c: table[0].column(c).index_types for c in table[0].column_names
+                     if table[0].column(c).index_types},
+        id_matrix_bytes=sum(s.num_docs * max(s.column(c).max_num_values, 1) * 4
+                            for s in table for c in csr),
+        null_rows=int(tags.null_bitmap.sum()) if tags.null_bitmap is not None else 0)
+
+    mx = MeshQueryExecutor()
+    launches = counts_of()
+    by_route = {}
+
+    served_stats = {}
+
+    def served(segs, sql):
+        ctx = compile_query(sql, segs[0].schema)
+        pipeline = DeviceQueryPipeline(mesh_exec=mx)
+        try:
+            partial = pipeline.execute_partial(ctx, segs)
+            served_stats["last"] = pipeline.stats()
+        finally:
+            pipeline.stop()
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        return reduce_to_result(ctx, merge_segment_results([partial], aggs), aggs,
+                                list(ctx.group_by))
+
+    all_routes = {"per_segment": lambda segs, sql: execute_query(segs, sql),
+                  "set": lambda segs, sql: mx.execute(segs, sql),
+                  "pipeline": served}
+
+    def checked(label, qid, segs, want, per_pass, runs, routes=tuple(all_routes),
+                passes=None):
+        """Each route: one cold run with the counts set to 0 just before and
+        read just after, held against `want` and `per_pass` launches a pass
+        (a segment's pass on the per-segment route, the set's one pass on the
+        others; `passes` overrides the passes of every route); then `runs`
+        warm runs on the per-segment and set routes."""
+        sql = ssb.MV_QUERIES[qid]
+        plan = plan_segment(compile_query(sql, schema), segs[0])
+        for route in routes:
+            run = all_routes[route]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = run(segs, sql)
+            torch.cuda.synchronize()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            if not mv_answer_ok(qid, result.rows, want):
+                raise AssertionError(f"mv {qid} on the {label} ({route}): got "
+                                     f"{result.rows[:10]}, oracle {want[:10]}")
+            n = passes if passes is not None else (len(segs) if route == "per_segment" else 1)
+            expect = counts_of(**{k: v * n for k, v in per_pass.items()})
+            if counts != expect:
+                raise AssertionError(f"mv {qid} on the {label} ({route}): launches {counts}, "
+                                     f"expected {expect}")
+            for k, v in counts.items():
+                launches[k] += v
+                by_route.setdefault(route, counts_of())[k] += v
+            fields = dict(query=qid, table=label, route=route,
+                          rows=sum(s.num_docs for s in segs), plan=plan.kind,
+                          reason=plan.fallback_reason, answer=result.rows[:5],
+                          launches=counts, cold_ms=cold_ms)
+            if route == "pipeline":
+                fields["pipeline_stage_ms"] = served_stats.pop("last", {}).get("stageMs")
+            if route != "pipeline" and runs:
+                warm, results = warm_times(lambda: run(segs, sql), runs=runs)
+                warm.pop("median_s")
+                stats = [r.stats.get("phaseTimesMs") for r in results]
+                fields.update(warm, phase_median_ms={
+                    k: statistics.median(p[k] for p in stats) for k in stats[0]}
+                    if stats[0] else None)
+            log("mv_query", **fields)
+
+    for qid in ssb.MV_QUERIES:
+        per_pass = MV_PASS_LAUNCHES.get(qid, {})
+        if qid in MV_HOST:
+            plan, _ = mx._plan_for_set(compile_query(ssb.MV_QUERIES[qid], schema), table)
+            if plan is None or plan.kind != "host":
+                raise AssertionError(f"mv {qid}: the set plans {plan and plan.kind}, not host")
+            checked("table", qid, table, answers[qid], per_pass, 0, ("per_segment", "set"))
+        else:
+            checked("table", qid, table, answers[qid], per_pass, MV_RUNS)
+    # an MV-filtered device plan over the aligned set stacks the [S, rows, W] ids
+    plan, view = mx._plan_for_set(compile_query(ssb.MV_QUERIES["tags_eq"], schema), table)
+    if plan is None or plan.kind != "device" or view is not None:
+        raise AssertionError("mv tags_eq: the aligned set did not plan one stacked pass")
+
+    # a staged consuming segment, alone and beside the table
+    messages = jobs["view"].result()
+    rt = dict(ssb.make_columns(MV_VIEW_ROWS, args.seed + 8))
+    rt["lo_orderkey"] = np.arange(1, MV_VIEW_ROWS + 1, dtype=np.int32)
+    rt_csr = ssb.make_mv_csr(MV_VIEW_ROWS, args.seed + 8)
+    MemoryStream.reset_all()
+    stream = MemoryStream.create("lineorder_mv", 1)
+    for msg in messages:
+        stream.produce(msg, partition=0)
+    consumer = RealtimePartitionConsumer(
+        "lineorder__0__0__20261101T0000Z", TableConfig("lineorder", stream=StreamConfig(
+            topic="lineorder_mv", decoder="json",
+            properties={"realtime.ingest.device.staging": "true"})), schema, 0, work)
+    t0 = time.perf_counter()
+    while consumer.mutable.num_docs < MV_VIEW_ROWS:
+        if not consumer.pump():
+            raise AssertionError(f"the pump stopped at {consumer.mutable.num_docs} rows")
+    pump_s = time.perf_counter() - t0
+    view = consumer.query_segment()
+    rt_answers = mv_oracles(rt, rt_csr)
+    both_cols = {k: np.concatenate([cols[k], rt[k]]) for k in ("lo_revenue", "lo_discount")}
+    both_csr = {c: (np.concatenate([csr[c][0], rt_csr[c][0]]),
+                    np.concatenate([csr[c][1], csr[c][1][-1] + rt_csr[c][1][1:]]))
+                for c in csr}
+    both_cols.update({k: np.concatenate([cols[k], rt[k]]) for k in cols if k not in both_cols})
+    both_answers = mv_oracles(both_cols, both_csr)
+    for qid in MV_VIEW_QUERIES:
+        # the view's lo_discount is a raw column (no bitmap leaf); beside the
+        # table every route answers per segment, the table's segments
+        # launching as on the per-segment route (a host-routed query: that
+        # route alone)
+        table_pass = MV_PASS_LAUNCHES.get(qid, {})
+        checked("view", qid, [view], rt_answers[qid], {}, 0, ("per_segment", "set"))
+        checked("table_and_view", qid, table + [view], both_answers[qid], table_pass, 0,
+                ("per_segment",) if qid in MV_HOST else tuple(all_routes), passes=len(table))
+    log("mv_consuming", view_rows=view.num_docs, pump_s=pump_s,
+        rows_per_s=view.num_docs / pump_s,
+        max_num_values={c: view.column(c).max_num_values for c in csr})
+    consumer.mutable.release_device()
+    cases = mv_cases(table, mx)
+    return launches, by_route, cases
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -3235,15 +3575,16 @@ def main() -> int:
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
     # expressions and the host path; phase 10: the aggregation library; phase
     # 11: the filter indexes and star-trees; phase 12: the search indexes and
-    # compressed raw columns. Each phase returns every
+    # compressed raw columns; phase 13: multi-value columns. Each phase returns every
     # kernel's launches in its checked runs: the counts set to 0 just before
     # a run and read just after, each held to the run's expected count.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
-    # phase 12's tables build in worker processes beside the earlier phases
-    search_pool = concurrent.futures.ProcessPoolExecutor(
-        4, mp_context=multiprocessing.get_context("spawn"))   # one per build
-    search_jobs = start_search_builds(search_pool, args, work)
+    # phases 12 and 13's tables build in worker processes beside the earlier phases
+    build_pool = concurrent.futures.ProcessPoolExecutor(
+        6, mp_context=multiprocessing.get_context("spawn"))   # one per build
+    search_jobs = start_search_builds(build_pool, args, work)
+    mv_jobs = start_mv_builds(build_pool, args, work)
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -3280,8 +3621,12 @@ def main() -> int:
         if not all(search_launches.values()):
             raise AssertionError(f"the search phase launches {search_launches}: each kernel "
                                  "must run on its path")
+        mv_launches, mv_by_route, mv_numbers = phase("mv", run_mv, args, work, mv_jobs)
+        if not (mv_launches["masked_sums"] and mv_launches["bitmap_filter"]):
+            raise AssertionError(f"the mv phase launches {mv_launches}: Q1.1 must take the "
+                                 "scan and the mixed tree the bitmap filter")
     finally:
-        search_pool.shutdown(wait=True, cancel_futures=True)
+        build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
 
     sources = {"masked_sums": ("pinot_tpu_torch/csrc/masked_sums.cu",
@@ -3295,7 +3640,8 @@ def main() -> int:
                 "select": select_launches[name], "join": join_launches[name],
                 "realtime": realtime_launches[name], "expr": expr_launches["expr"][name],
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
-                "index": index_launches[name], "search": search_launches[name]}
+                "index": index_launches[name], "search": search_launches[name],
+                "mv": mv_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -3321,6 +3667,8 @@ def main() -> int:
                                                 for r, c in index_by_route.items()},
                     "launches_by_route_search": {r: c["bitmap_filter"]
                                                  for r, c in search_by_route.items()},
+                    "launches_by_route_mv": {r: c["bitmap_filter"]
+                                             for r, c in mv_by_route.items()},
                     "max_abs_err": max(c["max_abs_err"] for c in bitmap_numbers.values()),
                     "ms": head["ms"], "plain_ms": head["plain_ms"],
                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3328,7 +3676,8 @@ def main() -> int:
                     "call_ms": head["call_ms"],
                     "shape_case": "bitmap_query, one segment, mask", "cases": bitmap_numbers})
     log("seconds", total=time.perf_counter() - started, **seconds)
-    print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE}), flush=True)
+    print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE,
+                      "mv_mask_cases": mv_numbers}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

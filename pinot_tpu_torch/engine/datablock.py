@@ -72,6 +72,18 @@ def id_bitmap_words(ids: np.ndarray, cardinality: int, padded: int) -> np.ndarra
     return np.stack([pack_words(ids == c, padded) for c in range(cardinality)])
 
 
+def mv_id_matrix(flat: np.ndarray, offsets: np.ndarray, fill: int, rows: int,
+                 width: int) -> np.ndarray:
+    """int32[rows, width]: the CSR ids (`flat` split at `offsets`) one row each,
+    left-justified, every other cell `fill`."""
+    counts = np.diff(offsets)
+    mat = np.full((rows, width), fill, dtype=np.int32)
+    row = np.repeat(np.arange(len(counts)), counts)
+    mat[row, np.arange(len(row)) - np.repeat(offsets[:-1] - offsets[0], counts)] = \
+        flat[offsets[0]:offsets[0] + len(row)]
+    return mat
+
+
 def for_delta_dtype(reader: ColumnReader) -> Optional[np.dtype]:
     """The delta dtype (uint8 or uint16) of a raw integer column's
     frame-of-reference form, decided from metadata alone; None when the column
@@ -157,14 +169,24 @@ class SegmentBlock:
         return self._null[col]
 
     def ids(self, col: str) -> torch.Tensor:
-        """Padded int32 dict ids of a single-value dict-encoded column."""
+        """Padded int32 dict ids of a dict-encoded column. A multi-value column's
+        are an int32[padded, W] matrix, W = max(max_num_values, 1): each row's
+        ids left-justified, the rest (and every padding row) the fill id
+        `cardinality`, which every decode table and LUT maps to 0 / False. A
+        leaf reduces its per-value mask with `any(-1)`: a row matches if any
+        of its values does."""
         if col not in self._ids:
             reader = self.segment.column(col)
             if not reader.has_dictionary:
                 raise ValueError(f"{col} has no dictionary")
-            padded = np.full(self.padded, reader.cardinality, dtype=np.int32)
-            padded[:self.num_docs] = np.asarray(reader.fwd)
-            self._ids[col] = self._put(padded)
+            if reader.is_multi_value:
+                self._ids[col] = self._put(mv_id_matrix(
+                    np.asarray(reader.fwd), np.asarray(reader.mv_offsets),
+                    reader.cardinality, self.padded, max(reader.max_num_values, 1)))
+            else:
+                padded = np.full(self.padded, reader.cardinality, dtype=np.int32)
+                padded[:self.num_docs] = np.asarray(reader.fwd)
+                self._ids[col] = self._put(padded)
         return self._ids[col]
 
     def raw(self, col: str) -> torch.Tensor:

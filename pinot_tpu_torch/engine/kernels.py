@@ -13,6 +13,10 @@ distinct outputs:
     distinct = int32 index_add_ over dict ids (scalar: of the mask; grouped:
                                              over key * size + ids)
 
+A dictionary leaf over a multi-value column (`KernelSpec.mv_cols`) reads the
+column's [rows, W] id matrix and ORs its per-value mask across each row
+(`any(-1)`), the JAX body's multi-value branch.
+
 Bitmap leaves (`KernelSpec.bitmap_leaves`, chosen by
 `planner.select_bitmap_leaves`) read a dictionary column's packed bitmap
 index instead of its ids, through the CUDA kernel of `engine/bitmap.py`:
@@ -90,6 +94,10 @@ class KernelSpec:
     distinct_lut_sizes: Dict[int, int] = field(default_factory=dict)  # agg idx -> lut size
     # LutLeaf indices evaluated over the bitmap index (KernelInputs.bitmaps)
     bitmap_leaves: Tuple[int, ...] = ()
+    # LUT-leaf columns that are multi-value: their ids are [rows, W] matrices
+    # and a leaf's per-value mask reduces with any(-1). Named, not read from
+    # the shape: nothing else on the device is 2-D per row.
+    mv_cols: Tuple[str, ...] = ()
 
     # per-leaf input routing, computed in __post_init__
     lut_index: Dict[int, int] = field(default_factory=dict)        # scattered LUTs
@@ -126,7 +134,8 @@ class KernelSpec:
         two specs with one signature differ only in literals."""
         return (self.filter.signature(), self.group_cols, self.num_keys_pad,
                 tuple((a.name, repr(a.arg), outs) for a, outs in self.aggs),
-                tuple(sorted(self.distinct_lut_sizes.items())), self.bitmap_leaves)
+                tuple(sorted(self.distinct_lut_sizes.items())), self.bitmap_leaves,
+                self.mv_cols)
 
     def word_program(self) -> Optional[List[int]]:
         """The whole filter tree as a bitmap program (`bitmap.word_program`)
@@ -201,8 +210,12 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
                 for j in range(n):
                     lo, hi = inputs.iscal[off + 2 * j], inputs.iscal[off + 2 * j + 1]
                     m |= (col_ids >= lo) & (col_ids <= hi)
-                return m
-            return inputs.luts[spec.lut_index[i]][col_ids]
+            else:
+                m = inputs.luts[spec.lut_index[i]][col_ids]
+            # a multi-value row matches if any of its values does; its fill
+            # id, the cardinality, lies past every interval and is False in
+            # every LUT, so that it never matches
+            return m.any(-1) if leaf.col in spec.mv_cols else m
         assert isinstance(leaf, CmpLeaf)
         v = eval_device(leaf.expr, inputs.vals)
         arr_name, off = spec.cmp_offset[i]

@@ -79,6 +79,10 @@ def _coerce_list(spec, vals: list) -> list:
     through int64/float64 when every value is clean; BOOLEAN coerces by
     truthiness, so it never takes the cast."""
     dt = spec.data_type
+    if not spec.single_value:
+        # a multi-value cell passes whole: the segment normalizes it per
+        # element (`schema.normalize_mv_cell`) as it is appended
+        return [None if v is None or _is_nan(v) else v for v in vals]
     if dt.is_numeric and dt is not DataType.BOOLEAN and vals:
         wide = np.float64 if np.dtype(dt.numpy_dtype).kind == "f" else np.int64
         try:
@@ -103,7 +107,11 @@ def _as_array(v) -> np.ndarray:
     if isinstance(v, np.ndarray):
         return v
     arr = np.empty(len(v), dtype=object)
-    arr[:] = v
+    try:
+        arr[:] = v
+    except ValueError:   # list cells of one length, under an older numpy
+        for i, x in enumerate(v):
+            arr[i] = x
     return arr
 
 

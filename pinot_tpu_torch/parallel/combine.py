@@ -57,9 +57,19 @@ the stacked bitmap index (`[S, card, W]`, one `bitmap_filter` launch for the
 set), null leaves the stacked null bitmaps, and doc-set leaves (JSON_MATCH,
 TEXT_MATCH, a geo index's candidates, IN_ID_SET over a raw column) the
 segments' masks stacked (`_stacked_docsets`, cached on the block by the
-leaf's `cache_token`). A JSON_MATCH or TEXT_MATCH over a set that would need
-the merged view (unaligned, or with a mutable member) is the per-segment
-executor's (`_has_search_filter`, checked before the view is built).
+leaf's `cache_token`). Where the segments compile different doc-set leaves
+(a geo index on some of them only), the stacked masks would not line up:
+`_stacked_docsets` raises `DocsetPlanDivergence` and every entry point
+answers that set per segment. A JSON_MATCH or TEXT_MATCH over a set that
+would need the merged view (unaligned, or with a mutable member) is the
+per-segment executor's (`_has_search_filter`, checked before the view is
+built).
+
+Multi-value columns: over an aligned immutable set, a filter leaf over one
+reads its stacked `[S_pad, rows, W]` id matrices (W the set's widest row)
+through the plain body; a query that touches one over any other set
+(`_refs_multi_value`) is the per-segment executor's, since the merged view
+does not remap multi-value ids, and so is a selection that touches one.
 
 Not executed here, raising NotImplementedError: a scan over more than
 INT32_MAX rows. A group-by partial is a state dict, not
@@ -79,7 +89,8 @@ import numpy as np
 import torch
 
 from ..engine import kernels, scan
-from ..engine.datablock import _narrow, id_bitmap_words, pack_words, padded_rows
+from ..engine.datablock import (_narrow, id_bitmap_words, mv_id_matrix, pack_words,
+                                padded_rows)
 from ..engine.expr import eval_device
 from ..engine.kernels import KernelInputs, KernelSpec, filter_mask, run_kernel
 from ..query.aggregates import make_agg
@@ -88,7 +99,7 @@ from ..query.dense_reduce import try_dense_decode
 from ..query.executor import (MAX_DEVICE_TOPK, TOPK_SLACK, ServerQueryExecutor,
                               _band_leaf_indices, _plan_vals_cols, _sum_operands, _take,
                               bitmap_leaf, distinct_cols, f32_tie_at_the_cut, kernel_spec,
-                              resolve_device, scan_route, selection_rows)
+                              mask_spec, resolve_device, scan_route, selection_rows)
 from ..query.planner import (SegmentPlan, aligned_dictionaries, build_device_geometry,
                              plan_segment, select_bitmap_leaves, topk_key_exact_in_f32,
                              topk_order_key_device_ok)
@@ -97,7 +108,7 @@ from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_resul
 from ..query.startree_exec import StarTreePlan, reassemble, try_star_tree
 from ..query.result import ResultTable
 from ..segment.reader import ImmutableSegment
-from ..sql.ast import Function, Identifier
+from ..sql.ast import Function, Identifier, identifiers_in
 from .merged import MergedSegmentView, view_key
 
 MAX_SCAN_ROWS = scan.INT32_MAX   # rows one scan launch takes
@@ -136,6 +147,20 @@ def _has_search_filter(ctx: QueryContext) -> bool:
         return isinstance(e, Function) and (e.name in ("json_match", "text_match")
                                             or any(walk(a) for a in e.args))
     return ctx.filter is not None and walk(ctx.filter)
+
+
+class DocsetPlanDivergence(Exception):
+    """The segments of a set compile different doc-set leaves (a geo index on
+    some of them only): their masks do not stack, and the set is answered
+    per segment."""
+
+
+def _refs_multi_value(ctx: QueryContext, seg) -> bool:
+    """Does the query touch a multi-value column of `seg`?"""
+    exprs = [ctx.filter] if ctx.filter is not None else []
+    exprs += list(ctx.group_by) + list(ctx.aggregations) + [e for e, _ in ctx.select_items]
+    names = {n for e in exprs for n in identifiers_in(e)}
+    return any(seg.column(n).is_multi_value for n in names if n in seg.column_names)
 
 
 def device_topk_screen(ctx: QueryContext) -> bool:
@@ -243,14 +268,16 @@ class SegmentSetBlock:
         self._lock = threading.Lock()
 
     def _stack(self, kind: str, col: str, fill, per_seg, width: int = 0) -> torch.Tensor:
-        """`per_seg(i, segment)`'s rows stacked `[S_pad, width or rows]` with
-        `fill` after each segment's, copied to the card once and cached."""
+        """`per_seg(i, segment)`'s rows stacked `[S_pad, width or rows, ...]`
+        (a trailing axis of the rows kept) with `fill` after each segment's,
+        copied to the card once and cached."""
         key = (kind, col)
         with self._lock:
             if key not in self._cache:
                 parts = [np.asarray(per_seg(i, s))[:width or n]
                          for i, (s, n) in enumerate(zip(self.segments, self.seg_docs))]
-                out = np.full((self.s_pad, width or self.rows), fill, dtype=parts[0].dtype)
+                out = np.full((self.s_pad, width or self.rows) + parts[0].shape[1:], fill,
+                              dtype=parts[0].dtype)
                 for i, arr in enumerate(parts):
                     out[i, :len(arr)] = arr
                 self._cache[key] = _to_device(out, self.device)
@@ -258,9 +285,19 @@ class SegmentSetBlock:
 
     def ids(self, col: str) -> torch.Tensor:
         """int32 dict ids in the plan's id space (a merged view's global ids);
-        fill rows hold the out-of-dictionary id `cardinality`."""
+        fill rows hold the out-of-dictionary id `cardinality`. A multi-value
+        column's are `[S_pad, rows, W]`: each segment's `mv_id_matrix` with W
+        the set's widest row (the cache key holds W, and every member is
+        sliced to the rows the block froze), fill rows the fill id across W."""
         if self.view is None:
-            card = self.segments[0].column(col).cardinality
+            r0 = self.segments[0].column(col)
+            card = r0.cardinality
+            if r0.is_multi_value:
+                readers = [s.column(col) for s in self.segments]
+                w = max(max(r.max_num_values, 1) for r in readers)
+                return self._stack(f"ids:{w}", col, card, lambda i, s: mv_id_matrix(
+                    np.asarray(readers[i].fwd), np.asarray(readers[i].mv_offsets)
+                    [:self.seg_docs[i] + 1], card, self.seg_docs[i], w))
             return self._stack("ids", col, card,
                                lambda i, s: np.asarray(s.column(col).fwd).astype(np.int32))
         mc = self.view.column(col)
@@ -397,7 +434,10 @@ class MeshQueryExecutor:
         plan, view = self._plan_for_set(ctx, segments)
         if not isinstance(plan, StarSetPlan) and (plan is None or plan.kind != "device"):
             return self._fallback.execute(segments, ctx, star_plans=_loop_fits(plan))
-        return self._execute_sharded(ctx, plan, segments, view, t0)
+        try:
+            return self._execute_sharded(ctx, plan, segments, view, t0)
+        except DocsetPlanDivergence:
+            return self._fallback.execute(segments, ctx)
 
     @staticmethod
     def _answered(kind: str, partial: SegmentResult) -> PreparedDispatch:
@@ -427,10 +467,10 @@ class MeshQueryExecutor:
             plan = plan_segment(ctx, segments[0], peers=segments[1:])
             if plan.kind != "device" or self._alignable(plan, segments):
                 return plan, None
-        if _has_search_filter(ctx):
-            # JSON_MATCH / TEXT_MATCH masks are per segment: the merged view
-            # has no index or rows to resolve them over, so the per-segment
-            # executor answers
+        if _has_search_filter(ctx) or _refs_multi_value(ctx, segments[0]):
+            # JSON_MATCH / TEXT_MATCH masks are per segment, and the merged
+            # view has no index or rows to resolve them over and no remap of
+            # multi-value ids: the per-segment executor answers
             return None, None
         view = self._merged_view(segments)
         return plan_segment(ctx, view), view
@@ -510,7 +550,11 @@ class MeshQueryExecutor:
                                                      star_plans=_loop_fits(plan))
                 continue
             else:
-                p = self._prepare_sharded(ctx, plan, segments, view, partial=False)
+                try:
+                    p = self._prepare_sharded(ctx, plan, segments, view, partial=False)
+                except DocsetPlanDivergence:
+                    results[qi] = self._fallback.execute(segments, ctx)
+                    continue
             [(packed, finish, _)] = self.dispatch_prepared([p])
             pending.append((qi, packed, finish, p.decode))
         fetched = self.fetch([packed for _, packed, _, _ in pending])
@@ -538,12 +582,14 @@ class MeshQueryExecutor:
             # the plan's id bands hold set-wide only where the filtered
             # columns' dictionaries agree, and the device mask only where the
             # plan has no host reason, no doc-set leaf (the JAX package's
-            # stacked top-k declines them too) and no mutable member:
-            # otherwise the per-segment executor
+            # stacked top-k declines them too, and so a doc-set divergence
+            # cannot reach it), touches no multi-value column and has no
+            # mutable member: otherwise the per-segment executor
             leaves = plan.filter_prog.leaves
             lut_cols = {leaf.col for leaf in leaves if isinstance(leaf, LutLeaf)}
             if device_topk_screen(ctx) and not plan.fallback_reason and view is None \
                     and not any(isinstance(leaf, DocSetLeaf) for leaf in leaves) \
+                    and not _refs_multi_value(ctx, segments[0]) \
                     and aligned_dictionaries(segments, lut_cols) and all(
                     topk_order_key_device_ok(s, ctx.order_by[0].expr) for s in segments):
                 return self._prepare_topk(ctx, plan, segments)
@@ -551,7 +597,10 @@ class MeshQueryExecutor:
         if plan is None or plan.kind != "device":
             return self._answered("metadata", self._per_segment_partial(
                 ctx, segments, _loop_fits(plan)))
-        return self._prepare_sharded(ctx, plan, segments, view, partial=True)
+        try:
+            return self._prepare_sharded(ctx, plan, segments, view, partial=True)
+        except DocsetPlanDivergence:
+            return self._answered("metadata", self._per_segment_partial(ctx, segments))
 
     def _per_segment_partial(self, ctx: QueryContext, segments,
                              star_plans: Optional[List[StarTreePlan]] = None
@@ -601,7 +650,8 @@ class MeshQueryExecutor:
             elif isinstance(leaf, NullLeaf):
                 nulls[leaf.col] = block.null_mask(leaf.col).view(-1)
         docsets = self._stacked_docsets(ctx, plan, block) if spec.docset_index else ()
-        return KernelInputs(ids={c: block.ids(c).view(-1) for c in ids_cols},
+        # flattened to one row per segment row; a multi-value id matrix keeps W
+        return KernelInputs(ids={c: block.ids(c).flatten(0, 1) for c in ids_cols},
                             vals={c: block.decoded(c).view(-1)
                                   for c in _plan_vals_cols(plan)},
                             luts=tuple(luts), iscal=iscal, fscal=fscal,
@@ -614,18 +664,30 @@ class MeshQueryExecutor:
                          block: "SegmentSetBlock") -> Tuple[torch.Tensor, ...]:
         """Each doc-set leaf's per-segment masks stacked `[S_pad, rows]` and
         flattened, in leaf order: the filter compiled on each segment resolves
-        its own mask (an aligned set; a fixed filter compiles to the same leaf
-        structure everywhere). Cached on the block under each leaf's
-        `cache_token` (the predicate's kind and parameters), at most
-        MAX_CACHED_DOCSETS of them; a leaf without a token is not cached."""
+        its own mask. Each segment must compile the probe's doc-set leaves,
+        the same (column, `cache_token`) in the same order; where one does
+        not (a geo index on some segments only adds a candidate leaf there),
+        `DocsetPlanDivergence` is raised and the caller answers per segment.
+        Cached on the block under each leaf's `cache_token` (the predicate's
+        kind and parameters), at most MAX_CACHED_DOCSETS of them; a leaf
+        without a token is not cached. A mask is cached only once every
+        segment compiled the probe's leaves, and it answers its predicate
+        wherever it is read, so a fully cached query needs no check."""
         probe = [leaf for leaf in plan.filter_prog.leaves if isinstance(leaf, DocSetLeaf)]
+        want = [(leaf.col, leaf.cache_token) for leaf in probe]
         keys = [("docset", f"{leaf.col}\x00{leaf.cache_token}") if leaf.cache_token
                 else None for leaf in probe]
         with block._lock:
             out = [block._cache.get(k) if k is not None else None for k in keys]
         if any(t is None for t in out):
-            per_seg = [[leaf.mask for leaf in compile_filter(ctx.filter, s).leaves
-                        if isinstance(leaf, DocSetLeaf)] for s in block.segments]
+            per_seg = []
+            for s in block.segments:
+                leaves = [leaf for leaf in compile_filter(ctx.filter, s).leaves
+                          if isinstance(leaf, DocSetLeaf)]
+                if [(leaf.col, leaf.cache_token) for leaf in leaves] != want:
+                    raise DocsetPlanDivergence(
+                        f"segment {s.name} compiles other doc-set leaves than {want}")
+                per_seg.append([leaf.mask for leaf in leaves])
             with block._lock:
                 cached = [k for k in block._cache if k[0] == "docset"]
                 if len(cached) >= MAX_CACHED_DOCSETS:
@@ -652,7 +714,7 @@ class MeshQueryExecutor:
         order = ctx.order_by[0]
         block = self._block_for(segments)
         plan.bitmap_leaves = select_bitmap_leaves(plan, plan.segment)
-        spec = KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves)
+        spec = mask_spec(plan)
         inputs = self._set_inputs(plan, spec, block, ctx)
         inputs.vals.setdefault(order.expr.name, block.decoded(order.expr.name).view(-1))
         k = ctx.offset + ctx.limit

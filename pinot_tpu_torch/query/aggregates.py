@@ -17,8 +17,9 @@ rank) table, theta's hashes and the t-digest's float64 values are cached on
 the dictionary object, keyed by its length, so that a consuming segment's
 growing dictionary never reuses a table of fewer values.
 
-The multi-value (`*MV`) aggregations are not ported: this package has no
-multi-value columns, and `make_agg` raises NotImplementedError for them.
+The multi-value (`*MV`) aggregations run on the host, as in the JAX package:
+their argument is an object array of per-row value arrays, flattened to the
+values (`_mv_flat`) before the single-value function's state is built.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..segment.reader import MVValues
 from ..sql.ast import Expr, Function, Identifier
 from .context import QueryValidationError
 
@@ -355,7 +357,12 @@ class DistinctCountHLLAgg(AggFunc):
 
     def host_state(self, values) -> np.ndarray:
         regs = np.zeros(1 << self.p, dtype=np.int8)
-        for v in np.unique(np.asarray(values, dtype=object)):
+        values = np.asarray(values)
+        # distinct values as Python objects (what `hll_hash` hashes), sorted
+        # numerically where the values are numbers
+        distinct = np.unique(values).astype(object) if values.dtype != object \
+            else np.unique(values)
+        for v in distinct:
             b, r = hll_bucket_rank(v, self.p)
             regs[b] = max(regs[b], r)
         return regs
@@ -1460,6 +1467,130 @@ class IdSetAgg(AggFunc):
         return IdSet.empty().serialize()
 
 
+# -- multi-value aggregations (the reference's CountMVAggregationFunction, ...)
+# The argument on the host is the column's rows (`MVValues`, or an object
+# array of per-row value arrays from a transform); each *MV function flattens
+# the rows to their values first.
+# Host only: the device body has no ragged-row reduction.
+
+def _mv_flat(values) -> np.ndarray:
+    if isinstance(values, MVValues):
+        return values.values()
+    rows = [np.asarray(v) for v in values]
+    if not rows:
+        return np.empty(0, dtype=np.float64)
+    return np.concatenate(rows)
+
+
+def _strip_mv(call: Function) -> Function:
+    return Function(call.name[:-2], call.args, call.distinct)
+
+
+class _MVHost:
+    """Mixin of the *MV functions: host only, over the flattened values."""
+
+    def device_ok(self, ctx: AggContext) -> bool:
+        return False
+
+    def host_state(self, values):
+        return super().host_state(_mv_flat(values))
+
+
+class CountMVAgg(_MVHost, CountAgg):
+    name = "countmv"
+
+    def host_state(self, values):
+        if isinstance(values, MVValues):
+            return int(values.counts.sum())
+        return int(sum(len(v) for v in values))
+
+
+class SumMVAgg(_MVHost, SumAgg):
+    name = "summv"
+
+
+class MinMVAgg(_MVHost, MinAgg):
+    name = "minmv"
+
+
+class MaxMVAgg(_MVHost, MaxAgg):
+    name = "maxmv"
+
+
+class AvgMVAgg(_MVHost, AvgAgg):
+    name = "avgmv"
+
+
+class MinMaxRangeMVAgg(_MVHost, MinMaxRangeAgg):
+    name = "minmaxrangemv"
+
+
+class DistinctCountMVAgg(_MVHost, DistinctCountAgg):
+    name = "distinctcountmv"
+
+
+class DistinctSumMVAgg(_MVHost, DistinctSumAgg):
+    name = "distinctsummv"
+
+    def host_state(self, values):
+        return DistinctCountAgg.host_state(self, _mv_flat(values))
+
+
+class DistinctAvgMVAgg(_MVHost, DistinctAvgAgg):
+    name = "distinctavgmv"
+
+    def host_state(self, values):
+        return DistinctCountAgg.host_state(self, _mv_flat(values))
+
+
+class DistinctCountHLLMVAgg(_MVHost, DistinctCountHLLAgg):
+    name = "distinctcounthllmv"
+
+
+class DistinctCountRawHLLMVAgg(_MVHost, DistinctCountRawHLLAgg):
+    name = "distinctcountrawhllmv"
+
+
+class IdSetMVAgg(_MVHost, IdSetAgg):
+    name = "idsetmv"
+
+
+class PercentileMVAgg(_MVHost, PercentileAgg):
+    """PERCENTILEMV / PERCENTILE<NN>MV: the exact percentile of the flattened
+    values (the reference's PercentileMVAggregationFunction)."""
+    name = "percentilemv"
+
+    def __init__(self, call: Function):
+        super().__init__(_strip_mv(call))
+
+
+class PercentileEstMVAgg(_MVHost, PercentileEstAgg):
+    name = "percentileestmv"
+
+    def __init__(self, call: Function):
+        super().__init__(_strip_mv(call))
+
+
+class PercentileTDigestMVAgg(_MVHost, PercentileTDigestAgg):
+    name = "percentiletdigestmv"
+
+    def __init__(self, call: Function):
+        super().__init__(_strip_mv(call))
+
+
+class PercentileRawEstMVAgg(_MVHost, PercentileRawEstAgg):
+    name = "percentilerawestmv"
+
+    def __init__(self, call: Function):
+        super().__init__(_strip_mv(call))
+
+
+class PercentileRawTDigestMVAgg(_MVHost, PercentileRawTDigestAgg):
+    name = "percentilerawtdigestmv"
+
+    def __init__(self, call: Function):
+        super().__init__(_strip_mv(call))
+
 
 _REGISTRY = {
     "count": CountAgg,
@@ -1504,25 +1635,34 @@ _REGISTRY = {
     "sumprecision": SumPrecisionAgg,
     "stunion": StUnionAgg,
     "idset": IdSetAgg,
+    "countmv": CountMVAgg,
+    "summv": SumMVAgg,
+    "minmv": MinMVAgg,
+    "maxmv": MaxMVAgg,
+    "avgmv": AvgMVAgg,
+    "minmaxrangemv": MinMaxRangeMVAgg,
+    "distinctcountmv": DistinctCountMVAgg,
+    "distinctcountbitmapmv": DistinctCountMVAgg,  # exact, the same state
+    "distinctsummv": DistinctSumMVAgg,
+    "distinctavgmv": DistinctAvgMVAgg,
+    "distinctcounthllmv": DistinctCountHLLMVAgg,
+    "distinctcountrawhllmv": DistinctCountRawHLLMVAgg,
+    "idsetmv": IdSetMVAgg,
 }
 
-# the JAX package's multi-value aggregations (its `*MV` classes)
+# the multi-value aggregations (the JAX package's `*MV` classes)
 MV_AGGREGATIONS = frozenset({
     "countmv", "summv", "minmv", "maxmv", "avgmv", "minmaxrangemv",
     "distinctcountmv", "distinctcountbitmapmv", "distinctsummv", "distinctavgmv",
     "distinctcounthllmv", "distinctcountrawhllmv", "idsetmv"})
 _PERCENTILE_PREFIXES = ("percentilesmarttdigest", "percentilerawtdigest", "percentilerawest",
                         "percentiletdigest", "percentileest", "percentile")
-
-
-def _is_mv_name(name: str) -> bool:
-    if name in MV_AGGREGATIONS:
-        return True
-    if not (name.endswith("mv") and name.startswith("percentile")):
-        return False
-    stem = name[:-2]
-    return any(stem == p or (stem.startswith(p) and stem[len(p):].isdigit())
-               for p in _PERCENTILE_PREFIXES[1:])
+# PERCENTILE*MV, longest prefix first (no smart t-digest MV, as in the reference)
+_PERCENTILE_MV = (("percentilerawtdigest", PercentileRawTDigestMVAgg),
+                  ("percentilerawest", PercentileRawEstMVAgg),
+                  ("percentiletdigest", PercentileTDigestMVAgg),
+                  ("percentileest", PercentileEstMVAgg),
+                  ("percentile", PercentileMVAgg))
 
 
 def make_agg(call: Function) -> AggFunc:
@@ -1530,10 +1670,11 @@ def make_agg(call: Function) -> AggFunc:
     if name == "count" and call.distinct:
         # COUNT(DISTINCT x) -> DISTINCTCOUNT(x), the reference's rewrite
         return DistinctCountAgg(Function("distinctcount", call.args))
-    if _is_mv_name(name):
-        raise NotImplementedError(
-            f"aggregation {name.upper()} is not supported by pinot_tpu_torch: "
-            "multi-value columns are not ported")
+    if name.endswith("mv") and name.startswith("percentile"):
+        stem = name[:-2]
+        for prefix, cls in _PERCENTILE_MV:
+            if stem == prefix or (stem.startswith(prefix) and stem[len(prefix):].isdigit()):
+                return cls(call)
     for prefix in _PERCENTILE_PREFIXES:
         if name.startswith(prefix) and name[len(prefix):].isdigit():
             return _REGISTRY[prefix](call)

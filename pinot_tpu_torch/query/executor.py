@@ -47,9 +47,16 @@ leaves read the column's null bitmap, doc-set leaves (IN_ID_SET over a raw
 column) a host mask. A selective dictionary leaf of the host filter mask
 reads the inverted index's postings instead of the forward index.
 
+Multi-value columns: a dictionary leaf over one reads the column's padded
+[rows, W] id matrix and matches a row if any of its values matches
+(`KernelSpec.mv_cols`); such a leaf never takes the scan route
+(`_band_leaf_indices`), whose bands read one id per row. The host filter
+mask reduces the LUT over the CSR per row; a host GROUP BY explodes a row
+into one group row per value of its (one) multi-value key; selections
+return a multi-value cell as a list.
+
 Shapes this package does not execute raise NotImplementedError with their
-reason: multi-value columns and the `*MV` aggregations, and JSON_MATCH/
-TEXT_MATCH. Nothing falls back to another path: the host runs only what the
+reason. Nothing falls back to another path: the host runs only what the
 planner marks host.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
@@ -69,10 +76,10 @@ from ..engine.bitmap import BitmapLeaf
 from ..engine.datablock import SegmentBlock, block_for, for_delta_dtype, lut_size
 from ..engine.expr import eval_device, eval_host
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
-from ..segment.reader import ColumnReader, ImmutableSegment
+from ..segment.reader import ColumnReader, ImmutableSegment, MVValues, mv_values
 from ..sql.ast import Identifier, identifiers_in
 from .aggregates import make_agg
-from .context import QueryContext, compile_query
+from .context import QueryContext, QueryValidationError, compile_query
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
                       select_bitmap_leaves, topk_key_exact_in_f32, topk_order_key_device_ok)
 from .predicate import CmpLeaf, DocSetLeaf, LutLeaf, NullLeaf
@@ -337,11 +344,13 @@ class ServerQueryExecutor:
 
         key_arrays = [_rows_of(eval_host(g, env), len(mask))[idx] for g in plan.group_exprs]
         arg_arrays = [arg_values(a) for a in plan.aggs]
+        key_arrays, arg_arrays = _explode_mv_key(key_arrays, arg_arrays)
         value_dicts = []
-        combined = np.zeros(len(idx), dtype=np.int64)
+        n_rows = len(key_arrays[0][0] if isinstance(key_arrays[0], tuple) else key_arrays[0])
+        combined = np.zeros(n_rows, dtype=np.int64)
         stride = 1
         for arr in key_arrays:
-            codes, values = _factorize_keys(arr)
+            codes, values = arr if isinstance(arr, tuple) else _factorize_keys(arr)
             combined += codes * stride
             value_dicts.append(values)
             stride *= max(len(values), 1)
@@ -393,7 +402,7 @@ class ServerQueryExecutor:
             return None
         block = block_for(seg, self.device)
         plan.bitmap_leaves = select_bitmap_leaves(plan, seg)
-        spec = KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves)
+        spec = mask_spec(plan)
         inputs = self._kernel_inputs(plan, spec, block)
         if order.expr.name not in inputs.vals:
             inputs.vals[order.expr.name] = block.values(order.expr.name)
@@ -421,7 +430,7 @@ class ServerQueryExecutor:
             return mask if plan.valid_docs is None else mask & plan.valid_docs[:len(mask)]
         block = block_for(seg, self.device)
         plan.bitmap_leaves = select_bitmap_leaves(plan, seg)
-        spec = KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves)
+        spec = mask_spec(plan)
         mask = kernels.filter_mask(spec, self._kernel_inputs(plan, spec, block))
         return mask[:seg.num_docs].cpu().numpy()
 
@@ -463,7 +472,21 @@ def kernel_spec(plan: SegmentPlan) -> KernelSpec:
              for i, a in enumerate(plan.aggs) if "distinct" in a.device_outputs}
     return KernelSpec(plan.filter_prog, plan.group_cols, plan.num_keys_pad,
                       tuple((a, a.device_outputs) for a in plan.aggs), sizes,
-                      bitmap_leaves=plan.bitmap_leaves)
+                      bitmap_leaves=plan.bitmap_leaves, mv_cols=mv_lut_cols(plan))
+
+
+def mask_spec(plan: SegmentPlan) -> KernelSpec:
+    """The spec of a plan's filter mask alone (a selection's, a top-k's)."""
+    return KernelSpec(plan.filter_prog, (), 1, (), bitmap_leaves=plan.bitmap_leaves,
+                      mv_cols=mv_lut_cols(plan))
+
+
+def mv_lut_cols(plan: SegmentPlan) -> Tuple[str, ...]:
+    """The dictionary-leaf columns that are multi-value on the plan's segment
+    (`KernelSpec.mv_cols`)."""
+    return tuple(sorted({leaf.col for leaf in plan.filter_prog.leaves
+                         if isinstance(leaf, LutLeaf)
+                         and plan.segment.column(leaf.col).is_multi_value}))
 
 
 def bitmap_leaf(words: torch.Tensor, leaf: LutLeaf) -> BitmapLeaf:
@@ -485,9 +508,12 @@ def f32_tie_at_the_cut(kth, last) -> bool:
 
 
 def _take(reader: ColumnReader, rows: np.ndarray) -> np.ndarray:
-    """The column's values at `rows`, decoded on the host. A consuming
+    """The column's values at `rows`, decoded on the host; a multi-value
+    column's as an object array of per-row value arrays. A consuming
     segment's reader decodes through one `dict_snapshot`: its ids and its
     dictionary must come from the same growth step."""
+    if reader.is_multi_value:
+        return np.asarray(mv_values(reader).take(np.asarray(rows, dtype=np.int64)))
     snapshot = getattr(reader, "dict_snapshot", None)
     if snapshot is not None:
         _, d, ids = snapshot()
@@ -498,7 +524,10 @@ def _take(reader: ColumnReader, rows: np.ndarray) -> np.ndarray:
 
 
 def _cell(v):
-    return v.item() if isinstance(v, np.generic) else v
+    """A result cell as a Python value; a multi-value cell as a list."""
+    if isinstance(v, np.generic):
+        return v.item()
+    return v.tolist() if isinstance(v, np.ndarray) else v
 
 
 def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
@@ -553,8 +582,10 @@ def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
                 # a consuming reader: the LUT, rebuilt from the leaf's
                 # predicate, and the ids from ONE snapshot (ids remap as the
                 # sorted dictionary grows)
-                _, d, ids = snapshot()
-                m = leaf.rebuild_lut(d, len(d))[np.asarray(ids).astype(np.int64)]
+                snap = snapshot()
+                lut = leaf.rebuild_lut(snap[1], len(snap[1]))
+                m = _mv_any(lut, *snap[2:]) if reader.is_multi_value \
+                    else lut[np.asarray(snap[2]).astype(np.int64)]
                 return np.pad(m, (0, max(0, n - len(m))))[:n]
             inv = getattr(reader, "inverted_index", None)
             if inv is not None:
@@ -564,6 +595,8 @@ def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
                     docs = inv.doc_ids_for_ids(match_ids)
                     mask[docs[docs < n]] = True
                     return mask
+            if reader.is_multi_value:
+                return _mv_any(leaf.lut, reader.fwd, reader.mv_offsets)[:n]
             return leaf.lut[np.asarray(reader.fwd).astype(np.int64)]
         if isinstance(leaf, NullLeaf):
             nb = seg.column(leaf.col).null_bitmap
@@ -607,6 +640,17 @@ def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
     return walk(prog.tree)
 
 
+def _mv_any(lut: np.ndarray, flat, offsets) -> np.ndarray:
+    """bool per row: does any of the row's values (CSR `flat` ids split at
+    `offsets`) hit the LUT? Every row holds at least one value (an empty
+    row stores the default null), so `reduceat` is well defined."""
+    offsets = np.asarray(offsets)
+    if len(offsets) < 2:
+        return np.zeros(0, dtype=bool)
+    hits = lut[np.asarray(flat).astype(np.int64)].astype(np.int32)
+    return np.add.reduceat(hits, offsets[:-1]) > 0
+
+
 def _host_env(plan: SegmentPlan, seg: ImmutableSegment, n: int) -> Dict[str, np.ndarray]:
     """Decoded columns (the first `n` rows) for host expression evaluation:
     those the group keys, the aggregate arguments and the compare leaves read."""
@@ -619,11 +663,51 @@ def _host_env(plan: SegmentPlan, seg: ImmutableSegment, n: int) -> Dict[str, np.
     for leaf in plan.filter_prog.leaves:
         if isinstance(leaf, CmpLeaf):
             needed.update(identifiers_in(leaf.expr))
-    return {c: seg.column(c).values()[:n] for c in needed}
+    env = {}
+    for c in needed:
+        reader = seg.column(c)
+        if reader.is_multi_value:
+            rows = mv_values(reader)     # its rows as CSR, decoded where read
+            env[c] = rows if len(rows) == n else rows[:n]
+        else:
+            env[c] = reader.values()[:n]
+    return env
+
+
+def _explode_mv_key(key_arrays: List[np.ndarray], arg_arrays: List[np.ndarray]):
+    """A multi-value group key explodes each row into one row per value (the
+    reference's MV group key generators), the other keys and the arguments
+    repeated with it. Found on the evaluated keys, so that a transform that
+    yields multi-value rows (VALUEIN) explodes as a bare column does; a row
+    with no value joins no group. A column's rows (`MVValues`) explode
+    to their dict ids with the dictionary's values: (codes, values), already
+    factorized."""
+    mv = [j for j, arr in enumerate(key_arrays) if isinstance(arr, MVValues) or (
+        arr.dtype == object and len(arr) and isinstance(arr[0], np.ndarray))]
+    if not mv:
+        return key_arrays, arg_arrays
+    if len(mv) > 1:
+        raise QueryValidationError("GROUP BY supports at most one multi-value expression")
+    rows = key_arrays[mv[0]]
+    if isinstance(rows, MVValues):
+        # a column's rows: its dict ids are already dense codes of its
+        # sorted values
+        counts = rows.counts
+        flat = (rows.ids[rows.offsets[0]:rows.offsets[-1]].astype(np.int64),
+                list(rows.dictionary.values))
+    else:
+        counts = np.fromiter((len(r) for r in rows), dtype=np.int64, count=len(rows))
+        flat = np.concatenate(list(rows))
+    rep = np.repeat(np.arange(len(rows)), counts)
+    return ([flat if k == mv[0] else arr[rep] for k, arr in enumerate(key_arrays)],
+            [a[rep] for a in arg_arrays])
 
 
 def _rows_of(v, n: int) -> np.ndarray:
-    """An evaluated expression as n rows (a constant broadcast)."""
+    """An evaluated expression as n rows (a constant broadcast); a
+    multi-value column's rows stay `MVValues`."""
+    if isinstance(v, MVValues):
+        return v
     return np.full(n, v, dtype=object) if np.ndim(v) == 0 else np.asarray(v)
 
 
@@ -745,7 +829,8 @@ def _for_cols(plan: SegmentPlan) -> set:
 
 def _band_leaf_indices(plan: SegmentPlan) -> Optional[List[int]]:
     """Leaf indices when the filter is an AND (or a single leaf, or nothing) of
-    LutLeafs of exactly one id interval each; None for any other filter."""
+    single-value LutLeafs of exactly one id interval each; None for any other
+    filter."""
     prog = plan.filter_prog
     tree = prog.tree
     if tree == ("const", True):
@@ -759,7 +844,10 @@ def _band_leaf_indices(plan: SegmentPlan) -> Optional[List[int]]:
     for i in idx:
         leaf = prog.leaves[i]
         if not isinstance(leaf, LutLeaf) or leaf.intervals is None \
-                or len(leaf.intervals) != 1:
+                or len(leaf.intervals) != 1 \
+                or plan.segment.column(leaf.col).is_multi_value:
+            # a multi-value column's ids are a [rows, W] matrix: the scan's
+            # bands read one id per row
             return None
     return idx
 

@@ -10,6 +10,7 @@ device form is an int32 dict-id tensor.
 
 from __future__ import annotations
 
+import itertools
 import json
 from dataclasses import dataclass, field
 from enum import Enum
@@ -204,6 +205,62 @@ class Schema:
             fields=fields,
             primary_key_columns=d.get("primaryKeyColumns", []),
         )
+
+
+def normalize_mv_cell(spec: FieldSpec, v: Any):
+    """(values list, is_null) of one multi-value cell: the one normalization
+    of the batch writer and the consuming segment, so both store the same
+    values. A None or empty cell is one default null value (Pinot's MV null is
+    a one-element array); a scalar is wrapped; each element is coerced."""
+    if v is None or (hasattr(v, "__len__") and len(v) == 0
+                     and not isinstance(v, (str, bytes))):
+        return [spec.null_value], True
+    if isinstance(v, (list, tuple, np.ndarray)):
+        return [spec.data_type.coerce(x) for x in v], False
+    return [spec.data_type.coerce(v)], False
+
+
+# what DataType.coerce does to a value that is not None, where that is one
+# builtin call
+_MV_CASTS = {"INT": int, "LONG": int, "TIMESTAMP": int, "FLOAT": float, "DOUBLE": float,
+             "STRING": str}
+
+
+def normalize_mv_column(spec: FieldSpec, cells) -> tuple:
+    """`normalize_mv_cell` over a column's cells at once: (every row's values
+    concatenated, int64 values a row, bool null rows). The values are a
+    numpy array in the type's storage dtype (object for strings). Cells that
+    are all lists (or None) of non-None values take one pass per column;
+    any other cell sends the column through `normalize_mv_cell` cell by cell,
+    with the same result."""
+    cells = list(cells)
+    n = len(cells)
+    dt = spec.data_type
+    cast = _MV_CASTS.get(dt.value)
+    flat = None
+    if cast is not None and all(type(v) is list or v is None for v in cells):
+        counts = np.fromiter((0 if v is None else len(v) for v in cells), np.int64, n)
+        flat = list(itertools.chain.from_iterable(v for v in cells if v))
+        if None in flat:
+            flat = None
+        else:
+            flat = list(map(cast, flat))
+    if flat is None:
+        normalized = [normalize_mv_cell(spec, v) for v in cells]
+        counts = np.fromiter((0 if null else len(vals) for vals, null in normalized),
+                             np.int64, n)
+        flat = [x for vals, null in normalized if not null for x in vals]
+    values = np.empty(len(flat), dtype=object)
+    values[:] = flat
+    nulls = counts == 0
+    if nulls.any():
+        # each null row holds the one default null value, at its offset
+        starts = np.cumsum(counts) - counts
+        values = np.insert(values, starts[nulls], spec.null_value)
+        counts[nulls] = 1
+    if dt.is_numeric:
+        values = values.astype(dt.numpy_dtype)
+    return values, counts, nulls
 
 
 def dimension(name: str, data_type: DataType = DataType.STRING, **kw) -> FieldSpec:

@@ -9,6 +9,8 @@ Layout (one directory per segment):
         metadata.json        # segment + per-column metadata
         creation.meta.json   # creation time, crc
         cols/<col>.fwd.npy   # forward index: minimal-width dict ids, or raw values
+                             # (a multi-value column: every row's ids, concatenated)
+        cols/<col>.mvoff.npy # a multi-value column's int64 row offsets (num_docs + 1)
         cols/<col>.fwdc.bin  # chunk-compressed raw forward index (compression.py)
         cols/<col>.dict.npy  # numeric dictionary (sorted values)
         cols/<col>.dict.blob / .dictoff.npy   # string dictionary: utf-8 blob + int64 offsets
@@ -52,6 +54,7 @@ BLOOM_SUFFIX = ".bloom.npy"
 JSON_SUFFIX = ".json.npz"
 TEXT_SUFFIX = ".text.npz"
 FST_SUFFIX = ".fst.npz"  # trigram regex prefilter over the dictionary
+MV_OFFSETS_SUFFIX = ".mvoff.npy"  # int64 row offsets of a multi-value column (CSR)
 
 FORMAT_VERSION = 1
 

@@ -17,15 +17,24 @@ from typing import Sequence
 import numpy as np
 
 
-def create_inverted_index(path: str, dict_ids: np.ndarray, cardinality: int) -> None:
-    """Write the postings of a single-value column's dict ids (entry position
-    is the doc id)."""
+def create_inverted_index(path: str, dict_ids: np.ndarray, cardinality: int,
+                          doc_ids: np.ndarray = None) -> None:
+    """Write the postings of a column's dict ids. `doc_ids` maps each entry to
+    its document (a multi-value column passes each row repeated once per
+    value); omitted, the entry's position is the doc id (single-value)."""
     dict_ids = np.asarray(dict_ids)
+    if doc_ids is not None:
+        # one posting per (dict id, doc): a row that repeats a value posts its
+        # doc once, as the reference's bitmaps do
+        pairs = np.unique(np.stack([dict_ids.astype(np.int64),
+                                    np.asarray(doc_ids, dtype=np.int64)]), axis=1)
+        dict_ids, doc_ids = pairs[0], pairs[1]
     order = np.argsort(dict_ids, kind="stable")   # entries grouped by dict id, ascending
     counts = np.bincount(dict_ids.astype(np.int64), minlength=cardinality)
     offsets = np.zeros(cardinality + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
-    np.savez(path, doc_ids=order.astype(np.int32), offsets=offsets)
+    postings = order if doc_ids is None else np.asarray(doc_ids)[order]
+    np.savez(path, doc_ids=postings.astype(np.int32), offsets=offsets)
 
 
 class InvertedIndexReader:

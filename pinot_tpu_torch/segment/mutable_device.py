@@ -1,11 +1,19 @@
 """The consuming segment: a chunked columnar store with device-staged chunks.
 
-Counterpart of `pinot_tpu/segment/mutable_device.py`, for single-value
-columns. One `index_arrays` / `index_batch` call appends one typed chunk per
-column, so indexing costs O(columns) Python operations per batch whatever its
-row count. A string column's append-order dictionary grows by a vectorized
-merge (`BatchDictBuilder`): a chunk's append-order ids never change, and a
+Counterpart of `pinot_tpu/segment/mutable_device.py`. One `index_arrays` /
+`index_batch` call appends one typed chunk per column, so indexing costs
+O(columns) Python operations per batch whatever its row count. A string
+column's append-order dictionary grows by a vectorized merge
+(`BatchDictBuilder`): a chunk's append-order ids never change, and a
 query-time snapshot remaps them to the sorted-id space with one gather.
+
+A multi-value column is always dictionary-encoded: its chunk is the rows'
+append-order ids concatenated with each row's value count (`_mv_chunk`,
+which normalizes each cell as the writer does), and a snapshot gives the
+sorted ids with the row offsets (a CSR, the writer's layout). Its rows come
+through `index_batch` (the JSON lane); the columnar block codec carries no
+multi-value column. On the device the view's block builds its id matrix
+from the snapshot, as it does a string column's ids.
 
 With `device_staging`, every numeric chunk is also copied to the device when
 it is indexed, narrowed as `engine.datablock._narrow` narrows (an integer
@@ -35,8 +43,9 @@ import torch
 from ..engine.datablock import SegmentBlock, _narrow, device_key
 from ..ingest.vectorized import widen_num
 from ..query.executor import resolve_device
-from ..schema import DataType, FieldSpec, Schema
+from ..schema import DataType, FieldSpec, Schema, normalize_mv_column
 from .dictionary import Dictionary
+from .reader import mv_rows
 
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
@@ -88,7 +97,10 @@ class BatchDictBuilder:
             return self._snap
         lut = np.empty(card, dtype=np.int64)
         lut[sorted_ids] = np.arange(card, dtype=np.int64)
-        self._snap = (card, Dictionary(sorted_v.tolist(), self.data_type), lut)
+        values = sorted_v.tolist()
+        if self.data_type.is_numeric:   # a multi-value numeric column's
+            values = np.asarray(values, dtype=self.data_type.numpy_dtype)
+        self._snap = (card, Dictionary(values, self.data_type), lut)
         return self._snap
 
 
@@ -108,9 +120,27 @@ class DeviceColumnReader:
 
     @property
     def has_dictionary(self) -> bool:
-        return not self.data_type.is_numeric
+        return not self.data_type.is_numeric or self.is_multi_value
 
-    is_multi_value = False
+    @property
+    def is_multi_value(self) -> bool:
+        return not self.spec.single_value
+
+    @property
+    def max_num_values(self) -> int:
+        if not self.is_multi_value:
+            return 1
+        counts = self.mv_counts()
+        return int(counts.max()) if len(counts) else 0
+
+    @property
+    def mv_offsets(self) -> Optional[np.ndarray]:
+        """int64 row offsets into `fwd` of a multi-value column."""
+        return self._mat()[6] if self.is_multi_value else None
+
+    def mv_counts(self) -> np.ndarray:
+        return np.diff(np.asarray(self.mv_offsets))
+
     # a consuming segment keeps no auxiliary index: JSON_MATCH and TEXT_MATCH
     # over it resolve by scanning `values()`
     json_index = None
@@ -138,21 +168,29 @@ class DeviceColumnReader:
 
     @property
     def fwd(self) -> np.ndarray:
-        """Sorted dict ids of a string column; raw values in the storage
-        dtype of a numeric one."""
+        """Sorted dict ids of a string column (of a multi-value column, every
+        row's, concatenated); raw values in the storage dtype of a numeric
+        one."""
         m = self._mat()
         return m[2] if m[1] is not None else m[0]
 
     def dict_snapshot(self) -> tuple:
-        """(rows, dictionary, ids) from one materialization, or (-1, None,
-        None) for a column without a dictionary."""
+        """(rows, dictionary, ids) from one materialization, with the row
+        offsets last for a multi-value column, or (-1, None, None) for a
+        column without a dictionary."""
         m = self._mat()
         if m[1] is None:
             return (-1, None, None)
+        if self.is_multi_value:
+            return (self.num_docs, m[1], m[2], m[6])
         return (self.num_docs, m[1], m[2])
 
     def values(self) -> np.ndarray:
+        """The decoded column; a multi-value column's an object array of
+        per-row value arrays."""
         m = self._mat()
+        if self.is_multi_value:
+            return mv_rows(m[1].take(m[2]), m[6])
         return m[1].take(m[2]) if m[1] is not None else m[0]
 
     @property
@@ -168,20 +206,20 @@ class DeviceColumnReader:
         return self._mat()[5]
 
     def _mat(self) -> tuple:
-        """(raw, dictionary, ids, nulls, min, max) at this reader's row count;
-        a frozen reader materializes once. The bounds are taken with the
-        materialization: the planner reads them for every query, as it reads
-        an immutable segment's from its metadata."""
+        """(raw, dictionary, ids, nulls, min, max, row offsets) at this
+        reader's row count; a frozen reader materializes once. The bounds are
+        taken with the materialization: the planner reads them for every
+        query, as it reads an immutable segment's from its metadata."""
         n = self.num_docs
         snap = self._snap
         if snap[0] == n:
             return snap[1]
-        raw, d, ids, nulls = self.store._materialize(self.name, n)
+        raw, d, ids, nulls, offsets = self.store._materialize(self.name, n)
         if d is not None:
             bounds = (d.min_value, d.max_value)
         else:
             bounds = (raw.min(), raw.max()) if len(raw) else (None, None)
-        m = (raw, d, ids, nulls) + bounds
+        m = (raw, d, ids, nulls) + bounds + (offsets,)
         self._snap = (n, m)
         return m
 
@@ -242,23 +280,20 @@ class DeviceMutableSegment:
                 "DeviceMutableSegment does not maintain realtime text/inverted indexes "
                 "(per-row by nature): the row-append MutableSegment keeps them, and it "
                 "is not ported to pinot_tpu_torch")
-        for f in schema.fields:
-            if not f.single_value:
-                raise NotImplementedError(
-                    f"multi-value column {f.name!r} is not supported by pinot_tpu_torch")
         self.name = name
         self.schema = schema
         self._num_docs = 0                    # published last
         self._chunk_rows: List[int] = []      # rows per appended batch
         # per-column chunk lists: (array, FOR base or None) for numeric
-        # columns, append-order id arrays for string columns
+        # columns, append-order id arrays for string columns, (append-order
+        # ids, per-row value counts) for multi-value columns
         self._chunks: Dict[str, List[Any]] = {f.name: [] for f in schema.fields}
         self._null_chunks: Dict[str, List[Optional[np.ndarray]]] = {
             f.name: [] for f in schema.fields}
         self._has_nulls: Dict[str, bool] = {f.name: False for f in schema.fields}
         self._dicts: Dict[str, BatchDictBuilder] = {
             f.name: BatchDictBuilder(f.data_type) for f in schema.fields
-            if not f.data_type.is_numeric}
+            if not f.data_type.is_numeric or not f.single_value}
         self._readers: Dict[str, DeviceColumnReader] = {}
         self._view: Optional[ConsumingView] = None
         self._snap_arrays: tuple = (-1, None)
@@ -270,7 +305,8 @@ class DeviceMutableSegment:
         self.device: Optional[torch.device] = None
         if self.device_staging:
             self.device = resolve_device(device)
-            self._dev_chunks = {f.name: [] for f in schema.fields if f.data_type.is_numeric}
+            self._dev_chunks = {f.name: [] for f in schema.fields
+                                if f.data_type.is_numeric and f.single_value}
 
     @property
     def num_docs(self) -> int:
@@ -329,6 +365,12 @@ class DeviceMutableSegment:
         """One column's chunk from a ColumnarBatch rep (None: the batch lacks
         the column, an all-null chunk)."""
         name = spec.name
+        if not spec.single_value:
+            if rep is not None:
+                raise ValueError(f"multi-value column {name!r}: the columnar block codec "
+                                 "carries no multi-value column")
+            self._mv_chunk(spec, [None] * n, n)
+            return
         if rep is None:
             nulls = np.ones(n, dtype=bool)
             if spec.data_type.is_numeric:
@@ -376,6 +418,9 @@ class DeviceMutableSegment:
         self._push_dict(spec, ids, nulls)
 
     def _append_list(self, spec: FieldSpec, vals, n: int) -> None:
+        if not spec.single_value:
+            self._mv_chunk(spec, vals, n)
+            return
         if spec.data_type.is_numeric:
             wide = _wide_dtype(spec.data_type)
             arr = nulls = None
@@ -396,6 +441,16 @@ class DeviceMutableSegment:
             obj[nulls] = spec.null_value
         uniq, inv = _obj_unique(spec, obj)
         self._push_dict(spec, self._dicts[spec.name].encode_distinct(uniq)[inv], nulls)
+
+    def _mv_chunk(self, spec: FieldSpec, vals, n: int) -> None:
+        """A multi-value chunk: each cell normalized as the writer normalizes
+        it (ragged, so per row), then the values' ids by one merge into the
+        column's dictionary."""
+        flat, counts, nulls = normalize_mv_column(spec, vals[:n])
+        uniq, inv = np.unique(flat, return_inverse=True)
+        ids = self._dicts[spec.name].encode_distinct(uniq.astype(object))[inv] if len(flat) \
+            else np.empty(0, dtype=np.int64)
+        self._push_dict(spec, (ids, counts), nulls if nulls.any() else None)
 
     # -- chunk push and device staging ---------------------------------------
     def _push_num(self, spec: FieldSpec, arr: np.ndarray, base: Optional[int],
@@ -448,11 +503,23 @@ class DeviceMutableSegment:
         return out
 
     def _materialize(self, name: str, n: int) -> tuple:
-        """(raw, dictionary, ids, nulls) of column `name` frozen at `n` rows.
-        A dictionary holds only the values present in those rows, sorted, and
-        the ids live in its id space."""
+        """(raw, dictionary, ids, nulls, row offsets) of column `name` frozen
+        at `n` rows. A dictionary holds only the values present in those
+        rows, sorted, and the ids live in its id space; the row offsets (a
+        multi-value column's CSR, else None) split the ids into rows."""
         spec = self.schema.field_spec(name)
         nulls = self._mat_nulls(name, n)
+        if not spec.single_value:
+            ids, counts = [], []
+            for take, (chunk_ids, chunk_counts) in self._trim(self._chunks[name], n):
+                counts.append(chunk_counts[:take])
+                ids.append(chunk_ids[:int(chunk_counts[:take].sum())])
+            counts = np.concatenate(counts) if counts else np.empty(0, dtype=np.int64)
+            offsets = np.zeros(len(counts) + 1, dtype=np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            append_ids = np.concatenate(ids) if ids else np.empty(0, dtype=np.int64)
+            d, sorted_ids = self._remap(name, append_ids)
+            return (None, d, sorted_ids, nulls, offsets)
         if spec.data_type.is_numeric:
             parts = [widen_num(arr[:take], base, spec.data_type)
                      for take, (arr, base) in self._trim(self._chunks[name], n)]
@@ -460,11 +527,11 @@ class DeviceMutableSegment:
                 np.empty(0, dtype=_wide_dtype(spec.data_type))
             storage = np.dtype(spec.data_type.numpy_dtype)
             raw = wide if wide.dtype == storage else wide.astype(storage)
-            return (raw, None, None, nulls)
+            return (raw, None, None, nulls, None)
         parts = [ids[:take] for take, ids in self._trim(self._chunks[name], n)]
         append_ids = np.concatenate(parts) if parts else np.empty(0, dtype=np.int64)
         d, sorted_ids = self._remap(name, append_ids)
-        return (None, d, sorted_ids, nulls)
+        return (None, d, sorted_ids, nulls, None)
 
     def _remap(self, name: str, append_ids: np.ndarray):
         """Append-order ids -> (snapshot Dictionary, sorted ids). The builder
@@ -476,8 +543,10 @@ class DeviceMutableSegment:
         if len(present) == card:
             return d_full, full
         vals = d_full.values
-        return (Dictionary([vals[i] for i in present.tolist()], d_full.data_type),
-                np.searchsorted(present, full))
+        kept = [vals[i] for i in present.tolist()]
+        if isinstance(vals, np.ndarray):
+            kept = np.asarray(kept, dtype=vals.dtype)
+        return (Dictionary(kept, d_full.data_type), np.searchsorted(present, full))
 
     def _mat_nulls(self, name: str, n: int) -> Optional[np.ndarray]:
         if not self._has_nulls[name]:
@@ -541,8 +610,13 @@ class DeviceMutableSegment:
             return cached[1]
         out: Dict[str, Any] = {}
         for spec in self.schema.fields:
-            raw, d, ids, nulls = self._materialize(spec.name, n)
-            if d is not None:
+            raw, d, ids, nulls, offsets = self._materialize(spec.name, n)
+            if offsets is not None:
+                col: Any = list(mv_rows(d.take(ids), offsets))
+                if nulls is not None:
+                    for i in np.flatnonzero(nulls).tolist():
+                        col[i] = None
+            elif d is not None:
                 col = d.take(ids)
                 if nulls is not None:
                     col = col.copy()

@@ -3,7 +3,8 @@
 A subset of `pinot_tpu/segment/reader.py` (analog of the reference's
 `ImmutableSegmentLoader.load()` and forward-index reader SPI) with the
 inverted, range, bloom, JSON, text and FST index readers, the geo cell
-indexes and the segment's star-trees. Columns are `np.load(...,
+indexes and the segment's star-trees, and multi-value columns (a CSR forward
+index: `mv_offsets`, `mv_counts`, `max_num_values`). Columns are `np.load(...,
 mmap_mode='r')`-mapped on first touch and moved to the device lazily by
 `engine/datablock.py`; a chunk-compressed raw column is a
 `compression.ChunkedArrayReader`, decoded once when first read whole.
@@ -42,18 +43,28 @@ class ColumnReader:
         self.cardinality: int = meta["cardinality"]
         self.num_docs: int = meta["totalDocs"]
         self.is_multi_value: bool = meta.get("multiValue", False)
+        self.max_num_values: int = meta.get("maxNumValues", 1)
 
     @cached_property
     def fwd(self) -> np.ndarray:
-        """Dict ids (minimal-width uint) if dict-encoded, else raw values. A
-        chunk-compressed column's reader is its array surface: a slice decodes
-        only the covering chunks, `np.asarray()` decodes the whole column once."""
-        if self.is_multi_value:
-            raise NotImplementedError(
-                f"multi-value column {self.name!r} is not supported by pinot_tpu_torch")
+        """Dict ids (minimal-width uint) if dict-encoded, else raw values; a
+        multi-value column's every row's ids, concatenated (rows split at
+        `mv_offsets`). A chunk-compressed column's reader is its array surface:
+        a slice decodes only the covering chunks, `np.asarray()` decodes the
+        whole column once."""
         if self.meta.get("compression"):
             return ChunkedArrayReader(self._prefix + fmt.FWD_COMPRESSED_SUFFIX)
         return np.load(self._prefix + fmt.FWD_SUFFIX, mmap_mode="r")
+
+    @cached_property
+    def mv_offsets(self) -> Optional[np.ndarray]:
+        """int64[num_docs + 1] row offsets into a multi-value column's `fwd`."""
+        if not self.is_multi_value:
+            return None
+        return np.load(self._prefix + fmt.MV_OFFSETS_SUFFIX, mmap_mode="r")
+
+    def mv_counts(self) -> np.ndarray:
+        return np.diff(np.asarray(self.mv_offsets))
 
     @cached_property
     def dictionary(self) -> Optional[Dictionary]:
@@ -67,7 +78,11 @@ class ColumnReader:
         return Dictionary(values, self.data_type)
 
     def values(self) -> np.ndarray:
-        """Fully decoded column values (host-side)."""
+        """Fully decoded column values (host-side); a multi-value column's is an
+        object array of per-row value arrays."""
+        if self.is_multi_value:
+            return mv_rows(self.dictionary.take(np.asarray(self.fwd).astype(np.int64)),
+                           np.asarray(self.mv_offsets))
         if not self.has_dictionary:
             return np.asarray(self.fwd)
         return self.dictionary.take(np.asarray(self.fwd).astype(np.int64))
@@ -129,6 +144,76 @@ class ColumnReader:
             return None
         packed = np.load(self._prefix + fmt.NULLS_SUFFIX)
         return fmt.unpack_bitmap(packed, self.num_docs)
+
+
+class MVValues:
+    """A multi-value column's rows on the host, kept as CSR: dict ids `ids`
+    split at `offsets`, decoded through `dictionary` only where asked. The
+    host evaluator reads it where it would read an object array of per-row
+    value arrays (`np.asarray` gives that array); `take` selects rows without
+    decoding, `values` decodes every selected row's values at once, and
+    `counts` gives each row's number of values."""
+
+    ndim = 1
+    dtype = np.dtype(object)
+
+    def __init__(self, dictionary, ids: np.ndarray, offsets: np.ndarray):
+        self.dictionary = dictionary
+        self.ids = np.asarray(ids)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def counts(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    def values(self) -> np.ndarray:
+        """Every row's values, decoded and concatenated."""
+        return self.dictionary.take(
+            self.ids[self.offsets[0]:self.offsets[-1]].astype(np.int64))
+
+    def take(self, rows) -> "MVValues":
+        """The rows `rows` names (indices, a bool mask or a slice), in order."""
+        rows = np.arange(len(self))[rows] if isinstance(rows, slice) else np.asarray(rows)
+        if rows.dtype == bool:
+            rows = np.flatnonzero(rows)
+        lo, counts = self.offsets[rows], self.counts[rows]
+        offsets = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        pick = np.repeat(lo - offsets[:-1], counts) + np.arange(int(offsets[-1]))
+        return MVValues(self.dictionary, self.ids[pick], offsets)
+
+    def __getitem__(self, key):
+        if isinstance(key, (int, np.integer)):
+            a, b = self.offsets[key], self.offsets[key + 1]
+            return self.dictionary.take(self.ids[a:b].astype(np.int64))
+        return self.take(key)
+
+    def __array__(self, dtype=None, copy=None):
+        return mv_rows(self.values(), self.offsets - self.offsets[0])
+
+    def __iter__(self):
+        return iter(np.asarray(self))
+
+
+def mv_values(reader) -> MVValues:
+    """A multi-value column reader's rows as `MVValues`; a consuming
+    segment's from one `dict_snapshot`."""
+    snapshot = getattr(reader, "dict_snapshot", None)
+    if snapshot is not None:
+        _, d, ids, offsets = snapshot()
+        return MVValues(d, ids, offsets)
+    return MVValues(reader.dictionary, np.asarray(reader.fwd), np.asarray(reader.mv_offsets))
+
+
+def mv_rows(flat: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """An object array of the per-row slices of `flat` at CSR `offsets`."""
+    out = np.empty(len(offsets) - 1, dtype=object)
+    for i, part in enumerate(np.split(flat, offsets[1:-1]) if len(out) else ()):
+        out[i] = part
+    return out
 
 
 class ImmutableSegment:

@@ -7,9 +7,8 @@ null bitmaps, dictionary-aligned segment sets, the inverted, range, bloom,
 JSON, text and FST indexes and the geo cell index of a coordinate pair
 (`indexes/`), the bloom payload that rides a column's metadata (`bloomHex`:
 every dictionary column up to 1,024 values, and a raw column with a bloom
-index), and star-trees (`startree.build_star_tree`, built over the written
-segment). Multi-value columns are not written by this package; a schema with
-one raises `NotImplementedError`.
+index), star-trees (`startree.build_star_tree`, built over the written
+segment) and multi-value columns (`_write_mv_column`: a CSR forward index).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from ..schema import DataType, FieldSpec, Schema
+from ..schema import DataType, FieldSpec, Schema, normalize_mv_column
 from . import format as fmt
 from .compression import write_chunked
 from .dictionary import Dictionary, build_dictionary
@@ -84,11 +83,6 @@ class SegmentBuilder:
     def __init__(self, schema: Schema, config: Optional[SegmentGeneratorConfig] = None):
         self.schema = schema
         self.config = config or SegmentGeneratorConfig()
-        for spec in schema.fields:
-            if not spec.single_value:
-                raise NotImplementedError(
-                    f"multi-value column {spec.name!r} is not supported by "
-                    "pinot_tpu_torch")
 
     def build(self, columns: Dict[str, Union[np.ndarray, Sequence[Any]]],
               out_dir: str, segment_name: str,
@@ -173,6 +167,8 @@ class SegmentBuilder:
                       fixed_dict: Optional[Dictionary] = None) -> Dict[str, Any]:
         name, data_type = spec.name, spec.data_type
         prefix = os.path.join(cols_dir, name)
+        if not spec.single_value:
+            return self._write_mv_column(prefix, spec, raw, num_docs, fixed_dict)
 
         # -- null extraction -------------------------------------------
         null_mask = None
@@ -279,6 +275,62 @@ class SegmentBuilder:
         meta["indexes"] = indexes
         return meta
 
+    def _write_mv_column(self, prefix: str, spec: FieldSpec, raw, num_docs: int,
+                         fixed_dict: Optional[Dictionary] = None) -> Dict[str, Any]:
+        """A multi-value column: `<col>.fwd.npy` holds every row's dict ids
+        concatenated, `<col>.mvoff.npy` the int64 row offsets (num_docs + 1), a
+        CSR over rows. Always dictionary-encoded: the device form is a padded
+        id matrix whose fill is the out-of-dictionary id `cardinality`. A None
+        or empty row stores one default null value. `fixed_dict` (an aligned
+        set's) must hold every value."""
+        name, data_type = spec.name, spec.data_type
+        flat, counts, null_mask = normalize_mv_column(spec, raw)
+        offsets = np.zeros(num_docs + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+
+        if fixed_dict is not None:
+            dictionary = fixed_dict
+            dict_ids = _encode_with_fixed_dict(flat, fixed_dict, name)
+        else:
+            dictionary, dict_ids = build_dictionary(flat, data_type)
+        card = dictionary.cardinality
+        fwd = dict_ids.astype(fmt.minimal_dtype_for_cardinality(card))
+        np.save(prefix + fmt.FWD_SUFFIX, fwd)
+        np.save(prefix + fmt.MV_OFFSETS_SUFFIX, offsets)
+        if data_type.is_numeric:
+            np.save(prefix + fmt.DICT_NUMERIC_SUFFIX, np.asarray(dictionary.values))
+        else:
+            fmt.write_string_dictionary(prefix, list(dictionary.values))
+
+        meta: Dict[str, Any] = {
+            "dataType": data_type.value, "totalDocs": num_docs,
+            "multiValue": True, "hasDictionary": True,
+            "cardinality": card, "fwdDtype": str(fwd.dtype),
+            "maxNumValues": int(counts.max()) if num_docs else 0,
+            "totalNumValues": int(offsets[-1]),
+            "sorted": False,
+            "minValue": _jsonable(dictionary.min_value),
+            "maxValue": _jsonable(dictionary.max_value),
+            "dictHash": _dict_hash(dictionary),
+        }
+        indexes: List[str] = []
+        if name in self.config.inverted_index_columns:
+            create_inverted_index(prefix + fmt.INVERTED_SUFFIX, dict_ids, card,
+                                  doc_ids=np.repeat(np.arange(num_docs, dtype=np.int64),
+                                                    counts))
+            indexes.append("inverted")
+        if name in self.config.bloom_filter_columns:
+            create_bloom_filter(prefix + fmt.BLOOM_SUFFIX, dictionary.values)
+            indexes.append("bloom")
+        hx = _meta_bloom_hex(dictionary.values, deduped=True)
+        if hx is not None:
+            meta["bloomHex"] = hx
+        if null_mask.any():
+            np.save(prefix + fmt.NULLS_SUFFIX, fmt.pack_bitmap(null_mask))
+            meta["hasNulls"] = True
+        meta["indexes"] = indexes
+        return meta
+
 
 # distinct values past which a column's metadata carries no bloom payload (the
 # JAX writer's bound: pruning wants small catalog entries)
@@ -312,6 +364,14 @@ def _encode_with_fixed_dict(raw, dictionary: Dictionary, name: str) -> np.ndarra
     return ids.astype(np.int64)
 
 
+def _mv_union_dictionary(spec: FieldSpec, raw) -> Dictionary:
+    """The sorted dictionary of every value of a multi-value column's rows."""
+    flat = normalize_mv_column(spec, raw)[0]
+    if spec.data_type.is_numeric:
+        return Dictionary(np.unique(flat), spec.data_type)
+    return Dictionary(sorted(set(flat.tolist())), spec.data_type)
+
+
 def _dict_hash(dictionary: Dictionary) -> int:
     vals = dictionary.values
     if isinstance(vals, np.ndarray):
@@ -335,6 +395,12 @@ def build_aligned_segments(schema: Schema, columns: Dict[str, Union[np.ndarray, 
         raw = columns.get(spec.name)
         if raw is None or spec.name in builder.config.no_dictionary_columns:
             continue  # missing -> per-segment default fill; no-dict -> raw everywhere
+        if not spec.single_value:
+            # the union of every row's values (the JAX writer keeps a
+            # multi-value column's dictionary per segment; a shared one keeps
+            # the set aligned where a segment lacks a value)
+            fixed[spec.name] = _mv_union_dictionary(spec, raw)
+            continue
         if spec.data_type.is_numeric:
             d, _ = build_dictionary(np.asarray(raw), spec.data_type)
             if d.cardinality > builder.config.raw_cardinality_fraction * num_docs:

@@ -17,6 +17,14 @@ Pinot's search indexes serve, shaped after its documentation's examples: a
 JSON payload like the githubEvents quickstart's (`lo_payload`), a free-text
 comment (`lo_comment`), SSB's customer name (`lo_custname`, the FST index's
 REGEXP_LIKE target) and a point (`lo_lng`, `lo_lat`, the geo index's pair).
+
+`mv_schema` / `make_mv_columns`: lineorder with Apache Pinot's multi-value
+dimensions (a schema field with `singleValueField: false`), shaped after its
+documentation's examples: a tag list (`lo_tags`, STRING, 0-4 of 20 tags drawn
+zipf(1.2); an empty row is stored as the one-value null) and a code list
+(`lo_codes`, INT, 1-6 of 1,000 codes drawn zipf(1.1)), beside a unique
+`lo_orderkey`. `make_mv_csr` gives the same rows as CSR arrays (every row's
+values concatenated, and the row offsets), from which a numpy oracle reads.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from typing import Dict
 
 import numpy as np
 
-from .schema import DataType, Schema, date_time, dimension, metric
+from .schema import DataType, FieldRole, FieldSpec, Schema, date_time, dimension, metric
 
 HIGH_CARD_SUPPKEYS = 20_000
 VERY_HIGH_CARD_KEYS = 500_000
@@ -294,3 +302,78 @@ SEARCH_QUERIES = {
     "geo_distance": "SELECT COUNT(*) FROM lineorder WHERE ST_DISTANCE(ST_POINT(lo_lng, "
                     "lo_lat, 1), ST_POINT({lng}, {lat}, 1)) < {r}",
 }
+
+
+MV_TAGS = 20            # lo_tags: t0..t19, t0 the most frequent
+MV_TAG_COUNTS = (0, 4)  # values a row, inclusive
+MV_TAG_ZIPF = 1.2
+MV_CODES = 1_000        # lo_codes: 1..1000, 1 the most frequent
+MV_CODE_COUNTS = (1, 6)
+MV_CODE_ZIPF = 1.1
+MV_QUERIES = {
+    "tags_eq": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_tags = 't3'",
+    "codes_band_tags_in": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                          "WHERE lo_codes BETWEEN 100 AND 180 AND lo_tags IN ('t1', 't7')",
+    "not_eq": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE NOT lo_tags = 't0'",
+    "neq": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_tags != 't0'",
+    "mixed": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+             "WHERE lo_discount = 2 AND lo_tags = 't3'",
+    "q1_1": QUERY,
+    "group_tags": "SELECT lo_tags, COUNT(*), SUM(lo_revenue) FROM lineorder "
+                  "GROUP BY lo_tags ORDER BY lo_tags LIMIT 30",
+    "mv_aggs": "SELECT COUNTMV(lo_codes), SUMMV(lo_codes), MINMV(lo_codes), MAXMV(lo_codes), "
+               "AVGMV(lo_codes), DISTINCTCOUNTMV(lo_codes), DISTINCTCOUNTHLLMV(lo_codes), "
+               "PERCENTILE50MV(lo_codes) FROM lineorder",
+    "selection": "SELECT lo_orderkey, lo_tags FROM lineorder WHERE lo_codes = 7 "
+                 "ORDER BY lo_orderkey LIMIT 10",
+    "arraylength": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+                   "WHERE ARRAYLENGTH(lo_tags) >= 2",
+}
+
+
+def mv_schema() -> Schema:
+    mv = dict(role=FieldRole.DIMENSION, single_value=False)
+    return Schema("lineorder", list(ssb_schema().fields) + [
+        dimension("lo_orderkey", DataType.INT),
+        FieldSpec("lo_tags", DataType.STRING, **mv),
+        FieldSpec("lo_codes", DataType.INT, **mv)])
+
+
+def _zipf_csr(rng: np.random.Generator, n: int, counts, card: int, s: float):
+    """(values 1..card drawn with P(k) proportional to k^-s, int64 row offsets)
+    of n rows of `counts` (inclusive) values each, drawn uniformly."""
+    per_row = rng.integers(counts[0], counts[1] + 1, n)
+    p = 1.0 / np.arange(1, card + 1) ** s
+    values = rng.choice(card, int(per_row.sum()), p=p / p.sum()) + 1
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(per_row, out=offsets[1:])
+    return values, offsets
+
+
+def make_mv_csr(n: int, seed: int = 20260729) -> Dict[str, tuple]:
+    """The multi-value columns of `make_mv_columns` as CSR: (values, offsets)
+    per column; a tag as its number k (the string f"t{k}"), an empty tag row
+    holding no value."""
+    rng = np.random.default_rng([seed, 7])
+    tags, tag_off = _zipf_csr(rng, n, MV_TAG_COUNTS, MV_TAGS, MV_TAG_ZIPF)
+    codes, code_off = _zipf_csr(rng, n, MV_CODE_COUNTS, MV_CODES, MV_CODE_ZIPF)
+    return {"lo_tags": (tags - 1, tag_off), "lo_codes": (codes.astype(np.int32), code_off)}
+
+
+def csr_rows(values: np.ndarray, offsets: np.ndarray) -> list:
+    """CSR as one Python list of values per row (the writer's input form)."""
+    flat = values.tolist()
+    return [flat[a:b] for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+
+
+def make_mv_columns(n: int, seed: int = 20260729) -> Dict[str, object]:
+    """`make_columns` with a unique `lo_orderkey` (1..n) and the multi-value
+    `lo_tags` and `lo_codes` as per-row lists."""
+    cols: Dict[str, object] = dict(make_columns(n, seed))
+    cols["lo_orderkey"] = np.arange(1, n + 1, dtype=np.int32)
+    csr = make_mv_csr(n, seed)
+    tags, tag_off = csr["lo_tags"]
+    names = np.array([f"t{k}" for k in range(MV_TAGS)], dtype=object)
+    cols["lo_tags"] = csr_rows(names[tags], tag_off)
+    cols["lo_codes"] = csr_rows(*csr["lo_codes"])
+    return cols

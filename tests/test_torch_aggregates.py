@@ -455,15 +455,31 @@ def test_make_agg_takes_every_single_value_name_of_the_reference(name):
             "percentilerawtdigest": (Identifier("x"), _lit(50)),
             "percentilerawest": (Identifier("x"), _lit(50)),
             "percentilesmarttdigest": (Identifier("x"), _lit(50))}.get(name, (Identifier("x"),))
-    if name in MV_AGGREGATIONS:
-        with pytest.raises(NotImplementedError, match="multi-value"):
-            make_agg(Function(name, args))
-        return
     agg = make_agg(Function(name, args))
     ref = jax_aggregates.make_agg(JaxFunction(name, tuple(_jax(a) for a in args)))
     assert type(agg).__name__ == type(ref).__name__
     assert (agg.name, agg.device_outputs, agg.wants_id_counts) == \
         (ref.name, ref.device_outputs, getattr(ref, "wants_id_counts", False))
+    if name in MV_AGGREGATIONS:
+        _assert_mv_outputs_equal(agg, ref)
+
+
+def _mv_cells():
+    """Seeded multi-value cells: 40 rows of 1-4 INT values."""
+    rng = np.random.default_rng(11)
+    cells = np.empty(40, dtype=object)
+    for i in range(len(cells)):
+        cells[i] = rng.integers(0, 30, rng.integers(1, 5)).astype(np.int32)
+    return cells
+
+
+def _assert_mv_outputs_equal(agg, ref):
+    """A multi-value aggregation's finalized state over two merged partials
+    of the same cells equals the JAX package's."""
+    cells = _mv_cells()
+    ours = agg.finalize(agg.merge(agg.host_state(cells[:25]), agg.host_state(cells[25:])))
+    theirs = ref.finalize(ref.merge(ref.host_state(cells[:25]), ref.host_state(cells[25:])))
+    assert ours == theirs
 
 
 def _lit(v):
@@ -480,8 +496,12 @@ def _jax(e):
 @pytest.mark.parametrize("name", ["percentile90mv", "percentiletdigestmv", "percentileest50mv",
                                   "percentilerawtdigestmv", "percentilerawestmv"])
 def test_the_multi_value_percentiles_raise(name):
-    with pytest.raises(NotImplementedError, match="multi-value"):
-        make_agg(Function(name, (Identifier("x"), _lit(50))))
+    """The PERCENTILE*MV names (digit-suffix forms too) build the JAX
+    package's classes, whose answers over multi-value cells they equal."""
+    agg = make_agg(Function(name, (Identifier("x"), _lit(50))))
+    ref = jax_aggregates.make_agg(JaxFunction(name, (_jax(Identifier("x")), _jax(_lit(50)))))
+    assert type(agg).__name__ == type(ref).__name__ and agg.name == ref.name
+    _assert_mv_outputs_equal(agg, ref)
 
 
 def test_count_distinct_is_distinctcount_and_unknown_names_are_invalid():

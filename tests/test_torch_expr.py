@@ -288,3 +288,41 @@ def test_device_promotion_matches_jax_weak_typing(case):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     assert got.dtype == want.dtype, (sql, got.dtype, want.dtype)
     np.testing.assert_allclose(np.broadcast_to(got, want.shape), want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("sql", ["ln(lo_quantity)", "sqrt(lo_revenue)",
+                                 "sqrt(lo_revenue) + ln(lo_quantity) * power(lo_discount, 2) "
+                                 "+ floor(lo_extendedprice / 100) + abs(lo_discount - 5)"],
+                         ids=["ln", "sqrt", "math_family"])
+def test_cpu_transcendentals_give_the_same_bits_under_any_thread_count(sql, monkeypatch):
+    """The chip smoke's `math` family over its rehearsal's 100,000 rows: the
+    CPU evaluation of ln and sqrt (the terms whose f32 values were off by
+    ~2e-4 from row 50,000 on, the second of two intra-op threads' halves, in
+    one rehearsal run) gives the same bits under 1 thread and under 2 and 8,
+    equal to numpy's float32 functions over the whole row; row 50,000 holds
+    the f32 of the float64 answer."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.engine.datablock import _narrow
+    cols = {c: _narrow(v) for c, v in ssb.make_columns(100_000, 20260729).items()
+            if v.dtype != object}
+    e = Parser(sql).expression()
+    threads = torch.get_num_threads()
+    runs = []
+    try:
+        for n in (1, 2, 8, 1):
+            torch.set_num_threads(n)
+            runs.append(pexpr.eval_device(e, {c: torch.from_numpy(v)
+                                              for c, v in cols.items()}).numpy())
+    finally:
+        torch.set_num_threads(threads)
+    for got in runs[1:]:
+        assert got.dtype == np.float32 and np.array_equal(got.view(np.int32),
+                                                         runs[0].view(np.int32))
+    if sql == "ln(lo_quantity)":
+        np.testing.assert_array_equal(runs[0], np.log(cols["lo_quantity"].astype(np.float32)))
+    if sql == "sqrt(lo_revenue)":
+        np.testing.assert_array_equal(runs[0], np.sqrt(cols["lo_revenue"]))
+    host = {c: v.astype(np.float64 if v.dtype.kind == "f" else np.int64)
+            for c, v in cols.items()}
+    want = float(np.asarray(pexpr.eval_host(e, host))[50_000])
+    assert abs(float(runs[0][50_000]) - want) <= 1e-6 * abs(want)

@@ -948,3 +948,47 @@ def test_cuda_search_queries_match_the_cpu(cuda, search_table, name):
                     assert x == pytest.approx(y, rel=1e-6)
                 else:
                     assert x == y
+
+
+@pytest.fixture(scope="module")
+def mv_table(tmp_path_factory):
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    cols = ssb.make_mv_columns(60_000, 13)
+    paths = build_aligned_segments(ssb.mv_schema(), cols, str(tmp_path_factory.mktemp("mv")),
+                                   "lineorder", 3, SegmentGeneratorConfig(
+                                       inverted_index_columns=["lo_tags", "lo_discount"]))
+    return cols, [load_segment(p) for p in paths]
+
+
+MV_SHAPES = ["tags_eq", "codes_band_tags_in", "not_eq", "mixed", "q1_1", "selection"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MV_SHAPES)
+def test_cuda_mv_queries_match_the_cpu(cuda, mv_table, name):
+    """The mv phase's device-routed shapes on the card (the any-value mask
+    over the [P, W] id matrix, stacked `[S, rows, W]` over the set, and over
+    a staged consuming view) equal the same calls on the CPU (counts and
+    cells exactly, sums rel 1e-6)."""
+    from pinot_tpu_torch import execute_query, ssb
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.segment.mutable_device import DeviceMutableSegment
+    cols, table = mv_table
+    sql = ssb.MV_QUERIES[name]
+    views = {}
+    for dev in (cuda, torch.device("cpu")):
+        store = DeviceMutableSegment("lineorder__0__0__20261101T0000Z", ssb.mv_schema(),
+                                     device_staging=True, device=dev)
+        store.index_batch({c: list(v[:20_000]) for c, v in cols.items()})
+        views[dev.type] = store.query_view()
+    runs = (lambda d: execute_query(table, sql, device=d),
+            lambda d: MeshQueryExecutor(device=d).execute(table, sql),
+            lambda d: execute_query([views[torch.device(d).type]], sql, device=d))
+    for run in runs:
+        got, want = run(cuda).rows, run("cpu").rows
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert x == pytest.approx(y, rel=1e-6) if isinstance(y, float) else x == y

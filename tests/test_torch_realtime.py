@@ -307,7 +307,8 @@ def test_queries_over_a_staged_view_match_the_reference_and_numpy(staged, monkey
 def test_a_store_without_staging_raises_naming_the_host_path():
     """A store without staging (and its view) is mutable: the per-segment
     executor plans it on the host, the set executor on the merged view, and
-    both answer as numpy and the reference do. Multi-value columns raise."""
+    both answer as numpy and the reference do. A store with a multi-value
+    column answers an any-value filter as the reference's does."""
     n = 800
     cols = _columns(n, null_every=7)
     ours, ref, _ = _both(cols, n, staging=False)
@@ -320,9 +321,18 @@ def test_a_store_without_staging_raises_naming_the_host_path():
         for segs in ([view], [ours]):
             assert _match(execute_query(segs, sql, device=CPU).rows, want), sql
             assert _match(MeshQueryExecutor(device=CPU).execute(segs, sql).rows, want), sql
-    with pytest.raises(NotImplementedError, match="multi-value"):
-        DeviceMutableSegment("mv", Schema("t", [dimension("tags", DataType.STRING,
-                                                          single_value=False)]))
+    mv_schema = Schema("t", [dimension("tags", DataType.STRING, single_value=False),
+                             metric("v", DataType.DOUBLE)])
+    tags = [["a", "b"], None, ["b"], [], ["c", "a", "a"]]
+    store = DeviceMutableSegment("mv", mv_schema)
+    store.index_batch({"tags": tags, "v": [1.0, 2.0, 3.0, 4.0, 5.0]})
+    ref_store = JaxDeviceMutable("mv", JSchema.from_json(mv_schema.to_json()))
+    ref_store.index_batch({"tags": tags, "v": [1.0, 2.0, 3.0, 4.0, 5.0]})
+    sql = "SELECT COUNT(*), SUM(v) FROM t WHERE tags = 'a'"
+    want = JaxExecutor().execute([ref_store.query_view()],
+                                 jax_compile(sql, ref_store.schema)).rows
+    assert want == [[2, 6.0]]
+    assert execute_query([store.query_view()], sql, device=CPU).rows == want
 
 
 # -- staging ---------------------------------------------------------------------------

@@ -814,3 +814,66 @@ def test_the_smoke_search_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     assert by_route["set"] == by_route["pipeline"] == {"masked_sums": 4, "masked_sums_fused": 0,
                                                        "bitmap_filter": 2}
     assert launches == {"masked_sums": 16, "masked_sums_fused": 4, "bitmap_filter": 12}
+
+
+# -- a set whose segments compile different doc-set leaves -------------------------
+
+DOCSET_SCHEMA = Schema("places", [metric("lng", DataType.DOUBLE), metric("lat", DataType.DOUBLE),
+                                  dimension("k", DataType.LONG), metric("v", DataType.DOUBLE)])
+DOCSET_DISTANCE = "ST_DISTANCE(ST_POINT(lng, lat), ST_POINT(-122.375, 37.619)) < 100000"
+
+
+def _docset_pair(tmp_path):
+    """Two segments of 2,000 rows, only the first built with the geo index
+    (its distance filter compiles a candidate doc-set leaf there only), and
+    a raw LONG `k` (its IN_ID_SET is a doc-set leaf on both)."""
+    rng = np.random.default_rng(17)
+    segs, cols = [], []
+    for i, geo in enumerate((True, False)):
+        c = {"lng": rng.uniform(-123.5, -121.0, 2000), "lat": rng.uniform(36.5, 38.5, 2000),
+             "k": np.arange(i * 2000, (i + 1) * 2000, dtype=np.int64) * 7919,
+             "v": np.round(rng.uniform(0, 10, 2000), 2)}
+        cfg = SegmentGeneratorConfig(geo_index_pairs=["lng,lat"] if geo else [],
+                                     no_dictionary_columns=["k", "v"])
+        segs.append(load_segment(SegmentBuilder(DOCSET_SCHEMA, cfg).build(
+            c, str(tmp_path), f"places_{i}")))
+        cols.append(c)
+    assert segs[0].geo_index("lng", "lat") is not None
+    assert segs[1].geo_index("lng", "lat") is None
+    return segs, cols
+
+
+@pytest.mark.parametrize("order", ["indexed_first", "plain_first"])
+@pytest.mark.parametrize("with_id_set", [False, True], ids=["distance", "distance_and_id_set"])
+def test_a_set_whose_segments_compile_other_doc_set_leaves_answers_per_segment(
+        env, tmp_path, order, with_id_set):
+    """Segment 0's plan holds a geo candidate leaf where the segment has the
+    index; a segment without it compiles no such leaf. The set path must not
+    pair the masks by position: it answers that set per segment (the
+    reference's `DocsetPlanDivergence`), through `execute`, `execute_many`
+    and the pipeline, equal to the per-segment answer and to numpy."""
+    from pinot_tpu_torch.query.idset import IdSet
+    segs, cols = _docset_pair(tmp_path)
+    if order == "plain_first":
+        segs, cols = segs[::-1], cols[::-1]
+    k = np.concatenate([c["k"] for c in cols])
+    even = k[k % 2 == 0]
+    sql = f"SELECT COUNT(*), SUM(v) FROM places WHERE {DOCSET_DISTANCE}"
+    if with_id_set:
+        sql += f" AND IN_ID_SET(k, '{IdSet.from_values(even).serialize()}') = 1"
+    lng = np.concatenate([c["lng"] for c in cols])
+    lat = np.concatenate([c["lat"] for c in cols])
+    dist = env["chip_smoke"].haversine_m(lng, lat, -122.375, 37.619)
+    assert not (np.abs(dist - 100_000) < GEO_BAND_M).any()
+    m = dist < 100_000
+    if with_id_set:
+        m &= k % 2 == 0
+    v = np.concatenate([c["v"] for c in cols])
+    want = [[int(m.sum()), float(v[m].sum())]]
+    per_segment = execute_query(segs, sql, device=CPU).rows
+    assert _rows_match(per_segment, want)
+    mx = MeshQueryExecutor(device=CPU)
+    for route, got in (("set", mx.execute(segs, sql).rows),
+                       ("many", mx.execute_many(segs, [sql, sql])[0].rows),
+                       ("pipeline", _served(mx, segs, sql))):
+        assert _rows_match(got, per_segment), (route, got, per_segment)
