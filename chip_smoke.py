@@ -200,6 +200,34 @@ exits non-zero:
    a staged consuming segment, queried alone and beside the table (every
    route per segment): `mv_consuming`. Last, `mv_case` lines: the any-value
    mask alone (torch) by graph replay against its bytes bound.
+14. upsert — upsert and dedup, after Apache Pinot's "Stream ingestion with
+   Upsert" and "Stream ingestion with Dedup" pages: `ssb.upsert_schema`
+   (lineorder with lo_orderkey the primary key, lo_ts the event time, lo_tax
+   raw; inverted indexes on lo_region and lo_discount), each stream's JSON
+   rows (made in worker processes the smoke starts with phase 4) pumped
+   through the consumer's per-row lane into MutableSegments that commit at
+   their flush thresholds (`build_immutable`, `load_segment`, the next
+   consumer). A FULL table (2,097,152 events over 524,288 keys drawn
+   zipf(1.2), comparisonColumn lo_ts, 2% late events: 3 committed segments
+   and a consuming one of 524,288 rows), a PARTIAL one (262,144 events over
+   65,536 keys; INCREMENT, MAX, OVERWRITE, IGNORE; one commit) and a dedup
+   one (262,144 events, 25% re-sent; a text index on lo_comment; one
+   commit): `upsert_ingest` lines (rows/s, the add_record share, commit
+   seconds). `ssb.UPSERT_QUERIES` through `execute_query(..., upsert=)`
+   (committed segments on the card under their valid-doc masks, the
+   consuming one on the host) against numpy over the live rows (an event is
+   live when it is its key's last accepted one: lo_ts at least the running
+   maximum; PARTIAL rows replayed in Python), each checked cold run held to
+   its exact launches (`masked_sums` one a committed segment for COUNT(*),
+   Q1.1 and lo_region = 'ASIA', `masked_sums_fused` for the FOR sum,
+   `bitmap_filter` for the GROUP BY under lo_discount = 2, none on a
+   consuming segment), 5 warm runs with phases: `upsert_query`. The
+   realtime postings of lo_region = 'ASIA' against the forward ids and
+   TEXT_MATCH over the dedup table's consuming segment; then 65,536 updates
+   to committed keys, the band's staging after the version change and Q1.1
+   again, which must change and match numpy (`upsert_update`); last,
+   `upsert_case` lines: both scans with the valid band on one committed
+   segment against their plain versions and the same scan without the band.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -211,7 +239,8 @@ device programs are torch code; the realtime phase must launch both; the
 expr phase's device queries `masked_sums`, its host queries none; the aggs
 phase no scan; `bitmap_filter` where a plain-body filter or a selection's
 device mask reads bitmap leaves, one launch per mask; the search phase all
-three; the mv phase `masked_sums` and `bitmap_filter`),
+three; the mv phase `masked_sums` and `bitmap_filter`; the upsert phase all
+three, the scans with the valid band),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -3502,6 +3531,387 @@ def run_mv(args, work, jobs) -> tuple:
     return launches, by_route, cases
 
 
+# -- phase 14: upsert ------------------------------------------------------------------
+
+UPSERT_EVENTS = 2_097_152        # FULL: events (PERF.md section 4)
+UPSERT_KEYS = 524_288            # FULL: primary keys
+UPSERT_FLUSH = 524_288           # FULL: rows a segment commits at (3 committed, 1 consuming)
+UPSERT_PARTIAL = (262_144, 65_536, 131_072)    # PARTIAL: events, keys, flush rows
+UPSERT_DEDUP = (262_144, 131_072)              # dedup: events, flush rows
+UPSERT_UPDATES = 65_536          # updates pumped after the queries, to committed keys
+UPSERT_RUNS = 5                  # warm runs of each query
+UPSERT_PUMP = 10_000             # messages a pump (the consumer's default)
+UPSERT_CONFIG = dict(inverted_index_columns=["lo_region", "lo_discount"],
+                     no_dictionary_columns=["lo_tax"])
+UPSERT_STRATEGIES = {"lo_quantity": "INCREMENT", "lo_revenue": "MAX",
+                     "lo_discount": "OVERWRITE", "lo_orderdate": "IGNORE"}
+UPSERT_SOURCE = ("Apache Pinot docs: Stream ingestion with Upsert (upsertConfig mode FULL "
+                 "and PARTIAL, primaryKeyColumns, comparisonColumn, partialUpsertStrategies), "
+                 "Stream ingestion with Dedup (dedupEnabled)")
+# the checked runs' launches a committed segment, by query (the consuming
+# segment launches none): the scans carry the valid band, lo_discount = 2
+# (1/11 of the rows) is a bitmap leaf, the GROUP BY and the top-k reach no
+# kernel; the dedup table has no mask, and its Q1.1 takes the scan without the band
+UPSERT_LAUNCHES = {"count": dict(masked_sums=1), "q1_1": dict(masked_sums=1),
+                   "for_sum": dict(masked_sums_fused=1), "bitmap_group": dict(bitmap_filter=1),
+                   "region_asia": dict(masked_sums=1)}
+UPSERT_TABLE_QUERIES = {
+    "full": ("count", "q1_1", "group", "for_sum", "bitmap_group", "region_asia", "top_revenue"),
+    "partial": ("count", "q1_1", "partial_sums"),
+    "dedup": ("q1_1", "text"),
+}
+
+
+def make_upsert_messages(kind: str, seed: int) -> list:
+    """In a worker process: one table's stream as JSON row messages."""
+    from pinot_tpu_torch import ssb
+    return ssb.json_messages(upsert_events(kind, seed), ssb.upsert_schema(kind == "dedup"))
+
+
+def upsert_events(kind: str, seed: int) -> dict:
+    from pinot_tpu_torch import ssb
+    if kind == "full":
+        return ssb.make_upsert_events(UPSERT_EVENTS, UPSERT_KEYS, seed)
+    if kind == "partial":
+        return ssb.make_partial_events(UPSERT_PARTIAL[0], UPSERT_PARTIAL[1], seed)
+    return ssb.make_dedup_events(UPSERT_DEDUP[0], seed)
+
+
+def start_upsert_builds(pool, args) -> dict:
+    """Submit phase 14's three streams' messages to `pool`."""
+    return {kind: pool.submit(make_upsert_messages, kind, args.seed + 9 + i)
+            for i, kind in enumerate(("full", "partial", "dedup"))}
+
+
+def live_events(kind: str, c) -> np.ndarray:
+    """numpy: the index of each key's live event, ascending. FULL: an event is
+    accepted when its lo_ts is at least the running maximum of its key's
+    earlier events (a stable sort by key, then np.maximum.accumulate), and
+    the live event is the key's last accepted one; PARTIAL: the key's last
+    event; dedup: its first."""
+    key = np.asarray(c["lo_orderkey"], dtype=np.int64)
+    n = len(key)
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    first = np.ones(n, dtype=bool)
+    first[1:] = k[1:] != k[:-1]
+    last = np.ones(n, dtype=bool)
+    last[:-1] = k[1:] != k[:-1]
+    if kind == "dedup":
+        return np.sort(order[first])
+    if kind == "partial":
+        return np.sort(order[last])
+    ts = np.asarray(c["lo_ts"], dtype=np.int64)[order]
+    shifted = (k << 42) + (ts - ts.min())          # one ascending run per key
+    prev = np.empty(n, dtype=np.int64)
+    prev[0] = -1
+    prev[1:] = np.maximum.accumulate(shifted)[:-1]
+    accepted = first | (shifted >= prev)
+    acc_idx, acc_key = order[accepted], k[accepted]
+    last_acc = np.ones(len(acc_idx), dtype=bool)
+    last_acc[:-1] = acc_key[1:] != acc_key[:-1]
+    return np.sort(acc_idx[last_acc])
+
+
+def partial_rows(c) -> dict:
+    """The PARTIAL table's live rows, replayed in plain Python: each key's
+    row merged column by column (UPSERT_STRATEGIES, OVERWRITE for the rest)
+    over its events in arrival order. Columns of the live rows, by key."""
+    names = [k for k in c if k != "lo_orderkey"]
+    cols = {k: c[k].tolist() for k in names}
+    merged = {}
+    for i, key in enumerate(c["lo_orderkey"].tolist()):
+        prev = merged.get(key)
+        if prev is None:
+            merged[key] = {k: cols[k][i] for k in names}
+            continue
+        for k in names:
+            new = cols[k][i]
+            s = UPSERT_STRATEGIES.get(k, "OVERWRITE")
+            prev[k] = (prev[k] + new if s == "INCREMENT" else max(prev[k], new) if s == "MAX"
+                       else prev[k] if s == "IGNORE" else new)
+    keys = sorted(merged)
+    out = {k: np.array([merged[key][k] for key in keys],
+                       dtype=object if k == "lo_region" else None) for k in names}
+    out["lo_orderkey"] = np.array(keys)
+    return out
+
+
+def upsert_oracles(c) -> dict:
+    """Every phase-14 query's answer from numpy over the live rows `c`."""
+    import re
+    from pinot_tpu_torch import ssb
+    rev = c["lo_revenue"]
+    n = len(rev)
+    m = (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3)
+    asia = c["lo_region"] == "ASIA"
+    d2 = c["lo_discount"] == 2
+    top = np.argsort(-rev, kind="stable")[:10]
+    out = {"count": [[n]], "q1_1": oracle_q11(c), "group": oracle_group(c),
+           "for_sum": [[float(c["lo_tax"][m].astype(np.float64).sum()), int(m.sum())]],
+           "bitmap_group": [[r, float(rev[d2 & (c["lo_region"] == r)].sum()),
+                             int((d2 & (c["lo_region"] == r)).sum())]
+                            for r in sorted(ssb.REGIONS) if (d2 & (c["lo_region"] == r)).any()],
+           "region_asia": [[int(asia.sum()), float(rev[asia].sum())]],
+           "top_revenue": [[int(c["lo_orderkey"][i]), float(rev[i])] for i in top],
+           "partial_sums": [[n, float(c["lo_quantity"].astype(np.float64).sum()),
+                             float(rev.sum()), float(rev.max()),
+                             float(c["lo_discount"].astype(np.float64).sum()),
+                             float(c["lo_orderdate"].min()), float(c["lo_orderdate"].max())]]}
+    if "lo_comment" in c:
+        rx = re.compile(r"(?:^| )%s(?: |$)" % re.escape(ssb.SEARCH_TERM))
+        t = np.fromiter((rx.search(s) is not None for s in c["lo_comment"]), dtype=bool, count=n)
+        out["text"] = [[int(t.sum()), float(rev[t].sum()) if t.any() else None]]
+    return out
+
+
+def consume_table(kind, schema, cfg, messages, work, up=None, dedup=None, partial=None):
+    """Produce `messages` to a MemoryStream and pump them through the per-row
+    lane, committing each segment at the flush threshold (`build_immutable`,
+    `load_segment`, and a consumer with the next LLC name and start offset)
+    while events remain. Returns (committed segments, the consuming
+    consumer, pump s, add_record s, commit s each)."""
+    from pinot_tpu_torch import load_segment
+    from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    stream = MemoryStream.create(cfg.stream.topic, 1)
+    for msg in messages:
+        stream.produce(msg, partition=0)
+    spent = [0.0]
+    if up is not None:   # the time add_record takes, summed
+        pm = up.partition(0)
+        inner = pm.add_record
+
+        def timed(*a):
+            t = time.perf_counter()
+            try:
+                return inner(*a)
+            finally:
+                spent[0] += time.perf_counter() - t
+        pm.add_record = timed
+    flush = cfg.stream.flush_threshold_rows
+    committed, commit_s = [], []
+
+    def consumer(seq, offset):
+        return RealtimePartitionConsumer(f"lineorder__0__{seq}__20261201T0000Z", cfg, schema,
+                                         offset, work, upsert=up, dedup=dedup,
+                                         partial_rows=partial)
+    c = consumer(0, 0)
+    pump_s = 0.0
+    while c.offset < len(messages):
+        t0 = time.perf_counter()
+        c.pump(max_messages=min(UPSERT_PUMP, flush - c.mutable.num_docs))
+        pump_s += time.perf_counter() - t0
+        if c.last_decode_path != "row":
+            raise AssertionError(f"{kind}: the pump took the {c.last_decode_path} lane")
+        if c.end_criteria_reached() and c.offset < len(messages):
+            t0 = time.perf_counter()
+            committed.append(load_segment(c.build_immutable()))
+            commit_s.append(time.perf_counter() - t0)
+            c = consumer(len(committed), c.offset)
+    if up is not None:
+        del pm.add_record
+    return committed, c, pump_s, spent[0], commit_s
+
+
+def banded_cases(seg, up, schema) -> dict:
+    """Each scan with the valid band on one committed segment (Q1.1's three
+    bands and its f32 operand: 20 B/row; the FOR sum's lo_discount band and
+    u8 deltas: 9 B/row) against its plain version, by graph replay with L2
+    flushed, against its bound; beside it the same scan without the band."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor, scan_route
+    from pinot_tpu_torch.query.planner import plan_segment
+    ex = ServerQueryExecutor()
+    block = block_for(seg, ex.device)
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=ex.device)
+    out = {}
+    for qid in ("q1_1", "for_sum"):
+        plan = plan_segment(compile_query(ssb.UPSERT_QUERIES[qid], schema), seg,
+                            valid_docs=up.valid_mask(seg.name, seg.num_docs))
+        route = scan_route(plan)
+        cols, bands, operands = ex.scan_inputs(plan, route, block)
+        for shape, args in (("banded", (cols, bands, operands)),
+                            ("unbanded", (cols[:-1], bands[:-1], operands))):
+            numbers = scan_case(route, args, flush)
+            numbers["bytes_per_row"] = sum(t.element_size() for t in args[0]) + sum(
+                (t if route == "masked_sums" else t[1]).element_size() for t in operands)
+            log("upsert_case", kernel=route, query=qid, shape=shape, **numbers)
+            out[f"{qid}, {shape}"] = numbers
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_upsert(args, work, jobs) -> tuple:
+    """Phase 14: upsert and dedup. Three tables after Apache Pinot's upsert
+    and dedup pages (`ssb.upsert_schema`: lineorder with lo_orderkey the
+    primary key, lo_ts the event time, lo_tax raw; inverted indexes on
+    lo_region and lo_discount), their JSON rows through the consumer's
+    per-row lane into MutableSegments, committed at their flush thresholds:
+    a FULL table (2,097,152 events over 524,288 keys drawn zipf(1.2),
+    comparisonColumn lo_ts with 2% late events; 3 committed segments and a
+    consuming one of 524,288 rows), a PARTIAL one (262,144 events over 65,536
+    keys, four strategies) and a dedup one (262,144 events, 25% re-sent, a
+    text index on lo_comment). Each query through `execute_query(...,
+    upsert=)` against numpy over the live rows, each checked cold run held
+    to its exact launches (the scans carry the valid band on every committed
+    segment), 5 warm runs; the realtime postings and TEXT_MATCH on the
+    consuming segments; then 65,536 updates to committed keys and Q1.1 again;
+    then `upsert_case` lines. Returns (launches by kernel, the banded cases)."""
+    from pinot_tpu_torch import execute_query, ssb
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.query.executor import resolve_device
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+    from pinot_tpu_torch.table import IndexingConfig, StreamConfig, TableConfig, UpsertConfig
+    from pinot_tpu_torch.upsert import PartitionDedupMetadataManager, TableUpsertMetadataManager
+
+    launches = counts_of()
+    MemoryStream.reset_all()
+
+    def checked(kind, qid, segs, up, want, n_committed, runs=UPSERT_RUNS, label="table"):
+        sql = ssb.UPSERT_QUERIES[qid]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = execute_query(segs, sql, upsert=up)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if not rows_match(result.rows, want):
+            raise AssertionError(f"upsert {kind} {qid} ({label}): got {result.rows[:10]}, "
+                                 f"oracle {want[:10]}")
+        per_pass = UPSERT_LAUNCHES.get(qid, {})
+        expect = counts_of(**{k: v * n_committed for k, v in per_pass.items()})
+        if counts != expect:
+            raise AssertionError(f"upsert {kind} {qid} ({label}): launches {counts}, "
+                                 f"expected {expect}")
+        for k, v in counts.items():
+            launches[k] += v
+        fields = dict(table=kind, query=qid, segments=label, answer=result.rows[:3],
+                      launches=counts, cold_ms=cold_ms)
+        if runs:
+            warm, results = warm_times(lambda: execute_query(segs, sql, upsert=up), runs=runs)
+            warm.pop("median_s")
+            stats = [r.stats["phaseTimesMs"] for r in results]
+            fields.update(warm, phase_median_ms={k: statistics.median(p[k] for p in stats)
+                                                 for k in stats[0]})
+        log("upsert_query", **fields)
+        return result
+
+    tables, first = {}, {}
+    for i, kind in enumerate(("full", "partial", "dedup")):
+        seed = args.seed + 9 + i
+        schema = ssb.upsert_schema(comment=kind == "dedup")
+        flush = {"full": UPSERT_FLUSH, "partial": UPSERT_PARTIAL[2], "dedup": UPSERT_DEDUP[1]}
+        idx = dict(UPSERT_CONFIG, text_index_columns=["lo_comment"] if kind == "dedup" else [])
+        up_cfg = {"full": UpsertConfig("FULL", "lo_ts"),
+                  "partial": UpsertConfig("PARTIAL", partial_strategies=UPSERT_STRATEGIES)}
+        cfg = TableConfig("lineorder", stream=StreamConfig(
+            topic=f"lineorder_{kind}", flush_threshold_rows=flush[kind]),
+            indexing=IndexingConfig(**idx), upsert=up_cfg.get(kind), dedup_enabled=kind == "dedup")
+        up = TableUpsertMetadataManager() if kind != "dedup" else None
+        t0 = time.perf_counter()
+        messages = jobs[kind].result()
+        waited_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        events = upsert_events(kind, seed)
+        live = live_events(kind, events)
+        rows = partial_rows(events) if kind == "partial" else \
+            {k: v[live] for k, v in events.items()}
+        answers = upsert_oracles(rows)
+        oracle_s = time.perf_counter() - t0
+        committed, consumer, pump_s, add_s, commit_s = consume_table(
+            kind, schema, cfg, messages, work, up=up,
+            dedup=PartitionDedupMetadataManager() if kind == "dedup" else None,
+            partial={} if kind == "partial" else None)
+        del messages
+        cons = consumer.query_segment()
+        if not isinstance(cons, MutableSegment):
+            raise AssertionError(f"{kind}: the consuming segment is a {type(cons).__name__}")
+        segs = committed + [cons]
+        log("upsert_ingest", table=kind, source=UPSERT_SOURCE, seed=seed,
+            events=len(events["lo_ts"]), keys=int(len(np.unique(events["lo_orderkey"]))),
+            live_rows=len(live), waited_for_worker_s=waited_s, oracle_s=oracle_s,
+            pump_s=pump_s, rows_per_s=len(events["lo_ts"]) / pump_s, add_record_s=add_s,
+            add_record_share=add_s / pump_s, commit_s=commit_s,
+            segment_rows=[s.num_docs for s in segs],
+            primary_keys=up.partition(0).num_primary_keys if up else None)
+        if kind == "full":
+            visible = np.concatenate([up.valid_mask(s.name, s.num_docs) for s in segs])
+            if not np.array_equal(np.flatnonzero(visible), live):
+                raise AssertionError("full: the valid-doc masks are not numpy's live rows")
+        for qid in UPSERT_TABLE_QUERIES[kind]:
+            first[kind, qid] = checked(kind, qid, segs, up, answers[qid], len(committed)).rows
+        tables[kind] = (schema, committed, consumer, up, events, live, seed)
+
+    # the consuming segments alone: host plans, no launch
+    schema, committed, consumer, up, events, live, seed = tables["full"]
+    cons = consumer.query_segment()
+    lo = len(committed) * UPSERT_FLUSH
+    cons_rows = {k: v[live[live >= lo]] for k, v in events.items()}
+    cons_answers = upsert_oracles(cons_rows)
+    for qid in ("q1_1", "region_asia"):
+        checked("full", qid, [cons], up, cons_answers[qid], 0, label="consuming")
+    reader = cons.column("lo_region")
+    t0 = time.perf_counter()
+    snap = reader.dict_snapshot()
+    view = reader.inverted_view(snap)
+    asia = snap[1].index_of("ASIA")
+    docs = view.doc_ids_for_ids([asia])
+    postings_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(docs, np.flatnonzero(np.asarray(snap[2]) == asia)):
+        raise AssertionError("full: the realtime postings of lo_region = 'ASIA' disagree "
+                             "with the forward ids")
+    d_schema, d_committed, d_consumer, _, d_events, d_live, _ = tables["dedup"]
+    d_lo = d_consumer.mutable.num_docs
+    d_cons_rows = {k: v[d_live[-d_lo:]] for k, v in d_events.items()}
+    checked("dedup", "text", [d_consumer.query_segment()], None,
+            upsert_oracles(d_cons_rows)["text"], 0, label="consuming")
+    log("upsert_postings", table="full", rows=cons.num_docs, asia_docs=len(docs),
+        snapshot_and_postings_ms=postings_ms)
+
+    # updates to keys that live in committed segments, then Q1.1 again
+    rng = np.random.default_rng(seed + 100)
+    keys = np.unique(events["lo_orderkey"][live[live < lo]])
+    upd = ssb.make_update_events(rng.choice(keys, UPSERT_UPDATES), int(events["lo_ts"].max()),
+                                 seed + 101)
+    before = first["full", "q1_1"]
+    stream = MemoryStream.get("lineorder_full")
+    for msg in ssb.json_messages(upd, schema):
+        stream.produce(msg, partition=0)
+    t0 = time.perf_counter()
+    while consumer.pump():
+        pass
+    update_pump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    consumer.mutable.column("lo_region").dict_snapshot()    # the re-sort after growth
+    resort_ms = (time.perf_counter() - t0) * 1e3
+    staging_ms = []
+    for s in committed:     # the band of each segment whose version moved
+        mask = up.valid_mask(s.name, s.num_docs)
+        block = block_for(s, resolve_device())
+        t0 = time.perf_counter()
+        block.valid_band(mask)
+        torch.cuda.synchronize()
+        staging_ms.append((time.perf_counter() - t0) * 1e3)
+    all_events = {k: np.concatenate([events[k], upd[k]]) for k in events}
+    all_live = live_events("full", all_events)
+    after_rows = {k: v[all_live] for k, v in all_events.items()}
+    after = checked("full", "q1_1", committed + [consumer.query_segment()], up,
+                    upsert_oracles(after_rows)["q1_1"], len(committed), label="after_update")
+    if rows_match(after.rows, before):
+        raise AssertionError(f"full: Q1.1 did not change after {UPSERT_UPDATES} updates")
+    log("upsert_update", updates=UPSERT_UPDATES, pump_s=update_pump_s,
+        rows_per_s=UPSERT_UPDATES / update_pump_s, resort_ms=resort_ms,
+        band_staging_ms=staging_ms, before=before, after=after.rows,
+        versions=[up.version(s.name) for s in committed])
+    numbers = banded_cases(committed[0], up, schema)
+    return launches, numbers
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -3575,16 +3985,19 @@ def main() -> int:
     # table; phase 6: selections; phase 7: joins; phase 8: realtime; phase 9:
     # expressions and the host path; phase 10: the aggregation library; phase
     # 11: the filter indexes and star-trees; phase 12: the search indexes and
-    # compressed raw columns; phase 13: multi-value columns. Each phase returns every
+    # compressed raw columns; phase 13: multi-value columns; phase 14: upsert and
+    # dedup. Each phase returns every
     # kernel's launches in its checked runs: the counts set to 0 just before
     # a run and read just after, each held to the run's expected count.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
-    # phases 12 and 13's tables build in worker processes beside the earlier phases
+    # phases 12 and 13's tables, and phase 14's streams, build in worker processes
+    # beside the earlier phases
     build_pool = concurrent.futures.ProcessPoolExecutor(
         6, mp_context=multiprocessing.get_context("spawn"))   # one per build
     search_jobs = start_search_builds(build_pool, args, work)
     mv_jobs = start_mv_builds(build_pool, args, work)
+    upsert_jobs = start_upsert_builds(build_pool, args)   # queued behind the builds
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -3625,6 +4038,10 @@ def main() -> int:
         if not (mv_launches["masked_sums"] and mv_launches["bitmap_filter"]):
             raise AssertionError(f"the mv phase launches {mv_launches}: Q1.1 must take the "
                                  "scan and the mixed tree the bitmap filter")
+        upsert_launches, upsert_numbers = phase("upsert", run_upsert, args, work, upsert_jobs)
+        if not all(upsert_launches.values()):
+            raise AssertionError(f"the upsert phase launches {upsert_launches}: each kernel "
+                                 "must run on its path")
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -3641,7 +4058,7 @@ def main() -> int:
                 "realtime": realtime_launches[name], "expr": expr_launches["expr"][name],
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
                 "index": index_launches[name], "search": search_launches[name],
-                "mv": mv_launches[name]}
+                "mv": mv_launches[name], "upsert": upsert_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -3656,6 +4073,10 @@ def main() -> int:
                         "call_ms": s["call_ms"], "plain_call_ms": s["plain_call_ms"],
                         "shape_case": s["case"],
                         "cases": dict(s["cases"], realtime_view=realtime_numbers[name],
+                                      upsert_valid_band={
+                                          k: v for k, v in upsert_numbers.items()
+                                          if k.startswith("q1_1" if name == "masked_sums"
+                                                          else "for_sum")},
                                       **({"expr_case_operand": expr_numbers}
                                          if name == "masked_sums" else {}))})
     head = bitmap_numbers["bitmap_query, one segment, mask"]

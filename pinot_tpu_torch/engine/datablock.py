@@ -118,6 +118,7 @@ class SegmentBlock:
         self._valid_words: Optional[torch.Tensor] = None
         self._null: Dict[str, torch.Tensor] = {}
         self._bitmaps: Dict[str, Optional[torch.Tensor]] = {}
+        self._valid_band: Tuple[Optional[tuple], Optional[torch.Tensor]] = (None, None)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -130,6 +131,21 @@ class SegmentBlock:
             v[:self.num_docs] = True
             self._valid = self._put(v)
         return self._valid
+
+    def valid_band(self, mask: np.ndarray) -> torch.Tensor:
+        """An upsert valid-doc mask (`upsert.ValidDocs`) as the scan's band
+        row: int32[num_docs], 1 at the live rows, which the band (1, 1)
+        keeps. Staged once per mask key (the manager, the segment and its
+        version) and reused until the key changes."""
+        key, band = self._valid_band
+        if band is not None and key == mask.key:
+            return band
+        rows = np.zeros(self.num_docs, dtype=np.int32)
+        m = min(len(mask), self.num_docs)
+        rows[:m] = np.asarray(mask)[:m]
+        band = self._put(rows)
+        self._valid_band = (mask.key, band)    # one store publishes the pair
+        return band
 
     @property
     def valid_words(self) -> torch.Tensor:

@@ -2,28 +2,40 @@
 
 Counterpart of `RealtimePartitionConsumer` in `pinot_tpu/ingest/realtime.py`
 (the analog of the reference's `LLRealtimeSegmentDataManager`): `pump()`
-fetches a batch from the partition, decodes it and indexes it into a
-`DeviceMutableSegment`; `query_segment()` gives the frozen view queries run
-against; `end_criteria_reached()` applies the flush thresholds and
-`build_immutable()` writes the consuming segment as an immutable one.
+fetches a batch from the partition, decodes it and indexes it into the
+consuming segment; `query_segment()` gives the segment queries run against;
+`end_criteria_reached()` applies the flush thresholds and `build_immutable()`
+writes the consuming segment as an immutable one.
 
-Two decode lanes, as in the JAX package:
+The consuming segment's class, as the JAX package chooses it: the chunked
+`DeviceMutableSegment`, unless the table has upsert or dedup, names text or
+inverted index columns, or sets the stream property
+`realtime.ingest.vectorized=false`; then the row-append `MutableSegment`
+(`segment/mutable.py`), which keeps the realtime indexes and indexes row by
+row.
+
+Three decode lanes, as in the JAX package:
 * a columnar block stream (decoder "columnar"): each message is a PCB1 block,
   decoded to a `ColumnarBatch` and appended with `index_arrays`
-  (`last_decode_path` "blocks");
+  (`last_decode_path` "blocks"); a table with upsert or dedup cannot take it;
 * a JSON row stream: the batch's messages decoded, coerced by the transform
-  pipeline and appended column by column with `index_batch` ("batch").
+  pipeline and appended column by column with `index_batch` ("batch");
+* the per-row lane of an upsert or dedup table ("row"): the batch's messages
+  decoded and transformed (`TransformPipeline.apply_rows`: the rows
+  `apply_row` gives one at a time), then `_index_row` row by row in arrival
+  order: the dedup check, the partial-upsert merge, the append and
+  `add_record` into the table's upsert metadata (the comparison value is the
+  `comparisonColumn`'s, else the message offset).
 
-With the stream property `realtime.ingest.device.staging=true` the consuming
-segment stages its numeric chunks on `device` (CUDA unless the caller names
-another) and its views run on the device path.
+With the stream property `realtime.ingest.device.staging=true` a chunked
+consuming segment stages its numeric chunks on `device` (CUDA unless the
+caller names another) and its views run on the device path. A row-append
+segment runs on the host, as the JAX planner routes it.
 
 Not ported: the completion protocol with the controller (`maybe_complete`
 raises NotImplementedError once the flush thresholds are reached),
-`RealtimeTableManager`, upsert and dedup, the row-append `MutableSegment`
-(every consumer here indexes into a `DeviceMutableSegment`; a table whose
-indexing config names text or inverted index columns, which need it, raises
-ValueError), and the socket
+`RealtimeTableManager` (a caller that commits builds the segment, loads it
+and starts the next consumer with the same upsert manager), and the socket
 broker's splicing fetch. The stream properties `filterExpr` and
 `columnTransforms` configure the `TransformPipeline`: with either, a block
 lane's batches go through it as column lists before they are indexed.
@@ -33,11 +45,13 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional
+from typing import Any, Dict, Optional
 
-from ..segment.mutable_device import ConsumingView, DeviceMutableSegment
+from ..segment.mutable import MutableSegment
+from ..segment.mutable_device import DeviceMutableSegment
 from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
 from ..table import TableConfig
+from ..upsert import merge_partial
 from .stream import MemoryStreamConsumer, get_decoder
 from .transform import TransformPipeline, rows_to_all_columns
 from .vectorized import ColumnarBlockDecoder
@@ -55,22 +69,41 @@ def parse_llc_name(name: str) -> dict:
 
 class RealtimePartitionConsumer:
     """One consuming segment of one stream partition. One thread pumps; any
-    number of threads may query the segment meanwhile."""
+    number of threads may query the segment meanwhile.
+
+    `upsert` is the table's `upsert.TableUpsertMetadataManager` (shared by
+    every consumer of the table, and by the queries that read its masks),
+    `dedup` the partition's `PartitionDedupMetadataManager`, `partial_rows`
+    the table's last merged row per primary key (a PARTIAL upsert's state,
+    shared like `upsert`)."""
 
     def __init__(self, segment_name: str, table_cfg: TableConfig, schema,
-                 start_offset: int, data_dir: str, completion=None, device=None):
+                 start_offset: int, data_dir: str, completion=None, device=None,
+                 upsert=None, dedup=None, partial_rows: Optional[dict] = None):
         self.segment_name = segment_name
         self.table_cfg = table_cfg
         self.schema = schema
         self.completion = completion
         self.data_dir = data_dir
+        self.upsert = upsert
+        self.dedup = dedup
+        self.partial_rows = partial_rows if partial_rows is not None else {}
         stream_cfg = table_cfg.stream
         props = stream_cfg.properties or {}
-        staging = str(props.get("realtime.ingest.device.staging", "false")).lower() == "true"
-        self.mutable = DeviceMutableSegment(
-            segment_name, schema, device_staging=staging, device=device,
-            text_index_columns=table_cfg.indexing.text_index_columns,
-            inverted_index_columns=table_cfg.indexing.inverted_index_columns)
+        indexing = table_cfg.indexing
+        vectorized_ok = (
+            str(props.get("realtime.ingest.vectorized", "true")).lower() != "false"
+            and upsert is None and dedup is None
+            and not any(schema.has_column(c) for c in (*indexing.text_index_columns,
+                                                       *indexing.inverted_index_columns)))
+        if vectorized_ok:
+            staging = str(props.get("realtime.ingest.device.staging", "false")).lower() == "true"
+            self.mutable = DeviceMutableSegment(segment_name, schema, device_staging=staging,
+                                                device=device)
+        else:
+            self.mutable = MutableSegment(
+                segment_name, schema, text_index_columns=indexing.text_index_columns,
+                inverted_index_columns=indexing.inverted_index_columns)
         self.pipeline = TransformPipeline(schema, props.get("filterExpr"),
                                           props.get("columnTransforms"))
         self.partition = parse_llc_name(segment_name)["partition"]
@@ -79,12 +112,16 @@ class RealtimePartitionConsumer:
         self.block_decoder = None
         self.decoder = None
         if stream_cfg.decoder == "columnar":
+            if upsert is not None or dedup is not None:
+                raise ValueError(
+                    f"table {table_cfg.name}: upsert/dedup need per-row decode and offsets; "
+                    "they cannot consume a columnar block stream")
             self.block_decoder = ColumnarBlockDecoder()
         else:
             self.decoder = get_decoder(stream_cfg.decoder)
         self.offset = start_offset
         self.start_consume_time = time.time()
-        # which lane the last pump took: "blocks" | "batch" | None
+        # which lane the last pump took: "blocks" | "batch" | "row" | None
         self.last_decode_path: Optional[str] = None
 
     def pump(self, max_messages: int = MAX_PUMP_MESSAGES) -> int:
@@ -96,27 +133,77 @@ class RealtimePartitionConsumer:
         if self.block_decoder is not None:
             self.last_decode_path = "blocks"
             # arrays index directly unless the table configures a filter or
-            # transforms: then each block goes through the pipeline as lists
-            direct = self.pipeline.filter_expr is None and not self.pipeline.column_transforms
+            # transforms, or the segment appends rows: then each block goes
+            # through the pipeline as lists
+            direct = hasattr(self.mutable, "index_arrays") and \
+                self.pipeline.filter_expr is None and not self.pipeline.column_transforms
             for m in batch.messages:
                 cb = self.block_decoder.decode_one(m.value)
                 if direct:
                     indexed += self.mutable.index_arrays(cb)
                 else:
-                    indexed += self.mutable.index_batch(
-                        self.pipeline.apply(cb.to_lists(self.schema)))
-        elif batch.messages:
+                    indexed += self._index_columns(self.pipeline.apply(cb.to_lists(self.schema)))
+        elif batch.messages and self.upsert is None and self.dedup is None:
             self.last_decode_path = "batch"
             rows = [self.decoder(m.value) for m in batch.messages]
-            indexed = self.mutable.index_batch(
-                self.pipeline.apply(rows_to_all_columns(rows)))
+            indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(rows)))
+        elif batch.messages:
+            self.last_decode_path = "row"
+            decoded = [self.decoder(m.value) for m in batch.messages]
+            for row, msg in zip(self.pipeline.apply_rows(decoded), batch.messages):
+                if row is not None and self._index_row(row, msg.offset):
+                    indexed += 1
         self.offset = batch.next_offset
         return indexed
 
-    def query_segment(self) -> ConsumingView:
-        """The segment queries run against: the consuming segment frozen at
-        its current row count (cached per row count)."""
-        return self.mutable.query_view()
+    def _index_columns(self, cols: Dict[str, list]) -> int:
+        """Append a batch the transform pipeline coerced."""
+        if isinstance(self.mutable, MutableSegment):
+            return self.mutable.index_batch(cols, coerced=True)
+        return self.mutable.index_batch(cols)
+
+    def _index_row(self, row: Dict[str, Any], msg_offset: int) -> bool:
+        """Index one row with the dedup and upsert hooks (the reference's
+        MutableSegmentImpl.index hooks); False when dedup drops it. A row
+        that `add_record` rejects (older than its key's live row) is still
+        indexed, and stays invisible."""
+        pk_cols = self.schema.primary_key_columns
+        pk = tuple(row.get(c) for c in pk_cols) if pk_cols else None
+
+        if self.dedup is not None and pk is not None:
+            if not self.dedup.check_and_add(pk):
+                return False
+
+        if self.upsert is not None and pk is not None:
+            up_cfg = self.table_cfg.upsert
+            if up_cfg and up_cfg.mode == "PARTIAL":
+                prev = self.partial_rows.get(pk)
+                if prev is not None:
+                    merged = dict(prev)
+                    for col, val in row.items():
+                        if col in pk_cols:
+                            continue
+                        strategy = up_cfg.partial_strategies.get(col, "OVERWRITE")
+                        merged[col] = merge_partial(strategy, prev.get(col), val)
+                    row = merged
+                self.partial_rows[pk] = dict(row)
+            cmp_val = (row.get(up_cfg.comparison_column)
+                       if up_cfg and up_cfg.comparison_column else msg_offset)
+            doc_id = self.mutable.num_docs
+            self.mutable.index(row)
+            self.upsert.partition(self.partition).add_record(
+                self.segment_name, doc_id, pk, cmp_val)
+            return True
+
+        self.mutable.index(row)
+        return True
+
+    def query_segment(self):
+        """The segment queries run against: a chunked segment's view frozen at
+        its current row count (cached per row count), or the row-append
+        segment itself."""
+        qv = getattr(self.mutable, "query_view", None)
+        return qv() if qv is not None else self.mutable
 
     def end_criteria_reached(self) -> bool:
         """The flush thresholds (the reference's realtime.segment.flush.*)."""
@@ -138,10 +225,12 @@ class RealtimePartitionConsumer:
             "build_immutable() writes the segment")
 
     def build_immutable(self) -> str:
-        """Write the consuming segment as an immutable segment directory from
-        its column arrays (the reference's RealtimeSegmentConverter), with the
-        table's indexing config; returns the directory."""
+        """Write the consuming segment as an immutable segment directory (the
+        reference's RealtimeSegmentConverter), with the table's indexing
+        config, from the chunked store's column arrays or the row-append
+        store's column lists (None at null rows); returns the directory."""
+        snap_arrays = getattr(self.mutable, "snapshot_arrays", None)
+        columns = snap_arrays() if snap_arrays is not None else self.mutable.snapshot_columns()
         return SegmentBuilder(self.schema, SegmentGeneratorConfig.from_indexing(
             self.table_cfg.indexing)).build(
-            self.mutable.snapshot_arrays(), os.path.join(self.data_dir, "realtime_build"),
-            self.segment_name)
+            columns, os.path.join(self.data_dir, "realtime_build"), self.segment_name)

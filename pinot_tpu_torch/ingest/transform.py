@@ -44,6 +44,27 @@ class TransformPipeline:
     def apply(self, columns: Dict[str, Any]) -> Dict[str, List[Any]]:
         """Schema columns only, each value coerced to its type, None kept as
         None (so that the segment records a null) and NaN read as null."""
+        return self._apply(columns)[0]
+
+    def apply_rows(self, rows: List[Dict[str, Any]]) -> List[Optional[Dict[str, Any]]]:
+        """Each row's schema columns, or None where the filter drops it: the
+        rows `apply_row` gives one at a time, the batch transformed at once
+        (the consumer's per-row lane, which then indexes row by row)."""
+        cols, keep = self._apply(rows_to_all_columns(rows))
+        names = list(cols)
+        out = [dict(zip(names, vals)) for vals in zip(*cols.values())]
+        if keep is None:
+            return out
+        kept = iter(out)
+        return [next(kept) if k else None for k in keep.tolist()]
+
+    def apply_row(self, row: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """One row's schema columns, or None when the filter drops it."""
+        return self.apply_rows([row])[0]
+
+    def _apply(self, columns: Dict[str, Any]):
+        """(`apply`'s columns, the bool mask of the rows the filter kept, or
+        None without a filter)."""
         n = len(next(iter(columns.values()))) if columns else 0
         env = {k: _as_array(v) for k, v in columns.items()}
         # schema columns coerced first, so that filters and transforms see
@@ -57,6 +78,7 @@ class TransformPipeline:
         for dest, expr in self.column_transforms.items():
             out = eval_host(expr, env)
             env[dest] = np.full(n, out, dtype=object) if np.isscalar(out) else _as_array(out)
+        keep = None
         if self.filter_expr is not None:
             keep = ~np.asarray(eval_host(self.filter_expr, env), dtype=bool)
             env = {k: v[keep] for k, v in env.items()}
@@ -71,7 +93,7 @@ class TransformPipeline:
                 out_cols[spec.name] = vals
             else:
                 out_cols[spec.name] = _coerce_list(spec, vals)
-        return out_cols
+        return out_cols, keep
 
 
 def _coerce_list(spec, vals: list) -> list:

@@ -32,19 +32,31 @@ Counterpart of `pinot_tpu/query/executor.py` (analog of the reference's
 
 A consuming segment without device staging is mutable: it is planned on the
 host, its dictionary leaves rebuilt against one `dict_snapshot` of its
-readers. A consuming segment's view that stages on the device
-(`segment.mutable_device.ConsumingView`, `is_mutable=False`) runs as an
-immutable segment does, its block already holding the staged chunks.
+readers, and a realtime inverted index (the row-append segment's) read
+through a view bound to that snapshot. A consuming segment's view that
+stages on the device (`segment.mutable_device.ConsumingView`,
+`is_mutable=False`) runs as an immutable segment does, its block already
+holding the staged chunks.
 
 A segment with a star-tree that fits the query (`startree_exec.try_star_tree`)
 answers from the tree's record table: the slot query runs over the tree's
-view with the traversal's record mask as `valid_docs` (which keeps it off
-the scan route: the scan reads id bands only), and `reassemble` turns the
-slot states back into the query's. Device plans whose filter the scan does
-not take evaluate their selective dictionary leaves over the bitmap index
-(`planner.select_bitmap_leaves`, the kernel of `engine/bitmap.py`); null
-leaves read the column's null bitmap, doc-set leaves (IN_ID_SET over a raw
-column) a host mask. A selective dictionary leaf of the host filter mask
+view with the traversal's record mask as `valid_docs` (a plain array, which
+keeps it off the scan route), and `reassemble` turns the slot states back
+into the query's.
+
+Upsert (`execute(..., upsert=)`): each segment, committed or consuming,
+answers under its valid-doc mask from the table's upsert metadata, one live
+row per primary key; no star-tree answers under a mask, and an upsert table
+is never stacked into a set. The mask (an `upsert.ValidDocs`, which names
+the segment's version) reaches `valid_docs`: a scan plan carries it as one
+more int32 band row (`SegmentBlock.valid_band`, staged once per version),
+the plain body ANDs it into `valid` (and the bitmap filter packs it into
+its valid words), a host plan ANDs it into its mask.
+
+Device plans whose filter the scan does not take evaluate their selective
+dictionary leaves over the bitmap index (`planner.select_bitmap_leaves`,
+the kernel of `engine/bitmap.py`); null leaves read the column's null
+bitmap, doc-set leaves (IN_ID_SET over a raw column) a host mask. A selective dictionary leaf of the host filter mask
 reads the inverted index's postings instead of the forward index.
 
 Multi-value columns: a dictionary leaf over one reads the column's padded
@@ -78,6 +90,7 @@ from ..engine.expr import eval_device, eval_host
 from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
 from ..segment.reader import ColumnReader, ImmutableSegment, MVValues, mv_values
 from ..sql.ast import Identifier, identifiers_in
+from ..upsert import ValidDocs
 from .aggregates import make_agg
 from .context import QueryContext, QueryValidationError, compile_query
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
@@ -111,9 +124,17 @@ class ServerQueryExecutor:
 
     def execute(self, segments: Sequence[ImmutableSegment],
                 query: Union[str, QueryContext], schema=None,
-                star_plans: Optional[Sequence[StarTreePlan]] = None) -> ResultTable:
+                star_plans: Optional[Sequence[StarTreePlan]] = None,
+                upsert=None) -> ResultTable:
         """`star_plans`: each segment's StarTreePlan, already traversed (the
-        set executor's), or None to fit each segment here."""
+        set executor's), or None to fit each segment here. `upsert`: the
+        table's `upsert.TableUpsertMetadataManager`; each segment (committed,
+        or a consumer's `query_segment()`) then answers under
+        `upsert.valid_mask(name, num_docs)`, None meaning every row is
+        visible, as the JAX package's server does."""
+        if upsert is not None and star_plans is not None:
+            raise ValueError("an upsert table's segments answer under their valid-doc "
+                             "masks: no star-tree plan applies")
         t0 = time.perf_counter()
         ctx = compile_query(query, schema or (segments[0].schema if segments else None)) \
             if isinstance(query, str) else query
@@ -123,9 +144,11 @@ class ServerQueryExecutor:
         group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
                        else list(ctx.group_by))
         t_compile = time.perf_counter()
-        results = [self.execute_segment(ctx, seg, star=None if star_plans is None
-                                        else star_plans[i])
-                   for i, seg in enumerate(segments)]
+        results = [self.execute_segment(
+            ctx, seg, valid_docs=None if upsert is None else upsert.valid_mask(seg.name,
+                                                                                seg.num_docs),
+            star=None if star_plans is None else star_plans[i])
+            for i, seg in enumerate(segments)]
         t_scan = time.perf_counter()
         merged = merge_segment_results(results, aggs)
         if not results:
@@ -204,27 +227,40 @@ class ServerQueryExecutor:
                         block: SegmentBlock) -> SegmentResult:
         """A scalar plan through the masked multi-sum scan. The scan covers the
         segment's real rows only (`n = num_docs`), so padding never enters it."""
+        operands = _sum_operands(plan)
+        args = self.scan_inputs(plan, route, block)
+        answer = (scan.masked_sums_fused_answer if route == "masked_sums_fused"
+                  else scan.masked_sums_answer)(*args)
+        host_sums, host_count = scan.answer_to_host(answer, len(operands))   # one copy
+        outs = {"count": host_count}
+        for (ai, _), s in zip(operands, host_sums):
+            outs[f"{ai}.sum"] = s
+        return self._decode_scalar_partials(plan, outs)
+
+    def scan_inputs(self, plan: SegmentPlan, route: str, block: SegmentBlock) -> tuple:
+        """The scan's (id columns, bands, operands) of a plan `scan_route`
+        sends to `route`: each band leaf's ids and interval, an upsert mask as
+        its int32 band row with (1, 1) last, and the sum operands (f32 rows,
+        or (base, deltas) FOR pairs for the fused scan), cut to the segment's
+        rows."""
         n = plan.segment.num_docs
         leaves = [plan.filter_prog.leaves[i] for i in _band_leaf_indices(plan)]
         id_cols = [block.ids(leaf.col)[:n] for leaf in leaves]
         bands = [leaf.intervals[0] for leaf in leaves]
+        if plan.valid_docs is not None:
+            id_cols.append(block.valid_band(plan.valid_docs))
+            bands.append((1, 1))
         operands = _sum_operands(plan)
         if route == "masked_sums_fused":
             for_rows = []
             for _, arg in operands:
                 base, deltas = block.for_form(arg.name)
                 for_rows.append((base, deltas[:n]))
-            answer = scan.masked_sums_fused_answer(id_cols, bands, for_rows)
-        else:
-            env = {c: v[:n] for c, v in self._value_env(plan, block).items()}
-            rows = [kernels.as_rows(eval_device(arg, env), n, self.device).to(torch.float32)
-                    for _, arg in operands]
-            answer = scan.masked_sums_answer(id_cols, bands, rows)
-        host_sums, host_count = scan.answer_to_host(answer, len(operands))   # one copy
-        outs = {"count": host_count}
-        for (ai, _), s in zip(operands, host_sums):
-            outs[f"{ai}.sum"] = s
-        return self._decode_scalar_partials(plan, outs)
+            return id_cols, bands, for_rows
+        env = {c: v[:n] for c, v in self._value_env(plan, block).items()}
+        rows = [kernels.as_rows(eval_device(arg, env), n, self.device).to(torch.float32)
+                for _, arg in operands]
+        return id_cols, bands, rows
 
     def _value_env(self, plan: SegmentPlan, block: SegmentBlock):
         """Decoded value columns the plan reads, from their resident forms: a
@@ -578,26 +614,34 @@ def host_filter_mask(plan: SegmentPlan, seg: ImmutableSegment) -> np.ndarray:
         if isinstance(leaf, LutLeaf):
             reader = seg.column(leaf.col)
             snapshot = getattr(reader, "dict_snapshot", None)
-            if snapshot is not None:
-                # a consuming reader: the LUT, rebuilt from the leaf's
-                # predicate, and the ids from ONE snapshot (ids remap as the
-                # sorted dictionary grows)
-                snap = snapshot()
+            snap = snapshot() if snapshot is not None else None
+            if snap is not None and snap[1] is None:
+                snap = None     # the sentinel of a column without a dictionary
+            lut = leaf.lut
+            if snap is not None:
+                # a consuming reader: the LUT (rebuilt from the leaf's
+                # predicate), the realtime inverted index and the ids, all
+                # bound to ONE snapshot (ids remap as the sorted dictionary
+                # grows)
                 lut = leaf.rebuild_lut(snap[1], len(snap[1]))
-                m = _mv_any(lut, *snap[2:]) if reader.is_multi_value \
-                    else lut[np.asarray(snap[2]).astype(np.int64)]
-                return np.pad(m, (0, max(0, n - len(m))))[:n]
-            inv = getattr(reader, "inverted_index", None)
+                view = getattr(reader, "inverted_view", None)
+                inv = view(snap) if view is not None else None
+            else:
+                inv = getattr(reader, "inverted_index", None)
             if inv is not None:
-                match_ids = np.flatnonzero(leaf.lut[:min(inv.cardinality, len(leaf.lut))])
+                match_ids = np.flatnonzero(lut[:min(inv.cardinality, len(lut))])
                 if inv.match_count_for_ids(match_ids) * INVERTED_MASK_DIVISOR <= n:
                     mask = np.zeros(n, dtype=bool)
                     docs = inv.doc_ids_for_ids(match_ids)
                     mask[docs[docs < n]] = True
                     return mask
+            if snap is not None:
+                m = _mv_any(lut, *snap[2:]) if reader.is_multi_value \
+                    else lut[np.asarray(snap[2]).astype(np.int64)]
+                return np.pad(m, (0, max(0, n - len(m))))[:n]
             if reader.is_multi_value:
-                return _mv_any(leaf.lut, reader.fwd, reader.mv_offsets)[:n]
-            return leaf.lut[np.asarray(reader.fwd).astype(np.int64)]
+                return _mv_any(lut, reader.fwd, reader.mv_offsets)[:n]
+            return lut[np.asarray(reader.fwd).astype(np.int64)]
         if isinstance(leaf, NullLeaf):
             nb = seg.column(leaf.col).null_bitmap
             m = np.zeros(n, dtype=bool) if nb is None else np.asarray(nb)[:n]
@@ -871,15 +915,21 @@ def scan_route(plan: SegmentPlan) -> Optional[str]:
     "masked_sums_fused" when every sum operand is a bare column in FOR form
     (one delta width for all); "masked_sums" for any other scalar plan whose
     filter is an AND of single-interval dict-id bands and whose outputs are
-    counts and plain sums, and whose rows are not restricted by `valid_docs`
-    (a star-tree's record mask: the scan reads id bands only)."""
-    if plan.kind != "device" or plan.group_exprs or plan.valid_docs is not None:
+    counts and plain sums. An upsert valid-doc mask (`upsert.ValidDocs`)
+    rides the scan as one more band, while one is free; any other
+    `valid_docs` (a star-tree's record mask, a plain array) keeps the plan
+    on the plain body."""
+    if plan.kind != "device" or plan.group_exprs:
+        return None
+    masked = plan.valid_docs is not None
+    if masked and not (isinstance(plan.valid_docs, ValidDocs)
+                       and plan.valid_docs.key is not None):
         return None
     leaves = _band_leaf_indices(plan)
     operands = _sum_operands(plan)
-    if leaves is None or operands is None or not (leaves or operands):
+    if leaves is None or operands is None or not (leaves or operands or masked):
         return None
-    if len(leaves) > scan.MAX_MASK_COLS or len(operands) > scan.MAX_SUMS:
+    if len(leaves) + masked > scan.MAX_MASK_COLS or len(operands) > scan.MAX_SUMS:
         return None
     for_cols = _for_cols(plan)
     if operands and all(isinstance(arg, Identifier) and arg.name in for_cols
@@ -891,6 +941,7 @@ def scan_route(plan: SegmentPlan) -> Optional[str]:
 
 
 def execute_query(segments: Sequence[ImmutableSegment], sql: str, schema=None,
-                  device=None) -> ResultTable:
-    """One-call convenience: SQL over loaded segments, on `device` (CUDA by default)."""
-    return ServerQueryExecutor(device).execute(segments, sql, schema)
+                  device=None, upsert=None) -> ResultTable:
+    """One-call convenience: SQL over loaded segments, on `device` (CUDA by
+    default); `upsert` as `ServerQueryExecutor.execute` takes it."""
+    return ServerQueryExecutor(device).execute(segments, sql, schema, upsert=upsert)

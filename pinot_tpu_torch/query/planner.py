@@ -33,8 +33,8 @@ one go to the host (which explodes the group key); `_validate_mv_usage`
 refuses a single-value aggregation over one and a selection ORDER BY on one.
 
 `valid_docs` (a bool row mask) restricts a plan to some rows: a star-tree's
-traversal mask over its record table. It blocks the metadata answer, as in
-the JAX planner. Leaves fold to constants from dictionaries, min/max metadata
+traversal mask over its record table, or an upsert table's valid-doc mask.
+It blocks the metadata answer, as in the JAX planner. Leaves fold to constants from dictionaries, min/max metadata
 and bloom filters (`_fold_leaves`), which prunes a segment whose filter folds
 to false. `select_bitmap_leaves` picks the dictionary leaves the device
 evaluates over the packed-word bitmap index instead of the id column.

@@ -11,9 +11,10 @@ fuzzy terms.
 
 A query resolves on the host into one doc mask, which the device filter reads
 as a `DocSetLeaf`, as the reference's TextMatchFilterOperator produces a
-Lucene doc bitmap before the scan. The JAX package's realtime text index
-(`MutableTextIndex`) feeds only its row-append consuming segment, which this
-package does not have.
+Lucene doc bitmap before the scan. `_TextMaskOps` holds the mask algebra once,
+over two postings primitives; the immutable reader and the realtime index's
+view (`MutableTextIndex`, kept by the row-append consuming segment
+`segment.mutable.MutableSegment`) each supply them.
 """
 
 from __future__ import annotations
@@ -89,38 +90,33 @@ def create_text_index(path: str, raw_values: Iterable[Any]) -> None:
              token_blob=np.frombuffer(blob, dtype=np.uint8))
 
 
-class TextIndexReader:
-    """TEXT_MATCH over one column's text index file."""
+class _TextMaskOps:
+    """The TEXT_MATCH mask algebra over two primitives: `_term_pairs(token)`
+    -> (doc ids, positions), in ascending (doc, position) order, and
+    `_iter_token_docs()` -> (token, doc id array) pairs. One copy of the
+    term, prefix, regex, fuzzy and phrase semantics for the immutable reader
+    and the realtime view."""
 
-    def __init__(self, path: str, num_docs: int):
-        data = np.load(path)
-        self._doc_ids = data["doc_ids"]
-        self._positions = data["positions"]
-        self._offsets = data["offsets"]
-        blob = data["token_blob"].tobytes().decode("utf-8")
-        self._tokens: List[str] = blob.split("\x00") if blob else []
-        self.num_docs = num_docs
-
-    # -- primitives ---------------------------------------------------------
-    def _token_index(self, token: str) -> int:
-        i = bisect.bisect_left(self._tokens, token)
-        return i if i < len(self._tokens) and self._tokens[i] == token else -1
+    num_docs: int
 
     def _term_pairs(self, token: str) -> Tuple[np.ndarray, np.ndarray]:
-        i = self._token_index(token)
-        if i < 0:
-            return np.empty(0, dtype=np.int32), np.empty(0, dtype=np.int32)
-        lo, hi = self._offsets[i], self._offsets[i + 1]
-        return self._doc_ids[lo:hi], self._positions[lo:hi]
+        raise NotImplementedError
 
     def _iter_token_docs(self):
-        for i, t in enumerate(self._tokens):
-            yield t, self._doc_ids[self._offsets[i]:self._offsets[i + 1]]
+        raise NotImplementedError
 
     def mask_for_term(self, token: str) -> np.ndarray:
         m = np.zeros(self.num_docs, dtype=bool)
         docs, _ = self._term_pairs(token.lower())
         m[docs] = True
+        return m
+
+    def mask_for_prefix(self, prefix: str) -> np.ndarray:
+        prefix = prefix.lower()
+        m = np.zeros(self.num_docs, dtype=bool)
+        for tok, docs in self._iter_token_docs():
+            if tok.startswith(prefix):
+                m[docs[docs < self.num_docs]] = True
         return m
 
     def mask_for_regex(self, pattern: str) -> np.ndarray:
@@ -152,10 +148,11 @@ class TextIndexReader:
     def mask_for_phrase(self, tokens: List[str]) -> np.ndarray:
         """Docs containing the tokens at consecutive positions: the k-th
         token's (doc, position - k) pairs intersected as int64 keys. A
-        token's postings hold its pairs in ascending (doc, position) order,
-        as `_build_postings` writes them, so the keys are sorted and unique
-        and a binary search intersects them (the JAX package intersects
-        Python sets of the pairs; the answer is the same)."""
+        token's pairs come in ascending (doc, position) order (as
+        `_build_postings` writes them and as the realtime index appends
+        them), so the keys are sorted and unique and a binary search
+        intersects them (the JAX package intersects Python sets of the pairs;
+        the answer is the same)."""
         if not tokens:
             return np.ones(self.num_docs, dtype=bool)
         if len(tokens) == 1:
@@ -185,6 +182,35 @@ class TextIndexReader:
         Bare whitespace between terms means OR (Lucene default operator)."""
         return _QueryParser(query, self).parse()
 
+
+class TextIndexReader(_TextMaskOps):
+    """TEXT_MATCH over one column's text index file."""
+
+    def __init__(self, path: str, num_docs: int):
+        data = np.load(path)
+        self._doc_ids = data["doc_ids"]
+        self._positions = data["positions"]
+        self._offsets = data["offsets"]
+        blob = data["token_blob"].tobytes().decode("utf-8")
+        self._tokens: List[str] = blob.split("\x00") if blob else []
+        self.num_docs = num_docs
+
+    # -- primitives ---------------------------------------------------------
+    def _token_index(self, token: str) -> int:
+        i = bisect.bisect_left(self._tokens, token)
+        return i if i < len(self._tokens) and self._tokens[i] == token else -1
+
+    def _term_pairs(self, token: str) -> Tuple[np.ndarray, np.ndarray]:
+        i = self._token_index(token)
+        if i < 0:
+            return np.empty(0, dtype=np.int32), np.empty(0, dtype=np.int32)
+        lo, hi = self._offsets[i], self._offsets[i + 1]
+        return self._doc_ids[lo:hi], self._positions[lo:hi]
+
+    def _iter_token_docs(self):
+        for i, t in enumerate(self._tokens):
+            yield t, self._doc_ids[self._offsets[i]:self._offsets[i + 1]]
+
     def mask_for_prefix(self, prefix: str) -> np.ndarray:
         # the token array is sorted: a prefix's tokens are one contiguous run
         prefix = prefix.lower()
@@ -197,7 +223,7 @@ class TextIndexReader:
 
 
 class _QueryParser:
-    def __init__(self, q: str, index: TextIndexReader):
+    def __init__(self, q: str, index: _TextMaskOps):
         self.toks = self._lex(q)
         self.i = 0
         self.index = index
@@ -324,6 +350,52 @@ class InMemoryTextIndex(TextIndexReader):
     def __init__(self, raw_values: List[Any]):
         (self._tokens, self._doc_ids, self._positions, self._offsets,
          self.num_docs) = _build_postings(raw_values)
+
+
+class MutableTextIndex:
+    """Incrementally maintained text index of a consuming column (the
+    reference's realtime Lucene index): TEXT_MATCH over a consuming segment
+    does not re-tokenize the whole column per query. A single writer appends
+    each document's postings; a query's `view()` freezes the document count,
+    so a concurrent append is simply not visible yet."""
+
+    def __init__(self):
+        self._postings: Dict[str, List[Tuple[int, int]]] = {}
+        self._num_docs = 0
+
+    def add_doc(self, text: Any) -> None:
+        d = self._num_docs
+        if text is not None:
+            for pos, tok in enumerate(tokenize_text(text)):
+                self._postings.setdefault(tok, []).append((d, pos))
+        # the doc is published after its postings: a concurrent view() sees
+        # all of it or none of it
+        self._num_docs = d + 1
+
+    def view(self) -> "_MutableTextView":
+        return _MutableTextView(self._postings, self._num_docs)
+
+
+class _MutableTextView(_TextMaskOps):
+    """A point-in-time reader over `MutableTextIndex` postings: the mask
+    algebra of `_TextMaskOps` over the live postings, cut at `num_docs`."""
+
+    def __init__(self, postings: Dict[str, List[Tuple[int, int]]], num_docs: int):
+        self._postings = postings
+        self.num_docs = num_docs
+
+    def _term_pairs(self, token: str) -> Tuple[np.ndarray, np.ndarray]:
+        # the pairs list only grows; entries past the snapshot are dropped
+        pairs = [pr for pr in self._postings.get(token, ()) if pr[0] < self.num_docs]
+        docs = np.asarray([d for d, _ in pairs], dtype=np.int32)
+        poss = np.asarray([p for _, p in pairs], dtype=np.int32)
+        return docs, poss
+
+    def _iter_token_docs(self):
+        # list() the live dict: the writer may insert a first-seen token
+        # meanwhile, and a dict resized during iteration raises
+        for tok, pairs in list(self._postings.items()):
+            yield tok, np.asarray([d for d, _ in pairs], dtype=np.int32)
 
 
 def text_match_scan(raw_values: Iterable[Any], query: str) -> np.ndarray:

@@ -267,8 +267,9 @@ class DeviceMutableSegment:
     CUDA unless the caller names another device, and without a card asking
     for CUDA raises. A realtime text or inverted index (`text_index_columns`,
     `inverted_index_columns` naming a column of the schema) raises ValueError,
-    as in the JAX package: those are per-row indexes of its row-append
-    consuming segment, which this package does not have."""
+    as in the JAX package: those are per-row indexes, which the row-append
+    `segment.mutable.MutableSegment` keeps (the consumer picks it for such a
+    table)."""
 
     is_mutable = True
 
@@ -278,8 +279,7 @@ class DeviceMutableSegment:
         if any(schema.has_column(c) for c in (*text_index_columns, *inverted_index_columns)):
             raise ValueError(
                 "DeviceMutableSegment does not maintain realtime text/inverted indexes "
-                "(per-row by nature): the row-append MutableSegment keeps them, and it "
-                "is not ported to pinot_tpu_torch")
+                "(per-row by nature): use pinot_tpu_torch.segment.mutable.MutableSegment")
         self.name = name
         self.schema = schema
         self._num_docs = 0                    # published last

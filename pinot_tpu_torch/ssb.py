@@ -18,6 +18,18 @@ JSON payload like the githubEvents quickstart's (`lo_payload`), a free-text
 comment (`lo_comment`), SSB's customer name (`lo_custname`, the FST index's
 REGEXP_LIKE target) and a point (`lo_lng`, `lo_lat`, the geo index's pair).
 
+`upsert_schema` and the three keyed streams (`make_upsert_events`,
+`make_partial_events`, `make_dedup_events`): lineorder as a stream of order
+events with a primary key, after Apache Pinot's "Stream ingestion with
+Upsert" and "Stream ingestion with Dedup" pages: `lo_orderkey` (INT, the
+primary key), `lo_ts` (LONG, the event time in epoch ms, the FULL table's
+`comparisonColumn`) and `lo_tax` (INT 0-8, kept raw). A FULL or PARTIAL
+stream draws each event's key zipf(1.2) over a random permutation of the
+keys, and `lo_ts` rises with the event index except for late events (2% of
+the FULL stream's), which carry a time below their key's previous event; a
+dedup stream re-sends an earlier key in 25% of its events, with a free-text
+`lo_comment` (`make_comments`).
+
 `mv_schema` / `make_mv_columns`: lineorder with Apache Pinot's multi-value
 dimensions (a schema field with `singleValueField: false`), shaped after its
 documentation's examples: a tag list (`lo_tags`, STRING, 0-4 of 20 tags drawn
@@ -223,6 +235,18 @@ def _joined(pieces: np.ndarray, ends: np.ndarray) -> np.ndarray:
     return np.array(text.split("\n")[:-1], dtype=object)
 
 
+def make_comments(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n free-text comments: SEARCH_WORDS words each, drawn zipf(SEARCH_ZIPF)
+    from the SEARCH_VOCABULARY words of `search_word`, space-separated."""
+    counts = rng.integers(SEARCH_WORDS[0], SEARCH_WORDS[1] + 1, n)
+    words = (rng.zipf(SEARCH_ZIPF, int(counts.sum())) - 1) % SEARCH_VOCABULARY
+    vocab = np.array([search_word(i) for i in range(SEARCH_VOCABULARY)], dtype=object)
+    ends = np.cumsum(counts)
+    pieces = vocab[words]
+    pieces[np.setdiff1d(np.arange(len(words)), ends - 1)] += " "
+    return _joined(pieces, ends)
+
+
 def make_search_columns(n: int, seed: int = 20260729) -> Dict[str, np.ndarray]:
     """`make_columns(n, seed)` plus the search columns, from the same seed.
     `lo_payload` is JSON text as `json.dumps` writes it; `lo_lng` / `lo_lat`
@@ -243,13 +267,7 @@ def make_search_columns(n: int, seed: int = 20260729) -> Dict[str, np.ndarray]:
         rng.integers(0, len(EVENT_TYPES), n)] + '", "actor": {"login": "user'
         + ints(SEARCH_USERS, n) + org + ', "tags": ' + tag_lists + ', "qty": '
         + ints(101, n) + "}")
-    counts = rng.integers(SEARCH_WORDS[0], SEARCH_WORDS[1] + 1, n)
-    words = (rng.zipf(SEARCH_ZIPF, int(counts.sum())) - 1) % SEARCH_VOCABULARY
-    vocab = np.array([search_word(i) for i in range(SEARCH_VOCABULARY)], dtype=object)
-    ends = np.cumsum(counts)
-    pieces = vocab[words]
-    pieces[np.setdiff1d(np.arange(len(words)), ends - 1)] += " "
-    comment = _joined(pieces, ends)
+    comment = make_comments(rng, n)
     centers = np.stack([rng.uniform(-180.0, 180.0, SEARCH_CENTERS),
                         rng.uniform(-60.0, 70.0, SEARCH_CENTERS)], axis=1)
     which = rng.integers(0, SEARCH_CENTERS, n)
@@ -377,3 +395,106 @@ def make_mv_columns(n: int, seed: int = 20260729) -> Dict[str, object]:
     cols["lo_tags"] = csr_rows(names[tags], tag_off)
     cols["lo_codes"] = csr_rows(*csr["lo_codes"])
     return cols
+
+
+UPSERT_KEY_ZIPF = 1.2
+UPSERT_LATE = 0.02            # share of FULL events older than their key's previous event
+UPSERT_RESEND = 0.25          # share of dedup events that re-send an earlier key
+UPSERT_TS0 = 1_700_000_000_000    # lo_ts of event 0 (epoch ms); +1,000 per event
+UPSERT_QUERIES = {
+    "count": "SELECT COUNT(*) FROM lineorder",
+    "q1_1": QUERY,
+    "group": GROUP_QUERY,
+    "for_sum": "SELECT SUM(lo_tax), COUNT(*) FROM lineorder "
+               "WHERE lo_discount BETWEEN 1 AND 3",
+    "bitmap_group": "SELECT lo_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
+                    "WHERE lo_discount = 2 GROUP BY lo_region ORDER BY lo_region",
+    "region_asia": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_region = 'ASIA'",
+    "top_revenue": "SELECT lo_orderkey, lo_revenue FROM lineorder "
+                   "ORDER BY lo_revenue DESC LIMIT 10",
+    "partial_sums": "SELECT COUNT(*), SUM(lo_quantity), SUM(lo_revenue), MAX(lo_revenue), "
+                    "SUM(lo_discount), MIN(lo_orderdate), MAX(lo_orderdate) FROM lineorder",
+    "text": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder "
+            f"WHERE TEXT_MATCH(lo_comment, '{SEARCH_TERM}')",
+}
+
+
+def upsert_schema(comment: bool = False) -> Schema:
+    """lineorder as keyed order events; with `comment`, the dedup table's
+    free-text `lo_comment` too."""
+    fields = list(ssb_schema().fields) + [dimension("lo_orderkey", DataType.INT),
+                                          date_time("lo_ts", DataType.LONG),
+                                          metric("lo_tax", DataType.INT)]
+    if comment:
+        fields.append(dimension("lo_comment", DataType.STRING))
+    return Schema("lineorder", fields, primary_key_columns=["lo_orderkey"])
+
+
+def _event_columns(n: int, seed: int, keys: np.ndarray) -> Dict[str, np.ndarray]:
+    cols = make_columns(n, seed)
+    rng = np.random.default_rng([seed, 12])
+    cols["lo_orderkey"] = keys.astype(np.int32)
+    cols["lo_ts"] = UPSERT_TS0 + 1000 * np.arange(n, dtype=np.int64)
+    cols["lo_tax"] = rng.integers(0, 9, n).astype(np.int32)
+    return cols
+
+
+def make_upsert_events(n: int, keys: int, seed: int = 20260729,
+                       late: float = UPSERT_LATE) -> Dict[str, np.ndarray]:
+    """n events over `keys` primary keys (1..keys): each event's key drawn
+    with P(rank k) proportional to k^-UPSERT_KEY_ZIPF over a random
+    permutation of the keys. `lo_ts` rises by 1,000 a event; a `late` share
+    of the events that follow an earlier event of their key carry a time
+    1-999 ms below that previous event's."""
+    rng = np.random.default_rng([seed, 11])
+    p = 1.0 / np.arange(1, keys + 1) ** UPSERT_KEY_ZIPF
+    key = rng.permutation(keys)[rng.choice(keys, n, p=p / p.sum())] + 1
+    cols = _event_columns(n, seed, key)
+    order = np.argsort(key, kind="stable")
+    prev = np.full(n, -1, dtype=np.int64)
+    same = key[order[1:]] == key[order[:-1]]
+    prev[order[1:][same]] = order[:-1][same]
+    is_late = (prev >= 0) & (rng.random(n) < late)
+    ts = cols["lo_ts"]
+    ts[is_late] = ts[prev[is_late]] - rng.integers(1, 1000, int(is_late.sum()))
+    return cols
+
+
+def make_partial_events(n: int, keys: int, seed: int = 20260729) -> Dict[str, np.ndarray]:
+    """The PARTIAL stream: `make_upsert_events` without late events (the
+    stream offset orders a key's rows)."""
+    return make_upsert_events(n, keys, seed, late=0.0)
+
+
+def make_dedup_events(n: int, seed: int = 20260729,
+                      resend: float = UPSERT_RESEND) -> Dict[str, np.ndarray]:
+    """n events of which a `resend` share re-send a key drawn uniformly from
+    the keys of the new events before them (event 0 is new); a new event's
+    key is its rank among the new events (1, 2, ...). Every event carries its
+    own column values and an `lo_comment`."""
+    rng = np.random.default_rng([seed, 13])
+    is_resend = rng.random(n) < resend
+    is_resend[0] = False
+    new_so_far = np.cumsum(~is_resend)
+    key = np.where(is_resend, 1 + (rng.random(n) * new_so_far).astype(np.int64), new_so_far)
+    cols = _event_columns(n, seed, key)
+    cols["lo_comment"] = make_comments(rng, n)
+    return cols
+
+
+def make_update_events(keys: np.ndarray, after_ts: int, seed: int = 20260729
+                       ) -> Dict[str, np.ndarray]:
+    """One event for each key of `keys`, in order, with fresh column values
+    and `lo_ts` rising by 1,000 a event from `after_ts` + 1,000: updates no
+    comparison rejects."""
+    cols = _event_columns(len(keys), seed, np.asarray(keys))
+    cols["lo_ts"] = after_ts + 1000 * np.arange(1, len(keys) + 1, dtype=np.int64)
+    return cols
+
+
+def json_messages(cols: Dict[str, np.ndarray], schema: Schema) -> list:
+    """One JSON row message a row, with the schema's columns."""
+    import json
+    names = [f.name for f in schema.fields]
+    lists = [cols[c].tolist() for c in names]
+    return [json.dumps(dict(zip(names, row))) for row in zip(*lists)]

@@ -106,7 +106,7 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py",
                    "segment/compression.py", "segment/indexes/jsonidx.py",
                    "segment/indexes/text.py", "segment/indexes/fst.py",
-                   "segment/indexes/geo.py"):
+                   "segment/indexes/geo.py", "upsert.py", "segment/mutable.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 
@@ -146,6 +146,49 @@ def test_subprocess_realtime_consumer_and_mixed_set_never_load_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert out.stdout.splitlines()[0] == "3000", out.stdout
+
+
+def test_subprocess_upsert_consumer_never_loads_jax(tmp_path):
+    """An upsert table consumed row by row into the MutableSegment, committed
+    and queried under its valid-doc masks, without JAX."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import execute_query, load_segment, ssb
+        from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
+        from pinot_tpu_torch.ingest.stream import MemoryStream
+        from pinot_tpu_torch.table import IndexingConfig, StreamConfig, TableConfig, UpsertConfig
+        from pinot_tpu_torch.upsert import TableUpsertMetadataManager
+        schema = ssb.upsert_schema()
+        stream = MemoryStream.create("up", 1)
+        for m in ssb.json_messages(ssb.make_upsert_events(3000, 400, 1), schema):
+            stream.produce(m, partition=0)
+        cfg = TableConfig("lineorder", stream=StreamConfig(topic="up", flush_threshold_rows=2000),
+                          indexing=IndexingConfig(inverted_index_columns=["lo_region"]),
+                          upsert=UpsertConfig(comparison_column="lo_ts"))
+        up = TableUpsertMetadataManager()
+        first = RealtimePartitionConsumer("lineorder__0__0__20261017T0000Z", cfg, schema, 0,
+                                          {str(tmp_path)!r}, upsert=up)
+        first.pump(max_messages=2000)
+        seg = load_segment(first.build_immutable())
+        rest = RealtimePartitionConsumer("lineorder__0__1__20261017T0000Z", cfg, schema,
+                                         first.offset, {str(tmp_path)!r}, upsert=up)
+        rest.pump()
+        print(type(rest.mutable).__name__, rest.last_decode_path)
+        print(execute_query([seg, rest.query_segment()], "SELECT COUNT(*) FROM lineorder",
+                            device="cpu", upsert=up).rows)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    lines = out.stdout.splitlines()
+    assert lines[0] == "MutableSegment row", out.stdout
+    import pinot_tpu_torch.ssb as ssb
+    assert lines[1] == f"[[{len(np.unique(ssb.make_upsert_events(3000, 400, 1)['lo_orderkey']))}]]"
 
 
 def test_realtime_entry_points_without_cuda_raise(monkeypatch):

@@ -992,3 +992,59 @@ def test_cuda_mv_queries_match_the_cpu(cuda, mv_table, name):
         for g, w in zip(got, want):
             for x, y in zip(g, w):
                 assert x == pytest.approx(y, rel=1e-6) if isinstance(y, float) else x == y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [524_288, (1 << 20) + 77, 1, 300])
+def test_cuda_kernels_with_a_valid_band_match_plain_versions(cuda, n):
+    """An upsert valid-doc mask rides both scans as one more int32 0/1 column
+    with the band (1, 1), beside the id bands (Q1.1's three, the FOR sum's
+    one): the kernels against their plain versions on the same inputs."""
+    d = _data(n, seed=21)
+    live = torch.from_numpy((np.random.default_rng(5).random(n) < 0.2).astype(np.int32))
+    before = (scan.masked_sums.launches, scan.masked_sums_fused.launches)
+    cols = [torch.from_numpy(d[k]).to(cuda) for k in ("od", "disc", "qty")] + [live.to(cuda)]
+    rows = [torch.from_numpy(d["price"]).to(cuda)]
+    bands = Q11_BANDS + [(1, 1)]
+    _assert_same(scan.masked_sums(cols, bands, rows), scan.masked_sums_plain(cols, bands, rows))
+    ids = [cols[1], cols[3]]
+    for delta in ("d8", "d16"):
+        for_rows = [(0.0, torch.from_numpy(d[delta]).to(cuda))]
+        _assert_same(scan.masked_sums_fused(ids, [(1, 3), (1, 1)], for_rows),
+                     scan.masked_sums_fused_plain(ids, [(1, 3), (1, 1)], for_rows))
+    assert (scan.masked_sums.launches - before[0],
+            scan.masked_sums_fused.launches - before[1]) == (1, 2)
+
+
+@pytest.mark.gpu
+def test_cuda_upsert_queries_take_the_banded_scan(cuda, tmp_path):
+    """Committed upsert segments answer Q1.1's shape and the FOR sum through
+    the scans with the valid band (one launch a segment), equal to the CPU;
+    an update restages the band of the segments it touched."""
+    from pinot_tpu_torch import execute_query, ssb, upsert
+    from pinot_tpu_torch.engine.datablock import block_for
+    from pinot_tpu_torch.segment import segments_from_columns
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig
+    schema = ssb.upsert_schema()
+    cols = ssb.make_upsert_events(40_000, 9_000, 3)
+    segs = segments_from_columns(schema, cols, str(tmp_path), 2, SegmentGeneratorConfig(
+        no_dictionary_columns=["lo_tax"], inverted_index_columns=["lo_region", "lo_discount"]))
+    mgr = upsert.TableUpsertMetadataManager()
+    for s in segs:
+        keys = np.asarray(s.column("lo_orderkey").values())
+        ts = np.asarray(s.column("lo_ts").values())
+        for d in range(s.num_docs):
+            mgr.partition(0).add_record(s.name, d, (int(keys[d]),), int(ts[d]))
+    band_q = ("SELECT SUM(lo_extendedprice * lo_discount), COUNT(*) FROM lineorder "
+              "WHERE lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25")
+    for sql, kernel in ((band_q, scan.masked_sums), (ssb.UPSERT_QUERIES["for_sum"],
+                                                    scan.masked_sums_fused)):
+        before = kernel.launches
+        got = execute_query(segs, sql, device=cuda, upsert=mgr).rows
+        assert kernel.launches - before == len(segs)
+        want = execute_query(segs, sql, device="cpu", upsert=mgr).rows
+        assert got[0][1] == want[0][1] and got[0][0] == pytest.approx(want[0][0], rel=1e-5)
+    key = block_for(segs[0], cuda)._valid_band[0]
+    mgr.partition(0).add_record(segs[0].name, 0, (int(cols["lo_orderkey"][0]),), 1 << 62)
+    execute_query(segs, band_q, device=cuda, upsert=mgr)
+    assert block_for(segs[0], cuda)._valid_band[0] != key

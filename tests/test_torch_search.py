@@ -333,22 +333,26 @@ def test_search_over_a_consuming_view_and_a_mixed_set(env, consuming, tmp_path, 
 
 
 def test_realtime_text_and_inverted_indexes_raise(env, tmp_path):
-    """A consuming segment keeps no per-row index: asking for one raises, as
-    in the JAX package; a table's indexing config still reaches the commit."""
+    """The chunked consuming segment keeps no per-row index: asking it for one
+    raises, as in the JAX package. A table that names one consumes into the
+    row-append MutableSegment, which keeps it; a table's indexing config still
+    reaches the commit."""
     from pinot_tpu_torch.ingest.realtime import RealtimePartitionConsumer
     from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.segment.mutable import MutableSegment
     from pinot_tpu_torch.table import IndexingConfig, StreamConfig, TableConfig
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="MutableSegment"):
         DeviceMutableSegment("s", env["schema"], device=CPU, text_index_columns=["lo_comment"])
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="MutableSegment"):
         DeviceMutableSegment("s", env["schema"], device=CPU,
                              inverted_index_columns=["lo_discount"])
     MemoryStream.create("search_commit", 1)
-    with pytest.raises(ValueError):
-        RealtimePartitionConsumer("lineorder__0__0__20261019T0000Z", TableConfig(
-            "lineorder", stream=StreamConfig(topic="search_commit"),
-            indexing=IndexingConfig(text_index_columns=["lo_comment"])),
-            env["schema"], 0, str(tmp_path), device=CPU)
+    text_consumer = RealtimePartitionConsumer("lineorder__0__0__20261019T0000Z", TableConfig(
+        "lineorder", stream=StreamConfig(topic="search_commit"),
+        indexing=IndexingConfig(text_index_columns=["lo_comment"])),
+        env["schema"], 0, str(tmp_path), device=CPU)
+    assert isinstance(text_consumer.mutable, MutableSegment)
+    assert set(text_consumer.mutable.text_indexes) == {"lo_comment"}
     rt = ssb.make_search_columns(300, SEED + 2)
     consumer = RealtimePartitionConsumer("lineorder__0__0__20261019T0000Z", TableConfig(
         "lineorder", stream=StreamConfig(topic="search_commit"),
