@@ -229,6 +229,42 @@ exits non-zero:
    `upsert_case` lines: both scans with the valid band on one committed
    segment against their plain versions and the same scan without the band.
 
+15. batch  — batch ingestion and the query surface a user meets first,
+   after Apache Pinot's "Batch Ingestion", "Gapfill Function For Time-Series
+   Dataset", "Lookup UDF Join" and "Explain Plan" pages: lineorder from
+   --seed + 12 written by the port's writers in the worker pool (2,097,152
+   rows as 4 CSV files of 524,288; the first 262,144 rows once each as an
+   Avro container with deflate, a Thrift binary file with its IDL sidecar, a
+   length-delimited Protobuf file read through the committed
+   `tests/torch_data/lineorder.desc`, and JSON lines). `run_batch_ingestion`
+   (`segment_rows` 524,288, aligned dictionaries, lo_custkey raw, a local
+   controller that copies and loads each pushed segment) turns the CSV files
+   into 4 segments, `ingest_file_to_segments` each other file into one (the
+   Protobuf table with phase 4's FOR layout): `batch_readers` (each reader's
+   rows/s, from the seconds the ingestion records inside its readers: for
+   CSV, both passes of the runner) and `batch_ingest` lines (the runner's
+   stats pass, write pass and pushes apart, as the runner records them).
+   Then, each against a numpy oracle (rel 1e-5, abs 0.05; counts exactly;
+   host routes rel 1e-9) and held to its exact launches, with 5 warm runs
+   on the device routes: Q1.1 per segment (one `masked_sums` a segment) and
+   over the 4 as one stacked set (one launch; the set must stack), over
+   each format's table (all four equal) and the FOR sum over the Protobuf
+   one (`masked_sums_fused`);
+   EXPLAIN PLAN FOR Q1.1 and the GROUP BY (the rows the plan kinds give, no
+   launch) and EXPLAIN ANALYZE of Q1.1 (one `masked_sums` a segment, the
+   root's Rows the answer's row count); a GAPFILL by (day, region) over
+   February 1992 under `lo_discount = 2 AND lo_quantity < 3`, per segment
+   and over the set (two `bitmap_filter` masks a pass), against a Python
+   oracle of the fill rules with gap rows present; LOOKUP of c_nation from
+   the 500,000-row customer table and from its first half (misses in a None
+   group; host plans, no launch), cold runs only; and `preprocess_segment`
+   over copies of the 4 segments adding an inverted index on lo_region, a
+   range index on lo_quantity and a bloom filter on lo_custkey: their
+   answers equal the copies' before, their launches those of the table built
+   with the indexes from the start (in the worker pool), and an in-range
+   lo_custkey no row holds is pruned by the new bloom filters only:
+   `batch_query` and `batch_preprocess` lines.
+
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
 count summed over its checked runs: the counts set to 0 just before a run,
@@ -240,7 +276,8 @@ expr phase's device queries `masked_sums`, its host queries none; the aggs
 phase no scan; `bitmap_filter` where a plain-body filter or a selection's
 device mask reads bitmap leaves, one launch per mask; the search phase all
 three; the mv phase `masked_sums` and `bitmap_filter`; the upsert phase all
-three, the scans with the valid band),
+three, the scans with the valid band; the batch phase all three, none
+under EXPLAIN or LOOKUP),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -3912,6 +3949,419 @@ def run_upsert(args, work, jobs) -> tuple:
     return launches, numbers
 
 
+# -- phase 15: batch ingestion, EXPLAIN, GAPFILL, LOOKUP, preprocess ----------------
+
+BATCH_ROWS = 2_097_152             # the CSV table: 4 files of 524,288 rows
+BATCH_FILES = 4
+BATCH_SEGMENT_ROWS = 524_288       # the job's segment_rows: one segment a file's worth
+BATCH_FILE_ROWS = 262_144          # each single-file table: the generator's first rows
+BATCH_FORMATS = ("avro", "thrift", "pb", "json")
+BATCH_RUNS = 5                     # warm runs of each device-routed query
+BATCH_HOST_RTOL = 1e-9
+BATCH_TABLE = "lineorder_OFFLINE"
+# the batch table keeps lo_custkey raw (a key the bloom filter prunes); the
+# Protobuf table takes phase 4's FOR layout (lo_quantity raw)
+BATCH_INDEXING = dict(no_dictionary_columns=["lo_custkey"])
+BATCH_FOR_INDEXING = dict(no_dictionary_columns=["lo_quantity"])
+BATCH_PRE_INDEXES = dict(inverted_index_columns=["lo_region"], range_index_columns=["lo_quantity"],
+                         bloom_filter_columns=["lo_custkey"])
+BATCH_DESC = os.path.join("tests", "torch_data", "lineorder.desc")
+BATCH_SOURCE = ("Apache Pinot docs: Batch Ingestion (SegmentGenerationJobSpec, recordReaderSpec "
+                "csv/json/avro/thrift/protobuf), Stream ingestion, Gapfill Function For "
+                "Time-Series Dataset, Lookup UDF Join, Explain Plan")
+BATCH_GAPFILL = ("SELECT GAPFILL(lo_orderdate, 19920202, 19920230, 1), lo_region, "
+                 "FILL(SUM(lo_revenue), 'FILL_PREVIOUS_VALUE'), "
+                 "FILL(COUNT(*), 'FILL_DEFAULT_VALUE', 0) FROM lineorder "
+                 "WHERE lo_orderdate BETWEEN 19920202 AND 19920229 AND lo_discount = 2 "
+                 "AND lo_quantity < 3 GROUP BY lo_orderdate, lo_region LIMIT 1000")
+BATCH_LOOKUP = ("SELECT LOOKUP('{dim}', 'c_nation', 'c_custkey', lo_custkey), SUM(lo_revenue) "
+                "FROM lineorder WHERE lo_discount = 2 AND lo_quantity < 10 "
+                "GROUP BY LOOKUP('{dim}', 'c_nation', 'c_custkey', lo_custkey) LIMIT 100")
+BATCH_PRE_QUERIES = {
+    "q1_1": None,     # ssb.QUERY
+    "group": None,    # ssb.GROUP_QUERY
+    "region_band": ("SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder "
+                    "WHERE lo_region = 'ASIA' AND lo_quantity BETWEEN 5 AND 9 "
+                    "GROUP BY lo_region"),
+    "absent_key": "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE lo_custkey = {key}",
+}
+
+
+def _batch_explain_rows(segments: int) -> dict:
+    """The EXPLAIN rows of Q1.1 and GROUP_QUERY over `segments` segments that
+    plan alike: each a device plan whose filter is dictionary-id bands."""
+    seg = f"SEGMENT_PLAN(segments:{segments})"
+    band = "FILTER_DICT_ID_INTERVALS(column={})"
+    return {
+        "q1_1": [["BROKER_REDUCE(limit:10)", 0, -1], ["COMBINE_AGGREGATE", 1, 0], [seg, 2, 1],
+                 ["DEVICE_FUSED_AGGREGATE(aggregations:sum)", 3, 2], ["FILTER_AND", 4, 3],
+                 [band.format("lo_orderdate"), 5, 4], [band.format("lo_discount"), 6, 4],
+                 [band.format("lo_quantity"), 7, 4]],
+        "group": [["BROKER_REDUCE(sort:[lo_region], limit:10)", 0, -1],
+                  ["COMBINE_GROUP_BY", 1, 0], [seg, 2, 1],
+                  ["DEVICE_FUSED_GROUP_BY(keys:lo_region; aggregations:sum, count; "
+                   "denseKeys:5)", 3, 2], ["FILTER_AND", 4, 3],
+                  [band.format("lo_discount"), 5, 4], [band.format("lo_quantity"), 6, 4]]}
+
+
+def make_batch_file(fmt: str, seed: int, lo: int, hi: int, path: str, desc_path: str) -> tuple:
+    """In a worker process: rows [lo, hi) of the batch generator as one `fmt`
+    file with the port's writers (and the reader's sidecar). Returns (path,
+    seconds)."""
+    from pinot_tpu_torch import ssb
+    t0 = time.perf_counter()
+    cols = {k: v[lo:hi] for k, v in ssb.make_columns(BATCH_ROWS, seed).items()}
+    desc = open(desc_path, "rb").read() if fmt == "pb" else b""
+    ssb.write_lineorder_file(fmt, cols, path, descriptor_set=desc)
+    return path, time.perf_counter() - t0
+
+
+def build_batch_indexed(seed: int, out: str) -> tuple:
+    """In a worker process: the batch table's rows built with the indexes that
+    `preprocess_segment` adds, from the start (the preprocessed copies are
+    held to its launches). Returns (paths, seconds)."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(ssb.ssb_schema(), ssb.make_columns(BATCH_ROWS, seed), out,
+                                   "lineorder", BATCH_FILES,
+                                   SegmentGeneratorConfig(**BATCH_INDEXING, **BATCH_PRE_INDEXES))
+    return paths, time.perf_counter() - t0
+
+
+def start_batch_builds(pool, args, work) -> dict:
+    """Submit phase 15's files to `pool` (the 4 CSV files of the batch table
+    and the four single-file tables), and the batch table built with the
+    preprocess indexes from the start."""
+    seed = args.seed + 12
+    out = os.path.join(work, "batch_files")
+    os.makedirs(out, exist_ok=True)
+    desc = os.path.join(os.path.dirname(os.path.abspath(__file__)), BATCH_DESC)
+    per_file = BATCH_ROWS // BATCH_FILES
+    jobs = {f"csv_{i}": pool.submit(make_batch_file, "csv", seed, i * per_file,
+                                    (i + 1) * per_file, os.path.join(out, f"lineorder_{i}.csv"),
+                                    desc) for i in range(BATCH_FILES)}
+    for fmt in BATCH_FORMATS:
+        jobs[fmt] = pool.submit(make_batch_file, fmt, seed, 0, BATCH_FILE_ROWS,
+                                os.path.join(out, f"lineorder.{fmt}"), desc)
+    jobs["indexed"] = pool.submit(build_batch_indexed, seed, os.path.join(work, "batch_built"))
+    return jobs
+
+
+class BatchController:
+    """The controller `run_batch_ingestion` pushes to (the port ships none
+    yet): the table's config and schema, and an upload that copies the
+    segment directory it is handed (the runner then removes its own) and
+    loads it."""
+
+    class _Catalog:
+        def __init__(self, cfg, schema):
+            self.table_configs = {BATCH_TABLE: cfg}
+            self.schemas = {cfg.name: schema}
+
+    def __init__(self, cfg, schema, store: str):
+        self.catalog = self._Catalog(cfg, schema)
+        self.store = store
+        self.segments = []
+        os.makedirs(store, exist_ok=True)
+
+    def upload_segment(self, table, seg_dir):
+        from pinot_tpu_torch import load_segment
+        dst = os.path.join(self.store, os.path.basename(seg_dir))
+        shutil.copytree(seg_dir, dst)
+        self.segments.append(load_segment(dst))
+        return self.segments[-1]
+
+
+def gapfill_oracle(c) -> tuple:
+    """BATCH_GAPFILL by numpy and the reference's fill rules: the series in
+    first-seen order are not asserted (the set path merges its groups in
+    another order), so the rows come keyed by (day, region), with the
+    number of cells rows filled."""
+    m = ((c["lo_orderdate"] >= 19920202) & (c["lo_orderdate"] <= 19920229)
+         & (c["lo_discount"] == 2) & (c["lo_quantity"] < 3))
+    cells = {}
+    for d, r, v in zip(c["lo_orderdate"][m].tolist(), c["lo_region"][m].tolist(),
+                       c["lo_revenue"][m].tolist()):
+        s, n = cells.get((d, r), (0.0, 0))
+        cells[(d, r)] = (s + v, n + 1)
+    out = {}
+    for region in {r for _, r in cells}:
+        prev = None
+        for day in range(19920202, 19920230):
+            if (day, region) in cells:
+                prev, n = cells[(day, region)]
+                out[(day, region)] = (prev, n)
+            else:
+                out[(day, region)] = (prev, 0)
+    return out, len(cells), int(m.sum())
+
+
+def gapfill_matches(rows, oracle) -> bool:
+    if len(rows) != len(oracle) or len({(d, r) for d, r, _, _ in rows}) != len(rows):
+        return False
+    for d, r, s, n in rows:
+        ws, wn = oracle.get((d, r), (None, -1))
+        if n != wn or (s is None) != (ws is None):
+            return False
+        if s is not None and not math.isclose(s, ws, rel_tol=ORACLE_RTOL, abs_tol=ORACLE_ATOL):
+            return False
+    return True
+
+
+def lookup_oracle(c, nation, keys: int) -> list:
+    """BATCH_LOOKUP by numpy over a dimension table of customers [0, keys):
+    revenue per nation, misses under None; sorted by nation, None last."""
+    m = (c["lo_discount"] == 2) & (c["lo_quantity"] < 10)
+    key = c["lo_custkey"][m]
+    rev = c["lo_revenue"][m]
+    out = []
+    hit = key < keys
+    for n in sorted(set(nation[key[hit]].tolist())):
+        g = hit & (nation[np.minimum(key, keys - 1)] == n)
+        out.append([n, float(rev[g].sum())])
+    if (~hit).any():
+        out.append([None, float(rev[~hit].sum())])
+    return out
+
+
+def _by_key(rows) -> list:
+    return sorted(rows, key=lambda r: (r[0] is None, r[0] or ""))
+
+
+def run_batch(args, work, jobs) -> tuple:
+    """Phase 15: batch ingestion and the query surface a user meets first.
+    See the module docstring. Returns (launches by kernel, numbers)."""
+    from pinot_tpu_torch import execute_query, load_segment, ssb
+    from pinot_tpu_torch.ingest import batch
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query import stats as qstats
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.lookup import REGISTRY, register_dim_table_from_segments
+    from pinot_tpu_torch.query.planner import plan_segment
+    from pinot_tpu_torch.segment.preprocess import preprocess_segment
+    from pinot_tpu_torch.segment.writer import build_aligned_segments
+    from pinot_tpu_torch.table import IndexingConfig, TableConfig
+
+    seed = args.seed + 12
+    schema = ssb.ssb_schema()
+    launches = counts_of()
+    numbers = {}
+    mx = MeshQueryExecutor()
+
+    def checked(label, run, want, expect, runs=BATCH_RUNS, match=None, **extra):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        ok = match(result) if match is not None else rows_match(result.rows, want)
+        if not ok:
+            raise AssertionError(f"batch {label}: got {result.rows[:12]}, oracle {str(want)[:600]}")
+        if counts != expect:
+            raise AssertionError(f"batch {label}: launches {counts}, expected {expect}")
+        for k, v in counts.items():
+            launches[k] += v
+        fields = dict(query=label, answer=result.rows[:4], launches=counts, cold_ms=cold_ms,
+                      **extra)
+        if runs:
+            warm, results = warm_times(run, runs=runs)
+            warm.pop("median_s")
+            fields.update(warm)
+            stats = [r.stats.get("phaseTimesMs") for r in results]
+            if all(stats):
+                fields["phase_median_ms"] = {k: statistics.median(p[k] for p in stats)
+                                             for k in stats[0]}
+        log("batch_query", **fields)
+        return result
+
+    # -- the files (written by the workers); the ingestion records its reads' seconds
+    t0 = time.perf_counter()
+    paths = {k: f.result() for k, f in jobs.items() if k != "indexed"}
+    waited_s = time.perf_counter() - t0
+    cols = ssb.make_columns(BATCH_ROWS, seed)
+    first = {k: v[:BATCH_FILE_ROWS] for k, v in cols.items()}
+    csvs = [paths[f"csv_{i}"][0] for i in range(BATCH_FILES)]
+
+    # -- the streaming runner: 4 CSV files -> 4 aligned segments
+    cfg = TableConfig("lineorder", indexing=IndexingConfig(**BATCH_INDEXING))
+    ctl = BatchController(cfg, schema, os.path.join(work, "batch_store"))
+    with qstats.collect_stats() as job_stats:
+        t0 = time.perf_counter()
+        pushed = batch.run_batch_ingestion(batch.BatchIngestionJobSpec(
+            input_paths=csvs, table=BATCH_TABLE, segment_rows=BATCH_SEGMENT_ROWS,
+            aligned_dictionaries=True), ctl, work_dir=os.path.join(work, "batch_job"))
+        job_s = time.perf_counter() - t0
+    job = job_stats.counters
+    reads = {"csv": (job[qstats.BATCH_READ_MS] / 1e3, job[qstats.BATCH_ROWS_READ])}
+    # -- one file, one segment: each format through the per-file unit
+    tables, built_s = {}, {}
+    for fmt in BATCH_FORMATS:
+        fcfg = TableConfig("lineorder", indexing=IndexingConfig(
+            **(BATCH_FOR_INDEXING if fmt == "pb" else {})))
+        with qstats.collect_stats() as file_stats:
+            t0 = time.perf_counter()
+            dirs = batch.ingest_file_to_segments(
+                schema, fcfg, paths[fmt][0], segment_rows=BATCH_FILE_ROWS, prefix=f"lo_{fmt}",
+                build_dir=os.path.join(work, "batch_files_built"))
+            built_s[fmt] = time.perf_counter() - t0
+        reads[fmt] = (file_stats.counters[qstats.BATCH_READ_MS] / 1e3,
+                      file_stats.counters[qstats.BATCH_ROWS_READ])
+        tables[fmt] = [load_segment(p) for p in dirs]
+    files = {"csv": csvs, **{fmt: [paths[fmt][0]] for fmt in BATCH_FORMATS}}
+    written = {"csv": sum(paths[f"csv_{i}"][1] for i in range(BATCH_FILES)),
+               **{fmt: paths[fmt][1] for fmt in BATCH_FORMATS}}
+    readers = {fmt: dict(rows=n, read_s=s, rows_per_s=n / s,
+                         bytes=sum(os.path.getsize(f) for f in files[fmt]),
+                         write_s=written[fmt]) for fmt, (s, n) in reads.items()}
+    log("batch_readers", source=BATCH_SOURCE, seed=seed, waited_for_workers_s=waited_s,
+        readers=readers, csv_note="the CSV rows read: the runner's two passes")
+    numbers["readers"] = readers
+    table = ctl.segments
+    if pushed != [f"lineorder_{i}" for i in range(BATCH_FILES)] or \
+            [s.num_docs for s in table] != [BATCH_SEGMENT_ROWS] * BATCH_FILES:
+        raise AssertionError(f"batch: pushed {pushed}, rows {[s.num_docs for s in table]}")
+    hashes = {s.column("lo_orderdate").meta.get("dictHash") for s in table}
+    ingest = dict(files=BATCH_FILES, rows=BATCH_ROWS, segments=len(table), job_s=job_s,
+                  stats_pass_s=job[qstats.BATCH_STATS_PASS_MS] / 1e3,
+                  write_pass_s=job[qstats.BATCH_WRITE_PASS_MS] / 1e3,
+                  push_s=job[qstats.BATCH_PUSH_MS] / 1e3,
+                  rows_per_s=BATCH_ROWS / job_s, aligned=len(hashes) == 1 and None not in hashes)
+    log("batch_ingest", table="csv", **ingest)
+    numbers["ingest"] = ingest
+
+    for fmt in BATCH_FORMATS:
+        if [t.num_docs for t in tables[fmt]] != [BATCH_FILE_ROWS]:
+            raise AssertionError(f"batch {fmt}: segments {[t.num_docs for t in tables[fmt]]}")
+        s = built_s[fmt]
+        numbers[f"ingest_{fmt}"] = dict(seconds=s, rows_per_s=BATCH_FILE_ROWS / s)
+        log("batch_ingest", table=fmt, rows=BATCH_FILE_ROWS, segments=1, seconds=s,
+            rows_per_s=BATCH_FILE_ROWS / s, read_share=reads[fmt][0] / s)
+
+    # -- Q1.1 per segment and stacked over the batch table
+    n = len(table)
+    q11 = oracle_q11(cols)
+    checked("q1_1 per_segment", lambda: execute_query(table, ssb.QUERY), q11,
+            counts_of(masked_sums=n), table="csv")
+    plan, view = mx._plan_for_set(compile_query(ssb.QUERY, schema), table)
+    if plan is None or plan.kind != "device" or view is not None:
+        raise AssertionError("batch: the 4 segments do not stack as one aligned set")
+    checked("q1_1 set", lambda: mx.execute(table, ssb.QUERY), q11,
+            counts_of(masked_sums=1), table="csv")
+
+    # -- each format's table: Q1.1 equal across formats and to the oracle; the FOR sum
+    q11_first = oracle_q11(first)
+    answers = {}
+    for fmt in BATCH_FORMATS:
+        expect = counts_of() if fmt == "pb" else counts_of(masked_sums=1)
+        answers[fmt] = checked("q1_1", lambda t=tables[fmt]: execute_query(t, ssb.QUERY),
+                               q11_first, expect, table=fmt).rows
+    for fmt in BATCH_FORMATS[1:]:
+        if not rows_match(answers[fmt], answers[BATCH_FORMATS[0]]):
+            raise AssertionError(f"batch: Q1.1 over {fmt} {answers[fmt]} != "
+                                 f"{BATCH_FORMATS[0]} {answers[BATCH_FORMATS[0]]}")
+    checked("for_sum", lambda: execute_query(tables["pb"], ssb.FOR_QUERY), oracle_for(first),
+            counts_of(masked_sums_fused=1), table="pb")
+
+    # -- EXPLAIN (no launch) and EXPLAIN ANALYZE (Q1.1's launches)
+    expected = _batch_explain_rows(n)
+    q11_docs = int(q11_mask(cols).sum())
+    for qid, sql in (("q1_1", ssb.QUERY), ("group", ssb.GROUP_QUERY)):
+        checked(f"explain {qid}", lambda s=sql: execute_query(table, "EXPLAIN PLAN FOR " + s),
+                expected[qid], counts_of(), runs=0, table="csv",
+                match=lambda r, q=qid: r.rows == expected[q])
+
+    def analyzed(r) -> bool:
+        # the root's Rows is the answer's row count; COMBINE's, the segment
+        # plans' and the device plans' the docs Q1.1's filter matched
+        return ([row[:3] for row in r.rows] == expected["q1_1"] and r.rows[0][3] == 1
+                and [row[3] for row in r.rows[1:4]] == [q11_docs] * 3 and all(
+                    ms is not None for _, _, _, rows, ms in r.rows if rows is not None))
+    res = checked("explain_analyze q1_1", lambda: execute_query(
+        table, "EXPLAIN ANALYZE " + ssb.QUERY), None, counts_of(masked_sums=n),
+        table="csv", match=analyzed)
+    numbers["analyze_rows"] = res.rows
+
+    # -- GAPFILL per segment and over the set (bitmap leaves lo_discount, lo_quantity)
+    gap, filled, matched = gapfill_oracle(cols)
+    if not 0 < filled < len(gap):
+        raise AssertionError(f"batch GAPFILL: {filled} of {len(gap)} cells filled, no gap rows")
+    for label, run, per in (("gapfill per_segment", lambda: execute_query(table, BATCH_GAPFILL),
+                             n), ("gapfill set", lambda: mx.execute(table, BATCH_GAPFILL), 1)):
+        checked(label, run, gap, counts_of(bitmap_filter=2 * per), table="csv",
+                match=lambda r: gapfill_matches(r.rows, gap), rows_matched=matched,
+                cells_filled=filled, output_rows=len(gap), gap_rows=len(gap) - filled)
+
+    # -- LOOKUP: the customer dimension table (host plans, no launch)
+    customer = ssb.make_customer(ssb.VERY_HIGH_CARD_KEYS, seed)
+    half = ssb.VERY_HIGH_CARD_KEYS // 2
+    dim_segs = {}
+    for name, rows in (("customer", ssb.VERY_HIGH_CARD_KEYS), ("customer_half", half)):
+        dim_segs[name] = build_aligned_segments(
+            ssb.customer_schema(), {k: v[:rows] for k, v in customer.items()},
+            os.path.join(work, "batch_dim", name), name, 1)
+        t0 = time.perf_counter()
+        register_dim_table_from_segments(name, ["c_custkey"],
+                                         [load_segment(p) for p in dim_segs[name]])
+        reg_s = time.perf_counter() - t0
+        sql = BATCH_LOOKUP.format(dim=name)
+        plan = plan_segment(compile_query(sql, schema), table[0])
+        if plan.kind != "host":
+            raise AssertionError(f"batch LOOKUP: a {plan.kind} plan")
+        want = lookup_oracle(cols, customer["c_nation"], rows)
+        checked(f"lookup {name}", lambda s=sql: execute_query(table, s), want, counts_of(),
+                runs=0, table="csv", dim_rows=rows, register_s=reg_s,
+                fallback_reason=plan.fallback_reason,
+                match=lambda r, w=want: rows_match(_by_key(r.rows), w, rtol=BATCH_HOST_RTOL))
+    for name in dim_segs:
+        REGISTRY.unregister(name)
+
+    # -- preprocess: copies of the 4 segments gain the indexes in place
+    keys = np.unique(cols["lo_custkey"])
+    missing = np.setdiff1d(np.arange(keys[0], keys[-1] + 1), keys)
+    if not len(missing):
+        raise AssertionError("batch: every lo_custkey in range is present")
+    absent = int(missing[len(missing) // 2])
+    pre_sql = dict(BATCH_PRE_QUERIES, q1_1=ssb.QUERY, group=ssb.GROUP_QUERY,
+                   absent_key=BATCH_PRE_QUERIES["absent_key"].format(key=absent))
+    before = {qid: execute_query(table, sql).rows for qid, sql in pre_sql.items()}
+    pre_cfg = IndexingConfig(**BATCH_INDEXING, **BATCH_PRE_INDEXES)
+    t0 = time.perf_counter()
+    copies, changes = [], []
+    for s in table:
+        dst = os.path.join(work, "batch_pre", s.name)
+        shutil.copytree(s.path, dst)
+        changes.append(preprocess_segment(dst, pre_cfg))
+        copies.append(dst)
+    pre_s = time.perf_counter() - t0
+    want_changes = ["lo_custkey: added bloom index", "lo_quantity: added range index",
+                    "lo_region: added inverted index"]
+    if any(sorted(c) != want_changes for c in changes):
+        raise AssertionError(f"batch preprocess: changes {changes}")
+    pre = [load_segment(p) for p in copies]
+    built_paths, built_s = jobs["indexed"].result()
+    built = [load_segment(p) for p in built_paths]
+    log("batch_preprocess", segments=len(copies), seconds=pre_s, changes=changes[0],
+        built_with_the_indexes_s=built_s, absent_key=absent)
+    def kinds(segs) -> list:
+        return [plan_segment(compile_query(pre_sql["absent_key"], schema), s).kind
+                for s in segs]
+    if kinds(pre) != ["empty"] * n or "empty" in kinds(table):
+        raise AssertionError(f"batch: the absent key's plans {kinds(pre)} after, "
+                             f"{kinds(table)} before: the bloom filters must prune the "
+                             "preprocessed segments, and nothing the segments before")
+    for qid, sql in pre_sql.items():
+        reset_launch_counts()
+        execute_query(built, sql)
+        torch.cuda.synchronize()
+        expect = launch_counts()
+        checked(f"preprocessed {qid}", lambda s=sql: execute_query(pre, s), before[qid], expect,
+                table="csv_preprocessed")
+    numbers["preprocess_s"] = pre_s
+    return launches, numbers
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -3986,18 +4436,19 @@ def main() -> int:
     # expressions and the host path; phase 10: the aggregation library; phase
     # 11: the filter indexes and star-trees; phase 12: the search indexes and
     # compressed raw columns; phase 13: multi-value columns; phase 14: upsert and
-    # dedup. Each phase returns every
+    # dedup; phase 15: batch ingestion and the query surface. Each phase returns every
     # kernel's launches in its checked runs: the counts set to 0 just before
     # a run and read just after, each held to the run's expected count.
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="smoke_data_", dir=cuda_lib.BUILD_DIR)
-    # phases 12 and 13's tables, and phase 14's streams, build in worker processes
-    # beside the earlier phases
+    # phases 12 and 13's tables, phase 14's streams and phase 15's files build
+    # in worker processes beside the earlier phases
     build_pool = concurrent.futures.ProcessPoolExecutor(
         6, mp_context=multiprocessing.get_context("spawn"))   # one per build
     search_jobs = start_search_builds(build_pool, args, work)
     mv_jobs = start_mv_builds(build_pool, args, work)
     upsert_jobs = start_upsert_builds(build_pool, args)   # queued behind the builds
+    batch_jobs = start_batch_builds(build_pool, args, work)
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -4042,6 +4493,10 @@ def main() -> int:
         if not all(upsert_launches.values()):
             raise AssertionError(f"the upsert phase launches {upsert_launches}: each kernel "
                                  "must run on its path")
+        batch_launches, batch_numbers = phase("batch", run_batch, args, work, batch_jobs)
+        if not all(batch_launches.values()):
+            raise AssertionError(f"the batch phase launches {batch_launches}: each kernel "
+                                 "must run on its path")
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -4058,7 +4513,8 @@ def main() -> int:
                 "realtime": realtime_launches[name], "expr": expr_launches["expr"][name],
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
                 "index": index_launches[name], "search": search_launches[name],
-                "mv": mv_launches[name], "upsert": upsert_launches[name]}
+                "mv": mv_launches[name], "upsert": upsert_launches[name],
+                "batch": batch_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -4098,7 +4554,7 @@ def main() -> int:
                     "shape_case": "bitmap_query, one segment, mask", "cases": bitmap_numbers})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE,
-                      "mv_mask_cases": mv_numbers}), flush=True)
+                      "mv_mask_cases": mv_numbers, "batch": batch_numbers}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

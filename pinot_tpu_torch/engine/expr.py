@@ -714,8 +714,10 @@ for _suffix in ("int", "string"):
     _FUNCTIONS[f"arraysort{_suffix}"] = _FUNCTIONS["arraysortasc"]
 
 
-# the rest of the function library registers itself on import
+# the rest of the function library registers itself on import (LOOKUP over
+# the dimension tables too)
 from . import datetime_fns, geo_fns, json_fns, string_fns  # noqa: E402,F401
+from ..query import lookup  # noqa: E402,F401
 
 DEVICE_FUNCS = frozenset(_STRUCTURAL | set(_BINOPS) | _DEVICE_MATH
                          | datetime_fns.DEVICE_DATETIME_FUNCS)

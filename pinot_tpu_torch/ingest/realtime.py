@@ -15,11 +15,15 @@ inverted index columns, or sets the stream property
 row.
 
 Three decode lanes, as in the JAX package:
-* a columnar block stream (decoder "columnar"): each message is a PCB1 block,
-  decoded to a `ColumnarBatch` and appended with `index_arrays`
-  (`last_decode_path` "blocks"); a table with upsert or dedup cannot take it;
-* a JSON row stream: the batch's messages decoded, coerced by the transform
-  pipeline and appended column by column with `index_batch` ("batch");
+* a columnar block stream (a decoder `stream.get_block_decoder` knows:
+  "columnar"): each message is a PCB1 block, decoded to a `ColumnarBatch` and
+  appended with `index_arrays` (`last_decode_path` "blocks"); a table with
+  upsert or dedup cannot take it;
+* a row stream (JSON, Avro, or a registered Protobuf or Thrift decoder,
+  `stream.get_decoder`): the batch's messages decoded (in one call of the
+  stream's batch decoder where one is registered, `stream.get_batch_decoder`:
+  JSON's), coerced by the transform pipeline and appended column by column
+  with `index_batch` ("batch");
 * the per-row lane of an upsert or dedup table ("row"): the batch's messages
   decoded and transformed (`TransformPipeline.apply_rows`: the rows
   `apply_row` gives one at a time), then `_index_row` row by row in arrival
@@ -45,16 +49,15 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ..segment.mutable import MutableSegment
 from ..segment.mutable_device import DeviceMutableSegment
 from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
 from ..table import TableConfig
 from ..upsert import merge_partial
-from .stream import MemoryStreamConsumer, get_decoder
+from .stream import MemoryStreamConsumer, get_batch_decoder, get_block_decoder, get_decoder
 from .transform import TransformPipeline, rows_to_all_columns
-from .vectorized import ColumnarBlockDecoder
 
 #: messages one `pump()` fetches unless the caller names another count
 MAX_PUMP_MESSAGES = 10_000
@@ -108,17 +111,17 @@ class RealtimePartitionConsumer:
                                           props.get("columnTransforms"))
         self.partition = parse_llc_name(segment_name)["partition"]
         self.consumer = MemoryStreamConsumer(stream_cfg.topic, self.partition)
-        # a columnar stream decodes whole blocks; any other decodes rows
-        self.block_decoder = None
-        self.decoder = None
-        if stream_cfg.decoder == "columnar":
+        # a block stream (columnar) decodes whole blocks; any other decodes rows
+        self.block_decoder = get_block_decoder(stream_cfg.decoder)
+        self.decoder = self.batch_decoder = None
+        if self.block_decoder is not None:
             if upsert is not None or dedup is not None:
                 raise ValueError(
                     f"table {table_cfg.name}: upsert/dedup need per-row decode and offsets; "
                     "they cannot consume a columnar block stream")
-            self.block_decoder = ColumnarBlockDecoder()
         else:
             self.decoder = get_decoder(stream_cfg.decoder)
+            self.batch_decoder = get_batch_decoder(stream_cfg.decoder)
         self.offset = start_offset
         self.start_consume_time = time.time()
         # which lane the last pump took: "blocks" | "batch" | "row" | None
@@ -145,7 +148,7 @@ class RealtimePartitionConsumer:
                     indexed += self._index_columns(self.pipeline.apply(cb.to_lists(self.schema)))
         elif batch.messages and self.upsert is None and self.dedup is None:
             self.last_decode_path = "batch"
-            rows = [self.decoder(m.value) for m in batch.messages]
+            rows = self._decode_batch([m.value for m in batch.messages])
             indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(rows)))
         elif batch.messages:
             self.last_decode_path = "row"
@@ -155,6 +158,20 @@ class RealtimePartitionConsumer:
                     indexed += 1
         self.offset = batch.next_offset
         return indexed
+
+    def _decode_batch(self, values: List[Any]) -> List[Dict[str, Any]]:
+        """A fetch's rows: one call of the batch decoder where the stream has
+        one. Where that call fails or gives another number of rows than
+        messages, the row decoder decodes each message, so that a malformed
+        one raises alone (the JAX package's consumer does the same)."""
+        if self.batch_decoder is not None:
+            try:
+                rows = self.batch_decoder(values)
+            except ValueError:   # a malformed member: isolated below
+                rows = None
+            if rows is not None and len(rows) == len(values):
+                return rows
+        return [self.decoder(v) for v in values]
 
     def _index_columns(self, cols: Dict[str, list]) -> int:
         """Append a batch the transform pipeline coerced."""

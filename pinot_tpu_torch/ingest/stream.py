@@ -5,11 +5,25 @@ pluggable stream abstraction, `pinot-spi/.../stream/`): offsets are integers,
 a consumer fetches message batches from one partition, and `MemoryStream`
 plays the role of the embedded Kafka the reference uses in tests; it is the
 one stream type ported, so the consumer builds `MemoryStreamConsumer`
-directly (the reference's stream factory registry is not ported). Decoders:
-`json` (one row per message) and, for columnar block streams, the `columnar`
-block decoder (`ingest/vectorized.py`: one message carries a whole block).
-The JAX package's socket broker (`kafkalite`) and its avro decoder are not
-ported.
+directly (the reference's stream factory registry is not ported).
+
+Decoders, as in the JAX package:
+
+* row decoders (`get_decoder`, `register_decoder`): `json`, `dict` and
+  `avro` (confluent-framed, its schema id resolved against
+  `avro.DEFAULT_REGISTRY`). The Protobuf and Thrift decoders are made for a
+  schema (`proto.make_proto_decoder`, `thriftfmt.make_thrift_decoder`,
+  `avro.make_simple_avro_decoder`) and registered under a name the table's
+  `StreamConfig.decoder` gives;
+* batch decoders (`get_batch_decoder`, `register_batch_decoder`): a whole
+  fetch at once, `json` as one parse of the spliced messages. The
+  consumer's batch lane decodes a fetch with the stream's batch decoder
+  where one is registered, and with its row decoder otherwise;
+* the block decoder (`get_block_decoder`): one message carries a whole
+  columnar block, `columnar` (`ingest/vectorized.py`), the one block format.
+
+A name that nothing registered raises NotImplementedError. The JAX package's
+socket broker (`kafkalite`) is not ported.
 """
 
 from __future__ import annotations
@@ -87,9 +101,7 @@ class MemoryStreamConsumer:
         return MessageBatch(list(msgs), start_offset + len(msgs))
 
 
-# -- row decoders (the reference's StreamMessageDecoder SPI) ----------------
-# A "columnar" stream has no row decoder: each of its messages is a whole
-# PCB1 block, which the consumer decodes with `vectorized.ColumnarBlockDecoder`.
+# -- decoders (the reference's StreamMessageDecoder SPI) --------------------
 
 def json_decoder(value: Any) -> Dict[str, Any]:
     if isinstance(value, (bytes, str)):
@@ -97,13 +109,61 @@ def json_decoder(value: Any) -> Dict[str, Any]:
     return dict(value)
 
 
+def passthrough_decoder(value: Any) -> Dict[str, Any]:
+    return value
+
+
+def avro_decoder(value: Any) -> Dict[str, Any]:
+    """A confluent-framed Avro message -> row dict (the schema id resolved
+    against the process-local registry, `avro.DEFAULT_REGISTRY`)."""
+    from .avro import confluent_avro_decoder   # the codec loads when first used
+    return confluent_avro_decoder(value)
+
+
 _DECODERS: Dict[str, Callable[[Any], Dict[str, Any]]] = {
     "json": json_decoder,
+    "dict": passthrough_decoder,
+    "avro": avro_decoder,
 }
+
+
+def _json_batch_decoder(values) -> List[Dict[str, Any]]:
+    """Decode a whole batch of JSON payloads with one parse, by splicing them
+    into a JSON array; raises on any malformed member."""
+    parts = [v if isinstance(v, bytes) else str(v).encode("utf-8") for v in values]
+    return json.loads(b"[" + b",".join(parts) + b"]")
+
+
+#: batch decoders: name -> (List[raw value] -> List[row dict])
+_BATCH_DECODERS: Dict[str, Callable[[List[Any]], List[Dict[str, Any]]]] = {
+    "json": _json_batch_decoder,
+}
+
+
+def register_decoder(name: str, fn: Callable[[Any], Dict[str, Any]]) -> None:
+    _DECODERS[name] = fn
+
+
+def register_batch_decoder(name: str,
+                           fn: Callable[[List[Any]], List[Dict[str, Any]]]) -> None:
+    _BATCH_DECODERS[name] = fn
+
+
+def get_batch_decoder(name: str):
+    return _BATCH_DECODERS.get(name)
+
+
+def get_block_decoder(name: str):
+    """The block decoder of a block stream (an object with
+    `decode_one(value) -> ColumnarBatch`), None for a row stream."""
+    if name != "columnar":
+        return None
+    from .vectorized import ColumnarBlockDecoder   # loaded when a block stream asks
+    return ColumnarBlockDecoder()
 
 
 def get_decoder(name: str) -> Callable[[Any], Dict[str, Any]]:
     if name not in _DECODERS:
-        raise NotImplementedError(f"stream decoder {name!r} is not ported to pinot_tpu_torch "
-                                  f"(ported: columnar, {', '.join(sorted(_DECODERS))})")
+        raise NotImplementedError(f"no stream decoder {name!r} is registered "
+                                  f"(registered: {', '.join(sorted(_DECODERS))})")
     return _DECODERS[name]

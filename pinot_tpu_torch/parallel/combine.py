@@ -71,6 +71,11 @@ through the plain body; a query that touches one over any other set
 (`_refs_multi_value`) is the per-segment executor's, since the merged view
 does not remap multi-value ids, and so is a selection that touches one.
 
+An EXPLAIN or EXPLAIN ANALYZE context is treated as the JAX set executor
+treats it: a set this path runs (a device plan, a stacked star set) answers
+the query, the flag unread, and so does the pipeline's partial; a set it
+hands to the per-segment executor answers the EXPLAIN there.
+
 Not executed here, raising NotImplementedError: a scan over more than
 INT32_MAX rows. A group-by partial is a state dict, not
 the JAX package's array-form `DensePartial`. A plan that needs no scan

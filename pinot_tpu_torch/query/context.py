@@ -1,7 +1,6 @@
 """QueryContext: the compiled, resolved representation a server executes.
 
-A copy of `pinot_tpu/query/context.py` without GAPFILL/FILL, which this package
-does not execute (they raise NotImplementedError). Analog of `pinot-core/.../query/request/context/QueryContext.java:72` plus the broker-side
+A copy of `pinot_tpu/query/context.py`. Analog of `pinot-core/.../query/request/context/QueryContext.java:72` plus the broker-side
 query rewriters (`pinot-common/.../sql/parsers/rewriter/`): alias and ordinal resolution for
 GROUP BY / ORDER BY / HAVING, aggregation extraction, and column validation happen here, so
 the execution engine below sees only resolved expression trees.
@@ -24,6 +23,21 @@ class QueryValidationError(ValueError):
 
 
 @dataclass
+class GapfillSpec:
+    """GAPFILL(timeExpr, start, end, bucket) and the per-column FILL modes
+    (reference: the `core/query/reduce/GapfillProcessor.java` family, broker
+    post-processing)."""
+
+    index: int               # select-item position of the time bucket column
+    start: int
+    end: int                 # exclusive
+    bucket: int
+    # select-item position -> (mode, default); the modes are
+    # FILL_PREVIOUS_VALUE and FILL_DEFAULT_VALUE
+    fills: Dict[int, Tuple[str, object]] = field(default_factory=dict)
+
+
+@dataclass
 class QueryContext:
     table: str
     select_items: List[Tuple[Expr, str]]            # (resolved expr, output column name)
@@ -37,6 +51,7 @@ class QueryContext:
     distinct: bool
     options: Dict[str, object] = field(default_factory=dict)
     sql: str = ""   # original SQL text; the HTTP transport re-compiles server-side
+    gapfill: Optional[GapfillSpec] = None
     explain: bool = False
     analyze: bool = False  # EXPLAIN ANALYZE: execute, then annotate the plan
 
@@ -62,18 +77,43 @@ def compile_query(sql_or_stmt, schema: Optional[Schema] = None) -> QueryContext:
             "JOIN queries run on the multistage engine (multistage/)"
         )
 
-    # -- expand SELECT * ---------------------------------------------------
+    # -- expand SELECT *, strip GAPFILL/FILL wrappers ----------------------
     select: List[Tuple[Expr, str]] = []
+    gapfill: Optional[GapfillSpec] = None
+    fills: Dict[int, Tuple[str, object]] = {}
     for expr, alias in stmt.select:
         if isinstance(expr, Identifier) and expr.name == "*":
             if schema is None:
                 raise QueryValidationError("SELECT * requires a schema to expand")
             select.extend((Identifier(c), c) for c in schema.column_names)
             continue
-        if isinstance(expr, Function) and expr.name in ("gapfill", "fill"):
-            raise NotImplementedError(
-                f"{expr.name.upper()} is not supported by pinot_tpu_torch")
+        if isinstance(expr, Function) and expr.name == "gapfill":
+            if gapfill is not None:
+                raise QueryValidationError("only one GAPFILL column is allowed")
+            if len(expr.args) != 4 or not all(
+                    isinstance(a, Literal) for a in expr.args[1:]):
+                raise QueryValidationError(
+                    "GAPFILL(timeExpr, start, end, bucket) with literal bounds")
+            gapfill = GapfillSpec(index=len(select), start=int(expr.args[1].value),
+                                  end=int(expr.args[2].value),
+                                  bucket=int(expr.args[3].value))
+            if gapfill.bucket <= 0:
+                raise QueryValidationError("GAPFILL bucket must be positive")
+            expr = expr.args[0]
+        elif isinstance(expr, Function) and expr.name == "fill":
+            if len(expr.args) < 2 or not isinstance(expr.args[1], Literal):
+                raise QueryValidationError("FILL(expr, 'MODE'[, default])")
+            mode = str(expr.args[1].value).upper()
+            if mode not in ("FILL_PREVIOUS_VALUE", "FILL_DEFAULT_VALUE"):
+                raise QueryValidationError(f"unknown FILL mode {mode!r}")
+            default = expr.args[2].value if len(expr.args) > 2 else None
+            fills[len(select)] = (mode, default)
+            expr = expr.args[0]
         select.append((expr, alias or _default_name(expr)))
+    if gapfill is not None:
+        gapfill.fills = fills
+    elif fills:
+        raise QueryValidationError("FILL requires a GAPFILL column in the select list")
 
     alias_map = {name: expr for expr, name in select}
 
@@ -132,6 +172,7 @@ def compile_query(sql_or_stmt, schema: Optional[Schema] = None) -> QueryContext:
         options=dict(stmt.options),
         explain=stmt.explain,
         analyze=stmt.analyze,
+        gapfill=gapfill,
         sql=stmt.raw or (sql_or_stmt if isinstance(sql_or_stmt, str) else ""),
     )
 

@@ -13,7 +13,7 @@ It applies only to FULL results (the set executor's outputs for every
 segment): server partials that merge with other servers keep the state-dict
 form. It declines (returns None) for aggregations without `dense_values`
 (sketch and value-set states, among them every `distinct` output), HAVING,
-DISTINCT rewrites, post-aggregation arithmetic in the select list, or an
+GAPFILL, DISTINCT rewrites, post-aggregation arithmetic in the select list, or an
 ORDER BY that is not a plain group column or aggregation reference. Where
 `dense_values` gives NaN for a null (`dense_nan_is_null`: VAR_SAMP of a
 single row), the row holds None, as the scalar `finalize` gives.
@@ -39,7 +39,8 @@ def _dense_capable(agg) -> bool:
 
 def try_dense_decode(ctx: QueryContext, plan, outs) -> Optional[ResultTable]:
     """ResultTable from a set's dense kernel outputs, or None -> classic path."""
-    if not plan.group_cols or ctx.having is not None or ctx.distinct:
+    if not plan.group_cols or ctx.having is not None or ctx.gapfill is not None \
+            or ctx.distinct:
         return None
     if len(ctx.group_by) != len(plan.group_cols):
         return None

@@ -67,6 +67,11 @@ mask reduces the LUT over the CSR per row; a host GROUP BY explodes a row
 into one group row per value of its (one) multi-value key; selections
 return a multi-value cell as a list.
 
+EXPLAIN PLAN FOR answers with the plan tree (`explain.explain_result`) and
+launches nothing; EXPLAIN ANALYZE executes the query under a fresh stats
+record (`_execute_analyze`) and annotates the tree with the rows and
+milliseconds each segment plan, COMBINE and BROKER_REDUCE recorded.
+
 Shapes this package does not execute raise NotImplementedError with their
 reason. Nothing falls back to another path: the host runs only what the
 planner marks host.
@@ -77,6 +82,7 @@ no CUDA card they raise RuntimeError.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -91,14 +97,21 @@ from ..engine.kernels import KernelInputs, KernelSpec, run_kernel
 from ..segment.reader import ColumnReader, ImmutableSegment, MVValues, mv_values
 from ..sql.ast import Identifier, identifiers_in
 from ..upsert import ValidDocs
+from . import stats as qstats
 from .aggregates import make_agg
 from .context import QueryContext, QueryValidationError, compile_query
+from .explain import analyze_result, explain_result
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
                       select_bitmap_leaves, topk_key_exact_in_f32, topk_order_key_device_ok)
 from .predicate import CmpLeaf, DocSetLeaf, LutLeaf, NullLeaf
 from .reduce import SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
 from .startree_exec import StarTreePlan, reassemble, try_star_tree
+
+#: per-segment plan kind -> the EXPLAIN label family it annotates in EXPLAIN
+#: ANALYZE (prefix-matched against the plan nodes' labels)
+_PLAN_OP_LABELS = {"empty": "PRUNED", "metadata": "METADATA_ONLY_AGGREGATE",
+                   "selection": "SELECT", "device": "DEVICE_FUSED", "host": "HOST"}
 
 MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
@@ -138,8 +151,10 @@ class ServerQueryExecutor:
         t0 = time.perf_counter()
         ctx = compile_query(query, schema or (segments[0].schema if segments else None)) \
             if isinstance(query, str) else query
-        if ctx.explain or ctx.analyze:
-            raise NotImplementedError("EXPLAIN is not supported by pinot_tpu_torch")
+        if ctx.analyze:
+            return self._execute_analyze(segments, ctx, star_plans, upsert)
+        if ctx.explain:
+            return explain_result(ctx, segments, star_plans=star_plans, upsert=upsert)
         aggs = [make_agg(f) for f in ctx.aggregations]
         group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
                        else list(ctx.group_by))
@@ -159,7 +174,24 @@ class ServerQueryExecutor:
             "scan": round((t_scan - t_compile) * 1000, 3),
             "reduce": round((time.perf_counter() - t_scan) * 1000, 3),
         }
+        # per-operator rollups for EXPLAIN ANALYZE (no-op without a record)
+        qstats.record_operator("COMBINE", rows=merged.num_docs_scanned,
+                               ms=(t_scan - t_compile) * 1000)
+        qstats.record_operator("BROKER_REDUCE", rows=len(result.rows),
+                               ms=(time.perf_counter() - t_scan) * 1000)
         return result
+
+    def _execute_analyze(self, segments: Sequence[ImmutableSegment], ctx: QueryContext,
+                         star_plans=None, upsert=None) -> ResultTable:
+        """EXPLAIN ANALYZE: run the query under a fresh stats record, then
+        render the plan tree with each node's rows and milliseconds (the
+        JAX package's postgres-style EXPLAIN ANALYZE)."""
+        run_ctx = dataclasses.replace(ctx, explain=False, analyze=False)
+        t0 = time.perf_counter()
+        with qstats.collect_stats() as st:
+            inner = self.execute(segments, run_ctx, star_plans=star_plans, upsert=upsert)
+        return analyze_result(ctx, segments, st, inner, (time.perf_counter() - t0) * 1000,
+                              star_plans=star_plans, upsert=upsert)
 
     # -- per-segment execution --------------------------------------------
     def execute_segment(self, ctx: QueryContext, segment: ImmutableSegment,
@@ -176,15 +208,23 @@ class ServerQueryExecutor:
                 reassemble(stp, sub)
                 return sub
         plan = plan_segment(ctx, segment, valid_docs=valid_docs)
+        t0 = time.perf_counter()
         if plan.kind == "empty":
-            return self._empty_result(plan)
-        if plan.kind == "metadata":
-            return self._metadata_result(plan)
-        if plan.kind == "device":
-            return self._device_aggregate(plan)
-        if plan.kind == "selection":
-            return self._selection(plan)
-        return self._host_aggregate(plan)
+            r = self._empty_result(plan)
+        elif plan.kind == "metadata":
+            r = self._metadata_result(plan)
+        elif plan.kind == "device":
+            r = self._device_aggregate(plan)
+        elif plan.kind == "selection":
+            r = self._selection(plan)
+        else:
+            r = self._host_aggregate(plan)
+        st = qstats.current_stats()
+        if st is not None:
+            ms = (time.perf_counter() - t0) * 1000
+            st.add_operator("SEGMENT_PLAN", rows=r.num_docs_scanned, ms=ms)
+            st.add_operator(_PLAN_OP_LABELS[plan.kind], rows=r.num_docs_scanned, ms=ms)
+        return r
 
     def _empty_result(self, plan: SegmentPlan) -> SegmentResult:
         if plan.group_exprs:
@@ -800,8 +840,10 @@ def group_trim_spec(ctx: QueryContext, plan: SegmentPlan):
     Exact only against outputs of every segment: per-segment partial sums can
     rank groups otherwise than their totals. Requires one ORDER BY key that is
     one of the query's aggregations, no HAVING (it could bring back trimmed
-    groups) and no DISTINCT rewrite."""
-    if ctx.having is not None or ctx.distinct or len(ctx.order_by) != 1:
+    groups), no DISTINCT rewrite and no GAPFILL (it makes rows for trimmed
+    groups)."""
+    if ctx.having is not None or ctx.distinct or len(ctx.order_by) != 1 \
+            or ctx.gapfill is not None:
         return None
     k = ctx.offset + ctx.limit
     if not 0 < k <= MAX_DEVICE_TOPK:

@@ -145,6 +145,7 @@ class DocSetLeaf:
     col: str
     mask: np.ndarray   # bool[num_docs]
     cache_token: str = ""
+    desc: str = ""     # what resolved the mask, as EXPLAIN shows it
 
     def signature(self) -> Tuple:
         return ("docset", self.col)
@@ -241,7 +242,7 @@ def _compile_id_set(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> F
         # the serialized literal is the set: its digest addresses the mask
         digest = hashlib.sha1(str(lit.value).encode()).hexdigest()
         leaves.append(DocSetLeaf(col.name, ids.contains(reader.values()),
-                                 cache_token=f"idset:{digest}"))
+                                 cache_token=f"idset:{digest}", desc=f"idset[{len(ids)}]"))
         return ("leaf", len(leaves) - 1)
     lut = build_lut("idset", [ids], reader.dictionary, reader.cardinality)
     leaves.append(LutLeaf(col.name, lut, op="idset", values=[ids]))
@@ -262,7 +263,7 @@ def _compile_search(e: Function, seg: ImmutableSegment, leaves: List[Leaf]) -> F
         mask = (idx if idx is not None else _scan_index(reader, name)).match(query)
     except (ValueError, IndexError, KeyError) as exc:
         raise QueryValidationError(f"{name.upper()}: {exc}") from exc
-    leaves.append(DocSetLeaf(col, mask, cache_token=f"{name}:{query}"))
+    leaves.append(DocSetLeaf(col, mask, cache_token=f"{name}:{query}", desc=query))
     return ("leaf", len(leaves) - 1)
 
 
@@ -300,7 +301,8 @@ def _try_geo_predicate(e: Function, seg: ImmutableSegment,
     exact = _compile_predicate(e, seg, leaves)
     leaves.append(DocSetLeaf(f"{lng_col},{lat_col}",
                              geo_idx.candidate_mask(cx, cy, radius, seg.num_docs),
-                             cache_token=f"geo:{cx!r}:{cy!r}:{radius!r}"))
+                             cache_token=f"geo:{cx!r}:{cy!r}:{radius!r}",
+                             desc=f"geo cells r={radius:g}m"))
     return ("and", (("leaf", len(leaves) - 1), exact))
 
 

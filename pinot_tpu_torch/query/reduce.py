@@ -120,11 +120,67 @@ def reduce_to_result(ctx: QueryContext, merged: SegmentResult, aggs: List[AggFun
         idx.sort(key=lambda i: _sort_key(
             [c[i] for c in sort_cols], ctx.order_by))
 
+    if ctx.gapfill is not None:
+        rows = _apply_gapfill(ctx, group_exprs, [[col[i] for col in out_cols] for i in idx])
+        if ctx.order_by:
+            # gap rows come series first, buckets ascending: re-apply the
+            # query's ORDER BY (over select-item columns) before OFFSET/LIMIT
+            sel_repr = {repr(e): j for j, (e, _) in enumerate(ctx.select_items)}
+            cols = [sel_repr.get(repr(o.expr)) for o in ctx.order_by]
+            if all(c is not None for c in cols):
+                rows.sort(key=lambda r: _sort_key([r[c] for c in cols], ctx.order_by))
+        rows = rows[ctx.offset:ctx.offset + ctx.limit]
+        return ResultTable([name for _, name in ctx.select_items], _pyify(rows),
+                           {"numDocsScanned": merged.num_docs_scanned, "gapfilled": True})
+
     idx = idx[ctx.offset:ctx.offset + ctx.limit]
     rows = [[col[i] for col in out_cols] for i in idx]
     return ResultTable([name for _, name in ctx.select_items], _pyify(rows),
                        {"numDocsScanned": merged.num_docs_scanned,
                         "numGroupsTotal": n if merged.kind == "groups" else None})
+
+
+def _apply_gapfill(ctx: QueryContext, group_exprs: List[Expr],
+                   rows: List[List[Any]]) -> List[List[Any]]:
+    """Fill the missing time buckets of each series (reference:
+    GapfillProcessor). The output is ordered series by series in first-seen
+    order, then by time bucket ascending; a series' key is its non-time
+    group-by select items. A gap row takes FILL_PREVIOUS_VALUE's last value
+    the series had (None before its first), FILL_DEFAULT_VALUE's default, or
+    None."""
+    gf = ctx.gapfill
+    ti = gf.index
+    group_reprs = {repr(g) for g in group_exprs}
+    key_idx = [j for j, (e, _) in enumerate(ctx.select_items)
+               if j != ti and repr(e) in group_reprs]
+
+    series: Dict[Tuple, Dict[Any, List[Any]]] = {}
+    for row in rows:
+        series.setdefault(tuple(row[j] for j in key_idx), {})[row[ti]] = row
+
+    out: List[List[Any]] = []
+    for key, by_time in series.items():
+        prev: Dict[int, Any] = {}
+        for b in range(gf.start, gf.end, gf.bucket):
+            row = by_time.get(b)
+            if row is None:
+                row = [None] * len(ctx.select_items)
+                row[ti] = b
+                for j, v in zip(key_idx, key):
+                    row[j] = v
+                for j in range(len(row)):
+                    if j == ti or j in key_idx:
+                        continue
+                    mode, default = gf.fills.get(j, (None, None))
+                    if mode == "FILL_PREVIOUS_VALUE":
+                        row[j] = prev.get(j)
+                    elif mode == "FILL_DEFAULT_VALUE":
+                        row[j] = default
+            else:
+                for j in range(len(row)):
+                    prev[j] = row[j]
+            out.append(row)
+    return out
 
 
 def _reduce_selection(ctx: QueryContext, merged: SegmentResult) -> ResultTable:

@@ -2,10 +2,16 @@
 
 A subset of `pinot_tpu/query/stats.py`: the typed record (`ExecutionStats`),
 the thread-local "current record" slot (`collect_stats`, `current_stats`) and
-the accounting hooks `record` and `record_max`, with the join keys and
-`scanRowsAvoided`. Accounting sites record into whatever record is active on
-their thread, and do nothing when none is; a worker thread serving one query
-re-installs that query's record with `collect_stats(st)`.
+the accounting hooks `record`, `record_max` and `record_operator`, with the
+join keys, `scanRowsAvoided` and the batch ingestion's keys. Accounting
+sites record into whatever record is active on their thread, and do nothing
+when none is; a worker thread serving one query re-installs that query's
+record with `collect_stats(st)`.
+
+Per-operator rows and milliseconds (what EXPLAIN ANALYZE reads) flatten into
+the same dict under `op:<label>:rows` and `op:<label>:ms`, so one merge rule
+covers everything; `operators()` reassembles them and `to_public_dict()`
+leaves them out.
 """
 
 from __future__ import annotations
@@ -30,9 +36,26 @@ JOIN_SERVED_HOST_TIER = "joinServedHostTier"
 # of the probe-hash histogram); max-merged
 JOIN_SKEW_PCT = "joinSkewPct"
 
+# batch ingestion (`ingest/batch.py`): milliseconds inside the record
+# readers and the rows they gave (both passes of a streaming job), the
+# streaming job's stats pass, its write pass (the segment builds, its pushes
+# not counted) and the controller's `upload_segment` calls
+BATCH_READ_MS = "batchReadMs"
+BATCH_ROWS_READ = "batchRowsRead"
+BATCH_STATS_PASS_MS = "batchStatsPassMs"
+BATCH_WRITE_PASS_MS = "batchWritePassMs"
+BATCH_PUSH_MS = "batchPushMs"
+
 # keys that merge by MAXIMUM: a skew percentage summed over partitions means
 # nothing; the worst partition bounds the stage
 MAX_KEYS = (JOIN_SKEW_PCT,)
+
+_OP_PREFIX = "op:"
+
+
+def op_key(label: str, fld: str) -> str:
+    """The flat counter key of one operator's `rows` or `ms`."""
+    return f"{_OP_PREFIX}{label}:{fld}"
 
 
 class ExecutionStats:
@@ -54,6 +77,22 @@ class ExecutionStats:
             cur = self.counters.get(key)
             self.counters[key] = v if cur is None else max(cur, v)
 
+    def add_operator(self, label: str, rows: float = 0, ms: float = 0.0) -> None:
+        with self._lock:
+            rk, mk = op_key(label, "rows"), op_key(label, "ms")
+            self.counters[rk] = self.counters.get(rk, 0) + rows
+            self.counters[mk] = self.counters.get(mk, 0) + ms
+
+    def operators(self) -> Dict[str, Dict[str, float]]:
+        """The per-operator breakdown: label -> {rows, ms}."""
+        out: Dict[str, Dict[str, float]] = {}
+        with self._lock:
+            for k, v in self.counters.items():
+                if k.startswith(_OP_PREFIX):
+                    label, _, fld = k[len(_OP_PREFIX):].rpartition(":")
+                    out.setdefault(label, {"rows": 0, "ms": 0.0})[fld] = v
+        return out
+
     def merge(self, other: "ExecutionStats") -> None:
         """Fold another record into this one: every key sums, except
         MAX_KEYS, which keep the maximum of the sides that carry the key."""
@@ -70,10 +109,11 @@ class ExecutionStats:
     def to_public_dict(self) -> Dict[str, object]:
         """Export of the counters recorded (unlike the JAX package's, no key
         is zero-filled, so an absent key means the path never ran): ints for
-        counts, floats rounded to 3 decimals for `*Ms` and `*Pct`."""
+        counts, floats rounded to 3 decimals for `*Ms` and `*Pct`; the op:*
+        breakdowns stay off it (EXPLAIN ANALYZE reads them)."""
         with self._lock:
             return {k: round(float(v), 3) if k.endswith(("Ms", "Pct")) else int(v)
-                    for k, v in self.counters.items()}
+                    for k, v in self.counters.items() if not k.startswith(_OP_PREFIX)}
 
 
 # -- thread-local current record ---------------------------------------------------
@@ -97,6 +137,13 @@ def record_max(key: str, v: float) -> None:
     st = getattr(_local, "stats", None)
     if st is not None:
         st.set_max(key, v)
+
+
+def record_operator(label: str, rows: float = 0, ms: float = 0.0) -> None:
+    """Add one operator's rows and milliseconds to the active record, if any."""
+    st = getattr(_local, "stats", None)
+    if st is not None:
+        st.add_operator(label, rows=rows, ms=ms)
 
 
 @contextmanager

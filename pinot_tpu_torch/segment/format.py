@@ -120,17 +120,12 @@ def unpack_bitmap(packed: np.ndarray, n: int) -> np.ndarray:
     return np.unpackbits(packed, count=n, bitorder="little").astype(bool)
 
 
-def segment_crc(segment_dir: str, exclude=()) -> int:
-    """CRC over all column files, mirroring the reference's creation.meta crc.
-    `exclude` paths (deferred-removal index files awaiting the reaper) are
-    skipped so the recorded CRC matches the directory AFTER their deletion."""
+def segment_crc(segment_dir: str) -> int:
+    """CRC over all column files, mirroring the reference's creation.meta crc."""
     crc = 0
-    excluded = {os.path.basename(p) for p in exclude}
     cols_dir = os.path.join(segment_dir, COLS_DIR)
     if os.path.isdir(cols_dir):
         for name in sorted(os.listdir(cols_dir)):
-            if name in excluded:
-                continue
             with open(os.path.join(cols_dir, name), "rb") as f:
                 crc = zlib.crc32(f.read(), crc)
     return crc

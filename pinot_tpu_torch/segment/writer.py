@@ -134,6 +134,14 @@ class SegmentBuilder:
         return seg_dir
 
     # ------------------------------------------------------------------
+    def write_default_column(self, cols_dir: str, spec: FieldSpec,
+                             num_docs: int) -> Dict[str, Any]:
+        """Write one default-filled column (the schema-evolution backfill of
+        `segment/preprocess.py`, the reference's DefaultColumnHandler)."""
+        raw = ([spec.null_value] * num_docs if spec.single_value
+               else [[spec.null_value]] * num_docs)
+        return self._write_column(cols_dir, spec, raw, num_docs)
+
     def _write_geo_index(self, cols_dir: str, pair: str, columns, num_docs: int
                          ) -> Dict[str, Any]:
         """The geo cell index of a "lng,lat" column pair, over the values the

@@ -37,6 +37,10 @@ zipf(1.2); an empty row is stored as the one-value null) and a code list
 (`lo_codes`, INT, 1-6 of 1,000 codes drawn zipf(1.1)), beside a unique
 `lo_orderkey`. `make_mv_csr` gives the same rows as CSR arrays (every row's
 values concatenated, and the row offsets), from which a numpy oracle reads.
+
+`write_lineorder_file`: lineorder rows as a CSV, JSON-lines, Avro, Thrift or
+Protobuf file, the inputs of a batch ingestion job (Apache Pinot's "Batch
+Ingestion" `recordReaderSpec` formats), with the reader's schema sidecar.
 """
 
 from __future__ import annotations
@@ -498,3 +502,73 @@ def json_messages(cols: Dict[str, np.ndarray], schema: Schema) -> list:
     names = [f.name for f in schema.fields]
     lists = [cols[c].tolist() for c in names]
     return [json.dumps(dict(zip(names, row))) for row in zip(*lists)]
+
+
+# -- lineorder as files: the batch ingestion formats ---------------------------
+
+# lineorder's record in each format that carries a schema; the Protobuf one is
+# `tests/torch_data/lineorder.proto` (message ssb.LineOrder), compiled there
+# into `lineorder.desc`
+LINEORDER_AVRO_SCHEMA = {
+    "type": "record", "name": "LineOrder", "namespace": "ssb", "fields": [
+        {"name": "lo_region", "type": "string"}, {"name": "lo_suppkey", "type": "int"},
+        {"name": "lo_custkey", "type": "int"}, {"name": "lo_orderdate", "type": "int"},
+        {"name": "lo_quantity", "type": "int"}, {"name": "lo_extendedprice", "type": "double"},
+        {"name": "lo_discount", "type": "int"}, {"name": "lo_revenue", "type": "double"}]}
+LINEORDER_THRIFT_IDL = """struct LineOrder {
+  1: required string lo_region;
+  2: required i32 lo_suppkey;
+  3: required i32 lo_custkey;
+  4: required i32 lo_orderdate;
+  5: required i32 lo_quantity;
+  6: required double lo_extendedprice;
+  7: required i32 lo_discount;
+  8: required double lo_revenue;
+}
+"""
+LINEORDER_FORMATS = ("csv", "json", "avro", "thrift", "pb")
+
+
+def lineorder_rows(cols: Dict[str, np.ndarray]) -> list:
+    """One dict of Python values a row, with lineorder's columns."""
+    names = [f.name for f in ssb_schema().fields]
+    return [dict(zip(names, row)) for row in zip(*[cols[c].tolist() for c in names])]
+
+
+def write_lineorder_file(fmt: str, cols: Dict[str, np.ndarray], path: str,
+                         descriptor_set: bytes = b"") -> str:
+    """Write lineorder rows as one `fmt` file (`LINEORDER_FORMATS`) with this
+    package's writers, and the sidecar its reader takes: `<path>.thrift` (the
+    IDL) or `<path>.desc` (`descriptor_set`, a FileDescriptorSet holding
+    ssb.LineOrder). A CSV file has a header row; Avro is a deflate container.
+    Returns `path`."""
+    if fmt == "csv":
+        import csv
+        names = [f.name for f in ssb_schema().fields]
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(names)
+            w.writerows(zip(*[cols[c].tolist() for c in names]))
+    elif fmt == "json":
+        with open(path, "w") as f:
+            f.writelines(m + "\n" for m in json_messages(cols, ssb_schema()))
+    elif fmt == "avro":
+        from .ingest.avro import AvroFileWriter
+        with AvroFileWriter(path, LINEORDER_AVRO_SCHEMA, codec="deflate") as w:
+            for row in lineorder_rows(cols):
+                w.append(row)
+    elif fmt == "thrift":
+        from .ingest.thriftfmt import ThriftIDL, write_structs
+        idl = ThriftIDL(LINEORDER_THRIFT_IDL)
+        write_structs(path, idl, idl.struct("LineOrder"), lineorder_rows(cols))
+        with open(path + ".thrift", "w") as f:
+            f.write(LINEORDER_THRIFT_IDL)
+    elif fmt == "pb":
+        from .ingest.proto import DescriptorPool, write_delimited
+        pool = DescriptorPool(descriptor_set)
+        write_delimited(path, pool, pool.message("ssb.LineOrder"), lineorder_rows(cols))
+        with open(path + ".desc", "wb") as f:
+            f.write(descriptor_set)
+    else:
+        raise ValueError(f"no lineorder writer for format {fmt!r}")
+    return path

@@ -191,9 +191,11 @@ def _same(a, b) -> bool:
 
 
 def test_registries_match_the_reference():
-    assert set(pexpr._FUNCTIONS) == set(jexpr._FUNCTIONS) - {"lookup"}
+    assert set(pexpr._FUNCTIONS) == set(jexpr._FUNCTIONS)
     assert pexpr.DEVICE_FUNCS == _DEVICE_FUNCS
-    assert set(HOST_CALLS) == set(pexpr._FUNCTIONS)
+    # LOOKUP reads a registered dimension table: tests/test_torch_gapfill_lookup.py
+    # holds it against the reference
+    assert set(HOST_CALLS) == set(pexpr._FUNCTIONS) - {"lookup"}
     assert set(DEVICE_EXPR_CASES) == set(pexpr.DEVICE_FUNCS)
 
 

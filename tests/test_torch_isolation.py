@@ -1,7 +1,9 @@
 """pinot_tpu_torch stands alone: no JAX, nothing of pinot_tpu, no silent CPU runs.
 
 * A fresh interpreter imports pinot_tpu_torch, builds a table and answers a
-  query on the CPU without `jax` or `pinot_tpu` ever entering sys.modules.
+  query on the CPU without `jax` or `pinot_tpu` ever entering sys.modules;
+  so does one that runs a CSV and an Avro batch ingestion, EXPLAIN ANALYZE,
+  GAPFILL and LOOKUP (and loads neither pandas nor pyarrow).
 * No module of the package, nor chip_smoke.py, imports either (AST scan).
 * Without CUDA the default-device entry points (the join path's too) raise
   RuntimeError.
@@ -106,8 +108,83 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py",
                    "segment/compression.py", "segment/indexes/jsonidx.py",
                    "segment/indexes/text.py", "segment/indexes/fst.py",
-                   "segment/indexes/geo.py", "upsert.py", "segment/mutable.py"):
+                   "segment/indexes/geo.py", "upsert.py", "segment/mutable.py",
+                   "query/explain.py", "query/lookup.py", "ingest/readers.py",
+                   "ingest/avro.py", "ingest/thriftfmt.py", "ingest/proto.py",
+                   "ingest/batch.py", "ingest/dataframe.py", "segment/preprocess.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
+
+
+def test_subprocess_batch_ingestion_and_explain_analyze_never_load_jax(tmp_path):
+    """A CSV and an Avro file through the streaming batch runner and the
+    per-file unit, then EXPLAIN ANALYZE, GAPFILL and LOOKUP over the output,
+    in a fresh interpreter: neither jax nor pinot_tpu enters sys.modules, and
+    neither pandas nor pyarrow does."""
+    code = textwrap.dedent(f"""
+        import os, shutil, sys
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import execute_query, load_segment, ssb
+        from pinot_tpu_torch.ingest.batch import (BatchIngestionJobSpec,
+                                                  ingest_file_to_segments,
+                                                  run_batch_ingestion)
+        from pinot_tpu_torch.query.lookup import register_dim_table_from_segments
+        from pinot_tpu_torch.segment.writer import segments_from_columns
+        from pinot_tpu_torch.table import IndexingConfig, TableConfig
+        work = {str(tmp_path)!r}
+        cols = ssb.make_columns(4000, 3)
+        csv = ssb.write_lineorder_file("csv", cols, os.path.join(work, "lo.csv"))
+        avro = ssb.write_lineorder_file("avro", cols, os.path.join(work, "lo.avro"))
+        cfg = TableConfig("lineorder", indexing=IndexingConfig(no_dictionary_columns=["lo_custkey"]))
+
+        class Catalog:
+            table_configs = {{"lineorder_OFFLINE": cfg}}
+            schemas = {{"lineorder": ssb.ssb_schema()}}
+
+        class Controller:
+            catalog = Catalog()
+            segs = []
+            def upload_segment(self, table, seg_dir):
+                dst = os.path.join(work, "store", os.path.basename(seg_dir))
+                shutil.copytree(seg_dir, dst)
+                self.segs.append(load_segment(dst))
+                return self.segs[-1]
+
+        ctl = Controller()
+        print(run_batch_ingestion(BatchIngestionJobSpec(input_paths=[csv], table="lineorder_OFFLINE",
+                                                        segment_rows=2000), ctl,
+                                  work_dir=os.path.join(work, "job")))
+        segs = [load_segment(p) for p in ingest_file_to_segments(
+            ssb.ssb_schema(), cfg, avro, prefix="avro", build_dir=os.path.join(work, "avro"))]
+        a = execute_query(ctl.segs, ssb.QUERY, device="cpu").rows
+        b = execute_query(segs, ssb.QUERY, device="cpu").rows
+        print(a, b, abs(a[0][0] - b[0][0]) <= 1e-5 * abs(b[0][0]))
+        r = execute_query(ctl.segs, "EXPLAIN ANALYZE " + ssb.QUERY, device="cpu")
+        print(r.columns, r.rows[0][3])
+        g = execute_query(ctl.segs, "SELECT GAPFILL(lo_orderdate, 19930202, 19930210, 1), "
+                          "lo_region, FILL(COUNT(*), 'FILL_DEFAULT_VALUE', 0) FROM lineorder "
+                          "WHERE lo_orderdate BETWEEN 19930202 AND 19930209 "
+                          "GROUP BY lo_orderdate, lo_region LIMIT 100", device="cpu")
+        print("GAPFILL", len(g.rows), 8 * len({{r[1] for r in g.rows}}))
+        register_dim_table_from_segments("customer", ["c_custkey"], segments_from_columns(
+            ssb.customer_schema(), ssb.make_customer(1000, 3), os.path.join(work, "c"), 1))
+        l = execute_query(ctl.segs, "SELECT LOOKUP('customer', 'c_nation', 'c_custkey', "
+                          "lo_custkey), COUNT(*) FROM lineorder GROUP BY LOOKUP('customer', "
+                          "'c_nation', 'c_custkey', lo_custkey) LIMIT 100", device="cpu")
+        print("LOOKUP", sum(n for _, n in l.rows))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "pinot_tpu", "pandas", "pyarrow"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "['lineorder_0', 'lineorder_1']", out.stdout
+    assert lines[1].endswith("True"), out.stdout
+    assert lines[2] == "['Operator', 'Operator_Id', 'Parent_Id', 'Rows', 'Ms'] 1", out.stdout
+    n, want = map(int, lines[3].split()[1:])
+    assert n == want > 0 and lines[4] == "LOOKUP 4000", out.stdout
+    assert lines[-1] == "BAD []", out.stdout
 
 
 def test_subprocess_realtime_consumer_and_mixed_set_never_load_jax(tmp_path):

@@ -1048,3 +1048,23 @@ def test_cuda_upsert_queries_take_the_banded_scan(cuda, tmp_path):
     mgr.partition(0).add_record(segs[0].name, 0, (int(cols["lo_orderkey"][0]),), 1 << 62)
     execute_query(segs, band_q, device=cuda, upsert=mgr)
     assert block_for(segs[0], cuda)._valid_band[0] != key
+
+
+@pytest.mark.gpu
+def test_cuda_explain_analyze_launches_one_scan_a_segment(cuda, tmp_path):
+    """EXPLAIN ANALYZE of Q1.1 on CUDA segments runs the query: one
+    `masked_sums` launch a segment, the same Rows as on the CPU and a Ms on
+    each annotated row; a plain EXPLAIN launches nothing."""
+    from pinot_tpu_torch import execute_query, ssb
+    from pinot_tpu_torch.segment import segments_from_columns
+    segs = segments_from_columns(ssb.ssb_schema(), ssb.make_columns(60_000, 13),
+                                 str(tmp_path), 3)
+    before = scan.masked_sums.launches
+    execute_query(segs, "EXPLAIN PLAN FOR " + ssb.QUERY, device=cuda)
+    assert scan.masked_sums.launches == before
+    got = execute_query(segs, "EXPLAIN ANALYZE " + ssb.QUERY, device=cuda)
+    assert scan.masked_sums.launches - before == len(segs)
+    want = execute_query(segs, "EXPLAIN ANALYZE " + ssb.QUERY, device="cpu")
+    assert [r[:4] for r in got.rows] == [r[:4] for r in want.rows]
+    assert got.rows[0][3] == 1
+    assert all(ms is not None and ms >= 0 for _, _, _, rows, ms in got.rows if rows is not None)
