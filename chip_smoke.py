@@ -8,7 +8,8 @@ exits non-zero:
 
 1. device  — the card's name and `nvidia-smi` name/power limit;
 2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc) and
-   logs each kernel instance's registers, shared memory and spills (ptxas);
+   logs each kernel instance's registers, shared memory and spills (ptxas; a
+   bitmap_filter instance with a stack frame or a spill fails);
 3. kernels — each kernel against its plain PyTorch version on the card at the
    main paths' shapes (one segment of each table, and the whole stacked table
    the set executor scans in one launch: rel 1e-5 on sums, equal counts),
@@ -367,6 +368,7 @@ GROUP_TRIM_PER_SEGMENT_RUNS = 0
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
 KERNEL_SYMBOL = "masked_sums_kernel"
+BITMAP_SYMBOL = "bitmap_filter_kernel"
 DEVICE_OPS_PER_CALL = 1   # the design: one launch, no torch op after it
 PROFILED_CALLS = 10
 PROFILER_MARGIN_S = 0.005   # idle time at each edge of a profiled window
@@ -504,6 +506,21 @@ def kernel_usage(log: str) -> dict:
     if not named:
         raise AssertionError(f"no {KERNEL_SYMBOL} instance in the ptxas log:\n{log}")
     return named
+
+
+def bitmap_usage(log: str) -> dict:
+    """ptxas's registers, shared memory and spills per bitmap_filter kernel
+    instance; raises on a stack frame or a spill (the filter's stack lives in
+    shared memory)."""
+    from pinot_tpu_torch.engine import cuda_lib
+    usage = {name: use for name, use in cuda_lib.ptxas_usage(log).items()
+             if BITMAP_SYMBOL in name}
+    if not usage:
+        raise AssertionError(f"no {BITMAP_SYMBOL} instance in the ptxas log:\n{log}")
+    for name, use in usage.items():
+        if any(use.get(k, 0) for k in ("stack_bytes", "spill_store_bytes", "spill_load_bytes")):
+            raise AssertionError(f"{name} has a stack frame or spills: {use}")
+    return usage
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -2534,11 +2551,13 @@ def bitmap_cases(block, stacked) -> dict:
     in one launch), and one lo_discount leaf of k = 1, 3 and 11 selected rows in
     all three modes (one segment; k = 3 stacked too). Each output equal to the
     plain version's; `ms` and `plain_ms` device time (CUDA graph replay, L2
-    flushed), `call_ms` an eager call; the bound is the words read once (k + 1
-    rows of W words) and the output written once (W words, 32 W bytes, or 8)
-    over the memory rate."""
+    flushed), `call_ms` an eager call, `floor_ms` a 4-byte `zero_()` timed
+    the same way as `ms` (the fixed cost of one launch in a replay); the bound
+    is the words read once (k + 1 rows of W words) and the output written once
+    (W words, 32 W bytes, or 8) over the memory rate."""
     from pinot_tpu_torch.engine import bitmap
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=block.device)
+    tiny = torch.zeros(1, dtype=torch.int32, device=block.device)
     shapes = {"one segment": (block.bitmap_words, block.valid_words),
               "stacked set": (stacked.bitmap_words, stacked.valid_words.view(-1))}
     cases = []
@@ -2571,7 +2590,7 @@ def bitmap_cases(block, stacked) -> dict:
             numbers = dict(words=n_words, rows=32 * n_words, selected_rows=k,
                            equal=True, max_abs_err=0.0, ms=graph_ms(kernel, flush),
                            plain_ms=graph_ms(plain, flush), call_ms=time_ms(kernel, flush),
-                           bound_ms=bms, bound_by=by)
+                           floor_ms=graph_ms(tiny.zero_, flush), bound_ms=bms, bound_by=by)
             numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
             log("bitmap_case", case=case, mode=mode, main_path=main, **numbers)
             out[f"{case}, {mode}"] = numbers
@@ -4422,7 +4441,7 @@ def main() -> int:
     cuda_lib.build(["masked_sums", "bitmap_filter"])
     log("build", seconds=time.perf_counter() - t0,
         ptxas=kernel_usage(cuda_lib.build_log("masked_sums")),
-        ptxas_bitmap_filter=cuda_lib.ptxas_usage(cuda_lib.build_log("bitmap_filter")))
+        ptxas_bitmap_filter=bitmap_usage(cuda_lib.build_log("bitmap_filter")))
 
     # phase 3: kernels against their plain versions, at the shapes of phases 4 and 5
     t0 = time.perf_counter()

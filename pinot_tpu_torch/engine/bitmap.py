@@ -4,7 +4,10 @@ Counterpart of the JAX package's word-domain filter
 (`pinot_tpu/engine/kernels.py`: `_bitmap_leaf_words`, `_make_word_fn`,
 `_unpack_words`, `_pack_valid` and the popcount of `compute_filter_count`),
 which XLA compiled from jnp ops. Here it is one hand-written CUDA kernel for
-Hopper (`csrc/bitmap_filter.cu`):
+Hopper (`csrc/bitmap_filter.cu`: tiles of 256 words with all of a tile's
+rows in flight at once, as 16-byte loads into registers at segment size or
+bulk copies through a shared-memory ring over a stacked set; the tree's
+stack in shared memory; one launch per call in every mode):
 
     leaf_l = OR over the leaf's selected dict ids r of words_l[s, r, :]
     result = program(leaf_0, leaf_1, ...) & valid_words
@@ -30,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,9 +49,12 @@ MAX_STACK = 16
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p)
+             ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 _lock = threading.Lock()
+_devices: Dict[int, Tuple[int, int]] = {}          # device -> (SMs, shared bytes per SM)
+_slots: Dict[Tuple[int, int], int] = {}            # (device, stream) -> ticket slot
+_captured: Dict[int, int] = {}                     # device -> captured launches' tickets taken
 
 
 @dataclass(frozen=True)
@@ -162,21 +168,77 @@ def bitmap_filter_plain(program: Sequence[int], leaves: Sequence[BitmapLeaf],
     return bits if mode == "mask" else bits.sum(dtype=torch.int64)
 
 
+@dataclass(frozen=True)
+class KernelShape:
+    """Count mode's static tickets, as `csrc/bitmap_filter.cu` reports them:
+    slots [0, stream_slots) one per stream, [stream_slots, ticket_slots) one
+    per launch captured into a CUDA graph."""
+
+    stream_slots: int
+    ticket_slots: int
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_lib.load("bitmap_filter")
     with _lock:
         if not getattr(lib, "pinot_checked", False):
             lib.pinot_bitmap_filter.argtypes = _ARGTYPES
             lib.pinot_bitmap_filter.restype = ctypes.c_int
-            lib.pinot_bitmap_filter_limits.argtypes = (ctypes.c_void_p,)
-            lib.pinot_bitmap_filter_limits.restype = None
+            for fn in (lib.pinot_bitmap_filter_limits, lib.pinot_bitmap_filter_config):
+                fn.argtypes = (ctypes.c_void_p,)
+                fn.restype = None
+            lib.pinot_bitmap_filter_setup.argtypes = (ctypes.c_void_p,)
+            lib.pinot_bitmap_filter_setup.restype = ctypes.c_int
             limits = (ctypes.c_int32 * 4)()
             lib.pinot_bitmap_filter_limits(limits)
             if tuple(limits) != (MAX_LEAVES, MAX_ROWS, MAX_PROGRAM, MAX_STACK):
                 raise RuntimeError(f"bitmap_filter.cu limits {tuple(limits)} differ from "
                                    "engine/bitmap.py's")
+            config = (ctypes.c_int32 * 2)()
+            lib.pinot_bitmap_filter_config(config)
+            lib.pinot_shape = KernelShape(*config)
             lib.pinot_checked = True
     return lib
+
+
+def _device_caps(lib, device: torch.device) -> Tuple[int, int]:
+    """(SMs, shared memory bytes per SM) of `device`, read once: the launch
+    sizes its persistent grid from them."""
+    caps = _devices.get(device.index)
+    if caps is None:
+        out = (ctypes.c_int32 * 2)()
+        with torch.cuda.device(device):
+            err = lib.pinot_bitmap_filter_setup(out)
+        if err != 0:
+            raise RuntimeError(f"pinot_bitmap_filter_setup failed: CUDA error {err}")
+        caps = _devices[device.index] = (int(out[0]), int(out[1]))
+    return caps
+
+
+def _ticket_slot(lib, device: torch.device, stream: torch.cuda.Stream) -> int:
+    """The static count-mode ticket of a launch on `stream`. Eager launches on
+    one stream run in order, so they share a slot, which stays with its
+    stream (torch hands out streams from a fixed pool per device). A launch
+    captured into a graph takes a slot no other launch takes: the graph's
+    replays run in order, and two graphs may replay at once."""
+    shape = lib.pinot_shape
+    with _lock:
+        if torch.cuda.is_current_stream_capturing():
+            slot = shape.stream_slots + _captured.get(device.index, 0)
+            if slot >= shape.ticket_slots:
+                raise RuntimeError(f"all {shape.ticket_slots - shape.stream_slots} bitmap "
+                                   f"tickets of captured launches on {device} are taken")
+            _captured[device.index] = slot - shape.stream_slots + 1
+            return slot
+        key = (device.index, stream.cuda_stream)
+        slot = _slots.get(key)
+        if slot is None:
+            slot = sum(1 for d, _ in _slots if d == device.index)
+            if slot >= shape.stream_slots:
+                raise RuntimeError(f"all {shape.stream_slots} bitmap ticket slots of {device} "
+                                   "are taken: one per stream")
+            _slots[key] = slot
+        return slot
 
 
 def _launch(program: Sequence[int], leaves: Sequence[BitmapLeaf],
@@ -200,15 +262,21 @@ def _launch(program: Sequence[int], leaves: Sequence[BitmapLeaf],
             raise ValueError(f"selected rows {leaf.rows} outside the {card} word rows")
     if not valid_words.is_contiguous():
         raise ValueError("valid words must be contiguous")
+    lib = _lib()
+    sms, smem_per_sm = _device_caps(lib, device)
+    stream = torch.cuda.current_stream(device)
+    slot = -1
     if mode == "words":
         out = torch.empty(n_words, dtype=torch.int32, device=device)
     elif mode == "mask":
         out = torch.empty(32 * n_words, dtype=torch.bool, device=device)
     else:
-        out = torch.zeros((), dtype=torch.int64, device=device)
+        out = torch.empty((), dtype=torch.int64, device=device)   # the kernel writes it
+        slot = _ticket_slot(lib, device, stream)
     ptrs = [leaf.words.data_ptr() for leaf in leaves] + [valid_words.data_ptr(),
                                                           out.data_ptr()]
-    vec = 4 if w % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
+    # 16-byte copies and loads where every row starts 16-byte aligned
+    vec = int(w % 4 == 0 and all(p % 16 == 0 for p in ptrs))
     offsets = [0]
     for leaf in leaves:
         offsets.append(offsets[-1] + len(leaf.rows))
@@ -218,12 +286,11 @@ def _launch(program: Sequence[int], leaves: Sequence[BitmapLeaf],
     c_off = (ctypes.c_int * len(offsets))(*offsets)
     c_rows = (ctypes.c_int * max(len(rows), 1))(*rows)
     c_prog = (ctypes.c_int * len(program))(*[int(op) for op in program])
-    stream = torch.cuda.current_stream(device)
     with torch.cuda.device(device):
-        err = _lib().pinot_bitmap_filter(c_words, c_strides, len(leaves), c_off, c_rows,
-                                         c_prog, len(program), valid_words.data_ptr(), w,
-                                         n_words, vec, MODES[mode], out.data_ptr(),
-                                         stream.cuda_stream)
+        err = lib.pinot_bitmap_filter(c_words, c_strides, len(leaves), c_off, c_rows,
+                                      c_prog, len(program), valid_words.data_ptr(), w,
+                                      n_words, vec, MODES[mode], sms, smem_per_sm, slot,
+                                      out.data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"pinot_bitmap_filter launch failed: CUDA error {err}")
     return out

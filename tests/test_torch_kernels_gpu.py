@@ -773,14 +773,17 @@ def test_cuda_distinct_counts_equal_bincount(cuda, size, ids_card):
                        grouped.view(num_seg, size).to(torch.int32))
 
 
-def _bitmap_case(dev, segments: int, words: int, cards, ks, seed: int):
+def _bitmap_case(dev, segments: int, words: int, cards, ks, seed: int, density: int = 1):
     """Random word matrices ([S, card, W] per leaf) with k selected rows each,
-    and valid words whose last segment ends 1,000 rows early."""
+    and valid words whose last segment ends 1,000 rows early. `density` ANDs
+    that many random words into each, so a bit is set with odds 2^-density."""
     from pinot_tpu_torch.engine.bitmap import BitmapLeaf, pack_valid
     rng = np.random.default_rng(seed)
     leaves = []
     for card, k in zip(cards, ks):
-        w = rng.integers(0, 1 << 32, (segments, card, words), dtype=np.uint64).astype(np.uint32)
+        w = np.full((segments, card, words), 0xFFFFFFFF, dtype=np.uint32)
+        for _ in range(density):
+            w &= rng.integers(0, 1 << 32, w.shape, dtype=np.uint64).astype(np.uint32)
         rows = tuple(sorted(rng.choice(card, k, replace=False).tolist()))
         leaves.append(BitmapLeaf(torch.from_numpy(w.view(np.int32)).to(dev)
                                  if segments > 1 else
@@ -790,29 +793,93 @@ def _bitmap_case(dev, segments: int, words: int, cards, ks, seed: int):
     return leaves, pack_valid(torch.from_numpy(valid).to(dev))
 
 
+def _assert_bitmap_modes(program, leaves, valid_words):
+    """Each mode's kernel output equals the plain version's; one launch a call."""
+    from pinot_tpu_torch.engine import bitmap
+    for mode in ("words", "mask", "count"):
+        before = bitmap.bitmap_filter.launches
+        got = bitmap.bitmap_filter(program, leaves, valid_words, mode)
+        torch.cuda.synchronize()
+        assert bitmap.bitmap_filter.launches == before + 1
+        want = bitmap.bitmap_filter_plain(program, leaves, valid_words, mode)
+        assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), (program, mode)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("segments, words", [(1, 65_536), (8, 65_536), (1, 1_001), (3, 4_099),
-                                             (2, 7)], ids=["segment", "stacked", "odd_words",
-                                                           "odd_stacked", "tiny"])
+                                             (2, 7), (1, 65_540), (3, 65_540), (8, 65_540)],
+                         ids=["segment", "stacked", "odd_words", "odd_stacked", "tiny",
+                              "segment_plus_4", "stacked_plus_4", "stacked8_plus_4"])
 def test_cuda_bitmap_filter_matches_its_plain_version(cuda, segments, words):
     """`bitmap_filter` on the card equals `bitmap_filter_plain` in all three
-    modes, on one segment and on a stacked set, with W a multiple of 4 (the
-    16-byte path) or not (W not a multiple of the block either), for an
-    all-bitmap tree with NOT and an empty leaf; one launch per call, counted."""
+    modes, on one segment and on stacked sets, with W a multiple of 4 (16-byte
+    copies and loads) or not (4-byte loads), W a multiple of the 256-word tile
+    or not (a short last tile in every segment), for an all-bitmap tree with
+    NOT; over one leaf of one row and over the bitmap query's 1 + 3 rows
+    (loaded into registers where each block takes one tile, else through the
+    ring: the 8-segment sets), and over leaves that pass a ring stage (3 + 12
+    + an empty leaf + 64 rows); one launch per call, counted."""
     from pinot_tpu_torch.engine import bitmap
-    leaves, valid_words = _bitmap_case(cuda, segments, words, (11, 50, 5, 64), (3, 12, 0, 64),
-                                       seed=segments * 7 + words)
     programs = [[0], [0, 1, bitmap.AND], [0, 1, bitmap.NOT, bitmap.OR, 2, bitmap.OR, 3,
                                           bitmap.AND, bitmap.NOT]]
-    for program in programs:
-        for mode in ("words", "mask", "count"):
-            before = bitmap.bitmap_filter.launches
-            got = bitmap.bitmap_filter(program, leaves, valid_words, mode)
-            torch.cuda.synchronize()
-            assert bitmap.bitmap_filter.launches == before + 1
-            want = bitmap.bitmap_filter_plain(program, leaves, valid_words, mode)
-            assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
-            assert torch.equal(got, want), (program, mode)
+    one = _bitmap_case(cuda, segments, words, (11,), (1,), seed=segments * 3 + words)
+    few = _bitmap_case(cuda, segments, words, (11, 50, 5, 64), (1, 3, 0, 0),
+                       seed=segments * 5 + words)
+    many = _bitmap_case(cuda, segments, words, (11, 50, 5, 64), (3, 12, 0, 64),
+                        seed=segments * 7 + words)
+    for program in ([0], [0, bitmap.NOT]):
+        _assert_bitmap_modes(program, *one)
+    for leaves, valid_words in (few, many):
+        for program in programs:
+            _assert_bitmap_modes(program, leaves, valid_words)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segments, words", [(2, 4_100), (1, 1_001)], ids=["bulk", "plain"])
+def test_cuda_bitmap_filter_at_its_limits(cuda, segments, words):
+    """A program at every limit equals the plain version: 16 leaves of 64
+    selected rows (1,024 rows, 65 ring stages a tile), 64 codes, a stack 16
+    deep (all 16 leaves pushed before the first AND / OR), NOTs between;
+    sparse words (a bit in 64), so that each leaf's OR is neither empty nor
+    full."""
+    from pinot_tpu_torch.engine import bitmap
+    leaves, valid_words = _bitmap_case(cuda, segments, words, (200,) * 16, (64,) * 16,
+                                       seed=words, density=6)
+    program = []
+    for leaf in range(16):
+        program += [leaf] + [bitmap.NOT] * (leaf % 2)
+    for j in range(15):
+        program += [(bitmap.AND, bitmap.OR)[j % 3 == 0]] + [bitmap.NOT] * (1 + (j < 10))
+    assert len(program) == bitmap.MAX_PROGRAM and bitmap._depth(program) == bitmap.MAX_STACK
+    _assert_bitmap_modes(program, leaves, valid_words)
+
+
+@pytest.mark.gpu
+def test_cuda_bitmap_count_carries_nothing_between_calls(cuda):
+    """Count mode twice in a row, and replayed twice from a CUDA graph, gives
+    the same count each time: the finishing ticket and the blocks' counts are
+    not carried from one launch to the next."""
+    from pinot_tpu_torch.engine import bitmap
+    leaves, valid_words = _bitmap_case(cuda, 8, 65_536, (11, 50), (1, 3), seed=5)
+    program = [0, 1, bitmap.AND]
+    want = bitmap.bitmap_filter_plain(program, leaves, valid_words, "count")
+    assert int(want) > 0
+    for _ in range(2):
+        assert torch.equal(bitmap.bitmap_filter(program, leaves, valid_words, "count"), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bitmap.bitmap_filter(program, leaves, valid_words, "count")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = bitmap.bitmap_filter(program, leaves, valid_words, "count")
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(bitmap.bitmap_filter(program, leaves, valid_words, "count"), want)
 
 
 @pytest.mark.gpu
