@@ -7,9 +7,11 @@ Phases, each printing its own lines; any failed check raises and the script
 exits non-zero:
 
 1. device  — the card's name and `nvidia-smi` name/power limit;
-2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc) and
-   logs each kernel instance's registers, shared memory and spills (ptxas; a
-   bitmap_filter instance with a stack frame or a spill fails);
+2. build   — compiles the CUDA kernels from `pinot_tpu_torch/csrc/` (nvcc, one
+   process a source, started together) and logs each kernel instance's
+   registers, shared memory and spills (ptxas; a bitmap_filter or grouped_agg
+   kernel with a stack frame or a spill fails) and grouped_agg's atomic
+   instructions by kernel (`cuobjdump -sass`);
 3. kernels — each kernel against its plain PyTorch version on the card at the
    main paths' shapes (one segment of each table, and the whole stacked table
    the set executor scans in one launch: rel 1e-5 on sums, equal counts),
@@ -265,6 +267,28 @@ exits non-zero:
    with the indexes from the start (in the worker pool), and an in-range
    lo_custkey no row holds is pruned by the new bloom filters only:
    `batch_query` and `batch_preprocess` lines.
+16. groupby — the GROUP BY ladder (`engine/grouped.py`, `csrc/grouped_agg.cu`)
+   over phase 4's table: GROUP_QUERY (9 cells: the shared rung, one copy of
+   the cells a warp), GROUP BY lo_orderdate with COUNT, SUM, MIN and MAX
+   (4,097 cells: one copy a block), GROUP BY lo_suppkey with VAR_POP (20,481
+   cells), GROUP BY lo_custkey with SUM (503,809 cells: the global rung; per
+   segment its cold run alone), DISTINCTCOUNT(lo_discount) by lo_region (the
+   grouped count-only form) and under Q1.1's filter (the scalar one), each
+   per segment and over the set against numpy (rel 1e-5, abs 0.05; counts
+   exactly), every checked cold run held to its exact launches (one
+   grouped_agg a GROUP BY pass, one more a distinct output), 5 warm runs:
+   `groupby_query` lines. The lo_custkey GROUP BY as two server partials of
+   4 segments, through `prepare_partial` and through the pipeline: each a
+   `DensePartial`, merged and reduced equal to the oracle and the set's
+   answer, with the dense decode's ms beside the state-dict decode's of the
+   same outputs: `groupby_partial`. Then `group_case` lines: the kernel
+   against its plain version at each rung at the set's shapes (GROUP_QUERY
+   per segment too; counts, int sums, min and max exactly, f32 sums within
+   one ulp), `ms` (graph replay, L2 flushed), `call_ms`, `plain_ms`,
+   `library_ms` (`torch.bincount`) and the bytes bound; last GROUP_QUERY per
+   segment under the profiler (`groupby_trace`: device busy ms, idle share,
+   one `grouped_agg_kernel` a pass, no `index_add_`, `bincount` or
+   `scatter_reduce_` kernel).
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -278,7 +302,9 @@ phase no scan; `bitmap_filter` where a plain-body filter or a selection's
 device mask reads bitmap leaves, one launch per mask; the search phase all
 three; the mv phase `masked_sums` and `bitmap_filter`; the upsert phase all
 three, the scans with the valid band; the batch phase all three, none
-under EXPLAIN or LOOKUP),
+under EXPLAIN or LOOKUP; `grouped_agg` on every device GROUP BY pass and
+every grouped or scalar distinct and scalar power-sum pass of every phase,
+the pipeline traffic's logged only, as `bitmap_filter`'s),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -322,19 +348,20 @@ L2_FLUSH_BYTES = 256 << 20   # written before each timed run: > the H100's 50 MB
 SELECT_QUERIES = [
     # (id, sql, top-k launches per segment, answered by the exact path, the
     # filter's bitmap_filter launches per mask: 1 where the device mask reads
-    # bitmap leaves (planner.select_bitmap_leaves), one all-bitmap tree)
+    # bitmap leaves (planner.select_bitmap_leaves), one all-bitmap tree; the
+    # grouped_agg launches a pass: 1 for the GROUP BY)
     ("topk_desc", "SELECT lo_custkey, lo_revenue FROM lineorder WHERE lo_quantity >= 10 "
-     "ORDER BY lo_revenue DESC LIMIT 7", 1, False, 0),
+     "ORDER BY lo_revenue DESC LIMIT 7", 1, False, 0, 0),
     ("topk_all", "SELECT lo_suppkey, lo_extendedprice FROM lineorder "
-     "ORDER BY lo_extendedprice LIMIT 12", 1, False, 0),
+     "ORDER BY lo_extendedprice LIMIT 12", 1, False, 0, 0),
     ("topk_ties", "SELECT lo_custkey, lo_orderdate, lo_revenue FROM lineorder "
-     "WHERE lo_quantity >= 10 ORDER BY lo_suppkey LIMIT 9", 1, False, 0),
+     "WHERE lo_quantity >= 10 ORDER BY lo_suppkey LIMIT 9", 1, False, 0, 0),
     ("select_limit", "SELECT lo_region, lo_revenue FROM lineorder WHERE lo_quantity < 3 "
-     "LIMIT 10", 0, False, 1),
+     "LIMIT 10", 0, False, 1, 0),
     ("order_exact", "SELECT lo_custkey, lo_orderdate FROM lineorder WHERE lo_quantity = 1 "
-     "AND lo_discount = 0 ORDER BY lo_orderdate DESC LIMIT 5", 0, True, 1),
+     "AND lo_discount = 0 ORDER BY lo_orderdate DESC LIMIT 5", 0, True, 1, 0),
     ("group_trim", "SELECT lo_custkey, SUM(lo_revenue) FROM lineorder GROUP BY lo_custkey "
-     "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None, 0),
+     "ORDER BY SUM(lo_revenue) DESC LIMIT 10", 0, None, 0, 1),
 ]
 JOIN_WARM_RUNS = 2     # cut from 3 to leave room for the index phase
 REALTIME_BLOCK_ROWS = 16_384   # bench.py's _ingest_topic_blocks block
@@ -521,6 +548,47 @@ def bitmap_usage(log: str) -> dict:
         if any(use.get(k, 0) for k in ("stack_bytes", "spill_store_bytes", "spill_load_bytes")):
             raise AssertionError(f"{name} has a stack frame or spills: {use}")
     return usage
+
+
+def grouped_usage(log: str) -> dict:
+    """ptxas's registers, shared memory and spills per grouped_agg kernel
+    (the accumulate pass per rung, init, finalize); raises on a stack frame
+    or a spill (a kernel parameter indexed at run time may be copied to
+    local memory)."""
+    from pinot_tpu_torch.engine import cuda_lib
+    usage = {name: use for name, use in cuda_lib.ptxas_usage(log).items()
+             if "grouped_" in name}
+    if len(usage) != 5:
+        raise AssertionError(f"{len(usage)} grouped_agg kernels in the ptxas log:\n{log}")
+    for name, use in usage.items():
+        if any(use.get(k, 0) for k in ("stack_bytes", "spill_store_bytes", "spill_load_bytes")):
+            raise AssertionError(f"{name} has a stack frame or spills: {use}")
+    return usage
+
+
+def grouped_sass() -> dict:
+    """The atomic instructions of each grouped_agg kernel, by opcode, from
+    `cuobjdump -sass` of the built library: native shared-memory 64-bit
+    atomics, or compare-and-swap loops (ATOMS.CAST.SPIN), on the block rung;
+    none on the warp rung (plain read-modify-writes); REDG on the global rung."""
+    import re
+    from pinot_tpu_torch.engine import cuda_lib
+    tool = os.path.join(os.path.dirname(cuda_lib.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", cuda_lib.library_path("grouped_agg")],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    atomics, func = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            atomics[func] = {}
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", line)
+        if m and func:
+            atomics[func][m.group(1)] = atomics[func].get(m.group(1), 0) + 1
+    return atomics
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -725,7 +793,8 @@ def run_path(args, work: str):
 
     queries = [
         ("q1_1", QUERY, table, cols, oracle_q11, counts_of(masked_sums=len(table))),
-        ("group_by", GROUP_QUERY, table, cols, oracle_group, counts_of()),
+        ("group_by", GROUP_QUERY, table, cols, oracle_group,
+         counts_of(grouped_agg=len(table))),
         ("for_sum", FOR_QUERY, for_table, for_cols, oracle_for,
          counts_of(masked_sums_fused=len(for_table))),
     ]
@@ -789,22 +858,28 @@ def warm_times(fn, runs: int = QUERY_RUNS) -> tuple:
 
 def launch_counts() -> dict:
     """Each kernel's launch count (its wrapper adds one where it launches)."""
-    from pinot_tpu_torch.engine import bitmap, scan
+    from pinot_tpu_torch.engine import bitmap, grouped, scan
     return {"masked_sums": scan.masked_sums.launches,
             "masked_sums_fused": scan.masked_sums_fused.launches,
-            "bitmap_filter": bitmap.bitmap_filter.launches}
+            "bitmap_filter": bitmap.bitmap_filter.launches,
+            "grouped_agg": grouped.grouped_agg.launches}
 
 
 def reset_launch_counts() -> None:
-    from pinot_tpu_torch.engine import bitmap, scan
+    from pinot_tpu_torch.engine import bitmap, grouped, scan
     scan.reset_launch_counts()
     bitmap.reset_launch_counts()
+    grouped.reset_launch_counts()
 
 
-def counts_of(masked_sums: int = 0, masked_sums_fused: int = 0, bitmap_filter: int = 0) -> dict:
-    """The launches a checked run must make, by kernel."""
+def counts_of(masked_sums: int = 0, masked_sums_fused: int = 0, bitmap_filter: int = 0,
+              grouped_agg: int = 0) -> dict:
+    """The launches a checked run must make, by kernel. `grouped_agg`: one a
+    device GROUP BY pass (its count and every sum, power sum, min and max),
+    one more a grouped or scalar `distinct` output, one a scalar body pass's
+    power sums."""
     return {"masked_sums": masked_sums, "masked_sums_fused": masked_sums_fused,
-            "bitmap_filter": bitmap_filter}
+            "bitmap_filter": bitmap_filter, "grouped_agg": grouped_agg}
 
 
 def run_serve(args, table, cols) -> dict:
@@ -822,7 +897,7 @@ def run_serve(args, table, cols) -> dict:
             launches[k] += v
 
     queries = [("q1_1", QUERY, oracle_q11, counts_of(masked_sums=1)),
-               ("group_by", GROUP_QUERY, oracle_group, counts_of()),
+               ("group_by", GROUP_QUERY, oracle_group, counts_of(grouped_agg=1)),
                ("count_quantity", SERVE_COUNT_QUERY, oracle_count, counts_of(masked_sums=1))]
     for name, sql, oracle, want_launches in queries:
         reset_launch_counts()
@@ -890,9 +965,9 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
     len(queries)], every answer held against its oracle rows (floats at
     `rtol`, `atol`). Logs QPS, the latency p50/p95, the pipeline's stats and
     every kernel's launches; returns the scan kernels' launches, which are held
-    to the pipeline's own count (bitmap_filter's are logged only: copies of a
-    query deduplicated in one drain share one pass, so no count per query
-    holds)."""
+    to the pipeline's own count (bitmap_filter's and grouped_agg's are logged
+    only: copies of a query deduplicated in one drain share one pass, so no
+    count per query holds)."""
     import threading
 
     from pinot_tpu_torch.cluster import DeviceQueryPipeline
@@ -974,7 +1049,7 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
         p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
         solo_p50_ms=statistics.median(solo) * 1e3, launches=counts,
         topk_launches=topk_launches, stats=stats)
-    return {k: v for k, v in counts.items() if k != "bitmap_filter"}
+    return {k: v for k, v in counts.items() if k not in ("bitmap_filter", "grouped_agg")}
 
 
 # -- phase 6: select ----------------------------------------------------------------
@@ -1023,7 +1098,7 @@ def run_select(args, table, cols) -> dict:
     pipeline's `topk` mix, and the stacked top-k timed alone. Returns the
     kernels' launches in the checked runs: no scan; a bitmap_filter launch for
     each mask that reads bitmap leaves (each segment's, or the stacked top-k's
-    one over the set)."""
+    one over the set); a grouped_agg launch for each pass of the GROUP BY."""
     from pinot_tpu_torch import execute_query
     from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.parallel import MeshQueryExecutor
@@ -1034,11 +1109,14 @@ def run_select(args, table, cols) -> dict:
     oracles = select_oracles(cols)
     log("select_oracle", seconds=time.perf_counter() - t0)
     launches = counts_of()
-    for qid, sql, topk_per_segment, exact, bitmap_per_mask in SELECT_QUERIES:
+    for qid, sql, topk_per_segment, exact, bitmap_per_mask, grouped_per_pass in SELECT_QUERIES:
         want = oracles[qid]
         for path, run in (("per_segment", lambda sql=sql: execute_query(table, sql)),
                           ("set", lambda sql=sql: mx.execute(table, sql))):
             masks = len(table) if path == "per_segment" or not topk_per_segment else 1
+            passes = len(table) if path == "per_segment" else 1
+            expect = counts_of(bitmap_filter=bitmap_per_mask * masks,
+                               grouped_agg=grouped_per_pass * passes)
             # the path: counts set to 0 just before, read just after
             reset_launch_counts()
             kernels.reset_topk_launches()
@@ -1050,11 +1128,9 @@ def run_select(args, table, cols) -> dict:
             if not rows_match(result.rows, want):
                 raise AssertionError(f"select {qid} ({path}): got {result.rows}, "
                                      f"oracle {want}")
-            if topk_launches != topk_per_segment * len(table) or \
-                    scans != counts_of(bitmap_filter=bitmap_per_mask * masks):
+            if topk_launches != topk_per_segment * len(table) or scans != expect:
                 raise AssertionError(f"select {qid} ({path}): {topk_launches} top-k "
-                                     f"launches, kernel launches {scans}, expected "
-                                     f"{counts_of(bitmap_filter=bitmap_per_mask * masks)}")
+                                     f"launches, kernel launches {scans}, expected {expect}")
             for k, v in scans.items():
                 launches[k] += v
             if result.stats.get("topkExact") != exact:
@@ -1078,7 +1154,7 @@ def run_select(args, table, cols) -> dict:
             log("select_query", **fields)
 
     # the pipeline: client threads cycling the three top-k queries
-    topk_queries = [(sql, oracles[qid]) for qid, sql, _, _, _ in SELECT_QUERIES
+    topk_queries = [(sql, oracles[qid]) for qid, sql, *_ in SELECT_QUERIES
                     if qid.startswith("topk_")]
     serve_pipeline(mx, table, "topk", topk_queries)
     select_case(mx, table, cols)
@@ -1093,7 +1169,7 @@ def select_case(mx, table, cols) -> None:
     from pinot_tpu_torch.query.context import compile_query
 
     prepared = {}
-    for qid, sql, _, _, _ in SELECT_QUERIES:
+    for qid, sql, *_ in SELECT_QUERIES:
         if not qid.startswith("topk_"):
             continue
         p = prepared[qid] = mx.prepare_partial(compile_query(sql, table[0].schema), table)
@@ -1423,7 +1499,7 @@ def realtime_queries():
     """(id, sql, numpy oracle, kernel launches of one run over a view, over
     the mixed set). On the consuming view lo_orderdate, lo_discount and
     lo_quantity are raw, so Q1.1 and the GROUP BY compare values and run the
-    plain body; the two `lo_region = 'ASIA'` sums take the scans: a raw f32
+    body (the GROUP BY one grouped_agg launch); the two `lo_region = 'ASIA'` sums take the scans: a raw f32
     row through `masked_sums`, a raw integer column in FOR form through
     `masked_sums_fused`. Over the mixed set every member is decoded on the
     host, so the f32 sum is one `masked_sums` launch in global-id space and
@@ -1431,7 +1507,8 @@ def realtime_queries():
     from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
     return [
         ("q1_1", QUERY, oracle_q11, counts_of(), counts_of()),
-        ("group_by", GROUP_QUERY, oracle_group, counts_of(), counts_of()),
+        ("group_by", GROUP_QUERY, oracle_group, counts_of(grouped_agg=1),
+         counts_of(grouped_agg=1)),
         ("scan_f32", REALTIME_F32_QUERY, lambda c: oracle_region_sum(c, "lo_revenue"),
          counts_of(masked_sums=1), counts_of(masked_sums=1)),
         ("scan_for", REALTIME_FOR_QUERY, lambda c: oracle_region_sum(c, "lo_quantity"),
@@ -1922,7 +1999,8 @@ def run_expr(args, table, cols, work) -> tuple:
         ("case_sum", EXPR_CASE_SUM, oracle_case_sum, counts_of(masked_sums=len(table)),
          counts_of(masked_sums=1)),
         ("math_filter", EXPR_MATH_FILTER, oracle_math_filter, none, none),
-        ("group_math", EXPR_GROUP_MATH, oracle_group_math, none, none),
+        ("group_math", EXPR_GROUP_MATH, oracle_group_math,
+         counts_of(grouped_agg=len(table)), counts_of(grouped_agg=1)),
     ]
     for qid, sql, oracle, seg_launches, set_launches in device_queries:
         want = oracle(cols)
@@ -2010,9 +2088,11 @@ def run_expr(args, table, cols, work) -> tuple:
         if merged is None:
             raise AssertionError(f"expr consuming {qid}: the mixed set took no merged view")
         # on the merged view the consuming member's numeric columns have no
-        # dictionary, so these filters compare values: the plain body
+        # dictionary, so these filters compare values: the body (the GROUP BY
+        # one grouped_agg launch)
         line = checked("expr", f"expr consuming {qid} mixed", lambda: mx.execute(members, sql),
-                       add_rows(oracle(cols), oracle(rt)), none, EXPR_HOST_RUNS)
+                       add_rows(oracle(cols), oracle(rt)),
+                       counts_of(grouped_agg=int(qid == "group_by")), EXPR_HOST_RUNS)
         log("expr_consuming", query=qid, path="mixed_set", plan_kind="device",
             rows=rows + n_rt, segments=len(members), merged_view=True, **line)
     return launches, case
@@ -2041,6 +2121,10 @@ AGGS_DEVICE = {
                        "FROM lineorder GROUP BY lo_region ORDER BY lo_region"),
 }
 AGGS_SKETCHES = ("hll", "theta", "tdigest")
+# grouped_agg launches a pass of each AGGS_DEVICE query: one a `distinct`
+# output, one for a scalar plan's power sums, one a GROUP BY's other outputs
+AGGS_GROUPED = {"distinctcount": 2, "hll": 1, "theta": 1, "tdigest": 1, "moments": 1,
+                "group_distinct": 2}
 AGGS_HOST = {
     "kurtosis_quantity": "SELECT KURTOSIS(lo_quantity) FROM lineorder",
     "percentile": "SELECT PERCENTILE(lo_revenue, 99) FROM lineorder",
@@ -2164,11 +2248,11 @@ def run_aggs(args, table, cols, work) -> tuple:
     mx, cpu_mx = MeshQueryExecutor(), MeshQueryExecutor(device="cpu")
     launches = counts_of()
 
-    def checked(label, run, check, runs, trace=False, bitmap=0):
+    def checked(label, run, check, runs, trace=False, bitmap=0, grouped=0):
         """One cold run with the counts set to 0 just before and read just
         after (none of these plans launches a scan or a top-k; `bitmap`
-        bitmap_filter launches), held by `check`; then `runs` warm runs, each
-        held too."""
+        bitmap_filter and `grouped` grouped_agg launches), held by `check`;
+        then `runs` warm runs, each held too."""
         reset_launch_counts()
         kernels.reset_topk_launches()
         t0 = time.perf_counter()
@@ -2178,10 +2262,10 @@ def run_aggs(args, table, cols, work) -> tuple:
         counts, topk = launch_counts(), kernels.topk_launches()
         for k, v in counts.items():
             launches[k] += v
-        if counts != counts_of(bitmap_filter=bitmap) or topk:
+        if counts != counts_of(bitmap_filter=bitmap, grouped_agg=grouped) or topk:
             raise AssertionError(f"{label}: kernel launches {counts}, top-k {topk}; expected "
-                                 f"{counts_of(bitmap_filter=bitmap)}: the aggregation "
-                                 "library reaches no scan")
+                                 f"{counts_of(bitmap_filter=bitmap, grouped_agg=grouped)}: "
+                                 "the aggregation library reaches no scan")
         if not check(res.rows):
             raise AssertionError(f"{label}: got {res.rows[:12]}")
         fields = dict(answer=res.rows[:12], answer_rows=len(res.rows), cold_ms=cold_ms,
@@ -2216,12 +2300,13 @@ def run_aggs(args, table, cols, work) -> tuple:
         if set(seg_kinds) != {"device"} or set_plan.kind != "device":
             raise AssertionError(f"aggs {qid}: plans {seg_kinds} per segment, "
                                  f"{set_plan.kind} over the set; expected device")
-        for path, run, cpu_run in (
+        for path, run, cpu_run, passes in (
                 ("per_segment", lambda sql=sql: execute_query(table, sql),
-                 lambda sql=sql: execute_query(table, sql, device="cpu")),
+                 lambda sql=sql: execute_query(table, sql, device="cpu"), len(table)),
                 ("set", lambda sql=sql: mx.execute(table, sql),
-                 lambda sql=sql: cpu_mx.execute(table, sql))):
-            line, got = checked(f"aggs {qid} {path}", run, check, AGGS_DEVICE_RUNS, trace=True)
+                 lambda sql=sql: cpu_mx.execute(table, sql), 1)):
+            line, got = checked(f"aggs {qid} {path}", run, check, AGGS_DEVICE_RUNS, trace=True,
+                                grouped=AGGS_GROUPED[qid] * passes)
             if qid in AGGS_SKETCHES:
                 t0 = time.perf_counter()
                 on_cpu = cpu_run().rows
@@ -2267,11 +2352,12 @@ def run_aggs(args, table, cols, work) -> tuple:
     seg_kinds, _ = kinds(in_sql, table)
     if set(seg_kinds) != {"device"}:
         raise AssertionError(f"aggs in_id_set: plans {seg_kinds}")
-    # lo_quantity > 40 is a bitmap leaf beside the id-set LUT: one launch a mask
-    for path, run, bitmap in (("per_segment", lambda: execute_query(table, in_sql), len(table)),
+    # lo_quantity > 40 is a bitmap leaf beside the id-set LUT: one launch a
+    # mask; the GROUP BY one grouped_agg launch a pass
+    for path, run, passes in (("per_segment", lambda: execute_query(table, in_sql), len(table)),
                               ("set", lambda: mx.execute(table, in_sql), 1)):
         line, _ = checked(f"aggs in_id_set {path}", run, lambda rows: rows_match(rows, want),
-                          AGGS_DEVICE_RUNS, bitmap=bitmap)
+                          AGGS_DEVICE_RUNS, bitmap=passes, grouped=passes)
         log("aggs_query", query="in_id_set", path=path, plan_kind="device", rows=rows,
             id_set_values=len(want_ids), oracle=want, **line)
 
@@ -2321,15 +2407,17 @@ def run_aggs(args, table, cols, work) -> tuple:
             return [[len(np.unique(c["lo_region"][m])), int(m.sum())]]
         return [[len(np.unique(c["lo_suppkey"][m])), len(np.unique(c["lo_region"][m]))]]
 
-    # (query, path, its members, their rows, the plan kinds per member, and
-    # over the set: the set plan's kind, planned on the merged view)
+    # (query, path, its members, their rows, the plan kinds per member, over
+    # the set: the set plan's kind, planned on the merged view, and the
+    # grouped_agg launches: one a distinct output of a device pass, the host
+    # set plan's table segments each running theirs)
     consuming_runs = [
-        ("view_region", "view", [view], rt, ["device"], None),
+        ("view_region", "view", [view], rt, ["device"], None, 1),
         ("view_region", "mixed_set", members, both, ["device"] * len(members),
-         ("device", True)),
+         ("device", True), 1),
         ("mixed_suppkey", "mixed_set", members, both, ["device"] * len(table) + ["host"],
-         ("host", False))]
-    for qid, path, segs, c, want_kinds, want_set in consuming_runs:
+         ("host", False), 2 * len(table))]
+    for qid, path, segs, c, want_kinds, want_set, grouped in consuming_runs:
         sql, want = AGGS_CONSUMING[qid], consuming_oracle(qid, c)
         seg_kinds = kinds(sql, segs)[0]
         set_plan = None
@@ -2342,7 +2430,8 @@ def run_aggs(args, table, cols, work) -> tuple:
         run = (lambda sql=sql: execute_query(segs, sql)) if path == "view" else \
             (lambda sql=sql: mx.execute(segs, sql))
         line, _ = checked(f"aggs consuming {qid} {path}", run,
-                          lambda rows, want=want: rows == want, AGGS_DEVICE_RUNS)
+                          lambda rows, want=want: rows == want, AGGS_DEVICE_RUNS,
+                          grouped=grouped)
         log("aggs_consuming", query=qid, path=path, member_plan_kinds=sorted(set(seg_kinds)),
             set_plan_kind_merged_view=set_plan, rows=sum(s.num_docs for s in segs),
             pump_ms=pump_ms, oracle=want, **line)
@@ -2357,17 +2446,19 @@ def run_aggs(args, table, cols, work) -> tuple:
 
 
 def aggs_cases(table, mx) -> dict:
-    """The `distinct` op and the power sums alone, at the main path's shapes
-    (one segment; the stacked table) and masks (every row: the HLL query's;
-    Q1.1's filter from the path's own `filter_mask`: the DISTINCTCOUNT
-    query's), timed with CUDA events and L2 flushed, against the bound of
-    their bytes: each input read once (the int32 ids or values, the bool
-    mask, the int64 group key) and each output written once (int32 counts;
-    three f32 sums). `library_ms`: `torch.bincount` of the same masked ids,
-    one call that computes the same counts; `extra_bin_ms`: the same counts
-    with the masked rows sent to one extra bin (`index_add_` of ones)."""
+    """The `distinct` op and the power sums alone (both `grouped_agg` calls
+    since PR 15), at the main path's shapes (one segment; the stacked table)
+    and masks (every row: the HLL query's; Q1.1's filter from the path's own
+    `filter_mask`: the DISTINCTCOUNT query's), timed with CUDA events and L2
+    flushed, against the bound of their bytes: each input read once (the
+    int32 ids or values, the bool mask) and each output written once (int32
+    counts; three f32 sums). `library_ms`: `torch.bincount` of the same
+    masked ids, one call that computes the same counts; `extra_bin_ms`: the
+    same counts with the masked rows sent to one extra bin (`index_add_` of
+    ones)."""
     from pinot_tpu_torch.engine.datablock import block_for, lut_size
-    from pinot_tpu_torch.engine.kernels import _power_rows, distinct_counts, filter_mask
+    from pinot_tpu_torch.engine.grouped import grouped_agg
+    from pinot_tpu_torch.engine.kernels import distinct_counts, filter_mask
     from pinot_tpu_torch.query.context import compile_query
     from pinot_tpu_torch.query.executor import ServerQueryExecutor, kernel_spec
     from pinot_tpu_torch.query.planner import build_device_geometry, plan_segment
@@ -2391,7 +2482,8 @@ def aggs_cases(table, mx) -> dict:
     out = {}
     for shape, (ids_of, values_of, valid, q11) in shapes.items():
         n = valid.numel()
-        key = torch.where(valid, ids_of("lo_region").long(), 8)
+        region = ids_of("lo_region")
+        key = torch.where(valid, region.long(), 8)
         disc = values_of("lo_discount")
 
         def presence(col, mask):
@@ -2407,8 +2499,7 @@ def aggs_cases(table, mx) -> dict:
                     extra_bin, 5 * n + 4 * size, n)
 
         def power_sums():
-            return [torch.where(valid, _power_rows(disc, p), 0.0).sum().to(torch.float32)
-                    for p in (2, 3, 4)]
+            return grouped_agg([], [], valid, [disc] * 3, ["sum2", "sum3", "sum4"], 1)
 
         supp, size = ids_of("lo_suppkey"), sizes["lo_suppkey"]
         cases = {
@@ -2416,10 +2507,10 @@ def aggs_cases(table, mx) -> dict:
             "presence lo_suppkey, Q1.1 filter": presence("lo_suppkey", q11),
             "presence lo_discount, Q1.1 filter": presence("lo_discount", q11),
             "grouped lo_suppkey by lo_region": (
-                lambda: distinct_counts(valid, supp, size, key, 9),
+                lambda: distinct_counts(valid, supp, size, [region], [1], 9),
                 lambda: torch.bincount(key * size + supp.long(), minlength=9 * size),
-                None, 13 * n + 4 * 9 * size, 2 * n),
-            "power sums 2-4 lo_discount": (power_sums, None, None, 5 * n + 12, 10 * n),
+                None, 9 * n + 4 * 9 * size, 2 * n),
+            "power sums 2-4 lo_discount": (power_sums, None, None, 5 * n + 4 + 3 * 4, 10 * n),
         }
         for op, (fn, library, extra_bin, nbytes, ops) in cases.items():
             fn()
@@ -2680,12 +2771,12 @@ def run_index(args, plain_table, cols, work) -> tuple:
               "set": lambda segs, sql: mx.execute(segs, sql),
               "pipeline": served}
 
-    def checked(qid, sql, segs, want, bitmap_per_pass):
+    def checked(qid, sql, segs, want, bitmap_per_pass, grouped_per_pass=0):
         """Each route: one cold run with the counts set to 0 just before and
         read just after, held against the oracle and the expected launches (no
-        scan; `bitmap_per_pass` bitmap_filter launches for each segment's
-        pass, or for the set's one pass); INDEX_RUNS warm runs on the
-        per-segment and set routes."""
+        scan; `bitmap_per_pass` bitmap_filter and `grouped_per_pass`
+        grouped_agg launches for each segment's pass, or for the set's one
+        pass); INDEX_RUNS warm runs on the per-segment and set routes."""
         for route, run in routes.items():
             reset_launch_counts()
             t0 = time.perf_counter()
@@ -2697,9 +2788,11 @@ def run_index(args, plain_table, cols, work) -> tuple:
                 raise AssertionError(f"index {qid} ({route}): got {result.rows}, "
                                      f"oracle {want}")
             passes = len(segs) if route == "per_segment" else 1
-            if counts != counts_of(bitmap_filter=bitmap_per_pass * passes):
+            expect = counts_of(bitmap_filter=bitmap_per_pass * passes,
+                               grouped_agg=grouped_per_pass * passes)
+            if counts != expect:
                 raise AssertionError(f"index {qid} ({route}): launches {counts}, expected "
-                                     f"{counts_of(bitmap_filter=bitmap_per_pass * passes)}")
+                                     f"{expect}")
             for k, v in counts.items():
                 launches[k] += v
                 by_route.setdefault(route, {}).setdefault(k, 0)
@@ -2717,29 +2810,30 @@ def run_index(args, plain_table, cols, work) -> tuple:
 
     # one bitmap_filter launch a pass where the filter reads bitmap leaves:
     # the all-bitmap tree, the mixed tree's one bitmap leaf (lo_discount
-    # BETWEEN 1 AND 3 and lo_discount < 4 are denser than the cap)
+    # BETWEEN 1 AND 3 and lo_discount < 4 are denser than the cap); one
+    # grouped_agg launch a pass of a GROUP BY (a star plan's slot query over
+    # the record table, or the stacked record tables, included)
     # 1. STAR_QUERY from the small tree on every segment, beside phase 4's plain table
     ctx = compile_query(ssb.STAR_QUERY, schema)
     fits = [try_star_tree(ctx, s) for s in table]
     if any(p is None or p.tree.dims != ["lo_region", "lo_discount"] for p in fits):
         raise AssertionError("STAR_QUERY: not every segment's plan is a star plan on the "
                              "[lo_region, lo_discount] tree")
-    checked("star_query", ssb.STAR_QUERY, table, oracles["star_query"], 0)
+    checked("star_query", ssb.STAR_QUERY, table, oracles["star_query"], 0, 1)
     checked("star_query_plain_table", ssb.STAR_QUERY, plain_table, oracles["star_query"],
-            0)
+            0, 1)
     # 2. the high-cardinality tree: the stacked device star path over the set
     plan, _ = mx._plan_for_set(compile_query(INDEX_HC_QUERY, schema), table)
     if not isinstance(plan, combine.StarSetPlan):
         raise AssertionError(f"star_hc: the set plan is {type(plan).__name__}, not the "
                              "stacked device star path")
-    checked("star_hc", INDEX_HC_QUERY, table, oracles["star_hc"], 0)
+    checked("star_hc", INDEX_HC_QUERY, table, oracles["star_hc"], 0, 1)
     # 3. the all-bitmap tree; 4. a mixed tree
-    checked("all_bitmap", INDEX_BITMAP_QUERY, table, oracles["all_bitmap"],
-            1)
+    checked("all_bitmap", INDEX_BITMAP_QUERY, table, oracles["all_bitmap"], 1, 1)
     checked("mixed", INDEX_MIXED_QUERY, table, oracles["mixed"], 1)
     # 5. IN_ID_SET over the raw column (a doc-set leaf); 6. bloom-pruned EQ
     checked("in_id_set_raw", INDEX_IDSET_QUERY.format(literal), table,
-            oracles["in_id_set_raw"], 0)
+            oracles["in_id_set_raw"], 0, 1)
     pruned = INDEX_ABSENT_QUERY.format(pruned_key)
     ctx = compile_query(pruned, schema)
     kinds = [planner.plan_segment(ctx, s).kind for s in table]
@@ -3166,12 +3260,13 @@ def run_search(args, main_cols, for_table, work, jobs) -> tuple:
 
     try:
         # 1-2. JSON_MATCH; 3-5. TEXT_MATCH (the mixed tree's lo_discount = 2
-        # leaf is a bitmap leaf: one bitmap_filter launch a pass)
+        # leaf is a bitmap leaf: one bitmap_filter launch a pass; text_or's
+        # GROUP BY one grouped_agg launch a pass)
         for qid, sql in ssb.SEARCH_QUERIES.items():
             if qid in ("regexp_fst", "geo_distance"):
                 continue
-            both(qid, sql, answers[qid],
-                 counts_of(bitmap_filter=1) if qid == "text_mixed" else None)
+            both(qid, sql, answers[qid], counts_of(bitmap_filter=int(qid == "text_mixed"),
+                                                   grouped_agg=int(qid == "text_or")))
         # 6. REGEXP_LIKE through the FST index: the copy's LUT, fewer regex calls
         sql = ssb.SEARCH_QUERIES["regexp_fst"]
         luts = [plan_segment(compile_query(sql, schema), s[0]).filter_prog.leaves[0].lut
@@ -3256,8 +3351,13 @@ def run_search(args, main_cols, for_table, work, jobs) -> tuple:
         if qid == "text_or" and (plan, merged) != (None, None):
             raise AssertionError("text_or over the table and the view: the set did not take "
                                  "the per-segment pre-bail")
-        checked("view", qid, sql, [view], rt_answers[qid], counts_of())
-        checked("table_and_view", qid, sql, table + [view], both_answers[qid], counts_of())
+        # text_or's GROUP BY: one grouped_agg launch a pass; beside the table
+        # the set and the pipeline take the per-segment pre-bail, a pass a member
+        grouped = int(qid == "text_or")
+        checked("view", qid, sql, [view], rt_answers[qid], counts_of(grouped_agg=grouped))
+        checked("table_and_view", qid, sql, table + [view], both_answers[qid],
+                counts_of(grouped_agg=grouped),
+                counts_of(grouped_agg=grouped * (len(table) + 1)) if grouped else None)
         log("search_consuming", query=qid, view_rows=view.num_docs, pump_s=pump_s,
             set_plan="per-segment pre-bail" if plan is None else type(plan).__name__ + (
                 " (merged view)" if merged is not None else " (stacked)"))
@@ -3606,10 +3706,12 @@ UPSERT_SOURCE = ("Apache Pinot docs: Stream ingestion with Upsert (upsertConfig 
                  "Stream ingestion with Dedup (dedupEnabled)")
 # the checked runs' launches a committed segment, by query (the consuming
 # segment launches none): the scans carry the valid band, lo_discount = 2
-# (1/11 of the rows) is a bitmap leaf, the GROUP BY and the top-k reach no
-# kernel; the dedup table has no mask, and its Q1.1 takes the scan without the band
+# (1/11 of the rows) is a bitmap leaf, each GROUP BY one grouped_agg launch,
+# the top-k no kernel; the dedup table has no mask, and its Q1.1 takes the
+# scan without the band
 UPSERT_LAUNCHES = {"count": dict(masked_sums=1), "q1_1": dict(masked_sums=1),
-                   "for_sum": dict(masked_sums_fused=1), "bitmap_group": dict(bitmap_filter=1),
+                   "group": dict(grouped_agg=1), "for_sum": dict(masked_sums_fused=1),
+                   "bitmap_group": dict(bitmap_filter=1, grouped_agg=1),
                    "region_asia": dict(masked_sums=1)}
 UPSERT_TABLE_QUERIES = {
     "full": ("count", "q1_1", "group", "for_sum", "bitmap_group", "region_asia", "top_revenue"),
@@ -4308,7 +4410,7 @@ def run_batch(args, work, jobs) -> tuple:
         raise AssertionError(f"batch GAPFILL: {filled} of {len(gap)} cells filled, no gap rows")
     for label, run, per in (("gapfill per_segment", lambda: execute_query(table, BATCH_GAPFILL),
                              n), ("gapfill set", lambda: mx.execute(table, BATCH_GAPFILL), 1)):
-        checked(label, run, gap, counts_of(bitmap_filter=2 * per), table="csv",
+        checked(label, run, gap, counts_of(bitmap_filter=2 * per, grouped_agg=per), table="csv",
                 match=lambda r: gapfill_matches(r.rows, gap), rows_matched=matched,
                 cells_filled=filled, output_rows=len(gap), gap_rows=len(gap) - filled)
 
@@ -4381,13 +4483,335 @@ def run_batch(args, work, jobs) -> tuple:
     return launches, numbers
 
 
+# -- phase 16: groupby -----------------------------------------------------------------
+
+GROUPBY_RUNS = 5                 # warm runs of each query and path
+GROUPED_SYMBOL = "grouped_agg_kernel"
+GROUPED_SOURCE = ("pinot_tpu_torch/csrc/grouped_agg.cu",
+                  "pinot_tpu/engine/kernels.py:901 (the GROUP BY rungs, :901-947; "
+                  "_grouped_chunk64 :605, _grouped_sorted :705, _grouped_partitioned :732, "
+                  "_presence_2d :564)")
+GROUPED_LIBRARY_NOTE = ("library_ms: torch.bincount of the same masked keys, one call for "
+                        "the count and one, with f64 weights, for each sum (the power rows "
+                        "made before the timing); min and max have no such call (the plain "
+                        "version's scatter_reduce_ is the plain version), so a case with min "
+                        "or max times the count and sums only")
+# torch kernels that would show the plain body's index_add_, bincount or
+# scatter_reduce_ on the card
+GROUPBY_FORBIDDEN_OPS = ("indexFunc", "Histogram", "scatter_gather", "index_add", "bincount",
+                         "scatter_reduce")
+GROUPBY_ORDERDATE = ("SELECT lo_orderdate, COUNT(*), SUM(lo_revenue), MIN(lo_quantity), "
+                     "MAX(lo_extendedprice) FROM lineorder GROUP BY lo_orderdate "
+                     "ORDER BY lo_orderdate LIMIT 3000")
+GROUPBY_SUPPKEY = ("SELECT lo_suppkey, VAR_POP(lo_discount) FROM lineorder "
+                   "GROUP BY lo_suppkey ORDER BY lo_suppkey LIMIT 20000")
+GROUPBY_CUSTKEY = ("SELECT lo_custkey, SUM(lo_revenue) FROM lineorder "
+                   "GROUP BY lo_custkey ORDER BY lo_custkey LIMIT 500000")
+GROUPBY_DISTINCT = ("SELECT lo_region, DISTINCTCOUNT(lo_discount) FROM lineorder "
+                    "GROUP BY lo_region ORDER BY lo_region")
+GROUPBY_Q11_DISTINCT = f"SELECT DISTINCTCOUNT(lo_discount) FROM lineorder WHERE {Q11_WHERE}"
+
+
+def groupby_queries():
+    """(id, sql, grouped_agg launches a pass, per-segment warm runs): one
+    launch a GROUP BY pass, one more for a distinct output; lo_custkey's
+    per-segment run decodes ~490,000 state lists a segment, so its cold run
+    alone (as `group_trim`'s)."""
+    from pinot_tpu_torch.ssb import GROUP_QUERY
+    return [("region", GROUP_QUERY, 1, GROUPBY_RUNS),
+            ("orderdate", GROUPBY_ORDERDATE, 1, GROUPBY_RUNS),
+            ("suppkey_var", GROUPBY_SUPPKEY, 1, GROUPBY_RUNS),
+            ("custkey", GROUPBY_CUSTKEY, 1, 0),
+            ("region_distinct", GROUPBY_DISTINCT, 2, GROUPBY_RUNS),
+            ("q11_distinct", GROUPBY_Q11_DISTINCT, 1, GROUPBY_RUNS)]
+
+
+def groupby_oracles(c) -> dict:
+    """numpy float64 answers of `groupby_queries`: groups from a stable sort
+    or `np.bincount` over the key."""
+    order = np.argsort(c["lo_orderdate"], kind="stable")
+    od = c["lo_orderdate"][order]
+    starts = np.flatnonzero(np.r_[True, od[1:] != od[:-1]])
+    n = np.diff(np.r_[starts, len(od)])
+    rev = np.add.reduceat(c["lo_revenue"][order], starts)
+    qmin = np.minimum.reduceat(c["lo_quantity"][order], starts)
+    pmax = np.maximum.reduceat(c["lo_extendedprice"][order], starts)
+    out = {"region": oracle_group(c),
+           "orderdate": [[int(od[s]), int(k), float(r), int(q), float(p)]
+                         for s, k, r, q, p in zip(starts, n, rev, qmin, pmax)][:3000]}
+    k, d = c["lo_suppkey"], c["lo_discount"].astype(np.float64)
+    n, s1, s2 = np.bincount(k), np.bincount(k, d), np.bincount(k, d * d)
+    keys = np.flatnonzero(n)
+    var = s2[keys] / n[keys] - (s1[keys] / n[keys]) ** 2
+    out["suppkey_var"] = [[int(a), float(v)] for a, v in zip(keys, var)][:20000]
+    n, s = np.bincount(c["lo_custkey"]), np.bincount(c["lo_custkey"], c["lo_revenue"])
+    keys = np.flatnonzero(n)
+    out["custkey"] = [[int(a), float(v)] for a, v in zip(keys, s[keys])][:500000]
+    from pinot_tpu_torch.ssb import REGIONS
+    out["region_distinct"] = []
+    for r in sorted(REGIONS):
+        m = c["lo_region"] == r
+        if m.any():
+            out["region_distinct"].append([r, len(np.unique(c["lo_discount"][m]))])
+    out["q11_distinct"] = [[len(np.unique(c["lo_discount"][q11_mask(c)]))]]
+    return out
+
+
+def run_groupby(args, table, cols) -> tuple:
+    """Phase 16: the GROUP BY ladder over phase 4's table. Each query per
+    segment and over the set (a cold run held to its exact launches, then
+    warm runs), against numpy; lo_custkey's GROUP BY as two server partials
+    (4 segments each) through `prepare_partial` and through the pipeline,
+    each dense (`reduce.DensePartial`), merged and reduced equal to the
+    oracle and to the set's answer; `group_case` lines (the kernel against
+    its plain version at each rung); GROUP_QUERY per segment under the
+    profiler. Returns (launches of the checked runs, group_case numbers)."""
+    from pinot_tpu_torch import execute_query
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.planner import build_device_geometry
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.ssb import GROUP_QUERY
+
+    schema = table[0].schema
+    rows = sum(s.num_docs for s in table)
+    t0 = time.perf_counter()
+    oracles = groupby_oracles(cols)
+    log("groupby_data", rows=rows, segments=len(table), oracle_s=time.perf_counter() - t0)
+    mx = MeshQueryExecutor()
+    launches = counts_of()
+    set_answers = {}
+
+    def checked(label, run, want, expect, runs):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if counts != expect:
+            raise AssertionError(f"groupby {label}: launches {counts}, expected {expect}")
+        for k, v in counts.items():
+            launches[k] += v
+        if not rows_match(res.rows, want):
+            bad = next(i for i, (g, w) in enumerate(zip(res.rows, want))
+                       if not rows_match([g], [w])) if len(res.rows) == len(want) else None
+            raise AssertionError(f"groupby {label}: {len(res.rows)} rows against "
+                                 f"{len(want)}; first difference at {bad}")
+        fields = dict(answer=res.rows[:5], answer_rows=len(res.rows), launches=counts,
+                      cold_ms=cold_ms, cold_phase_ms=res.stats.get("phaseTimesMs"))
+        if runs:
+            warm, results = warm_times(run, runs=runs)
+            if any(not rows_match(r.rows, want) for r in results):
+                raise AssertionError(f"groupby {label}: a warm answer is off the oracle")
+            warm.pop("median_s")
+            fields.update(warm, warm_phase_median_ms={
+                k: statistics.median(r.stats["phaseTimesMs"][k] for r in results)
+                for k in res.stats["phaseTimesMs"]})
+        return fields, res.rows
+
+    for qid, sql, per_pass, seg_runs in groupby_queries():
+        want = oracles[qid]
+        for path, run, passes, runs in (
+                ("per_segment", lambda sql=sql: execute_query(table, sql), len(table),
+                 seg_runs),
+                ("set", lambda sql=sql: mx.execute(table, sql), 1, GROUPBY_RUNS)):
+            fields, got = checked(f"{qid} {path}", run, want,
+                                  counts_of(grouped_agg=per_pass * passes), runs)
+            if path == "set":
+                set_answers[qid] = got
+            log("groupby_query", query=qid, path=path, rows=rows, segments=len(table),
+                oracle=want[:5], **fields)
+
+    # lo_custkey's GROUP BY as two server partials of 4 segments each
+    ctx = compile_query(GROUPBY_CUSTKEY, schema)
+    aggs = [make_agg(f) for f in ctx.aggregations]
+    halves = [table[:len(table) // 2], table[len(table) // 2:]]
+    parts, numbers = [], []
+    for half in halves:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        p = mx.prepare_partial(ctx, half)
+        [(packed, finish, _)] = mx.dispatch_prepared([p])
+        host = finish(mx.fetch([packed])[0])[0]
+        t1 = time.perf_counter()
+        part = p.decode(host)
+        t2 = time.perf_counter()
+        counts = launch_counts()
+        if counts != counts_of(grouped_agg=1) or part.dense is None or part.groups:
+            raise AssertionError(f"groupby partial: launches {counts}, dense "
+                                 f"{part.dense is not None}, {len(part.groups)} state lists")
+        for k, v in counts.items():
+            launches[k] += v
+        plan, _ = mx._plan_for_set(ctx, half)
+        build_device_geometry(plan)
+        t3 = time.perf_counter()
+        as_dicts = mx._fallback._decode_group_partials(plan, host)
+        t4 = time.perf_counter()
+        numbers.append(dict(segments=len(half), keys=part.dense.num_keys_real,
+                            occupied=int((part.dense.counts > 0).sum()),
+                            dispatch_fetch_ms=(t1 - t0) * 1e3, dense_decode_ms=(t2 - t1) * 1e3,
+                            state_dict_decode_ms=(t4 - t3) * 1e3,
+                            state_dict_groups=len(as_dicts.groups)))
+        parts.append(part)
+    t0 = time.perf_counter()
+    merged = merge_segment_results(parts, aggs)
+    t1 = time.perf_counter()
+    got = reduce_to_result(ctx, merged, aggs, list(ctx.group_by)).rows
+    t2 = time.perf_counter()
+    if merged.dense is None or not rows_match(got, oracles["custkey"]) \
+            or not rows_match(got, set_answers["custkey"]):
+        raise AssertionError("groupby partials: the merged dense partials differ from the "
+                             "oracle or from the set's answer")
+    pipeline = DeviceQueryPipeline(mesh_exec=mx)
+    try:
+        t3 = time.perf_counter()
+        served = [pipeline.execute_partial(ctx, half) for half in halves]
+        t4 = time.perf_counter()
+    finally:
+        pipeline.stop()
+    if any(s.dense is None for s in served) or not rows_match(reduce_to_result(
+            ctx, merge_segment_results(served, aggs), aggs, list(ctx.group_by)).rows, got):
+        raise AssertionError("groupby partials: the pipeline's partials are not dense or "
+                             "reduce to another answer")
+    log("groupby_partial", query="custkey", partials=numbers, merge_ms=(t1 - t0) * 1e3,
+        reduce_ms=(t2 - t1) * 1e3, pipeline_partials_ms=(t4 - t3) * 1e3, dense=True,
+        equals_oracle=True, equals_set=True)
+
+    cases = group_cases(table, mx)
+    trace = trace_query(lambda: execute_query(table, GROUP_QUERY))
+    # the profiler was seen to drop ops from a short window: the kernel's
+    # events are logged beside the passes, and none at all fails
+    bad = [name for name in trace["op_counts"] if any(w in name for w in GROUPBY_FORBIDDEN_OPS)]
+    events = sum(n for name, n in trace["op_counts"].items() if GROUPED_SYMBOL in name)
+    if bad or not events:
+        raise AssertionError(f"groupby trace: ops {bad} on the card, {events} "
+                             f"{GROUPED_SYMBOL} events for {TRACED_RUNS * len(table)} passes")
+    log("groupby_trace", query="region", path="per_segment", grouped_agg_events=events,
+        passes=TRACED_RUNS * len(table), **trace)
+    return launches, cases
+
+
+def group_cases(table, mx) -> dict:
+    """`grouped_agg` against `grouped_agg_plain` on the card at each rung, at
+    the set's shapes (the stacked table; GROUP_QUERY per segment too): its
+    count exactly, int64 sums, min and max exactly, f32 sums within rel
+    2.5e-7 (one f32 ulp: the atomics add the f64 partials in an order of
+    their own). `ms` and `plain_ms` device time (graph replay, L2 flushed),
+    `call_ms` an eager call, `library_ms` torch.bincount (GROUPED_LIBRARY_NOTE);
+    the bound is the ids, mask and value rows read once and the cells
+    written once over the memory rate, against one f64 add a row and
+    output."""
+    from pinot_tpu_torch.engine import grouped
+    from pinot_tpu_torch.engine.datablock import block_for, lut_size
+    from pinot_tpu_torch.engine.kernels import filter_mask
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.executor import ServerQueryExecutor, kernel_spec
+    from pinot_tpu_torch.query.planner import build_device_geometry, plan_segment
+    from pinot_tpu_torch.ssb import GROUP_QUERY
+
+    dev = mx.device
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    seg, stacked = table[0], mx._block_for(table)
+
+    def plan_of(sql):
+        ctx = compile_query(sql, seg.schema)
+        plan = plan_segment(ctx, seg, peers=table[1:])
+        build_device_geometry(plan)
+        return ctx, plan
+
+    ctx, plan = plan_of(GROUP_QUERY)
+    spec = kernel_spec(plan)
+    block = block_for(seg, dev)
+    masks = {"one segment": filter_mask(spec, ServerQueryExecutor(dev)._kernel_inputs(
+        plan, spec, block)), "stacked set": filter_mask(spec, mx._set_inputs(
+            plan, spec, stacked, ctx))}
+    _, q11_plan = plan_of(GROUPBY_Q11_DISTINCT)
+    q11_spec = kernel_spec(q11_plan)
+    q11_mask = filter_mask(q11_spec, mx._set_inputs(q11_plan, q11_spec, stacked,
+                                                    compile_query(GROUPBY_Q11_DISTINCT,
+                                                                  seg.schema)))
+    ids = lambda c: stacked.ids(c).view(-1)           # noqa: E731
+    vals = lambda c: stacked.decoded(c).view(-1)      # noqa: E731
+    valid = stacked.valid.view(-1)
+    cells = {sql: plan_of(sql)[1].num_keys_pad + 1
+             for sql in (GROUP_QUERY, GROUPBY_ORDERDATE, GROUPBY_SUPPKEY, GROUPBY_CUSTKEY)}
+    size = lut_size(seg.column("lo_discount").cardinality)
+    rev = vals("lo_revenue")
+    disc = vals("lo_discount")
+    cases = [
+        # (case, group ids, strides, mask, value rows, ops, cells)
+        ("region, one segment", [block.ids("lo_region")], [1], masks["one segment"],
+         [block.values("lo_revenue")], ["sum"], cells[GROUP_QUERY]),
+        ("region, stacked set", [ids("lo_region")], [1], masks["stacked set"], [rev], ["sum"],
+         cells[GROUP_QUERY]),
+        ("orderdate, stacked set", [ids("lo_orderdate")], [1], valid,
+         [rev, vals("lo_quantity"), vals("lo_extendedprice")], ["sum", "min", "max"],
+         cells[GROUPBY_ORDERDATE]),
+        ("suppkey var_pop, stacked set", [ids("lo_suppkey")], [1], valid, [disc, disc],
+         ["isum", "sum2"], cells[GROUPBY_SUPPKEY]),
+        ("custkey, stacked set", [ids("lo_custkey")], [1], valid, [rev], ["sum"],
+         cells[GROUPBY_CUSTKEY]),
+        ("region distinct, stacked set", [ids("lo_region"), ids("lo_discount")], [size, 1],
+         valid, [], [], cells[GROUP_QUERY] * size),
+        ("q11 distinct, stacked set", [ids("lo_discount")], [1], q11_mask, [], [], size),
+    ]
+    out = {}
+    for case, gids, strides, mask, vrows, ops, num_cells in cases:
+        def kernel():
+            return grouped.grouped_agg(gids, strides, mask, vrows, ops, num_cells)
+
+        def plain():
+            return grouped.grouped_agg_plain(gids, strides, mask, vrows, ops, num_cells)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        max_abs_err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i and ops[i - 1] in ("sum", "sum2", "sum3", "sum4"):
+                g64, w64 = g.double(), w.double()
+                err = (g64 - w64).abs()
+                if bool((err > 2.5e-7 * w64.abs()).any()):
+                    raise AssertionError(f"group_case {case}: output {i} off the plain "
+                                         f"version by {float(err.max())}")
+                max_abs_err = max(max_abs_err, float(err.max()))
+            elif not torch.equal(g, w):
+                raise AssertionError(f"group_case {case}: output {i} differs from the plain "
+                                     "version's")
+        n = int(mask.numel())
+        key = sum(t.long() * s for t, s in zip(gids, strides))
+        masked_key = torch.where(mask, key, num_cells)
+        weights = [r.double() if op in ("sum", "isum") else
+                   grouped.power_rows(r, grouped.POWERS[op])
+                   for r, op in zip(vrows, ops) if op not in ("min", "max")]
+
+        def library():
+            outs = [torch.bincount(masked_key, minlength=num_cells + 1)]
+            return outs + [torch.bincount(masked_key, weights=w, minlength=num_cells + 1)
+                           for w in weights]
+        read = 4 * len(gids) * n + n + sum(
+            t.numel() * t.element_size() for t in {id(t): t for t in vrows}.values())
+        written = num_cells * (4 + sum(g.element_size() for g in got[1:]))
+        bms, by = roofline(read + written, n * (len(ops) + 1))
+        rung = grouped.rung_for(dev, vrows, ops, num_cells)[0]
+        numbers = dict(rung=rung, rows=n, cells=num_cells, ops=ops, kept=int(got[0].sum()),
+                       max_abs_err=max_abs_err, ms=graph_ms(kernel, flush),
+                       plain_ms=graph_ms(plain, flush), call_ms=time_ms(kernel, flush),
+                       library_ms=time_ms(library, flush), bound_ms=bms, bound_by=by)
+        numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+        log("group_case", case=case, **numbers)
+        out[case] = numbers
+    return out
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
     idle share, and the ops that took the most device time. The profiler was
     seen to drop ops from a window of one short run, so a trace covers several,
     and the count of scan kernel events it saw is given, to be held against
-    the launches those runs made."""
+    the launches those runs made; `op_counts` counts every device op by name."""
     spans, wall_s = _profiled(fn, runs)
     wall_us = wall_s * 1e6 / runs
     busy_us, cur_start, cur_end = 0.0, None, None
@@ -4398,16 +4822,18 @@ def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
         else:
             cur_end = max(cur_end, b)
     busy_us += 0.0 if cur_end is None else cur_end - cur_start
-    by_name = {}
+    by_name, op_counts = {}, {}
     for name, a, b in spans:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
+        op_counts[name[:80]] = op_counts.get(name[:80], 0) + 1
     busy_us /= runs
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"runs": runs, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": (1.0 - busy_us / wall_us) if spans else None,
             "device_events": len(spans),
             "scan_kernel_events": sum(KERNEL_SYMBOL in name for name, _, _ in spans),
-            "top_device_ms": {k[:60]: v / 1e3 / runs for k, v in top}}
+            "top_device_ms": {k[:60]: v / 1e3 / runs for k, v in top},
+            "op_counts": op_counts}
 
 
 def main() -> int:
@@ -4438,10 +4864,12 @@ def main() -> int:
 
     # phase 2: build (one nvcc per source, started together)
     t0 = time.perf_counter()
-    cuda_lib.build(["masked_sums", "bitmap_filter"])
+    cuda_lib.build(["masked_sums", "bitmap_filter", "grouped_agg"])
     log("build", seconds=time.perf_counter() - t0,
         ptxas=kernel_usage(cuda_lib.build_log("masked_sums")),
-        ptxas_bitmap_filter=bitmap_usage(cuda_lib.build_log("bitmap_filter")))
+        ptxas_bitmap_filter=bitmap_usage(cuda_lib.build_log("bitmap_filter")),
+        ptxas_grouped_agg=grouped_usage(cuda_lib.build_log("grouped_agg")),
+        sass_atomics_grouped_agg=grouped_sass())
 
     # phase 3: kernels against their plain versions, at the shapes of phases 4 and 5
     t0 = time.perf_counter()
@@ -4516,6 +4944,7 @@ def main() -> int:
         if not all(batch_launches.values()):
             raise AssertionError(f"the batch phase launches {batch_launches}: each kernel "
                                  "must run on its path")
+        groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -4533,7 +4962,7 @@ def main() -> int:
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
                 "index": index_launches[name], "search": search_launches[name],
                 "mv": mv_launches[name], "upsert": upsert_launches[name],
-                "batch": batch_launches[name]}
+                "batch": batch_launches[name], "groupby": groupby_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -4571,6 +5000,17 @@ def main() -> int:
                     "library_ms": None, "library_note": BITMAP_LIBRARY_NOTE,
                     "call_ms": head["call_ms"],
                     "shape_case": "bitmap_query, one segment, mask", "cases": bitmap_numbers})
+    head = group_numbers["region, one segment"]
+    by_path = launches_by_path("grouped_agg")
+    kernels.append({"name": "grouped_agg", "route": "cuda", "source": GROUPED_SOURCE[0],
+                    "replaces": GROUPED_SOURCE[1], "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "max_abs_err": max(c["max_abs_err"] for c in group_numbers.values()),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"], "library_note": GROUPED_LIBRARY_NOTE,
+                    "call_ms": head["call_ms"], "rung": head["rung"],
+                    "shape_case": "region, one segment", "cases": group_numbers})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE,
                       "mv_mask_cases": mv_numbers, "batch": batch_numbers}), flush=True)

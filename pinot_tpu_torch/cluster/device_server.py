@@ -143,7 +143,10 @@ class DeviceQueryPipeline:
 
     # -- caller side ------------------------------------------------------
     def execute_partial(self, ctx, segments: Sequence):
-        """Submit and wait; returns the set's SegmentResult partial. Raises what
+        """Submit and wait; returns the set's SegmentResult partial (a
+        high-cardinality group partial in array form, its `dense` set, where
+        the set executor gives one: `merge_segment_results` merges it and
+        `materialize_dense` turns it into the state dict). Raises what
         the pipeline raised for it, or TimeoutError after SUBMIT_TIMEOUT_S
         (or the query's `deadlineEpochMs` option, whichever comes first)."""
         item = _Item(ctx, list(segments))

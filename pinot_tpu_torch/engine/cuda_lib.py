@@ -90,10 +90,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def library_path(name: str) -> str:
+    """The built shared library of `csrc/<name>.cu` (built first if need be)."""
+    load(name)
+    return _so_path(name)
+
+
 def build_log(name: str) -> str:
     """nvcc's output from building `csrc/<name>.cu` (built first if need be)."""
-    load(name)
-    with open(f"{_so_path(name)}.log", encoding="utf-8", errors="replace") as f:
+    with open(f"{library_path(name)}.log", encoding="utf-8", errors="replace") as f:
         return f.read()
 
 

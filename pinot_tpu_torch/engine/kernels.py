@@ -1,4 +1,4 @@
-"""The plain-PyTorch aggregation body: filter mask + group key + partial aggregates.
+"""The aggregation body: filter mask + group key + partial aggregates.
 
 Counterpart of the scalar and group-by branches of `_make_body` in
 `pinot_tpu/engine/kernels.py`, with its count, sum, power-sum, min, max and
@@ -6,12 +6,30 @@ distinct outputs:
 
     mask     = filter_tree(id-interval compares | LUT lookups | value compares
                            | bitmap leaves | null bitmaps | doc sets) & valid
-    key      = sum(group_ids * strides)     (dense dict-id keys; masked rows go to the
-                                             overflow bucket `num_keys_pad`)
-    partials = bincount / index_add_ / scatter_reduce over key   (group-by)
-             | masked reductions                                 (scalar)
-    distinct = int32 index_add_ over dict ids (scalar: of the mask; grouped:
+    key      = sum(group_ids * strides)     (dense dict-id keys, in the kernel's
+                                             registers; masked rows add nothing)
+    partials = grouped_agg over key          (group-by: count, sums, power sums,
+                                              min, max in one call)
+             | masked reductions             (scalar count, f32 sum, min, max)
+             | grouped_agg with one key      (scalar power sums, one call)
+    distinct = grouped_agg, count only      (scalar: over the dict ids; grouped:
                                              over key * size + ids)
+
+`grouped_agg` (`engine/grouped.py`, `csrc/grouped_agg.cu` on a card) is the
+JAX package's GROUP BY regime ladder on the H100. Its rungs map so: the
+one-hot matmul (up to `matmul_cap`) and most of `_grouped_chunk64` become
+the shared rung (each block keeps private cells in shared memory, one copy
+per warp at a few dozen keys, then merges them once); `_grouped_chunk64`
+past shared memory, the `segment_sum` escape and the sort rungs
+`_grouped_sorted` / `_grouped_partitioned` become the global rung
+(warp-aggregated atomics into cells in device memory); the MIN/MAX
+broadcast-reduce and `segment_min`/`segment_max` are ops of the same call;
+`_presence_2d` and the grouped presence are its count-only form. The rung
+follows from whether a block's copy of the cells fits in shared memory, not
+from calibrated TPU caps. This is the JAX package's `run_kernel_staged`
+shape: the mask is its own pass (`filter_mask`: torch ops or
+`bitmap_filter`), and the aggregation reads it; the fused rung (an
+in-register dict decode) is not ported.
 
 A dictionary leaf over a multi-value column (`KernelSpec.mv_cols`) reads the
 column's [rows, W] id matrix and ORs its per-value mask across each row
@@ -33,14 +51,15 @@ sum, so that a star-tree's COUNT(*) slot, SUM($count), stays exact at any
 row count) and "{i}.sum2".."{i}.sum4" float32 (masked sums of the
 f32 argument's powers, accumulated in float64), "{i}.min" / "{i}.max" in the
 argument's dtype, and "{i}.distinct" int32 for aggregation i. Group-by
-outputs hold `num_keys_pad + 1` entries; a grouped distinct is
-`[num_keys_pad + 1, size]` per-dict-id row counts. The scalar distinct is
-`[size]`: the counts where the aggregation `wants_id_counts` (the t-digest),
-0/1 presence otherwise. `size` is `KernelSpec.distinct_lut_sizes[i]`, the padded LUT size
-of the argument's dictionary (`datablock.lut_size`), so that fill rows, whose
-id is the cardinality, land inside it. Integer counts are exact at any row
-count, so the JAX body's f32 guard and its scatter branch have no
-counterpart here.
+outputs hold `num_keys_pad + 1` entries; the cells past the real keys, the
+overflow cell `num_keys_pad` among them, stay 0 or the identity. A grouped
+distinct is `[num_keys_pad + 1, size]` per-dict-id row counts. The scalar
+distinct is `[size]`: the counts where the aggregation `wants_id_counts`
+(the t-digest), 0/1 presence otherwise. `size` is
+`KernelSpec.distinct_lut_sizes[i]`, the padded LUT size of the argument's
+dictionary (`datablock.lut_size`), so that fill rows, whose id is the
+cardinality, land inside it. Integer counts are exact at any row count, so
+the JAX body's f32 guard and its scatter branch have no counterpart here.
 
 Compare leaves and aggregate arguments are any device expression
 (`expr.eval_device`): CASE values mixing int32 and float32, math, trig and
@@ -48,9 +67,7 @@ calendar functions. A boolean argument (`SUM(a > b)`) aggregates as float32
 0/1, as the JAX body's does, and a constant one is broadcast to the rows.
 
 The scalar shapes that reduce to masked sums over id bands do not come here:
-the executor sends them to the CUDA scan kernels of `engine/scan.py`. The JAX
-package's group-by regime ladder (one-hot matmul, chunked matmul, sort-based)
-is not ported: group-by runs in the one regime above.
+the executor sends them to the CUDA scan kernels of `engine/scan.py`.
 
 `topk` is the fused filter + top-k of a selection's `ORDER BY <column> LIMIT
 k`, the counterpart of `topk_kernel`: it picks candidate rows on the device so
@@ -74,12 +91,11 @@ from ..query.predicate import CmpLeaf, DocSetLeaf, FilterProgram, LutLeaf, NullL
 from ..sql.ast import Identifier
 from .bitmap import BitmapLeaf, bitmap_filter, pack_valid, word_program
 from .expr import eval_device
+from .grouped import grouped_agg
 
 _INT_MIN_IDENT = (1 << 31) - 1   # identity for a masked-out min over int32
 _INT_MAX_IDENT = -(1 << 31)      # identity for a masked-out max over int32
 
-# kernel outputs that are masked sums of integer powers of the argument
-POWER_SUMS = {"sum": 1, "sum2": 2, "sum3": 3, "sum4": 4}
 
 
 @dataclass
@@ -276,79 +292,73 @@ def as_rows(v, n: int, device) -> torch.Tensor:
     return v.to(torch.float32) if v.dtype == torch.bool else v
 
 
-def _power_rows(v: torch.Tensor, p: int) -> torch.Tensor:
-    """The f32 argument raised to `p`, in float64 by multiplications (each
-    rounded once, as IEEE requires), so that the card and the CPU build the
-    same rows."""
-    x = v.to(torch.float32).to(torch.float64)
-    x2 = x * x
-    return {2: x2, 3: x2 * x, 4: x2 * x2}[p]
+def _kernel_rows(v: torch.Tensor) -> torch.Tensor:
+    """An argument's rows as `grouped_agg` takes them: contiguous, in one of
+    f32, f64, int32 or int64 (narrower integers widen to int32, half floats
+    to f32)."""
+    if v.dtype not in (torch.float32, torch.float64, torch.int32, torch.int64):
+        v = v.to(torch.float32 if v.dtype.is_floating_point else torch.int32)
+    return v.contiguous()
+
+
+def _group_op(o: str, v: torch.Tensor) -> Optional[str]:
+    """`grouped_agg`'s op for device output `o` of an argument `v` (None for
+    the count, which every call gives)."""
+    if o == "sum":
+        return "sum" if v.dtype.is_floating_point else "isum"
+    return o if o in ("sum2", "sum3", "sum4", "min", "max") else None
 
 
 def distinct_counts(mask: torch.Tensor, ids: torch.Tensor, size: int,
-                    key: torch.Tensor = None, num_seg: int = 1) -> torch.Tensor:
-    """int32 row counts per dict id of the rows `mask` keeps: `[size]`, or with
-    a group `key` (masked rows already at the overflow key) `[num_seg, size]`
-    over the combined space `key * size + ids`. The scalar form adds the mask
-    (0 or 1) at each row's own id, so that the filtered-out rows, most rows
-    under a selective filter, spread over the ids instead of meeting in one
-    bin. Integer `index_add_` into a fixed number of bins: exact at any row
-    count, and nothing waits for the card (`torch.bincount` reads its
-    input's min and max back to the host on CUDA; boolean indexing would too)."""
-    ids = ids.long()
-    if key is None:
-        counts = torch.zeros(size, dtype=torch.int32, device=ids.device)
-        return counts.index_add_(0, ids, mask.to(torch.int32))
-    rows = key * size + ids
-    counts = torch.zeros(num_seg * size, dtype=torch.int32, device=ids.device)
-    counts.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
-    return counts.view(num_seg, size)
+                    group_ids: Sequence[torch.Tensor] = (), strides: Sequence[int] = (),
+                    num_seg: int = 1) -> torch.Tensor:
+    """int32 row counts per dict id of the rows `mask` keeps: `[size]`, or
+    with group columns (`group_ids`, `strides`: the dense key) `[num_seg,
+    size]` over the combined space `key * size + ids`: one count-only
+    `grouped_agg` call, whose key is computed in the kernel's registers.
+    Dropped rows add nothing, so that the filtered-out rows, most rows under
+    a selective filter, meet in no bin; nothing waits for the card."""
+    cells = grouped_agg(list(group_ids) + [ids.contiguous()],
+                        [int(s) * size for s in strides] + [1], mask.contiguous(), [], [],
+                        num_seg * size)[0]
+    return cells.view(num_seg, size) if group_ids else cells
 
 
 def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor]:
-    """Filter + aggregate one segment; returns the named device outputs."""
-    mask = filter_mask(spec, inputs)
+    """Filter + aggregate one segment (or a flattened stacked set); returns
+    the named device outputs. This is the JAX package's `run_kernel_staged`
+    shape: the mask is its own pass (`filter_mask`), which `grouped_agg`
+    then reads."""
+    mask = filter_mask(spec, inputs).contiguous()
     n, device = mask.shape[0], mask.device
     out: Dict[str, torch.Tensor] = {}
     if spec.group_cols:
-        num_seg = spec.num_keys_pad + 1  # +1 overflow bucket for masked-out rows
-        key = torch.zeros_like(inputs.ids[spec.group_cols[0]])
-        for gi, gc in enumerate(spec.group_cols):
-            key = key + inputs.ids[gc] * inputs.strides[gi]
-        key = torch.where(mask, key, spec.num_keys_pad).long()
-        out["count"] = torch.bincount(key, minlength=num_seg).to(torch.int32)
+        num_seg = spec.num_keys_pad + 1
+        group_ids = [inputs.ids[gc].contiguous() for gc in spec.group_cols]
+        strides = [int(s) for s in inputs.strides]
+        names, vals, ops = [], [], []
         for ai, (agg, outs) in enumerate(spec.aggs):
             if "distinct" in outs:
                 out[f"{ai}.distinct"] = distinct_counts(
-                    mask, inputs.ids[agg.arg.name], spec.distinct_lut_sizes[ai], key, num_seg)
+                    mask, inputs.ids[agg.arg.name], spec.distinct_lut_sizes[ai],
+                    group_ids, strides, num_seg)
                 continue
             v = _agg_rows(agg, inputs.vals, n, device)
             for o in outs:
-                if o == "sum" and not v.dtype.is_floating_point:
-                    # an integer argument: exact int64 sums
-                    acc = torch.zeros(num_seg, dtype=torch.int64, device=device)
-                    acc.index_add_(0, key, v.to(torch.int64))
-                    out[f"{ai}.sum"] = acc.to(torch.float64)
-                elif o in POWER_SUMS:
-                    # sums of the rows (sum2..sum4: the f32 argument's powers),
-                    # accumulated in f64: index_add_ adds one row at a time
-                    # into each bucket
-                    rows = v.to(torch.float64) if o == "sum" else _power_rows(v, POWER_SUMS[o])
-                    acc = torch.zeros(num_seg, dtype=torch.float64, device=device)
-                    acc.index_add_(0, key, rows)
-                    out[f"{ai}.{o}"] = acc.to(torch.float32)
-                elif o in ("min", "max"):
-                    is_min = o == "min"
-                    if v.dtype.is_floating_point:
-                        ident = float("inf") if is_min else float("-inf")
-                    else:
-                        ident = _INT_MIN_IDENT if is_min else _INT_MAX_IDENT
-                    cells = torch.full((num_seg,), ident, dtype=v.dtype, device=device)
-                    out[f"{ai}.{o}"] = cells.scatter_reduce_(
-                        0, key, v, reduce="amin" if is_min else "amax")
+                op = None if v is None else _group_op(o, v)
+                if op is not None:
+                    names.append(f"{ai}.{o}")
+                    vals.append(_kernel_rows(v))
+                    ops.append(op)
+        # one call for the count and every sum, power sum, min and max
+        res = grouped_agg(group_ids, strides, mask, vals, ops, num_seg)
+        out["count"] = res[0]
+        for name, op, r in zip(names, ops, res[1:]):
+            out[name] = r.to(torch.float64) if op == "isum" else r
     else:
         fmask = mask.to(torch.float32)
         out["count"] = mask.sum(dtype=torch.int32)
+        names, vals, ops = [], [], []
         for ai, (agg, outs) in enumerate(spec.aggs):
             if "distinct" in outs:
                 counts = distinct_counts(mask, inputs.ids[agg.arg.name],
@@ -365,15 +375,21 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
                         torch.float64)
                 elif o == "sum":
                     out[f"{ai}.sum"] = (v.to(torch.float32) * fmask).sum()
-                elif o in POWER_SUMS:
-                    rows = _power_rows(v, POWER_SUMS[o])
-                    out[f"{ai}.{o}"] = torch.where(mask, rows, 0.0).sum().to(torch.float32)
+                elif o in ("sum2", "sum3", "sum4"):
+                    names.append(f"{ai}.{o}")
+                    vals.append(_kernel_rows(v))
+                    ops.append(o)
                 elif o == "min":
                     ident = float("inf") if v.dtype.is_floating_point else _INT_MIN_IDENT
                     out[f"{ai}.min"] = torch.where(mask, v, ident).min()
                 elif o == "max":
                     ident = float("-inf") if v.dtype.is_floating_point else _INT_MAX_IDENT
                     out[f"{ai}.max"] = torch.where(mask, v, ident).max()
+        if ops:
+            # every power sum of the plan in one call, all rows on one key
+            res = grouped_agg([], [], mask, vals, ops, 1)
+            for name, r in zip(names, res[1:]):
+                out[name] = r[0]
     return out
 
 

@@ -76,9 +76,14 @@ treats it: a set this path runs (a device plan, a stacked star set) answers
 the query, the flag unread, and so does the pipeline's partial; a set it
 hands to the per-segment executor answers the EXPLAIN there.
 
+A group-by server partial (`prepare_partial`) of at least
+`executor.DENSE_PARTIAL_MIN_GROUPS` keys over aligned dictionaries, whose
+aggregations all finalize from dense arrays, stays in array form: the
+decode returns `reduce.DensePartial` (`executor._decode_dense_partial`), as
+the JAX package's does, and any other group partial is a state dict.
+
 Not executed here, raising NotImplementedError: a scan over more than
-INT32_MAX rows. A group-by partial is a state dict, not
-the JAX package's array-form `DensePartial`. A plan that needs no scan
+INT32_MAX rows. A plan that needs no scan
 (metadata, pruned) or that the planner marks host is answered by the
 per-segment `ServerQueryExecutor`, as in the JAX package.
 """
@@ -522,8 +527,8 @@ class MeshQueryExecutor:
                          view: Optional[MergedSegmentView], t0: float) -> ResultTable:
         """One query through the set path, with its host phases in
         `stats["phaseTimesMs"]`: compile (SQL and the set's plan), prepare
-        (inputs), dispatch (launches; the plain body's `bincount` waits for
-        the card), fetch (waits for the card, then one copy), reduce."""
+        (inputs), dispatch (launches), fetch (waits for the card, then one
+        copy), reduce."""
         t1 = time.perf_counter()
         p = self._prepare_star(ctx, plan, partial=False) if isinstance(plan, StarSetPlan) \
             else self._prepare_sharded(ctx, plan, segments, view, partial=False)
@@ -826,6 +831,12 @@ class MeshQueryExecutor:
                     dense = try_dense_decode(ctx, plan, outs)
                     if dense is not None:
                         return dense
+                if partial and star is None:
+                    # a high-cardinality server partial keeps the kernel's
+                    # arrays (reduce.DensePartial) instead of state dicts
+                    dense_partial = self._fallback._decode_dense_partial(plan, outs)
+                    if dense_partial is not None:
+                        return dense_partial
                 # an ORDER BY trim is exact for a full result only: a server
                 # partial stays whole, since the broker merges every server's
                 # groups before it orders them; slot states are trimmed by

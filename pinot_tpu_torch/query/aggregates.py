@@ -729,7 +729,7 @@ class ModeAgg(AggFunc):
 # SkewnessAggregationFunction / FourthMomentAggregationFunction) -------------
 # States are tuples of raw power sums (n, Σx, Σx², ...): exactly mergeable
 # across segments and computable on the device as masked sums of powers
-# (`engine.kernels.POWER_SUMS`), the counterpart of the reference's
+# (`engine.grouped.grouped_agg`'s sum2..sum4), the counterpart of the reference's
 # PinotFourthMoment combine. Central moments are derived only at finalize.
 
 class MomentAgg(AggFunc):

@@ -100,11 +100,12 @@ from ..upsert import ValidDocs
 from . import stats as qstats
 from .aggregates import make_agg
 from .context import QueryContext, QueryValidationError, compile_query
+from .dense_reduce import _dense_capable
 from .explain import analyze_result, explain_result
 from .planner import (SegmentPlan, build_device_geometry, plan_segment,
                       select_bitmap_leaves, topk_key_exact_in_f32, topk_order_key_device_ok)
 from .predicate import CmpLeaf, DocSetLeaf, LutLeaf, NullLeaf
-from .reduce import SegmentResult, merge_segment_results, reduce_to_result
+from .reduce import DensePartial, SegmentResult, merge_segment_results, reduce_to_result
 from .result import ResultTable
 from .startree_exec import StarTreePlan, reassemble, try_star_tree
 
@@ -112,6 +113,11 @@ from .startree_exec import StarTreePlan, reassemble, try_star_tree
 #: ANALYZE (prefix-matched against the plan nodes' labels)
 _PLAN_OP_LABELS = {"empty": "PRUNED", "metadata": "METADATA_ONLY_AGGREGATE",
                    "selection": "SELECT", "device": "DEVICE_FUSED", "host": "HOST"}
+
+#: below this dense key count the state-dict partial is cheap enough that the
+#: array form (`reduce.DensePartial`, which carries whole dictionaries) only
+#: adds weight
+DENSE_PARTIAL_MIN_GROUPS = 4096
 
 MAX_DEVICE_TOPK = 65536   # the largest OFFSET + LIMIT the device top-k takes
 # candidates beyond k, so that f32 ties at the k-th key cannot evict a true
@@ -396,6 +402,36 @@ class ServerQueryExecutor:
                 states.append(agg.state_from_device(o))
             result.groups[tuple(keys[row])] = states
         return result
+
+    def _decode_dense_partial(self, plan: SegmentPlan, outs) -> Optional[SegmentResult]:
+        """A server partial in array form (`reduce.DensePartial`), with no
+        per-group state loop; None where the state dict is the answer: fewer
+        than DENSE_PARTIAL_MIN_GROUPS keys, an aggregation without
+        `dense_values` or with a `distinct` output, or a group column
+        without a `dictHash` (nothing proves that servers' keys align)."""
+        if plan.num_keys_real < DENSE_PARTIAL_MIN_GROUPS:
+            return None
+        if not all(_dense_capable(a) for a in plan.aggs) \
+                or any("distinct" in a.device_outputs for a in plan.aggs):
+            return None
+        seg = plan.segment
+        dict_hashes = []
+        for col in plan.group_cols:
+            h = seg.column(col).meta.get("dictHash")
+            if h is None:
+                return None
+            dict_hashes.append(h)
+        real = plan.num_keys_real
+        counts = np.asarray(outs["count"][:real]).astype(np.int64)
+        dp_outs = {f"{i}.{o}": np.asarray(outs[f"{i}.{o}"][:real])
+                   for i, agg in enumerate(plan.aggs) for o in agg.device_outputs
+                   if o != "count"}
+        group_values = [seg.column(col).dictionary.take(np.arange(plan.cards[j], dtype=np.int64))
+                        for j, col in enumerate(plan.group_cols)]
+        token = (tuple(plan.group_cols), tuple(plan.cards), tuple(dict_hashes), real)
+        dp = DensePartial(token, tuple(plan.cards), tuple(plan.strides), real, counts,
+                          dp_outs, group_values, aggs=plan.aggs)
+        return SegmentResult("groups", dense=dp, num_docs_scanned=int(counts.sum()))
 
     # -- host aggregation ---------------------------------------------------
     def _host_aggregate(self, plan: SegmentPlan) -> SegmentResult:

@@ -6,8 +6,16 @@ selection partials and the final reduce. Group keys are decoded to values
 before leaving a segment, so partials merge whatever each segment's
 dictionaries are. A selection partial carries its rows with their exact sort
 keys, and the reduce re-sorts the merged rows (`_sort_key`, a stable sort, so
-rows with equal keys keep their merge order) before OFFSET and LIMIT. The
-array-form `DensePartial` and GAPFILL are not ported.
+rows with equal keys keep their merge order) before OFFSET and LIMIT.
+
+A high-cardinality server partial over aligned dictionaries stays in array
+form (`DensePartial`: the kernel's dense count and output arrays, keyed by a
+token of the group columns, cardinalities, dictionary hashes and key count):
+partials with one token merge elementwise, and the reduce finalizes them
+vectorized over the occupied keys (`AggFunc.dense_values`). A consumer that
+needs the dict form (a mix with dict partials, another token) calls
+`SegmentResult.materialize_dense` first. GAPFILL re-buckets the reduced rows
+(`_apply_gapfill`).
 """
 
 from __future__ import annotations
@@ -25,6 +33,39 @@ from .result import ResultTable
 
 
 @dataclass
+class DensePartial:
+    """A group-by partial in array form over an aligned dense key space.
+
+    At high cardinality the dict-of-states partial is the bottleneck:
+    building (and merging) 500,000 Python state lists costs seconds while the
+    kernel runs in milliseconds. When every aggregation is dense-finalizable
+    and the servers share aligned dictionaries (equal `token`), partials stay
+    as the kernel's dense output arrays end to end: merge is elementwise
+    (+ / min / max) and the reduce finalizes vectorized (reference contrast:
+    GroupByDataTableReducer's IndexedTable hash merge)."""
+
+    token: Tuple                  # (group cols, cards, dict hashes, num_keys)
+    cards: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    num_keys_real: int
+    counts: np.ndarray            # int64[num_keys_real] (exact, mergeable by +)
+    outs: Dict[str, np.ndarray]   # "<agg idx>.<out>" arrays, trimmed to real keys
+    group_values: List[Any]       # per group col: the full dictionary value table
+    # lets a consumer materialize state dicts without replanning
+    aggs: Optional[List[AggFunc]] = None
+
+    def merge_from(self, other: "DensePartial") -> None:
+        self.counts = self.counts + other.counts
+        for k, v in other.outs.items():
+            if k.endswith(".min"):
+                self.outs[k] = np.minimum(self.outs[k], v)
+            elif k.endswith(".max"):
+                self.outs[k] = np.maximum(self.outs[k], v)
+            else:
+                self.outs[k] = self.outs[k] + v
+
+
+@dataclass
 class SegmentResult:
     """Partial result of one segment (reference: IntermediateResultsBlock)."""
 
@@ -37,6 +78,34 @@ class SegmentResult:
     # selection: an ORDER BY answered by the exact path (every match gathered
     # on the host) instead of the device top-k
     topk_exact: bool = False
+    # a high-cardinality array-form partial; when set, `groups` is empty
+    # until `materialize_dense` converts it (consumers of the dict form call it)
+    dense: Optional[DensePartial] = None
+
+    def materialize_dense(self, aggs: Optional[List[AggFunc]] = None) -> None:
+        """Turn the array-form partial into the state dict (for a merge with
+        dict partials or another token)."""
+        dp = self.dense
+        if dp is None:
+            return
+        use_aggs = aggs if aggs is not None else dp.aggs
+        if use_aggs is None:
+            raise ValueError("a dense partial needs its aggregations to materialize")
+        occupied = np.nonzero(dp.counts > 0)[0]
+        value_cols = [np.asarray(dp.group_values[j])[(occupied // dp.strides[j])
+                                                     % max(dp.cards[j], 1)]
+                      for j in range(len(dp.strides))]
+        keys = list(zip(*[c.tolist() for c in value_cols])) if len(occupied) else []
+        for row, k in enumerate(occupied):
+            states = []
+            for i, agg in enumerate(use_aggs):
+                o = {"count": int(dp.counts[k])}
+                for out_name in agg.device_outputs:
+                    if out_name != "count":
+                        o[out_name] = dp.outs[f"{i}.{out_name}"][k]
+                states.append(agg.state_from_device(o))
+            self.groups[keys[row]] = states
+        self.dense = None
 
 
 def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> SegmentResult:
@@ -47,6 +116,22 @@ def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> 
     out = SegmentResult(kind)
     out.num_docs_scanned = sum(r.num_docs_scanned for r in results)
     if kind == "groups":
+        denses = [r.dense for r in results]
+        if all(d is not None for d in denses) and len({d.token for d in denses}) == 1:
+            # servers with aligned dictionaries agree on dense keys: their
+            # partials combine elementwise, with no state dict built
+            base = denses[0]
+            acc = DensePartial(base.token, base.cards, base.strides, base.num_keys_real,
+                               base.counts.astype(np.int64, copy=True),
+                               {k: v.copy() for k, v in base.outs.items()},
+                               base.group_values, aggs=base.aggs)
+            for d in denses[1:]:
+                acc.merge_from(d)
+            out.dense = acc
+            return out
+        for r in results:
+            # mixed dense and dict partials, or other tokens: densify here
+            r.materialize_dense(aggs)
         merged: Dict[Tuple, List[Any]] = {}
         for r in results:
             for key, states in r.groups.items():
@@ -89,7 +174,29 @@ def reduce_to_result(ctx: QueryContext, merged: SegmentResult, aggs: List[AggFun
     if merged.kind == "selection":
         return _reduce_selection(ctx, merged)
     env: Dict[str, np.ndarray] = {}
-    if merged.kind == "groups":
+    if merged.kind == "groups" and merged.dense is not None:
+        # an array-form partial: finalize vectorized over the occupied keys
+        # (each aggregation's dense_values, a dictionary take per group
+        # column) instead of the per-group state loop below
+        dp = merged.dense
+        occupied = np.nonzero(dp.counts > 0)[0]
+        n = len(occupied)
+        counts_occ = dp.counts[occupied]
+        for j, g in enumerate(group_exprs):
+            ids_j = (occupied // dp.strides[j]) % max(dp.cards[j], 1)
+            env[repr(g)] = _object_array(np.asarray(dp.group_values[j])[ids_j].tolist())
+        for i, call in enumerate(ctx.aggregations):
+            def get(name, i=i):
+                return counts_occ if name == "count" else dp.outs[f"{i}.{name}"][occupied]
+
+            vals = np.asarray(aggs[i].dense_values(get, counts_occ))
+            cells = _object_array(vals.tolist())
+            if aggs[i].dense_nan_is_null and vals.dtype.kind == "f":
+                # where the dense form gives NaN, `finalize` gives None
+                for bad in np.nonzero(vals != vals)[0]:
+                    cells[bad] = None
+            env[repr(call)] = cells
+    elif merged.kind == "groups":
         keys = list(merged.groups.keys())
         n = len(keys)
         for j, g in enumerate(group_exprs):

@@ -613,10 +613,12 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
@@ -641,6 +643,11 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     launches, cases = chip_smoke.run_aggs(Args(), table, cols, str(tmp_path))
     # the IN_ID_SET query's lo_quantity > 40 leaf (one mask per segment, one
     # over the set) and the join's supplier leaf read the bitmap index
-    assert launches == {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 10}
+    # grouped_agg: one a distinct output and a plan's power sums a pass (per
+    # segment and over the set: 72), the IN_ID_SET GROUP BY (9), the consuming
+    # view's distinct alone (1), on the merged view (1), and the host set
+    # plan's 8 device segments with 2 distinct outputs each (16)
+    assert launches == {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 10,
+                        "grouped_agg": 99}
     assert {k.rsplit(", ", 1)[1] for k in cases} == {"one segment", "stacked set"}
     assert all(c["bound_by"] == "bytes" and c["bound_ms"] > 0 for c in cases.values())

@@ -428,10 +428,12 @@ def test_the_smoke_batch_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(executor_mod, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(combine_mod, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
@@ -454,8 +456,11 @@ def test_the_smoke_batch_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     # format tables (the Protobuf one holds lo_quantity raw: the plain body),
     # EXPLAIN ANALYZE (4), Q1.1 over the preprocessed copies (4); the FOR sum;
     # bitmap_filter: GAPFILL's two leaves per segment (8) and over the set
-    # (2), the region band (one all-bitmap mask a segment: 4)
-    assert launches == {"masked_sums": 16, "masked_sums_fused": 1, "bitmap_filter": 14}
+    # (2), the region band (one all-bitmap mask a segment: 4); grouped_agg:
+    # GAPFILL's GROUP BY per segment (4) and over the set (1), GROUP_QUERY and
+    # the region band over the preprocessed copies (4 each)
+    assert launches == {"masked_sums": 16, "masked_sums_fused": 1, "bitmap_filter": 14,
+                        "grouped_agg": 13}
     assert numbers["ingest"]["aligned"] and numbers["ingest"]["segments"] == 4
     assert sorted(numbers["readers"]) == ["avro", "csv", "json", "pb", "thrift"]
     assert [r[0] for r in numbers["analyze_rows"]][:3] == [

@@ -423,10 +423,12 @@ def test_the_smoke_expr_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
@@ -450,7 +452,11 @@ def test_the_smoke_expr_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     class Args:
         seed, trace = SEED, False
     launches, case = chip_smoke.run_expr(Args(), table, cols, str(tmp_path))
-    assert launches == {"expr": {"masked_sums": 9, "masked_sums_fused": 0, "bitmap_filter": 0},
-                        "host": {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}}
+    # grouped_agg: group_math's GROUP BY per segment (8) and over the set (1),
+    # the GROUP BY over the table beside the consuming segment (1)
+    assert launches == {"expr": {"masked_sums": 9, "masked_sums_fused": 0, "bitmap_filter": 0,
+                                 "grouped_agg": 10},
+                        "host": {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+                                 "grouped_agg": 0}}
     m = cols["lo_quantity"][:table[0].num_docs] < 25
     assert case["rows"] == table[0].num_docs and case["count"] == int(m.sum())

@@ -481,10 +481,12 @@ def test_the_smoke_index_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     for module in (executor, combine):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):

@@ -111,7 +111,8 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "segment/indexes/geo.py", "upsert.py", "segment/mutable.py",
                    "query/explain.py", "query/lookup.py", "ingest/readers.py",
                    "ingest/avro.py", "ingest/thriftfmt.py", "ingest/proto.py",
-                   "ingest/batch.py", "ingest/dataframe.py", "segment/preprocess.py"):
+                   "ingest/batch.py", "ingest/dataframe.py", "segment/preprocess.py",
+                   "engine/grouped.py", "query/reduce.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 
@@ -317,6 +318,53 @@ def test_subprocess_set_executor_and_pipeline_never_load_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert out.stdout.splitlines()[-2] == "1", out.stdout   # the stacked top-k ran
+
+
+def test_subprocess_high_cardinality_group_by_and_dense_partial_never_load_jax(tmp_path):
+    """A GROUP BY over 6,000 keys per segment, over the set, and as a server
+    partial through the pipeline (the array-form DensePartial), merged and
+    reduced, in a fresh interpreter without JAX."""
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import execute_query
+        from pinot_tpu_torch.cluster import DeviceQueryPipeline
+        from pinot_tpu_torch.parallel import MeshQueryExecutor
+        from pinot_tpu_torch.query.aggregates import make_agg
+        from pinot_tpu_torch.query.context import compile_query
+        from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+        from pinot_tpu_torch.schema import DataType, Schema, dimension, metric
+        from pinot_tpu_torch.segment import load_segment
+        from pinot_tpu_torch.segment.writer import build_aligned_segments
+        rng = np.random.default_rng(3)
+        k = np.concatenate([np.arange(6000), rng.integers(0, 6000, 14000)]).astype(np.int32)
+        schema = Schema("t", [dimension("k", DataType.INT), metric("q", DataType.INT)])
+        segs = [load_segment(p) for p in build_aligned_segments(
+            schema, {{"k": k, "q": (k % 7).astype(np.int32)}}, {str(tmp_path)!r}, "t", 4)]
+        sql = "SELECT k, COUNT(*), SUM(q), MAX(q) FROM t GROUP BY k ORDER BY k LIMIT 100000"
+        a = execute_query(segs, sql, device="cpu").rows
+        mx = MeshQueryExecutor(device="cpu")
+        b = mx.execute(segs, sql).rows
+        ctx = compile_query(sql, schema)
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        p = DeviceQueryPipeline(mesh_exec=mx)
+        try:
+            parts = [p.execute_partial(ctx, half) for half in (segs[:2], segs[2:])]
+        finally:
+            p.stop()
+        print([part.dense is not None for part in parts])
+        c = reduce_to_result(ctx, merge_segment_results(parts, aggs), aggs,
+                             list(ctx.group_by)).rows
+        print(len(a), a == b == c)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines() == ["[True, True]", "6000 True", "BAD []"], out.stdout
 
 
 def test_set_executor_and_pipeline_without_cuda_raise(monkeypatch):

@@ -757,8 +757,8 @@ def test_cuda_distinct_and_power_sum_outputs_match_the_cpu(cuda, agg_table, shap
 @pytest.mark.gpu
 @pytest.mark.parametrize("size, ids_card", [(16, 11), (32768, 20_000), (1 << 19, 500_000)])
 def test_cuda_distinct_counts_equal_bincount(cuda, size, ids_card):
-    """The sync-free int32 `index_add_` counts equal `torch.bincount` of the
-    same masked ids on the card, scalar and over a combined group key."""
+    """The count-only `grouped_agg` counts equal `torch.bincount` of the same
+    masked ids on the card, scalar and over a combined group key."""
     from pinot_tpu_torch.engine.kernels import distinct_counts
     gen = torch.Generator(device=cuda).manual_seed(5)
     n = (1 << 21) + 13
@@ -767,10 +767,213 @@ def test_cuda_distinct_counts_equal_bincount(cuda, size, ids_card):
     want = torch.bincount(torch.where(mask, ids.long(), size), minlength=size + 1)[:size]
     assert torch.equal(distinct_counts(mask, ids, size), want.to(torch.int32))
     num_seg = 6
-    key = torch.where(mask, torch.randint(0, 5, (n,), device=cuda, generator=gen), 5)
-    grouped = torch.bincount(key * size + ids.long(), minlength=num_seg * size)
-    assert torch.equal(distinct_counts(mask, ids, size, key, num_seg),
+    group = torch.randint(0, 5, (n,), device=cuda, generator=gen, dtype=torch.int32)
+    key = torch.where(mask, group.long() * size + ids.long(), num_seg * size)
+    grouped = torch.bincount(key, minlength=num_seg * size + 1)[:num_seg * size]
+    assert torch.equal(distinct_counts(mask, ids, size, [group], [1], num_seg),
                        grouped.view(num_seg, size).to(torch.int32))
+
+
+GROUPED_OPS = ["sum", "sum2", "sum3", "sum4", "sum", "isum", "isum", "min", "max", "min",
+               "max", "min", "max"]
+
+
+def _grouped_inputs(dev, n, cells, seed, one_key=False, nan=False, big=False, groups=2):
+    """Group ids whose dense key covers [0, cells) (two columns, or one key
+    for every row), a mask keeping ~70%, and a value row per op of
+    GROUPED_OPS (f32, f64, int32 and int64; NaN and +-inf rows where asked;
+    int64 values near 2^40 where asked, so that a cell of a few thousand rows
+    or more sums past 2^53 without passing 2^63)."""
+    rng = np.random.default_rng(seed)
+    if one_key:
+        ids, strides = [np.zeros(n, dtype=np.int32)] * groups, [1] * groups
+    elif groups == 0:
+        ids, strides = [], []
+    else:
+        a = max(1, int(np.sqrt(cells)))
+        k = rng.integers(0, cells, n)
+        ids, strides = [(k % a).astype(np.int32), (k // a).astype(np.int32)], [1, a]
+    f = rng.normal(0, 100, n).astype(np.float32)
+    d = rng.normal(0, 1e6, n)
+    i32 = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+    i64 = (rng.integers((1 << 40) - 1000, (1 << 40), n) if big
+           else rng.integers(-(1 << 40), 1 << 40, n)).astype(np.int64)
+    if nan and n:
+        f[::97], f[5::89], f[11::83] = np.nan, np.inf, -np.inf
+        d[::101] = np.nan
+    vals = [f, f, f, f, d, i32, i64, f, f, d, d, i32, i64]
+    to = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    return [to(t) for t in ids], strides, mask, [to(v) for v in vals]
+
+
+def _assert_grouped_equal(got, want, ops):
+    """Counts, int sums, min and max exactly (NaN where the plain version has
+    NaN); f64-accumulated sums rounded to f32 within rel 2.5e-7, one f32 ulp:
+    the atomics add the f64 partials in an order of their own."""
+    assert len(got) == len(want) == len(ops) + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape, i
+        g, w = g.cpu(), w.cpu()
+        if i and ops[i - 1] in ("sum", "sum2", "sum3", "sum4"):
+            torch.testing.assert_close(g, w, rtol=2.5e-7, atol=0.0, equal_nan=True)
+        else:
+            assert torch.equal(g, w) or torch.equal(g.isnan(), w.isnan()) and torch.equal(
+                g[~g.isnan()], w[~w.isnan()]), i
+
+
+# (cells, ops that decide the rung): the warp rung at a few keys and at its
+# boundary (256 cells of one f64 sum), the block rung past it and at a
+# GROUP BY lo_orderdate's 4,097 cells, the global rung past the block
+GROUPED_RUNG_CASES = [(9, "warp"), (256, "warp"), (257, "block"), (4097, "block"),
+                      (19_371, "global"), (503_809, "global")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells, rung", GROUPED_RUNG_CASES)
+@pytest.mark.parametrize("n", [0, 1, (1 << 20) - 1, (1 << 20) + 1, 8 * (1 << 21)],
+                         ids=["0", "1", "2^20-1", "2^20+1", "stacked"])
+def test_cuda_grouped_agg_matches_its_plain_version(cuda, cells, rung, n):
+    """Every op of GROUPED_OPS at each rung and row count: one launch, the
+    plain version's cells. The rung is the one `choose_rung` gives for one
+    f64 sum (the widths of the launch's own outputs may move it: checked)."""
+    from pinot_tpu_torch.engine import grouped
+    assert grouped.choose_rung(cells, [8], grouped.device_caps(cuda)[1])[0] == rung
+    ids, strides, mask, vals = _grouped_inputs(cuda, n, cells, seed=cells + n % 97)
+    before = grouped.grouped_agg.launches
+    got = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
+    torch.cuda.synchronize()
+    assert grouped.grouped_agg.launches == before + 1
+    want = grouped.grouped_agg_plain(ids, strides, mask, vals, GROUPED_OPS, cells)
+    _assert_grouped_equal(got, want, GROUPED_OPS)
+    # one f64 sum alone takes the case's rung
+    got = grouped.grouped_agg(ids, strides, mask, vals[:1], ["sum"], cells)
+    _assert_grouped_equal(got, grouped.grouped_agg_plain(ids, strides, mask, vals[:1],
+                                                         ["sum"], cells), ["sum"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells", [1, 9, 4097, 503_809])
+@pytest.mark.parametrize("what", ["one_key", "nan", "past_2_53", "no_groups"])
+def test_cuda_grouped_agg_at_its_trouble_spots(cuda, cells, what):
+    """One key holding every row (the most contention), NaN and +-inf rows,
+    int64 sums past 2^53, and no group column (every kept row on key 0)."""
+    from pinot_tpu_torch.engine import grouped
+    n = (1 << 21) + 5
+    ids, strides, mask, vals = _grouped_inputs(
+        cuda, n, cells, seed=cells, one_key=what == "one_key", nan=what == "nan",
+        big=what == "past_2_53", groups=0 if what == "no_groups" else 2)
+    got = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
+    want = grouped.grouped_agg_plain(ids, strides, mask, vals, GROUPED_OPS, cells)
+    _assert_grouped_equal(got, want, GROUPED_OPS)
+    if what == "past_2_53" and cells <= 9:   # ~160,000 rows a cell and more
+        assert int(got[7].max()) > (1 << 53)
+    if what == "nan":
+        assert bool(got[8].isnan().any()) and bool(got[10].isnan().any())
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_agg_is_stable_under_graph_replay(cuda):
+    """Captured into a CUDA graph, every replay gives the eager call's counts,
+    int sums, min and max bit for bit, and f32 sums within one ulp."""
+    from pinot_tpu_torch.engine import grouped
+    for cells in (9, 4097, 503_809):
+        ids, strides, mask, vals = _grouped_inputs(cuda, 1 << 21, cells, seed=3)
+        eager = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)   # warm
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            _assert_grouped_equal(out, eager, GROUPED_OPS)
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_agg_refuses_what_it_does_not_take(cuda):
+    from pinot_tpu_torch.engine import grouped
+    ids, strides, mask, vals = _grouped_inputs(cuda, 1000, 9, seed=1)
+    before = grouped.grouped_agg.launches
+    with pytest.raises(ValueError, match="int32"):
+        grouped.grouped_agg([ids[0].long(), ids[1]], strides, mask, vals[:1], ["sum"], 9)
+    with pytest.raises(ValueError, match="bool"):
+        grouped.grouped_agg(ids, strides, mask.int(), vals[:1], ["sum"], 9)
+    with pytest.raises(ValueError, match="isum"):
+        grouped.grouped_agg(ids, strides, mask, vals[:1], ["isum"], 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped.grouped_agg(ids, strides, mask, [vals[0].cpu()], ["sum"], 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.stack([vals[0], vals[0]], 1)[:, 0]
+        grouped.grouped_agg(ids, strides, mask, [strided], ["sum"], 9)
+    with pytest.raises(ValueError, match="cells"):
+        grouped.grouped_agg(ids, strides, mask, vals[:1], ["sum"], 0)
+    with pytest.raises(ValueError, match="at most"):
+        grouped.grouped_agg(ids * 9, strides * 9, mask, vals[:1], ["sum"], 9)
+    with pytest.raises(ValueError, match="f32, f64"):
+        grouped.grouped_agg(ids, strides, mask, [vals[0].half()], ["sum"], 9)
+    assert grouped.grouped_agg.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_group_by_runs_through_grouped_agg_on_every_path(cuda, tmp_path):
+    """GROUP BY, grouped and scalar DISTINCTCOUNT and the scalar power sums
+    launch `grouped_agg` (one call for a GROUP BY's outputs, one per
+    distinct, one for a plan's power sums) per segment and over the set; a
+    6,000-key server partial through the pipeline is dense and reduces to
+    the set's answer. Floats at rel 1e-5: each f32 sum is within one ulp of
+    the CPU's (the atomics add the f64 partials in an order of their own),
+    and KURTOSIS's fourth central moment cancels ~40x of that (a run gave
+    -1.2196853 against the CPU's -1.2196866), as the CPU tests hold the
+    moments against the reference at rel 1e-5."""
+    from pinot_tpu_torch import execute_query, load_segment, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline
+    from pinot_tpu_torch.engine import grouped
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.query.aggregates import make_agg
+    from pinot_tpu_torch.query.context import compile_query
+    from pinot_tpu_torch.query.reduce import merge_segment_results, reduce_to_result
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    segs = [load_segment(p) for p in build_aligned_segments(
+        ssb.ssb_schema(), ssb.make_columns(200_003, 29), str(tmp_path), "lineorder", 4,
+        SegmentGeneratorConfig(raw_cardinality_fraction=1.0))]
+    mx = MeshQueryExecutor(device=cuda)
+    for sql, per_pass in ((ssb.GROUP_QUERY, 1),
+                          ("SELECT lo_region, DISTINCTCOUNT(lo_discount), VAR_POP(lo_quantity) "
+                           "FROM lineorder GROUP BY lo_region ORDER BY lo_region", 2),
+                          ("SELECT DISTINCTCOUNT(lo_discount), KURTOSIS(lo_discount) "
+                           "FROM lineorder WHERE lo_quantity < 25", 2)):
+        want = execute_query(segs, sql, device="cpu").rows
+        for run, passes in ((lambda: execute_query(segs, sql, device=cuda), len(segs)),
+                            (lambda: mx.execute(segs, sql), 1)):
+            before = grouped.grouped_agg.launches
+            got = run().rows
+            assert grouped.grouped_agg.launches - before == per_pass * passes, sql
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                for x, y in zip(g, w):
+                    assert x == pytest.approx(y, rel=1e-5) if isinstance(y, float) \
+                        else x == y, (sql, g, w)
+    sql = ("SELECT lo_suppkey, SUM(lo_revenue), COUNT(*), MAX(lo_quantity) FROM lineorder "
+           "GROUP BY lo_suppkey ORDER BY lo_suppkey LIMIT 100000")
+    ctx = compile_query(sql, segs[0].schema)
+    aggs = [make_agg(f) for f in ctx.aggregations]
+    p = DeviceQueryPipeline(mesh_exec=mx)
+    try:
+        parts = [p.execute_partial(ctx, half) for half in (segs[:2], segs[2:])]
+    finally:
+        p.stop()
+    assert all(part.dense is not None for part in parts)
+    got = reduce_to_result(ctx, merge_segment_results(parts, aggs), aggs,
+                           list(ctx.group_by)).rows
+    want = mx.execute(segs, sql).rows
+    assert len(got) == len(want) > 4096
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[2:] == w[2:] and g[1] == pytest.approx(w[1], rel=1e-6)
 
 
 def _bitmap_case(dev, segments: int, words: int, cards, ks, seed: int, density: int = 1):

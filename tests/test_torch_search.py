@@ -781,10 +781,12 @@ def test_the_smoke_search_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     for module in (executor, combine, mutable_device):
         monkeypatch.setattr(module, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
@@ -813,11 +815,16 @@ def test_the_smoke_search_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
                                                    jobs)
     # Q1.1 on the table and the copy: 4 + 4 per segment, 1 + 1 set, 1 + 1 served;
     # the FOR query on both FOR tables: 2 + 2 fused per segment, 1 + 1 set and served
+    # grouped_agg: text_or's GROUP BY, a pass: per segment on the table and the
+    # copy (8), the view (1) and the table beside it (5); over the set and
+    # through the pipeline the table, the copy, the view (3) and the per-segment
+    # pre-bail beside it (5)
     assert by_route["per_segment"] == {"masked_sums": 8, "masked_sums_fused": 4,
-                                       "bitmap_filter": 8}
+                                       "bitmap_filter": 8, "grouped_agg": 14}
     assert by_route["set"] == by_route["pipeline"] == {"masked_sums": 4, "masked_sums_fused": 0,
-                                                       "bitmap_filter": 2}
-    assert launches == {"masked_sums": 16, "masked_sums_fused": 4, "bitmap_filter": 12}
+                                                       "bitmap_filter": 2, "grouped_agg": 8}
+    assert launches == {"masked_sums": 16, "masked_sums_fused": 4, "bitmap_filter": 12,
+                        "grouped_agg": 30}
 
 
 # -- a set whose segments compile different doc-set leaves -------------------------

@@ -949,10 +949,12 @@ def test_the_smoke_upsert_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(executor_mod, "resolve_device", lambda device=None: cpu)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
-    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0}
+    counts = {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
+              "grouped_agg": 0}
     for module, name, key in ((scan, "masked_sums_answer", "masked_sums"),
                               (scan, "masked_sums_fused_answer", "masked_sums_fused"),
-                              (kernels, "bitmap_filter", "bitmap_filter")):
+                              (kernels, "bitmap_filter", "bitmap_filter"),
+                              (kernels, "grouped_agg", "grouped_agg")):
         real = getattr(module, name)
 
         def counted(*args, _real=real, _key=key):
@@ -977,7 +979,9 @@ def test_the_smoke_upsert_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
         launches, cases = chip_smoke.run_upsert(Args(), str(tmp_path), jobs)
     # masked_sums: COUNT(*), Q1.1, lo_region = 'ASIA' and Q1.1 after the update
     # on 3 committed segments, COUNT(*) and Q1.1 on PARTIAL's one, Q1.1 on dedup's
-    assert launches == {"masked_sums": 15, "masked_sums_fused": 3, "bitmap_filter": 3}
+    # grouped_agg: the FULL table's two GROUP BYs, one a committed segment
+    assert launches == {"masked_sums": 15, "masked_sums_fused": 3, "bitmap_filter": 3,
+                        "grouped_agg": 6}
     assert sorted(cases) == ["for_sum, banded", "for_sum, unbanded", "q1_1, banded",
                              "q1_1, unbanded"]
     assert cases["q1_1, banded"]["bytes_per_row"] == 20
