@@ -131,7 +131,9 @@ exits non-zero:
    `aggs_consuming` and `serve_pipeline` lines; then `aggs_case` lines, the
    presence and power-sum ops alone at one segment's and the stacked
    table's shapes and masks (CUDA events, L2 flushed) against their bytes
-   bound, with `torch.bincount`'s time beside the presence's.
+   bound, with `torch.bincount`'s time beside each; lo_suppkey's presence
+   under Q1.1 and the power sums also as `group_case` lines (graph replay,
+   held to the plain version's outputs).
 
 11. index  — the filter indexes and star-trees: lineorder from --seed again,
    built with the port's writer with both of bench.py's star-trees
@@ -268,12 +270,13 @@ exits non-zero:
    lo_custkey no row holds is pruned by the new bloom filters only:
    `batch_query` and `batch_preprocess` lines.
 16. groupby — the GROUP BY ladder (`engine/grouped.py`, `csrc/grouped_agg.cu`)
-   over phase 4's table: GROUP_QUERY (9 cells: the shared rung, one copy of
-   the cells a warp), GROUP BY lo_orderdate with COUNT, SUM, MIN and MAX
+   over phase 4's table: GROUP_QUERY (9 cells: the thread rung, a copy of
+   the cells a thread), GROUP BY lo_orderdate with COUNT, SUM, MIN and MAX
    (4,097 cells: one copy a block), GROUP BY lo_suppkey with VAR_POP (20,481
-   cells), GROUP BY lo_custkey with SUM (503,809 cells: the global rung; per
+   cells: a copy a cluster of 2 blocks), GROUP BY lo_custkey with SUM (503,809 cells: the global rung; per
    segment its cold run alone), DISTINCTCOUNT(lo_discount) by lo_region (the
-   grouped count-only form) and under Q1.1's filter (the scalar one), each
+   grouped count-only form, 144 cells: a copy a warp) and under Q1.1's
+   filter (the scalar one, 16 cells), each
    per segment and over the set against numpy (rel 1e-5, abs 0.05; counts
    exactly), every checked cold run held to its exact launches (one
    grouped_agg a GROUP BY pass, one more a distinct output), 5 warm runs:
@@ -285,10 +288,10 @@ exits non-zero:
    against its plain version at each rung at the set's shapes (GROUP_QUERY
    per segment too; counts, int sums, min and max exactly, f32 sums within
    one ulp), `ms` (graph replay, L2 flushed), `call_ms`, `plain_ms`,
-   `library_ms` (`torch.bincount`) and the bytes bound; last GROUP_QUERY per
-   segment under the profiler (`groupby_trace`: device busy ms, idle share,
-   one `grouped_agg_kernel` a pass, no `index_add_`, `bincount` or
-   `scatter_reduce_` kernel).
+   `library_ms` (`torch.bincount` and `scatter_reduce_`) and the bytes
+   bound; last GROUP_QUERY per segment under the profiler (`groupby_trace`:
+   device busy ms, idle share, one `grouped_agg_kernel` a pass and no other
+   grouped kernel, no `index_add_`, `bincount` or `scatter_reduce_` kernel).
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -550,15 +553,18 @@ def bitmap_usage(log: str) -> dict:
     return usage
 
 
+GROUPED_KERNELS = 6   # grouped_agg_kernel per rung (5), the second launch's finalize
+
+
 def grouped_usage(log: str) -> dict:
     """ptxas's registers, shared memory and spills per grouped_agg kernel
-    (the accumulate pass per rung, init, finalize); raises on a stack frame
-    or a spill (a kernel parameter indexed at run time may be copied to
-    local memory)."""
+    (one per rung, the second launch's finalize); raises on a stack frame or a
+    spill (a kernel parameter indexed at run time may be copied to local
+    memory)."""
     from pinot_tpu_torch.engine import cuda_lib
     usage = {name: use for name, use in cuda_lib.ptxas_usage(log).items()
              if "grouped_" in name}
-    if len(usage) != 5:
+    if len(usage) != GROUPED_KERNELS:
         raise AssertionError(f"{len(usage)} grouped_agg kernels in the ptxas log:\n{log}")
     for name, use in usage.items():
         if any(use.get(k, 0) for k in ("stack_bytes", "spill_store_bytes", "spill_load_bytes")):
@@ -568,9 +574,12 @@ def grouped_usage(log: str) -> dict:
 
 def grouped_sass() -> dict:
     """The atomic instructions of each grouped_agg kernel, by opcode, from
-    `cuobjdump -sass` of the built library: native shared-memory 64-bit
-    atomics, or compare-and-swap loops (ATOMS.CAST.SPIN), on the block rung;
-    none on the warp rung (plain read-modify-writes); REDG on the global rung."""
+    `cuobjdump -sass` of the built library: none in shared memory on the
+    thread rung (plain read-modify-writes); native 32-bit shared atomics and
+    64-bit compare-and-swap loops (ATOMS.CAST.SPIN) on the warp and block
+    rungs; generic atomics (ATOM) into distributed shared memory on the
+    cluster rung; global atomics into the accumulators on every rung (REDG
+    on the global rung's rows)."""
     import re
     from pinot_tpu_torch.engine import cuda_lib
     tool = os.path.join(os.path.dirname(cuda_lib.nvcc_path()), "cuobjdump")
@@ -2453,9 +2462,14 @@ def aggs_cases(table, mx) -> dict:
     flushed, against the bound of their bytes: each input read once (the
     int32 ids or values, the bool mask) and each output written once (int32
     counts; three f32 sums). `library_ms`: `torch.bincount` of the same
-    masked ids, one call that computes the same counts; `extra_bin_ms`: the
-    same counts with the masked rows sent to one extra bin (`index_add_` of
-    ones)."""
+    masked ids (the power sums: of the masked key, one call for the count
+    and one, with f64 weights, a power), calls that compute the same
+    outputs; `extra_bin_ms`: the same counts with the masked rows sent to
+    one extra bin (`index_add_` of ones). `ms` is an eager call, except for
+    lo_suppkey's presence under Q1.1 and the power sums, the calls
+    `group_case` times: there `ms` and `plain_ms` are graph replays, each
+    output held to the plain version's, `call_ms` the eager call, and the
+    bound `group_case`'s (the ids of the rows the mask keeps)."""
     from pinot_tpu_torch.engine.datablock import block_for, lut_size
     from pinot_tpu_torch.engine.grouped import grouped_agg
     from pinot_tpu_torch.engine.kernels import distinct_counts, filter_mask
@@ -2486,7 +2500,7 @@ def aggs_cases(table, mx) -> dict:
         key = torch.where(valid, region.long(), 8)
         disc = values_of("lo_discount")
 
-        def presence(col, mask):
+        def presence(col, mask, timed=False):
             ids, size = ids_of(col), sizes[col]
 
             def extra_bin():
@@ -2496,28 +2510,38 @@ def aggs_cases(table, mx) -> dict:
             return (lambda: distinct_counts(mask, ids, size),
                     lambda: torch.bincount(torch.where(mask, ids.long(), size),
                                            minlength=size + 1),
-                    extra_bin, 5 * n + 4 * size, n)
+                    extra_bin, 5 * n + 4 * size, n,
+                    ([ids], [1], mask, [], [], size) if timed else None)
 
         def power_sums():
             return grouped_agg([], [], valid, [disc] * 3, ["sum2", "sum3", "sum4"], 1)
 
         supp, size = ids_of("lo_suppkey"), sizes["lo_suppkey"]
+        power_args = ([], [], valid, [disc] * 3, ["sum2", "sum3", "sum4"], 1)
         cases = {
             "presence lo_custkey, every row": presence("lo_custkey", valid),
-            "presence lo_suppkey, Q1.1 filter": presence("lo_suppkey", q11),
+            "presence lo_suppkey, Q1.1 filter": presence("lo_suppkey", q11, timed=True),
             "presence lo_discount, Q1.1 filter": presence("lo_discount", q11),
             "grouped lo_suppkey by lo_region": (
                 lambda: distinct_counts(valid, supp, size, [region], [1], 9),
                 lambda: torch.bincount(key * size + supp.long(), minlength=9 * size),
-                None, 9 * n + 4 * 9 * size, 2 * n),
-            "power sums 2-4 lo_discount": (power_sums, None, None, 5 * n + 4 + 3 * 4, 10 * n),
+                None, 9 * n + 4 * 9 * size, 2 * n, None),
+            "power sums 2-4 lo_discount": (power_sums, group_library(*power_args), None,
+                                           5 * n + 4 + 3 * 4, 10 * n, power_args),
         }
-        for op, (fn, library, extra_bin, nbytes, ops) in cases.items():
+        for op, (fn, library, extra_bin, nbytes, ops, timed) in cases.items():
             fn()
             torch.cuda.synchronize()
             bms, by = roofline(nbytes, ops)
-            numbers = dict(rows=n, ms=time_ms(fn, flush), bound_ms=bms, bound_by=by,
-                           library_ms=time_ms(library, flush) if library else None)
+            if timed is not None:
+                numbers = {k: v for k, v in group_case(f"{op}, {shape}", *timed, flush).items()
+                           if k in ("rung", "max_abs_err", "ms", "plain_ms", "call_ms",
+                                    "bound_ms", "bound_by")}
+                numbers.update(rows=n, library_ms=time_ms(library, flush))
+                bms = numbers["bound_ms"]
+            else:
+                numbers = dict(rows=n, ms=time_ms(fn, flush), bound_ms=bms, bound_by=by,
+                               library_ms=time_ms(library, flush) if library else None)
             if extra_bin is not None:
                 if not torch.equal(extra_bin()[:-1], fn()):
                     raise AssertionError(f"aggs_case {op}, {shape}: the forms disagree")
@@ -4491,11 +4515,11 @@ GROUPED_SOURCE = ("pinot_tpu_torch/csrc/grouped_agg.cu",
                   "pinot_tpu/engine/kernels.py:901 (the GROUP BY rungs, :901-947; "
                   "_grouped_chunk64 :605, _grouped_sorted :705, _grouped_partitioned :732, "
                   "_presence_2d :564)")
-GROUPED_LIBRARY_NOTE = ("library_ms: torch.bincount of the same masked keys, one call for "
-                        "the count and one, with f64 weights, for each sum (the power rows "
-                        "made before the timing); min and max have no such call (the plain "
-                        "version's scatter_reduce_ is the plain version), so a case with min "
-                        "or max times the count and sums only")
+GROUPED_LIBRARY_NOTE = ("library_ms: torch.bincount of the same keys, the masked rows sent to "
+                        "one extra bin, one call for the count and one, with f64 weights, for "
+                        "each sum (the power rows made before the timing), and one "
+                        "Tensor.scatter_reduce_ (amin / amax) into an identity-filled tensor for "
+                        "each min or max")
 # torch kernels that would show the plain body's index_add_, bincount or
 # scatter_reduce_ on the card
 GROUPBY_FORBIDDEN_OPS = ("indexFunc", "Histogram", "scatter_gather", "index_add", "bincount",
@@ -4680,31 +4704,28 @@ def run_groupby(args, table, cols) -> tuple:
         reduce_ms=(t2 - t1) * 1e3, pipeline_partials_ms=(t4 - t3) * 1e3, dense=True,
         equals_oracle=True, equals_set=True)
 
-    cases = group_cases(table, mx)
+    cases = group_cases(group_inputs(table, mx))
     trace = trace_query(lambda: execute_query(table, GROUP_QUERY))
     # the profiler was seen to drop ops from a short window: the kernel's
     # events are logged beside the passes, and none at all fails
     bad = [name for name in trace["op_counts"] if any(w in name for w in GROUPBY_FORBIDDEN_OPS)]
     events = sum(n for name, n in trace["op_counts"].items() if GROUPED_SYMBOL in name)
-    if bad or not events:
+    # GROUP_QUERY's pass is one kernel: no init or finalize kernel beside it
+    others = {name: n for name, n in trace["op_counts"].items()
+              if "grouped_" in name and GROUPED_SYMBOL not in name}
+    if bad or not events or others:
         raise AssertionError(f"groupby trace: ops {bad} on the card, {events} "
-                             f"{GROUPED_SYMBOL} events for {TRACED_RUNS * len(table)} passes")
+                             f"{GROUPED_SYMBOL} events for {TRACED_RUNS * len(table)} passes, "
+                             f"other grouped kernels {others}")
     log("groupby_trace", query="region", path="per_segment", grouped_agg_events=events,
         passes=TRACED_RUNS * len(table), **trace)
     return launches, cases
 
 
-def group_cases(table, mx) -> dict:
-    """`grouped_agg` against `grouped_agg_plain` on the card at each rung, at
-    the set's shapes (the stacked table; GROUP_QUERY per segment too): its
-    count exactly, int64 sums, min and max exactly, f32 sums within rel
-    2.5e-7 (one f32 ulp: the atomics add the f64 partials in an order of
-    their own). `ms` and `plain_ms` device time (graph replay, L2 flushed),
-    `call_ms` an eager call, `library_ms` torch.bincount (GROUPED_LIBRARY_NOTE);
-    the bound is the ids, mask and value rows read once and the cells
-    written once over the memory rate, against one f64 add a row and
-    output."""
-    from pinot_tpu_torch.engine import grouped
+def group_inputs(table, mx) -> list:
+    """`group_cases`' inputs at the set's shapes (the stacked table; GROUP_QUERY
+    per segment too), one for each rung the path reaches: (case, group ids,
+    strides, mask, value rows, ops, cells)."""
     from pinot_tpu_torch.engine.datablock import block_for, lut_size
     from pinot_tpu_torch.engine.kernels import filter_mask
     from pinot_tpu_torch.query.context import compile_query
@@ -4713,7 +4734,6 @@ def group_cases(table, mx) -> dict:
     from pinot_tpu_torch.ssb import GROUP_QUERY
 
     dev = mx.device
-    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     seg, stacked = table[0], mx._block_for(table)
 
     def plan_of(sql):
@@ -4741,8 +4761,7 @@ def group_cases(table, mx) -> dict:
     size = lut_size(seg.column("lo_discount").cardinality)
     rev = vals("lo_revenue")
     disc = vals("lo_discount")
-    cases = [
-        # (case, group ids, strides, mask, value rows, ops, cells)
+    return [
         ("region, one segment", [block.ids("lo_region")], [1], masks["one segment"],
          [block.values("lo_revenue")], ["sum"], cells[GROUP_QUERY]),
         ("region, stacked set", [ids("lo_region")], [1], masks["stacked set"], [rev], ["sum"],
@@ -4758,51 +4777,88 @@ def group_cases(table, mx) -> dict:
          valid, [], [], cells[GROUP_QUERY] * size),
         ("q11 distinct, stacked set", [ids("lo_discount")], [1], q11_mask, [], [], size),
     ]
-    out = {}
-    for case, gids, strides, mask, vrows, ops, num_cells in cases:
-        def kernel():
-            return grouped.grouped_agg(gids, strides, mask, vrows, ops, num_cells)
 
-        def plain():
-            return grouped.grouped_agg_plain(gids, strides, mask, vrows, ops, num_cells)
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        max_abs_err = 0.0
-        for i, (g, w) in enumerate(zip(got, want)):
-            if i and ops[i - 1] in ("sum", "sum2", "sum3", "sum4"):
-                g64, w64 = g.double(), w.double()
-                err = (g64 - w64).abs()
-                if bool((err > 2.5e-7 * w64.abs()).any()):
-                    raise AssertionError(f"group_case {case}: output {i} off the plain "
-                                         f"version by {float(err.max())}")
-                max_abs_err = max(max_abs_err, float(err.max()))
-            elif not torch.equal(g, w):
-                raise AssertionError(f"group_case {case}: output {i} differs from the plain "
-                                     "version's")
-        n = int(mask.numel())
-        key = sum(t.long() * s for t, s in zip(gids, strides))
-        masked_key = torch.where(mask, key, num_cells)
-        weights = [r.double() if op in ("sum", "isum") else
-                   grouped.power_rows(r, grouped.POWERS[op])
-                   for r, op in zip(vrows, ops) if op not in ("min", "max")]
 
-        def library():
-            outs = [torch.bincount(masked_key, minlength=num_cells + 1)]
-            return outs + [torch.bincount(masked_key, weights=w, minlength=num_cells + 1)
-                           for w in weights]
-        read = 4 * len(gids) * n + n + sum(
-            t.numel() * t.element_size() for t in {id(t): t for t in vrows}.values())
-        written = num_cells * (4 + sum(g.element_size() for g in got[1:]))
-        bms, by = roofline(read + written, n * (len(ops) + 1))
-        rung = grouped.rung_for(dev, vrows, ops, num_cells)[0]
-        numbers = dict(rung=rung, rows=n, cells=num_cells, ops=ops, kept=int(got[0].sum()),
-                       max_abs_err=max_abs_err, ms=graph_ms(kernel, flush),
-                       plain_ms=graph_ms(plain, flush), call_ms=time_ms(kernel, flush),
-                       library_ms=time_ms(library, flush), bound_ms=bms, bound_by=by)
-        numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
-        log("group_case", case=case, **numbers)
-        out[case] = numbers
-    return out
+def group_library(gids, strides, mask, vrows, ops, num_cells):
+    """The library yardstick of a `grouped_agg` call (GROUPED_LIBRARY_NOTE):
+    a function of no arguments, its inputs made beforehand."""
+    from pinot_tpu_torch.engine import grouped
+    key = sum(t.long() * s for t, s in zip(gids, strides)) if gids else \
+        torch.zeros(mask.numel(), dtype=torch.int64, device=mask.device)
+    masked_key = torch.where(mask, key, num_cells)
+    weights = [r.double() if op in ("sum", "isum") else
+               grouped.power_rows(r, grouped.POWERS[op])
+               for r, op in zip(vrows, ops) if op not in ("min", "max")]
+    extremes = [(r, op) for r, op in zip(vrows, ops) if op in ("min", "max")]
+
+    def library():
+        outs = [torch.bincount(masked_key, minlength=num_cells + 1)]
+        outs += [torch.bincount(masked_key, weights=w, minlength=num_cells + 1)
+                 for w in weights]
+        for r, op in extremes:
+            cells = torch.full((num_cells + 1,), grouped.identity(op, r.dtype), dtype=r.dtype,
+                               device=r.device)
+            outs.append(cells.scatter_reduce_(0, masked_key, r,
+                                              reduce="amin" if op == "min" else "amax"))
+        return outs
+    return library
+
+
+def group_case(case, gids, strides, mask, vrows, ops, num_cells, flush) -> dict:
+    """`grouped_agg` against `grouped_agg_plain` on the card for one call:
+    its count exactly, int64 sums, min and max exactly, f32 sums within rel
+    2.5e-7 (one f32 ulp: the atomics add the f64 partials in an order of
+    their own). `ms` and `plain_ms` device time (graph replay, L2 flushed),
+    `call_ms` an eager call, `library_ms` (GROUPED_LIBRARY_NOTE); the bound
+    is the inputs read once and the cells written once
+    over the memory rate, against one f64 add a kept row and output: the
+    mask whole, and the ids and values of the rows it keeps, which are all
+    the function needs. One `group_case` line."""
+    from pinot_tpu_torch.engine import grouped
+
+    def kernel():
+        return grouped.grouped_agg(gids, strides, mask, vrows, ops, num_cells)
+
+    def plain():
+        return grouped.grouped_agg_plain(gids, strides, mask, vrows, ops, num_cells)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    max_abs_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i and ops[i - 1] in ("sum", "sum2", "sum3", "sum4"):
+            g64, w64 = g.double(), w.double()
+            err = (g64 - w64).abs()
+            if bool((err > 2.5e-7 * w64.abs()).any()):
+                raise AssertionError(f"group_case {case}: output {i} off the plain "
+                                     f"version by {float(err.max())}")
+            max_abs_err = max(max_abs_err, float(err.max()))
+        elif not torch.equal(g, w):
+            raise AssertionError(f"group_case {case}: output {i} differs from the plain "
+                                 "version's")
+    n = int(mask.numel())
+    kept = int(got[0].sum())
+    # the mask read whole; a kept row's ids and values (each row tensor once)
+    read = n + kept * (4 * len(gids) + sum(t.element_size()
+                                           for t in {id(t): t for t in vrows}.values()))
+    written = num_cells * (4 + sum(g.element_size() for g in got[1:]))
+    bms, by = roofline(read + written, kept * (len(ops) + 1))
+    rung = grouped.rung_for(mask.device, vrows, ops, num_cells)[0]
+    numbers = dict(rung=rung, rows=n, cells=num_cells, ops=list(ops), kept=kept,
+                   max_abs_err=max_abs_err, ms=graph_ms(kernel, flush),
+                   plain_ms=graph_ms(plain, flush), call_ms=time_ms(kernel, flush),
+                   library_ms=time_ms(group_library(gids, strides, mask, vrows, ops,
+                                                    num_cells), flush),
+                   bound_ms=bms, bound_by=by)
+    numbers["pct_of_bound"] = 100.0 * bms / numbers["ms"]
+    log("group_case", case=case, **numbers)
+    return numbers
+
+
+def group_cases(cases) -> dict:
+    """`group_case` of each (case, group ids, strides, mask, value rows, ops,
+    cells) of `cases`, by case."""
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=cases[0][3].device)
+    return {c[0]: group_case(*c, flush) for c in cases}
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:

@@ -602,7 +602,7 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     import torch
 
     import chip_smoke
-    from pinot_tpu_torch.engine import join_kernels, kernels, scan
+    from pinot_tpu_torch.engine import grouped, join_kernels, kernels, scan
     from pinot_tpu_torch.multistage import runtime
     from pinot_tpu_torch.parallel import combine
     from pinot_tpu_torch.query import executor
@@ -629,6 +629,8 @@ def test_the_smoke_aggs_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
                         lambda: counts.update(dict.fromkeys(counts, 0)))
     monkeypatch.setattr(chip_smoke, "launch_counts", lambda: dict(counts))
     monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, flush: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, flush: (fn(), 1.0)[1])
+    monkeypatch.setattr(grouped, "device_caps", lambda device: (132, 232_448, 233_472))
     for name, value in (("L2_FLUSH_BYTES", 8), ("AGGS_CONSUMING_ROWS", 32_768),
                         ("AGGS_DEVICE_RUNS", 1), ("SERVE_CLIENTS", 4),
                         ("SERVE_QUERIES_PER_CLIENT", 3)):

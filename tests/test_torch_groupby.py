@@ -501,30 +501,95 @@ SMEM = 232_448   # an H100 block's opt-in shared memory
 
 
 @pytest.mark.parametrize("cells, widths, want", [
-    (9, [8], ("warp", 896)),                       # GROUP_QUERY: 9 cells, one f64 sum
+    (1, [8, 8, 8], ("thread", 7_168)),             # the scalar power sums 2-4
+    (1, [8] * 13, ("thread", 27_648)),             # one cell of 13 outputs
+    (1, [8] * 14, ("warp", 960)),
+    (2, [8], ("thread", 6_144)),
+    (9, [8], ("thread", 27_648)),                  # GROUP_QUERY: 9 cells, one f64 sum
+    (10, [8], ("warp", 960)),                      # 30,720 bytes of thread copies
+    (16, [], ("thread", 16_384)),                  # a scalar DISTINCTCOUNT's 16 ids
+    (27, [], ("thread", 27_648)),
+    (28, [], ("warp", 896)),
+    (144, [], ("warp", 4_608)),                    # DISTINCTCOUNT by lo_region
     (256, [8], ("warp", 24_576)),                  # every warp's copy exactly 24 KiB
     (257, [8], ("block", 3_088)),
     (4097, [8, 4, 4], ("block", 81_944)),          # GROUP BY lo_orderdate
+    (32_768, [], ("block", 131_072)),              # lo_suppkey's presence
     (19_370, [8], ("block", 232_440)),             # one copy exactly fits
-    (19_371, [8], ("global", 0)),
-    (20_481, [8, 8], ("global", 0)),               # GROUP BY lo_suppkey, VAR_POP
+    (19_371, [8], ("cluster", 116_232)),           # half a copy a block
+    (20_481, [8, 8], ("cluster", 204_824)),        # GROUP BY lo_suppkey, VAR_POP
+    (38_740, [8], ("cluster", 232_440)),           # half a copy exactly fits
+    (38_741, [8], ("global", 0)),
     (503_809, [8], ("global", 0)),                 # GROUP BY lo_custkey
-    (16, [], ("warp", 512)),                       # a scalar DISTINCTCOUNT's 16 ids
 ])
 def test_the_rung_choice_at_its_boundaries(cells, widths, want):
     assert region_bytes(cells, widths) == -(-cells * (4 + sum(widths)) // 8) * 8
     assert choose_rung(cells, widths, SMEM) == want
+    # a 64-bit min or max keeps a launch off the cluster rung
+    assert choose_rung(cells, widths, SMEM, max64=True) == (
+        ("global", 0) if want[0] == "cluster" else want)
 
 
-def test_the_launch_grid():
-    # the card holds 8 blocks of 256 threads an SM; fewer where copies do not
-    # fit; fewer where the rows run out
-    assert launch_grid("global", 2_097_152, 0, 132, 233_472) == 132 * 8
-    assert launch_grid("warp", 2_097_152, 896, 132, 233_472) == 132 * 8
-    assert launch_grid("block", 2_097_152, 81_944, 132, 233_472) == 132 * 2
-    assert launch_grid("block", 2_097_152, 131_072, 132, 233_472) == 132
-    assert launch_grid("warp", 5, 896, 132, 233_472) == 1
-    assert launch_grid("global", 0, 0, 132, 233_472) == 1
+@pytest.mark.parametrize("rung, n, smem, want", [
+    # BLOCKS_PER_SM[rung] blocks an SM (3 of 256 threads on the thread rung,
+    # 4 on the warp rung, 1 of 1024 on the block and cluster rungs, 2 on the
+    # global rung), fewer where their copies do not fit beside each other
+    # (233,472 bytes an SM, 1,024 of them kept a block); fewer where the rows
+    # would give a thread fewer than ROWS_PER_THREAD
+    ("thread", 2_097_152, 27_648, 132 * 3),        # GROUP_QUERY, one segment
+    ("thread", 16_777_216, 27_648, 132 * 3),       # GROUP_QUERY, stacked
+    ("thread", 16_777_216, 76_800, 132 * 3),       # 3 copies exactly fit an SM
+    ("thread", 16_777_216, 76_801, 132 * 2),
+    ("thread", 2_097_152, 7_168, 132 * 3),         # the power sums, one segment
+    ("thread", 1_048_576, 7_168, 256),             # fewer rows: 16 a thread
+    ("warp", 16_777_216, 4_608, 132 * 4),          # DISTINCTCOUNT by lo_region
+    ("block", 16_777_216, 81_944, 132),            # GROUP BY lo_orderdate
+    ("block", 16_777_216, 131_072, 132),           # lo_suppkey's presence
+    ("block", 2_097_152, 131_072, 128),
+    ("global", 16_777_216, 0, 132 * 2),
+    ("global", 2_097_152, 0, 132 * 2),
+    ("global", 65_536, 0, 16),
+    ("thread", 5, 27_648, 1),
+    ("global", 0, 0, 1),
+])
+def test_the_launch_grid(rung, n, smem, want):
+    assert launch_grid(rung, n, smem, 132, 233_472) == want
+
+
+@pytest.mark.parametrize("n, smem, want", [
+    (16_777_216, 204_824, 132),                    # lo_suppkey VAR_POP: 66 clusters of 2
+    (1_048_576, 116_232, 128),                     # 16 rows a thread of 512
+    (1_048_575, 116_232, 128),
+    (100_000, 116_232, 12),
+    (0, 116_232, 2),                               # one cluster at the least
+])
+def test_the_cluster_rungs_grid_is_whole_clusters(n, smem, want):
+    assert launch_grid("cluster", n, smem, 131, 233_472) == min(want, 130)
+    assert launch_grid("cluster", n, smem, 132, 233_472) == want
+
+
+def test_the_scratch_and_tile_sizes():
+    """The wrapper's sizes, as pure Python: the thread rung's copies (every
+    thread's cells, unrounded), the workspace (the ticket, then one rounded
+    copy of the accumulators), and the rows read one by one before the
+    16-byte loads: none where every column is aligned, 8 - k for columns
+    that all start k rows past an aligned address, every row where no head
+    aligns them all."""
+    assert grouped.thread_copies_bytes(9, [8]) == 9 * 12 * 256
+    assert grouped.thread_copies_bytes(1, [8, 8, 8]) == 28 * 256
+    assert grouped.workspace_bytes(9, [8]) == grouped.TICKET_BYTES + 112
+    assert grouped.workspace_bytes(4097, [8, 4, 4]) == grouped.TICKET_BYTES + 81_944
+    assert grouped.workspace_bytes(503_809, [8]) == grouped.TICKET_BYTES + 6_045_712
+    base = 1 << 20   # an allocation's 512-byte aligned start
+    for k in range(grouped.ROWS):
+        cols = [(base + k, 1, 8), (base + 4 * k, 4, 16), (base + 4 * k, 4, 16),
+                (base + 8 * k, 8, 16)]
+        assert grouped.row_tiling(cols) == ((grouped.ROWS - k) % grouped.ROWS, True)
+    # the mask alone one row on: no head aligns it with the ids
+    assert grouped.row_tiling([(base + 1, 1, 8), (base, 4, 16)]) == (0, False)
+    # f64 values one row on and the mask seven: a head of 1 aligns both
+    assert grouped.row_tiling([(base + 7, 1, 8), (base + 8, 8, 16)]) == (1, True)
+    assert grouped.row_tiling([]) == (0, True)
 
 
 def test_the_smoke_groupby_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
@@ -581,8 +646,8 @@ def test_the_smoke_groupby_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
                         "grouped_agg": 9 * 5 + 18 + 2}
     assert traced == [chip_smoke.TRACED_RUNS * 8]
     assert {k: c["rung"] for k, c in cases.items()} == {
-        "region, one segment": "warp", "region, stacked set": "warp",
-        "orderdate, stacked set": "block", "suppkey var_pop, stacked set": "global",
+        "region, one segment": "thread", "region, stacked set": "thread",
+        "orderdate, stacked set": "block", "suppkey var_pop, stacked set": "cluster",
         "custkey, stacked set": "global", "region distinct, stacked set": "warp",
-        "q11 distinct, stacked set": "warp"}
+        "q11 distinct, stacked set": "thread"}
     assert all(c["bound_by"] == "bytes" and c["bound_ms"] > 0 for c in cases.values())

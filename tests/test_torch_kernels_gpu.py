@@ -822,17 +822,20 @@ def _assert_grouped_equal(got, want, ops):
                 g[~g.isnan()], w[~w.isnan()]), i
 
 
-# (cells, ops that decide the rung): the warp rung at a few keys and at its
-# boundary (256 cells of one f64 sum), the block rung past it and at a
-# GROUP BY lo_orderdate's 4,097 cells, the global rung past the block
-GROUPED_RUNG_CASES = [(9, "warp"), (256, "warp"), (257, "block"), (4097, "block"),
-                      (19_371, "global"), (503_809, "global")]
+# (cells, rung that one f64 sum takes): every rung at both of its edges (the
+# thread rung from one cell to GROUP_QUERY's 9; the warp rung from 10 to
+# 256; the block rung from 257, GROUP BY lo_orderdate's 4,097, to 19,370;
+# the cluster rung from 19,371 to 38,740; the global rung past it to
+# lo_custkey's 503,809)
+GROUPED_RUNG_CASES = [(1, "thread"), (9, "thread"), (10, "warp"), (256, "warp"),
+                      (257, "block"), (4097, "block"), (19_370, "block"), (19_371, "cluster"),
+                      (38_740, "cluster"), (38_741, "global"), (503_809, "global")]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cells, rung", GROUPED_RUNG_CASES)
-@pytest.mark.parametrize("n", [0, 1, (1 << 20) - 1, (1 << 20) + 1, 8 * (1 << 21)],
-                         ids=["0", "1", "2^20-1", "2^20+1", "stacked"])
+@pytest.mark.parametrize("n", [0, 1, 3, 5, (1 << 20) - 1, (1 << 20) + 1, 8 * (1 << 21)],
+                         ids=["0", "1", "3", "5", "2^20-1", "2^20+1", "stacked"])
 def test_cuda_grouped_agg_matches_its_plain_version(cuda, cells, rung, n):
     """Every op of GROUPED_OPS at each rung and row count: one launch, the
     plain version's cells. The rung is the one `choose_rung` gives for one
@@ -853,7 +856,7 @@ def test_cuda_grouped_agg_matches_its_plain_version(cuda, cells, rung, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cells", [1, 9, 4097, 503_809])
+@pytest.mark.parametrize("cells", [1, 9, 200, 4097, 503_809])
 @pytest.mark.parametrize("what", ["one_key", "nan", "past_2_53", "no_groups"])
 def test_cuda_grouped_agg_at_its_trouble_spots(cuda, cells, what):
     """One key holding every row (the most contention), NaN and +-inf rows,
@@ -872,26 +875,119 @@ def test_cuda_grouped_agg_at_its_trouble_spots(cuda, cells, what):
         assert bool(got[8].isnan().any()) and bool(got[10].isnan().any())
 
 
-@pytest.mark.gpu
-def test_cuda_grouped_agg_is_stable_under_graph_replay(cuda):
-    """Captured into a CUDA graph, every replay gives the eager call's counts,
-    int sums, min and max bit for bit, and f32 sums within one ulp."""
+# (rung, cells, outputs of GROUPED_OPS) that `choose_rung` puts a launch on:
+# every rung with every kind of cell it holds (one cell with the power sums,
+# the scalar pass's shape; two cells of seven outputs, one of each kind, on
+# the thread rung; all 13 outputs on the warp, block and global rungs; all
+# but the 64-bit min and max, which it refuses, on the cluster rung), the
+# block and cluster rungs below and above the cells their last block
+# decodes alone
+_ALL = tuple(range(len(GROUPED_OPS)))
+_NO_MAX64 = tuple(i for i in _ALL if i not in (9, 10, 12))
+GROUPED_EVERY_RUNG = [
+    pytest.param("thread", 1, (1, 2, 3), id="thread_one_cell"),
+    pytest.param("thread", 2, (0, 3, 4, 5, 7, 10, 11), id="thread"),
+    pytest.param("warp", 32, _ALL, id="warp"),
+    pytest.param("block", 2000, _ALL, id="block"),
+    pytest.param("block", 9000, (0, 7, 12), id="block_9000"),
+    pytest.param("cluster", 4097, _NO_MAX64, id="cluster"),
+    pytest.param("cluster", 10_000, (0, 4, 5, 6, 7, 11), id="cluster_10000"),
+    pytest.param("global", 30_000, _ALL, id="global")]
+
+
+def _rung_inputs(dev, rung, picks, n, cells, seed, offset=0, mask_offset=0, one_key=False):
+    """`_grouped_inputs` of n + 3 rows cut to n from row `offset` (the mask
+    from `mask_offset`): columns whose data pointers start 4-24 bytes past
+    an aligned address, so the kernel reads a head row by row, or, with the
+    mask offset alone, every row by scalar loads; the value rows and ops of
+    GROUPED_OPS at `picks`. Asserts that they take `rung`."""
+    ids, strides, mask, vals = _grouped_inputs(dev, n + 3, cells, seed, one_key=one_key)
+    cut = lambda t, k: t[k:k + n]   # noqa: E731
+    vals, ops = [cut(vals[i], offset) for i in picks], [GROUPED_OPS[i] for i in picks]
     from pinot_tpu_torch.engine import grouped
-    for cells in (9, 4097, 503_809):
-        ids, strides, mask, vals = _grouped_inputs(cuda, 1 << 21, cells, seed=3)
-        eager = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)   # warm
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = grouped.grouped_agg(ids, strides, mask, vals, GROUPED_OPS, cells)
-        for _ in range(3):
-            graph.replay()
+    assert grouped.rung_for(dev, vals, ops, cells)[0] == rung
+    return [cut(t, offset) for t in ids], strides, cut(mask, mask_offset), vals, ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rung, cells, picks", GROUPED_EVERY_RUNG)
+@pytest.mark.parametrize("what", ["offset1", "offset2", "offset3", "mask_offset", "one_key",
+                                  "n3", "n5", "2^20-1", "2^20+1"])
+def test_cuda_grouped_agg_on_every_rung(cuda, rung, cells, picks, what):
+    """Each rung, reached by its cell count, at its trouble spots: inputs offset by 1-3 rows
+    (misaligned pointers: a head read row by row), the mask alone offset (no
+    common head: scalar loads), one key holding every row, and row counts
+    3, 5 and 2^20 +- 1 (a tail read row by row)."""
+    from pinot_tpu_torch.engine import grouped
+    n = {"n3": 3, "n5": 5, "2^20-1": (1 << 20) - 1}.get(what, (1 << 20) + 1)
+    offset = int(what[-1]) if what.startswith("offset") else 0
+    ids, strides, mask, vals, ops = _rung_inputs(
+        cuda, rung, picks, n, cells, seed=cells + n % 89, offset=offset,
+        mask_offset=1 if what == "mask_offset" else offset, one_key=what == "one_key")
+    if offset:
+        assert all(t.data_ptr() % 16 for t in ids) and mask.data_ptr() % 8
+    got = grouped.grouped_agg(ids, strides, mask, vals, ops, cells)
+    torch.cuda.synchronize()
+    _assert_grouped_equal(got, grouped.grouped_agg_plain(ids, strides, mask, vals, ops, cells),
+                          ops)
+    # the same rows aligned, for the rung's answer on its other path
+    aligned = [t.clone() for t in ids], strides, mask.clone(), [v.clone() for v in vals]
+    _assert_grouped_equal(grouped.grouped_agg(*aligned, ops, cells), got, ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rung, cells, picks", GROUPED_EVERY_RUNG + [
+    pytest.param("global", 503_809, (0,), id="custkey")])
+def test_cuda_grouped_agg_is_stable_under_graph_replay(cuda, rung, cells, picks):
+    """Captured into a CUDA graph (the launch with its workspace's memset),
+    every replay gives the eager call's counts, int sums, min and max bit for
+    bit, and f32 sums within one ulp, on every rung and at lo_custkey's
+    cells; eager calls between replays, on the stream's own workspace, agree
+    too, and the launch counter counts the eager calls alone."""
+    from pinot_tpu_torch.engine import grouped
+    ids, strides, mask, vals, ops = _rung_inputs(cuda, rung, picks, 1 << 21, cells, seed=3)
+
+    def call():
+        return grouped.grouped_agg(ids, strides, mask, vals, ops, cells)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()   # warm
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    before = grouped.grouped_agg.launches
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_grouped_equal(out, eager, ops)
+        _assert_grouped_equal(call(), eager, ops)
+    assert grouped.grouped_agg.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_agg_takes_one_kernel_a_call(cuda):
+    """GROUP_QUERY's shape at one segment's size (9 cells, one f64 sum, the
+    thread rung) and the scalar power sums (one cell) run as one kernel and
+    nothing else on the card; the global rung as two beside the memset of
+    its accumulators."""
+    from torch.profiler import ProfilerActivity, profile
+    from pinot_tpu_torch.engine import grouped
+    for cells, ops, kernels in ((9, ["sum"], 1), (1, ["sum2", "sum3", "sum4"], 1),
+                                (503_809, ["sum"], 2)):
+        ids, strides, mask, vals = _grouped_inputs(cuda, 1 << 21, cells, seed=7)
+        vals = vals[:len(ops)]
+        grouped.grouped_agg(ids, strides, mask, vals, ops, cells)   # the workspace exists
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grouped.grouped_agg(ids, strides, mask, vals, ops, cells)
             torch.cuda.synchronize()
-            _assert_grouped_equal(out, eager, GROUPED_OPS)
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        others = [n for n in names if "grouped_" not in n]
+        assert len(names) - len(others) == kernels, names
+        assert others == ([] if kernels == 1 else [n for n in others if "emset" in n]), names
 
 
 @pytest.mark.gpu
