@@ -105,7 +105,8 @@ exits non-zero:
    Host-routed queries (a GROUP BY on an expression, string functions in the
    filter and the GROUP BY, a selection and a join whose leaf filters need
    the host mask), with plan kind `host` (or a selection's host-mask reason)
-   and no kernel launch, against numpy at rel 1e-9, their cold run alone:
+   and no kernel launch, against numpy at rel 1e-9, their cold run alone,
+   over the table's first 2 segments (4,194,304 rows) but the join:
    `expr_host_query` lines. Last, 2,097,152 rows pumped into a consuming
    segment without staging: Q1.1 and the GROUP BY over its view (host plans)
    and over the table plus the view (the merged view): `expr_consuming`;
@@ -136,7 +137,7 @@ exits non-zero:
    held to the plain version's outputs).
 
 11. index  — the filter indexes and star-trees: lineorder from --seed again,
-   built with the port's writer with both of bench.py's star-trees
+   built in the worker pool (beside phases 5–10) with the port's writer with both of bench.py's star-trees
    ([lo_region, lo_discount] and [lo_orderdate, lo_discount], SUM__lo_revenue,
    on one table where bench.py builds two), inverted indexes on lo_region,
    lo_discount and lo_quantity, a range index on lo_orderdate, lo_custkey
@@ -168,7 +169,7 @@ exits non-zero:
    lines: each index's build seconds and bytes, compressed against raw
    bytes); and a copy without the search indexes and without compression.
    These builds (and phase 4's FOR table rebuilt with zlib, and the
-   consuming rows) run in 4 worker processes the smoke starts with phase 4.
+   consuming rows) run in 4 worker processes the smoke starts after phase 4's build.
    `ssb.SEARCH_QUERIES` (JSON_MATCH on a path, an array with a range and a
    presence test; TEXT_MATCH as a term or a phrase by lo_region, a prefix, a
    regex, `= 0`, beside `lo_discount = 2` (a bitmap leaf: one
@@ -192,7 +193,7 @@ exits non-zero:
    zipf 1.2), an INT multi-value lo_codes (1-6 of 1,000 codes, zipf 1.1) and
    a unique lo_orderkey (`ssb.make_mv_columns`), inverted indexes on lo_tags
    and lo_discount and a bloom filter on lo_codes, built in a worker process
-   the smoke starts with phase 4. `ssb.MV_QUERIES` (any-value filters,
+   the smoke starts after phase 4's build. `ssb.MV_QUERIES` (any-value filters,
    NOT and !=, a mixed tree whose lo_discount = 2 is a bitmap leaf, Q1.1,
    GROUP BY lo_tags (the host explode), the *MV aggregations, a selection
    with multi-value cells, ARRAYLENGTH) per segment, over the set and through
@@ -209,12 +210,12 @@ exits non-zero:
    Upsert" and "Stream ingestion with Dedup" pages: `ssb.upsert_schema`
    (lineorder with lo_orderkey the primary key, lo_ts the event time, lo_tax
    raw; inverted indexes on lo_region and lo_discount), each stream's JSON
-   rows (made in worker processes the smoke starts with phase 4) pumped
+   rows (made in worker processes the smoke starts after phase 4's build) pumped
    through the consumer's per-row lane into MutableSegments that commit at
    their flush thresholds (`build_immutable`, `load_segment`, the next
-   consumer). A FULL table (2,097,152 events over 524,288 keys drawn
+   consumer). A FULL table (1,048,576 events over 262,144 keys drawn
    zipf(1.2), comparisonColumn lo_ts, 2% late events: 3 committed segments
-   and a consuming one of 524,288 rows), a PARTIAL one (262,144 events over
+   and a consuming one of 262,144 rows), a PARTIAL one (262,144 events over
    65,536 keys; INCREMENT, MAX, OVERWRITE, IGNORE; one commit) and a dedup
    one (262,144 events, 25% re-sent; a text index on lo_comment; one
    commit): `upsert_ingest` lines (rows/s, the add_record share, commit
@@ -237,12 +238,13 @@ exits non-zero:
 15. batch  — batch ingestion and the query surface a user meets first,
    after Apache Pinot's "Batch Ingestion", "Gapfill Function For Time-Series
    Dataset", "Lookup UDF Join" and "Explain Plan" pages: lineorder from
-   --seed + 12 written by the port's writers in the worker pool (2,097,152
-   rows as 4 CSV files of 524,288; the first 262,144 rows once each as an
+   --seed + 12 written by the port's writers in the worker pool (1,048,576
+   rows as 4 CSV files of 262,144, cut from 2,097,152 for the cluster phase;
+   the first 262,144 rows once each as an
    Avro container with deflate, a Thrift binary file with its IDL sidecar, a
    length-delimited Protobuf file read through the committed
    `tests/torch_data/lineorder.desc`, and JSON lines). `run_batch_ingestion`
-   (`segment_rows` 524,288, aligned dictionaries, lo_custkey raw, a local
+   (`segment_rows` 262,144, aligned dictionaries, lo_custkey raw, a local
    controller that copies and loads each pushed segment) turns the CSV files
    into 4 segments, `ingest_file_to_segments` each other file into one (the
    Protobuf table with phase 4's FOR layout): `batch_readers` (each reader's
@@ -292,6 +294,34 @@ exits non-zero:
    bound; last GROUP_QUERY per segment under the profiler (`groupby_trace`:
    device busy ms, idle share, one `grouped_agg_kernel` a pass and no other
    grouped kernel, no `index_add_`, `bincount` or `scatter_reduce_` kernel).
+17. cluster — the cluster roles in one process (`pinot_tpu_torch.cluster`):
+   a Catalog, a Controller, a Broker and two ServerNodes, each with a
+   DeviceQueryPipeline of its own on the card; phase 4's 8 segments uploaded
+   as built to an OFFLINE table with replication 2 (pushed 8 at once, as a
+   batch job pushes; gzip tars in the deep store, unpacked and loaded by both
+   servers): `cluster_data`. Through `broker.handle_query`: Q1.1, GROUP_QUERY,
+   the COUNT, topk_desc and GROUP BY lo_custkey over 500,000 keys (one dense
+   partial a server, each checked dense, merged at the broker with no
+   `materialize_dense` call), a cold run and 5 warm runs each,
+   every run held to the oracle, to the launches its route implies (one
+   `masked_sums` or `grouped_agg` a server the route gives segments, one
+   stacked top-k a server) and to no partial result, no retry and 8 segments
+   queried: `cluster_query` (with the route); the same SQL on the direct
+   set path (`MeshQueryExecutor` over the 8 segments), a cold run and 5
+   warm runs: `cluster_set_path`; the broker's reduce phase split into the
+   merge and `reduce_to_result` in every warm run (`cluster_query`), and
+   lo_custkey's last `reduce_to_result` run again under cProfile:
+   `cluster_reduce_profile`; EXPLAIN (no launch) and EXPLAIN
+   ANALYZE of Q1.1: `cluster_explain`; 32 clients x 12 queries of the e2e mix
+   through the broker (its 8 scatter threads), QPS and p50/p95 beside phase
+   5's: `cluster_pipeline`;
+   server_1 marked dead, Q1.1 and GROUP_QUERY answered exactly by server_0
+   over all 8 segments in one launch: `cluster_failover`; then the cluster
+   restarted as a QuickCluster of its default per-segment servers (the
+   catalog restored from a snapshot, the segments loaded from the servers'
+   local disks, the FOR table uploaded) answering Q1.1 (one `masked_sums` a
+   segment) and the FOR sum (one `masked_sums_fused` a segment):
+   `cluster_per_segment`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -316,7 +346,9 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import math
@@ -968,6 +1000,10 @@ def run_serve(args, table, cols) -> dict:
     return launches
 
 
+#: each pipeline mix's QPS and latency, which the cluster phase prints beside its own
+SERVE_MIX_NUMBERS: dict = {}
+
+
 def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_ATOL) -> dict:
     """SERVE_CLIENTS threads, each sending SERVE_QUERIES_PER_CLIENT queries
     through one DeviceQueryPipeline, client c's query i being queries[(c + i) %
@@ -1053,9 +1089,10 @@ def serve_pipeline(mx, table, mix: str, queries, rtol=ORACLE_RTOL, atol=ORACLE_A
         raise AssertionError(f"pipeline {mix}: {topk_launches} top-k launches counted, "
                              f"stats {stats['topkLaunches']}, {stats['topkExact']} exact")
     lat.sort()
+    SERVE_MIX_NUMBERS[mix] = dict(qps=n_queries / wall, p50_ms=statistics.median(lat) * 1e3,
+                                  p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3)
     log("serve_pipeline", mix=mix, distinct_queries=len(queries), clients=SERVE_CLIENTS,
-        queries=n_queries, wall_s=wall, qps=n_queries / wall,
-        p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
+        queries=n_queries, wall_s=wall, **SERVE_MIX_NUMBERS[mix],
         solo_p50_ms=statistics.median(solo) * 1e3, launches=counts,
         topk_launches=topk_launches, stats=stats)
     return {k: v for k, v in counts.items() if k not in ("bitmap_filter", "grouped_agg")}
@@ -1771,6 +1808,8 @@ EXPR_DEVICE_RUNS = 5
 EXPR_QUERY_RUNS = 5    # warm runs of a device-routed query (cut from 10 for the search phase)
 EXPR_HOST_RUNS = 0                     # warm runs of a host-routed query (its cold run
                                        # alone: seconds a run, host-bound)
+EXPR_HOST_SEGMENTS = 2                 # the host-routed queries' segments of the table (cut
+                                       # from 8 for the cluster phase: 4,194,304 rows)
 EXPR_CONSUMING_ROWS = 2_097_152        # rows pumped into the consumer without staging
 EXPR_CASE_SUM = ("SELECT SUM(CASE WHEN lo_discount BETWEEN 1 AND 3 THEN lo_extendedprice "
                  "* lo_discount ELSE 0 END), COUNT(*) FROM lineorder WHERE lo_quantity < 25")
@@ -2034,22 +2073,26 @@ def run_expr(args, table, cols, work) -> tuple:
     tables = {"lineorder": table, "supplier": supplier}
     schemas = {"lineorder": schema, "supplier": ssb.supplier_schema()}
     scan_fn = make_segment_scan(tables)
+    # the host-routed queries read the table's first EXPR_HOST_SEGMENTS segments
+    host_table = table[:EXPR_HOST_SEGMENTS]
+    host_rows = sum(s.num_docs for s in host_table)
+    host_cols = {k: v[:host_rows] for k, v in cols.items()}
     host_queries = [
-        ("group_expr", EXPR_GROUP_EXPR, oracle_group_expr(cols), "host"),
-        ("string_fns", EXPR_STRING, oracle_string(cols), "host"),
-        ("host_mask_select", EXPR_HOST_SELECT, oracle_host_select(cols), "selection"),
+        ("group_expr", EXPR_GROUP_EXPR, oracle_group_expr(host_cols), "host"),
+        ("string_fns", EXPR_STRING, oracle_string(host_cols), "host"),
+        ("host_mask_select", EXPR_HOST_SELECT, oracle_host_select(host_cols), "selection"),
     ]
     for qid, sql, want, kind in host_queries:
-        seg_kinds, reasons = kinds(sql, table)
+        seg_kinds, reasons = kinds(sql, host_table)
         if seg_kinds != [kind] or "" in reasons:
             raise AssertionError(f"expr host {qid}: plans {seg_kinds}, reasons {reasons}")
         for path, run, runs in (
-                ("per_segment", lambda sql=sql: execute_query(table, sql), EXPR_HOST_RUNS),
-                ("set", lambda sql=sql: mx.execute(table, sql), 0)):
+                ("per_segment", lambda sql=sql: execute_query(host_table, sql), EXPR_HOST_RUNS),
+                ("set", lambda sql=sql: mx.execute(host_table, sql), 0)):
             line = checked("host", f"expr host {qid} {path}", run, want, none, runs,
                            JOIN_RTOL, JOIN_ATOL)
             log("expr_host_query", query=qid, path=path, plan_kind=kind,
-                fallback_reason=reasons[0], rows=rows, segments=len(table), **line)
+                fallback_reason=reasons[0], rows=host_rows, segments=len(host_table), **line)
     sup_ctx = compile_query("SELECT s_nation FROM supplier WHERE strpos(s_city, 'A') = 0",
                             schemas["supplier"])
     reason = plan_segment(sup_ctx, supplier[0]).fallback_reason
@@ -2712,7 +2755,20 @@ def bitmap_cases(block, stacked) -> dict:
     return out
 
 
-def run_index(args, plain_table, cols, work) -> tuple:
+def build_index_table(rows: int, seed: int, out: str) -> tuple:
+    """In a worker process: phase 4's lineorder (the same rows, from the same
+    seed) rebuilt with INDEX_CONFIG's indexes and trees. Returns (paths,
+    build s)."""
+    from pinot_tpu_torch import ssb
+    from pinot_tpu_torch.segment.writer import SegmentGeneratorConfig, build_aligned_segments
+    cols = ssb.make_columns(rows, seed)
+    t0 = time.perf_counter()
+    paths = build_aligned_segments(ssb.ssb_schema(), cols, out, "lineorder", SEGMENTS,
+                                   SegmentGeneratorConfig(**INDEX_CONFIG))
+    return paths, time.perf_counter() - t0
+
+
+def run_index(args, plain_table, cols, work, job=None) -> tuple:
     """Phase 11: lineorder from --seed rebuilt with the port's writer with both
     of bench.py's star-trees, inverted indexes on lo_region, lo_discount and
     lo_quantity, a range index on lo_orderdate, lo_custkey raw with a bloom
@@ -2735,9 +2791,13 @@ def run_index(args, plain_table, cols, work) -> tuple:
 
     schema = ssb.ssb_schema()
     t0 = time.perf_counter()
-    paths = build_aligned_segments(schema, cols, os.path.join(work, "index"), "lineorder",
-                                   SEGMENTS, SegmentGeneratorConfig(**INDEX_CONFIG))
-    build_s = time.perf_counter() - t0
+    if job is None:
+        paths = build_aligned_segments(schema, cols, os.path.join(work, "index"), "lineorder",
+                                       SEGMENTS, SegmentGeneratorConfig(**INDEX_CONFIG))
+        build_s = time.perf_counter() - t0
+    else:   # built in the worker pool beside the earlier phases
+        paths, build_s = job.result()
+    waited_s = time.perf_counter() - t0
     table = [load_segment(p) for p in paths]
     records = [[t.num_records for t in s.star_trees] for s in table]
     # IN_ID_SET: the customers of one region's lo_quantity = 7 AND lo_discount = 3
@@ -2759,7 +2819,7 @@ def run_index(args, plain_table, cols, work) -> tuple:
     absent_key = int(cols["lo_custkey"].max()) + 1
     oracles = index_oracles(cols, idset_keys, pruned_key)
     log("index_data", rows=sum(s.num_docs for s in table), segments=len(table),
-        build_s=build_s, star_records=records, idset_keys=int(len(idset_keys)),
+        build_s=build_s, waited_for_worker_s=waited_s, star_records=records, idset_keys=int(len(idset_keys)),
         pruned_key=pruned_key, pruned_key_absent_in=int(absent_in[pruned_key]),
         absent_key=absent_key, index_types={c: table[0].column(c).index_types
                                             for c in table[0].column_names})
@@ -3713,9 +3773,9 @@ def run_mv(args, work, jobs) -> tuple:
 
 # -- phase 14: upsert ------------------------------------------------------------------
 
-UPSERT_EVENTS = 2_097_152        # FULL: events (PERF.md section 4)
-UPSERT_KEYS = 524_288            # FULL: primary keys
-UPSERT_FLUSH = 524_288           # FULL: rows a segment commits at (3 committed, 1 consuming)
+UPSERT_EVENTS = 1_048_576        # FULL: events (PERF.md section 4; cut from 2,097,152
+UPSERT_KEYS = 262_144            # events and 524,288 keys and flush rows for the cluster
+UPSERT_FLUSH = 262_144           # phase); rows a segment commits at (3 committed, 1 consuming)
 UPSERT_PARTIAL = (262_144, 65_536, 131_072)    # PARTIAL: events, keys, flush rows
 UPSERT_DEDUP = (262_144, 131_072)              # dedup: events, flush rows
 UPSERT_UPDATES = 65_536          # updates pumped after the queries, to committed keys
@@ -3933,9 +3993,9 @@ def run_upsert(args, work, jobs) -> tuple:
     primary key, lo_ts the event time, lo_tax raw; inverted indexes on
     lo_region and lo_discount), their JSON rows through the consumer's
     per-row lane into MutableSegments, committed at their flush thresholds:
-    a FULL table (2,097,152 events over 524,288 keys drawn zipf(1.2),
+    a FULL table (1,048,576 events over 262,144 keys drawn zipf(1.2),
     comparisonColumn lo_ts with 2% late events; 3 committed segments and a
-    consuming one of 524,288 rows), a PARTIAL one (262,144 events over 65,536
+    consuming one of 262,144 rows), a PARTIAL one (262,144 events over 65,536
     keys, four strategies) and a dedup one (262,144 events, 25% re-sent, a
     text index on lo_comment). Each query through `execute_query(...,
     upsert=)` against numpy over the live rows, each checked cold run held
@@ -4096,9 +4156,9 @@ def run_upsert(args, work, jobs) -> tuple:
 
 # -- phase 15: batch ingestion, EXPLAIN, GAPFILL, LOOKUP, preprocess ----------------
 
-BATCH_ROWS = 2_097_152             # the CSV table: 4 files of 524,288 rows
-BATCH_FILES = 4
-BATCH_SEGMENT_ROWS = 524_288       # the job's segment_rows: one segment a file's worth
+BATCH_ROWS = 1_048_576             # the CSV table: 4 files of 262,144 rows (cut from
+BATCH_FILES = 4                    # 2,097,152 rows for the cluster phase)
+BATCH_SEGMENT_ROWS = 262_144       # the job's segment_rows: one segment a file's worth
 BATCH_FILE_ROWS = 262_144          # each single-file table: the generator's first rows
 BATCH_FORMATS = ("avro", "thrift", "pb", "json")
 BATCH_RUNS = 5                     # warm runs of each device-routed query
@@ -4861,6 +4921,478 @@ def group_cases(cases) -> dict:
     return {c[0]: group_case(*c, flush) for c in cases}
 
 
+# -- phase 17: cluster ---------------------------------------------------------------
+
+CLUSTER_RUNS = 5                 # warm runs of each query through the broker
+CLUSTER_SERVERS = 2
+CLUSTER_REPLICATION = 2
+# segments pushed at once: each upload packs a gzip tar, and zlib lets the
+# threads compress side by side (one at a time took 18 s of the phase's 69)
+CLUSTER_UPLOAD_THREADS = 8
+CLUSTER_PROFILE_TOP = 12         # functions the reduce profile lists
+
+
+def oracle_custkey_group(c):
+    """GROUPBY_CUSTKEY: every key that holds rows, ascending, with its sum."""
+    counts = np.bincount(c["lo_custkey"])
+    sums = np.bincount(c["lo_custkey"], weights=c["lo_revenue"])
+    keys = np.flatnonzero(counts)[:500_000]
+    return keys, sums[keys]
+
+
+def custkey_rows_match(got, want) -> bool:
+    """The lo_custkey GROUP BY's rows against its oracle, vectorized."""
+    keys, sums = want
+    if len(got) != len(keys):
+        return False
+    g = np.asarray(got, dtype=np.float64)
+    return bool(np.array_equal(g[:, 0], keys)
+                and np.allclose(g[:, 1], sums, rtol=ORACLE_RTOL, atol=ORACLE_ATOL))
+
+
+def topk_oracle(c, mask, select, key, desc, limit):
+    """A top-k through the broker: partials merge in the order servers
+    answer, so rows that tie on the key may come in either order and a tie
+    group the LIMIT cuts may give any of its rows. The check: its keys are
+    the oracle's, and the rows are matching rows with those keys, none
+    taken more often than the data holds it."""
+    want = oracle_rows(c, mask, select, key, desc, limit)
+    k = select.index(key)
+    keys = [r[k] for r in want]
+    idx = np.flatnonzero(mask & np.isin(c[key], keys))
+    allowed = collections.Counter(tuple(c[col][i].item() for col in select) for i in idx)
+
+    def ok(got):
+        # the keys in order fix each tie group's size; the rows, as a
+        # multiset, must be among the matching ones, so no row comes twice
+        # unless the data holds it twice
+        return [r[k] for r in got] == keys and not (
+            collections.Counter(map(tuple, got)) - allowed)
+    return ok
+
+
+def cluster_queries(cols) -> list:
+    """(id, sql, oracle check, launches a server the route gives segments)
+    through the pipelined servers; topk_desc launches the stacked top-k, one
+    a server, and none of the four kernels."""
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
+    q11, group, count = oracle_q11(cols), oracle_group(cols), oracle_count(cols)
+    topk = topk_oracle(cols, cols["lo_quantity"] >= 10, ["lo_custkey", "lo_revenue"],
+                       "lo_revenue", True, 7)
+    custkey = oracle_custkey_group(cols)
+    return [
+        ("q1_1", QUERY, lambda rows: rows_match(rows, q11), counts_of(masked_sums=1)),
+        ("group_by", GROUP_QUERY, lambda rows: rows_match(rows, group),
+         counts_of(grouped_agg=1)),
+        ("count_quantity", SERVE_COUNT_QUERY, lambda rows: rows_match(rows, count),
+         counts_of(masked_sums=1)),
+        ("topk_desc", SELECT_QUERIES[0][1], topk, counts_of()),
+        ("custkey_group", GROUPBY_CUSTKEY, lambda rows: custkey_rows_match(rows, custkey),
+         counts_of(grouped_agg=1)),
+    ]
+
+
+@contextlib.contextmanager
+def dense_materializations():
+    """Counts the `SegmentResult.materialize_dense` calls on an array-form
+    partial while the block runs (the broker's dict fallback)."""
+    from pinot_tpu_torch.query.reduce import SegmentResult
+    orig = SegmentResult.materialize_dense
+    calls = []
+
+    def spy(self, *args, **kwargs):
+        if self.dense is not None:
+            calls.append(1)
+        return orig(self, *args, **kwargs)
+    SegmentResult.materialize_dense = spy
+    try:
+        yield calls
+    finally:
+        SegmentResult.materialize_dense = orig
+
+
+def profile_top(fn, top: int = CLUSTER_PROFILE_TOP) -> tuple:
+    """fn() under cProfile (which in Python 3.12 sees every thread: run it
+    where the others wait): its result, and the `top` functions by own time
+    and by cumulative time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        out = fn()
+    finally:
+        prof.disable()
+    stats = pstats.Stats(prof).stats
+
+    def rows(col):
+        best = sorted(stats.items(), key=lambda kv: -kv[1][col])[:top]
+        return [{"fn": f"{os.path.basename(f)}:{line}:{name}", "calls": v[1],
+                 "own_s": v[2], "cum_s": v[3]} for (f, line, name), v in best]
+    return out, {"by_own": rows(2), "by_cum": rows(3)}
+
+
+class RouteLog:
+    """Records the broker's dispatches (server, segments) as they are made:
+    the route each checked run's launches are derived from; and how many of
+    the partials that came back were in array form (`DensePartial`)."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self.calls = []
+        self.dense = 0
+
+    def wrap(self, sid, handle):
+        def call(table, ctx, segments, tf=None):
+            with self._lock:
+                self.calls.append((sid, list(segments)))
+            partial = handle(table, ctx, segments, tf)
+            with self._lock:
+                self.dense += partial.dense is not None
+            return partial
+        return call
+
+    def take(self) -> dict:
+        """server -> segments of the dispatches since the last take."""
+        with self._lock:
+            calls, self.calls, self.dense = self.calls, [], 0
+        out = {}
+        for sid, segs in calls:
+            out.setdefault(sid, []).extend(segs)
+        return {sid: sorted(segs) for sid, segs in out.items() if segs}
+
+
+def run_cluster(args, table, cols, for_table, work) -> dict:
+    """Phase 17: the cluster roles in one process. One Catalog, Controller and
+    Broker and two ServerNodes, each with a DeviceQueryPipeline of its own on
+    the card, as a server process wires them; an OFFLINE lineorder table with
+    replication 2 takes phase 4's 8 segments (pushed as built from
+    CLUSTER_UPLOAD_THREADS threads: a gzip tar to the deep store, each server
+    unpacks and loads its assignment). Through `broker.handle_query`: Q1.1,
+    GROUP_QUERY, the COUNT, topk_desc and the lo_custkey GROUP BY (one dense
+    partial a server, merged at the broker without a state dict), each a
+    cold run and CLUSTER_RUNS warm runs, beside the same SQL on the direct
+    set path; lo_custkey's reduce under cProfile; EXPLAIN and EXPLAIN ANALYZE
+    of Q1.1; the e2e mix (32 clients x 12 queries) through this broker
+    beside phase 5's numbers; failover to server_0 alone; then the cluster restarted as a
+    QuickCluster of its default per-segment servers (catalog restored from a
+    snapshot, segments from local disk) answering Q1.1 and the FOR sum. Every answer is held to its
+    oracle, every run's launches to those its printed route implies, and
+    every query but the failover's to no partial result, no retry and 8
+    segments queried. Returns the launches of the checked runs."""
+    import threading
+    from unittest import mock
+
+    from pinot_tpu_torch import QuickCluster
+    from pinot_tpu_torch.cluster import broker as broker_module
+    from pinot_tpu_torch.cluster import (Broker, Catalog, Controller, DeviceQueryPipeline,
+                                         ServerNode)
+    from pinot_tpu_torch.cluster.deepstore import LocalDeepStore
+    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.schema import Schema
+    from pinot_tpu_torch.ssb import FOR_QUERY, GROUP_QUERY, QUERY
+    from pinot_tpu_torch.table import TableConfig
+
+    root = os.path.join(work, "cluster")
+    schema = table[0].schema
+    rows = sum(s.num_docs for s in table)
+    launches = counts_of()
+    routes = RouteLog()
+
+    def upload_all(controller, name, segs):
+        with concurrent.futures.ThreadPoolExecutor(CLUSTER_UPLOAD_THREADS) as pool:
+            return list(pool.map(lambda s: controller.upload_segment(name, s.path), segs))
+
+    t0 = time.perf_counter()
+    catalog = Catalog()
+    store = LocalDeepStore(os.path.join(root, "deepstore"))
+    controller = Controller("controller_0", catalog, store, os.path.join(root, "controller"))
+    servers = [ServerNode(f"server_{i}", catalog, store, os.path.join(root, f"server_{i}"),
+                          device_pipeline=DeviceQueryPipeline(MeshQueryExecutor()))
+               for i in range(CLUSTER_SERVERS)]
+    broker = Broker("broker_0", catalog)
+    for s in servers:
+        broker.register_server_handle(s.instance_id, routes.wrap(s.instance_id,
+                                                                 s.execute_partial),
+                                      explain_handle=s.explain_partial)
+    controller.add_schema(schema)
+    controller.add_table(TableConfig("lineorder", replication=CLUSTER_REPLICATION))
+    name = "lineorder_OFFLINE"
+    t_up = time.perf_counter()
+    metas = upload_all(controller, name, table)
+    upload_s = time.perf_counter() - t_up
+    status = controller.table_status(name)
+    if not status["converged"] or status["segments"] != len(table) or any(
+            n != CLUSTER_REPLICATION for n in status["replicas_online"].values()):
+        raise AssertionError(f"cluster: the table did not converge: {status}")
+    log("cluster_data", rows=rows, segments=len(table), servers=CLUSTER_SERVERS,
+        replication=CLUSTER_REPLICATION, wire_s=t_up - t0, upload_s=upload_s,
+        deepstore_bytes=sum(m.size_bytes for m in metas),
+        loaded={s.instance_id: len(s.segments_served(name)) for s in servers})
+
+    def checked(label, sql, ok, per_server, servers_expected=None, strict=True):
+        """One broker query: counts set to 0 just before, read just after and
+        held to `per_server` times the servers its route gave segments; the
+        answer to `ok`; the stats to a whole answer from every segment."""
+        reset_launch_counts()
+        kernels.reset_topk_launches()
+        routes.take()
+        t0 = time.perf_counter()
+        with dense_materializations() as materialized:
+            res = broker.handle_query(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dense = routes.dense
+        route = routes.take()
+        counts, topk = launch_counts(), kernels.topk_launches()
+        if label.endswith("custkey_group") and dense != len(route):
+            raise AssertionError(f"cluster {label}: {dense} of {len(route)} server partials "
+                                 "in array form: the broker must merge them elementwise")
+        if materialized:
+            raise AssertionError(f"cluster {label}: the broker turned {len(materialized)} "
+                                 "array-form partials into state dicts")
+        want = {k: v * len(route) for k, v in per_server.items()}
+        want_topk = len(route) if label.startswith("topk") else 0
+        if counts != want or topk != want_topk:
+            raise AssertionError(f"cluster {label}: launches {counts}, top-k {topk}, expected "
+                                 f"{want} and {want_topk} for the route {route}")
+        if servers_expected is not None and sorted(route) != servers_expected:
+            raise AssertionError(f"cluster {label}: routed to {sorted(route)}")
+        for k, v in counts.items():
+            launches[k] += v
+        if not ok(res.rows):
+            raise AssertionError(f"cluster {label}: answer off the oracle: {res.rows[:5]}")
+        st = res.stats
+        if strict and (st["partialResult"] or st["numSegmentsRetried"]
+                       or st["numSegmentsQueried"] != len(table)
+                       or st["numServersResponded"] != st["numServersQueried"]):
+            raise AssertionError(f"cluster {label}: stats {st}")
+        return res, ms, route, counts
+
+    # the broker's reduce phase split: the merge of the partials and the
+    # reduce to rows, timed in every run; the last reduce's inputs kept
+    split, reduce_inputs = {}, {}
+
+    def timed(fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            split[fn.__name__] = (time.perf_counter() - t0) * 1e3
+            if fn.__name__ == "reduce_to_result":
+                split["inputs"] = args
+            return out
+        return call
+
+    numbers = {}
+    queries = cluster_queries(cols)
+    for qid, sql, ok, per_server in queries:
+        res, cold_ms, route, counts = checked(qid, sql, ok, per_server)
+        times, phases = [], []
+        with mock.patch.object(broker_module, "merge_segment_results",
+                               timed(broker_module.merge_segment_results)), \
+                mock.patch.object(broker_module, "reduce_to_result",
+                                  timed(broker_module.reduce_to_result)):
+            for _ in range(CLUSTER_RUNS):
+                r, ms, _, _ = checked(qid, sql, ok, per_server)
+                times.append(ms)
+                phases.append(dict(r.stats["phaseTimesMs"],
+                                   merge=split["merge_segment_results"],
+                                   reduce_to_result=split["reduce_to_result"]))
+        reduce_inputs[qid] = split.pop("inputs")
+        numbers[qid] = statistics.median(times)
+        log("cluster_query", query=qid, rows=rows, segments=len(table), route=route,
+            launches=counts, answer=res.rows[:3], answer_rows=len(res.rows), cold_ms=cold_ms,
+            warm_median_ms=statistics.median(times), warm_min_ms=min(times),
+            warm_max_ms=max(times), warm_runs=len(times),
+            phase_median_ms={k: statistics.median(p[k] for p in phases) for k in phases[0]},
+            stats={k: res.stats[k] for k in ("numSegmentsQueried", "numSegmentsPruned",
+                                              "numSegmentsMatched", "numServersQueried",
+                                              "numServersResponded", "partialResult",
+                                              "numSegmentsRetried", "numDocsScanned")})
+
+    # the same SQL on the direct set path over the same 8 segments (no
+    # broker, no server), held to the same oracles
+    mx = MeshQueryExecutor()
+    set_ms = {}
+    for qid, sql, ok, _ in queries:
+        times = []
+        for _ in range(1 + CLUSTER_RUNS):
+            t0 = time.perf_counter()
+            res = mx.execute(table, sql)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not ok(res.rows):
+                raise AssertionError(f"cluster set path {qid}: off the oracle: {res.rows[:5]}")
+        set_ms[qid] = statistics.median(times[1:])
+        log("cluster_set_path", query=qid, rows=rows, segments=len(table), cold_ms=times[0],
+            warm_median_ms=set_ms[qid], warm_min_ms=min(times[1:]),
+            warm_max_ms=max(times[1:]), warm_runs=CLUSTER_RUNS,
+            broker_warm_median_ms=numbers[qid])
+
+    # where the broker's lo_custkey reduce goes: its last warm run's
+    # reduce_to_result again, alone under cProfile
+    t0 = time.perf_counter()
+    out, prof = profile_top(lambda: broker_module.reduce_to_result(
+        *reduce_inputs["custkey_group"]))
+    log("cluster_reduce_profile", query="custkey_group", rows=len(out.rows),
+        profiled_ms=(time.perf_counter() - t0) * 1e3, **prof)
+    # 500,000-row answers kept alive would tax the mix's collections
+    del out, res, r, reduce_inputs
+
+    # EXPLAIN launches nothing; EXPLAIN ANALYZE runs Q1.1 through the route
+    res, ms, route, counts = checked("explain", "EXPLAIN PLAN FOR " + QUERY,
+                                     lambda r: len(r) >= 3, counts_of(), strict=False)
+    log("cluster_explain", query="q1_1", rows=res.rows, ms=ms)
+    res, ms, route, counts = checked(
+        "explain_analyze", "EXPLAIN ANALYZE " + QUERY,
+        lambda r: len(r) >= 3 and r[0][3] == 1, counts_of(masked_sums=1))
+    if not any(r[0].startswith("SEGMENT_PLAN") and r[3] == res.stats["numDocsScanned"]
+               for r in res.rows):
+        raise AssertionError(f"cluster explain_analyze: rows {res.rows}")
+    log("cluster_explain", query="q1_1", analyze=True, rows=res.rows, route=route,
+        launches=counts, ms=ms)
+
+    # the e2e mix through the broker (its default 8 scatter threads),
+    # beside phase 5's pipeline numbers
+    mix = [(QUERY, oracle_q11(cols)), (GROUP_QUERY, oracle_group(cols)),
+           (SERVE_COUNT_QUERY, oracle_count(cols))]
+
+    def run_mix():
+        before = [s.device_pipeline.stats()["scanLaunches"] for s in servers]
+        lat, failures = [], []
+        lock = threading.Lock()
+
+        def client(ci):
+            mine, wrong = [], []
+            for qi in range(SERVE_QUERIES_PER_CLIENT):
+                sql, want = mix[(ci + qi) % len(mix)]
+                t0 = time.perf_counter()
+                try:
+                    res = broker.handle_query(sql)
+                except Exception as e:   # recorded, and the phase fails below
+                    wrong.append(f"{sql[:48]}: {e!r}")
+                    continue
+                mine.append(time.perf_counter() - t0)
+                st = res.stats
+                if not rows_match(res.rows, want) or st["partialResult"] \
+                        or st["numSegmentsRetried"] or st["numSegmentsQueried"] != len(table):
+                    wrong.append(f"{sql[:48]}: {res.rows} {st}")
+            with lock:
+                lat.extend(mine)
+                failures.extend(wrong)
+
+        threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        stats = [s.device_pipeline.stats() for s in servers]
+        scans = sum(st["scanLaunches"] for st in stats) - sum(before)
+        n_queries = SERVE_CLIENTS * SERVE_QUERIES_PER_CLIENT
+        if any(t.is_alive() for t in threads) or failures or len(lat) != n_queries:
+            raise AssertionError(f"cluster e2e_mix: {len(lat)} of {n_queries} answered, "
+                                 f"{len(failures)} bad: {failures[:3]}")
+        if counts["masked_sums"] != scans or any(st["errors"] or st["timeouts"]
+                                                 for st in stats):
+            raise AssertionError(f"cluster e2e_mix: {counts['masked_sums']} scans counted, "
+                                 f"the pipelines report {scans}: {stats}")
+        launches["masked_sums"] += counts["masked_sums"]
+        lat.sort()
+        log("cluster_pipeline", mix="e2e_mix", scatter_threads=8,
+            clients=SERVE_CLIENTS, queries=n_queries, wall_s=wall, qps=n_queries / wall,
+            p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
+            launches=counts, serve_pipeline=SERVE_MIX_NUMBERS.get("e2e_mix"),
+            pipelines={s.instance_id: {k: st[k] for k in ("batches", "dispatched", "meanBatch",
+                                                            "scanLaunches", "dedupeHits",
+                                                            "stackedLaunches")}
+                       for s, st in zip(servers, stats)})
+        return n_queries / wall
+
+    mix_qps = run_mix()
+
+    # failover: server_1 dead, server_0 answers every segment alone
+    catalog.set_instance_alive("server_1", False)
+    broker.routing.mark_server_unhealthy("server_1")
+    for qid, sql, ok, per_server in queries[:2]:
+        res, ms, route, counts = checked(f"failover_{qid}", sql, ok, per_server,
+                                         servers_expected=["server_0"], strict=False)
+        if route["server_0"] != sorted(s.name for s in table):
+            raise AssertionError(f"cluster failover {qid}: route {route}")
+        log("cluster_failover", query=qid, route=route, launches=counts, answer=res.rows[:3],
+            ms=ms, stats={k: res.stats[k] for k in ("numSegmentsQueried", "partialResult",
+                                                    "numServersQueried",
+                                                    "numSegmentsRetried")})
+    for s in servers:
+        s.shutdown()
+
+    # the cluster restarted as a QuickCluster of its default per-segment
+    # servers (one launch a segment) over the same deep store and data
+    # directories: its catalog restored from the roles' snapshot, as a
+    # controller recovers, each server loading its assignment from its local
+    # disk, as a restarted server does; the FOR table uploaded to it
+    qc = QuickCluster(num_servers=CLUSTER_SERVERS, work_dir=root)
+    t0 = time.perf_counter()
+    qc.catalog.restore(catalog.snapshot())
+    for s in qc.servers:
+        s.reconcile(name)
+    qc_restore_s = time.perf_counter() - t0
+    for_schema = Schema("lineorder_for", list(schema.fields))
+    qc.create_table(for_schema, TableConfig("lineorder_for"))
+    for s in qc.servers:
+        qc.broker.register_server_handle(s.instance_id, routes.wrap(s.instance_id,
+                                                                    s.execute_partial),
+                                         explain_handle=s.explain_partial)
+    t0 = time.perf_counter()
+    upload_all(qc.controller, "lineorder_for_OFFLINE", for_table)
+    qc_upload_s = time.perf_counter() - t0
+    for_cols = {k: v[:sum(s.num_docs for s in for_table)] for k, v in cols.items()}
+    broker = qc.broker
+    for qid, sql, oracle, kernel, segs in (
+            ("q1_1", QUERY, oracle_q11(cols), "masked_sums", table),
+            ("for_sum", FOR_QUERY.replace("FROM lineorder", "FROM lineorder_for"),
+             oracle_for(for_cols), "masked_sums_fused", for_table)):
+        reset_launch_counts()
+        routes.take()
+        t0 = time.perf_counter()
+        res = broker.handle_query(sql)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        route = routes.take()
+        counts = launch_counts()
+        want = counts_of(**{kernel: sum(len(v) for v in route.values())})
+        if counts != want or sum(len(v) for v in route.values()) != len(segs):
+            raise AssertionError(f"cluster per_segment {qid}: launches {counts}, expected "
+                                 f"{want} for the route {route}")
+        if not rows_match(res.rows, oracle) or res.stats["partialResult"] \
+                or res.stats["numSegmentsRetried"] or res.stats["numSegmentsQueried"] != len(segs):
+            raise AssertionError(f"cluster per_segment {qid}: {res.rows} {res.stats}")
+        for k, v in counts.items():
+            launches[k] += v
+        times = []
+        for _ in range(CLUSTER_RUNS):
+            t0 = time.perf_counter()
+            r = broker.handle_query(sql)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not rows_match(r.rows, oracle):
+                raise AssertionError(f"cluster per_segment {qid}: a warm answer {r.rows}")
+        log("cluster_per_segment", query=qid, rows=sum(s.num_docs for s in segs),
+            segments=len(segs), route=route, launches=counts, answer=res.rows,
+            cold_ms=cold_ms, warm_median_ms=statistics.median(times),
+            restore_s=qc_restore_s, for_upload_s=qc_upload_s)
+    qc.shutdown()
+    log("cluster_summary", broker_warm_median_ms=numbers, set_path_warm_median_ms=set_ms,
+        broker_mix_qps=mix_qps,
+        serve_pipeline=SERVE_MIX_NUMBERS.get("e2e_mix"))
+    return launches
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -4948,10 +5480,6 @@ def main() -> int:
     # in worker processes beside the earlier phases
     build_pool = concurrent.futures.ProcessPoolExecutor(
         6, mp_context=multiprocessing.get_context("spawn"))   # one per build
-    search_jobs = start_search_builds(build_pool, args, work)
-    mv_jobs = start_mv_builds(build_pool, args, work)
-    upsert_jobs = start_upsert_builds(build_pool, args)   # queued behind the builds
-    batch_jobs = start_batch_builds(build_pool, args, work)
 
     def phase(name, fn, *a):
         t0 = time.perf_counter()
@@ -4961,6 +5489,14 @@ def main() -> int:
 
     try:
         path_launches, table, cols, for_table = phase("path", run_path, args, work)
+        # the worker builds start once phase 4's table is built: beside it
+        # they slowed its single-process build by up to 80%
+        index_job = build_pool.submit(build_index_table, args.rows, args.seed,
+                                      os.path.join(work, "index"))
+        search_jobs = start_search_builds(build_pool, args, work)
+        mv_jobs = start_mv_builds(build_pool, args, work)
+        upsert_jobs = start_upsert_builds(build_pool, args)   # queued behind the builds
+        batch_jobs = start_batch_builds(build_pool, args, work)
         serve_launches = phase("serve", run_serve, args, table, cols)
         select_launches = phase("select", run_select, args, table, cols)
         join_launches = phase("join", run_join, args, table, cols, work)
@@ -4980,7 +5516,7 @@ def main() -> int:
             raise AssertionError(f"aggs phase launches {aggs_launches}: the aggregation "
                                  "library reaches no scan")
         index_launches, index_by_route, bitmap_numbers = phase("index", run_index, args,
-                                                                table, cols, work)
+                                                                table, cols, work, index_job)
         if not index_launches["bitmap_filter"]:
             raise AssertionError("the index phase launched no bitmap_filter")
         search_launches, search_by_route = phase("search", run_search, args, cols, for_table,
@@ -5001,6 +5537,7 @@ def main() -> int:
             raise AssertionError(f"the batch phase launches {batch_launches}: each kernel "
                                  "must run on its path")
         groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
+        cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -5018,7 +5555,8 @@ def main() -> int:
                 "host": expr_launches["host"][name], "aggs": aggs_launches[name],
                 "index": index_launches[name], "search": search_launches[name],
                 "mv": mv_launches[name], "upsert": upsert_launches[name],
-                "batch": batch_launches[name], "groupby": groupby_launches[name]}
+                "batch": batch_launches[name], "groupby": groupby_launches[name],
+                "cluster": cluster_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)

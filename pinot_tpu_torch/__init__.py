@@ -13,11 +13,28 @@ segment directories as `pinot_tpu`.
 
 Joins and IN-subqueries run through `pinot_tpu_torch.multistage.execute_multistage`;
 realtime ingestion (a stream partition consumed into a consuming segment that
-stages its chunks on the card) through `pinot_tpu_torch.ingest`.
+stages its chunks on the card) through `pinot_tpu_torch.ingest`. The cluster
+roles (catalog, controller, servers, broker) run in one process through
+`pinot_tpu_torch.QuickCluster` (`cluster/`):
+
+    cluster = QuickCluster(num_servers=2)
+    config = cluster.create_table(schema, TableConfig("t", replication=2))
+    cluster.ingest_columns(config, columns)
+    cluster.query("SELECT COUNT(*) FROM t")
+
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """
 
 from .query.executor import ServerQueryExecutor, execute_query
 from .segment import load_segment, segments_from_columns
 
-__all__ = ["ServerQueryExecutor", "execute_query", "load_segment", "segments_from_columns"]
+__all__ = ["QuickCluster", "ServerQueryExecutor", "execute_query", "load_segment",
+           "segments_from_columns"]
+
+
+def __getattr__(name):
+    # the cluster roles load on first use, as `pinot_tpu.QuickCluster` does
+    if name == "QuickCluster":
+        from .cluster import QuickCluster
+        return QuickCluster
+    raise AttributeError(f"module 'pinot_tpu_torch' has no attribute {name!r}")

@@ -1,9 +1,24 @@
-"""The server role's device side: the serving pipeline over the set executor.
+"""The cluster roles in one process: catalog, controller, servers, broker.
 
-Counterpart of `pinot_tpu/cluster/device_server.py`. The HTTP server role and
-the rest of the cluster are not ported.
+Counterpart of `pinot_tpu/cluster/`: the catalog (`catalog.py`: schemas,
+table configs, segment metadata, the ideal state and the external view, with
+watch callbacks in place of Helix messages), the controller
+(`controller.py`: tables, uploads to the deep store, assignment, retention,
+rebalance), the servers (`server.py`: they load their segments and answer
+partials through the per-segment executor or the serving pipeline,
+`device_server.py`), the broker (`broker.py`: routing and pruning,
+scatter/gather with retries, reduce) and `QuickCluster`, which wires them.
+Offline tables and single-stage queries; what waits (realtime tables in the
+cluster, joins through the broker, the HBM gate and its tiers, the HTTP
+transport and the role processes) is listed in ROADMAP.md.
 """
 
+from .broker import Broker
+from .catalog import Catalog, SegmentMeta
+from .controller import Controller
 from .device_server import DeviceQueryPipeline
+from .enclosure import QuickCluster
+from .server import ServerNode
 
-__all__ = ["DeviceQueryPipeline"]
+__all__ = ["Broker", "Catalog", "Controller", "DeviceQueryPipeline", "QuickCluster",
+           "SegmentMeta", "ServerNode"]

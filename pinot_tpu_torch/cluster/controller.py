@@ -1,0 +1,355 @@
+"""Controller role: table CRUD, segment upload, assignment, retention, rebalance.
+
+A trimmed copy of `pinot_tpu/cluster/controller.py` (the analog of the
+reference's `PinotHelixResourceManager`, `ZKOperator.completeSegmentOperations`
+(validate, copy to the deep store, write metadata, update the ideal state),
+`RetentionManager`, `SegmentDeletionManager` and `TableRebalancer`'s converge
+loop): the table and segment core, tenants, table state, rebalance and table
+status. Offline tables only: `add_realtime_table` raises NotImplementedError,
+as do the cold tier's demotion (`controller.retention.cold.demote`). The
+periodic scheduler, the health, SLO, workload, memory, event and incident
+planes, the LLC completion protocol and the minion's task manager wait; their
+periodic tasks are methods a caller runs (`run_retention`,
+`run_segment_status_check`).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import uuid
+from typing import Dict, List, Optional
+
+from ..schema import Schema
+from ..segment.format import CREATION_META_FILE, SEGMENT_METADATA_FILE, read_json
+from ..table import TableConfig
+from ..utils.metrics import get_registry
+from .assignment import balanced_assign, compute_counts, rebalance_table, replica_group_assign
+from .catalog import (COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog, InstanceInfo,
+                      SegmentMeta, column_stats_from_meta)
+from .deepstore import DeepStoreFS, tar_segment
+from .routing import partition_for_value
+
+# deleted segments park in the deep store this long before the retention
+# reaper removes them (the reference's Deleted_Segments retention)
+DELETED_SEGMENTS_RETENTION_DAYS = 7.0
+
+SELECTORS = ("balanced", "replicagroup", "strictreplicagroup")
+
+
+class Controller:
+    def __init__(self, instance_id: str, catalog: Catalog, deepstore: DeepStoreFS,
+                 work_dir: str):
+        self.instance_id = instance_id
+        self.catalog = catalog
+        self.deepstore = deepstore
+        self.work_dir = work_dir
+        os.makedirs(work_dir, exist_ok=True)
+        self._status_tables: set = set()   # tables with exported status gauges
+        catalog.register_instance(InstanceInfo(instance_id, "controller"))
+
+    # -- table CRUD -------------------------------------------------------
+    def add_schema(self, schema: Schema) -> None:
+        self.catalog.put_schema(schema)
+
+    def add_table(self, config: TableConfig) -> None:
+        if config.name not in self.catalog.schemas:
+            raise ValueError(f"schema {config.name!r} must be added before the table")
+        self._validate_table_config(config)
+        self.catalog.put_table_config(config)
+
+    @staticmethod
+    def _validate_table_config(config: TableConfig) -> None:
+        if config.routing_selector and \
+                config.routing_selector.lower().replace("_", "") not in SELECTORS:
+            # a typo would fall back to balanced and drop the upsert guard
+            raise ValueError(f"unknown routingSelector {config.routing_selector!r} "
+                             "(balanced | replicaGroup | strictReplicaGroup)")
+
+    def add_realtime_table(self, config: TableConfig, num_partitions: int) -> List[str]:
+        raise NotImplementedError(
+            "realtime tables in the cluster wait for the segment completion protocol "
+            "(cluster/completion.py): ROADMAP.md queue 1")
+
+    def drop_table(self, table: str) -> None:
+        for seg in list(self.catalog.segments.get(table, {})):
+            self.delete_segment(table, seg)
+        # a table recreated under the name must not inherit a disabled state
+        self.catalog.put_property(f"tableState/{table}", None)
+        self.catalog.drop_table(table)
+
+    # -- segment upload ---------------------------------------------------
+    def upload_segment(self, table: str, segment_dir: str,
+                       custom: Optional[Dict[str, str]] = None) -> SegmentMeta:
+        """Validate the segment against the table's schema, copy it to the deep
+        store as a gzip tar, write its metadata (the partition id and time
+        range from its metadata.json, and the columns' min, max and bloom for
+        the broker's pruners) and assign it to servers."""
+        cfg = self.catalog.table_configs.get(table)
+        if cfg is None:
+            raise ValueError(f"unknown table {table!r}")
+        seg_meta_json = read_json(os.path.join(segment_dir, SEGMENT_METADATA_FILE))
+        seg_name = seg_meta_json["segmentName"]
+        schema = self.catalog.schemas.get(cfg.name)
+        seg_schema = Schema.from_json(seg_meta_json["schema"])
+        for f in schema.fields:
+            if not seg_schema.has_column(f.name):
+                raise ValueError(f"segment {seg_name} missing column {f.name}")
+
+        tar_path = os.path.join(self.work_dir, f"{seg_name}.{uuid.uuid4().hex}.tar.gz")
+        tar_segment(segment_dir, tar_path)
+        uri = f"{table}/{seg_name}.tar.gz"
+        try:
+            self.deepstore.upload(tar_path, uri)
+            size = os.path.getsize(tar_path)
+        finally:
+            os.remove(tar_path)
+
+        meta = SegmentMeta(
+            name=seg_name, table=table, status=STATUS_UPLOADED,
+            num_docs=seg_meta_json["totalDocs"],
+            crc=read_json(os.path.join(segment_dir, CREATION_META_FILE))["crc"],
+            size_bytes=size, download_path=uri, push_time_ms=int(time.time() * 1000),
+            partition_id=self._partition_id(cfg, seg_meta_json),
+            custom=dict(custom or {}))
+        self._fill_time_range(cfg, seg_meta_json, meta)
+        col_stats = column_stats_from_meta(seg_meta_json)
+        if col_stats:
+            meta.custom[COLUMN_STATS_KEY] = col_stats
+        self.catalog.put_segment_meta(meta)
+        self._assign_segment(table, cfg, meta)
+        get_registry().counter("pinot_controller_segments_uploaded", {"table": table}).inc()
+        return meta
+
+    @staticmethod
+    def _partition_id(cfg: TableConfig, seg_meta) -> Optional[int]:
+        """Every row of a partitioned segment maps to one partition: the
+        partition column's min value names it."""
+        if not cfg.partition:
+            return None
+        col = seg_meta["columns"].get(cfg.partition.column)
+        if col is None or col.get("minValue") is None:
+            return None
+        return partition_for_value(col["minValue"], cfg.partition.function,
+                                   cfg.partition.num_partitions)
+
+    @staticmethod
+    def _fill_time_range(cfg: TableConfig, seg_meta, meta: SegmentMeta) -> None:
+        if not cfg.time_column:
+            return
+        col = seg_meta["columns"].get(cfg.time_column)
+        if col and col.get("minValue") is not None:
+            meta.start_time_ms = int(col["minValue"])
+            meta.end_time_ms = int(col["maxValue"])
+
+    def _assign_segment(self, table: str, cfg: TableConfig, meta: SegmentMeta) -> None:
+        servers = self.catalog.live_servers(cfg.tenant)
+        with self.catalog._lock:   # other uploads update the ideal state meanwhile
+            counts = compute_counts(self.catalog.ideal_state.get(table, {}))
+        if cfg.is_dim_table:
+            # a dimension table goes to every server of its tenant, so LOOKUP
+            # resolves locally
+            chosen = list(servers)
+        elif cfg.partition and meta.partition_id is not None:
+            chosen = replica_group_assign(meta.name, servers, cfg.replication,
+                                          meta.partition_id, counts)
+        else:
+            chosen = balanced_assign(meta.name, servers, cfg.replication, counts)
+        self.catalog.update_ideal_state(table, {meta.name: {s: ONLINE for s in chosen}})
+
+    # -- segment replacement with lineage ---------------------------------
+    def replace_segments(self, table: str, old_names: List[str],
+                         new_segment_dirs: List[str],
+                         custom: Optional[Dict[str, str]] = None) -> List[str]:
+        """Swap `old_names` for the new segments atomically, as queries see
+        it: while the lineage entry is IN_PROGRESS routing hides the new
+        segments, after it flips to COMPLETED the old ones; the old segments
+        are then deleted and the entry removed."""
+        new_names = [read_json(os.path.join(d, SEGMENT_METADATA_FILE))["segmentName"]
+                     for d in new_segment_dirs]
+        entry_id = uuid.uuid4().hex
+        key = f"lineage/{table}"
+        self.catalog.mutate_property(key, lambda es: list(es or []) + [
+            {"id": entry_id, "from": list(old_names), "to": new_names,
+             "state": "IN_PROGRESS"}])
+
+        def drop_entry(es):
+            return [e for e in (es or []) if e["id"] != entry_id] or None
+        try:
+            for d in new_segment_dirs:
+                self.upload_segment(table, d, custom=custom)
+        except Exception:
+            # revert: queries never saw the half-uploaded outputs
+            for name in new_names:
+                if name in self.catalog.segments.get(table, {}):
+                    self.delete_segment(table, name, permanent=True)
+            self.catalog.mutate_property(key, drop_entry)
+            raise
+        self.catalog.mutate_property(key, lambda es: [
+            dict(e, state="COMPLETED") if e["id"] == entry_id else e for e in (es or [])])
+        for name in old_names:
+            self.delete_segment(table, name)
+        self.catalog.mutate_property(key, drop_entry)
+        return new_names
+
+    def reload_table(self, table: str) -> None:
+        """Ask every server of the table to bring its segments' indexes in
+        line with the current config (a distinct nonce each call, so two
+        reloads never coalesce)."""
+        self.catalog.put_property(f"reload/{table}", uuid.uuid4().hex)
+
+    def update_table(self, config: TableConfig, reload: bool = True) -> None:
+        self._validate_table_config(config)
+        self.catalog.put_table_config(config)
+        if reload:
+            self.reload_table(config.table_name_with_type)
+
+    # -- deletion / retention ---------------------------------------------
+    def delete_segment(self, table: str, segment: str, *, permanent: bool = False,
+                       now_ms: Optional[int] = None) -> None:
+        """Remove the segment from the ideal state and the metadata and park
+        its deep-store copy under Deleted_Segments/ until `run_retention`
+        reaps it past DELETED_SEGMENTS_RETENTION_DAYS; `permanent` deletes
+        the copy at once (segments queries never saw)."""
+        meta = self.catalog.segments.get(table, {}).get(segment)
+        self.catalog.update_ideal_state(table, {segment: None})
+        self.catalog.drop_segment_meta(table, segment)
+        if meta and meta.download_path and self.deepstore.exists(meta.download_path):
+            if permanent:
+                self.deepstore.delete(meta.download_path)
+                return
+            parked = f"Deleted_Segments/{table}/{segment}.tar.gz"
+            self.deepstore.move(meta.download_path, parked)
+            self.catalog.put_property(f"deleted/{table}/{segment}",
+                                      {"uri": parked,
+                                       "deletedAtMs": now_ms or int(time.time() * 1000)})
+
+    def run_retention(self, now_ms: Optional[int] = None) -> List[str]:
+        """Delete the segments past their table's retention, then reap the
+        parked copies past DELETED_SEGMENTS_RETENTION_DAYS."""
+        now_ms = now_ms or int(time.time() * 1000)
+        if str(self.catalog.get_property("clusterConfig/controller.retention.cold.demote",
+                                         "false")).lower() == "true":
+            raise NotImplementedError(
+                "controller.retention.cold.demote: the cold tier waits for the memory "
+                "ledger and tiering (ROADMAP.md queue 1)")
+        deleted = []
+        for table, cfg in list(self.catalog.table_configs.items()):
+            if not cfg.retention_days or not cfg.time_column:
+                continue
+            cutoff = now_ms - cfg.retention_days * 24 * 3600 * 1000
+            for seg, meta in list(self.catalog.segments.get(table, {}).items()):
+                if meta.end_time_ms is not None and meta.end_time_ms < cutoff:
+                    self.delete_segment(table, seg, now_ms=now_ms)
+                    deleted.append(f"{table}/{seg}")
+        park_cutoff = now_ms - DELETED_SEGMENTS_RETENTION_DAYS * 86_400_000
+        for key, note in list(self.catalog.properties.items()):
+            if not key.startswith("deleted/") or not isinstance(note, dict):
+                continue
+            if note.get("deletedAtMs", 0) < park_cutoff:
+                self.deepstore.delete(note["uri"])
+                self.catalog.put_property(key, None)
+                deleted.append(f"reaped:{note['uri']}")
+        return deleted
+
+    def run_segment_status_check(self) -> Dict[str, Dict[str, int]]:
+        """Per-table segment and replica gauges (the reference's
+        SegmentStatusChecker); a dropped table's gauges go."""
+        reg = get_registry()
+        gauges = ("pinot_controller_segments_total", "pinot_controller_segments_online",
+                  "pinot_controller_table_converged")
+        out: Dict[str, Dict[str, int]] = {}
+        for table in list(self.catalog.ideal_state):
+            st = self.table_status(table)
+            online = sum(1 for n in st["replicas_online"].values() if n > 0)
+            for g, v in zip(gauges, (st["segments"], online, 1 if st["converged"] else 0)):
+                reg.gauge(g, {"table": table}).set(v)
+            out[table] = {"segments": st["segments"], "online": online}
+        for table in self._status_tables - set(out):
+            for g in gauges:
+                reg.remove(g, {"table": table})
+        self._status_tables = set(out)
+        return out
+
+    def set_table_state(self, table: str, enabled: bool) -> None:
+        """A disabled table keeps its segments loaded; brokers refuse its
+        queries until it is enabled again."""
+        if table not in self.catalog.table_configs:
+            raise ValueError(f"unknown table {table!r}")
+        self.catalog.put_property(f"tableState/{table}", None if enabled else "disabled")
+
+    # -- tenants: a tenant is a tag on server instances --------------------
+    def update_instance_tags(self, instance_id: str, tags: List[str]) -> None:
+        """Re-tag an instance; tables pick the change up at their next
+        assignment or rebalance."""
+        self.catalog.update_instance_tags(instance_id, tags)
+
+    def list_tenants(self) -> Dict[str, List[str]]:
+        """tenant tag -> live servers carrying it."""
+        out: Dict[str, List[str]] = {}
+        with self.catalog._lock:
+            for info in self.catalog.instances.values():
+                if info.role != "server" or not info.alive:
+                    continue
+                for tag in info.tags:
+                    out.setdefault(tag, []).append(info.instance_id)
+        return {t: sorted(v) for t, v in sorted(out.items())}
+
+    # -- rebalance --------------------------------------------------------
+    def rebalance(self, table: str, min_available_replicas: int = 1
+                  ) -> Dict[str, Dict[str, str]]:
+        """A balanced target over the tenant's live servers, converged step by
+        step, never dropping a segment below `min_available_replicas`
+        online copies."""
+        cfg = self.catalog.table_configs[table]
+        current = {s: dict(a) for s, a in self.catalog.ideal_state.get(table, {}).items()}
+        pool = self.catalog.live_servers(cfg.tenant)
+        target = rebalance_table(current, pool, cfg.replication) if pool else current
+        return self._converge_ideal_state(table, target, cfg.replication,
+                                          min_available_replicas)
+
+    def _converge_ideal_state(self, table: str, target: Dict[str, Dict[str, str]],
+                              replication: int, min_available_replicas: int = 1
+                              ) -> Dict[str, Dict[str, str]]:
+        """Walk the ideal state toward `target`, adding a replica before
+        dropping one and dropping only while `min_available_replicas` target
+        copies are online (the reference's TableRebalancer)."""
+        current = {s: dict(a) for s, a in self.catalog.ideal_state.get(table, {}).items()
+                   if s in target}
+        for _ in range(len(target) * (replication + 1) + 4):
+            if current == target:
+                break
+            updates = {}
+            for seg, want in target.items():
+                have = current.get(seg, {})
+                if have == want:
+                    continue
+                ev = self.catalog.external_view.get(table, {}).get(seg, {})
+                online_now = [s for s, st in ev.items() if st == ONLINE]
+                step = dict(have)
+                missing = [s for s in want if s not in step]
+                if missing:
+                    step[missing[0]] = ONLINE   # add first ...
+                else:
+                    live_targets = [t for t in online_now if t in want]
+                    removable = [s for s in step if s not in want]
+                    if removable and len(live_targets) >= min_available_replicas:
+                        step.pop(removable[0])  # ... then drop
+                if step != have:
+                    updates[seg] = step
+                    current[seg] = step
+            if not updates:
+                break
+            self.catalog.update_ideal_state(table, updates)
+        return current
+
+    def table_status(self, table: str) -> Dict[str, object]:
+        with self.catalog._lock:
+            ist = {s: dict(a) for s, a in self.catalog.ideal_state.get(table, {}).items()}
+            ev = {s: dict(a) for s, a in self.catalog.external_view.get(table, {}).items()}
+        return {
+            "segments": len(ist),
+            "converged": all(ev.get(seg, {}) == a for seg, a in ist.items()),
+            "replicas_online": {seg: sum(1 for st in ev.get(seg, {}).values() if st == ONLINE)
+                                for seg in ist},
+        }

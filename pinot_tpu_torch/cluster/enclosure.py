@@ -1,0 +1,100 @@
+"""In-process cluster: a catalog, a controller, N servers and a broker.
+
+A trimmed copy of `pinot_tpu/cluster/enclosure.py` (the analog of the
+reference's single-JVM `ClusterTest` harness and its quickstart): one object
+wires the roles, with helpers to create a table, ingest column batches as
+segments and query through the broker. Offline tables only:
+`create_realtime_table` and `pump_realtime` wait for the segment completion
+protocol, `run_minion_round` for the minion; they raise NotImplementedError.
+
+`device` is every server's device (CUDA unless the caller passes "cpu";
+without a card the cluster raises RuntimeError). The servers run the
+per-segment executor, as the JAX package's `QuickCluster` does (a server
+on the serving pipeline is a `ServerNode` with `device_pipeline=`, registered
+on the broker). `shutdown` stops the servers.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import Dict, List, Optional
+
+from ..query.result import ResultTable
+from ..schema import Schema
+from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
+from ..table import TableConfig
+from .broker import Broker
+from .catalog import Catalog
+from .controller import Controller
+from .deepstore import LocalDeepStore
+from .server import ServerNode
+
+
+class QuickCluster:
+    def __init__(self, num_servers: int = 2, work_dir: Optional[str] = None, device=None):
+        self.work_dir = work_dir or tempfile.mkdtemp(prefix="pinot_tpu_torch_cluster_")
+        self.catalog = Catalog()
+        self.deepstore = LocalDeepStore(os.path.join(self.work_dir, "deepstore"))
+        self.controller = Controller("controller_0", self.catalog, self.deepstore,
+                                     os.path.join(self.work_dir, "controller"))
+        self.servers: List[ServerNode] = [
+            ServerNode(f"server_{i}", self.catalog, self.deepstore,
+                       os.path.join(self.work_dir, f"server_{i}"), device=device)
+            for i in range(num_servers)]
+        self.broker = Broker("broker_0", self.catalog)
+        for s in self.servers:
+            self.broker.register_server_handle(s.instance_id, s.execute_partial,
+                                               explain_handle=s.explain_partial)
+        self._seg_seq: Dict[str, int] = {}
+
+    def create_table(self, schema: Schema, config: Optional[TableConfig] = None
+                     ) -> TableConfig:
+        config = config or TableConfig(schema.name)
+        self.controller.add_schema(schema)
+        self.controller.add_table(config)
+        return config
+
+    def ingest_columns(self, table_config: TableConfig, columns: Dict[str, object],
+                       segment_name: Optional[str] = None) -> str:
+        """Build one segment from columns and upload it (the batch shortcut)."""
+        table = table_config.table_name_with_type
+        schema = self.catalog.schemas[table_config.name]
+        seq = self._seg_seq.get(table, 0)
+        self._seg_seq[table] = seq + 1
+        name = segment_name or f"{table_config.name}_{seq}"
+        builder = SegmentBuilder(schema, SegmentGeneratorConfig.from_indexing(
+            table_config.indexing))
+        seg_dir = builder.build(columns, os.path.join(self.work_dir, "build"), name)
+        self.controller.upload_segment(table, seg_dir)
+        return name
+
+    def create_realtime_table(self, schema: Schema, config: TableConfig,
+                              num_partitions: int):
+        raise NotImplementedError(
+            "realtime tables in the cluster wait for the segment completion protocol "
+            "(cluster/completion.py): ROADMAP.md queue 1")
+
+    def pump_realtime(self, table_name_with_type: str) -> int:
+        raise NotImplementedError(
+            "realtime tables in the cluster wait for the segment completion protocol "
+            "(cluster/completion.py): ROADMAP.md queue 1")
+
+    def run_minion_round(self):
+        raise NotImplementedError("the minion (minion/tasks.py) waits: ROADMAP.md queue 1")
+
+    def query(self, sql: str) -> ResultTable:
+        return self.broker.handle_query(sql)
+
+    def shutdown(self) -> None:
+        for s in self.servers:
+            s.shutdown()
+
+    # -- chaos helpers (the reference's ChaosMonkeyIntegrationTest) --------
+    def kill_server(self, instance_id: str) -> None:
+        self.catalog.set_instance_alive(instance_id, False)
+        self.broker.routing.mark_server_unhealthy(instance_id)
+
+    def revive_server(self, instance_id: str) -> None:
+        self.catalog.set_instance_alive(instance_id, True)
+        self.broker.routing.mark_server_healthy(instance_id)

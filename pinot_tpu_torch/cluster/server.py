@@ -1,0 +1,445 @@
+"""Server role: segment lifecycle and the server half of a query.
+
+A trimmed copy of `pinot_tpu/cluster/server.py` (the analog of the
+reference's `HelixInstanceDataManager`, the per-table data managers with
+their reference-counted acquire and release, and the query half of
+`ServerQueryExecutorV1Impl`). Ideal-state changes arrive as catalog events:
+the server downloads each segment assigned ONLINE to it from the deep store,
+loads it and reports it in the external view; a segment taken from it is
+unloaded.
+
+A partial (`execute_partial`) runs over the server's copy of the segments the
+broker routed to it, under the broker's deadline (`deadlineEpochMs`) and an
+optional time filter. Its route is chosen before anything runs:
+
+* with a `device_pipeline` (a `DeviceQueryPipeline` over the set executor),
+  an aggregation, a DISTINCT or an ORDER BY ... LIMIT that passes
+  `device_topk_screen`, whose first segment's plan is not a host plan, goes
+  to the pipeline as one server-level partial for the whole set;
+* every other partial, and every partial of a server without a pipeline,
+  runs through the per-segment `ServerQueryExecutor`, which runs the planner's
+  host plans on the host.
+
+No error becomes another path's answer: what the pipeline or the executor
+raises propagates to the broker, which may retry the segments on another
+replica. Every assigned segment is admitted to the device: the HBM admission
+gate, its host tier and the cold tier's lazy loads wait for the memory ledger
+(ROADMAP.md queue 1). So do realtime (CONSUMING) assignments, which wait for
+the completion protocol: a server reports them ERROR. The cluster knobs
+`server.index.bitmap.enabled`, `server.fused.enabled` and
+`server.hbm.capacity.bytes` are not ported: a server whose cluster sets one
+raises NotImplementedError rather than ignore it.
+
+The server runs on CUDA unless the caller passes `device="cpu"` (or a
+pipeline whose set executor runs on the CPU); without a card it raises
+RuntimeError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Union
+
+from ..parallel.combine import device_topk_screen
+from ..query import stats as qstats
+from ..query.aggregates import make_agg
+from ..query.context import QueryContext, compile_query
+from ..query.executor import PLAN_OP_LABELS, ServerQueryExecutor
+from ..query.explain import explain_result
+from ..query.planner import plan_segment
+from ..query.reduce import SegmentResult, merge_segment_results
+from ..query.scheduler import QueryTimeoutError
+from ..segment.reader import ImmutableSegment, load_segment
+from ..utils.metrics import get_registry
+from ..utils.trace import current_depth, current_trace, span
+from .catalog import CONSUMING, ONLINE, Catalog, InstanceInfo
+from .deepstore import DeepStoreFS, untar_segment
+
+#: cluster knobs of the JAX package's server that this package does not honour
+UNPORTED_KNOBS = {
+    "server.index.bitmap.enabled": "false",
+    "server.fused.enabled": "false",
+    "server.hbm.capacity.bytes": None,
+}
+
+
+class TableDataManager:
+    """One table's loaded segments with their reference counts (the
+    reference's BaseTableDataManager). A segment unloaded while a query holds
+    it stays readable by that query: the query keeps its reference."""
+
+    def __init__(self, table: str, data_dir: str):
+        self.table = table
+        self.data_dir = data_dir
+        self._segments: Dict[str, ImmutableSegment] = {}
+        self._refcounts: Dict[str, int] = {}
+        self._lock = threading.RLock()
+
+    def add_segment(self, name: str, segment: ImmutableSegment) -> None:
+        with self._lock:
+            self._segments[name] = segment
+            self._refcounts.setdefault(name, 0)
+
+    def remove_segment(self, name: str) -> None:
+        with self._lock:
+            self._segments.pop(name, None)
+            if not self._refcounts.get(name):
+                self._refcounts.pop(name, None)
+
+    def acquire(self, names: Optional[Sequence[str]] = None) -> List[ImmutableSegment]:
+        with self._lock:
+            targets = list(self._segments) if names is None else \
+                [n for n in names if n in self._segments]
+            for n in targets:
+                self._refcounts[n] = self._refcounts.get(n, 0) + 1
+            return [self._segments[n] for n in targets]
+
+    def release(self, segments: Sequence[ImmutableSegment]) -> None:
+        with self._lock:
+            for seg in segments:
+                if seg.name in self._refcounts:
+                    self._refcounts[seg.name] -= 1
+                    if self._refcounts[seg.name] <= 0 and seg.name not in self._segments:
+                        self._refcounts.pop(seg.name)
+
+    def refcount(self, name: str) -> int:
+        with self._lock:
+            return self._refcounts.get(name, 0)
+
+    def get(self, name: str) -> Optional[ImmutableSegment]:
+        with self._lock:
+            return self._segments.get(name)
+
+    @property
+    def segment_names(self) -> List[str]:
+        with self._lock:
+            return list(self._segments)
+
+
+class ServerNode:
+    """One server instance (the reference's HelixServerStarter + ServerInstance)."""
+
+    #: a partial with less of the broker's deadline left than this is
+    #: rejected at once with the deadline it missed
+    MIN_DEADLINE_BUDGET_S = 0.005
+
+    def __init__(self, instance_id: str, catalog: Catalog, deepstore: DeepStoreFS,
+                 data_dir: str, tags: Optional[List[str]] = None, scheduler=None,
+                 device=None, device_pipeline=None):
+        for knob, refused in UNPORTED_KNOBS.items():
+            v = catalog.get_property(f"clusterConfig/{knob}")
+            if v is not None and (refused is None or str(v).lower() == refused):
+                raise NotImplementedError(
+                    f"clusterConfig/{knob}={v!r}: this package's server does not take "
+                    "the knob (ROADMAP.md queue 1)")
+        self.instance_id = instance_id
+        self.catalog = catalog
+        self.deepstore = deepstore
+        self.data_dir = data_dir
+        if device is None and device_pipeline is not None:
+            device = device_pipeline.mesh_exec.device
+        self.executor = ServerQueryExecutor(device)
+        # device-backed serving: broker-routed partials run on the set
+        # executor with batched fetches (cluster/device_server.py)
+        self.device_pipeline = device_pipeline
+        # optional admission control (query/scheduler.py); None runs directly
+        self.scheduler = scheduler
+        self.tables: Dict[str, TableDataManager] = {}
+        self._lock = threading.RLock()
+        self._load_locks: Dict[tuple, threading.Lock] = {}
+        self.status = "STARTING"
+        os.makedirs(data_dir, exist_ok=True)
+        catalog.register_instance(InstanceInfo(instance_id, "server",
+                                               tags=tags or ["DefaultTenant"]))
+        catalog.subscribe(self._on_catalog_event)
+        for table in list(catalog.ideal_state):   # catch up with the ideal state
+            self.reconcile(table)
+        self.status = "UP"
+
+    # -- lifecycle ----------------------------------------------------------
+    def startup_status(self) -> Dict[str, object]:
+        """Ready when every segment the ideal state assigns ONLINE here is loaded."""
+        with self.catalog._lock:
+            ideal = {t: {s: dict(a) for s, a in ist.items()}
+                     for t, ist in self.catalog.ideal_state.items()}
+        assigned = loaded = 0
+        for table, ist in ideal.items():
+            mgr = self.tables.get(table)
+            served = set(mgr.segment_names) if mgr else set()
+            for seg, assignment in ist.items():
+                if assignment.get(self.instance_id) == ONLINE:
+                    assigned += 1
+                    loaded += seg in served
+        return {"status": self.status, "assignedSegments": assigned,
+                "loadedSegments": loaded,
+                "ready": self.status == "UP" and loaded == assigned}
+
+    def shutdown(self) -> None:
+        """Leave routing and stop the scheduler and the pipeline."""
+        self.status = "SHUTTING_DOWN"
+        self.catalog.set_instance_alive(self.instance_id, False)
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        if self.device_pipeline is not None:
+            self.device_pipeline.stop()
+
+    # -- state transitions ------------------------------------------------
+    def _on_catalog_event(self, event: str, key: str) -> None:
+        if event == "ideal_state":
+            self.reconcile(key)
+        elif event == "table" and self.catalog.table_configs.get(key) is None:
+            self.reconcile(key)   # the table was dropped
+        elif event == "property" and key.startswith("reload/"):
+            self.reload_table(key.split("/", 1)[1])
+
+    def reconcile(self, table: str) -> None:
+        """Converge the loaded segments to the ideal state (the reference's
+        OFFLINE->ONLINE, ONLINE->OFFLINE and ->DROPPED transitions)."""
+        mgr = self._table_manager(table)
+        desired = self._assigned(table)
+        for seg_name, state in desired.items():
+            if state == ONLINE and seg_name not in mgr.segment_names:
+                try:
+                    loaded = self._load_online_segment(table, seg_name, mgr)
+                except Exception:
+                    self.catalog.report_state(table, seg_name, self.instance_id, "ERROR")
+                    raise
+                if loaded:
+                    self.catalog.report_state(table, seg_name, self.instance_id, ONLINE)
+            elif state == CONSUMING:
+                # realtime consumption in the cluster waits for the completion
+                # protocol: the segment shows as not served
+                self.catalog.report_state(table, seg_name, self.instance_id, "ERROR")
+        # unload against the ideal state as it is now: a reconcile racing
+        # another upload's must not drop a segment assigned since it began
+        current = self._assigned(table)
+        for seg_name in mgr.segment_names:
+            if seg_name not in current:
+                mgr.remove_segment(seg_name)
+                with self._lock:
+                    self._load_locks.pop((table, seg_name), None)
+                self.catalog.report_state(table, seg_name, self.instance_id, None)
+        if self.catalog.table_configs.get(table) is None:
+            with self._lock:
+                self.tables.pop(table, None)
+                for k in [k for k in self._load_locks if k[0] == table]:
+                    del self._load_locks[k]
+            return
+        self._refresh_dim_table(table, mgr)
+
+    def _assigned(self, table: str) -> Dict[str, str]:
+        """segment -> this server's state in the table's ideal state now."""
+        with self.catalog._lock:
+            return {seg: a[self.instance_id]
+                    for seg, a in self.catalog.ideal_state.get(table, {}).items()
+                    if self.instance_id in a}
+
+    def _refresh_dim_table(self, table: str, mgr: TableDataManager) -> None:
+        """Rebuild a dimension table's primary-key map after its segments change."""
+        cfg = self.catalog.table_configs.get(table)
+        schema = self.catalog.schema_for_table(table)
+        if cfg is None or not cfg.is_dim_table or not schema or \
+                not schema.primary_key_columns:
+            return
+        from ..query.lookup import register_dim_table_from_segments
+        segments = mgr.acquire()
+        try:
+            register_dim_table_from_segments(cfg.name, schema.primary_key_columns, segments)
+        finally:
+            mgr.release(segments)
+
+    def _load_online_segment(self, table: str, seg_name: str, mgr: TableDataManager) -> bool:
+        """Download, unpack and load one segment; False when another
+        reconcile is loading it (that one reports it), so that reconciles
+        racing on one table load different segments at once instead of
+        queueing behind each other's."""
+        lock = self._segment_load_lock(table, seg_name)
+        if not lock.acquire(blocking=False):
+            return False
+        try:
+            local_dir = os.path.join(self.data_dir, table, seg_name)
+            if not os.path.isdir(local_dir):
+                meta = self.catalog.segments.get(table, {}).get(seg_name)
+                if meta is None or not meta.download_path:
+                    raise FileNotFoundError(f"no deep-store path for {table}/{seg_name}")
+                tar_local = f"{local_dir}.{threading.get_ident()}.tar.gz"
+                self.deepstore.download(meta.download_path, tar_local)
+                try:
+                    untar_segment(tar_local, os.path.dirname(local_dir))
+                finally:
+                    os.remove(tar_local)
+            if mgr.get(seg_name) is None:
+                mgr.add_segment(seg_name, load_segment(local_dir))
+            return True
+        finally:
+            lock.release()
+
+    def _segment_load_lock(self, table: str, seg_name: str) -> threading.Lock:
+        with self._lock:
+            return self._load_locks.setdefault((table, seg_name), threading.Lock())
+
+    def _table_manager(self, table: str) -> TableDataManager:
+        with self._lock:
+            if table not in self.tables:
+                self.tables[table] = TableDataManager(table, os.path.join(self.data_dir, table))
+            return self.tables[table]
+
+    def reload_table(self, table: str) -> List[str]:
+        """Bring every loaded segment's indexes in line with the table's current
+        indexing config and swap in a fresh reader where anything changed (the
+        reference's Helix RELOAD message). One segment's failure is reported
+        in the returned list and does not stop the others."""
+        from ..segment.preprocess import preprocess_segment
+        cfg = self.catalog.table_configs.get(table)
+        if cfg is None:
+            return []
+        mgr = self._table_manager(table)
+        schema = self.catalog.schema_for_table(table)
+        changes: List[str] = []
+        segments = mgr.acquire()
+        try:
+            for seg in segments:
+                try:
+                    ch = preprocess_segment(seg.path, cfg.indexing, schema=schema)
+                except Exception as e:
+                    changes.append(f"{seg.name}: ERROR {type(e).__name__}: {e}")
+                    continue
+                if ch:
+                    mgr.add_segment(seg.name, load_segment(seg.path))
+                    changes.extend(f"{seg.name}/{c}" for c in ch)
+        finally:
+            mgr.release(segments)
+        return changes
+
+    def segments_served(self, table: str) -> List[str]:
+        return self._table_manager(table).segment_names
+
+    # -- query execution --------------------------------------------------
+    def execute_partial(self, table: str, ctx: Union[str, QueryContext],
+                        segment_names: Optional[Sequence[str]] = None,
+                        time_filter: Optional[str] = None) -> SegmentResult:
+        """The server-level partial over this server's copy of
+        `segment_names` (all of the table's when None), its stats in
+        `.stats` and the segments it covered in `.served`. `time_filter` is a
+        SQL predicate ANDed into the WHERE clause (a hybrid table's time
+        boundary)."""
+        schema = self.catalog.schema_for_table(table)
+        if isinstance(ctx, str):
+            ctx = compile_query(ctx, schema)
+        if time_filter:
+            ctx = apply_time_filter(ctx, time_filter, schema)
+        remaining_s = _deadline_remaining_s(ctx)
+        if remaining_s is not None and remaining_s <= self.MIN_DEADLINE_BUDGET_S:
+            d_ms = ctx.options.get("deadlineEpochMs")
+            raise QueryTimeoutError(
+                f"query deadline budget exhausted ({remaining_s * 1000:.1f}ms remaining, "
+                f"floor {self.MIN_DEADLINE_BUDGET_S * 1000:.0f}ms) at {self.instance_id}",
+                deadline_epoch_ms=float(d_ms))
+        if self.scheduler is None:
+            return self._execute_partial(table, ctx, segment_names)
+        timeout_s = None
+        t_ms = ctx.options.get("timeoutMs") if ctx.options else None
+        if t_ms is not None:
+            timeout_s = float(t_ms) / 1000.0
+        if remaining_s is not None:
+            timeout_s = remaining_s if timeout_s is None else min(timeout_s, remaining_s)
+        tr, depth = current_trace(), current_depth()
+
+        def run():
+            if tr is None:
+                return self._execute_partial(table, ctx, segment_names)
+            with tr.activate(depth=depth):
+                return self._execute_partial(table, ctx, segment_names)
+        return self.scheduler.submit(table, run, timeout_s=timeout_s)
+
+    def _execute_partial(self, table: str, ctx: QueryContext,
+                         segment_names: Optional[Sequence[str]]) -> SegmentResult:
+        with qstats.collect_stats() as st:
+            merged = self._run_partial(table, ctx, segment_names)
+        merged.stats = st.to_wire()
+        return merged
+
+    def _device_route(self, ctx: QueryContext, segments: Sequence[ImmutableSegment]
+                      ) -> Optional[str]:
+        """The kind of the set's plan when the pipeline takes the partial (an
+        aggregation, a DISTINCT or a screened ORDER BY ... LIMIT whose plan
+        is not a host plan), else None."""
+        if self.device_pipeline is None or not segments:
+            return None
+        if not (ctx.aggregations or ctx.distinct or device_topk_screen(ctx)):
+            return None
+        kind = plan_segment(ctx, segments[0]).kind
+        return None if kind == "host" else kind
+
+    def _run_partial(self, table: str, ctx: QueryContext,
+                     segment_names: Optional[Sequence[str]]) -> SegmentResult:
+        reg = get_registry()
+        t0 = time.perf_counter()
+        mgr = self._table_manager(table)
+        segments = mgr.acquire(segment_names)
+        try:
+            kind = self._device_route(ctx, segments)
+            if kind is not None:
+                t_dev = time.perf_counter()
+                with span("device"):
+                    results = [self.device_pipeline.execute_partial(ctx, segments)]
+                reg.counter("pinot_server_device_queries", {"table": table}).inc()
+                # the pipeline's threads serve many queries a drain: the set's
+                # segment counts and operator rows are recorded here, on the
+                # query's thread
+                r = results[0]
+                qstats.record(qstats.NUM_SEGMENTS_QUERIED, len(segments))
+                if r.num_docs_scanned > 0 or r.groups or r.rows or r.dense is not None:
+                    qstats.record(qstats.NUM_SEGMENTS_MATCHED, len(segments))
+                ms = (time.perf_counter() - t_dev) * 1000
+                for label in ("SEGMENT_PLAN", PLAN_OP_LABELS.get(kind, "DEVICE_FUSED")):
+                    qstats.record_operator(label, rows=r.num_docs_scanned, ms=ms)
+            else:
+                results = []
+                for seg in segments:
+                    with span(f"segment:{seg.name}"):
+                        results.append(self.executor.execute_segment(ctx, seg))
+        finally:
+            mgr.release(segments)
+        aggs = [make_agg(f) for f in ctx.aggregations]
+        with span("merge"):
+            merged = merge_segment_results(results, aggs)
+            if not results:
+                merged.kind = ("groups" if (ctx.group_by or ctx.distinct) else
+                               "scalar" if aggs else "selection")
+        merged.served = [seg.name for seg in segments]
+        reg.counter("pinot_server_queries", {"table": table}).inc()
+        reg.counter("pinot_server_docs_scanned").inc(merged.num_docs_scanned)
+        reg.counter("pinot_server_segments_queried").inc(len(segments))
+        reg.timer("pinot_server_query_latency_ms").update((time.perf_counter() - t0) * 1000)
+        return merged
+
+    def explain_partial(self, table: str, ctx: Union[str, QueryContext],
+                        segment_names: Optional[Sequence[str]] = None) -> List[List]:
+        """EXPLAIN rows over this server's copy of the segments."""
+        if isinstance(ctx, str):
+            ctx = compile_query(ctx, self.catalog.schema_for_table(table))
+        mgr = self._table_manager(table)
+        segments = mgr.acquire(segment_names)
+        try:
+            return explain_result(ctx, segments, table=table).rows
+        finally:
+            mgr.release(segments)
+
+
+def _deadline_remaining_s(ctx: QueryContext) -> Optional[float]:
+    """Seconds left before the broker's `deadlineEpochMs`, or None."""
+    d_ms = ctx.options.get("deadlineEpochMs") if ctx.options else None
+    return None if d_ms is None else float(d_ms) / 1000.0 - time.time()
+
+
+def apply_time_filter(ctx: QueryContext, time_filter: str, schema) -> QueryContext:
+    """AND a SQL predicate into the context's filter, compiled as a WHERE is."""
+    from ..sql.ast import Function
+    from ..sql.parser import parse_query
+    tf = compile_query(parse_query(f"SELECT * FROM t WHERE {time_filter}"), schema).filter
+    return dataclasses.replace(ctx, filter=tf if ctx.filter is None
+                               else Function("and", (ctx.filter, tf)))

@@ -11,10 +11,10 @@ the job's output as one set), and pushes each via the controller as it is cut.
 
 A copy of `pinot_tpu/ingest/batch.py`. `controller` is duck-typed, as there:
 any object with `catalog.table_configs`, `catalog.schemas` and
-`upload_segment(table, seg_dir) -> meta` (a meta with `.name`). This package
-ships no controller yet; a caller passes its own, which copies or loads the
-directory it is handed before the runner removes it. The distributed
-ingest-job fan-out of the JAX package is not ported.
+`upload_segment(table, seg_dir) -> meta` (a meta with `.name`), as
+`cluster.Controller` is (it packs the directory it is handed into the deep
+store before the runner removes it). The distributed ingest-job fan-out of
+the JAX package is not ported.
 
 Under a stats record (`query.stats.collect_stats`) the ingestion records
 the seconds its readers take and the rows they give, and the streaming

@@ -232,13 +232,13 @@ class RealtimePartitionConsumer:
 
     def maybe_complete(self) -> None:
         """The completion protocol's round trip once the thresholds are
-        reached: nothing to do before then. It needs the controller, which is
-        not ported."""
+        reached: nothing to do before then. It needs the controller's LLC
+        segment manager (`cluster/completion.py`), which is not ported."""
         if not self.end_criteria_reached():
             return
         raise NotImplementedError(
             f"{self.segment_name} reached its flush threshold: the segment completion "
-            "protocol (controller and server roles) is not ported to pinot_tpu_torch; "
+            "protocol (cluster/completion.py) is not ported to pinot_tpu_torch; "
             "build_immutable() writes the segment")
 
     def build_immutable(self) -> str:

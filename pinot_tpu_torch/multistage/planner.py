@@ -8,8 +8,7 @@ reference, push single-table predicates into leaf scans (only where outer-join
 null-extension cannot observe the difference), extract equi-join keys per ON clause,
 and compile the remaining query shape against the joined virtual schema (through
 this package's `query/context.py`) so the regular reduce runs the final stage.
-`stmt_has_in_subquery`, the broker's dispatch check, is left out with the broker
-route.
+`stmt_has_in_subquery` is the broker's dispatch check (`cluster/broker.py`).
 """
 
 from __future__ import annotations
@@ -333,6 +332,11 @@ def _contains_in_subquery(e: Expr) -> bool:
         return e.name in IN_SUBQUERY_FUNCS or \
             any(_contains_in_subquery(a) for a in e.args)
     return False
+
+
+def stmt_has_in_subquery(stmt) -> bool:
+    """Whether the statement needs the multistage path without a JOIN clause."""
+    return stmt.where is not None and _contains_in_subquery(stmt.where)
 
 
 def _sub_realias(e: Expr, sub_names: Set[str], alias: str) -> Expr:

@@ -111,8 +111,8 @@ from .startree_exec import StarTreePlan, reassemble, try_star_tree
 
 #: per-segment plan kind -> the EXPLAIN label family it annotates in EXPLAIN
 #: ANALYZE (prefix-matched against the plan nodes' labels)
-_PLAN_OP_LABELS = {"empty": "PRUNED", "metadata": "METADATA_ONLY_AGGREGATE",
-                   "selection": "SELECT", "device": "DEVICE_FUSED", "host": "HOST"}
+PLAN_OP_LABELS = {"empty": "PRUNED", "metadata": "METADATA_ONLY_AGGREGATE",
+                  "selection": "SELECT", "device": "DEVICE_FUSED", "host": "HOST"}
 
 #: below this dense key count the state-dict partial is cheap enough that the
 #: array form (`reduce.DensePartial`, which carries whole dictionaries) only
@@ -228,8 +228,16 @@ class ServerQueryExecutor:
         st = qstats.current_stats()
         if st is not None:
             ms = (time.perf_counter() - t0) * 1000
+            if plan.kind == "empty":
+                st.add(qstats.NUM_SEGMENTS_PRUNED)
+                st.add(qstats.SCAN_ROWS_AVOIDED, segment.num_docs)
+            else:
+                st.add(qstats.NUM_SEGMENTS_QUERIED)
+                if (r.num_docs_scanned > 0 or r.groups or r.rows or r.dense is not None
+                        or plan.kind == "metadata"):
+                    st.add(qstats.NUM_SEGMENTS_MATCHED)
             st.add_operator("SEGMENT_PLAN", rows=r.num_docs_scanned, ms=ms)
-            st.add_operator(_PLAN_OP_LABELS[plan.kind], rows=r.num_docs_scanned, ms=ms)
+            st.add_operator(PLAN_OP_LABELS[plan.kind], rows=r.num_docs_scanned, ms=ms)
         return r
 
     def _empty_result(self, plan: SegmentPlan) -> SegmentResult:

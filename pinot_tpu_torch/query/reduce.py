@@ -81,6 +81,11 @@ class SegmentResult:
     # a high-cardinality array-form partial; when set, `groups` is empty
     # until `materialize_dense` converts it (consumers of the dict form call it)
     dense: Optional[DensePartial] = None
+    # a server's partial: the segments it covered (None for a segment's own
+    # partial), which lets the broker retry a segment a replica skipped, and
+    # the flat stats record (`ExecutionStats.to_wire`) the broker merges
+    served: Optional[List[str]] = None
+    stats: Optional[Dict[str, float]] = None
 
     def materialize_dense(self, aggs: Optional[List[AggFunc]] = None) -> None:
         """Turn the array-form partial into the state dict (for a merge with

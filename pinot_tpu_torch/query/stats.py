@@ -1,9 +1,12 @@
-"""Per-query execution statistics: the keys the multistage join path records.
+"""Per-query execution statistics.
 
 A subset of `pinot_tpu/query/stats.py`: the typed record (`ExecutionStats`),
 the thread-local "current record" slot (`collect_stats`, `current_stats`) and
 the accounting hooks `record`, `record_max` and `record_operator`, with the
-join keys, `scanRowsAvoided` and the batch ingestion's keys. Accounting
+segment counts the per-segment executor, the servers and the broker record,
+the broker's pruning, hedge and retry keys, the join keys, `scanRowsAvoided`
+and the batch ingestion's keys. A server partial carries its record as a flat
+dict (`to_wire`, `SegmentResult.stats`), which the broker merges. Accounting
 sites record into whatever record is active on their thread, and do nothing
 when none is; a worker thread serving one query re-installs that query's
 record with `collect_stats(st)`.
@@ -20,8 +23,28 @@ import threading
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional
 
-# docs never scanned because their segment was pruned (here: by the join's
-# build-key derived filter)
+# segments a partial planned (per segment or as a set), those the server's
+# planner folded to nothing (a constant-false filter) and those that matched
+# at least one row; the broker's metadata pruners add to numSegmentsPruned and
+# to their kind's breakdown
+NUM_SEGMENTS_QUERIED = "numSegmentsQueried"
+NUM_SEGMENTS_PRUNED = "numSegmentsPruned"
+NUM_SEGMENTS_MATCHED = "numSegmentsMatched"
+NUM_SEGMENTS_PRUNED_BY_PARTITION = "numSegmentsPrunedByPartition"
+NUM_SEGMENTS_PRUNED_BY_TIME = "numSegmentsPrunedByTime"
+NUM_SEGMENTS_PRUNED_BY_RANGE = "numSegmentsPrunedByRange"
+NUM_SEGMENTS_PRUNED_BY_BLOOM = "numSegmentsPrunedByBloom"
+NUM_DOCS_SCANNED = "numDocsScanned"
+# the broker's duplicate dispatches to another replica (hedging), the
+# milliseconds a retry round waited out replicas' Retry-After hints, and the
+# segments a retry round sent to another replica (a key of this package: the
+# JAX package's broker counts no retries)
+HEDGED_REQUESTS = "hedgedRequests"
+ADMISSION_DEFER_MS = "admissionDeferMs"
+NUM_SEGMENTS_RETRIED = "numSegmentsRetried"
+# docs never scanned because their segment was pruned (by the broker's
+# metadata pruners, a server's constant-false fold or the join's build-key
+# derived filter)
 SCAN_ROWS_AVOIDED = "scanRowsAvoided"
 # device hash join: wall time in the build-side sort / scatter programs and
 # the probe programs (summed across join partitions), bytes exchanged between
@@ -49,6 +72,18 @@ BATCH_PUSH_MS = "batchPushMs"
 # keys that merge by MAXIMUM: a skew percentage summed over partitions means
 # nothing; the worst partition bounds the stage
 MAX_KEYS = (JOIN_SKEW_PCT,)
+
+# counters the broker's response always carries (0 when the path never ran)
+BROKER_COUNTER_KEYS = (NUM_SEGMENTS_QUERIED, NUM_SEGMENTS_PRUNED, NUM_SEGMENTS_MATCHED,
+                       HEDGED_REQUESTS, NUM_SEGMENTS_RETRIED)
+
+#: routing pruner kind (cluster.routing.PRUNER_KINDS) -> its breakdown counter
+PRUNED_BY_KIND = {
+    "partition": NUM_SEGMENTS_PRUNED_BY_PARTITION,
+    "time": NUM_SEGMENTS_PRUNED_BY_TIME,
+    "range": NUM_SEGMENTS_PRUNED_BY_RANGE,
+    "bloom": NUM_SEGMENTS_PRUNED_BY_BLOOM,
+}
 
 _OP_PREFIX = "op:"
 
@@ -93,11 +128,18 @@ class ExecutionStats:
                     out.setdefault(label, {"rows": 0, "ms": 0.0})[fld] = v
         return out
 
-    def merge(self, other: "ExecutionStats") -> None:
-        """Fold another record into this one: every key sums, except
-        MAX_KEYS, which keep the maximum of the sides that carry the key."""
-        with other._lock:
-            src = dict(other.counters)
+    def merge(self, other) -> None:
+        """Fold another record (an ExecutionStats or its `to_wire` dict) into
+        this one: every numeric key sums, except MAX_KEYS, which keep the
+        maximum of the sides that carry the key."""
+        if other is None:
+            return
+        if isinstance(other, ExecutionStats):
+            with other._lock:
+                src = dict(other.counters)
+        else:
+            src = {k: v for k, v in other.items()
+                   if isinstance(v, (int, float)) and not isinstance(v, bool)}
         with self._lock:
             for k, v in src.items():
                 if k in MAX_KEYS:
@@ -105,6 +147,11 @@ class ExecutionStats:
                     self.counters[k] = v if cur is None else max(cur, v)
                 else:
                     self.counters[k] = self.counters.get(k, 0) + v
+
+    def to_wire(self) -> Dict[str, float]:
+        """The flat dict a server partial carries (`op:*` entries kept)."""
+        with self._lock:
+            return dict(self.counters)
 
     def to_public_dict(self) -> Dict[str, object]:
         """Export of the counters recorded (unlike the JAX package's, no key

@@ -1,21 +1,63 @@
-"""Table configuration: the realtime subset.
+"""Table configuration.
 
 A trimmed copy of `pinot_tpu/table.py` (the analog of the reference's
-`TableConfig` with its indexing config, the stream configs inside it and its
-`upsertConfig` / `dedupEnabled`): what a realtime consumer reads. The
-indexing config is what the consumer's commit (`build_immutable`) writes; a
-consuming segment keeps a realtime text or inverted index where the config
-names one (the row-append `segment.mutable.MutableSegment`). `upsert` (FULL
-or PARTIAL) and `dedup_enabled` switch the consumer to its per-row lane
-(`ingest/realtime.py`, `upsert.py`). `to_json` / `from_json` read and write
-the JAX package's keys for these fields. The table's type, time column,
-partitioning, tenant, quota and tier configs are not ported.
+`TableConfig`): the table's type (`table_name_with_type` is the catalog's
+key), the segments config (replication, time column, retention), the routing
+selector, the segment partition config, the tenant, the query quota, the dim
+table flag, the indexing config, the stream configs and `upsertConfig` /
+`dedupEnabled`. The controller and broker (`cluster/`) read the first ones;
+a realtime consumer reads the indexing config (what its commit,
+`build_immutable`, writes; a consuming segment keeps a realtime text or
+inverted index where the config names one) and `upsert` (FULL or PARTIAL) and
+`dedup_enabled`, which switch it to its per-row lane (`ingest/realtime.py`,
+`upsert.py`). `to_json` / `from_json` read and write the JAX package's keys.
+The tier configs wait for tiering, and the minion's task configs for the
+minion: `from_json` ignores them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from enum import Enum
 from typing import Any, Dict, List, Optional
+
+
+class TableType(Enum):
+    OFFLINE = "OFFLINE"
+    REALTIME = "REALTIME"
+
+
+@dataclass
+class SegmentPartitionConfig:
+    """The reference's SegmentPartitionConfig: the column whose value picks a
+    segment's partition, which lets the broker prune by partition."""
+    column: str = ""
+    function: str = "murmur"  # murmur | modulo
+    num_partitions: int = 0
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"column": self.column, "function": self.function,
+                "numPartitions": self.num_partitions}
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "SegmentPartitionConfig":
+        return SegmentPartitionConfig(d.get("column", ""), d.get("function", "murmur"),
+                                      d.get("numPartitions", 0))
+
+
+@dataclass
+class QuotaConfig:
+    """The reference's QuotaConfig: the table's queries per second (split
+    across live brokers) and storage bytes."""
+    max_qps: Optional[float] = None
+    storage_bytes: Optional[int] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"maxQueriesPerSecond": self.max_qps, "storageBytes": self.storage_bytes}
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "QuotaConfig":
+        return QuotaConfig(d.get("maxQueriesPerSecond"), d.get("storageBytes"))
 
 
 @dataclass
@@ -104,27 +146,64 @@ class UpsertConfig:
 @dataclass
 class TableConfig:
     name: str                       # raw table name (no type suffix)
-    stream: Optional[StreamConfig] = None
+    table_type: TableType = TableType.OFFLINE
+    replication: int = 1
+    retention_days: Optional[float] = None
+    time_column: Optional[str] = None
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
+    partition: Optional[SegmentPartitionConfig] = None
+    stream: Optional[StreamConfig] = None
     upsert: Optional[UpsertConfig] = None
     dedup_enabled: bool = False
+    tenant: str = "DefaultTenant"
+    # a small table replicated to every server of its tenant, for LOOKUP
+    is_dim_table: bool = False
+    quota: Optional[QuotaConfig] = None
+    # instance selector: "" picks strictReplicaGroup for an upsert table and
+    # balanced otherwise; else "balanced" | "replicaGroup" | "strictReplicaGroup"
+    routing_selector: str = ""
+
+    @property
+    def table_name_with_type(self) -> str:
+        return f"{self.name}_{self.table_type.value}"
 
     def to_json(self) -> Dict[str, Any]:
-        d: Dict[str, Any] = {"tableName": self.name, "indexing": self.indexing.to_json(),
-                             "dedupEnabled": self.dedup_enabled}
+        d: Dict[str, Any] = {"tableName": self.name, "tableType": self.table_type.value,
+                             "replication": self.replication,
+                             "retentionDays": self.retention_days,
+                             "timeColumn": self.time_column,
+                             "indexing": self.indexing.to_json(), "tenant": self.tenant,
+                             "dedupEnabled": self.dedup_enabled,
+                             "isDimTable": self.is_dim_table, "taskConfigs": {}}
+        if self.routing_selector:
+            d["routingSelector"] = self.routing_selector
+        if self.partition:
+            d["segmentPartitionConfig"] = self.partition.to_json()
         if self.stream:
             d["streamConfig"] = self.stream.to_json()
         if self.upsert:
             d["upsertConfig"] = self.upsert.to_json()
+        if self.quota:
+            d["quota"] = self.quota.to_json()
         return d
 
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "TableConfig":
-        """The ported fields of a table config in the JAX package's JSON; the
-        others are ignored."""
+        """A table config in the JAX package's JSON; the keys not ported
+        (tierConfigs, taskConfigs) are ignored."""
         return TableConfig(
             name=d["tableName"],
-            stream=StreamConfig.from_json(d["streamConfig"]) if d.get("streamConfig") else None,
+            table_type=TableType(d.get("tableType", "OFFLINE")),
+            replication=d.get("replication", 1),
+            retention_days=d.get("retentionDays"),
+            time_column=d.get("timeColumn"),
             indexing=IndexingConfig.from_json(d.get("indexing", {})),
+            partition=SegmentPartitionConfig.from_json(d["segmentPartitionConfig"])
+            if d.get("segmentPartitionConfig") else None,
+            stream=StreamConfig.from_json(d["streamConfig"]) if d.get("streamConfig") else None,
             upsert=UpsertConfig.from_json(d["upsertConfig"]) if d.get("upsertConfig") else None,
-            dedup_enabled=d.get("dedupEnabled", False))
+            dedup_enabled=d.get("dedupEnabled", False),
+            tenant=d.get("tenant", "DefaultTenant"),
+            is_dim_table=d.get("isDimTable", False),
+            quota=QuotaConfig.from_json(d["quota"]) if d.get("quota") else None,
+            routing_selector=d.get("routingSelector", ""))

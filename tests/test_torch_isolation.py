@@ -112,8 +112,45 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "query/explain.py", "query/lookup.py", "ingest/readers.py",
                    "ingest/avro.py", "ingest/thriftfmt.py", "ingest/proto.py",
                    "ingest/batch.py", "ingest/dataframe.py", "segment/preprocess.py",
-                   "engine/grouped.py", "query/reduce.py"):
+                   "engine/grouped.py", "query/reduce.py", "cluster/broker.py",
+                   "cluster/controller.py", "cluster/server.py", "cluster/enclosure.py",
+                   "cluster/catalog.py", "cluster/assignment.py", "cluster/deepstore.py",
+                   "cluster/routing.py", "cluster/admission.py", "query/scheduler.py",
+                   "utils/__init__.py", "utils/metrics.py", "utils/trace.py",
+                   "utils/events.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
+
+
+def test_subprocess_quick_cluster_query_never_loads_jax(tmp_path):
+    """A QuickCluster on the CPU: upload, assign, load, and Q1.1, GROUP_QUERY
+    and EXPLAIN ANALYZE through the broker, in a fresh interpreter: neither jax
+    nor pinot_tpu enters sys.modules."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        import pinot_tpu_torch
+        from pinot_tpu_torch.ssb import QUERY, GROUP_QUERY, make_columns, ssb_schema
+        from pinot_tpu_torch.table import TableConfig
+        cluster = pinot_tpu_torch.QuickCluster(num_servers=2, work_dir={str(tmp_path)!r},
+                                               device="cpu")
+        cfg = cluster.create_table(ssb_schema(), TableConfig("lineorder", replication=2))
+        cols = make_columns(6000, 1)
+        for i in range(3):
+            cluster.ingest_columns(cfg, {{k: v[i * 2000:(i + 1) * 2000]
+                                         for k, v in cols.items()}})
+        r = cluster.query(QUERY)
+        print(r.rows, r.stats["numSegmentsQueried"], r.stats["partialResult"])
+        print(cluster.query(GROUP_QUERY).rows[:1])
+        print(len(cluster.query("EXPLAIN ANALYZE " + QUERY).rows) > 2)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert out.stdout.splitlines()[0].endswith("3 False"), out.stdout
 
 
 def test_subprocess_batch_ingestion_and_explain_analyze_never_load_jax(tmp_path):

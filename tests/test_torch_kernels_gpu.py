@@ -1434,3 +1434,44 @@ def test_cuda_explain_analyze_launches_one_scan_a_segment(cuda, tmp_path):
     assert [r[:4] for r in got.rows] == [r[:4] for r in want.rows]
     assert got.rows[0][3] == 1
     assert all(ms is not None and ms >= 0 for _, _, _, rows, ms in got.rows if rows is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipelines", [False, True])
+def test_cuda_broker_answers_match_the_cpu(cuda, tmp_path, pipelines):
+    """Q1.1 and GROUP_QUERY through the broker of a QuickCluster on the card
+    (per-segment servers, or servers on the serving pipeline) equal the CPU
+    cluster's answers; the scan runs one launch a segment, or one a server
+    the route gives segments."""
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline, ServerNode
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.table import TableConfig
+    cols = ssb.make_columns(120_000, 23)
+    answers = {}
+    for name, device in (("cuda", cuda), ("cpu", "cpu")):
+        cluster = QuickCluster(num_servers=0 if pipelines and name == "cuda" else 2,
+                               work_dir=str(tmp_path / name), device=device)
+        for i in range(2 - len(cluster.servers)):
+            # servers on the serving pipeline, wired as a server process wires them
+            server = ServerNode(f"server_{i}", cluster.catalog, cluster.deepstore,
+                                str(tmp_path / name / f"server_{i}"), device=device,
+                                device_pipeline=DeviceQueryPipeline(MeshQueryExecutor(device)))
+            cluster.servers.append(server)
+            cluster.broker.register_server_handle(server.instance_id, server.execute_partial)
+        cfg = cluster.create_table(ssb.ssb_schema(), TableConfig("lineorder", replication=2))
+        for i in range(4):
+            cluster.ingest_columns(cfg, {k: v[i * 30_000:(i + 1) * 30_000]
+                                         for k, v in cols.items()})
+        before = scan.masked_sums.launches
+        q11 = cluster.query(ssb.QUERY)
+        launched = scan.masked_sums.launches - before
+        if name == "cuda":
+            assert launched == (q11.stats["numServersQueried"] if pipelines else 4)
+        answers[name] = (q11.rows, cluster.query(ssb.GROUP_QUERY).rows)
+        assert q11.stats["partialResult"] is False and q11.stats["numSegmentsQueried"] == 4
+        cluster.shutdown()
+    (gq, gg), (wq, wg) = answers["cuda"], answers["cpu"]
+    assert np.isclose(gq[0][0], wq[0][0], rtol=1e-5, atol=0.05)
+    assert [r[0] for r in gg] == [r[0] for r in wg] and [r[2] for r in gg] == [r[2] for r in wg]
+    assert np.allclose([r[1] for r in gg], [r[1] for r in wg], rtol=1e-5, atol=0.05)
