@@ -322,6 +322,34 @@ exits non-zero:
    local disks, the FOR table uploaded) answering Q1.1 (one `masked_sums` a
    segment) and the FOR sum (one `masked_sums_fused` a segment):
    `cluster_per_segment`.
+18. realtime_cluster — a REALTIME table consumed through the cluster roles
+   past its flush threshold: a Catalog, Controller and Broker and two
+   ServerNodes on the card, each with a DeviceQueryPipeline for committed
+   segments and reporting to the controller's LLC segment manager; lineorder
+   from --seed + 13 on a MemoryStream topic of 2 partitions (PCB1 blocks of
+   65,536 rows, consuming segments staged on the card, flush threshold
+   524,288 rows), 1,310,720 rows a partition in 5 rounds of 4 blocks: each
+   round pumps and completes every consumer (each partition commits twice,
+   one COMMIT and one KEEP or DISCARD a segment, at the JAX package's
+   offsets), then sends COUNT(*), Q1.1, GROUP_QUERY and the two `lo_region =
+   'ASIA'` sums through `broker.handle_query`, each held to the numpy oracle of
+   the rows consumed, to the launches its dispatches imply (one set launch a
+   server given committed segments, one a consuming view with rows) and to
+   `numConsumingSegmentsQueried` and `minConsumingFreshnessTimeMs`:
+   `realtime_cluster_round` (pump s, rows/s, staleness); the commits:
+   `realtime_cluster_commits` (each one's seconds to ONLINE on both
+   replicas); 5 warm runs of Q1.1 and GROUP_QUERY, then the same on the table
+   made hybrid by an OFFLINE half (2 segments of the rows up to the median
+   date), held to "offline rows up to the boundary plus consumed rows after
+   it": `realtime_cluster_hybrid`, `realtime_cluster_latency`; the retired
+   consumers hold no device bytes, and the card's resident bytes (allocated
+   past the live staging and the GROUP BY workspaces, with the committed
+   blocks and the pipelines' caches dropped) grow by no more than
+   RT_CLUSTER_MEMORY_SLACK from one point to the next or from the first
+   (before each round that commits, after the last commit, after the hybrid
+   queries): `realtime_cluster_memory_point` a point, naming what holds the
+   device tensors that are new since the first at the last point (or where
+   the slack is passed), and `realtime_cluster_memory`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -337,7 +365,8 @@ three; the mv phase `masked_sums` and `bitmap_filter`; the upsert phase all
 three, the scans with the valid band; the batch phase all three, none
 under EXPLAIN or LOOKUP; `grouped_agg` on every device GROUP BY pass and
 every grouped or scalar distinct and scalar power-sum pass of every phase,
-the pipeline traffic's logged only, as `bitmap_filter`'s),
+the pipeline traffic's logged only, as `bitmap_filter`'s; the
+realtime_cluster phase `masked_sums`, `masked_sums_fused` and `grouped_agg`),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -349,6 +378,7 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -359,6 +389,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5393,6 +5424,588 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
     return launches
 
 
+# -- phase 18: realtime_cluster --------------------------------------------------------
+
+RT_CLUSTER_PARTITIONS = 2
+RT_CLUSTER_PARTITION_ROWS = 1_310_720   # each partition commits twice, 262,144 rows left
+RT_CLUSTER_FLUSH_ROWS = 524_288         # realtime.segment.flush.threshold.rows
+RT_CLUSTER_BLOCK_ROWS = 65_536          # rows a PCB1 block message carries
+RT_CLUSTER_ROUND_BLOCKS = 4             # blocks a partition gets a round: 262,144 rows
+RT_CLUSTER_WARM_RUNS = 5
+RT_CLUSTER_SEED = 13                    # --seed + 13: no other phase's data
+# device bytes the phase's resident memory (past the live consumers' staging
+# and the GROUP BY workspaces, the committed segments' blocks and the
+# pipelines' caches dropped) may grow by between two of its points. On an
+# NVIDIA H100 80GB HBM3 (700 W limit) the phase grew by at most 3,840 bytes
+# (the small buffers of the pipelines' first launches); one leaked int32
+# column of one 65,536-row block (256 KiB) exceeds the slack, one retired
+# consumer's staging (24 MiB) exceeds it a hundredfold
+RT_CLUSTER_MEMORY_SLACK = 128 << 10
+
+
+def device_bytes() -> int:
+    """The card's allocated bytes, with the process's garbage collected and
+    cuBLAS's workspaces dropped (a thread's first matmul on a stream makes
+    one through the allocator)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def tensor_bytes(obj, seen=None) -> int:
+    """Bytes of the distinct tensors in `obj` (a tensor, or dicts, tuples
+    and lists of them)."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = (obj.data_ptr(), obj.numel())
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v, seen) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(v, seen) for v in obj)
+    return 0
+
+
+def workspace_bytes(seen=None) -> int:
+    """Device bytes of `grouped_agg`'s zeroed workspaces, one a stream that
+    launched it (a pipeline's thread makes its own on its first GROUP BY)."""
+    from pinot_tpu_torch.engine import grouped
+    return tensor_bytes(list(grouped._workspaces.values()), seen)
+
+
+# the objects that may keep a device tensor alive, named by their class
+HOLDER_TYPES = frozenset(("SegmentBlock", "SegmentSetBlock", "MergedSegmentView", "ConsumingView",
+                          "DeviceMutableSegment", "ImmutableSegment", "MeshQueryExecutor",
+                          "ServerQueryExecutor", "DeviceQueryPipeline",
+                          "RealtimePartitionConsumer"))
+
+
+def running_frame_locals() -> dict:
+    """id of each value a running frame holds -> "thread <name>: <function>
+    (file:line)". `gc.get_referrers` does not see the locals of a frame that
+    is executing, in this thread or another (a pipeline's dispatcher)."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    own = (tensor_holder.__code__, new_tensor_holders.__code__,
+           running_frame_locals.__code__)
+    out = {}
+    for ident, frame in sys._current_frames().items():
+        while frame is not None:
+            if frame.f_code not in own:
+                label = (f"thread {names.get(ident, ident)}: {frame.f_code.co_name} "
+                         f"({os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno})")
+                for v in frame.f_locals.values():
+                    out.setdefault(id(v), label)
+            frame = frame.f_back
+    return out
+
+
+def tensor_holder(obj, skip: set, running: dict, calls: int = 48) -> str:
+    """What keeps `obj` alive: a running frame (`running`, from
+    `running_frame_locals`), a frame, a module or an object of a
+    HOLDER_TYPES class, the first found among its referrers breadth first,
+    within `calls` calls of `gc.get_referrers` (objects whose ids are in
+    `skip` are passed over)."""
+    own = (tensor_holder.__code__, new_tensor_holders.__code__)
+    frontier, seen = [obj], set(skip) | {id(obj)}
+    while frontier and calls > 0:
+        nxt = []
+        seen.update((id(frontier), id(nxt)))
+        for o in frontier[:calls]:
+            calls -= 1
+            if id(o) in running:
+                return running[id(o)]
+            for r in gc.get_referrers(o):
+                if id(r) in seen:
+                    continue
+                seen.add(id(r))
+                if isinstance(r, type(sys._getframe())):
+                    if r.f_code not in own:
+                        return (f"frame {r.f_code.co_name} "
+                                f"({os.path.basename(r.f_code.co_filename)}:{r.f_lineno})")
+                    continue
+                if isinstance(r, type(sys)):
+                    return f"module {r.__name__}"
+                kind = type(r).__name__
+                if kind in HOLDER_TYPES:
+                    name = getattr(r, "name", None) or getattr(
+                        getattr(r, "segment", None), "name", None)
+                    return f"{kind} {name}" if isinstance(name, str) else kind
+                nxt.append(r)
+        frontier = nxt
+    return "not reached"
+
+
+def device_tensor_keys() -> set:
+    """(data pointer, elements) of each device tensor the interpreter holds."""
+    return {(o.data_ptr(), o.numel()) for o in gc.get_objects()
+            if isinstance(o, torch.Tensor) and o.device.type != "cpu"}
+
+
+def new_tensor_holders(known: set, top: int = 8) -> dict:
+    """The device tensors the interpreter holds whose keys are not in
+    `known`: their count and bytes, and the bytes of the `top` largest by
+    what holds them (`tensor_holder`, tried on each tensor that shares the
+    storage: a view keeps its base alive from C++, where no referrer shows)."""
+    found, seen, sharing = [], set(known), collections.defaultdict(list)
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.device.type != "cpu":
+            sharing[o.untyped_storage().data_ptr()].append(o)
+            key = (o.data_ptr(), o.numel())
+            if key not in seen:
+                seen.add(key)
+                found.append(o)
+    found.sort(key=lambda t: -t.numel() * t.element_size())
+    by_holder = collections.Counter()
+    running = running_frame_locals() if top else {}
+    skip = {id(found), id(seen), id(sharing)} | {id(v) for v in sharing.values()}
+    for i in range(min(top, len(found))):
+        holder = "not reached"
+        for t in sharing[found[i].untyped_storage().data_ptr()]:
+            holder = tensor_holder(t, skip, running)
+            if holder != "not reached":
+                break
+        by_holder[holder] += found[i].numel() * found[i].element_size()
+    out = {"tensors": len(found), "bytes": sum(t.numel() * t.element_size() for t in found),
+           "largest_by_holder": dict(by_holder.most_common())}
+    found.clear()
+    sharing.clear()
+    return out
+
+
+def staged_bytes(consumers, seen=None) -> int:
+    """Device bytes the consumers hold: their staged chunks and their
+    views' blocks (each tensor's key added to `seen`)."""
+    seen, total = set() if seen is None else seen, 0
+    for c in consumers:
+        store = c.mutable
+        total += tensor_bytes(list(store._dev_chunks.values()), seen)
+        view = getattr(store, "_view", None)
+        if view is not None:
+            for blk in view._device_blocks.values():
+                total += tensor_bytes(vars(blk), seen)
+    return total
+
+
+def llc_commit_offsets(partition_rows: int, block_rows: int, round_blocks: int,
+                       flush_rows: int) -> list:
+    """The (start, end) message offsets of the segments a partition commits
+    when every round consumes `round_blocks` blocks and a segment commits at
+    the end of the round its rows reach `flush_rows` (the JAX package's rule:
+    the end offset is where the consumer stood when it reported)."""
+    out, start, at, total = [], 0, 0, partition_rows // block_rows
+    while at < total:
+        at = min(at + round_blocks, total)
+        if (at - start) * block_rows >= flush_rows:
+            out.append((start, at))
+            start = at
+    return out
+
+
+def realtime_cluster_queries():
+    """(id, sql, oracle, launches on a server the route gives committed
+    segments (its pipeline: one launch for the set), launches a consuming
+    segment (the per-segment executor over its staged view)). Q1.1's
+    filtered columns are raw on a view, so it runs the body there; its
+    dictionary bands on the committed set take the scan; the two
+    `lo_region = 'ASIA'` sums take `masked_sums` (raw f32 lo_revenue) and
+    `masked_sums_fused` (lo_quantity in FOR form) on a view."""
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
+    return [
+        ("count", "SELECT COUNT(*) FROM lineorder", lambda c: [[len(c["lo_quantity"])]],
+         counts_of(), counts_of()),
+        ("q1_1", QUERY, oracle_q11, counts_of(masked_sums=1), counts_of()),
+        ("group_by", GROUP_QUERY, oracle_group, counts_of(grouped_agg=1),
+         counts_of(grouped_agg=1)),
+        ("scan_f32", REALTIME_F32_QUERY, lambda c: oracle_region_sum(c, "lo_revenue"),
+         counts_of(masked_sums=1), counts_of(masked_sums=1)),
+        ("scan_for", REALTIME_FOR_QUERY, lambda c: oracle_region_sum(c, "lo_quantity"),
+         counts_of(masked_sums=1), counts_of(masked_sums_fused=1)),
+    ]
+
+
+def run_realtime_cluster(args, work) -> dict:
+    """Phase 18: a REALTIME table consumed through the cluster roles past
+    its flush threshold. A Catalog, Controller and Broker and two
+    ServerNodes on the card, each with a DeviceQueryPipeline for committed
+    segments and reporting to the controller's LLC segment manager; a
+    REALTIME lineorder table with replication 2 on a MemoryStream topic of 2
+    partitions (PCB1 blocks of RT_CLUSTER_BLOCK_ROWS, consuming segments
+    staged on the card, `realtime.segment.flush.threshold.rows`
+    RT_CLUSTER_FLUSH_ROWS), each partition fed RT_CLUSTER_PARTITION_ROWS rows
+    in rounds of RT_CLUSTER_ROUND_BLOCKS blocks: each round pumps and
+    completes every consumer, then sends the queries through the broker, each
+    held to the numpy oracle of the rows consumed and to the launches its
+    route implies. Then an OFFLINE half (2 segments of the stream's rows up
+    to its median date) makes the table hybrid, queried under its logical
+    name against "offline rows <= boundary plus consumed rows after it".
+    Returns the launches of the checked runs."""
+    from pinot_tpu_torch.cluster import (Broker, Catalog, Controller, DeviceQueryPipeline,
+                                         ServerNode)
+    from pinot_tpu_torch.cluster.catalog import ONLINE, STATUS_DONE, STATUS_IN_PROGRESS
+    from pinot_tpu_torch.cluster.completion import parse_llc_name
+    from pinot_tpu_torch.cluster.deepstore import LocalDeepStore
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.segment.writer import SegmentBuilder
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY, make_columns, ssb_schema
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+
+    root = os.path.join(work, "realtime_cluster")
+    schema = ssb_schema()
+    parts = RT_CLUSTER_PARTITIONS
+    t0 = time.perf_counter()
+    data = [make_columns(RT_CLUSTER_PARTITION_ROWS, args.seed + RT_CLUSTER_SEED + p)
+            for p in range(parts)]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = [[encode_columnar_block(schema, {c: v[lo:lo + RT_CLUSTER_BLOCK_ROWS]
+                                              for c, v in cols.items()})
+               for lo in range(0, RT_CLUSTER_PARTITION_ROWS, RT_CLUSTER_BLOCK_ROWS)]
+              for cols in data]
+    encode_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    catalog = Catalog()
+    store = LocalDeepStore(os.path.join(root, "deepstore"))
+    controller = Controller("controller_0", catalog, store, os.path.join(root, "controller"))
+    servers = [ServerNode(f"server_{i}", catalog, store, os.path.join(root, f"server_{i}"),
+                          device_pipeline=DeviceQueryPipeline(MeshQueryExecutor()),
+                          completion=controller.llc)
+               for i in range(CLUSTER_SERVERS)]
+    broker = Broker("broker_0", catalog)
+    dispatches = []   # (table, server, segments) of each broker dispatch
+
+    def wrap(sid, handle):
+        def call(table, ctx, segments, tf=None):
+            dispatches.append((table, sid, list(segments)))
+            return handle(table, ctx, segments, tf)
+        return call
+    for s in servers:
+        broker.register_server_handle(s.instance_id, wrap(s.instance_id, s.execute_partial))
+    topic = "lineorder_rt_cluster"
+    MemoryStream.reset_all()
+    cfg = TableConfig("lineorder", table_type=TableType.REALTIME,
+                      replication=CLUSTER_REPLICATION, time_column="lo_orderdate",
+                      stream=StreamConfig(topic=topic, decoder="columnar",
+                                          flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+                                          properties={"realtime.ingest.device.staging":
+                                                      "true"}))
+    name = cfg.table_name_with_type
+    controller.add_schema(schema)
+    MemoryStream.create(topic, parts)
+    first = controller.add_realtime_table(cfg, parts)
+    wire_s = time.perf_counter() - t0
+
+    # the protocol's responses, and each commit from its start to ONLINE on
+    # both replicas
+    responses = collections.defaultdict(list)
+    commit_t0, commit_s, online = {}, {}, collections.defaultdict(set)
+    consumed_fn, start_fn = controller.llc.segment_consumed, controller.llc.segment_commit_start
+    report_fn = catalog.report_state
+
+    def consumed(segment, server, offset):
+        resp = consumed_fn(segment, server, offset)
+        responses[segment].append((server, resp["status"]))
+        return resp
+
+    def commit_start(segment, server):
+        commit_t0[segment] = time.perf_counter()
+        return start_fn(segment, server)
+
+    def report(table, segment, server, state):
+        report_fn(table, segment, server, state)
+        if state == ONLINE and segment in commit_t0 and segment not in commit_s:
+            online[segment].add(server)
+            if len(online[segment]) == CLUSTER_REPLICATION:
+                commit_s[segment] = time.perf_counter() - commit_t0[segment]
+    controller.llc.segment_consumed = consumed
+    controller.llc.segment_commit_start = commit_start
+    catalog.report_state = report
+    log("realtime_cluster_data", rows=parts * RT_CLUSTER_PARTITION_ROWS, partitions=parts,
+        seed=args.seed + RT_CLUSTER_SEED, block_rows=RT_CLUSTER_BLOCK_ROWS,
+        round_blocks=RT_CLUSTER_ROUND_BLOCKS, flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+        servers=CLUSTER_SERVERS, replication=CLUSTER_REPLICATION, consuming=first,
+        generate_s=gen_s, encode_s=encode_s, wire_s=wire_s)
+
+    launches = counts_of()
+    queries = realtime_cluster_queries()
+
+    def metas():
+        with catalog._lock:
+            return {t: dict(segs) for t, segs in catalog.segments.items()}
+
+    server_by_id = {s.instance_id: s for s in servers}
+
+    def expected_launches(on_committed, on_view):
+        """The launches the last query's dispatches imply: one set's on each
+        (table, server) given committed segments, one view's a consuming
+        segment that holds rows."""
+        m = metas()
+        want = counts_of()
+        for table, sid, segs in dispatches:
+            consuming = [s for s in segs if m.get(table, {})[s].status == STATUS_IN_PROGRESS]
+            rt = server_by_id[sid].realtime_manager(table)
+            views = sum(rt.consumers[s].mutable.num_docs > 0 for s in consuming)
+            for k in want:
+                want[k] += on_view[k] * views + on_committed[k] * (len(consuming) < len(segs))
+        return want
+
+    def checked(label, sql, want_rows, on_committed, on_view):
+        """One broker query: counts set to 0 just before, read just after,
+        held to its dispatches; the answer to its oracle."""
+        dispatches.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = broker.handle_query(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        want = expected_launches(on_committed, on_view)
+        if counts != want:
+            raise AssertionError(f"realtime_cluster {label}: launches {counts}, expected {want} "
+                                 f"for the dispatches {dispatches}")
+        if not rows_match(res.rows, want_rows):
+            raise AssertionError(f"realtime_cluster {label}: {res.rows[:5]}, oracle "
+                                 f"{want_rows[:5]}")
+        if res.stats["partialResult"] or res.stats["numSegmentsRetried"]:
+            raise AssertionError(f"realtime_cluster {label}: stats {res.stats}")
+        for k, v in counts.items():
+            launches[k] += v
+        return res, ms, counts
+
+    commits = llc_commit_offsets(RT_CLUSTER_PARTITION_ROWS, RT_CLUSTER_BLOCK_ROWS,
+                                 RT_CLUSTER_ROUND_BLOCKS, RT_CLUSTER_FLUSH_ROWS)
+
+    def llc_segment_start(at: int) -> int:
+        """The start offset of the segment consuming once `at` blocks were
+        sent (the end offset of the last commit at or before it)."""
+        return max([end for _, end in commits if end <= at], default=0)
+
+    managers = [s.realtime_manager(name) for s in servers]
+    if any(m is None for m in managers):
+        raise AssertionError("realtime_cluster: a server made no realtime manager")
+    # device memory at each point the committed segments' blocks and the
+    # pipelines' caches are dropped: before each round that commits, after
+    # the last commit and after the hybrid queries. Past the live
+    # consumers' staging and the GROUP BY workspaces it must not grow from
+    # one point to the next by more than the slack; what is new since the
+    # first point is named by its holders
+    residues, known = [], set()
+
+    def resident(point: str) -> None:
+        for s in servers:
+            for mgr in list(s.tables.values()):
+                for seg in mgr.acquire():
+                    seg.__dict__.pop("_device_blocks", None)
+                    mgr.release([seg])
+            mx = s.device_pipeline.mesh_exec
+            for cache in (mx._set_blocks, mx._views, mx._const_cache):
+                cache.clear()
+        allocated = device_bytes()
+        accounted = set()
+        staged = staged_bytes([c for mg in managers for c in mg.consumers.values()], accounted)
+        workspace = workspace_bytes(accounted)
+        if not residues:
+            known.update(device_tensor_keys())
+        at = {"point": point, "allocated_bytes": allocated, "staged_bytes": staged,
+              "workspace_bytes": workspace, "resident_bytes": allocated - staged - workspace}
+        at["grew_bytes"] = at["resident_bytes"] - (residues[-1]["resident_bytes"]
+                                                   if residues else at["resident_bytes"])
+        at["new_tensors"] = new_tensor_holders(known | accounted, top=0)
+        if max(at["grew_bytes"], at["resident_bytes"] - (residues or [at])[0]["resident_bytes"]) \
+                > RT_CLUSTER_MEMORY_SLACK or point == "after the hybrid queries":
+            at["new_tensors"] = new_tensor_holders(known | accounted)
+        residues.append(at)
+        log("realtime_cluster_memory_point", **at)
+
+    sent = [0] * parts
+    pump_s = pumped = 0.0
+    rounds = -(-RT_CLUSTER_PARTITION_ROWS // (RT_CLUSTER_BLOCK_ROWS * RT_CLUSTER_ROUND_BLOCKS))
+    commit_rounds = sorted({-(-end // RT_CLUSTER_ROUND_BLOCKS) - 1 for _, end in commits})
+    seen = {}   # every consumer the managers held: id -> consumer
+    for r in range(rounds):
+        seen.update((id(c), c) for m in managers for c in m.consumers.values())
+        if r in commit_rounds:
+            resident(f"before round {r}'s commits")
+        t_prod = time.perf_counter()
+        for p in range(parts):
+            batch = blocks[p][sent[p]:sent[p] + RT_CLUSTER_ROUND_BLOCKS]
+            for blob in batch:
+                MemoryStream.get(topic).produce(blob, partition=p)
+            sent[p] += len(batch)
+        round_pump = round_rows = 0.0
+        t_round = time.perf_counter()
+        for m in managers:
+            t0 = time.perf_counter()
+            round_rows += m.pump_all()
+            torch.cuda.synchronize()
+            round_pump += time.perf_counter() - t0
+            m.complete_all()
+        round_s = time.perf_counter() - t_round
+        pump_s += round_pump
+        pumped += round_rows
+        consumed_cols = {k: np.concatenate([data[p][k][:sent[p] * RT_CLUSTER_BLOCK_ROWS]
+                                            for p in range(parts)]) for k in data[0]}
+        fields, staleness_s = {}, None
+        # the freshness a consuming segment reports is the largest event
+        # time it indexed, read from the table's time column (lo_orderdate,
+        # yyyymmdd) as the JAX package reads it, else when it started (epoch
+        # ms); the broker keeps the least
+        fresh = min((int(data[p]["lo_orderdate"][lo:sent[p] * RT_CLUSTER_BLOCK_ROWS].max())
+                     for p in range(parts)
+                     for lo in [llc_segment_start(sent[p]) * RT_CLUSTER_BLOCK_ROWS]
+                     if sent[p] > llc_segment_start(sent[p])), default=None)
+        for qid, sql, oracle, on_committed, on_view in queries:
+            res, ms, counts = checked(f"round {r} {qid}", sql, oracle(consumed_cols),
+                                      on_committed, on_view)
+            if staleness_s is None:
+                staleness_s = time.perf_counter() - t_prod
+            st = res.stats
+            got_fresh = st.get("minConsumingFreshnessTimeMs")
+            if st.get("numConsumingSegmentsQueried") != parts or (
+                    got_fresh != fresh if fresh is not None
+                    else not time.time() * 1000 - 3_600_000 < got_fresh <= time.time() * 1000):
+                raise AssertionError(f"realtime_cluster round {r} {qid}: consuming stats "
+                                     f"{st.get('numConsumingSegmentsQueried')}, "
+                                     f"{st.get('minConsumingFreshnessTimeMs')} (want {parts}, "
+                                     f"{fresh})")
+            fields[qid] = {"ms": ms, "launches": counts, "answer": res.rows[:3],
+                           "consuming_queried": res.stats.get("numConsumingSegmentsQueried"),
+                           "min_freshness_ms": res.stats.get("minConsumingFreshnessTimeMs")}
+        m = metas()[name]
+        log("realtime_cluster_round", round=r, rows=int(sum(sent) * RT_CLUSTER_BLOCK_ROWS),
+            pumped_rows=int(round_rows), pump_s=round_pump,
+            consume_rows_per_s=round_rows / round_pump if round_pump else None,
+            round_s=round_s, staleness_s=staleness_s,
+            segments={s: {"status": x.status, "start": x.start_offset, "end": x.end_offset,
+                          "docs": x.num_docs} for s, x in sorted(m.items())},
+            live_staged_bytes=staged_bytes([c for mg in managers
+                                            for c in mg.consumers.values()]),
+            device_bytes=device_bytes(), queries=fields)
+
+    # the protocol: each committed segment ONLINE on both replicas at the
+    # JAX package's offsets, one COMMIT each, the other replica KEEP or DISCARD
+    want_offsets = llc_commit_offsets(RT_CLUSTER_PARTITION_ROWS, RT_CLUSTER_BLOCK_ROWS,
+                                      RT_CLUSTER_ROUND_BLOCKS, RT_CLUSTER_FLUSH_ROWS)
+    m = metas()[name]
+    with catalog._lock:
+        ev = {s: dict(a) for s, a in catalog.external_view.get(name, {}).items()}
+    committed = {s: x for s, x in m.items() if x.status == STATUS_DONE}
+    for p in range(parts):
+        got = sorted((x.sequence_number, int(x.start_offset), int(x.end_offset))
+                     for x in committed.values() if x.partition_group == p)
+        if [(a, b) for _, a, b in got] != want_offsets:
+            raise AssertionError(f"realtime_cluster: partition {p} committed {got}, "
+                                 f"expected offsets {want_offsets}")
+    handoffs = [mg.handoffs for mg in managers]
+    for seg, x in committed.items():
+        commits = [sv for sv, st in responses[seg] if st == "COMMIT"]
+        decisions = sorted(h.get(seg) for h in handoffs)
+        if len(commits) != 1 or decisions[0] != "COMMIT" \
+                or decisions[1] not in ("DISCARD", "KEEP") \
+                or set(ev.get(seg, {}).values()) != {ONLINE} or len(ev[seg]) != 2 \
+                or x.num_docs != (int(x.end_offset) - int(x.start_offset)) * RT_CLUSTER_BLOCK_ROWS:
+            raise AssertionError(f"realtime_cluster: {seg} responses {responses[seg]}, handoffs "
+                                 f"{decisions}, external view {ev.get(seg)}, docs {x.num_docs}")
+    log("realtime_cluster_commits", committed=len(committed),
+        commit_s={s: commit_s.get(s) for s in sorted(committed)},
+        responses={s: responses[s] for s in sorted(committed)},
+        handoffs={s: sorted(h.get(s) for h in handoffs) for s in sorted(committed)},
+        offsets={s: (parse_llc_name(s)["partition"], x.start_offset, x.end_offset)
+                 for s, x in sorted(committed.items())},
+        consume_rows_per_s=pumped / pump_s, pumped_rows=int(pumped), pump_s=pump_s)
+
+    # warm latency on the REALTIME table, then the OFFLINE half
+    final = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    warm = {}
+
+    def warm_runs(label, sql, want_rows, on_committed, on_view):
+        times = []
+        for _ in range(RT_CLUSTER_WARM_RUNS):
+            _, ms, _ = checked(label, sql, want_rows, on_committed, on_view)
+            times.append(ms)
+        warm[label] = {"warm_median_ms": statistics.median(times), "warm_min_ms": min(times),
+                       "warm_max_ms": max(times), "warm_runs": len(times)}
+
+    query_by_id = {q[0]: q for q in queries}
+    for qid in ("q1_1", "group_by"):
+        _, sql, oracle, on_committed, on_view = query_by_id[qid]
+        warm_runs(f"realtime {qid}", sql, oracle(final), on_committed, on_view)
+    resident("after the last commit")
+
+    t0 = time.perf_counter()
+    dates = np.sort(final["lo_orderdate"])
+    boundary_date = int(dates[len(dates) // 2])   # a date the stream holds
+    low = final["lo_orderdate"] <= boundary_date
+    offline = {k: v[low] for k, v in final.items()}
+    n_off = int(low.sum())
+    off_cfg = TableConfig("lineorder", replication=CLUSTER_REPLICATION,
+                          time_column="lo_orderdate")
+    controller.add_table(off_cfg)
+    builder = SegmentBuilder(schema)
+    for i, (lo, hi) in enumerate(((0, n_off // 2), (n_off // 2, n_off))):
+        seg_dir = builder.build({k: v[lo:hi] for k, v in offline.items()},
+                                os.path.join(root, "offline_build"), f"lineorder_offline_{i}")
+        controller.upload_segment(off_cfg.table_name_with_type, seg_dir)
+    offline_s = time.perf_counter() - t0
+    boundary = int(offline["lo_orderdate"].max())
+    high = final["lo_orderdate"] > boundary
+    hybrid = {k: np.concatenate([offline[k], final[k][high]]) for k in final}
+    hybrid_answers = {}
+    for qid in ("q1_1", "group_by"):
+        _, sql, oracle, on_committed, on_view = query_by_id[qid]
+        res, ms, counts = checked(f"hybrid {qid}", sql, oracle(hybrid), on_committed, on_view)
+        hybrid_answers[qid] = {"cold_ms": ms, "launches": counts, "answer": res.rows[:3],
+                               "tables": sorted({t for t, _, _ in dispatches}),
+                               "consuming_queried": res.stats.get(
+                                   "numConsumingSegmentsQueried")}
+        warm_runs(f"hybrid {qid}", sql, oracle(hybrid), on_committed, on_view)
+    log("realtime_cluster_hybrid", boundary=boundary, offline_rows=n_off,
+        realtime_rows_after_boundary=int(high.sum()), offline_build_upload_s=offline_s,
+        queries=hybrid_answers)
+    log("realtime_cluster_latency", **warm)
+
+    # the retired consumers hold no device bytes, and the card's resident
+    # bytes did not grow from one point to the next
+    resident("after the hybrid queries")
+    consumers = [c for mg in managers for c in mg.consumers.values()]
+    live = {id(c) for c in consumers}
+    retired = [c for k, c in seen.items() if k not in live]
+    retired_bytes = staged_bytes(retired)
+    log("realtime_cluster_memory", retired_consumers=len(retired),
+        retired_staged_bytes=retired_bytes, slack_bytes=RT_CLUSTER_MEMORY_SLACK,
+        resident_bytes=[at["resident_bytes"] for at in residues],
+        grew_bytes=[at["grew_bytes"] for at in residues])
+    if len(retired) != CLUSTER_REPLICATION * len(committed) or retired_bytes:
+        raise AssertionError(f"realtime_cluster: {len(retired)} retired consumers hold "
+                             f"{retired_bytes} device bytes")
+    for at in residues:
+        if max(at["grew_bytes"], at["resident_bytes"] - residues[0]["resident_bytes"]) \
+                > RT_CLUSTER_MEMORY_SLACK:
+            raise AssertionError(f"realtime_cluster: device memory grew {at['grew_bytes']} "
+                                 f"bytes up to {at['point']} ({at['resident_bytes']} resident, "
+                                 f"{residues[0]['resident_bytes']} at the first point), "
+                                 f"past the live consumers' "
+                                 f"staging and the GROUP BY workspaces, over the "
+                                 f"{RT_CLUSTER_MEMORY_SLACK} slack: {at['new_tensors']}")
+    if not (launches["masked_sums"] and launches["grouped_agg"]):
+        raise AssertionError(f"realtime_cluster: launches {launches}")
+    for s in servers:
+        s.shutdown()
+    MemoryStream.reset_all()
+    log("realtime_cluster_summary", launches=launches, rounds=rounds,
+        commits=len(committed), consume_rows_per_s=pumped / pump_s,
+        commit_s_max=max(commit_s.values()) if commit_s else None)
+    return launches
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -5538,6 +6151,7 @@ def main() -> int:
                                  "must run on its path")
         groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
         cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
+        realtime_cluster_launches = phase("realtime_cluster", run_realtime_cluster, args, work)
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -5556,7 +6170,8 @@ def main() -> int:
                 "index": index_launches[name], "search": search_launches[name],
                 "mv": mv_launches[name], "upsert": upsert_launches[name],
                 "batch": batch_launches[name], "groupby": groupby_launches[name],
-                "cluster": cluster_launches[name]}
+                "cluster": cluster_launches[name],
+                "realtime_cluster": realtime_cluster_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)

@@ -7,10 +7,13 @@ watch callbacks in place of Helix messages), the controller
 rebalance), the servers (`server.py`: they load their segments and answer
 partials through the per-segment executor or the serving pipeline,
 `device_server.py`), the broker (`broker.py`: routing and pruning,
-scatter/gather with retries, reduce) and `QuickCluster`, which wires them.
-Offline tables and single-stage queries; what waits (realtime tables in the
-cluster, joins through the broker, the HBM gate and its tiers, the HTTP
-transport and the role processes) is listed in ROADMAP.md.
+scatter/gather with retries, reduce), the realtime lifecycle (`completion.py`:
+the LLC segment manager and the segment completion protocol, with the
+servers' `ingest/realtime.py` consumers) and `QuickCluster`, which wires
+them. Offline, realtime and hybrid tables and single-stage queries; what
+waits (joins through the broker, the peer download scheme, the HBM gate and
+its tiers, the HTTP transport and the role processes, the minion) is listed
+in ROADMAP.md.
 """
 
 from .broker import Broker

@@ -15,6 +15,14 @@ asks one server a table for its plan; EXPLAIN ANALYZE runs the query and
 annotates that plan with the rows and milliseconds it recorded.
 `stream_query` yields a selection's rows a server partial at a time.
 
+A REALTIME table's consuming segments route as its committed ones do, each
+to one stable replica (`routing.py`); a hybrid table's OFFLINE half answers
+time <= the boundary and its REALTIME half the rest. A server's partial
+names in `served` the consuming segments it counted, so that the retry
+round sends a segment on only where no replica counted it, and the merged
+stats sum `numConsumingSegmentsQueried` and keep the least
+`minConsumingFreshnessTimeMs`.
+
 Failures, as the JAX package sorts them: a transport failure
 (ConnectionError, TimeoutError, OSError) marks the server unhealthy;
 backpressure (QueryRejectedError, QueryTimeoutError) holds the server out of

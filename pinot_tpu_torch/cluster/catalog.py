@@ -1,6 +1,12 @@
 """Cluster catalog: the metadata store replacing ZooKeeper/Helix.
 
 A copy of `pinot_tpu/cluster/catalog.py`, without the cold tier's state.
+The realtime lifecycle (`completion.py`) keeps its durable state here: a
+consuming segment's `SegmentMeta` (status IN_PROGRESS, then DONE with its
+end offset; partition group and sequence number), the CONSUMING and ONLINE
+states of the ideal state and the external view, and the `pause/<table>`
+property; the LLC segment manager reads these as copies taken under the
+catalog's lock, as the other roles do.
 `snapshot()` writes the JAX package's JSON, so a snapshot taken by either
 package restores into the other's catalog.
 

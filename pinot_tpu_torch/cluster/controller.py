@@ -5,12 +5,14 @@ reference's `PinotHelixResourceManager`, `ZKOperator.completeSegmentOperations`
 (validate, copy to the deep store, write metadata, update the ideal state),
 `RetentionManager`, `SegmentDeletionManager` and `TableRebalancer`'s converge
 loop): the table and segment core, tenants, table state, rebalance and table
-status. Offline tables only: `add_realtime_table` raises NotImplementedError,
-as do the cold tier's demotion (`controller.retention.cold.demote`). The
+status, and realtime tables through the LLC segment manager (`self.llc`,
+`cluster/completion.py`): `add_realtime_table` creates the CONSUMING segments
+of each stream partition, `pause_consumption` and `resume_consumption` stop
+and restart them, and the completion protocol commits them. The cold tier's
+demotion (`controller.retention.cold.demote`) raises NotImplementedError. The
 periodic scheduler, the health, SLO, workload, memory, event and incident
-planes, the LLC completion protocol and the minion's task manager wait; their
-periodic tasks are methods a caller runs (`run_retention`,
-`run_segment_status_check`).
+planes and the minion's task manager wait; their periodic tasks are methods a
+caller runs (`run_retention`, `run_segment_status_check`, `llc.validate`).
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ from typing import Dict, List, Optional
 
 from ..schema import Schema
 from ..segment.format import CREATION_META_FILE, SEGMENT_METADATA_FILE, read_json
-from ..table import TableConfig
+from ..table import TableConfig, TableType
 from ..utils.metrics import get_registry
 from .assignment import balanced_assign, compute_counts, rebalance_table, replica_group_assign
 from .catalog import (COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog, InstanceInfo,
                       SegmentMeta, column_stats_from_meta)
+from .completion import LLCSegmentManager
 from .deepstore import DeepStoreFS, tar_segment
 from .routing import partition_for_value
 
@@ -45,6 +48,7 @@ class Controller:
         self.deepstore = deepstore
         self.work_dir = work_dir
         os.makedirs(work_dir, exist_ok=True)
+        self.llc = LLCSegmentManager(catalog, deepstore, os.path.join(work_dir, "llc"))
         self._status_tables: set = set()   # tables with exported status gauges
         catalog.register_instance(InstanceInfo(instance_id, "controller"))
 
@@ -67,15 +71,39 @@ class Controller:
                              "(balanced | replicaGroup | strictReplicaGroup)")
 
     def add_realtime_table(self, config: TableConfig, num_partitions: int) -> List[str]:
-        raise NotImplementedError(
-            "realtime tables in the cluster wait for the segment completion protocol "
-            "(cluster/completion.py): ROADMAP.md queue 1")
+        """A REALTIME table and its first CONSUMING segment of each partition
+        (the reference's setUpNewTable); returns their names."""
+        if config.table_type is not TableType.REALTIME or config.stream is None:
+            raise ValueError(f"{config.name}: a realtime table needs tableType REALTIME "
+                             "and a stream config")
+        self.add_table(config)
+        return self.llc.setup_realtime_table(config, num_partitions)
+
+    def pause_consumption(self, table: str) -> Dict[str, object]:
+        """The reference's pauseConsumption (`LLCSegmentManager.pause_consumption`)."""
+        return self.llc.pause_consumption(table)
+
+    def resume_consumption(self, table: str) -> Dict[str, object]:
+        """The reference's resumeConsumption (`LLCSegmentManager.resume_consumption`)."""
+        return self.llc.resume_consumption(table)
 
     def drop_table(self, table: str) -> None:
-        for seg in list(self.catalog.segments.get(table, {})):
+        """Delete the table's segments (a realtime table's consuming ones with
+        them, whose servers stop their consumers) and the table. The FSMs go
+        first, under the LLC manager's lock: a commit whose upload is in
+        flight then fails at its flip, and writes no ONLINE segment and no
+        successor for the table."""
+        with self.llc._lock:
+            with self.catalog._lock:
+                segments = list(self.catalog.segments.get(table, {}))
+            for seg in segments:
+                self.llc.fsms.pop(seg, None)
+        for seg in segments:
             self.delete_segment(table, seg)
-        # a table recreated under the name must not inherit a disabled state
+        # a table recreated under the name inherits neither a disabled state
+        # nor a pause
         self.catalog.put_property(f"tableState/{table}", None)
+        self.catalog.put_property(f"pause/{table}", None)
         self.catalog.drop_table(table)
 
     # -- segment upload ---------------------------------------------------

@@ -213,6 +213,9 @@ class DeviceQueryPipeline:
         """Dispatcher: drain -> prepare + group -> launch -> hand to the fetcher.
         While the fetcher copies drain N, drain N+1's passes already run."""
         while not self._stop.is_set():
+            # the last drain's launches hold its device inputs: an idle
+            # dispatcher must not keep them alive
+            batch = entry = event = None
             batch = self._drain()
             if batch is None:
                 continue
@@ -334,6 +337,8 @@ class DeviceQueryPipeline:
                     self._decode_launch(finish, groups, host)
                 self._observe("decode", (time.perf_counter() - t1) * 1000)
             finally:
+                # nor an idle fetcher the last fetch's outputs and inputs
+                entry = event = live = fetched = _ = finish = groups = host = None
                 self._fetch_busy.clear()
 
     def _decode_launch(self, finish, groups, host) -> None:

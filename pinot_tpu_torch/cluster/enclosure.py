@@ -3,9 +3,14 @@
 A trimmed copy of `pinot_tpu/cluster/enclosure.py` (the analog of the
 reference's single-JVM `ClusterTest` harness and its quickstart): one object
 wires the roles, with helpers to create a table, ingest column batches as
-segments and query through the broker. Offline tables only:
-`create_realtime_table` and `pump_realtime` wait for the segment completion
-protocol, `run_minion_round` for the minion; they raise NotImplementedError.
+segments, create a realtime table on a `MemoryStream` topic
+(`create_realtime_table`; the servers report to the controller's LLC segment
+manager), drive its consumers one pump and one completion round at a time
+(`pump_realtime`, deterministic; `start_loop()` on a server's
+`realtime_manager(table)` runs a background loop instead) and query through
+the broker. A hybrid table is an OFFLINE and a REALTIME table of one name,
+which the broker splits at the time boundary. `run_minion_round` raises NotImplementedError: the minion
+waits (ROADMAP.md queue 1).
 
 `device` is every server's device (CUDA unless the caller passes "cpu";
 without a card the cluster raises RuntimeError). The servers run the
@@ -20,6 +25,7 @@ import os
 import tempfile
 from typing import Dict, List, Optional
 
+from ..ingest.stream import MemoryStream
 from ..query.result import ResultTable
 from ..schema import Schema
 from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
@@ -40,7 +46,8 @@ class QuickCluster:
                                      os.path.join(self.work_dir, "controller"))
         self.servers: List[ServerNode] = [
             ServerNode(f"server_{i}", self.catalog, self.deepstore,
-                       os.path.join(self.work_dir, f"server_{i}"), device=device)
+                       os.path.join(self.work_dir, f"server_{i}"), device=device,
+                       completion=self.controller.llc)
             for i in range(num_servers)]
         self.broker = Broker("broker_0", self.catalog)
         for s in self.servers:
@@ -70,15 +77,24 @@ class QuickCluster:
         return name
 
     def create_realtime_table(self, schema: Schema, config: TableConfig,
-                              num_partitions: int):
-        raise NotImplementedError(
-            "realtime tables in the cluster wait for the segment completion protocol "
-            "(cluster/completion.py): ROADMAP.md queue 1")
+                              num_partitions: int) -> List[str]:
+        """A REALTIME table on the `MemoryStream` topic its stream config
+        names (made with `num_partitions` partitions unless it exists);
+        returns the first CONSUMING segments."""
+        self.controller.add_schema(schema)
+        MemoryStream.create(config.stream.topic, num_partitions)
+        return self.controller.add_realtime_table(config, num_partitions)
 
     def pump_realtime(self, table_name_with_type: str) -> int:
-        raise NotImplementedError(
-            "realtime tables in the cluster wait for the segment completion protocol "
-            "(cluster/completion.py): ROADMAP.md queue 1")
+        """Each server in turn pumps every consumer of the table once and runs
+        one completion round; returns the rows indexed."""
+        moved = 0
+        for s in self.servers:
+            mgr = s.realtime_manager(table_name_with_type)
+            if mgr is not None:
+                moved += mgr.pump_all()
+                mgr.complete_all()
+        return moved
 
     def run_minion_round(self):
         raise NotImplementedError("the minion (minion/tasks.py) waits: ROADMAP.md queue 1")

@@ -9,7 +9,12 @@ before scatter.
 
 A copy of `pinot_tpu/cluster/routing.py`, without the cold tier's state, and
 with the routing table rebuilt from a copy of the external view, one rebuild
-at a time (concurrent uploads report states from several threads).
+at a time (concurrent uploads report states from several threads). A
+realtime table's CONSUMING segments route to the first healthy replica of
+their sorted candidates, so that a segment's reads stay on one replica's
+offsets; a reassignment or the CONSUMING -> ONLINE flip rebuilds the table
+from the external view, after which the committed segment routes as any
+ONLINE one does (round-robin under the balanced selector).
 """
 
 from __future__ import annotations

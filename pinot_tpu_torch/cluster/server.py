@@ -6,7 +6,15 @@ their reference-counted acquire and release, and the query half of
 `ServerQueryExecutorV1Impl`). Ideal-state changes arrive as catalog events:
 the server downloads each segment assigned ONLINE to it from the deep store,
 loads it and reports it in the external view; a segment taken from it is
-unloaded.
+unloaded. A CONSUMING assignment of a realtime table starts a consumer in
+the table's `RealtimeTableManager` (`ingest/realtime.py`, made on the first
+one, `realtime_manager`); its CONSUMING -> ONLINE flip hands the segment
+over (the local build where this server committed it or consumed exactly to
+its end offset, else the committed copy from the deep store) and retires the
+consumer once the immutable copy is registered; a consuming segment taken
+from the server stops its consumer. `completion` is the controller's LLC
+segment manager the consumers report to; a caller pumps and completes
+them, or starts the manager's background loop (`start_loop`).
 
 A partial (`execute_partial`) runs over the server's copy of the segments the
 broker routed to it, under the broker's deadline (`deadlineEpochMs`) and an
@@ -18,14 +26,22 @@ optional time filter. Its route is chosen before anything runs:
   to the pipeline as one server-level partial for the whole set;
 * every other partial, and every partial of a server without a pipeline,
   runs through the per-segment `ServerQueryExecutor`, which runs the planner's
-  host plans on the host.
+  host plans on the host;
+* the committed segments of a REALTIME table take these routes as an
+  offline table's do, except that an upsert table never takes the pipeline:
+  its segments run per segment under the table's valid-doc masks;
+* the consuming segments the broker routed here answer after them, each on
+  the per-segment executor over its view (staged on the device where the
+  stream sets `realtime.ingest.device.staging`), from one snapshot of the
+  table's consumers that leaves out the segments already answered
+  immutably; the partial's `served` list names both, and its stats carry
+  `numConsumingSegmentsQueried` and `minConsumingFreshnessTimeMs`.
 
 No error becomes another path's answer: what the pipeline or the executor
 raises propagates to the broker, which may retry the segments on another
 replica. Every assigned segment is admitted to the device: the HBM admission
 gate, its host tier and the cold tier's lazy loads wait for the memory ledger
-(ROADMAP.md queue 1). So do realtime (CONSUMING) assignments, which wait for
-the completion protocol: a server reports them ERROR. The cluster knobs
+(ROADMAP.md queue 1). The cluster knobs
 `server.index.bitmap.enabled`, `server.fused.enabled` and
 `server.hbm.capacity.bytes` are not ported: a server whose cluster sets one
 raises NotImplementedError rather than ignore it.
@@ -128,7 +144,7 @@ class ServerNode:
 
     def __init__(self, instance_id: str, catalog: Catalog, deepstore: DeepStoreFS,
                  data_dir: str, tags: Optional[List[str]] = None, scheduler=None,
-                 device=None, device_pipeline=None):
+                 device=None, device_pipeline=None, completion=None):
         for knob, refused in UNPORTED_KNOBS.items():
             v = catalog.get_property(f"clusterConfig/{knob}")
             if v is not None and (refused is None or str(v).lower() == refused):
@@ -150,6 +166,10 @@ class ServerNode:
         self.tables: Dict[str, TableDataManager] = {}
         self._lock = threading.RLock()
         self._load_locks: Dict[tuple, threading.Lock] = {}
+        # realtime: the LLC segment manager the consumers report to and one
+        # RealtimeTableManager a realtime table
+        self.completion = completion
+        self._realtime_managers: Dict[str, object] = {}
         self.status = "STARTING"
         os.makedirs(data_dir, exist_ok=True)
         catalog.register_instance(InstanceInfo(instance_id, "server",
@@ -161,7 +181,8 @@ class ServerNode:
 
     # -- lifecycle ----------------------------------------------------------
     def startup_status(self) -> Dict[str, object]:
-        """Ready when every segment the ideal state assigns ONLINE here is loaded."""
+        """Ready when every segment the ideal state assigns ONLINE here is
+        loaded and every CONSUMING one has its consumer."""
         with self.catalog._lock:
             ideal = {t: {s: dict(a) for s, a in ist.items()}
                      for t, ist in self.catalog.ideal_state.items()}
@@ -169,18 +190,22 @@ class ServerNode:
         for table, ist in ideal.items():
             mgr = self.tables.get(table)
             served = set(mgr.segment_names) if mgr else set()
+            rt = self._realtime_managers.get(table)
+            consuming = set(rt.consumers) if rt is not None else set()
             for seg, assignment in ist.items():
-                if assignment.get(self.instance_id) == ONLINE:
+                if assignment.get(self.instance_id) in (ONLINE, CONSUMING):
                     assigned += 1
-                    loaded += seg in served
+                    loaded += seg in served or seg in consuming
         return {"status": self.status, "assignedSegments": assigned,
                 "loadedSegments": loaded,
                 "ready": self.status == "UP" and loaded == assigned}
 
     def shutdown(self) -> None:
-        """Leave routing and stop the scheduler and the pipeline."""
+        """Leave routing and stop the consumers, the scheduler and the pipeline."""
         self.status = "SHUTTING_DOWN"
         self.catalog.set_instance_alive(self.instance_id, False)
+        for handler in list(self._realtime_managers.values()):
+            handler.stop()
         if self.scheduler is not None:
             self.scheduler.stop()
         if self.device_pipeline is not None:
@@ -192,27 +217,37 @@ class ServerNode:
             self.reconcile(key)
         elif event == "table" and self.catalog.table_configs.get(key) is None:
             self.reconcile(key)   # the table was dropped
+        elif event == "property" and key.startswith("pause/"):
+            rt = self._realtime_managers.get(key.split("/", 1)[1])
+            if rt is not None:
+                rt.set_paused(self.catalog.get_property(key) is not None)
         elif event == "property" and key.startswith("reload/"):
             self.reload_table(key.split("/", 1)[1])
 
     def reconcile(self, table: str) -> None:
-        """Converge the loaded segments to the ideal state (the reference's
-        OFFLINE->ONLINE, ONLINE->OFFLINE and ->DROPPED transitions)."""
+        """Converge the loaded segments and the consumers to the ideal state
+        (the reference's OFFLINE->ONLINE, CONSUMING->ONLINE, ->CONSUMING,
+        ONLINE->OFFLINE and ->DROPPED transitions)."""
         mgr = self._table_manager(table)
         desired = self._assigned(table)
         for seg_name, state in desired.items():
             if state == ONLINE and seg_name not in mgr.segment_names:
+                handler = self._realtime_managers.get(table)
                 try:
-                    loaded = self._load_online_segment(table, seg_name, mgr)
+                    if handler is not None and seg_name in handler.consumers:
+                        loaded = self._hand_over(table, seg_name, mgr, handler)
+                    else:
+                        loaded = self._load_online_segment(table, seg_name, mgr)
                 except Exception:
                     self.catalog.report_state(table, seg_name, self.instance_id, "ERROR")
                     raise
                 if loaded:
                     self.catalog.report_state(table, seg_name, self.instance_id, ONLINE)
-            elif state == CONSUMING:
-                # realtime consumption in the cluster waits for the completion
-                # protocol: the segment shows as not served
-                self.catalog.report_state(table, seg_name, self.instance_id, "ERROR")
+            elif state == CONSUMING and seg_name not in mgr.segment_names:
+                handler = self._ensure_realtime_manager(table)
+                if handler is not None and seg_name not in handler.consumers:
+                    handler.start_consuming(seg_name)
+                    self.catalog.report_state(table, seg_name, self.instance_id, CONSUMING)
         # unload against the ideal state as it is now: a reconcile racing
         # another upload's must not drop a segment assigned since it began
         current = self._assigned(table)
@@ -222,13 +257,63 @@ class ServerNode:
                 with self._lock:
                     self._load_locks.pop((table, seg_name), None)
                 self.catalog.report_state(table, seg_name, self.instance_id, None)
+        # consuming segments taken from this server (deleted, reassigned)
+        # stop their consumers: they live in the realtime manager
+        rt = self._realtime_managers.get(table)
+        if rt is not None:
+            for seg_name in list(rt.consumers):
+                if seg_name not in current:
+                    rt.stop_consuming(seg_name)
+                    self.catalog.report_state(table, seg_name, self.instance_id, None)
         if self.catalog.table_configs.get(table) is None:
+            # a dropped table's manager stops with it: a stale one would go on
+            # consuming and shadow a table made again under the name
             with self._lock:
+                handler = self._realtime_managers.pop(table, None)
                 self.tables.pop(table, None)
                 for k in [k for k in self._load_locks if k[0] == table]:
                     del self._load_locks[k]
+            if handler is not None:
+                handler.stop()
             return
         self._refresh_dim_table(table, mgr)
+
+    def _hand_over(self, table: str, seg_name: str, mgr: TableDataManager, handler) -> bool:
+        """A consuming segment's CONSUMING -> ONLINE here: register the local
+        build where the handoff keeps it, else download the committed copy;
+        then retire the consumer, which answered queries until now (also
+        where the load failed: an ERROR segment keeps no consumer)."""
+        try:
+            local_dir = handler.on_segment_online(seg_name)
+            if local_dir:
+                self.add_local_segment(table, load_segment(local_dir))
+                return True
+            return self._load_online_segment(table, seg_name, mgr)
+        finally:
+            handler.retire_consumer(seg_name)
+
+    def add_local_segment(self, table: str, segment: ImmutableSegment) -> None:
+        """Register a segment built on this server (a realtime commit's)."""
+        self._table_manager(table).add_segment(segment.name, segment)
+
+    def _ensure_realtime_manager(self, table: str):
+        """The table's realtime manager, made on its first CONSUMING
+        assignment; None where the table has no stream or the server no
+        completion endpoint."""
+        with self._lock:
+            handler = self._realtime_managers.get(table)
+            if handler is None:
+                cfg = self.catalog.table_configs.get(table)
+                if cfg is None or cfg.stream is None or self.completion is None:
+                    return None
+                from ..ingest.realtime import RealtimeTableManager
+                handler = RealtimeTableManager(self, table, cfg, self.completion)
+                self._realtime_managers[table] = handler
+            return handler
+
+    def realtime_manager(self, table: str):
+        """The table's `RealtimeTableManager` on this server, or None."""
+        return self._realtime_managers.get(table)
 
     def _assigned(self, table: str) -> Dict[str, str]:
         """segment -> this server's state in the table's ideal state now."""
@@ -362,12 +447,12 @@ class ServerNode:
         merged.stats = st.to_wire()
         return merged
 
-    def _device_route(self, ctx: QueryContext, segments: Sequence[ImmutableSegment]
-                      ) -> Optional[str]:
+    def _device_route(self, ctx: QueryContext, segments: Sequence[ImmutableSegment],
+                      upsert=None) -> Optional[str]:
         """The kind of the set's plan when the pipeline takes the partial (an
         aggregation, a DISTINCT or a screened ORDER BY ... LIMIT whose plan
-        is not a host plan), else None."""
-        if self.device_pipeline is None or not segments:
+        is not a host plan, of a table without upsert), else None."""
+        if self.device_pipeline is None or not segments or upsert is not None:
             return None
         if not (ctx.aggregations or ctx.distinct or device_topk_screen(ctx)):
             return None
@@ -379,9 +464,11 @@ class ServerNode:
         reg = get_registry()
         t0 = time.perf_counter()
         mgr = self._table_manager(table)
+        handler = self._realtime_managers.get(table)
+        upsert = handler.upsert if handler is not None else None
         segments = mgr.acquire(segment_names)
         try:
-            kind = self._device_route(ctx, segments)
+            kind = self._device_route(ctx, segments, upsert)
             if kind is not None:
                 t_dev = time.perf_counter()
                 with span("device"):
@@ -401,7 +488,22 @@ class ServerNode:
                 results = []
                 for seg in segments:
                     with span(f"segment:{seg.name}"):
-                        results.append(self.executor.execute_segment(ctx, seg))
+                        valid = upsert.valid_mask(seg.name, seg.num_docs) if upsert else None
+                        results.append(self.executor.execute_segment(ctx, seg, valid))
+            served = [seg.name for seg in segments]
+            if handler is not None:
+                # the consuming segments, from one snapshot that leaves out
+                # those answered immutably above
+                with span("consuming"):
+                    rt_results, rt_served = handler.consuming_results(
+                        ctx, segment_names, exclude=set(served))
+                results.extend(rt_results)
+                served.extend(rt_served)
+                if rt_served:
+                    qstats.record(qstats.NUM_CONSUMING_SEGMENTS_QUERIED, len(rt_served))
+                    fresh = handler.min_freshness_ms(rt_served)
+                    if fresh is not None:
+                        qstats.record_min(qstats.MIN_CONSUMING_FRESHNESS_TIME_MS, fresh)
         finally:
             mgr.release(segments)
         aggs = [make_agg(f) for f in ctx.aggregations]
@@ -410,7 +512,7 @@ class ServerNode:
             if not results:
                 merged.kind = ("groups" if (ctx.group_by or ctx.distinct) else
                                "scalar" if aggs else "selection")
-        merged.served = [seg.name for seg in segments]
+        merged.served = served
         reg.counter("pinot_server_queries", {"table": table}).inc()
         reg.counter("pinot_server_docs_scanned").inc(merged.num_docs_scanned)
         reg.counter("pinot_server_segments_queried").inc(len(segments))

@@ -1,11 +1,24 @@
-"""Server-side realtime consumption: one consumer per stream partition.
+"""Server-side realtime consumption: one consumer per stream partition, and
+the server's realtime table manager.
 
-Counterpart of `RealtimePartitionConsumer` in `pinot_tpu/ingest/realtime.py`
-(the analog of the reference's `LLRealtimeSegmentDataManager`): `pump()`
-fetches a batch from the partition, decodes it and indexes it into the
-consuming segment; `query_segment()` gives the segment queries run against;
-`end_criteria_reached()` applies the flush thresholds and `build_immutable()`
-writes the consuming segment as an immutable one.
+Counterpart of `pinot_tpu/ingest/realtime.py` (the analog of the reference's
+`LLRealtimeSegmentDataManager` and `RealtimeTableDataManager`).
+`RealtimePartitionConsumer.pump()` fetches a batch from the partition,
+decodes it and indexes it into the consuming segment; `query_segment()`
+gives the segment queries run against; `maybe_complete()` walks the
+completion protocol against the controller's LLC segment manager
+(`cluster/completion.py`) once the flush thresholds are reached:
+
+    INITIAL_CONSUMING -> CATCHING_UP -> HOLDING -> COMMITTING -> COMMITTED
+                                     \\-> DISCARDED (lost the race: download instead)
+                                      \\-> RETAINED (KEEP: the local build adopted)
+                                       \\-> ERROR
+
+A consumer reaches its thresholds at the granularity of what one pump
+indexes (a columnar block carries the row count past the threshold): the
+segment's end offset is the offset the consumer reached, as in the JAX
+package. A controller's pause request (`set_paused`) stops fetching and makes
+a consumer that holds rows commit at its next completion round.
 
 The consuming segment's class, as the JAX package chooses it: the chunked
 `DeviceMutableSegment`, unless the table has upsert or dedup, names text or
@@ -34,63 +47,118 @@ Three decode lanes, as in the JAX package:
 With the stream property `realtime.ingest.device.staging=true` a chunked
 consuming segment stages its numeric chunks on `device` (CUDA unless the
 caller names another) and its views run on the device path. A row-append
-segment runs on the host, as the JAX planner routes it.
+segment runs on the host, as the JAX planner routes it. A retired or
+discarded consumer's staged chunks and view block are released
+(`RealtimeTableManager._release_device`).
 
-Not ported: the completion protocol with the controller (`maybe_complete`
-raises NotImplementedError once the flush thresholds are reached),
-`RealtimeTableManager` (a caller that commits builds the segment, loads it
-and starts the next consumer with the same upsert manager), and the socket
-broker's splicing fetch. The stream properties `filterExpr` and
-`columnTransforms` configure the `TransformPipeline`: with either, a block
-lane's batches go through it as column lists before they are indexed.
+`RealtimeTableManager` is one server's realtime side of one table: it starts
+a consumer for each CONSUMING assignment, hands a committed segment over
+(`on_segment_online`: the local build where this server committed or
+reached the same end offset, else the caller downloads the committed copy;
+`retire_consumer` once the immutable copy serves), answers the consuming
+segments of a query from one snapshot (`consuming_results`), and pumps and
+completes its consumers (`pump_all`, `complete_all`, or a background loop,
+`start_loop`). It keeps one upsert metadata manager for the table and one
+dedup manager per partition.
+
+Not ported: the stream factory registry and the socket broker (`kafkalite`)
+with its splicing fetch (the consumer reads a `MemoryStream` topic), the
+ingestion-lag gauges and status rollup (`lag_status`, `ingestion_status`:
+only the freshness the broker's stats read is kept). The stream properties
+`filterExpr` and `columnTransforms` configure the `TransformPipeline`: with
+either, a block lane's batches go through it as column lists before they are
+indexed.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from ..cluster.completion import parse_llc_name
+from ..query.context import QueryContext
+from ..query.reduce import SegmentResult
 from ..segment.mutable import MutableSegment
 from ..segment.mutable_device import DeviceMutableSegment
 from ..segment.writer import SegmentBuilder, SegmentGeneratorConfig
 from ..table import TableConfig
-from ..upsert import merge_partial
+from ..upsert import (PartitionDedupMetadataManager, TableUpsertMetadataManager,
+                      merge_partial)
+from ..utils.metrics import get_registry
 from .stream import MemoryStreamConsumer, get_batch_decoder, get_block_decoder, get_decoder
 from .transform import TransformPipeline, rows_to_all_columns
 
-#: messages one `pump()` fetches unless the caller names another count
+#: messages one `pump()` fetches unless the caller or the stream property
+#: `realtime.ingest.batch.size` names another count
 MAX_PUMP_MESSAGES = 10_000
 
+# consumer states (the reference's LLRealtimeSegmentDataManager.State)
+INITIAL_CONSUMING = "INITIAL_CONSUMING"
+CATCHING_UP = "CATCHING_UP"
+HOLDING = "HOLDING"
+COMMITTING = "COMMITTING"
+COMMITTED = "COMMITTED"
+DISCARDED = "DISCARDED"
+RETAINED = "RETAINED"
+ERROR = "ERROR"
 
-def parse_llc_name(name: str) -> dict:
-    """`<table>__<partition>__<sequence>__<time>` -> its parts (the
-    reference's LLCSegmentName)."""
-    parts = name.split("__")
-    return {"table": parts[0], "partition": int(parts[1]), "sequence": int(parts[2])}
+_CONSUMING_STATES = (INITIAL_CONSUMING, CATCHING_UP, HOLDING)
+
+#: how a replica's consuming segment became its immutable copy
+#: (`RealtimeTableManager.handoffs`): it committed it, kept its own build of
+#: the committed offset, or discarded it and downloaded the committed copy
+COMMIT, KEEP, DISCARD = "COMMIT", "KEEP", "DISCARD"
+
+
+class ConsumerLagTracker:
+    """The freshness of one consuming partition (the part of the reference's
+    IngestionDelayTracker the broker's stats read): the wall time of the
+    last fetch that returned messages and the largest event time indexed
+    (epoch ms, from the table's time column)."""
+
+    def __init__(self):
+        self.last_consumed_ms: Optional[int] = None
+        self.last_event_time_ms: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def on_batch(self, fetched: int, max_event_time_ms: Optional[float]) -> None:
+        with self._lock:
+            if fetched:
+                self.last_consumed_ms = int(time.time() * 1000)
+            if max_event_time_ms is not None:
+                self.last_event_time_ms = max(self.last_event_time_ms or 0.0,
+                                              float(max_event_time_ms))
 
 
 class RealtimePartitionConsumer:
-    """One consuming segment of one stream partition. One thread pumps; any
-    number of threads may query the segment meanwhile.
+    """One consuming segment of one stream partition on one server. One
+    thread pumps at a time; any number of threads may query the segment
+    meanwhile.
 
-    `upsert` is the table's `upsert.TableUpsertMetadataManager` (shared by
-    every consumer of the table, and by the queries that read its masks),
-    `dedup` the partition's `PartitionDedupMetadataManager`, `partial_rows`
-    the table's last merged row per primary key (a PARTIAL upsert's state,
-    shared like `upsert`)."""
+    `completion` is the controller's `LLCSegmentManager` (None for a
+    consumer driven without a cluster: `maybe_complete` raises once the
+    thresholds are reached), `server_id` the server it reports as. `upsert` is the table's
+    `upsert.TableUpsertMetadataManager` (shared by every consumer of the
+    table, and by the queries that read its masks), `dedup` the partition's
+    `PartitionDedupMetadataManager`, `partial_rows` the table's last merged
+    row per primary key (a PARTIAL upsert's state, shared like `upsert`)."""
 
     def __init__(self, segment_name: str, table_cfg: TableConfig, schema,
                  start_offset: int, data_dir: str, completion=None, device=None,
-                 upsert=None, dedup=None, partial_rows: Optional[dict] = None):
+                 upsert=None, dedup=None, partial_rows: Optional[dict] = None,
+                 server_id: str = ""):
         self.segment_name = segment_name
         self.table_cfg = table_cfg
         self.schema = schema
         self.completion = completion
+        self.server_id = server_id
         self.data_dir = data_dir
         self.upsert = upsert
         self.dedup = dedup
         self.partial_rows = partial_rows if partial_rows is not None else {}
+        self.state = INITIAL_CONSUMING
         stream_cfg = table_cfg.stream
         props = stream_cfg.properties or {}
         indexing = table_cfg.indexing
@@ -107,10 +175,20 @@ class RealtimePartitionConsumer:
             self.mutable = MutableSegment(
                 segment_name, schema, text_index_columns=indexing.text_index_columns,
                 inverted_index_columns=indexing.inverted_index_columns)
+        try:
+            self._batch_size = int(props.get("realtime.ingest.batch.size", MAX_PUMP_MESSAGES))
+        except (TypeError, ValueError):
+            self._batch_size = MAX_PUMP_MESSAGES
         self.pipeline = TransformPipeline(schema, props.get("filterExpr"),
                                           props.get("columnTransforms"))
         self.partition = parse_llc_name(segment_name)["partition"]
-        self.consumer = MemoryStreamConsumer(stream_cfg.topic, self.partition)
+        # made again at the next pump where the topic does not exist yet (a
+        # producer may create it after the table)
+        try:
+            self.consumer: Optional[MemoryStreamConsumer] = MemoryStreamConsumer(
+                stream_cfg.topic, self.partition)
+        except KeyError:
+            self.consumer = None
         # a block stream (columnar) decodes whole blocks; any other decodes rows
         self.block_decoder = get_block_decoder(stream_cfg.decoder)
         self.decoder = self.batch_decoder = None
@@ -124,39 +202,89 @@ class RealtimePartitionConsumer:
             self.batch_decoder = get_batch_decoder(stream_cfg.decoder)
         self.offset = start_offset
         self.start_consume_time = time.time()
+        self.lag = ConsumerLagTracker()
+        self.catchup_target: Optional[int] = None
+        # the handoff's fence: `on_segment_online` sets `halted` and takes
+        # `pump_lock` before it reads the offset, so that no pump indexes rows
+        # past the committed end offset into a segment being adopted
+        self.halted = False
+        self.pause_requested = False
+        self.pump_lock = threading.Lock()
+        # the thread inside `_commit` (in process, the controller's ONLINE
+        # publish runs the handoff on it), and set when `_commit` returns
+        self._commit_thread: Optional[int] = None
+        self._commit_done = threading.Event()
         # which lane the last pump took: "blocks" | "batch" | "row" | None
         self.last_decode_path: Optional[str] = None
 
-    def pump(self, max_messages: int = MAX_PUMP_MESSAGES) -> int:
+    # -- consume loop --------------------------------------------------------
+    def pump(self, max_messages: Optional[int] = None) -> int:
         """Fetch, decode and index one batch of at most `max_messages`
-        messages; returns the rows indexed (the reference's consumeLoop, one
-        iteration)."""
-        batch = self.consumer.fetch(self.offset, max_messages)
-        indexed = 0
+        messages (the stream property `realtime.ingest.batch.size` by
+        default); returns the rows indexed (the reference's consumeLoop, one
+        iteration). Nothing is fetched once the consumer left the consuming
+        states, is halted or paused; a catch-up fetches no further than its
+        target. The fetch and decode run outside `pump_lock`; the indexing
+        and the offset's publish hold it, and drop the batch where the
+        consumer was halted or another pump indexed the range meanwhile."""
+        if self.halted or self.pause_requested or self.state not in _CONSUMING_STATES:
+            return 0
+        if self.consumer is None:
+            try:
+                self.consumer = MemoryStreamConsumer(self.table_cfg.stream.topic,
+                                                     self.partition)
+            except KeyError:
+                return 0   # no topic yet: the next pump tries again
+        limit = max_messages if max_messages is not None else self._batch_size
+        if self.catchup_target is not None:
+            limit = min(limit, self.catchup_target - self.offset)
+            if limit <= 0:
+                return 0
+        fetch_from = self.offset
+        batch = self.consumer.fetch(fetch_from, limit)
+        blocks = rows = None
         if self.block_decoder is not None:
-            self.last_decode_path = "blocks"
-            # arrays index directly unless the table configures a filter or
-            # transforms, or the segment appends rows: then each block goes
-            # through the pipeline as lists
-            direct = hasattr(self.mutable, "index_arrays") and \
-                self.pipeline.filter_expr is None and not self.pipeline.column_transforms
-            for m in batch.messages:
-                cb = self.block_decoder.decode_one(m.value)
-                if direct:
-                    indexed += self.mutable.index_arrays(cb)
-                else:
-                    indexed += self._index_columns(self.pipeline.apply(cb.to_lists(self.schema)))
+            blocks = [self.block_decoder.decode_one(m.value) for m in batch.messages]
         elif batch.messages and self.upsert is None and self.dedup is None:
-            self.last_decode_path = "batch"
             rows = self._decode_batch([m.value for m in batch.messages])
-            indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(rows)))
         elif batch.messages:
-            self.last_decode_path = "row"
-            decoded = [self.decoder(m.value) for m in batch.messages]
-            for row, msg in zip(self.pipeline.apply_rows(decoded), batch.messages):
-                if row is not None and self._index_row(row, msg.offset):
-                    indexed += 1
-        self.offset = batch.next_offset
+            rows = [self.decoder(m.value) for m in batch.messages]
+        tc = self.table_cfg.time_column
+        indexed = fetched = 0
+        max_event: Optional[float] = None
+        with self.pump_lock:
+            if self.halted or self.offset != fetch_from:
+                return 0
+            if blocks is not None:
+                self.last_decode_path = "blocks"
+                # arrays index directly unless the table configures a filter
+                # or transforms, or the segment appends rows: then each block
+                # goes through the pipeline as lists
+                direct = hasattr(self.mutable, "index_arrays") and \
+                    self.pipeline.filter_expr is None and not self.pipeline.column_transforms
+                for cb in blocks:
+                    fetched += cb.n
+                    ev = cb.max_of(tc) if tc else None
+                    if ev is not None and (max_event is None or ev > max_event):
+                        max_event = ev
+                    if direct:
+                        indexed += self.mutable.index_arrays(cb)
+                    else:
+                        indexed += self._index_columns(
+                            self.pipeline.apply(cb.to_lists(self.schema)))
+            elif rows is not None:
+                fetched = len(rows)
+                max_event = _max_event_time(rows, tc)
+                if self.upsert is None and self.dedup is None:
+                    self.last_decode_path = "batch"
+                    indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(rows)))
+                else:
+                    self.last_decode_path = "row"
+                    for row, msg in zip(self.pipeline.apply_rows(rows), batch.messages):
+                        if row is not None and self._index_row(row, msg.offset):
+                            indexed += 1
+            self.offset = batch.next_offset
+        self.lag.on_batch(fetched, max_event)
         return indexed
 
     def _decode_batch(self, values: List[Any]) -> List[Dict[str, Any]]:
@@ -222,6 +350,17 @@ class RealtimePartitionConsumer:
         qv = getattr(self.mutable, "query_view", None)
         return qv() if qv is not None else self.mutable
 
+    def freshness_time_ms(self) -> int:
+        """Epoch ms of the freshest data this consumer serves (behind the
+        broker's minConsumingFreshnessTimeMs): the largest event time
+        indexed, else the last fetch's wall time, else when it started."""
+        lt = self.lag.last_event_time_ms or self.lag.last_consumed_ms
+        return int(lt if lt is not None else self.start_consume_time * 1000)
+
+    def close(self) -> None:
+        """Halt pumping (idempotent): the memory stream holds no connection."""
+        self.halted = True
+
     def end_criteria_reached(self) -> bool:
         """The flush thresholds (the reference's realtime.segment.flush.*)."""
         stream_cfg = self.table_cfg.stream
@@ -230,16 +369,62 @@ class RealtimePartitionConsumer:
         return (time.time() - self.start_consume_time >= stream_cfg.flush_threshold_seconds
                 and self.mutable.num_docs > 0)
 
-    def maybe_complete(self) -> None:
-        """The completion protocol's round trip once the thresholds are
-        reached: nothing to do before then. It needs the controller's LLC
-        segment manager (`cluster/completion.py`), which is not ported."""
-        if not self.end_criteria_reached():
-            return
-        raise NotImplementedError(
-            f"{self.segment_name} reached its flush threshold: the segment completion "
-            "protocol (cluster/completion.py) is not ported to pinot_tpu_torch; "
-            "build_immutable() writes the segment")
+    # -- completion protocol (the reference's PartitionConsumer postConsume) --
+    def maybe_complete(self) -> str:
+        """One protocol round trip once the thresholds are reached (or a
+        pause request finds rows held, or a catch-up is under way); returns
+        the consumer's state. HOLD parks it, CATCHUP sets the offset to
+        consume to, COMMIT builds and commits, KEEP and DISCARD end it."""
+        if self.state in (COMMITTED, DISCARDED, RETAINED, ERROR):
+            return self.state
+        force = self.pause_requested and self.mutable.num_docs > 0
+        if not force and not self.end_criteria_reached() and self.catchup_target is None:
+            return self.state
+        if self.completion is None:
+            raise RuntimeError(f"{self.segment_name} reached its flush threshold with no "
+                               "completion endpoint to report to")
+        resp = self.completion.segment_consumed(self.segment_name, self.server_id,
+                                                self.offset)
+        status = resp["status"]
+        if status == "HOLD":
+            self.state = HOLDING
+        elif status == "CATCHUP":
+            self.state = CATCHING_UP
+            self.catchup_target = int(resp["offset"])
+        elif status == "COMMIT":
+            self._commit()
+        elif status == "KEEP":
+            self.state = RETAINED
+        elif status == "DISCARD":
+            self.state = DISCARDED
+        else:
+            self.state = ERROR
+        return self.state
+
+    def _commit(self) -> None:
+        """commitStart, the immutable build, commitEnd (the reference's
+        buildSegmentForCommit and commitSegment)."""
+        self.state = COMMITTING
+        # in process the controller's ONLINE publish runs this server's
+        # handoff on this thread, inside commitEnd: the marker lets it adopt
+        # its own commit's build instead of waiting for a state that cannot
+        # change before this call returns
+        self._commit_thread = threading.get_ident()
+        try:
+            if self.completion.segment_commit_start(self.segment_name,
+                                                    self.server_id) != "COMMIT_CONTINUE":
+                self.state = ERROR
+                return
+            seg_dir = self.build_immutable()
+            resp = self.completion.segment_commit_end(self.segment_name, self.server_id,
+                                                      seg_dir, self.offset)
+            self.state = COMMITTED if resp == "COMMIT_SUCCESS" else ERROR
+        except BaseException:
+            self.state = ERROR
+            raise
+        finally:
+            self._commit_thread = None
+            self._commit_done.set()
 
     def build_immutable(self) -> str:
         """Write the consuming segment as an immutable segment directory (the
@@ -251,3 +436,254 @@ class RealtimePartitionConsumer:
         return SegmentBuilder(self.schema, SegmentGeneratorConfig.from_indexing(
             self.table_cfg.indexing)).build(
             columns, os.path.join(self.data_dir, "realtime_build"), self.segment_name)
+
+
+def _max_event_time(rows: List[Dict[str, Any]], tc: Optional[str]) -> Optional[float]:
+    """The largest value of the time column `tc` in decoded rows, None
+    without one or where the values are not numbers."""
+    if not tc:
+        return None
+    try:
+        vals = [r.get(tc) for r in rows]
+        best = max((v for v in vals if v is not None), default=None)
+        return float(best) if best is not None else None
+    except (TypeError, ValueError):
+        return None
+
+
+class RealtimeTableManager:
+    """One server's realtime side of one table (the reference's
+    RealtimeTableDataManager). `server` gives `catalog`, `instance_id`,
+    `data_dir` and `executor` (whose device the consumers stage on)."""
+
+    def __init__(self, server, table: str, table_cfg: TableConfig, completion):
+        self.server = server
+        self.table = table
+        self.table_cfg = table_cfg
+        self.completion = completion
+        self.consumers: Dict[str, RealtimePartitionConsumer] = {}
+        self._lock = threading.RLock()
+        self._threads: List[threading.Thread] = []
+        self._stop = threading.Event()
+        self._pump_pool = None   # per-partition pump lanes, made by the first pump_all
+        self.upsert = TableUpsertMetadataManager() if table_cfg.upsert else None
+        self._dedup: Dict[int, PartitionDedupMetadataManager] = {}
+        self.partial_rows: Dict[tuple, dict] = {}
+        # segment -> COMMIT | KEEP | DISCARD: how each handoff went here
+        self.handoffs: Dict[str, str] = {}
+        # consumer -> the queries reading its view; a consumer dropped while
+        # read keeps its device memory until the last of them is done (a
+        # query that found the view's block gone would stage it again)
+        self._readers: Dict[RealtimePartitionConsumer, int] = {}
+        self._release_after_read: set = set()
+        # a table paused before this manager existed stays paused
+        self._paused = bool(server.catalog.get_property(f"pause/{table}"))
+
+    def start_consuming(self, segment_name: str) -> None:
+        """A consumer for a CONSUMING assignment, from the segment's start
+        offset (ServerNode.reconcile calls it)."""
+        with self._lock:
+            if segment_name in self.consumers:
+                return
+            with self.server.catalog._lock:
+                meta = self.server.catalog.segments.get(self.table, {}).get(segment_name)
+            start_offset = int(meta.start_offset) if meta and meta.start_offset else 0
+            partition = parse_llc_name(segment_name)["partition"]
+            dedup = None
+            if self.table_cfg.dedup_enabled:
+                dedup = self._dedup.setdefault(partition, PartitionDedupMetadataManager())
+            consumer = RealtimePartitionConsumer(
+                segment_name, self.table_cfg, self.server.catalog.schema_for_table(self.table),
+                start_offset, self.server.data_dir, completion=self.completion,
+                device=self.server.executor.device, upsert=self.upsert, dedup=dedup,
+                partial_rows=self.partial_rows, server_id=self.server.instance_id)
+            consumer.pause_requested = self._paused
+            self.consumers[segment_name] = consumer
+
+    def stop_consuming(self, segment_name: str) -> Optional[RealtimePartitionConsumer]:
+        """Drop a consumer whose segment left this server's ideal state."""
+        with self._lock:
+            consumer = self.consumers.pop(segment_name, None)
+        if consumer is not None:
+            consumer.close()
+            self._release_device(consumer)
+        return consumer
+
+    def retire_consumer(self, segment_name: str) -> None:
+        """The handoff's second half: drop the consumer once the immutable
+        copy is registered. Until then its buffer answers queries, so the
+        segment is never unserved in between."""
+        with self._lock:
+            consumer = self.consumers.pop(segment_name, None)
+        if consumer is not None:
+            self._release_device(consumer)
+
+    def _release_device(self, consumer: RealtimePartitionConsumer) -> None:
+        """Free a dropped consumer's staged chunks and view block (a chunked
+        segment's; the row-append segment holds nothing on the device), now
+        or, while queries read its view, when the last of them is done."""
+        with self._lock:
+            if self._readers.get(consumer):
+                self._release_after_read.add(consumer)
+                return
+        release = getattr(consumer.mutable, "release_device", None)
+        if release is not None:
+            release()
+
+    # -- the CONSUMING -> ONLINE handoff -------------------------------------
+    def on_segment_online(self, segment_name: str) -> Optional[str]:
+        """This replica's CONSUMING -> ONLINE (the reference's
+        onBecomeOnlineFromConsuming): the directory of the local build where
+        this server committed the segment or consumed exactly to its end
+        offset (KEEP), else None: the caller downloads the committed copy
+        (DISCARD). The consumer stays registered, answering queries, until
+        the caller calls `retire_consumer`."""
+        with self._lock:
+            consumer = self.consumers.get(segment_name)
+        if consumer is None:
+            return None
+        # the committer arrives here inside its own commitEnd (in process the
+        # publish runs on its thread): it adopts the build it just made. A
+        # commit on another thread is waited for briefly; past that the
+        # download is merely wasteful, never wrong
+        own_commit = consumer._commit_thread == threading.get_ident()
+        if not own_commit and consumer.state == COMMITTING:
+            consumer._commit_done.wait(2.0)
+        # fence the pumps out before reading the offset
+        consumer.halted = True
+        decision, local = DISCARD, None
+        with consumer.pump_lock:
+            if consumer.state == COMMITTED or (own_commit and consumer.state == COMMITTING):
+                seg_dir = os.path.join(consumer.data_dir, "realtime_build", segment_name)
+                if os.path.isdir(seg_dir):
+                    decision, local = COMMIT, seg_dir
+            elif consumer.state in (*_CONSUMING_STATES, RETAINED):
+                with self.server.catalog._lock:
+                    meta = self.server.catalog.segments.get(self.table, {}).get(segment_name)
+                if meta is not None and meta.end_offset is not None \
+                        and consumer.offset == int(meta.end_offset):
+                    decision, local = KEEP, consumer.build_immutable()
+        with self._lock:
+            self.handoffs[segment_name] = decision
+        return local
+
+    # -- queries ---------------------------------------------------------------
+    def consuming_results(self, ctx: QueryContext,
+                          segment_names: Optional[Sequence[str]] = None,
+                          exclude: Sequence[str] = ()
+                          ) -> Tuple[List[SegmentResult], List[str]]:
+        """(results, served names), both from one snapshot taken under the
+        manager's lock, so that the served list names exactly what the
+        results count: decided apart, a commit landing in between would let
+        the broker retry a counted segment or drop an uncounted one.
+
+        A COMMITTED consumer answers from its buffer until `retire_consumer`;
+        `exclude` (the segments the caller answered immutably in this query)
+        keeps such a segment from counting twice. A DISCARDED consumer is not
+        served: its rows lost the commit race."""
+        with self._lock:
+            snapshot = [(name, c) for name, c in self.consumers.items()
+                        if (segment_names is None or name in segment_names)
+                        and c.state != DISCARDED and name not in exclude]
+            # the views freeze under the lock too: a handoff cannot retire a
+            # consumer between the snapshot and its view
+            views = [(name, c.query_segment()) for name, c in snapshot]
+            for _, c in snapshot:
+                self._readers[c] = self._readers.get(c, 0) + 1
+        try:
+            out = []
+            for name, seg in views:
+                if seg.num_docs > 0:
+                    valid = self.upsert.valid_mask(name, seg.num_docs) if self.upsert else None
+                    out.append(self.server.executor.execute_segment(ctx, seg, valid))
+        finally:
+            done = []
+            with self._lock:
+                for _, c in snapshot:
+                    left = self._readers.pop(c) - 1
+                    if left:
+                        self._readers[c] = left
+                    elif c in self._release_after_read:
+                        self._release_after_read.discard(c)
+                        done.append(c)
+            for c in done:
+                self._release_device(c)
+        return out, [name for name, _ in views]
+
+    def min_freshness_ms(self, segment_names: Sequence[str]) -> Optional[int]:
+        """The oldest freshness among the named consumers (this server's
+        part of minConsumingFreshnessTimeMs)."""
+        with self._lock:
+            consumers = [c for n, c in self.consumers.items() if n in segment_names]
+        if not consumers:
+            return None
+        return min(c.freshness_time_ms() for c in consumers)
+
+    # -- driving: deterministic (pump_all, complete_all) or a background loop --
+    def pump_all(self, max_messages: Optional[int] = None) -> int:
+        """Pump every consumer once; a table of several partitions pumps them
+        at once on the manager's pool (each has its own pump lock)."""
+        with self._lock:
+            consumers = list(self.consumers.values())
+        if not consumers:
+            return 0
+        if len(consumers) == 1:
+            return consumers[0].pump(max_messages)
+        pool = self._pump_pool
+        if pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix=f"pump-{self.table}")
+            self._pump_pool = pool
+        futures = [pool.submit(c.pump, max_messages) for c in consumers]
+        return sum(f.result(timeout=60.0) for f in futures)
+
+    def complete_all(self) -> Dict[str, str]:
+        """One completion round of every consumer: segment -> its state."""
+        with self._lock:
+            consumers = list(self.consumers.items())
+        return {name: c.maybe_complete() for name, c in consumers}
+
+    def set_paused(self, paused: bool) -> None:
+        """The controller's pause or resume: paused consumers stop fetching,
+        and those holding rows commit at their next completion round."""
+        with self._lock:
+            self._paused = paused
+            for c in self.consumers.values():
+                c.pause_requested = paused
+
+    def start_loop(self, interval_s: float = 0.1) -> None:
+        """Pump and complete in a background thread until `stop`; an error
+        is counted and backed off exponentially (at most 5 s)."""
+        def loop():
+            errors = 0
+            while not self._stop.is_set():
+                try:
+                    self.pump_all()
+                    self.complete_all()
+                    errors = 0
+                except Exception:   # counted, then retried after the backoff
+                    errors += 1
+                    get_registry().counter("pinot_server_consume_errors",
+                                           {"table": self.table}).inc()
+                    self._stop.wait(min(interval_s * (2 ** min(errors, 6)), 5.0))
+                self._stop.wait(interval_s)
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"consume-{self.server.instance_id}-{self.table}")
+        t.start()
+        self._threads.append(t)
+
+    def stop(self) -> None:
+        """Stop the loop and the pool, and drop every consumer with its
+        device memory."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
+        pool, self._pump_pool = self._pump_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
+        with self._lock:
+            consumers = list(self.consumers.values())
+            self.consumers.clear()
+        for c in consumers:
+            c.close()
+            self._release_device(c)

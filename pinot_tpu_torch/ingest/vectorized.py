@@ -51,6 +51,19 @@ class ColumnarBatch:
         self.n = n
         self.cols = cols
 
+    def max_of(self, name: str) -> Optional[float]:
+        """The largest non-null value of a numeric column (a consumer's event
+        time), None for a string column or one with no values."""
+        rep = self.cols.get(name)
+        if rep is None or self.n == 0 or rep[0] != "num":
+            return None
+        _, arr, base, nulls = rep
+        if nulls is not None:
+            if nulls.all():
+                return None
+            arr = arr[~nulls]
+        return float(arr.max()) + (base or 0)
+
     def to_lists(self, schema: Schema) -> Dict[str, List[Any]]:
         """Python column lists with None at null rows: the shape of
         `TransformPipeline.apply`, for a table whose ingestion filter or

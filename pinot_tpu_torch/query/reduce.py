@@ -12,10 +12,11 @@ A high-cardinality server partial over aligned dictionaries stays in array
 form (`DensePartial`: the kernel's dense count and output arrays, keyed by a
 token of the group columns, cardinalities, dictionary hashes and key count):
 partials with one token merge elementwise, and the reduce finalizes them
-vectorized over the occupied keys (`AggFunc.dense_values`). A consumer that
-needs the dict form (a mix with dict partials, another token) calls
-`SegmentResult.materialize_dense` first. GAPFILL re-buckets the reduced rows
-(`_apply_gapfill`).
+vectorized over the occupied keys (`AggFunc.dense_values`). A merge that
+also holds dict partials (a consuming segment's beside a pipeline's) or
+several tokens sums each token's partials elementwise first and turns each
+sum into the dict form once (`SegmentResult.materialize_dense`). GAPFILL
+re-buckets the reduced rows (`_apply_gapfill`).
 """
 
 from __future__ import annotations
@@ -121,24 +122,27 @@ def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> 
     out = SegmentResult(kind)
     out.num_docs_scanned = sum(r.num_docs_scanned for r in results)
     if kind == "groups":
-        denses = [r.dense for r in results]
-        if all(d is not None for d in denses) and len({d.token for d in denses}) == 1:
-            # servers with aligned dictionaries agree on dense keys: their
-            # partials combine elementwise, with no state dict built
-            base = denses[0]
-            acc = DensePartial(base.token, base.cards, base.strides, base.num_keys_real,
-                               base.counts.astype(np.int64, copy=True),
-                               {k: v.copy() for k, v in base.outs.items()},
-                               base.group_values, aggs=base.aggs)
-            for d in denses[1:]:
-                acc.merge_from(d)
-            out.dense = acc
-            return out
+        # array-form partials of one token (aligned dictionaries agree on
+        # dense keys) combine elementwise, with no state dict built
+        by_token: Dict[Tuple, List[SegmentResult]] = {}
         for r in results:
-            # mixed dense and dict partials, or other tokens: densify here
+            if r.dense is not None:
+                by_token.setdefault(r.dense.token, []).append(r)
+        if len(by_token) == 1 and all(r.dense is not None for r in results):
+            out.dense = _merge_dense([r.dense for r in results])
+            return out
+        # mixed with state-dict partials (a consuming segment's beside a
+        # pipeline's), or several tokens: each token's partials sum
+        # elementwise and the sum becomes a state dict once (a token's one
+        # partial converts in place, as any partial a dict merge reads)
+        dicts = [rs[0] if len(rs) == 1 else
+                 SegmentResult("groups", dense=_merge_dense([r.dense for r in rs]))
+                 for rs in by_token.values()]
+        converted = {id(r) for r in dicts}
+        for r in dicts:
             r.materialize_dense(aggs)
         merged: Dict[Tuple, List[Any]] = {}
-        for r in results:
+        for r in dicts + [r for r in results if r.dense is None and id(r) not in converted]:
             for key, states in r.groups.items():
                 cur = merged.get(key)
                 if cur is None:
@@ -164,6 +168,19 @@ def merge_segment_results(results: List[SegmentResult], aggs: List[AggFunc]) -> 
             out.sort_keys.extend(r.sort_keys)
             out.topk_exact = out.topk_exact or r.topk_exact
     return out
+
+
+def _merge_dense(denses: List[DensePartial]) -> DensePartial:
+    """The elementwise sum of array-form partials of one token, in a new
+    partial (the inputs stay as they were)."""
+    base = denses[0]
+    acc = DensePartial(base.token, base.cards, base.strides, base.num_keys_real,
+                       base.counts.astype(np.int64, copy=True),
+                       {k: v.copy() for k, v in base.outs.items()},
+                       base.group_values, aggs=base.aggs)
+    for d in denses[1:]:
+        acc.merge_from(d)
+    return acc
 
 
 def _object_array(vals: List[Any]) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 A subset of `pinot_tpu/query/stats.py`: the typed record (`ExecutionStats`),
 the thread-local "current record" slot (`collect_stats`, `current_stats`) and
-the accounting hooks `record`, `record_max` and `record_operator`, with the
-segment counts the per-segment executor, the servers and the broker record,
+the accounting hooks `record`, `record_min`, `record_max` and
+`record_operator`, with the segment counts the per-segment executor, the
+servers and the broker record, the consuming segments' count and freshness,
 the broker's pruning, hedge and retry keys, the join keys, `scanRowsAvoided`
 and the batch ingestion's keys. A server partial carries its record as a flat
 dict (`to_wire`, `SegmentResult.stats`), which the broker merges. Accounting
@@ -69,9 +70,18 @@ BATCH_STATS_PASS_MS = "batchStatsPassMs"
 BATCH_WRITE_PASS_MS = "batchWritePassMs"
 BATCH_PUSH_MS = "batchPushMs"
 
+# consuming (realtime) segments a partial served, and the freshness of the
+# stalest of them: the epoch ms of the newest row it holds (its largest
+# event time, else when it last consumed)
+NUM_CONSUMING_SEGMENTS_QUERIED = "numConsumingSegmentsQueried"
+MIN_CONSUMING_FRESHNESS_TIME_MS = "minConsumingFreshnessTimeMs"
+
 # keys that merge by MAXIMUM: a skew percentage summed over partitions means
 # nothing; the worst partition bounds the stage
 MAX_KEYS = (JOIN_SKEW_PCT,)
+# keys that merge by MINIMUM: an answer is only as fresh as the stalest
+# consuming segment it read, whichever server served it
+MIN_KEYS = (MIN_CONSUMING_FRESHNESS_TIME_MS,)
 
 # counters the broker's response always carries (0 when the path never ran)
 BROKER_COUNTER_KEYS = (NUM_SEGMENTS_QUERIED, NUM_SEGMENTS_PRUNED, NUM_SEGMENTS_MATCHED,
@@ -106,6 +116,12 @@ class ExecutionStats:
         with self._lock:
             self.counters[key] = self.counters.get(key, 0) + n
 
+    def set_min(self, key: str, v: float) -> None:
+        """Keep the minimum seen for a min-merged key (no-op when `v` loses)."""
+        with self._lock:
+            cur = self.counters.get(key)
+            self.counters[key] = v if cur is None else min(cur, v)
+
     def set_max(self, key: str, v: float) -> None:
         """Keep the maximum seen for a max-merged key (no-op when `v` loses)."""
         with self._lock:
@@ -130,8 +146,8 @@ class ExecutionStats:
 
     def merge(self, other) -> None:
         """Fold another record (an ExecutionStats or its `to_wire` dict) into
-        this one: every numeric key sums, except MAX_KEYS, which keep the
-        maximum of the sides that carry the key."""
+        this one: every numeric key sums, except MIN_KEYS and MAX_KEYS,
+        which keep the minimum or maximum of the sides that carry the key."""
         if other is None:
             return
         if isinstance(other, ExecutionStats):
@@ -142,7 +158,10 @@ class ExecutionStats:
                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
         with self._lock:
             for k, v in src.items():
-                if k in MAX_KEYS:
+                if k in MIN_KEYS:
+                    cur = self.counters.get(k)
+                    self.counters[k] = v if cur is None else min(cur, v)
+                elif k in MAX_KEYS:
                     cur = self.counters.get(k)
                     self.counters[k] = v if cur is None else max(cur, v)
                 else:
@@ -156,10 +175,12 @@ class ExecutionStats:
     def to_public_dict(self) -> Dict[str, object]:
         """Export of the counters recorded (unlike the JAX package's, no key
         is zero-filled, so an absent key means the path never ran): ints for
-        counts, floats rounded to 3 decimals for `*Ms` and `*Pct`; the op:*
-        breakdowns stay off it (EXPLAIN ANALYZE reads them)."""
+        counts and for MIN_KEYS' epoch-ms timestamps, floats rounded to 3
+        decimals for the other `*Ms` and `*Pct`; the op:* breakdowns stay off
+        it (EXPLAIN ANALYZE reads them)."""
         with self._lock:
-            return {k: round(float(v), 3) if k.endswith(("Ms", "Pct")) else int(v)
+            return {k: round(float(v), 3) if k.endswith(("Ms", "Pct")) and k not in MIN_KEYS
+                    else int(v)
                     for k, v in self.counters.items() if not k.startswith(_OP_PREFIX)}
 
 
@@ -177,6 +198,13 @@ def record(key: str, n: float = 1) -> None:
     st = getattr(_local, "stats", None)
     if st is not None:
         st.add(key, n)
+
+
+def record_min(key: str, v: float) -> None:
+    """Keep the smallest value seen by the active record, if any."""
+    st = getattr(_local, "stats", None)
+    if st is not None:
+        st.set_min(key, v)
 
 
 def record_max(key: str, v: float) -> None:

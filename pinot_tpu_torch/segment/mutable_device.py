@@ -593,7 +593,9 @@ class DeviceMutableSegment:
                 host = _narrow(np.asarray(view.column(name).fwd[got:n]))
                 parts.append(torch.from_numpy(host).to(self.device))
             if blk.padded > n:
-                parts.append(torch.zeros(blk.padded - n, dtype=parts[0].dtype,
+                # dev's dtype: a view of no rows, taken while the first
+                # chunk is staged but not yet published, joins no part
+                parts.append(torch.zeros(blk.padded - n, dtype=dev[0].dtype,
                                          device=self.device))
             blk.put_raw(name, torch.cat(parts) if len(parts) > 1 else parts[0])
         if self.device.type == "cuda":

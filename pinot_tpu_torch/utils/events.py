@@ -6,8 +6,9 @@ a per-node monotonic `seq`, a journal-wide `gseq` (the cursor of
 `events_since`) and the trace id of the query active on the emitting thread.
 `KINDS` is the closed schema: a kind not listed raises. The kinds are those
 the ported roles emit (the broker's failure detector, admission and
-backpressure); the segment lifecycle, tiering, leadership, deep-store and
-verdict kinds come with those planes.
+backpressure; the realtime segment lifecycle and the deep-store quarantine
+of the LLC segment manager); the cold tier, tiering, leadership, deep-store
+healing and verdict kinds come with those planes.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ KINDS: Dict[str, Tuple[str, str]] = {
     "server.up": ("INFO", "failure detector restored a probed server to healthy routing"),
     "server.registered": ("INFO", "server handle registered with the broker"),
     "server.unregistered": ("INFO", "server handle unregistered from the broker"),
+    "segment.consuming.created": ("INFO", "new CONSUMING segment opened on a stream partition"),
+    "segment.committed": ("INFO", "consuming segment sealed and committed to the deepstore"),
+    "segment.online": ("INFO", "committed segment flipped CONSUMING->ONLINE in the ideal state"),
+    "segment.reassigned": ("WARN", "consuming segment moved off a dead server"),
+    "deepstore.quarantined": ("ERROR", "deepstore upload retries exhausted; segment quarantined"),
 }
 
 

@@ -627,8 +627,29 @@ def test_joins_and_realtime_raise_with_their_queue_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cluster.query("SELECT COUNT(*) FROM lineorder l JOIN lineorder r "
                       "ON l.lo_custkey = r.lo_custkey")
-    with pytest.raises(NotImplementedError, match="completion"):
-        cluster.create_realtime_table(ssb_schema(), TableConfig("lineorder"), 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cluster.run_minion_round()
+    # a realtime commit whose deep-store upload runs out of retries would
+    # take the peer download scheme, which waits for the wire
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.table import StreamConfig, TableType
+
+    def failing_upload(local_path, uri):
+        raise OSError("deep store down")
+    cluster.deepstore.upload = failing_upload
+    cluster.catalog.put_property("clusterConfig/deepstore.retry.max", 2)
+    cluster.catalog.put_property("clusterConfig/deepstore.retry.backoff.ms", 0)
+    MemoryStream.reset_all()
+    cluster.create_realtime_table(ssb_schema(), TableConfig(
+        "lineorder", table_type=TableType.REALTIME, stream=StreamConfig(
+            topic="lineorder_peer", decoder="dict", flush_threshold_rows=4)), 1)
+    row = {c: np.asarray(v)[:1].tolist()[0] for c, v in make_columns(1, SEED).items()}
+    for _ in range(4):
+        MemoryStream.get("lineorder_peer").produce(row, partition=0)
+    with pytest.raises(NotImplementedError, match="peer download scheme.*ROADMAP"):
+        cluster.pump_realtime("lineorder_REALTIME")
+    assert cluster.controller.llc.quarantined and all(
+        m.status == "IN_PROGRESS" for m in cluster.catalog.segments["lineorder_REALTIME"].values())
 
 
 def test_the_smoke_cluster_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):

@@ -116,6 +116,7 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "cluster/controller.py", "cluster/server.py", "cluster/enclosure.py",
                    "cluster/catalog.py", "cluster/assignment.py", "cluster/deepstore.py",
                    "cluster/routing.py", "cluster/admission.py", "query/scheduler.py",
+                   "cluster/completion.py",
                    "utils/__init__.py", "utils/metrics.py", "utils/trace.py",
                    "utils/events.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
@@ -151,6 +152,46 @@ def test_subprocess_quick_cluster_query_never_loads_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert out.stdout.splitlines()[0].endswith("3 False"), out.stdout
+
+
+def test_subprocess_realtime_cluster_never_loads_jax(tmp_path):
+    """A REALTIME table on a QuickCluster on the CPU consumed past its flush
+    threshold (a commit through the completion protocol), then made hybrid,
+    queried through the broker in a fresh interpreter: neither jax nor
+    pinot_tpu enters sys.modules."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {REPO!r})
+        from pinot_tpu_torch import QuickCluster, ssb
+        from pinot_tpu_torch.ingest.stream import MemoryStream
+        from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+        from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+        schema = ssb.ssb_schema()
+        cluster = QuickCluster(num_servers=2, work_dir={str(tmp_path)!r}, device="cpu")
+        cfg = TableConfig("lineorder", table_type=TableType.REALTIME, replication=2,
+                          time_column="lo_orderdate", stream=StreamConfig(
+                              topic="lo_rt", decoder="columnar", flush_threshold_rows=4000))
+        cluster.create_realtime_table(schema, cfg, 1)
+        cols = ssb.make_columns(6000, 1)
+        for lo in range(0, 6000, 2000):
+            MemoryStream.get("lo_rt").produce(encode_columnar_block(
+                schema, {{k: v[lo:lo + 2000] for k, v in cols.items()}}), partition=0)
+            cluster.pump_realtime("lineorder_REALTIME")
+        r = cluster.query("SELECT COUNT(*) FROM lineorder")
+        print(r.rows, r.stats["numConsumingSegmentsQueried"], r.stats["partialResult"])
+        off = TableConfig("lineorder", replication=2, time_column="lo_orderdate")
+        cluster.controller.add_table(off)
+        cluster.ingest_columns(off, {{k: v[:100] for k, v in cols.items()}})
+        print(len(cluster.query(ssb.GROUP_QUERY).rows) > 0)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert out.stdout.splitlines()[0] == "[[6000]] 1 False", out.stdout
 
 
 def test_subprocess_batch_ingestion_and_explain_analyze_never_load_jax(tmp_path):

@@ -1475,3 +1475,152 @@ def test_cuda_broker_answers_match_the_cpu(cuda, tmp_path, pipelines):
     assert np.isclose(gq[0][0], wq[0][0], rtol=1e-5, atol=0.05)
     assert [r[0] for r in gg] == [r[0] for r in wg] and [r[2] for r in gg] == [r[2] for r in wg]
     assert np.allclose([r[1] for r in gg], [r[1] for r in wg], rtol=1e-5, atol=0.05)
+
+
+def _realtime_cluster_run(root, device, cols, rounds=5, block_rows=4_096, round_blocks=2):
+    """A REALTIME lineorder table (2 partitions, replication 2, PCB1 blocks
+    staged on `device`, commits of 16,384 rows) on a QuickCluster of two
+    servers on `device`, fed `cols[p]` a round at a time. Returns the
+    catalog (LLC names without their creation time) and each round's
+    answers to Q1.1, GROUP_QUERY and the COUNT, checking on the card that
+    Q1.1 launches `masked_sums` once a committed segment and GROUP_QUERY
+    `grouped_agg` once a segment queried."""
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.engine import grouped
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+    MemoryStream.reset_all()
+    cluster = QuickCluster(num_servers=2, work_dir=root, device=device)
+    cfg = TableConfig("lineorder", table_type=TableType.REALTIME, replication=2,
+                      time_column="lo_orderdate",
+                      stream=StreamConfig(topic="rt", decoder="columnar",
+                                          flush_threshold_rows=16_384,
+                                          properties={"realtime.ingest.device.staging": "true"}))
+    table = cfg.table_name_with_type
+    cluster.create_realtime_table(ssb.ssb_schema(), cfg, 2)
+    answers = []
+    step = block_rows * round_blocks
+    for r in range(rounds):
+        for p in range(2):
+            for lo in range(r * step, (r + 1) * step, block_rows):
+                MemoryStream.get("rt").produce(encode_columnar_block(
+                    ssb.ssb_schema(), {k: v[lo:lo + block_rows] for k, v in cols[p].items()}),
+                    partition=p)
+        cluster.pump_realtime(table)
+        done = sum(m.status == "DONE" for m in cluster.catalog.segments[table].values())
+        before = scan.masked_sums.launches
+        q11 = cluster.query(ssb.QUERY)
+        if device != "cpu":
+            assert scan.masked_sums.launches - before == done
+        before = grouped.grouped_agg.launches
+        group = cluster.query(ssb.GROUP_QUERY)
+        if device != "cpu":
+            assert grouped.grouped_agg.launches - before == group.stats["numSegmentsQueried"]
+        count = cluster.query("SELECT COUNT(*) FROM lineorder")
+        assert count.rows == [[2 * (r + 1) * step]]
+        assert not (q11.stats["partialResult"] or group.stats["partialResult"])
+        answers.append((q11.rows, group.rows, count.rows))
+    with cluster.catalog._lock:
+        view = ({"__".join(n.split("__")[:3]): (m.status, m.start_offset, m.end_offset,
+                                                m.num_docs, m.start_time_ms, m.end_time_ms)
+                 for n, m in cluster.catalog.segments[table].items()},
+                {"__".join(n.split("__")[:3]): dict(a)
+                 for n, a in cluster.catalog.external_view[table].items()})
+    cluster.shutdown()
+    MemoryStream.reset_all()
+    return view, answers
+
+
+@pytest.mark.gpu
+def test_cuda_realtime_cluster_matches_the_cpu(cuda, tmp_path):
+    """A REALTIME table on two servers on the card, consumed past its flush
+    threshold (each partition commits twice): the same catalog and, round by
+    round, the same broker answers as on the CPU; the scans launch once a
+    committed segment, the GROUP BY once a segment queried."""
+    from pinot_tpu_torch import ssb
+    cols = [ssb.make_columns(40_960, 29 + p) for p in range(2)]
+    got = _realtime_cluster_run(str(tmp_path / "cuda"), cuda, cols)
+    want = _realtime_cluster_run(str(tmp_path / "cpu"), "cpu", cols)
+    assert got[0] == want[0]
+    assert sum(st == "DONE" for st, *_ in got[0][0].values()) == 4
+    for (gq, gg, gc), (wq, wg, wc) in zip(got[1], want[1]):
+        assert gc == wc
+        assert np.isclose(gq[0][0], wq[0][0], rtol=1e-5, atol=0.05)
+        assert [r[0] for r in gg] == [r[0] for r in wg]
+        assert [r[2] for r in gg] == [r[2] for r in wg]
+        assert np.allclose([r[1] for r in gg], [r[1] for r in wg], rtol=1e-5, atol=0.05)
+
+
+@pytest.mark.gpu
+def test_cuda_queries_racing_commits_count_each_row_once(cuda, tmp_path):
+    """A reader thread queries COUNT and SUM through the broker while the
+    servers on the card pump one block a round and commit every fourth:
+    each answer counts a prefix of each partition's blocks, never a partial
+    result; the retired consumers hold no device memory."""
+    import threading
+
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.ingest.stream import MemoryStream
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+    block, nblocks = 8_192, 12
+    MemoryStream.reset_all()
+    cluster = QuickCluster(num_servers=2, work_dir=str(tmp_path), device=cuda)
+    cfg = TableConfig("lineorder", table_type=TableType.REALTIME, replication=2,
+                      stream=StreamConfig(topic="race", decoder="columnar",
+                                          flush_threshold_rows=4 * block,
+                                          properties={"realtime.ingest.device.staging": "true"}))
+    cluster.create_realtime_table(ssb.ssb_schema(), cfg, 2)
+    cols = [ssb.make_columns(nblocks * block, 41 + p) for p in range(2)]
+    for p in range(2):
+        for lo in range(0, nblocks * block, block):
+            MemoryStream.get("race").produce(encode_columnar_block(
+                ssb.ssb_schema(), {k: v[lo:lo + block] for k, v in cols[p].items()}),
+                partition=p)
+    prefix = [np.concatenate([[0], np.cumsum([int(cols[p]["lo_quantity"][i:i + block].sum())
+                                              for i in range(0, nblocks * block, block)])])
+              for p in range(2)]
+    valid = {((a + b) * block, int(prefix[0][a] + prefix[1][b]))
+             for a in range(nblocks + 1) for b in range(nblocks + 1)}
+    sql = "SELECT COUNT(*), SUM(lo_quantity) FROM lineorder"
+    stop, answers, errors = threading.Event(), [], []
+
+    def reader():
+        while not stop.is_set():
+            try:
+                res = cluster.query(sql)
+            except Exception as e:   # recorded; the test fails below
+                errors.append(e)
+                return
+            count, total = res.rows[0]   # SUM over no rows is null
+            answers.append((count, int(total or 0), res.stats["partialResult"],
+                            res.stats.get("segmentsUnavailable")))
+
+    seen = {}
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        for _ in range(nblocks + 2):
+            for s in cluster.servers:
+                mgr = s.realtime_manager(cfg.table_name_with_type)
+                seen.update((id(c), c) for c in mgr.consumers.values())
+                mgr.pump_all(max_messages=1)
+                mgr.complete_all()
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not errors and not t.is_alive() and answers
+    bad = [a for a in answers if a[2] or a[:2] not in valid]
+    assert not bad, bad[:3]
+    assert cluster.query(sql).rows == [[2 * nblocks * block,
+                                        float(prefix[0][-1] + prefix[1][-1])]]
+    live = {id(c) for s in cluster.servers
+            for c in s.realtime_manager(cfg.table_name_with_type).consumers.values()}
+    retired = [c for k, c in seen.items() if k not in live]
+    assert len(retired) == 12
+    for c in retired:
+        assert all(chunks is None for chunks in c.mutable._dev_chunks.values())
+        assert c.mutable._view is None or not c.mutable._view._device_blocks
+    cluster.shutdown()
+    MemoryStream.reset_all()

@@ -533,8 +533,17 @@ def test_pump_both_lanes_and_build_immutable_match_the_reference(tmp_path, lane)
     assert ours.last_decode_path == ref.last_decode_path == lane
     assert ours.mutable.num_docs == n and ours.end_criteria_reached()
     assert ours.pump(max_messages=PUMP_MESSAGES) == 0 and ours.offset == len(payloads)
-    with pytest.raises(NotImplementedError, match="completion protocol"):
-        ours.maybe_complete()
+    # past the threshold both report their offset to the completion
+    # protocol; a controller that answers HOLD parks both
+    reports = []
+
+    class HoldingController:
+        def segment_consumed(self, segment, server, offset):
+            reports.append((segment, offset))
+            return {"status": "HOLD", "offset": offset}
+    ours.completion = ref.completion = HoldingController()
+    assert ours.maybe_complete() == ref.maybe_complete() == "HOLDING"
+    assert reports == [(SEG_NAME, len(payloads))] * 2
     view = ours.query_segment()
     assert view is ours.query_segment() and not view.is_mutable
     assert _match(execute_query([view], SQLS[0], device=CPU).rows, _oracle(cols, SQLS[0]))
