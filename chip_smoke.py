@@ -46,7 +46,8 @@ exits non-zero:
    BY, an ORDER BY on a key wider than 2^24 (the exact path) and a GROUP BY
    over 500,000 keys trimmed to its top 10. Each answer is held against a
    numpy oracle that orders ties by row; each prints its warm times (5 runs;
-   none for the per-segment GROUP BY over 500,000 keys: its cold run), phases,
+   none for the per-segment GROUP BY over 500,000 keys: its cold run, over
+   the table's first segment), phases,
    top-k launches (one per segment, none for the others) and `topkExact`. Then
    32 client threads x 12 queries cycling the three top-k queries through the
    pipeline (one stacked top-k launch per distinct query of a drain), and a
@@ -121,8 +122,8 @@ exits non-zero:
    own error of numpy's exact value (5%; one lo_discount step).
    Host-routed ones (KURTOSIS(lo_quantity) past the f32 power-sum budget,
    PERCENTILE, MODE, DISTINCTCOUNT(lo_custkey) by lo_region past the grouped
-   presence cap, COVAR_POP), plan kind `host`, their cold run alone, rel
-   1e-9. IDSET
+   presence cap, COVAR_POP), plan kind `host`, their cold run alone over the
+   table's first 2 segments, rel 1e-9. IDSET
    (a host plan) feeding an IN_ID_SET filter (a device LUT leaf); a join with
    DISTINCTCOUNT in its final aggregation; 2,097,152 rows pumped into a
    staged consuming segment: DISTINCTCOUNT over its view and beside the
@@ -276,7 +277,7 @@ exits non-zero:
    the cells a thread), GROUP BY lo_orderdate with COUNT, SUM, MIN and MAX
    (4,097 cells: one copy a block), GROUP BY lo_suppkey with VAR_POP (20,481
    cells: a copy a cluster of 2 blocks), GROUP BY lo_custkey with SUM (503,809 cells: the global rung; per
-   segment its cold run alone), DISTINCTCOUNT(lo_discount) by lo_region (the
+   segment its cold run alone, over the first 2 segments), DISTINCTCOUNT(lo_discount) by lo_region (the
    grouped count-only form, 144 cells: a copy a warp) and under Q1.1's
    filter (the scalar one, 16 cells), each
    per segment and over the set against numpy (rel 1e-5, abs 0.05; counts
@@ -302,7 +303,8 @@ exits non-zero:
    servers): `cluster_data`. Through `broker.handle_query`: Q1.1, GROUP_QUERY,
    the COUNT, topk_desc and GROUP BY lo_custkey over 500,000 keys (one dense
    partial a server, each checked dense, merged at the broker with no
-   `materialize_dense` call), a cold run and 5 warm runs each,
+   `materialize_dense` call), a cold run and 5 warm runs each (lo_custkey
+   1),
    every run held to the oracle, to the launches its route implies (one
    `masked_sums` or `grouped_agg` a server the route gives segments, one
    stacked top-k a server) and to no partial result, no retry and 8 segments
@@ -350,6 +352,28 @@ exits non-zero:
    queries): `realtime_cluster_memory_point` a point, naming what holds the
    device tensors that are new since the first at the last point (or where
    the slack is passed), and `realtime_cluster_memory`.
+19. process_cluster — the roles as OS processes joined over HTTP: a
+   `ProcessCluster` of a controller process, two server processes that each
+   own the card through a DeviceQueryPipeline (`server.device.enabled`), and
+   a broker process (children started by `subprocess`, after the kernels are
+   built; none is a fork of this process). Phase 4's 8 segments pushed over
+   HTTP from 8 threads to an OFFLINE table with replication 2, timed until
+   the broker answers every row: `process_cluster_data`. Through the broker's
+   HTTP endpoint, `cluster_queries` and EXPLAIN ANALYZE of Q1.1, a cold and 5
+   warm runs each (lo_custkey 1), held to the oracle, to the launches the server processes'
+   `/debug` report (one `masked_sums` or `grouped_agg` a server that
+   answered; topk_desc one stacked top-k a server, from the pipelines'
+   stats) and to a whole answer, beside phase 17's numbers:
+   `process_cluster_query`, `process_cluster_explain`; server_0's lo_custkey
+   partial fetched over the wire, in array form: `process_cluster_dense`; the
+   e2e mix (32 clients x 12 queries) through the broker on the mux transport,
+   then through a second broker process started with
+   `broker.mux.enabled=false`, QPS, p50, p95 and each server's `meanBatch`:
+   `process_cluster_pipeline`; each process's device memory:
+   `process_cluster_memory`; server_1 SIGKILLed, Q1.1 and GROUP_QUERY exact
+   from server_0 (the first through the retry round, the next with server_1
+   out of routing): `process_cluster_failover`. Every child is stopped when
+   the phase ends, whatever its outcome.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -458,6 +482,10 @@ JOIN_ZIPF_KEYS, JOIN_ZIPF_S = 100_000, 1.5
 # ~490,000 groups in Python (17-19 s a run): its cold run alone
 SELECT_RUNS = 5     # cut from 10 to leave room for the index phase
 GROUP_TRIM_PER_SEGMENT_RUNS = 0
+# the per-segment group_trim (500,000 state lists decoded a segment: 17-37 s
+# over the 8, 22 s over 2) reads the table's first segment, to keep the smoke
+# inside its time; its set run reads all 8
+GROUP_TRIM_PER_SEGMENT_SEGMENTS = 1
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes a masked "
                 "multi-sum with its count")
 KERNEL_SYMBOL = "masked_sums_kernel"
@@ -1186,12 +1214,17 @@ def run_select(args, table, cols) -> dict:
     oracles = select_oracles(cols)
     log("select_oracle", seconds=time.perf_counter() - t0)
     launches = counts_of()
+    trim_table = table[:GROUP_TRIM_PER_SEGMENT_SEGMENTS]
+    trim_want = oracle_group_trim({k: v[:sum(s.num_docs for s in trim_table)]
+                                   for k, v in cols.items()})
     for qid, sql, topk_per_segment, exact, bitmap_per_mask, grouped_per_pass in SELECT_QUERIES:
-        want = oracles[qid]
-        for path, run in (("per_segment", lambda sql=sql: execute_query(table, sql)),
-                          ("set", lambda sql=sql: mx.execute(table, sql))):
-            masks = len(table) if path == "per_segment" or not topk_per_segment else 1
-            passes = len(table) if path == "per_segment" else 1
+        for path, segs in (("per_segment", trim_table if qid == "group_trim" else table),
+                           ("set", table)):
+            want = trim_want if (qid, path) == ("group_trim", "per_segment") else oracles[qid]
+            run = ((lambda sql=sql, segs=segs: execute_query(segs, sql)) if path == "per_segment"
+                   else (lambda sql=sql: mx.execute(table, sql)))
+            masks = len(segs) if path == "per_segment" or not topk_per_segment else 1
+            passes = len(segs) if path == "per_segment" else 1
             expect = counts_of(bitmap_filter=bitmap_per_mask * masks,
                                grouped_agg=grouped_per_pass * passes)
             # the path: counts set to 0 just before, read just after
@@ -1221,7 +1254,8 @@ def run_select(args, table, cols) -> dict:
                 raise AssertionError(f"select {qid} ({path}): warm answers {bad[:2]}")
             phases = [r.stats["phaseTimesMs"] for r in results]
             warm.pop("median_s", None)
-            fields = dict(query=qid, path=path, rows=rows, segments=len(table),
+            fields = dict(query=qid, path=path, rows=sum(s.num_docs for s in segs),
+                          segments=len(segs),
                           answer=result.rows, topk_launches=topk_launches, launches=scans,
                           topk_exact=result.stats.get("topkExact"), cold_s=cold_s, **warm,
                           phase_median_ms={k: statistics.median(p[k] for p in phases)
@@ -2216,6 +2250,9 @@ AGGS_HOST = {
                       "GROUP BY lo_region ORDER BY lo_region"),
     "covar": "SELECT COVAR_POP(lo_revenue, lo_extendedprice) FROM lineorder",
 }
+#: the host-routed queries read the table's first 2 segments, to keep the
+#: smoke inside its time (DISTINCTCOUNT(lo_custkey) by region took 17 s over 8)
+AGGS_HOST_SEGMENTS = 2
 AGGS_IDSET = ("SELECT IDSET(lo_suppkey) FROM lineorder "
               "WHERE lo_quantity = 7 AND lo_discount = 3 AND lo_region = 'ASIA'")
 AGGS_IN_ID_SET = ("SELECT lo_region, COUNT(*), SUM(lo_revenue) FROM lineorder "
@@ -2405,18 +2442,21 @@ def run_aggs(args, table, cols, work) -> tuple:
 
     # host routes: per segment (the set executor hands a host plan to the same
     # per-segment executor: its plan is checked, not run again)
+    host_table = table[:AGGS_HOST_SEGMENTS]
+    host_rows = sum(s.num_docs for s in host_table)
+    host_oracles = aggs_oracles({k: v[:host_rows] for k, v in cols.items()})
     for qid, sql in AGGS_HOST.items():
-        want, check = oracles[qid]
-        seg_kinds, reasons = kinds(sql, table)
-        set_plan, _ = mx._plan_for_set(compile_query(sql, schema), table)
+        want, check = host_oracles[qid]
+        seg_kinds, reasons = kinds(sql, host_table)
+        set_plan, _ = mx._plan_for_set(compile_query(sql, schema), host_table)
         if set(seg_kinds) != {"host"} or "" in reasons or set_plan.kind != "host":
             raise AssertionError(f"aggs host {qid}: plans {seg_kinds} {reasons}, set "
                                  f"{set_plan.kind}")
-        line, _ = checked(f"aggs host {qid}", lambda sql=sql: execute_query(table, sql), check,
-                          AGGS_HOST_RUNS)
+        line, _ = checked(f"aggs host {qid}", lambda sql=sql: execute_query(host_table, sql),
+                          check, AGGS_HOST_RUNS)
         log("aggs_query", query=qid, path="per_segment", plan_kind="host",
-            fallback_reason=reasons[0], set_plan_kind=set_plan.kind, rows=rows,
-            segments=len(table), oracle=want, **line)
+            fallback_reason=reasons[0], set_plan_kind=set_plan.kind, rows=host_rows,
+            segments=len(host_table), oracle=want, **line)
 
     # IDSET (a host plan) feeding IN_ID_SET (a device LUT leaf)
     idset_rows = (cols["lo_quantity"] == 7) & (cols["lo_discount"] == 3) & (
@@ -4627,6 +4667,19 @@ GROUPBY_DISTINCT = ("SELECT lo_region, DISTINCTCOUNT(lo_discount) FROM lineorder
 GROUPBY_Q11_DISTINCT = f"SELECT DISTINCTCOUNT(lo_discount) FROM lineorder WHERE {Q11_WHERE}"
 
 
+#: lo_custkey's per-segment GROUP BY (500,000 state lists decoded a segment:
+#: 18 s over the 8) reads the table's first 2 segments, to keep the smoke
+#: inside its time; its set run reads all 8
+GROUPBY_CUSTKEY_PER_SEGMENT_SEGMENTS = 2
+
+
+def oracle_custkey_rows(c) -> list:
+    """GROUPBY_CUSTKEY's rows: every key that holds rows, with its sum."""
+    n, s = np.bincount(c["lo_custkey"]), np.bincount(c["lo_custkey"], c["lo_revenue"])
+    keys = np.flatnonzero(n)
+    return [[int(a), float(v)] for a, v in zip(keys, s[keys])][:500000]
+
+
 def groupby_queries():
     """(id, sql, grouped_agg launches a pass, per-segment warm runs): one
     launch a GROUP BY pass, one more for a distinct output; lo_custkey's
@@ -4659,9 +4712,7 @@ def groupby_oracles(c) -> dict:
     keys = np.flatnonzero(n)
     var = s2[keys] / n[keys] - (s1[keys] / n[keys]) ** 2
     out["suppkey_var"] = [[int(a), float(v)] for a, v in zip(keys, var)][:20000]
-    n, s = np.bincount(c["lo_custkey"]), np.bincount(c["lo_custkey"], c["lo_revenue"])
-    keys = np.flatnonzero(n)
-    out["custkey"] = [[int(a), float(v)] for a, v in zip(keys, s[keys])][:500000]
+    out["custkey"] = oracle_custkey_rows(c)
     from pinot_tpu_torch.ssb import REGIONS
     out["region_distinct"] = []
     for r in sorted(REGIONS):
@@ -4727,18 +4778,23 @@ def run_groupby(args, table, cols) -> tuple:
                 for k in res.stats["phaseTimesMs"]})
         return fields, res.rows
 
+    custkey_table = table[:GROUPBY_CUSTKEY_PER_SEGMENT_SEGMENTS]
+    custkey_want = oracle_custkey_rows({k: v[:sum(s.num_docs for s in custkey_table)]
+                                        for k, v in cols.items()})
     for qid, sql, per_pass, seg_runs in groupby_queries():
-        want = oracles[qid]
-        for path, run, passes, runs in (
-                ("per_segment", lambda sql=sql: execute_query(table, sql), len(table),
+        seg_table = custkey_table if qid == "custkey" else table
+        for path, segs, run, passes, runs in (
+                ("per_segment", seg_table,
+                 lambda sql=sql, segs=seg_table: execute_query(segs, sql), len(seg_table),
                  seg_runs),
-                ("set", lambda sql=sql: mx.execute(table, sql), 1, GROUPBY_RUNS)):
+                ("set", table, lambda sql=sql: mx.execute(table, sql), 1, GROUPBY_RUNS)):
+            want = custkey_want if (qid, path) == ("custkey", "per_segment") else oracles[qid]
             fields, got = checked(f"{qid} {path}", run, want,
                                   counts_of(grouped_agg=per_pass * passes), runs)
             if path == "set":
                 set_answers[qid] = got
-            log("groupby_query", query=qid, path=path, rows=rows, segments=len(table),
-                oracle=want[:5], **fields)
+            log("groupby_query", query=qid, path=path, rows=sum(s.num_docs for s in segs),
+                segments=len(segs), oracle=want[:5], **fields)
 
     # lo_custkey's GROUP BY as two server partials of 4 segments each
     ctx = compile_query(GROUPBY_CUSTKEY, schema)
@@ -4955,12 +5011,18 @@ def group_cases(cases) -> dict:
 # -- phase 17: cluster ---------------------------------------------------------------
 
 CLUSTER_RUNS = 5                 # warm runs of each query through the broker
+# warm runs of the lo_custkey GROUP BY through a broker, whose run is the
+# broker's 500,000-row reduce (3-5 s a run), to keep the smoke inside its time
+CLUSTER_CUSTKEY_RUNS = 1
 CLUSTER_SERVERS = 2
 CLUSTER_REPLICATION = 2
 # segments pushed at once: each upload packs a gzip tar, and zlib lets the
 # threads compress side by side (one at a time took 18 s of the phase's 69)
 CLUSTER_UPLOAD_THREADS = 8
 CLUSTER_PROFILE_TOP = 12         # functions the reduce profile lists
+# the in-process cluster's numbers by query (and "e2e_mix"), which the
+# process_cluster phase prints beside its own
+CLUSTER_NUMBERS: dict = {}
 
 
 def oracle_custkey_group(c):
@@ -5225,7 +5287,8 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
                                timed(broker_module.merge_segment_results)), \
                 mock.patch.object(broker_module, "reduce_to_result",
                                   timed(broker_module.reduce_to_result)):
-            for _ in range(CLUSTER_RUNS):
+            for _ in range(min(CLUSTER_RUNS, CLUSTER_CUSTKEY_RUNS)
+                           if qid == "custkey_group" else CLUSTER_RUNS):
                 r, ms, _, _ = checked(qid, sql, ok, per_server)
                 times.append(ms)
                 phases.append(dict(r.stats["phaseTimesMs"],
@@ -5233,6 +5296,7 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
                                    reduce_to_result=split["reduce_to_result"]))
         reduce_inputs[qid] = split.pop("inputs")
         numbers[qid] = statistics.median(times)
+        CLUSTER_NUMBERS[qid] = {"cold_ms": cold_ms, "warm_median_ms": numbers[qid]}
         log("cluster_query", query=qid, rows=rows, segments=len(table), route=route,
             launches=counts, answer=res.rows[:3], answer_rows=len(res.rows), cold_ms=cold_ms,
             warm_median_ms=statistics.median(times), warm_min_ms=min(times),
@@ -5335,6 +5399,9 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
                                  f"the pipelines report {scans}: {stats}")
         launches["masked_sums"] += counts["masked_sums"]
         lat.sort()
+        CLUSTER_NUMBERS["e2e_mix"] = {"qps": n_queries / wall,
+                                      "p50_ms": statistics.median(lat) * 1e3,
+                                      "p95_ms": lat[int(0.95 * (len(lat) - 1))] * 1e3}
         log("cluster_pipeline", mix="e2e_mix", scatter_threads=8,
             clients=SERVE_CLIENTS, queries=n_queries, wall_s=wall, qps=n_queries / wall,
             p50_ms=statistics.median(lat) * 1e3, p95_ms=lat[int(0.95 * (len(lat) - 1))] * 1e3,
@@ -6006,6 +6073,306 @@ def run_realtime_cluster(args, work) -> dict:
     return launches
 
 
+# -- phase 19: process_cluster ---------------------------------------------------------
+
+PROC_CLUSTER_SERVERS = 2
+PROC_CLUSTER_REPLICATION = 2
+PROC_CLUSTER_RUNS = 5                  # warm runs of each query through the HTTP broker
+PROC_CLUSTER_STARTUP_S = 300.0         # each child imports torch and reaches the card
+PROC_CLUSTER_QUERYABLE_S = 300.0       # upload -> every segment answered, at most
+#: the servers' device: the CPU rehearsal points it at "cpu"
+PROC_CLUSTER_DEVICE = "cuda"
+
+
+class ServerProbe:
+    """The server processes' /debug: their kernels' launches (set to 0 with
+    POST /debug/launches/reset), pipeline stats and device memory."""
+
+    def __init__(self, urls: dict):
+        self.urls = urls
+
+    def debug(self) -> dict:
+        from pinot_tpu_torch.cluster.http_service import get_json
+        return {sid: get_json(f"{u}/debug", timeout=60.0) for sid, u in self.urls.items()}
+
+    def reset(self) -> None:
+        from pinot_tpu_torch.cluster.http_service import post_json
+        for u in self.urls.values():
+            post_json(f"{u}/debug/launches/reset", {}, timeout=60.0)
+
+    def launches(self, debug: dict = None) -> dict:
+        """Each kernel's launches, summed over the servers that answer."""
+        out = counts_of()
+        for d in (debug or self.debug()).values():
+            for k, v in d["kernelLaunches"].items():
+                out[k] += v
+        return out
+
+
+def run_process_cluster(args, table, cols, work) -> dict:
+    """Phase 19: the roles as OS processes joined over HTTP. A ProcessCluster:
+    a controller process, PROC_CLUSTER_SERVERS server processes each owning
+    the card through a DeviceQueryPipeline (`server.device.enabled`) and a
+    broker process; phase 4's 8 segments pushed over HTTP from
+    CLUSTER_UPLOAD_THREADS threads to an OFFLINE table with replication 2,
+    timed until the broker answers every row (`process_cluster_data`).
+    Through the broker's HTTP endpoint: `cluster_queries` and EXPLAIN ANALYZE
+    of Q1.1, a cold and PROC_CLUSTER_RUNS warm runs each, held to the oracle,
+    to the launches the servers' /debug report (one a server queried; the
+    stacked top-k one a server, from the pipelines' stats) and to a whole
+    answer, beside the in-process cluster phase's numbers for the same SQL
+    (`process_cluster_query`); server_0's lo_custkey partial fetched directly
+    over the wire, checked dense; the e2e mix (SERVE_CLIENTS x
+    SERVE_QUERIES_PER_CLIENT) through the broker on the mux transport, then
+    through a second broker process started with `broker.mux.enabled=false`
+    (`process_cluster_pipeline`); each process's device memory
+    (`process_cluster_memory`); server_1 SIGKILLed, Q1.1 and GROUP_QUERY exact
+    from server_0 (`process_cluster_failover`). Returns the launches of the
+    checked runs and the mix (read from the server processes)."""
+    import threading
+
+    from pinot_tpu_torch.cluster.http_service import get_json
+    from pinot_tpu_torch.cluster.process import BrokerClient, ProcessCluster
+    from pinot_tpu_torch.cluster.remote import RemoteServerHandle
+    from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY
+    from pinot_tpu_torch.table import TableConfig
+
+    schema = table[0].schema
+    rows = sum(s.num_docs for s in table)
+    name = "lineorder_OFFLINE"
+    launches = counts_of()
+    t0 = time.perf_counter()
+    with ProcessCluster(num_servers=PROC_CLUSTER_SERVERS, device=PROC_CLUSTER_DEVICE,
+                        work_dir=os.path.join(work, "process_cluster"),
+                        server_config={"server.device.enabled": "true"},
+                        startup_timeout_s=PROC_CLUSTER_STARTUP_S) as pc:
+        startup_s = time.perf_counter() - t0
+        sids = [f"server_{i}" for i in range(PROC_CLUSTER_SERVERS)]
+        probe = ServerProbe({sid: pc.server_url(sid) for sid in sids})
+        pc.controller.add_schema(schema)
+        pc.controller.add_table(TableConfig("lineorder", replication=PROC_CLUSTER_REPLICATION))
+        t_up = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(CLUSTER_UPLOAD_THREADS) as pool:
+            pushed = list(pool.map(lambda s: pc.controller.upload_segment(name, s.path), table))
+        upload_s = time.perf_counter() - t_up
+        deadline = time.perf_counter() + PROC_CLUSTER_QUERYABLE_S
+        while True:
+            try:
+                res = pc.query("SELECT COUNT(*) FROM lineorder")
+                if res["resultTable"]["rows"] == [[rows]] and not res["partialResult"]:
+                    break
+            except Exception:   # the broker's mirror not caught up yet: poll
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"process_cluster: the table did not answer its "
+                                     f"{rows} rows within {PROC_CLUSTER_QUERYABLE_S} s")
+            time.sleep(0.05)
+        queryable_s = time.perf_counter() - t_up
+        # every segment answered is not every replica loaded: wait for both
+        while True:
+            status = pc.controller.table_status(name)
+            if status["converged"] and all(n == PROC_CLUSTER_REPLICATION
+                                           for n in status["replicas_online"].values()):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"process_cluster: the table did not converge: {status}")
+            time.sleep(0.05)
+        converged_s = time.perf_counter() - t_up
+        log("process_cluster_data", rows=rows, segments=len(table), servers=len(sids),
+            replication=PROC_CLUSTER_REPLICATION, startup_s=startup_s, upload_s=upload_s,
+            upload_to_queryable_s=queryable_s, upload_to_converged_s=converged_s,
+            pushed=[p["segment"] for p in pushed], device=PROC_CLUSTER_DEVICE)
+
+        def checked(label, sql, ok, per_server, broker=None, strict=True):
+            """One query over HTTP: the servers' counts set to 0 just before,
+            read just after and held to `per_server` times the servers that
+            answered; the answer to `ok`; the stats to a whole answer."""
+            probe.reset()
+            before = {sid: d["pipeline"]["topkLaunches"] for sid, d in probe.debug().items()}
+            t0 = time.perf_counter()
+            res = (broker or pc.broker).query(sql, timeout=600.0)
+            ms = (time.perf_counter() - t0) * 1e3
+            debug = probe.debug()
+            counts = probe.launches(debug)
+            topk = sum(d["pipeline"]["topkLaunches"] - before[sid] for sid, d in debug.items())
+            answered = res["numServersResponded"]
+            want = {k: v * answered for k, v in per_server.items()}
+            want_topk = answered if label.startswith("topk") else 0
+            if counts != want or topk != want_topk:
+                raise AssertionError(f"process_cluster {label}: launches {counts}, top-k "
+                                     f"{topk}, expected {want} and {want_topk} for "
+                                     f"{answered} servers answering")
+            for k, v in counts.items():
+                launches[k] += v
+            got = res["resultTable"]["rows"]
+            if not ok(got):
+                raise AssertionError(f"process_cluster {label}: off the oracle: {got[:5]}")
+            if strict and (res["partialResult"] or res["numSegmentsRetried"]
+                           or res["numSegmentsQueried"] != len(table)
+                           or res["numServersResponded"] != res["numServersQueried"]):
+                raise AssertionError(f"process_cluster {label}: stats "
+                                     f"{ {k: v for k, v in res.items() if k != 'resultTable'} }")
+            return res, ms, counts
+
+        stat_keys = ("numSegmentsQueried", "numServersQueried", "numServersResponded",
+                     "partialResult", "numSegmentsRetried", "numDocsScanned",
+                     "muxFrameQueueMs", "muxFlowControlMs")
+        queries = cluster_queries(cols)
+        numbers = {}
+        for qid, sql, ok, per_server in queries:
+            res, cold_ms, counts = checked(qid, sql, ok, per_server)
+            runs = (min(PROC_CLUSTER_RUNS, CLUSTER_CUSTKEY_RUNS) if qid == "custkey_group"
+                    else PROC_CLUSTER_RUNS)
+            times = [checked(qid, sql, ok, per_server)[1] for _ in range(runs)]
+            numbers[qid] = statistics.median(times)
+            log("process_cluster_query", query=qid, rows=rows, segments=len(table),
+                launches=counts, answer=res["resultTable"]["rows"][:3],
+                answer_rows=len(res["resultTable"]["rows"]), cold_ms=cold_ms,
+                warm_median_ms=numbers[qid], warm_min_ms=min(times), warm_max_ms=max(times),
+                warm_runs=len(times), in_process=CLUSTER_NUMBERS.get(qid),
+                broker_phase_ms=res.get("phaseTimesMs"),
+                stats={k: res.get(k) for k in stat_keys})
+        res = None
+        # the 500,000-key partial of one server, fetched over the wire as the
+        # broker's mux dispatch does: in array form
+        segs0 = sorted(s.name for s in table)
+        handle = RemoteServerHandle(probe.urls["server_0"], timeout_s=600.0)
+        try:
+            t_d = time.perf_counter()
+            part = handle(name, GROUPBY_CUSTKEY, segs0)
+            dense_ms = (time.perf_counter() - t_d) * 1e3
+        finally:
+            handle.close()
+        if part.dense is None or int(part.dense.counts.sum()) != rows:
+            raise AssertionError("process_cluster: server_0's lo_custkey partial did not "
+                                 "cross the wire in array form over every row")
+        log("process_cluster_dense", query="custkey_group", server="server_0",
+            keys=part.dense.num_keys_real, ms=dense_ms,
+            array_bytes=int(part.dense.counts.nbytes
+                            + sum(v.nbytes for v in part.dense.outs.values())))
+        del part
+
+        res, ms, counts = checked("explain_analyze", "EXPLAIN ANALYZE " + QUERY,
+                                  lambda r: len(r) >= 3 and r[0][3] == 1,
+                                  counts_of(masked_sums=1))
+        if not any(r[0].startswith("SEGMENT_PLAN") and r[3] == res["numDocsScanned"]
+                   for r in res["resultTable"]["rows"]):
+            raise AssertionError(f"process_cluster explain_analyze: {res['resultTable']}")
+        log("process_cluster_explain", query="q1_1", analyze=True,
+            rows=res["resultTable"]["rows"], launches=counts, ms=ms)
+
+        mix = [(QUERY, oracle_q11(cols)), (GROUP_QUERY, oracle_group(cols)),
+               (SERVE_COUNT_QUERY, oracle_count(cols))]
+
+        def run_mix(transport: str, broker) -> dict:
+            before = probe.debug()
+            probe.reset()
+            lat, failures = [], []
+            lock = threading.Lock()
+
+            def client(ci):
+                mine, wrong = [], []
+                for qi in range(SERVE_QUERIES_PER_CLIENT):
+                    sql, want = mix[(ci + qi) % len(mix)]
+                    t0 = time.perf_counter()
+                    try:
+                        r = broker.query(sql, timeout=600.0)
+                    except Exception as e:   # recorded, and the phase fails below
+                        wrong.append(f"{sql[:48]}: {e!r}")
+                        continue
+                    mine.append(time.perf_counter() - t0)
+                    if not rows_match(r["resultTable"]["rows"], want) or r["partialResult"] \
+                            or r["numSegmentsRetried"] or r["numSegmentsQueried"] != len(table):
+                        wrong.append(f"{sql[:48]}: {r['resultTable']['rows']}")
+                with lock:
+                    lat.extend(mine)
+                    failures.extend(wrong)
+
+            threads = [threading.Thread(target=client, args=(ci,))
+                       for ci in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            after = probe.debug()
+            counts = probe.launches(after)
+            stats = {sid: {k: after[sid]["pipeline"][k] - before[sid]["pipeline"][k]
+                           for k in ("batches", "dispatched", "scanLaunches", "errors",
+                                     "timeouts", "dedupeHits", "stackedLaunches")}
+                     for sid in sids}
+            scans = sum(st["scanLaunches"] for st in stats.values())
+            n_queries = SERVE_CLIENTS * SERVE_QUERIES_PER_CLIENT
+            if any(t.is_alive() for t in threads) or failures or len(lat) != n_queries:
+                raise AssertionError(f"process_cluster {transport} mix: {len(lat)} of "
+                                     f"{n_queries} answered, {len(failures)} bad: "
+                                     f"{failures[:3]}")
+            if counts["masked_sums"] != scans or any(st["errors"] or st["timeouts"]
+                                                     for st in stats.values()):
+                raise AssertionError(f"process_cluster {transport} mix: {counts} counted, "
+                                     f"the pipelines report {stats}")
+            launches["masked_sums"] += counts["masked_sums"]
+            for st in stats.values():
+                st["meanBatch"] = (round(st["dispatched"] / st["batches"], 2)
+                                   if st["batches"] else 0.0)
+            lat.sort()
+            out = {"qps": n_queries / wall, "p50_ms": statistics.median(lat) * 1e3,
+                   "p95_ms": lat[int(0.95 * (len(lat) - 1))] * 1e3}
+            log("process_cluster_pipeline", mix="e2e_mix", transport=transport,
+                clients=SERVE_CLIENTS, queries=n_queries, wall_s=wall, **out,
+                launches=counts, servers=stats, in_process=CLUSTER_NUMBERS.get("e2e_mix"),
+                serve_pipeline=SERVE_MIX_NUMBERS.get("e2e_mix"))
+            return out
+
+        mix_numbers = {"mux": run_mix("mux", pc.broker)}
+        pc.controller.set_cluster_config("broker.mux.enabled", "false")
+        t_b = time.perf_counter()
+        legacy = pc.add_broker("broker_legacy")
+        legacy_start_s = time.perf_counter() - t_b
+        pc.controller.set_cluster_config("broker.mux.enabled", None)
+        deadline = time.perf_counter() + 60.0
+        while legacy.query("SELECT COUNT(*) FROM lineorder")["resultTable"]["rows"] != [[rows]]:
+            if time.perf_counter() > deadline:
+                raise AssertionError("process_cluster: the legacy broker did not answer")
+            time.sleep(0.05)
+        mix_numbers["legacy"] = run_mix("legacy", legacy)
+        mix_numbers["legacy"]["broker_start_s"] = legacy_start_s
+
+        debug = probe.debug()
+        memory = {sid: d["deviceMemory"] for sid, d in debug.items()}
+        log("process_cluster_memory", servers=memory,
+            smoke_process_allocated=torch.cuda.memory_allocated()
+            if PROC_CLUSTER_DEVICE == "cuda" else 0,
+            brokers={b: get_json(f"{u}/debug", timeout=60.0)["brokerMetrics"].get(
+                "pinot_broker_mux_dispatches", 0)
+                for b, u in (("broker_0", pc.broker_url), ("broker_legacy", legacy.url))})
+
+        # failover: server_1 killed; server_0 answers every segment
+        pc.kill_server("server_1")
+        del probe.urls["server_1"]
+        t_f = time.perf_counter()
+        for qid, sql, ok, per_server in queries[:2]:
+            for attempt in ("first", "next"):
+                res, ms, counts = checked(f"failover_{qid}", sql, ok, per_server, strict=False)
+                if res.get("segmentsUnavailable") or res["numSegmentsQueried"] != len(table):
+                    raise AssertionError(f"process_cluster failover {qid}: {res}")
+                if attempt == "next" and (res["partialResult"] or res["numServersQueried"] != 1):
+                    raise AssertionError(f"process_cluster failover {qid}: server_1 still "
+                                         f"routed: { {k: res.get(k) for k in stat_keys} }")
+                log("process_cluster_failover", query=qid, attempt=attempt, launches=counts,
+                    answer=res["resultTable"]["rows"][:3], ms=ms,
+                    stats={k: res.get(k) for k in stat_keys})
+        failover_s = time.perf_counter() - t_f
+    log("process_cluster_summary", startup_s=startup_s, upload_to_queryable_s=queryable_s,
+        broker_warm_median_ms=numbers,
+        in_process_warm_median_ms={k: v["warm_median_ms"] for k, v in CLUSTER_NUMBERS.items()
+                                   if "warm_median_ms" in v},
+        mix=mix_numbers, in_process_mix=CLUSTER_NUMBERS.get("e2e_mix"),
+        failover_s=failover_s, memory=memory)
+    return launches
+
+
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
     """`runs` warm runs under torch.profiler (`_profiled`), per run: wall ms,
     device-busy ms (the union of the card's kernel and copy intervals), the
@@ -6152,6 +6519,12 @@ def main() -> int:
         groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
         cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
         realtime_cluster_launches = phase("realtime_cluster", run_realtime_cluster, args, work)
+        process_cluster_launches = phase("process_cluster", run_process_cluster, args, table,
+                                         cols, work)
+        missing = [k for k in ("masked_sums", "grouped_agg") if not process_cluster_launches[k]]
+        if missing:
+            raise AssertionError(f"the process_cluster phase launched no {missing} in its "
+                                 "server processes")
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -6171,7 +6544,8 @@ def main() -> int:
                 "mv": mv_launches[name], "upsert": upsert_launches[name],
                 "batch": batch_launches[name], "groupby": groupby_launches[name],
                 "cluster": cluster_launches[name],
-                "realtime_cluster": realtime_cluster_launches[name]}
+                "realtime_cluster": realtime_cluster_launches[name],
+                "process_cluster": process_cluster_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)

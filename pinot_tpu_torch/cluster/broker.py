@@ -29,9 +29,15 @@ backpressure (QueryRejectedError, QueryTimeoutError) holds the server out of
 hedges and retries for its Retry-After; any other error is a query error,
 raised when the segments fail on every replica tried.
 
+A partial's dispatch is async-first (`_dispatch_partial`): a server handle
+with `submit_async` (a `remote.RemoteServerHandle` over the mux transport)
+returns a Future that holds no scatter thread for the round trip; any other
+handle (an in-process server, or a remote one on the legacy POST /query)
+takes one scatter-pool thread a call.
+
 Joins and IN-subqueries (the multistage route), the distributed GROUP BY and
 the workload registry wait: they raise NotImplementedError (ROADMAP.md queue
-1). The broker calls its servers in-process; the HTTP transport waits too.
+1).
 """
 
 from __future__ import annotations
@@ -661,6 +667,23 @@ class Broker:
     # -- scatter / gather -------------------------------------------------
     def _dispatch_partial(self, handle, server_id: str, traced, table, ctx, segments,
                           tf) -> Future:
+        """One server partial, async-first: a handle's `submit_async` (the
+        mux transport) returns a Future without taking a scatter-pool thread
+        for the round trip, so the partials in flight are bounded by the
+        servers' flow-control windows, not by the pool. A handle without it,
+        or one whose `submit_async` returns None (mux off, or a peer without
+        /mux), takes a pool thread. A synchronous failure becomes a failed
+        Future, which the gather's failure taxonomy sorts like any other."""
+        submit = getattr(handle, "submit_async", None)
+        if submit is not None:
+            try:
+                fut = submit(table, ctx, segments, tf, span_name=f"server:{server_id}")
+            except Exception as e:
+                fut = Future()
+                fut.set_exception(e)
+                return fut
+            if fut is not None:
+                return fut
         call = traced(handle, server_id) if traced is not None else handle
         return self._pool.submit(call, table, ctx, segments, tf)
 

@@ -9,10 +9,13 @@ status, and realtime tables through the LLC segment manager (`self.llc`,
 `cluster/completion.py`): `add_realtime_table` creates the CONSUMING segments
 of each stream partition, `pause_consumption` and `resume_consumption` stop
 and restart them, and the completion protocol commits them. The cold tier's
-demotion (`controller.retention.cold.demote`) raises NotImplementedError. The
-periodic scheduler, the health, SLO, workload, memory, event and incident
-planes and the minion's task manager wait; their periodic tasks are methods a
-caller runs (`run_retention`, `run_segment_status_check`, `llc.validate`).
+demotion (`controller.retention.cold.demote`) raises NotImplementedError.
+`self.scheduler` holds the periodic tasks (`utils/periodic.py`): retention,
+the segment status gauges and the LLC validation round, which a controller
+process starts (`start_periodic_tasks`) and a test ticks by hand
+(`scheduler.run_all_once()`, or each method alone). The health, SLO,
+workload, memory, event and incident planes and the minion's task manager
+wait.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..schema import Schema
 from ..segment.format import CREATION_META_FILE, SEGMENT_METADATA_FILE, read_json
 from ..table import TableConfig, TableType
 from ..utils.metrics import get_registry
+from ..utils.periodic import PeriodicTask, PeriodicTaskScheduler
 from .assignment import balanced_assign, compute_counts, rebalance_table, replica_group_assign
 from .catalog import (COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog, InstanceInfo,
                       SegmentMeta, column_stats_from_meta)
@@ -50,7 +54,29 @@ class Controller:
         os.makedirs(work_dir, exist_ok=True)
         self.llc = LLCSegmentManager(catalog, deepstore, os.path.join(work_dir, "llc"))
         self._status_tables: set = set()   # tables with exported status gauges
+        # the reference's ControllerPeriodicTask registrations, at its periods
+        self.scheduler = PeriodicTaskScheduler()
+        self.scheduler.register(PeriodicTask("RetentionManager", 300.0, self.run_retention))
+        self.scheduler.register(PeriodicTask("RealtimeSegmentValidationManager", 60.0,
+                                             self.llc.validate))
+        self.scheduler.register(PeriodicTask("SegmentStatusChecker", 300.0,
+                                             self.run_segment_status_check))
         catalog.register_instance(InstanceInfo(instance_id, "controller"))
+
+    def start_periodic_tasks(self) -> None:
+        self.scheduler.start()
+
+    def stop_periodic_tasks(self) -> None:
+        self.scheduler.stop()
+
+    def debug_stats(self) -> Dict[str, object]:
+        """The controller's /debug rollup: each periodic task's runs, errors
+        and last run, and the controller's metrics."""
+        reg = get_registry()
+        return {"instance": self.instance_id,
+                "periodicTasks": self.scheduler.stats(),
+                "controllerMetrics": {k: v for k, v in reg.snapshot().items()
+                                      if k.startswith(("pinot_controller", "pinot_periodic"))}}
 
     # -- table CRUD -------------------------------------------------------
     def add_schema(self, schema: Schema) -> None:

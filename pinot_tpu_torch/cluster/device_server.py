@@ -31,6 +31,9 @@ when it is decoded; `stats()["topkExact"]` counts both. A set that holds
 consuming views or segments committed apart is prepared on the set
 executor's merged-dictionary view.
 
+`pipeline_from_config` builds a server process's pipeline from its
+`server.device.*` keys.
+
 There is no fallback: a query shape the set executor does not run, a
 planning or launch error, or a caller's timeout resolves the caller's future
 with the exception (NotImplementedError, the error itself, TimeoutError),
@@ -395,3 +398,28 @@ def _summarize(samples: deque) -> dict:
             "p50Ms": round(vals[min(n - 1, int(0.5 * n))], 3),
             "p95Ms": round(vals[min(n - 1, int(0.95 * n))], 3),
             "maxMs": round(vals[-1], 3)}
+
+
+#: `server.*` keys of the JAX package's pipeline this package does not take:
+#: its limits are the module constants above
+UNPORTED_PIPELINE_KEYS = ("server.device.max.batch", "server.device.max.inflight",
+                          "server.device.timeout.seconds", "server.device.stacking.enabled",
+                          "server.fused.burst.window.ms", "server.mesh.devices",
+                          "server.fused.enabled")
+
+
+def pipeline_from_config(cfg, device=None) -> Optional[DeviceQueryPipeline]:
+    """The server's pipeline from `server.device.enabled` (default false: the
+    server answers through the per-segment executor), over a set executor on
+    `device` (CUDA unless the caller names another). A key of the JAX
+    package's pipeline this one does not take raises NotImplementedError
+    rather than be ignored."""
+    if not cfg.get_bool("server.device.enabled", False):
+        return None
+    for key in UNPORTED_PIPELINE_KEYS:
+        if key in cfg:
+            raise NotImplementedError(
+                f"{key}: this package's pipeline takes its limits from "
+                "cluster/device_server.py's module constants (ROADMAP.md queue 1)")
+    from ..parallel import MeshQueryExecutor
+    return DeviceQueryPipeline(mesh_exec=MeshQueryExecutor(device))

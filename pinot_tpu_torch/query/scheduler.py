@@ -15,12 +15,13 @@ A copy of `pinot_tpu/query/scheduler.py` (the analog of the reference's
   backpressure: the segments retry on another replica and the server keeps
   its place in routing.
 
-Building a scheduler from a server's configuration (`server.scheduler.*`)
-waits for the server process.
+`scheduler_from_config` builds a server process's scheduler from its
+`server.scheduler.*` keys.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from collections import deque
@@ -308,6 +309,32 @@ class QueryScheduler:
         with self._lock:
             self._stopped = True
         self._pool.shutdown(wait=False)
+
+
+def scheduler_from_config(cfg) -> Optional["QueryScheduler"]:
+    """A QueryScheduler from a Configuration's `server.scheduler.*` keys
+    (reference: the pinot.query.scheduler.* configs QuerySchedulerFactory
+    reads); None when admission control is off (the default).
+    `server.scheduler.fair.weights` is a JSON object of table -> weight (1.0
+    each by default); `server.scheduler.fair.tenant.bytes` bounds one table's
+    bytes in flight (0: no bound)."""
+    if not cfg.get_bool("server.scheduler.enabled", False):
+        return None
+    weights: Dict[str, float] = {}
+    raw = cfg.get_str("server.scheduler.fair.weights", "") or ""
+    if raw.strip():
+        try:
+            weights = {str(k): float(v) for k, v in json.loads(raw).items()}
+        except (ValueError, TypeError, AttributeError):
+            weights = {}
+    return QueryScheduler(
+        max_concurrent=cfg.get_int("server.scheduler.max.concurrent", 4),
+        max_pending=cfg.get_int("server.scheduler.max.pending", 32),
+        default_timeout_s=cfg.get_float("server.scheduler.timeout.seconds", 60.0),
+        per_table_share=cfg.get_float("server.scheduler.table.share", 1.0),
+        tenant_weights=weights,
+        max_table_bytes=cfg.get_float("server.scheduler.fair.tenant.bytes", 0.0),
+    )
 
 
 class TokenBucket:

@@ -5,8 +5,8 @@ the thread-local "current record" slot (`collect_stats`, `current_stats`) and
 the accounting hooks `record`, `record_min`, `record_max` and
 `record_operator`, with the segment counts the per-segment executor, the
 servers and the broker record, the consuming segments' count and freshness,
-the broker's pruning, hedge and retry keys, the join keys, `scanRowsAvoided`
-and the batch ingestion's keys. A server partial carries its record as a flat
+the broker's pruning, hedge and retry keys, the mux transport's two waits,
+the join keys, `scanRowsAvoided` and the batch ingestion's keys. A server partial carries its record as a flat
 dict (`to_wire`, `SegmentResult.stats`), which the broker merges. Accounting
 sites record into whatever record is active on their thread, and do nothing
 when none is; a worker thread serving one query re-installs that query's
@@ -76,6 +76,12 @@ BATCH_PUSH_MS = "batchPushMs"
 NUM_CONSUMING_SEGMENTS_QUERIED = "numConsumingSegmentsQueried"
 MIN_CONSUMING_FRESHNESS_TIME_MS = "minConsumingFreshnessTimeMs"
 
+# the mux transport (`cluster/mux.py`): milliseconds a request frame waited in
+# the broker's write queue, and milliseconds a server's demux loop held it at
+# the stream's flow-control window (`server.mux.max.inflight`)
+MUX_FRAME_QUEUE_MS = "muxFrameQueueMs"
+MUX_FLOW_CONTROL_MS = "muxFlowControlMs"
+
 # keys that merge by MAXIMUM: a skew percentage summed over partitions means
 # nothing; the worst partition bounds the stage
 MAX_KEYS = (JOIN_SKEW_PCT,)
@@ -83,9 +89,11 @@ MAX_KEYS = (JOIN_SKEW_PCT,)
 # consuming segment it read, whichever server served it
 MIN_KEYS = (MIN_CONSUMING_FRESHNESS_TIME_MS,)
 
-# counters the broker's response always carries (0 when the path never ran)
+# counters the broker's response always carries (0 when the path never ran):
+# a response over the mux transport and one over POST /query carry one key set
 BROKER_COUNTER_KEYS = (NUM_SEGMENTS_QUERIED, NUM_SEGMENTS_PRUNED, NUM_SEGMENTS_MATCHED,
-                       HEDGED_REQUESTS, NUM_SEGMENTS_RETRIED)
+                       HEDGED_REQUESTS, NUM_SEGMENTS_RETRIED, MUX_FRAME_QUEUE_MS,
+                       MUX_FLOW_CONTROL_MS)
 
 #: routing pruner kind (cluster.routing.PRUNER_KINDS) -> its breakdown counter
 PRUNED_BY_KIND = {

@@ -6,8 +6,9 @@ thread that works on it (a broker's scatter threads `activate` the request's
 Trace). The broker records a Trace for every query; `TraceSampler` decides
 which traces `TraceRing` keeps (`broker.trace.sample.rate`), and slow or
 failed queries are kept whatever it decided. A query with OPTION(trace=true)
-returns its spans in `stats["traceInfo"]`. Splicing a remote server's spans
-and the Chrome trace export wait for the HTTP surface.
+returns its spans in `stats["traceInfo"]`. A remote server's spans ride its
+partial back over the wire and `Trace.splice` merges them onto the broker's
+trace. The Chrome trace export waits.
 """
 
 from __future__ import annotations
@@ -44,6 +45,10 @@ class Trace:
         """Milliseconds since the trace began: the clock of every span."""
         return (time.perf_counter() - self._t0) * 1000
 
+    def elapsed_ms(self) -> float:
+        """Alias of `now_ms`, for the call sites that rebase a dispatch."""
+        return self.now_ms()
+
     def record(self, name: str, start_ms: float, duration_ms: float,
                depth: int = 0, error: bool = False) -> None:
         s: Dict[str, Any] = {"name": name, "startMs": round(start_ms, 3),
@@ -52,6 +57,21 @@ class Trace:
             s["error"] = True
         with self._lock:
             self.spans.append(s)
+
+    def splice(self, spans: List[Dict[str, Any]], prefix: str = "",
+               offset_ms: float = 0.0, depth_offset: int = 0) -> None:
+        """Merge a remote server's spans. Their startMs count from the
+        server's request start: `offset_ms` (when the dispatch left this
+        trace) rebases them onto this trace's clock, and `depth_offset` nests
+        them under the dispatching span."""
+        with self._lock:
+            for s in spans:
+                s = dict(s)
+                if prefix:
+                    s["name"] = f"{prefix}/{s['name']}"
+                s["startMs"] = round(s.get("startMs", 0.0) + offset_ms, 3)
+                s["depth"] = int(s.get("depth", 0)) + depth_offset
+                self.spans.append(s)
 
     def to_rows(self) -> List[Dict[str, Any]]:
         with self._lock:

@@ -640,10 +640,12 @@ def test_the_smoke_groupby_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
     class Args:
         seed, trace = SEED, False
     launches, cases = chip_smoke.run_groupby(Args(), table, cols)
-    # six queries per segment (8 passes) and over the set (1): 1 a pass, 2
-    # for the grouped distinct; then the two server partials
+    # six queries per segment (8 passes; lo_custkey's per-segment run reads
+    # the first GROUPBY_CUSTKEY_PER_SEGMENT_SEGMENTS, 2) and over the set (1):
+    # 1 a pass, 2 for the grouped distinct; then the two server partials
+    assert chip_smoke.GROUPBY_CUSTKEY_PER_SEGMENT_SEGMENTS == 2
     assert launches == {"masked_sums": 0, "masked_sums_fused": 0, "bitmap_filter": 0,
-                        "grouped_agg": 9 * 5 + 18 + 2}
+                        "grouped_agg": 9 * 4 + (2 + 1) + 18 + 2}
     assert traced == [chip_smoke.TRACED_RUNS * 8]
     assert {k: c["rung"] for k, c in cases.items()} == {
         "region, one segment": "thread", "region, stacked set": "thread",

@@ -4,7 +4,9 @@
   query on the CPU without `jax` or `pinot_tpu` ever entering sys.modules;
   so does one that runs a CSV and an Avro batch ingestion, EXPLAIN ANALYZE,
   GAPFILL and LOOKUP (and loads neither pandas nor pyarrow).
-* No module of the package, nor chip_smoke.py, imports either (AST scan).
+* No module of the package, nor chip_smoke.py, imports either (AST scan),
+  and a server process of a `ProcessCluster` reports through `/debug` that
+  neither ever entered its sys.modules after it answered a query.
 * Without CUDA the default-device entry points (the join path's too) raise
   RuntimeError.
 * Unported shapes raise NotImplementedError instead of taking another path;
@@ -118,8 +120,34 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "cluster/routing.py", "cluster/admission.py", "query/scheduler.py",
                    "cluster/completion.py",
                    "utils/__init__.py", "utils/metrics.py", "utils/trace.py",
-                   "utils/events.py"):
+                   "utils/events.py", "utils/periodic.py", "config.py", "auth.py",
+                   "plugins.py", "client.py", "cluster/http_service.py", "cluster/wire.py",
+                   "cluster/mux.py", "cluster/remote.py", "cluster/services.py",
+                   "cluster/process.py", "tools/__init__.py", "tools/admin.py",
+                   "tools/segment.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
+
+
+def test_a_server_process_never_loads_jax(tmp_path):
+    """A ProcessCluster's server process (on the CPU) answers a query through
+    the HTTP broker and reports, through /debug, that neither `jax` nor
+    `pinot_tpu` entered its sys.modules."""
+    from pinot_tpu_torch.cluster.http_service import get_json
+    from pinot_tpu_torch.cluster.process import ProcessCluster
+    from pinot_tpu_torch.ssb import QUERY
+    from pinot_tpu_torch.table import TableConfig
+    seg = segments_from_columns(ssb_schema(), make_columns(4000, seed=7),
+                                str(tmp_path / "seg"), 1)[0]
+    with ProcessCluster(num_servers=1, device="cpu", work_dir=str(tmp_path / "pc"),
+                        startup_timeout_s=90.0) as pc:
+        pc.controller.add_schema(ssb_schema())
+        pc.controller.add_table(TableConfig("lineorder"))
+        pc.controller.upload_segment("lineorder_OFFLINE", seg.path)
+        from conftest import wait_until
+        assert wait_until(lambda: pc.query(QUERY)["numSegmentsQueried"] == 1, timeout=30.0)
+        debug = get_json(f"{pc.server_url('server_0')}/debug")
+    assert debug["device"] == "cpu"
+    assert debug["importedPackages"] == {"jax": False, "pinot_tpu": False}
 
 
 def test_subprocess_quick_cluster_query_never_loads_jax(tmp_path):

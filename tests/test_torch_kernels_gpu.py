@@ -1624,3 +1624,54 @@ def test_cuda_queries_racing_commits_count_each_row_once(cuda, tmp_path):
         assert c.mutable._view is None or not c.mutable._view._device_blocks
     cluster.shutdown()
     MemoryStream.reset_all()
+
+
+@pytest.mark.gpu
+def test_cuda_process_cluster_answers_and_counts_its_servers_launches(cuda, tmp_path):
+    """A ProcessCluster whose two server processes own the card through their
+    serving pipelines answers Q1.1 and GROUP_QUERY over HTTP as the CPU
+    cluster does; the servers' /debug counts show masked_sums and grouped_agg
+    launched in the server processes, one a server the route gave segments."""
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.cluster.http_service import get_json, post_json
+    from pinot_tpu_torch.cluster.process import ProcessCluster
+    from pinot_tpu_torch.engine import cuda_lib
+    from pinot_tpu_torch.segment.writer import SegmentBuilder
+    from pinot_tpu_torch.table import TableConfig
+    cuda_lib.build(["masked_sums", "bitmap_filter", "grouped_agg"])   # before any child
+    cols = ssb.make_columns(120_000, 23)
+    dirs = [SegmentBuilder(ssb.ssb_schema()).build(
+        {k: v[i * 30_000:(i + 1) * 30_000] for k, v in cols.items()},
+        str(tmp_path / "segs"), f"lineorder_{i}") for i in range(4)]
+    cpu = QuickCluster(num_servers=2, work_dir=str(tmp_path / "cpu"), device="cpu")
+    cpu.create_table(ssb.ssb_schema(), TableConfig("lineorder", replication=2))
+    for d in dirs:
+        cpu.controller.upload_segment("lineorder_OFFLINE", d)
+    with ProcessCluster(num_servers=2, device="cuda", work_dir=str(tmp_path / "proc"),
+                        server_config={"server.device.enabled": "true"},
+                        startup_timeout_s=180.0) as pc:
+        pc.controller.add_schema(ssb.ssb_schema())
+        pc.controller.add_table(TableConfig("lineorder", replication=2))
+        for d in dirs:
+            pc.controller.upload_segment("lineorder_OFFLINE", d)
+        from conftest import wait_until
+        assert wait_until(lambda: pc.query("SELECT COUNT(*) FROM lineorder")
+                          ["resultTable"]["rows"] == [[120_000]], timeout=120.0)
+        urls = [pc.server_url(f"server_{i}") for i in range(2)]
+        for sql, kernel in ((ssb.QUERY, "masked_sums"), (ssb.GROUP_QUERY, "grouped_agg")):
+            for u in urls:
+                post_json(f"{u}/debug/launches/reset", {})
+            got = pc.query(sql)
+            counts = [get_json(f"{u}/debug")["kernelLaunches"] for u in urls]
+            assert sum(c[kernel] for c in counts) == got["numServersQueried"] >= 1
+            assert got["partialResult"] is False and got["numSegmentsQueried"] == 4
+            want = cpu.query(sql).rows
+            rows = got["resultTable"]["rows"]
+            if kernel == "grouped_agg":   # lo_region, SUM, COUNT: keys and counts exact
+                assert [(r[0], r[2]) for r in rows] == [(r[0], r[2]) for r in want]
+                rows, want = [r[1:2] for r in rows], [r[1:2] for r in want]
+            assert np.allclose(np.asarray(rows, dtype=np.float64),
+                               np.asarray(want, dtype=np.float64), rtol=1e-5, atol=0.05)
+        debug = get_json(f"{urls[0]}/debug")
+        assert debug["device"].startswith("cuda") and debug["deviceMemory"]["stagedBytes"] > 0
+    cpu.shutdown()
