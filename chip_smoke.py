@@ -21,7 +21,8 @@ exits non-zero:
    the design's one launch. The flush overwrites a 256 MiB buffer, so the
    inputs come from HBM, behind dirty lines as on the path, whose operand
    product writes its row just before the scan;
-4. path    — SSB lineorder generated from --seed, built with the package's writer,
+4. path    — SSB lineorder generated from --seed, built with the package's writer
+   (its segments side by side on the smoke's worker processes: the same files),
    loaded, and queried through `execute_query` on the card: Q1.1, the dictionary
    GROUP BY, and a SUM over a frame-of-reference column. Each answer is held
    against a numpy float64 oracle (rel 1e-5, abs 0.05), and the kernels' launch
@@ -323,7 +324,12 @@ exits non-zero:
    catalog restored from a snapshot, the segments loaded from the servers'
    local disks, the FOR table uploaded) answering Q1.1 (one `masked_sums` a
    segment) and the FOR sum (one `masked_sums_fused` a segment):
-   `cluster_per_segment`.
+   `cluster_per_segment`. Before the failover, phase 7's supplier table
+   uploaded, and `join_supplier` and `semi_in` through `broker.handle_query`
+   on the funnel path (the servers are in-process handles: the leaf scans
+   scatter to them, the partitions join on the broker's device), a cold and
+   CLUSTER_JOIN_WARM_RUNS warm runs each, held to phase 7's oracles (rel
+   1e-9) and launches (JOIN_BITMAP): `cluster_join`.
 18. realtime_cluster — a REALTIME table consumed through the cluster roles
    past its flush threshold: a Catalog, Controller and Broker and two
    ServerNodes on the card, each with a DeviceQueryPipeline for committed
@@ -373,7 +379,23 @@ exits non-zero:
    `process_cluster_memory`; server_1 SIGKILLed, Q1.1 and GROUP_QUERY exact
    from server_0 (the first through the retry round, the next with server_1
    out of routing): `process_cluster_failover`. Every child is stopped when
-   the phase ends, whatever its outcome.
+   the phase ends, whatever its outcome. Before the memory line, the
+   multistage data plane (the `shuffle` path): phase 7's supplier, customer
+   and region pushed into the running cluster; the four `ssb.JOIN_QUERIES`
+   through the HTTP broker on the mailbox shuffle (the leaves partition on
+   the server processes and stream into the stage workers' mailboxes), a
+   cold and 2 warm runs each, `mailboxShuffle` true, with the join strategy,
+   the workers' join stats and the phases: `process_cluster_join`;
+   `join_supplier` once more with OPTION(useMailboxShuffle=false), its
+   partitions on the servers' POST /stage: `process_cluster_join_funnel`;
+   GROUP BY lo_custkey (500,000 keys) and GROUP BY lo_suppkey VAR_POP with
+   OPTION(distributedGroupBy=true), a cold and a warm run each, beside the
+   scatter/gather answer's time: `process_cluster_distributed_group_by`.
+   Each answer on its oracle (joins rel 1e-9, lo_custkey as
+   `custkey_rows_match`), each run's launches (from the servers' /debug) on
+   JOIN_BITMAP or one `grouped_agg` a leaf server, and the broker's
+   `pinot_broker_p2p_fallbacks` and `pinot_broker_stage_dispatch_failures`
+   at 0: `process_cluster_shuffle`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -390,7 +412,8 @@ three, the scans with the valid band; the batch phase all three, none
 under EXPLAIN or LOOKUP; `grouped_agg` on every device GROUP BY pass and
 every grouped or scalar distinct and scalar power-sum pass of every phase,
 the pipeline traffic's logged only, as `bitmap_filter`'s; the
-realtime_cluster phase `masked_sums`, `masked_sums_fused` and `grouped_agg`),
+realtime_cluster phase `masked_sums`, `masked_sums_fused` and `grouped_agg`;
+the shuffle path `bitmap_filter` and `grouped_agg`),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -861,7 +884,9 @@ def rows_match(got, want, rtol=ORACLE_RTOL, atol=ORACLE_ATOL) -> bool:
     return True
 
 
-def run_path(args, work: str):
+def run_path(args, work: str, pool=None):
+    """Phase 4; `pool` (a process pool) builds the table's segments side by
+    side."""
     from pinot_tpu_torch import execute_query, load_segment
     from pinot_tpu_torch.segment.writer import (SegmentGeneratorConfig,
                                                 build_aligned_segments)
@@ -874,7 +899,7 @@ def run_path(args, work: str):
     schema = ssb_schema()
     t0 = time.perf_counter()
     paths = build_aligned_segments(schema, cols, os.path.join(work, "main"), "lineorder",
-                                   SEGMENTS)
+                                   SEGMENTS, executor=pool)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     table = [load_segment(p) for p in paths]
@@ -884,12 +909,13 @@ def run_path(args, work: str):
     t0 = time.perf_counter()
     for_paths = build_aligned_segments(
         schema, for_cols, os.path.join(work, "for"), "lineorder", FOR_SEGMENTS,
-        SegmentGeneratorConfig(no_dictionary_columns=["lo_quantity"]))
+        SegmentGeneratorConfig(no_dictionary_columns=["lo_quantity"]), executor=pool)
     for_build_s = time.perf_counter() - t0
     for_table = [load_segment(p) for p in for_paths]
     log("data", rows=args.rows, segments=SEGMENTS, seed=args.seed,
         generate_s=gen_s, build_s=build_s, load_s=load_s, for_rows=for_rows,
-        for_segments=FOR_SEGMENTS, for_build_s=for_build_s)
+        for_segments=FOR_SEGMENTS, for_build_s=for_build_s,
+        build_workers=pool._max_workers if pool is not None else 1)
 
     queries = [
         ("q1_1", QUERY, table, cols, oracle_q11, counts_of(masked_sums=len(table))),
@@ -1397,6 +1423,23 @@ def join_tables(args, table, work) -> tuple:
     return tables, schemas, {k: v[1] for k, v in dims.items()}
 
 
+# phase 7's dimension tables and oracles, which phases 17 and 19 push into
+# their clusters (built once, on first use)
+JOIN_DATA: dict = {}
+
+
+def join_data(args, table, cols, work) -> dict:
+    """{"tables", "schemas", "dims", "oracles"}: `join_tables` and
+    `join_oracles`, once."""
+    if not JOIN_DATA:
+        tables, schemas, dims = join_tables(args, table, work)
+        t0 = time.perf_counter()
+        JOIN_DATA.update(tables=tables, schemas=schemas, dims=dims,
+                         oracles=join_oracles(cols, dims["supplier"], dims["customer"]))
+        log("join_oracle", seconds=time.perf_counter() - t0)
+    return JOIN_DATA
+
+
 def regime_of(launches: dict, joins: int) -> str:
     """The regime a query's `joins` partitioned join stages ran: "scatter" or
     "sort" when every partition's build and probe took it on the device (one
@@ -1422,10 +1465,8 @@ def run_join(args, table, cols, work) -> dict:
     from pinot_tpu_torch.multistage import execute_multistage, make_segment_scan
     from pinot_tpu_torch.ssb import JOIN_QUERIES
 
-    tables, schemas, dims = join_tables(args, table, work)
-    t0 = time.perf_counter()
-    oracles = join_oracles(cols, dims["supplier"], dims["customer"])
-    log("join_oracle", seconds=time.perf_counter() - t0)
+    jd = join_data(args, table, cols, work)
+    tables, schemas, oracles = jd["tables"], jd["schemas"], jd["oracles"]
     scan_fn = make_segment_scan(tables)
     rows = sum(s.num_docs for s in table)
     seen = set()
@@ -4707,11 +4748,7 @@ def groupby_oracles(c) -> dict:
     out = {"region": oracle_group(c),
            "orderdate": [[int(od[s]), int(k), float(r), int(q), float(p)]
                          for s, k, r, q, p in zip(starts, n, rev, qmin, pmax)][:3000]}
-    k, d = c["lo_suppkey"], c["lo_discount"].astype(np.float64)
-    n, s1, s2 = np.bincount(k), np.bincount(k, d), np.bincount(k, d * d)
-    keys = np.flatnonzero(n)
-    var = s2[keys] / n[keys] - (s1[keys] / n[keys]) ** 2
-    out["suppkey_var"] = [[int(a), float(v)] for a, v in zip(keys, var)][:20000]
+    out["suppkey_var"] = oracle_suppkey_var(c)
     out["custkey"] = oracle_custkey_rows(c)
     from pinot_tpu_torch.ssb import REGIONS
     out["region_distinct"] = []
@@ -5023,6 +5060,10 @@ CLUSTER_PROFILE_TOP = 12         # functions the reduce profile lists
 # the in-process cluster's numbers by query (and "e2e_mix"), which the
 # process_cluster phase prints beside its own
 CLUSTER_NUMBERS: dict = {}
+# the joins through the in-process broker (the funnel path): each leaf scan
+# gathers its rows as tuples on a server, 3.5-5.9 s a run at 16M rows
+CLUSTER_JOIN_QUERIES = ("join_supplier", "semi_in")
+CLUSTER_JOIN_WARM_RUNS = 1
 
 
 def oracle_custkey_group(c):
@@ -5154,6 +5195,58 @@ class RouteLog:
         for sid, segs in calls:
             out.setdefault(sid, []).extend(segs)
         return {sid: sorted(segs) for sid, segs in out.items() if segs}
+
+
+def join_launches(qid: str, segments: int) -> dict:
+    """A join's launches: JOIN_BITMAP's bitmap_filter a lineorder segment and
+    on the dimension table's one segment, nothing else."""
+    per_segment, dimension = JOIN_BITMAP[qid]
+    return counts_of(bitmap_filter=per_segment * segments + dimension)
+
+
+def cluster_joins(args, broker, controller, table, cols, work, launches) -> None:
+    """Phase 17's joins: phase 7's supplier table uploaded to the in-process
+    cluster (replication 2), then CLUSTER_JOIN_QUERIES through
+    `broker.handle_query`: the funnel path (the servers are in-process
+    handles without HTTP endpoints), every run held to its oracle and its
+    launches (`cluster_join`)."""
+    from pinot_tpu_torch.ssb import JOIN_QUERIES
+    from pinot_tpu_torch.table import TableConfig
+    from pinot_tpu_torch.utils.metrics import get_registry
+
+    jd = join_data(args, table, cols, work)
+    controller.add_schema(jd["schemas"]["supplier"])
+    controller.add_table(TableConfig("supplier", replication=CLUSTER_REPLICATION))
+    for seg in jd["tables"]["supplier"]:
+        controller.upload_segment("supplier_OFFLINE", seg.path)
+    reg = get_registry()
+    for qid in CLUSTER_JOIN_QUERIES:
+        want = join_launches(qid, len(table))
+        times, plane = [], reg.counter("pinot_broker_data_plane_bytes").value
+        for _ in range(1 + CLUSTER_JOIN_WARM_RUNS):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = broker.handle_query(JOIN_QUERIES[qid])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = launch_counts()
+            if counts != want:
+                raise AssertionError(f"cluster join {qid}: launches {counts}, expected {want}")
+            for k, v in counts.items():
+                launches[k] += v
+            if not rows_match(res.rows, jd["oracles"][qid], JOIN_RTOL, JOIN_ATOL):
+                raise AssertionError(f"cluster join {qid}: {res.rows}, oracle "
+                                     f"{jd['oracles'][qid]}")
+            if not res.stats.get("multistage") or res.stats.get("mailboxShuffle"):
+                raise AssertionError(f"cluster join {qid}: not the funnel path: {res.stats}")
+        log("cluster_join", query=qid, path="funnel", launches=counts, answer=res.rows[:3],
+            cold_ms=times[0], warm_ms=times[1:], join_strategy=res.stats.get("joinStrategy"),
+            phase_ms=res.stats.get("phaseTimesMs"),
+            join_stats={k: v for k, v in res.stats.items() if k.startswith("join")},
+            data_plane_bytes_a_run=(reg.counter("pinot_broker_data_plane_bytes").value
+                                    - plane) / len(times),
+            p2p_fallbacks=reg.counter("pinot_broker_p2p_fallbacks").value)
+        CLUSTER_NUMBERS[f"funnel_{qid}"] = {"cold_ms": times[0], "warm_ms": times[1:]}
 
 
 def run_cluster(args, table, cols, for_table, work) -> dict:
@@ -5413,6 +5506,8 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
         return n_queries / wall
 
     mix_qps = run_mix()
+    cluster_joins(args, broker, controller, table, cols, work, launches)
+    routes.take()
 
     # failover: server_1 dead, server_0 answers every segment alone
     catalog.set_instance_alive("server_1", False)
@@ -6082,6 +6177,8 @@ PROC_CLUSTER_STARTUP_S = 300.0         # each child imports torch and reaches th
 PROC_CLUSTER_QUERYABLE_S = 300.0       # upload -> every segment answered, at most
 #: the servers' device: the CPU rehearsal points it at "cpu"
 PROC_CLUSTER_DEVICE = "cuda"
+PROC_SHUFFLE_JOIN_WARM_RUNS = 2        # the mailbox shuffle's joins: a cold and 2 warm
+PROC_SHUFFLE_GROUP_WARM_RUNS = 1       # the distributed GROUP BYs: a cold and 1 warm
 
 
 class ServerProbe:
@@ -6109,7 +6206,131 @@ class ServerProbe:
         return out
 
 
-def run_process_cluster(args, table, cols, work) -> dict:
+def oracle_suppkey_var(c) -> list:
+    """GROUPBY_SUPPKEY's rows: VAR_POP(lo_discount) of every lo_suppkey."""
+    k, d = c["lo_suppkey"], c["lo_discount"].astype(np.float64)
+    n, s1, s2 = np.bincount(k), np.bincount(k, d), np.bincount(k, d * d)
+    keys = np.flatnonzero(n)
+    var = s2[keys] / n[keys] - (s1[keys] / n[keys]) ** 2
+    return [[int(a), float(v)] for a, v in zip(keys, var)][:20000]
+
+
+def process_cluster_shuffle(args, pc, probe, table, cols, work, numbers) -> dict:
+    """The multistage data plane over the server processes (the `shuffle`
+    path): phase 7's dimension tables pushed, the four joins on the mailbox
+    shuffle, join_supplier on the funnel path, the two distributed GROUP
+    BYs beside their scatter/gather time. Each run's launches come from the
+    servers' /debug; the broker's fallback counters must stay 0. Returns the
+    checked runs' launches."""
+    from pinot_tpu_torch.cluster.http_service import get_json
+    from pinot_tpu_torch.ssb import JOIN_QUERIES
+    from pinot_tpu_torch.table import TableConfig
+
+    jd = join_data(args, table, cols, work)
+    launches = counts_of()
+    t0 = time.perf_counter()
+    for name in ("supplier", "customer", "region"):
+        pc.controller.add_schema(jd["schemas"][name])
+        pc.controller.add_table(TableConfig(name, replication=PROC_CLUSTER_REPLICATION))
+        for seg in jd["tables"][name]:
+            pc.controller.upload_segment(f"{name}_OFFLINE", seg.path)
+    deadline = time.perf_counter() + PROC_CLUSTER_QUERYABLE_S
+    for name in ("supplier", "customer", "region"):
+        rows = sum(s.num_docs for s in jd["tables"][name])
+        while True:
+            try:
+                res = pc.query(f"SELECT COUNT(*) FROM {name}")
+                if res["resultTable"]["rows"] == [[rows]] and not res["partialResult"]:
+                    break
+            except Exception:   # the broker's mirror not caught up yet: poll
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"process_cluster shuffle: {name} did not answer")
+            time.sleep(0.05)
+    log("process_cluster_shuffle_data", upload_to_queryable_s=time.perf_counter() - t0,
+        rows={k: sum(s.num_docs for s in v) for k, v in jd["tables"].items()})
+
+    def run(label, sql, ok, want_of, mailbox):
+        """One query: the servers' counts set to 0 just before, read just after
+        and held to `want_of(response)`; the answer to `ok`; the route to
+        `mailbox` (the mailbox shuffle, or none)."""
+        probe.reset()
+        t0 = time.perf_counter()
+        res = pc.broker.query(sql, timeout=600.0)
+        ms = (time.perf_counter() - t0) * 1e3
+        if "error" in res:
+            raise AssertionError(f"process_cluster {label}: {res['error']}")
+        counts, want = probe.launches(), want_of(res)
+        if counts != want:
+            raise AssertionError(f"process_cluster {label}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        if not ok(res["resultTable"]["rows"]):
+            raise AssertionError(f"process_cluster {label}: off the oracle: "
+                                 f"{res['resultTable']['rows'][:5]}")
+        if bool(res.get("mailboxShuffle") or res.get("distributedGroupBy")) != mailbox:
+            raise AssertionError(f"process_cluster {label}: route "
+                                 f"{ {k: res.get(k) for k in ('mailboxShuffle', 'distributedGroupBy', 'multistage')} }")
+        return res, ms
+
+    join_keys = ("joinStrategy", "numStageWorkers", "joinBuildMs", "joinProbeMs",
+                 "joinSkewPct", "joinShuffleBytes", "joinServedHostTier")
+    for qid, sql in JOIN_QUERIES.items():
+        want = join_launches(qid, len(table))
+        oracle = jd["oracles"][qid]
+
+        def ok(rows, oracle=oracle):
+            return rows_match(rows, oracle, JOIN_RTOL, JOIN_ATOL)
+        out = [run(qid, sql, ok, lambda r, want=want: want, True)
+               for _ in range(1 + PROC_SHUFFLE_JOIN_WARM_RUNS)]
+        res = out[0][0]
+        log("process_cluster_join", query=qid, path="mailbox", launches=want,
+            answer=res["resultTable"]["rows"][:3], cold_ms=out[0][1],
+            warm_ms=[ms for _, ms in out[1:]], stats={k: res.get(k) for k in join_keys},
+            phase_ms=[r.get("phaseTimesMs") for r, _ in out])
+        numbers[f"join_{qid}"] = statistics.median(ms for _, ms in out[1:])
+    qid = "join_supplier"
+    res, ms = run("join_supplier funnel", JOIN_QUERIES[qid] + " OPTION(useMailboxShuffle=false)",
+                  lambda rows: rows_match(rows, jd["oracles"][qid], JOIN_RTOL, JOIN_ATOL),
+                  lambda r: join_launches(qid, len(table)), False)
+    log("process_cluster_join_funnel", query=qid, path="funnel", ms=ms,
+        answer=res["resultTable"]["rows"][:3], stats={k: res.get(k) for k in join_keys},
+        phase_ms=res.get("phaseTimesMs"), mailbox_ms=numbers["join_join_supplier"])
+
+    custkey, suppkey = oracle_custkey_group(cols), oracle_suppkey_var(cols)
+    group_sql = (("custkey_group", GROUPBY_CUSTKEY, lambda rows: custkey_rows_match(rows, custkey)),
+                 ("suppkey_var", GROUPBY_SUPPKEY, lambda rows: rows_match(rows, suppkey)))
+    for qid, sql, ok in group_sql:
+        out = [run(qid, sql + " OPTION(distributedGroupBy=true)", ok,
+                   lambda r: counts_of(grouped_agg=len(r["leafGroups"])), True)
+               for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS)]
+        if qid not in numbers:   # the scatter/gather answer's time, beside it
+            gather = [run(f"{qid} scatter", sql, ok,
+                          lambda r: counts_of(grouped_agg=r["numServersResponded"]), False)[1]
+                      for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS)]
+            numbers[qid] = statistics.median(gather[1:])
+        res = out[0][0]
+        log("process_cluster_distributed_group_by", query=qid, cold_ms=out[0][1],
+            warm_ms=[ms for _, ms in out[1:]], scatter_gather_warm_median_ms=numbers[qid],
+            answer_rows=len(res["resultTable"]["rows"]), leaf_groups=res.get("leafGroups"),
+            num_stage_workers=res.get("numStageWorkers"),
+            device_routed=res.get("deviceRoutedShuffle", False),
+            phase_ms=[r.get("phaseTimesMs") for r, _ in out],
+            launches=counts_of(grouped_agg=len(res["leafGroups"])))
+    metrics = get_json(f"{pc.broker_url}/debug", timeout=60.0)["brokerMetrics"]
+    fallbacks = {k: metrics.get(k, 0) for k in ("pinot_broker_p2p_fallbacks",
+                                                "pinot_broker_stage_dispatch_failures")}
+    servers = {sid: {k: v for k, v in d["serverMetrics"].items()
+                     if "mailbox" in k or "join_stages" in k}
+               for sid, d in probe.debug().items()}
+    log("process_cluster_shuffle", launches=launches, broker_counters=fallbacks,
+        data_plane_bytes=metrics.get("pinot_broker_data_plane_bytes", 0), servers=servers)
+    if any(fallbacks.values()):
+        raise AssertionError(f"process_cluster shuffle: the broker fell back: {fallbacks}")
+    return launches
+
+
+def run_process_cluster(args, table, cols, work) -> tuple:
     """Phase 19: the roles as OS processes joined over HTTP. A ProcessCluster:
     a controller process, PROC_CLUSTER_SERVERS server processes each owning
     the card through a DeviceQueryPipeline (`server.device.enabled`) and a
@@ -6127,8 +6348,10 @@ def run_process_cluster(args, table, cols, work) -> dict:
     through a second broker process started with `broker.mux.enabled=false`
     (`process_cluster_pipeline`); each process's device memory
     (`process_cluster_memory`); server_1 SIGKILLed, Q1.1 and GROUP_QUERY exact
-    from server_0 (`process_cluster_failover`). Returns the launches of the
-    checked runs and the mix (read from the server processes)."""
+    from server_0 (`process_cluster_failover`). Before the memory line, the
+    multistage data plane (`process_cluster_shuffle`). Returns the launches
+    of the checked runs and the mix, and those of the shuffle path's runs
+    (read from the server processes)."""
     import threading
 
     from pinot_tpu_torch.cluster.http_service import get_json
@@ -6338,6 +6561,7 @@ def run_process_cluster(args, table, cols, work) -> dict:
             time.sleep(0.05)
         mix_numbers["legacy"] = run_mix("legacy", legacy)
         mix_numbers["legacy"]["broker_start_s"] = legacy_start_s
+        shuffle_launches = process_cluster_shuffle(args, pc, probe, table, cols, work, numbers)
 
         debug = probe.debug()
         memory = {sid: d["deviceMemory"] for sid, d in debug.items()}
@@ -6370,7 +6594,7 @@ def run_process_cluster(args, table, cols, work) -> dict:
                                    if "warm_median_ms" in v},
         mix=mix_numbers, in_process_mix=CLUSTER_NUMBERS.get("e2e_mix"),
         failover_s=failover_s, memory=memory)
-    return launches
+    return launches, shuffle_launches
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -6468,7 +6692,8 @@ def main() -> int:
         return out
 
     try:
-        path_launches, table, cols, for_table = phase("path", run_path, args, work)
+        path_launches, table, cols, for_table = phase("path", run_path, args, work,
+                                                      build_pool)
         # the worker builds start once phase 4's table is built: beside it
         # they slowed its single-process build by up to 80%
         index_job = build_pool.submit(build_index_table, args.rows, args.seed,
@@ -6519,9 +6744,11 @@ def main() -> int:
         groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
         cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
         realtime_cluster_launches = phase("realtime_cluster", run_realtime_cluster, args, work)
-        process_cluster_launches = phase("process_cluster", run_process_cluster, args, table,
-                                         cols, work)
+        process_cluster_launches, shuffle_launches = phase(
+            "process_cluster", run_process_cluster, args, table, cols, work)
         missing = [k for k in ("masked_sums", "grouped_agg") if not process_cluster_launches[k]]
+        missing += [f"{k} (shuffle)" for k in ("bitmap_filter", "grouped_agg")
+                    if not shuffle_launches[k]]
         if missing:
             raise AssertionError(f"the process_cluster phase launched no {missing} in its "
                                  "server processes")
@@ -6545,7 +6772,8 @@ def main() -> int:
                 "batch": batch_launches[name], "groupby": groupby_launches[name],
                 "cluster": cluster_launches[name],
                 "realtime_cluster": realtime_cluster_launches[name],
-                "process_cluster": process_cluster_launches[name]}
+                "process_cluster": process_cluster_launches[name],
+                "shuffle": shuffle_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)

@@ -10,13 +10,15 @@ partials through the per-segment executor or the serving pipeline,
 scatter/gather with retries, reduce), the realtime lifecycle (`completion.py`:
 the LLC segment manager and the segment completion protocol, with the
 servers' `ingest/realtime.py` consumers) and `QuickCluster`, which wires
-them in one process. Offline, realtime and hybrid tables and single-stage
-queries. The roles also run as OS processes joined over HTTP (`process.py`,
-`ProcessCluster`, for offline tables): `services.py` puts each role behind
-its endpoints, `remote.py` mirrors the catalog and dispatches to servers,
-`wire.py` is the binary codec and `mux.py` the multiplexed transport, over
-`http_service.py`. What waits (joins through the broker, realtime tables over
-processes and the peer download scheme, the HBM gate and its tiers, the
+them in one process. Offline, realtime and hybrid tables, single-stage
+queries, and joins, IN-subqueries and the distributed GROUP BY through the
+broker (the mailbox shuffle of `multistage/shuffle.py` between server
+processes, else the funnel path). The roles also run as OS processes joined
+over HTTP (`process.py`, `ProcessCluster`, for offline tables): `services.py`
+puts each role behind its endpoints, `remote.py` mirrors the catalog and
+dispatches to servers, `wire.py` is the binary codec and `mux.py` the
+multiplexed transport, over `http_service.py`. What waits (realtime tables
+over processes and the peer download scheme, the HBM gate and its tiers, the
 minion) is listed in ROADMAP.md.
 """
 

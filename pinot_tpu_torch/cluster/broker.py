@@ -35,9 +35,23 @@ returns a Future that holds no scatter thread for the round trip; any other
 handle (an in-process server, or a remote one on the legacy POST /query)
 takes one scatter-pool thread a call.
 
-Joins and IN-subqueries (the multistage route), the distributed GROUP BY and
-the workload registry wait: they raise NotImplementedError (ROADMAP.md queue
-1).
+Joins and IN-subqueries take the multistage route (`_handle_multistage`):
+when every routed server has an HTTP endpoint, the peer-to-peer mailbox
+shuffle (`multistage/shuffle.py`: the leaves partition on the servers and
+stream straight into the stage workers' mailboxes, the broker receives only
+final-stage partials); otherwise, or under OPTION(useMailboxShuffle=false),
+the funnel path: `execute_multistage` over leaf scans scattered to the
+servers, each partition joined on a server through its stage handle
+(`POST /stage`) or, when none is wired or a dispatch fails, here on the
+broker's device (`device`: CUDA unless the caller passes "cpu"), under the
+data-plane cap `broker.maxDataPlaneBytes`. `IN_SUBQUERY(col, 'SELECT
+IDSET(...) ...')` runs its inner query first and splices the id set in. A
+GROUP BY asked for with OPTION(distributedGroupBy / useMultistageEngine), or
+past `broker.distributedGroupByDocThreshold` docs, merges disjoint key ranges
+on the servers (`coordinate_groupby`). Each degradation counts:
+`pinot_broker_p2p_fallbacks`, `pinot_broker_stage_dispatch_failures`,
+`pinot_broker_data_plane_bytes`. The workload registry waits (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -55,7 +69,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from ..query import stats as qstats
 from ..query.aggregates import make_agg
-from ..query.context import QueryValidationError, compile_query
+from ..query.context import QueryContext, QueryValidationError, compile_query
 from ..query.explain import ANALYZE_COLUMNS, annotate_plan_rows, explain_result
 from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
 from ..query.result import ResultTable
@@ -71,12 +85,6 @@ from .routing import PRUNE_ROWS_AVOIDED, PRUNER_KINDS, RoutingManager
 
 # server handle: execute_partial(table, ctx, segment_names, time_filter) -> SegmentResult
 ServerHandle = Callable[..., SegmentResult]
-
-MULTISTAGE_WAITS = ("joins and IN-subqueries through the broker wait for the mailbox "
-                    "shuffle (multistage/shuffle.py): ROADMAP.md queue 1; "
-                    "pinot_tpu_torch.multistage.execute_multistage runs them over "
-                    "loaded segments")
-
 
 class FailureDetector:
     """Re-probes unhealthy servers with exponential backoff (the reference's
@@ -222,15 +230,26 @@ class Broker:
     RETRY_DEFER_CAP_S = 0.5
     SLOW_QUERY_LOGGER = "pinot_tpu_torch.broker.slow_query"
 
-    def __init__(self, instance_id: str, catalog: Catalog, max_scatter_threads: int = 8):
+    def __init__(self, instance_id: str, catalog: Catalog, max_scatter_threads: int = 8,
+                 device=None):
         self.instance_id = instance_id
         self.catalog = catalog
+        # where a funnel-path join partition runs when it runs here (CUDA
+        # unless the caller names another), resolved when one does
+        self.device = device
         self.routing = RoutingManager(catalog)
         self._servers: Dict[str, ServerHandle] = {}
         self._explain: Dict[str, Callable] = {}
+        self._stage: Dict[str, Callable] = {}
+        self._urls: Dict[str, str] = {}   # server -> HTTP endpoint (the mailbox shuffle)
         self._pool = ThreadPoolExecutor(max_workers=max_scatter_threads,
                                         thread_name_prefix=f"{instance_id}-scatter")
+        # the dispatch timeout of a scatter round and of a shuffle's stage
         self.stage_timeout_s = 120.0
+        # the funnel path's cap on inter-stage bytes buffered here (None: the
+        # cluster's `broker.maxDataPlaneBytes`, else uncapped); the mailbox
+        # shuffle buffers none here
+        self.max_data_plane_bytes: Optional[int] = None
         # queries over `broker.slow.query.ms` log one JSON line and land here
         self._recent_slow: deque = deque(maxlen=32)
         self._query_rollup: Dict[str, float] = {"numQueries": 0, "numExceptions": 0,
@@ -250,14 +269,25 @@ class Broker:
         catalog.register_instance(InstanceInfo(instance_id, "broker"))
 
     def register_server_handle(self, server_id: str, handle: ServerHandle,
-                               explain_handle=None, probe=None) -> None:
+                               explain_handle=None, probe=None, stage_handle=None,
+                               url: Optional[str] = None) -> None:
         """Wire a server's `execute_partial`; `explain_handle(table, ctx,
         segments) -> rows` serves EXPLAIN; `probe() -> bool` lets the failure
-        detector bring the server back after a transport failure."""
+        detector bring the server back after a transport failure;
+        `stage_handle(spec, left, right, agg=None) -> block | SegmentResult`
+        runs one funnel-path join partition on the server (the partial GROUP
+        BY too when `agg` is given); `url` is its HTTP endpoint: when every
+        routed server has one, joins take the mailbox shuffle."""
         with self._lock:
             self._servers[server_id] = handle
             if explain_handle is not None:
                 self._explain[server_id] = explain_handle
+            if stage_handle is not None:
+                self._stage[server_id] = stage_handle
+            if url is not None:
+                self._urls[server_id] = url.rstrip("/")
+            else:
+                self._urls.pop(server_id, None)
         if probe is not None:
             self.failure_detector.register_probe(server_id, probe)
         self.failure_detector.notify_healthy(server_id)
@@ -268,6 +298,8 @@ class Broker:
         with self._lock:
             self._servers.pop(server_id, None)
             self._explain.pop(server_id, None)
+            self._stage.pop(server_id, None)
+            self._urls.pop(server_id, None)
         self.failure_detector.remove(server_id)
         self.routing.mark_server_unhealthy(server_id)
         emit_event("server.unregistered", node=self.instance_id, server=server_id)
@@ -286,6 +318,7 @@ class Broker:
                 if stmt is None:
                     from ..sql.parser import parse_query
                     stmt = parse_query(sql)
+                stmt = self._rewrite_subqueries(stmt)
                 table = stmt.table
                 trace_on = _truthy(stmt.options.get("trace"))
                 with tracing.request_trace(True) as tr:
@@ -293,8 +326,10 @@ class Broker:
                         self._cluster_float("broker.trace.sample.rate") or 0.0)
                     from ..multistage.planner import stmt_has_in_subquery
                     if stmt.joins or stmt_has_in_subquery(stmt):
-                        raise NotImplementedError(MULTISTAGE_WAITS)
-                    result = self._handle_single(stmt, t0)
+                        result = (self._explain_multistage(stmt) if stmt.explain
+                                  else self._handle_multistage(stmt))
+                    else:
+                        result = self._handle_single(stmt, t0)
                     if trace_on:
                         result.stats["traceInfo"] = tr.to_rows()
                     result.stats["traceId"] = tr.trace_id
@@ -471,9 +506,15 @@ class Broker:
                 self.quota.refund(t)
             raise
         if self._should_distribute_groupby(ctx, physical):
-            raise NotImplementedError(
-                "the distributed GROUP BY waits for the mailbox shuffle "
-                "(multistage/shuffle.py): ROADMAP.md queue 1")
+            from ..multistage.shuffle import P2PUnavailable, coordinate_groupby
+            try:
+                result = coordinate_groupby(self, ctx, physical, self._num_partitions(stmt))
+                result.stats["timeUsedMs"] = round((time.perf_counter() - t0) * 1000, 3)
+                return result
+            except P2PUnavailable:
+                # in-process handles, or workers out of routing: the scatter
+                # path's merge answers (correct, not distributed), counted
+                get_registry().counter("pinot_broker_p2p_fallbacks").inc()
 
         aggs = [make_agg(f) for f in ctx.aggregations]
         group_exprs = [e for e, _ in ctx.select_items] if ctx.distinct else list(ctx.group_by)
@@ -591,17 +632,18 @@ class Broker:
     def stream_query(self, sql: str, stmt=None):
         """Yields ("schema", columns) once, then ("rows", batch) a server
         partial at a time (the reference's streaming selection). Only a plain
-        selection streams; any other query is answered whole, as one batch.
+        selection streams; any other query (a join or an IN-subquery too) is
+        answered whole, as one batch.
         A segment no replica serves ends the export with an error."""
         from ..sql.parser import parse_query
         if stmt is None:
             stmt = parse_query(sql)
+        stmt = self._rewrite_subqueries(stmt)
         from ..multistage.planner import stmt_has_in_subquery
-        if stmt.joins or stmt_has_in_subquery(stmt):
-            raise NotImplementedError(MULTISTAGE_WAITS)
-        probe = compile_query(stmt)
-        if probe.is_aggregation_query or probe.distinct or probe.order_by or probe.offset \
-                or probe.explain:
+        multistage = bool(stmt.joins) or stmt_has_in_subquery(stmt)
+        probe = None if multistage else compile_query(stmt)
+        if multistage or probe.is_aggregation_query or probe.distinct or probe.order_by \
+                or probe.offset or probe.explain:
             result = self.handle_query(sql, stmt=stmt)
             yield ("schema", result.columns)
             if result.rows:
@@ -952,6 +994,306 @@ class Broker:
         res.stats["analyze"] = True
         return res
 
+    # -- the multistage half ----------------------------------------------
+    def _rewrite_subqueries(self, stmt):
+        """`IN_SUBQUERY(expr, 'inner sql')`: the inner query runs through this
+        broker and its serialized id set is spliced in as `IN_ID_SET(expr,
+        '...')` (reference: BaseBrokerRequestHandler's subquery recursion; the
+        inner query must give one IDSET(...) value). Nested subqueries resolve
+        as each handle_query rewrites its own statement. The `x IN (SELECT
+        ...)` form stays: the multistage planner lowers it to a SEMI join. The
+        rewritten statement's SQL text is regenerated, since a remote server
+        recompiles its partial from the text."""
+        from ..sql.ast import Subquery, walk
+
+        def rw(e):
+            if not isinstance(e, Function):
+                return e
+            if e.name in ("in_subquery", "in_partitioned_subquery"):
+                if len(e.args) == 2 and isinstance(e.args[1], Subquery):
+                    return e
+                if len(e.args) != 2 or not isinstance(e.args[1], Literal):
+                    raise QueryValidationError(f"IN_SUBQUERY(expr, 'sql') expected: {e!r}")
+                sub = self.handle_query(str(e.args[1].value))
+                if len(sub.rows) != 1 or len(sub.rows[0]) != 1 \
+                        or not isinstance(sub.rows[0][0], str):
+                    raise QueryValidationError(
+                        "IN_SUBQUERY inner query must return exactly one serialized "
+                        "id-set (use IDSET(col))")
+                return Function("in_id_set", (rw(e.args[0]), Literal(sub.rows[0][0])))
+            return Function(e.name, tuple(rw(a) for a in e.args))
+
+        if stmt.where is None or not any(
+                isinstance(n, Function) and n.name in ("in_subquery", "in_partitioned_subquery")
+                for n in walk(stmt.where)):
+            return stmt
+        out = dataclasses.replace(stmt, where=rw(stmt.where))
+        if not out.joins:
+            out.raw = _statement_sql(out)
+        return out
+
+    def _schema_for(self, raw_table: str):
+        phys = self._physical_tables(raw_table)
+        return self.catalog.schema_for_table(phys[0]) if phys else None
+
+    def _explain_multistage(self, stmt) -> ResultTable:
+        """EXPLAIN of a join query: the stage plan, not run (reference: the v2
+        engine's logical stage tree), each join with the strategy the catalog's
+        metadata chooses."""
+        from ..multistage.planner import choose_join_strategy, plan_multistage
+        from ..multistage.shuffle import _broadcast_max_bytes
+        plan = plan_multistage(stmt, self._schema_for)
+
+        def est_bytes(alias: str) -> int:
+            scan = plan.scans[alias]
+            docs = sum(int(getattr(m, "num_docs", 0))
+                       for t in self._physical_tables(scan.table)
+                       for m in self.catalog.segments.get(t, {}).values())
+            return docs * max(1, len(scan.columns)) * 8
+
+        bmax = _broadcast_max_bytes(self)
+        rows: List[list] = [["MULTISTAGE_REDUCE", 0, -1]]
+        parent = 0
+        for j in reversed(plan.joins):
+            keys = ", ".join(f"{lk}={rk}" for lk, rk in zip(j.left_keys, j.right_keys))
+            strategy = choose_join_strategy(j.join_type, est_bytes(j.right_alias), bmax)
+            rows.append([f"HASH_JOIN(type:{j.join_type}; keys:[{keys}]; "
+                         f"strategy:{strategy})", len(rows), parent])
+            parent = len(rows) - 1
+        for alias in [plan.base_alias] + [j.right_alias for j in plan.joins]:
+            scan = plan.scans[alias]
+            label = f"TABLE_SCAN(table:{scan.table}; alias:{alias}"
+            if scan.filter is not None:
+                label += f"; pushdownFilter:{to_sql(scan.filter)}"
+            rows.append([label + ")", len(rows), parent])
+        return ResultTable(["Operator", "Operator_Id", "Parent_Id"], rows, {"explain": True})
+
+    def _num_partitions(self, stmt) -> int:
+        """The shuffle's width: OPTION(numPartitions / stageParallelism), else
+        the runtime's DEFAULT_PARTITIONS."""
+        from ..multistage.runtime import DEFAULT_PARTITIONS
+        num_partitions = DEFAULT_PARTITIONS
+        for key, v in (stmt.options or {}).items():
+            if key.lower() in ("numpartitions", "stageparallelism"):
+                try:
+                    num_partitions = max(1, int(v))
+                except (TypeError, ValueError):
+                    raise QueryValidationError(
+                        f"OPTION({key}=...) must be an integer, got {v!r}") from None
+        return num_partitions
+
+    def _stage_workers(self, p: int) -> List[Tuple[str, str]]:
+        """Exactly p (server, url) worker slots, round-robin over the healthy
+        servers that have an HTTP endpoint (reference: the v2 dispatcher's
+        worker assignment)."""
+        from ..multistage.shuffle import P2PUnavailable
+        unhealthy = self.routing.unhealthy_servers()
+        with self._lock:
+            cands = sorted((sid, u) for sid, u in self._urls.items()
+                           if sid in self._servers and sid not in unhealthy)
+        if not cands:
+            raise P2PUnavailable("no HTTP-reachable stage workers")
+        return [cands[i % len(cands)] for i in range(p)]
+
+    def _route_leaf_table(self, table: str, ctx, boundary, routes: list) -> None:
+        """One physical table's leaf routes: full coverage, an HTTP endpoint
+        a routed server, a LeafRoute each (appended to `routes`)."""
+        from ..multistage.shuffle import LeafRoute, P2PUnavailable
+        tf_expr = _boundary_expr(boundary, table)
+        tf = to_sql(tf_expr) if tf_expr is not None else None
+        unroutable: List[str] = []
+        routing = self.routing.route_query(table, ctx, extra_filter=tf_expr,
+                                           uncovered=unroutable)
+        if unroutable:
+            raise RuntimeError(f"distributed scan incomplete: segments "
+                               f"{sorted(unroutable)} have no healthy replica")
+        for server_id, segments in routing.items():
+            url = self._urls.get(server_id)
+            if url is None:
+                raise P2PUnavailable(f"server {server_id} has no HTTP endpoint")
+            if segments:
+                routes.append(LeafRoute(server_id, url, table, list(segments), tf))
+
+    def _leaf_routes(self, raw_table: str, columns, filt):
+        """A join scan's leaf routes. No quota here: the coordinator takes it
+        once every alias routed, so a fallback never charges a table twice."""
+        physical = self._physical_tables(raw_table)
+        if not physical:
+            raise QueryValidationError(f"unknown table {raw_table!r}")
+        boundary = self._time_boundary(physical)
+        routes: list = []
+        for table in physical:
+            ctx = _leaf_ctx(table, columns, filt)
+            self._route_leaf_table(table, ctx, boundary, routes)
+        return routes
+
+    def _acquire_scan_quota(self, raw_tables) -> None:
+        """One QPS-quota acquisition a logical table (the funnel path's
+        accounting)."""
+        for raw in raw_tables:
+            if not self.quota.try_acquire_all(self._physical_tables(raw)):
+                raise QueryRejectedError(f"table {raw!r} exceeded its query quota")
+
+    def _leaf_routes_groupby(self, ctx, physical: List[str]):
+        """A distributed GROUP BY's leaf routes."""
+        boundary = self._time_boundary(physical)
+        routes: list = []
+        for table in physical:
+            self._route_leaf_table(table, ctx, boundary, routes)
+        return routes
+
+    def _post_leaf_task(self, url: str, path: str, task) -> Dict:
+        from .http_service import http_call
+        from .wire import decode_value, encode_value
+        return decode_value(http_call("POST", f"{url}/{path}", encode_value(task),
+                                      timeout=self.stage_timeout_s,
+                                      content_type="application/octet-stream"))
+
+    def _data_plane_cap(self) -> Optional[int]:
+        cap = self.max_data_plane_bytes
+        if cap is None:
+            prop = self.catalog.get_property("clusterConfig/broker.maxDataPlaneBytes")
+            cap = int(prop) if prop else None
+        return cap
+
+    def _handle_multistage(self, stmt) -> ResultTable:
+        """A join query: the peer-to-peer mailbox shuffle when every routed
+        server is HTTP-reachable (inter-stage data streams server to server,
+        the broker receives only final-stage partials); otherwise the funnel
+        path, `execute_multistage` over a scatter-based leaf scan, whose rows
+        this broker buffers under the data-plane cap."""
+        from ..multistage.runtime import (configure_device_join, execute_multistage,
+                                          run_join_stage)
+        from ..multistage.shuffle import P2PUnavailable, _broadcast_max_bytes, coordinate_join
+        from ..query.executor import resolve_device
+
+        # `server.join.device.enabled`: operators can send every join's build
+        # and probe to the host fleet-wide without restarting a server
+        dev_knob = self.catalog.get_property("clusterConfig/server.join.device.enabled")
+        if dev_knob is not None:
+            configure_device_join(enabled=str(dev_knob).strip().lower()
+                                  not in ("false", "0", "no", "off"))
+        opt = {str(k).lower(): v for k, v in (stmt.options or {}).items()}
+        if "usemailboxshuffle" not in opt or _truthy(opt["usemailboxshuffle"]):
+            try:
+                return coordinate_join(self, stmt, self._num_partitions(stmt))
+            except P2PUnavailable:
+                # in-process handles, or a server without an endpoint: the
+                # funnel path, counted
+                get_registry().counter("pinot_broker_p2p_fallbacks").inc()
+
+        device = resolve_device(self.device)
+
+        def stage_runner():
+            """Round-robin dispatch of join (and partial-aggregation)
+            partitions to the healthy servers' stage handles; a partition runs
+            here, on the broker's device, when none is wired or its dispatch
+            fails (counted; a transport failure takes the server out of
+            routing and out of this query's rotation; a query error raises
+            again from the local run)."""
+            import itertools
+            unhealthy = self.routing.unhealthy_servers()
+            with self._lock:
+                workers = [(sid, h) for sid, h in self._stage.items() if sid not in unhealthy]
+            if not workers:
+                return None
+            rr = itertools.count()
+            lock = threading.Lock()
+
+            def run(spec, lp, rp, agg=None):
+                with lock:
+                    pool = list(workers)
+                if not pool:
+                    return run_join_stage(spec, lp, rp, agg, device=device)
+                sid, h = pool[next(rr) % len(pool)]
+                try:
+                    return h(spec, lp, rp, agg)
+                except Exception as e:
+                    get_registry().counter("pinot_broker_stage_dispatch_failures").inc()
+                    if _is_transport_failure(e):
+                        self.routing.mark_server_unhealthy(sid)
+                        self.failure_detector.notify_unhealthy(sid)
+                        with lock:
+                            workers[:] = [(s, hh) for s, hh in workers if s != sid]
+                    return run_join_stage(spec, lp, rp, agg, device=device)
+            return run
+
+        # the funnel path holds every leaf row here: meter it, under the cap
+        moved = {"bytes": 0}
+        cap = self._data_plane_cap()
+
+        def account(nbytes: int) -> None:
+            moved["bytes"] += nbytes
+            get_registry().counter("pinot_broker_data_plane_bytes").inc(nbytes)
+            if cap is not None and moved["bytes"] > cap:
+                raise RuntimeError(
+                    f"broker data-plane memory cap exceeded ({moved['bytes']} > {cap} bytes "
+                    f"buffered at the broker); run servers with HTTP endpoints so the "
+                    f"mailbox shuffle streams inter-stage data server to server")
+
+        def scan(raw_table: str, columns, filt, derived=None):
+            # `filt` already holds the build-key filter `derived`
+            import numpy as np
+            from ..sql.ast import _sql_ident
+            if not self.quota.try_acquire_all(self._physical_tables(raw_table)):
+                raise QueryRejectedError(f"table {raw_table!r} exceeded its query quota")
+            schema = self._schema_for(raw_table)
+            rows: List[tuple] = []
+            # SQL that a remote server recompiles, identifiers quoted as needed
+            leaf_sql = (f"SELECT {', '.join(_sql_ident(c) for c in columns)} "
+                        f"FROM {_sql_ident(raw_table)}")
+            if filt is not None:
+                leaf_sql += f" WHERE {to_sql(filt)}"
+            leaf_sql += f" LIMIT {UNBOUNDED_LIMIT}"
+            physical = self._physical_tables(raw_table)
+            boundary = self._time_boundary(physical)
+            for table in physical:
+                ctx = dataclasses.replace(_leaf_ctx(table, columns, filt), sql=leaf_sql)
+                tf_expr = _boundary_expr(boundary, table)
+                tf = to_sql(tf_expr) if tf_expr is not None else None
+                futures = {}
+                for server_id, segments in self.routing.route_query(
+                        table, ctx, extra_filter=tf_expr).items():
+                    handle = self._servers.get(server_id)
+                    if handle is None:
+                        continue
+                    futures[self._dispatch_partial(handle, server_id, None, table, ctx,
+                                                   segments, tf)] = server_id
+                try:
+                    for fut in as_completed(futures, timeout=self.stage_timeout_s):
+                        server_id = futures[fut]
+                        try:
+                            partial = fut.result()
+                        except Exception as e:
+                            if _is_transport_failure(e):
+                                self.routing.mark_server_unhealthy(server_id)
+                                self.failure_detector.notify_unhealthy(server_id)
+                            raise
+                        account(len(partial.rows) * max(1, len(columns)) * 16)
+                        rows.extend(partial.rows)
+                except FutureTimeoutError:
+                    # a leaf scan cannot be partial: the stragglers leave routing
+                    for f, server_id in futures.items():
+                        if not f.done():
+                            self.routing.mark_server_unhealthy(server_id)
+                            self.failure_detector.notify_unhealthy(server_id)
+                    raise
+            out = {}
+            for j, c in enumerate(columns):
+                vals = [r[j] for r in rows]
+                dt = schema.field_spec(c).data_type
+                out[c] = (np.asarray(vals, dtype=dt.numpy_dtype) if dt.is_numeric
+                          else np.asarray(vals, dtype=object))
+            return out
+
+        scan.device = device
+        # the shuffle's width is a query option (reference: the v2 engine's
+        # stage parallelism)
+        return execute_multistage(stmt, scan, self._schema_for,
+                                  num_partitions=self._num_partitions(stmt),
+                                  stage_runner=stage_runner(),
+                                  broadcast_max_bytes=_broadcast_max_bytes(self))
+
     # -- physical tables --------------------------------------------------
     def _physical_tables(self, raw_table: str) -> List[str]:
         """A logical name's physical tables: a hybrid table has both halves."""
@@ -977,6 +1319,35 @@ class Broker:
                 if m.end_time_ms is not None
                 and any(st == ONLINE for st in ev.get(name, {}).values())]
         return (cfg.time_column, max(ends)) if ends else None
+
+
+def _statement_sql(stmt) -> str:
+    """A single-table statement's SQL text, its OPTION clause and EXPLAIN
+    prefix included."""
+    import re
+
+    from ..sql.ast import _sql_literal, statement_to_sql
+
+    def value(v) -> str:
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (int, float)) or re.fullmatch(r"[A-Za-z0-9_.]+", str(v)):
+            return str(v)
+        return _sql_literal(str(v))
+    sql = statement_to_sql(stmt)
+    if stmt.options:
+        sql += " OPTION(" + ", ".join(f"{k}={value(v)}" for k, v in stmt.options.items()) + ")"
+    if stmt.analyze:
+        return "EXPLAIN ANALYZE " + sql
+    return "EXPLAIN PLAN FOR " + sql if stmt.explain else sql
+
+
+def _leaf_ctx(table: str, columns, filt) -> QueryContext:
+    """A multistage leaf scan as a selection context: the columns, the
+    pushed-down filter, no limit."""
+    return QueryContext(table=table, select_items=[(Identifier(c), c) for c in columns],
+                        filter=filt, group_by=[], aggregations=[], having=None, order_by=[],
+                        limit=UNBOUNDED_LIMIT, offset=0, distinct=False)
 
 
 def _record_prune_stats(exec_stats, prune_counts: Dict[str, float]) -> None:

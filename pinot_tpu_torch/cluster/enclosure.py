@@ -12,11 +12,14 @@ the broker. A hybrid table is an OFFLINE and a REALTIME table of one name,
 which the broker splits at the time boundary. `run_minion_round` raises NotImplementedError: the minion
 waits (ROADMAP.md queue 1).
 
-`device` is every server's device (CUDA unless the caller passes "cpu";
-without a card the cluster raises RuntimeError). The servers run the
-per-segment executor, as the JAX package's `QuickCluster` does (a server
-on the serving pipeline is a `ServerNode` with `device_pipeline=`, registered
-on the broker). `shutdown` stops the servers.
+`device` is every server's device and the broker's (CUDA unless the caller
+passes "cpu"; without a card the cluster raises RuntimeError). The servers
+run the per-segment executor, as the JAX package's `QuickCluster` does (a
+server on the serving pipeline is a `ServerNode` with `device_pipeline=`,
+registered on the broker). A join or an IN-subquery takes the broker's
+funnel path (its servers are in-process handles, without HTTP endpoints):
+the leaf scans scatter to the servers and every partition joins on the
+broker's device. `shutdown` stops the servers.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ class QuickCluster:
                        os.path.join(self.work_dir, f"server_{i}"), device=device,
                        completion=self.controller.llc)
             for i in range(num_servers)]
-        self.broker = Broker("broker_0", self.catalog)
+        self.broker = Broker("broker_0", self.catalog, device=device)
         for s in self.servers:
             self.broker.register_server_handle(s.instance_id, s.execute_partial,
                                                explain_handle=s.explain_partial)

@@ -535,10 +535,11 @@ class PooledStream:
     response returns its connection to the pool on exit; anything else (early
     exit, error, Connection: close) closes the socket."""
 
-    def __init__(self, conn, resp, key: Tuple[str, str, int]):
+    def __init__(self, conn, resp, key: Tuple[str, str, int], reusable: bool = True):
         self._conn = conn
         self._resp = resp
         self._key = key
+        self._reusable = reusable
 
     def read(self, n: int = -1) -> bytes:
         return self._resp.read(n)
@@ -547,7 +548,7 @@ class PooledStream:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        if exc_type is None and self._resp.isclosed() and \
+        if exc_type is None and self._reusable and self._resp.isclosed() and \
                 not self._resp.will_close:
             _POOL.put(*self._key, self._conn)
         else:
@@ -555,14 +556,16 @@ class PooledStream:
         return False
 
 
-def http_stream(method: str, url: str, body: Optional[bytes] = None,
-                timeout: float = 30.0,
+def http_stream(method: str, url: str, body=None, timeout: float = 30.0,
                 content_type: str = "application/octet-stream",
                 token: Optional[str] = None) -> PooledStream:
     """Open one pooled exchange and hand back the UNREAD response as a
     `PooledStream` (callers parse frame-structured bodies incrementally).
-    Same keep-alive staleness retry and error taxonomy as `http_call`:
-    >=300 raises HttpError, transport failures raise ConnectionError."""
+    `body` is bytes, or an iterable of byte chunks sent as a chunked request
+    body (a peer's mailbox stream) on a fresh connection: a generator cannot
+    be replayed on a stale one. Same keep-alive staleness retry and error
+    taxonomy as `http_call`: >=300 raises HttpError, transport failures raise
+    ConnectionError."""
     headers = {"Content-Type": content_type}
     bearer = token if token is not None else _DEFAULT_TOKEN
     if bearer:
@@ -573,10 +576,15 @@ def http_stream(method: str, url: str, body: Optional[bytes] = None,
     port = parsed.port or (443 if scheme == "https" else 80)
     path = parsed.path + (f"?{parsed.query}" if parsed.query else "")
     import http.client as _hc
+    streamed = body is not None and not isinstance(body, (bytes, bytearray, memoryview))
     for attempt in (0, 1):
-        conn, reused = _POOL.get(scheme, host, port, timeout)
+        if streamed:
+            conn, reused = open_client_connection(scheme, host, port, timeout), False
+        else:
+            conn, reused = _POOL.get(scheme, host, port, timeout)
         try:
-            conn.request(method, path, body=body, headers=headers)
+            # an iterable body goes chunked (http.client adds the header)
+            conn.request(method, path, body=body, headers=headers, encode_chunked=streamed)
             resp = conn.getresponse()
         except Exception as e:
             conn.close()
@@ -595,7 +603,9 @@ def http_stream(method: str, url: str, body: Optional[bytes] = None,
             data = resp.read()
             conn.close()
             raise HttpError(resp.status, data.decode(errors="replace"))
-        return PooledStream(conn, resp, (scheme, host, port))
+        # a streamed-body route closes its connection after the response
+        # (without saying so in a header): never pool it
+        return PooledStream(conn, resp, (scheme, host, port), reusable=not streamed)
     raise ConnectionError(f"{method} {url}: unreachable")   # pragma: no cover
 
 

@@ -10,8 +10,11 @@ store and runs the periodic tasks; server and broker processes join through
 
 A server process runs on CUDA unless it is started with `--device cpu`: it
 owns the card through its `DeviceQueryPipeline` (`server.device.enabled`)
-or through the per-segment executor. Started for CUDA on a machine without
-a card it exits non-zero at start; it never becomes a CPU server.
+or through the per-segment executor, and runs its join stages there.
+Started for CUDA on a machine without a card it exits non-zero at start; it
+never becomes a CPU server. A broker process takes `--device` too: where a
+funnel-path join partition runs when it runs on the broker (resolved when
+one does).
 
 `ProcessCluster` is the harness that starts the processes (new interpreters
 through `subprocess`, never a fork of a parent that may hold a CUDA
@@ -165,7 +168,7 @@ def run_server(controller_url: str, instance_id: str, work_dir: str, run_dir: st
 
 
 def run_broker(controller_url: str, instance_id: str, run_dir: str, port: int = 0,
-               config_path: str = "") -> None:
+               config_path: str = "", device: str = "cuda") -> None:
     _block_stop_signals()
     from .broker import Broker
     from .remote import RemoteCatalog
@@ -175,7 +178,8 @@ def run_broker(controller_url: str, instance_id: str, run_dir: str, port: int = 
     ssl_ctx = _setup_tls(cfg)
     catalog = RemoteCatalog(controller_url)
     broker = Broker(instance_id, catalog,
-                    max_scatter_threads=cfg.get_int("broker.scatter.threads", 8))
+                    max_scatter_threads=cfg.get_int("broker.scatter.threads", 8),
+                    device=device)
     svc = BrokerService(broker, port=cfg.get_int("broker.port", 0),
                         access_control=access_control, ssl_context=ssl_ctx)
     _write_ready(run_dir, instance_id, {"url": svc.url})
@@ -212,7 +216,8 @@ def run_service_manager(work_dir: str, run_dir: str, port: int = 0, config_path:
                          access_control=access_control, ssl_context=ssl_ctx)
     broker_catalog = RemoteCatalog(csvc.url)
     broker = Broker("broker_0", broker_catalog,
-                    max_scatter_threads=cfg.get_int("broker.scatter.threads", 8))
+                    max_scatter_threads=cfg.get_int("broker.scatter.threads", 8),
+                    device=device)
     bsvc = BrokerService(broker, port=cfg.get_int("broker.port", 0),
                          access_control=access_control, ssl_context=ssl_ctx)
     for name, svc in (("controller_0", csvc), ("server_0", ssvc), ("broker_0", bsvc)):
@@ -243,7 +248,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--config", default="", help="properties or JSON config file")
     p.add_argument("--device", default="cuda",
-                   help="the server's device: cuda (the default) or cpu")
+                   help="the server's (and a broker's) device: cuda (the default) or cpu")
     a = p.parse_args(argv)
     if a.role == "controller":
         run_controller(a.work_dir, a.run_dir, a.port, config_path=a.config)
@@ -254,7 +259,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         run_service_manager(a.work_dir, a.run_dir, a.port, config_path=a.config,
                             device=a.device)
     else:
-        run_broker(a.controller_url, a.instance_id, a.run_dir, a.port, config_path=a.config)
+        run_broker(a.controller_url, a.instance_id, a.run_dir, a.port, config_path=a.config,
+                   device=a.device)
 
 
 class ControllerClient:
@@ -350,8 +356,9 @@ class BrokerClient:
 
 class ProcessCluster:
     """A controller, N servers and a broker as OS processes, ready when each
-    has written its ready file. Servers run on `device` (CUDA unless the
-    caller passes "cpu", as the tests do); `server_config` is a
+    has written its ready file. Servers (and the broker's local join
+    partitions) run on `device` (CUDA unless the caller passes "cpu", as the
+    tests do); `server_config` is a
     {key: value} map written to the servers' configuration file (say
     `{"server.device.enabled": "true"}` for the serving pipeline). Each wait
     has its own deadline (`startup_timeout_s`), and a context manager kills
@@ -391,7 +398,8 @@ class ProcessCluster:
             for i in range(num_servers):
                 self._spawn_server(f"server_{i}")
             self._spawn("broker_0", ["--role", "broker", "--instance-id", "broker_0",
-                                     "--controller-url", self.controller_url])
+                                     "--controller-url", self.controller_url,
+                                     "--device", self.device])
             for i in range(num_servers):
                 self._await_ready(f"server_{i}")
             self.broker_url = self._await_ready("broker_0")
@@ -441,7 +449,8 @@ class ProcessCluster:
         """Start one more broker process (it reads the cluster's
         `broker.mux.enabled` as it wires its servers) and wait for it."""
         self._spawn(instance_id, ["--role", "broker", "--instance-id", instance_id,
-                                  "--controller-url", self.controller_url])
+                                  "--controller-url", self.controller_url,
+                                  "--device", self.device])
         return BrokerClient(self._await_ready(instance_id))
 
     def server_url(self, instance_id: str) -> str:

@@ -8,11 +8,12 @@ snapshot diffs, and forwards the mutations a remote role makes (instance
 registration, external-view reports, properties) to the controller.
 `RemoteServerHandle` is the broker's dispatch to a server: over the mux
 transport (`submit_async`, a Future that holds no thread for the round
-trip) or one `POST /query` a partial; `ControllerDeepStore` reaches the
-deep store through the controller. What the minion needs
-(`RemoteController`, `RemoteTaskQueue`), the completion protocol's client
-(`RemoteCompletion`, realtime tables over processes) and a remote stage
-(`join_stage`) wait: ROADMAP.md queue 1, item 3.
+trip) or one `POST /query` a partial, and `join_stage` runs a funnel-path
+join partition on the server (`POST /stage`); `ControllerDeepStore` reaches
+the deep store through the controller. What the minion needs
+(`RemoteController`, `RemoteTaskQueue`) and the completion protocol's client
+(`RemoteCompletion`, realtime tables over processes) wait: ROADMAP.md queue
+1, item 3.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..schema import Schema
 from ..table import TableConfig
 from .catalog import Catalog, InstanceInfo, SegmentMeta
 from .deepstore import DeepStoreFS
-from .http_service import HttpError, get_json, http_call, post_json
+from .http_service import HttpError, get_json, http_call, http_stream, post_json
 from .wire import decode_segment_result, encode_query_request
 
 
@@ -348,9 +349,28 @@ class RemoteServerHandle:
         return json.loads(resp.decode())["rows"]
 
     def join_stage(self, spec, left, right, agg=None):
-        raise NotImplementedError(
-            "a multistage stage on a remote server waits for multistage/shuffle.py and "
-            "the server's stage routes: ROADMAP.md queue 1, item 3")
+        """One multistage stage partition on the remote server (POST /stage
+        with wire-encoded blocks). The response is a chunked stream of
+        length-prefixed frames over the keep-alive pool (`http_stream`):
+        joined-row block frames, read one at a time, or one partial
+        aggregation frame, which decodes to a mergeable SegmentResult."""
+        from ..multistage.runtime import _concat_blocks, agg_spec_to_json, spec_to_json
+        from ..multistage.shuffle import read_frame
+        from .wire import decode_block, encode_value
+        body = encode_value({"spec": spec_to_json(spec), "agg": agg_spec_to_json(agg),
+                             "left": dict(left), "right": dict(right)})
+        blocks = []
+        with http_stream("POST", f"{self.server_url}/stage", body, timeout=self.timeout_s,
+                         token=self.token) as resp:
+            while True:
+                d = read_frame(resp)
+                if d["kind"] == "end":
+                    resp.read()   # the terminal chunk: the connection can be pooled
+                    break
+                if d["kind"] == "partial":
+                    return decode_segment_result(d["result"])
+                blocks.append(decode_block(d["block"]))
+        return _concat_blocks(blocks)
 
 
 class ControllerDeepStore(DeepStoreFS):

@@ -12,7 +12,12 @@ endpoints:
   round, metrics, debug, and the `sql` proxy to a live broker.
 * `ServerService`: `POST /query` (one binary wire exchange a partial),
   `POST /mux` (the multiplexed transport, `mux.py`), `POST /explain`,
-  health and readiness, debug, segments and metrics. Its `/debug` also
+  the multistage data plane (`POST /stage`, a funnel-path join partition;
+  `POST` and `DELETE /mailbox`, the peers' partition streams and their
+  cancellation; `leafStage`, `leafAgg`, `joinStage` and `aggStage`, the
+  mailbox shuffle's tasks, `multistage/shuffle.py`; its URL registered as a
+  local endpoint while it runs), health and readiness, debug, segments and
+  metrics. Its `/debug` also
   reports this process's kernel launches (`scan.masked_sums`,
   `scan.masked_sums_fused`, `bitmap.bitmap_filter`, `grouped.grouped_agg`;
   `POST /debug/launches/reset` sets them to 0), its device memory
@@ -21,11 +26,11 @@ endpoints:
   package, which the JAX package's server does not report.
 * `BrokerService`: `POST /query`, `POST /queryStream` (JSON lines over
   chunked HTTP), health, metrics and debug; it wires a `RemoteServerHandle`
-  for every live server the catalog advertises.
+  for every live server the catalog advertises, with its stage handle and
+  URL (the mailbox shuffle's worker).
 
 Routes that wait answer 501 with the ROADMAP.md item that holds them: the
-multistage routes (`stage`, `mailbox`, `leafStage`, `leafAgg`,
-`joinStage`, `aggStage`), the completion routes, `segmentData` and the
+completion routes, `segmentData` and the
 consumption pause (realtime tables over processes), the minion's `tasks`,
 `replaceSegments` and `ingestJobs`, and the admin UI. `/metrics` answers the
 registry's snapshot as JSON: the Prometheus text export waits.
@@ -41,8 +46,14 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
+from ..multistage.runtime import agg_spec_from_json, run_join_stage, spec_from_json
+from ..multistage.shuffle import (REGISTRY, MailboxCancelled, frame_bytes, read_frame,
+                                  register_local_endpoint, run_agg_stage_task,
+                                  run_join_stage_task, run_leaf_agg_task, run_leaf_join_task,
+                                  unregister_local_endpoint)
 from ..schema import Schema
 from ..table import TableConfig
+from ..utils.metrics import get_registry
 from .broker import Broker
 from .catalog import InstanceInfo
 from .controller import Controller
@@ -50,10 +61,9 @@ from .deepstore import untar_segment
 from .http_service import HttpService, binary_response, error_response, json_response
 from .remote import RemoteServerHandle
 from .server import ServerNode
-from .wire import decode_query_request, encode_segment_result
+from .wire import (decode_block, decode_query_request, decode_segment_result, decode_value,
+                   encode_segment_result, encode_value)
 
-MULTISTAGE_WAITS = ("the multistage routes wait for multistage/shuffle.py and the "
-                    "server's stage routes: ROADMAP.md queue 1, item 3")
 REALTIME_WAITS = ("realtime tables over processes wait for ingest/kafkalite.py, "
                   "RemoteCompletion and cluster/peers.py: ROADMAP.md queue 1, item 3")
 MINION_WAITS = "the minion and its task routes wait: ROADMAP.md queue 1, item 3"
@@ -475,10 +485,15 @@ class ServerService:
         s.route("POST", "debug", self._debug_post, action="ADMIN")
         s.route("GET", "segments", self._segments)
         s.route("GET", "metrics", _metrics_route)
-        for head in ("stage", "leafStage", "leafAgg", "joinStage", "aggStage"):
-            s.route("POST", head, _waits(MULTISTAGE_WAITS))
-        s.route("POST", "mailbox", _waits(MULTISTAGE_WAITS))
-        s.route("DELETE", "mailbox", _waits(MULTISTAGE_WAITS))
+        s.route("POST", "stage", self._stage)
+        # the peer-to-peer mailbox shuffle (reference: GrpcMailboxService and
+        # the MailboxSend/Receive operators; multistage/shuffle.py)
+        s.route("POST", "mailbox", self._mailbox, stream_body=True)
+        s.route("DELETE", "mailbox", self._mailbox_cancel)
+        s.route("POST", "leafStage", self._leaf_stage)
+        s.route("POST", "leafAgg", self._leaf_agg)
+        s.route("POST", "joinStage", self._join_stage)
+        s.route("POST", "aggStage", self._agg_stage)
         s.route("GET", "segmentData", _waits(REALTIME_WAITS))
         self.http.start()
         # advertise the query endpoint so brokers find it (reference: the
@@ -488,12 +503,16 @@ class ServerService:
         server.catalog.register_instance(InstanceInfo(
             server.instance_id, "server", host=self.http.host, port=self.http.port,
             tags=tags, scheme=self.http.scheme))
+        # this process owns its mailbox endpoint: legs that target it skip
+        # the codec and the HTTP hop (the device-routed shuffle)
+        register_local_endpoint(self.http.url)
 
     @property
     def url(self) -> str:
         return self.http.url
 
     def stop(self) -> None:
+        unregister_local_endpoint(self.http.url)
         self.http.stop()
         self._mux_pool.shutdown(wait=False)
 
@@ -659,6 +678,115 @@ class ServerService:
     def _segments(self, parts, params, body):
         return json_response({"segments": self.server.segments_served(parts[0])})
 
+    # -- the multistage data plane ------------------------------------------
+    #: rows a streamed stage-output frame carries (bounded buffering both sides)
+    STAGE_FRAME_ROWS = 65536
+
+    def _stage(self, parts, params, body):
+        """POST /stage: one funnel-path stage partition on this server's
+        device: the hash join, and the partial GROUP BY when the broker marks
+        the final aggregation stage (reference: an intermediate-stage worker
+        and AggregateOperator in partial mode). The response streams
+        length-prefixed wire frames: joined rows in bounded block frames, a
+        partial aggregation as one frame."""
+        d = decode_value(body)
+        out = run_join_stage(spec_from_json(d["spec"]), decode_block(d["left"]),
+                             decode_block(d["right"]), agg_spec_from_json(d.get("agg")),
+                             device=self.server.executor.device)
+        get_registry().counter("pinot_server_join_stages").inc()
+
+        def gen():
+            if isinstance(out, dict):   # joined rows: bounded row frames
+                n = next((len(v) for v in out.values()), 0)
+                step = self.STAGE_FRAME_ROWS
+                for lo in range(0, max(n, 1), step):
+                    yield frame_bytes({"kind": "rows",
+                                       "block": {c: v[lo:lo + step] for c, v in out.items()}})
+            else:   # a partial aggregation
+                yield frame_bytes({"kind": "partial", "result": encode_segment_result(out)})
+            yield frame_bytes({"kind": "end"})
+        return 200, "application/octet-stream", gen()
+
+    def _mailbox(self, parts, params, body):
+        """POST /mailbox/{queryId}/{mailboxId}: a peer streams partition
+        frames into this server's mailbox as a chunked body. The mailbox's
+        queue is bounded: when its worker falls behind the put blocks, this
+        thread stops reading the socket and TCP flow control holds the sender
+        (reference: the gRPC mailbox stream's flow-control window)."""
+        qid, mid = parts[0], parts[1]
+        frames = get_registry().counter("pinot_server_mailbox_frames")
+        try:
+            box = REGISTRY.open(qid, mid)
+            while True:
+                d = read_frame(body)
+                if d["kind"] == "eos":
+                    box.put(("eos", d["sender"]))
+                    break
+                if d["kind"] == "block":
+                    box.put(("block", decode_block(d["block"])))
+                else:
+                    box.put(("partial", decode_segment_result(d["result"])))
+                frames.inc()
+        except MailboxCancelled:
+            # drain before the 409 too: unread bytes would make the close a
+            # TCP reset that races the status on the sender's side
+            body.drain()
+            return error_response("query cancelled", 409)
+        body.drain()   # the chunked terminator, before the response (as above)
+        return json_response({"ok": True})
+
+    def _mailbox_cancel(self, parts, params, body):
+        """DELETE /mailbox/{queryId}: cancel every mailbox of the query,
+        waking its blocked senders and consumers."""
+        REGISTRY.cancel_query(parts[0])
+        return json_response({"ok": True})
+
+    def _leaf_stage(self, parts, params, body):
+        """POST /leafStage: scan the local segments, hash-partition on the
+        join keys and stream the partitions straight to the stage workers'
+        mailboxes; the broker never sees these rows."""
+        from ..auth import require_table_access
+        task = decode_value(body)
+        require_table_access(task["table"], "READ")
+        return binary_response(encode_value(run_leaf_join_task(self.server, task)))
+
+    def _leaf_agg(self, parts, params, body):
+        """POST /leafAgg: a distributed GROUP BY's leaf: the local partial
+        aggregation, its groups hash-partitioned by key to the merge workers."""
+        from ..auth import require_table_access
+        task = decode_value(body)
+        require_table_access(task["table"], "READ")
+        return binary_response(encode_value(run_leaf_agg_task(self.server, task)))
+
+    def _join_stage(self, parts, params, body):
+        """POST /joinStage: one join-stage partition on this server's device:
+        both sides' mailboxes, the join, then the next stage's mailboxes or
+        the final partial frames back. An error ends the stream as an error
+        frame, so the broker reports its cause, not a truncated stream."""
+        task = decode_value(body)
+        get_registry().counter("pinot_server_join_stages").inc()
+        device = self.server.executor.device
+
+        def gen():
+            try:
+                yield from run_join_stage_task(task, device)
+            except Exception as e:
+                yield frame_bytes({"kind": "error", "message": f"{type(e).__name__}: {e}"})
+        return 200, "application/octet-stream", gen()
+
+    def _agg_stage(self, parts, params, body):
+        """POST /aggStage: one merge partition of a distributed GROUP BY: this
+        disjoint key range merged, HAVING and the top-k trim, the merged
+        partial streamed back."""
+        task = decode_value(body)
+
+        def gen():
+            try:
+                yield from run_agg_stage_task(task)
+            except Exception as e:
+                yield frame_bytes({"kind": "error", "message": f"{type(e).__name__}: {e}"})
+        return 200, "application/octet-stream", gen()
+
 
 class BrokerService:
     """Broker role process: SQL over HTTP; finds its servers in the catalog."""
@@ -773,7 +901,8 @@ class BrokerService:
                         return False
                 self.broker.register_server_handle(info.instance_id, handle,
                                                    explain_handle=handle.explain,
-                                                   probe=probe)
+                                                   probe=probe,
+                                                   stage_handle=handle.join_stage, url=url)
 
     def _authorize(self, sql: str):
         """The table ACL before any work: the parsed statement when a

@@ -52,6 +52,11 @@ _U8 = struct.Struct("<B")
 _U32 = struct.Struct("<I")
 _I64 = struct.Struct("<q")
 _F64 = struct.Struct("<d")
+# a tag byte and its field in one pack: the same bytes as two writes
+_TAG_I64 = struct.Struct("<cq")
+_TAG_F64 = struct.Struct("<cd")
+_TAG_U32 = struct.Struct("<cI")
+_INT64_MIN, _INT64_END = -(1 << 63), 1 << 63
 
 # -- object registry (sketch states etc.) -----------------------------------
 # name -> (type, to_bytes, from_bytes); mirrors the reference's custom serde for
@@ -112,6 +117,32 @@ class _PartsWriter:
 # -- tagged value codec ------------------------------------------------------
 
 def _write_value(out: _PartsWriter, v: Any) -> None:
+    # the common exact types first (a selection's rows, a partial's group
+    # keys and states): the same bytes as the tagged chain below
+    t = type(v)
+    if t is float:
+        out.write(_TAG_F64.pack(b"f", v))
+        return
+    if t is int and _INT64_MIN <= v < _INT64_END:
+        out.write(_TAG_I64.pack(b"i", v))
+        return
+    if t is str:
+        raw = v.encode("utf-8")
+        out.write(_TAG_U32.pack(b"s", len(raw)))
+        out.write(raw)
+        return
+    if t is tuple or t is list:
+        write = out.write
+        write(_TAG_U32.pack(b"t" if t is tuple else b"l", len(v)))
+        for item in v:
+            ti = type(item)
+            if ti is float:
+                write(_TAG_F64.pack(b"f", item))
+            elif ti is int and _INT64_MIN <= item < _INT64_END:
+                write(_TAG_I64.pack(b"i", item))
+            else:
+                _write_value(out, item)
+        return
     if v is None:
         out.write(b"N")
     elif v is True:
@@ -237,6 +268,28 @@ class _Cursor:
 
 
 def _read_value(cur: _Cursor) -> Any:
+    # the common tags first, read in place (the chain below handles the rest)
+    mv, off = cur.mv, cur.off
+    if off >= len(mv):
+        raise ValueError("truncated wire frame")
+    code = mv[off]
+    if code == 0x66:    # f
+        (v,) = _F64.unpack_from(mv, off + 1)
+        cur.off = off + 9
+        return v
+    if code == 0x69:    # i
+        (v,) = _I64.unpack_from(mv, off + 1)
+        cur.off = off + 9
+        return v
+    if code == 0x74 or code == 0x6C:    # t, l
+        (n,) = _U32.unpack_from(mv, off + 1)
+        cur.off = off + 5
+        items = [_read_value(cur) for _ in range(n)]
+        return tuple(items) if code == 0x74 else items
+    if code == 0x73:    # s
+        (n,) = _U32.unpack_from(mv, off + 1)
+        cur.off = off + 5
+        return str(cur.take(n), "utf-8")
     tag = cur.take(1)
     if tag == b"N":
         return None

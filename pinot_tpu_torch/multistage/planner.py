@@ -33,19 +33,23 @@ JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
 #: never duplicates output rows
 BROADCASTABLE_JOIN_TYPES = ("inner", "left", "semi", "anti")
 
-#: build-side byte ceiling for the broadcast exchange (the JAX package's
-#: `broker.join.broadcast.max.bytes` cluster knob is not ported)
+#: build-side byte ceiling for the broadcast exchange; the broker takes it
+#: from the cluster knob `broker.join.broadcast.max.bytes` when that is set
 BROADCAST_MAX_BYTES_DEFAULT = 4 << 20
 
 
-def choose_join_strategy(join_type: str, est_build_bytes: Optional[int]) -> str:
+def choose_join_strategy(join_type: str, est_build_bytes: Optional[int],
+                         max_broadcast_bytes: Optional[int] = None) -> str:
     """Stats-driven exchange strategy for one join stage: `"broadcast"` when
     the build side's estimated bytes (segment metadata before any scan;
-    exact block bytes in-proc) fit under BROADCAST_MAX_BYTES_DEFAULT AND the
-    join shape permits replication, else `"partitioned"` (hash both sides). With no estimate at
+    exact block bytes in-proc) fit under the cap (`max_broadcast_bytes`,
+    BROADCAST_MAX_BYTES_DEFAULT when None) AND the join shape permits
+    replication, else `"partitioned"` (hash both sides). With no estimate at
     all the safe choice is partitioned."""
+    limit = (BROADCAST_MAX_BYTES_DEFAULT if max_broadcast_bytes is None
+             else int(max_broadcast_bytes))
     if (join_type in BROADCASTABLE_JOIN_TYPES and est_build_bytes is not None
-            and int(est_build_bytes) <= BROADCAST_MAX_BYTES_DEFAULT):
+            and int(est_build_bytes) <= limit):
         return "broadcast"
     return "partitioned"
 

@@ -10,9 +10,11 @@ mailbox service. Leaf scans run the single-stage engine's filter on the device
 on the host; each join partition runs the device hash join
 (`engine/join_kernels.py`) on a thread of the stage pool, with the partial
 GROUP BY of an aggregation query; the final reduce is the single-stage one.
-
-Left out, with the wire shuffle they serve: the JSON stage specs and a remote
-stage runner (every partition runs here).
+A `stage_runner` may run the partitions elsewhere: the broker's funnel path
+ships each partition to a server's `POST /stage` (the join spec and the
+partial GROUP BY travel as JSON, `spec_to_json` / `agg_spec_to_json`), and
+the mailbox shuffle (`shuffle.py`) routes with the same stable hashes in
+every process.
 
 Join null semantics: outer-join null-extended numeric columns become float NaN
 and object columns None; aggregations skip them (SQL null-skipping),
@@ -45,7 +47,8 @@ from ..query.executor import _take as _take_rows
 from ..query.planner import plan_segment
 from ..query.reduce import SegmentResult, merge_segment_results, reduce_to_result
 from ..query.result import ResultTable
-from ..sql.ast import Expr, Function, Identifier, Literal, identifiers_in
+from ..sql.ast import Expr, Function, Identifier, Literal, identifiers_in, to_sql
+from ..sql.parser import parse_query
 from .planner import JoinSpec, MultistagePlan, _and_all, choose_join_strategy, plan_multistage
 
 Block = Dict[str, np.ndarray]
@@ -228,6 +231,24 @@ def stable_hash_codes(block: Block, keys: Sequence[str]) -> np.ndarray:
     return h
 
 
+def stable_hash_key(key) -> int:
+    """Deterministic hash of a group-key tuple (the columns' mixing, never
+    Python's per-process `hash()`); equal to the JAX package's."""
+    h = np.uint64(0)
+    for v in key:
+        h = h * _HASH_MULT ^ np.uint64(_stable_obj_hash(v) & 0xFFFFFFFFFFFFFFFF)
+    return int(h)
+
+
+def partition_block_stable(block: Block, keys: Sequence[str], p: int) -> List[Block]:
+    """A block's rows split into p partitions by `stable_hash_codes % p`, as
+    the JAX package routes them (an empty block is every partition)."""
+    if _block_rows(block) == 0:
+        return [block for _ in range(p)]
+    pid = (stable_hash_codes(block, keys) % np.uint64(p)).astype(np.int64)
+    return [_take(block, np.nonzero(pid == i)[0]) for i in range(p)]
+
+
 def _factorize_pair(left: np.ndarray, right: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Dense int codes consistent across both arrays; null (None/NaN) -> -1."""
@@ -358,15 +379,20 @@ def hash_join_host(left: Block, right: Block, spec: JoinSpec) -> Block:
 
 
 # -- device route -------------------------------------------------------------
-# `configure_device_join` sets the routing. The rows floor keeps tiny joins
+# `configure_device_join` sets the routing: the broker applies the cluster
+# knob `server.join.device.enabled` a query. The rows floor keeps tiny joins
 # off the device: a few program launches cost more than a microsecond-scale
 # host join.
 
-_DEVICE_JOIN = {"min_rows": 2048}
+_DEVICE_JOIN = {"enabled": True, "min_rows": 2048}
 
 
-def configure_device_join(min_rows: int) -> None:
-    _DEVICE_JOIN["min_rows"] = max(0, int(min_rows))
+def configure_device_join(enabled: Optional[bool] = None,
+                          min_rows: Optional[int] = None) -> None:
+    if enabled is not None:
+        _DEVICE_JOIN["enabled"] = bool(enabled)
+    if min_rows is not None:
+        _DEVICE_JOIN["min_rows"] = max(0, int(min_rows))
 
 
 def _any_null_mask(cols: Sequence[np.ndarray]) -> np.ndarray:
@@ -397,9 +423,11 @@ def _values_equal(la: np.ndarray, ra: np.ndarray, li: np.ndarray,
 
 
 def _device_join_ok(left: Block, right: Block, spec: JoinSpec) -> bool:
-    """Eligibility: both sides big enough to amortize the launches,
+    """Eligibility: enabled, both sides big enough to amortize the launches,
     and every key column vectorizable (object columns must be all-str: MV
     list cells and mixed types go to the host oracle)."""
+    if not _DEVICE_JOIN["enabled"]:
+        return False
     n, m = _block_rows(left), _block_rows(right)
     if n == 0 or m == 0 or (n + m) < _DEVICE_JOIN["min_rows"]:
         return False
@@ -745,11 +773,19 @@ def _stage_pool() -> ThreadPoolExecutor:
         return _STAGE_POOL
 
 
+# a stage runner executes ONE partition's join (+ optional partial GROUP BY):
+# the default is the local run_join_stage; the broker's funnel path passes a
+# round-robin dispatch to server workers (reference: intermediate-stage
+# workers receiving partitioned blocks, AggregateOperator in partial mode)
+StageRunner = Callable[[JoinSpec, Block, Block, Optional["AggStageSpec"]], Any]
+
+
 @dataclass
 class AggStageSpec:
     """The partition-side partial-aggregation stage description (reference:
     AggregateOperator in partial mode). Duck-types the QueryContext fields
-    `aggregate_block` reads."""
+    `aggregate_block` reads, so one function serves the local and the
+    remote stage."""
 
     distinct: bool
     group_by: List[Expr]
@@ -761,6 +797,46 @@ def agg_spec_from_ctx(ctx: QueryContext) -> AggStageSpec:
     return AggStageSpec(distinct=ctx.distinct, group_by=list(ctx.group_by),
                         select_items=list(ctx.select_items),
                         aggregations=list(ctx.aggregations))
+
+
+def _parse_expr(txt: str) -> Expr:
+    return parse_query(f"SELECT {txt} FROM __t").select[0][0]
+
+
+def agg_spec_to_json(spec: Optional[AggStageSpec]) -> Optional[Dict[str, Any]]:
+    """Exprs travel as SQL text: qualified identifiers (a.x) round-trip
+    through to_sql and the parser, so SQL is the wire form of stage plans."""
+    if spec is None:
+        return None
+    return {"distinct": spec.distinct,
+            "groupBy": [to_sql(e) for e in spec.group_by],
+            "selectItems": [to_sql(e) for e, _ in spec.select_items],
+            "aggs": [to_sql(f) for f in spec.aggregations]}
+
+
+def agg_spec_from_json(d: Optional[Dict[str, Any]]) -> Optional[AggStageSpec]:
+    if d is None:
+        return None
+    return AggStageSpec(distinct=bool(d["distinct"]),
+                        group_by=[_parse_expr(t) for t in d["groupBy"]],
+                        select_items=[(_parse_expr(t), None) for t in d["selectItems"]],
+                        aggregations=[_parse_expr(t) for t in d["aggs"]])
+
+
+def spec_to_json(spec: JoinSpec) -> Dict[str, Any]:
+    """JoinSpec -> wire-safe dict (the residual rides as SQL text)."""
+    return {"rightAlias": spec.right_alias, "joinType": spec.join_type,
+            "leftKeys": list(spec.left_keys), "rightKeys": list(spec.right_keys),
+            "residual": to_sql(spec.residual) if spec.residual is not None else None}
+
+
+def spec_from_json(d: Dict[str, Any]) -> JoinSpec:
+    residual = None
+    if d.get("residual"):
+        residual = parse_query(f"SELECT * FROM t WHERE {d['residual']}").where
+    return JoinSpec(right_alias=d["rightAlias"], join_type=d["joinType"],
+                    left_keys=list(d["leftKeys"]), right_keys=list(d["rightKeys"]),
+                    residual=residual)
 
 
 def run_join_stage(spec: JoinSpec, left: Block, right: Block,
@@ -792,16 +868,22 @@ def run_join_stage(spec: JoinSpec, left: Block, right: Block,
 class JoinInput:
     """A join-exchange partition: the rows plus their 64-bit stable key codes,
     computed ONCE at the sender and handed through the mailbox by reference,
-    so the receiving join stage never re-hashes the keys."""
+    so the receiving join stage never re-hashes the keys. A frame that came
+    over the wire carries no codes (None): the stage re-hashes it."""
 
     block: Block
-    codes: np.ndarray
+    codes: Optional[np.ndarray] = None
 
 
-def _concat_join_inputs(items: List[JoinInput]) -> Tuple[Block, np.ndarray]:
-    """Merge a mailbox's received parts and their key codes."""
-    return (_concat_blocks([it.block for it in items]),
-            np.concatenate([it.codes for it in items]))
+def _concat_join_inputs(items: List[Any]) -> Tuple[Block, Optional[np.ndarray]]:
+    """Merge a mailbox's received parts (JoinInputs or plain blocks); the key
+    codes survive only when every part carried them."""
+    blocks = [it.block if isinstance(it, JoinInput) else it for it in items]
+    codes = [it.codes if isinstance(it, JoinInput) else None for it in items]
+    blk = _concat_blocks(blocks)
+    if codes and all(c is not None for c in codes):
+        return blk, np.concatenate(codes)
+    return blk, None
 
 
 def _block_nbytes(block: Block) -> int:
@@ -941,18 +1023,24 @@ def _scan_alias(plan: MultistagePlan, alias: str, scan_fn: ScanFn,
     return {f"{alias}.{c}": np.asarray(v) for c, v in raw.items()}
 
 
-def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTable:
-    """Run a join query: leaf scans -> hash exchange -> per-partition joins ->
-    aggregate/selection -> reduce. The DEFAULT_PARTITIONS partitions run
-    concurrently on the stage pool, each joining on the scan's device
-    (`scan_fn.device`, which `make_segment_scan` sets: CUDA unless the caller
-    names another).
+def execute_multistage(sql_or_plan, scan_fn: ScanFn, schema_for=None,
+                       num_partitions: int = DEFAULT_PARTITIONS,
+                       stage_runner: Optional[StageRunner] = None,
+                       broadcast_max_bytes: Optional[int] = None) -> ResultTable:
+    """Run a join query (SQL, a parsed statement or a MultistagePlan): leaf
+    scans -> hash exchange -> per-partition joins -> aggregate/selection ->
+    reduce. The `num_partitions` partitions run concurrently on the stage
+    pool, each joining on the scan's device (`scan_fn.device`, which
+    `make_segment_scan` sets: CUDA unless the caller names another), or
+    through `stage_runner(spec, left, right, agg)` when one is given (a
+    partition with nothing to join on one side still runs here).
 
     Exchange strategy per stage is stats-driven (`choose_join_strategy`):
-    a build side under `BROADCAST_MAX_BYTES_DEFAULT` replicates to every
-    partition (probe side splits without hashing), larger builds
-    hash-partition both sides with hot-key salting. Build sides scan FIRST so
-    their key bounds pre-prune the probe-side leaf scan.
+    a build side under `broadcast_max_bytes` (BROADCAST_MAX_BYTES_DEFAULT
+    when None) replicates to every partition (probe side splits without
+    hashing), larger builds hash-partition both sides with hot-key salting.
+    Build sides scan FIRST so their key bounds pre-prune the probe-side leaf
+    scan.
 
     The result's stats carry `joinStrategy`, the recorded join keys, and
     `phaseTimesMs`: host wall ms of `plan`, `scan` (leaf scans), `exchange`
@@ -961,7 +1049,8 @@ def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTabl
     included) and `partialAggregate`."""
     t0 = time.perf_counter()
     dev = scan_fn.device
-    plan = plan_multistage(sql, schema_for)
+    plan = (sql_or_plan if isinstance(sql_or_plan, MultistagePlan)
+            else plan_multistage(sql_or_plan, schema_for))
     ctx = plan.ctx
     aggs = [make_agg(f) for f in ctx.aggregations]
     group_exprs = ([e for e, _ in ctx.select_items] if ctx.distinct
@@ -1007,16 +1096,17 @@ def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTabl
             lcodes = stable_hash_codes(current, spec.left_keys)
             rcodes = stable_hash_codes(right, spec.right_keys)
             build_bytes = _block_nbytes(right)
-            strategy = choose_join_strategy(spec.join_type, build_bytes)
+            strategy = choose_join_strategy(spec.join_type, build_bytes,
+                                            broadcast_max_bytes)
             strategies.append(strategy)
             if strategy == "broadcast":
                 lparts, rparts = _broadcast_join_sides(
-                    current, lcodes, right, rcodes, DEFAULT_PARTITIONS)
+                    current, lcodes, right, rcodes, num_partitions)
                 shuffled = (_block_nbytes(current)
-                            + build_bytes * DEFAULT_PARTITIONS)
+                            + build_bytes * num_partitions)
             else:
                 lparts, rparts, skew_pct = _partition_join_sides(
-                    current, lcodes, right, rcodes, DEFAULT_PARTITIONS,
+                    current, lcodes, right, rcodes, num_partitions,
                     spec.join_type)
                 qstats.record_max(qstats.JOIN_SKEW_PCT, skew_pct)
                 shuffled = (sum(_block_nbytes(jp.block) for jp in lparts)
@@ -1033,9 +1123,17 @@ def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTabl
                 with qstats.collect_stats(st):  # pool threads: same query record
                     lp, lc = _concat_join_inputs(mailboxes.receive(f"{stage}.L", p))
                     rp, rc = _concat_join_inputs(mailboxes.receive(f"{stage}.R", p))
-                    return run_join_stage(spec, lp, rp, agg_stage,
-                                          lcodes=lc, rcodes=rc, device=dev)
-            parts = list(_stage_pool().map(one_partition, range(DEFAULT_PARTITIONS)))
+                    # an empty (or inner-join one-sided empty) partition is
+                    # O(columns) here but a whole round trip through a remote
+                    # runner
+                    trivial = ((_block_rows(lp) == 0 and _block_rows(rp) == 0)
+                               or (spec.join_type in ("inner", "semi")
+                                   and (_block_rows(lp) == 0 or _block_rows(rp) == 0)))
+                    if stage_runner is None or trivial:
+                        return run_join_stage(spec, lp, rp, agg_stage,
+                                              lcodes=lc, rcodes=rc, device=dev)
+                    return stage_runner(spec, lp, rp, agg_stage)
+            parts = list(_stage_pool().map(one_partition, range(num_partitions)))
             phases["stages"] += time.perf_counter() - t1
             if agg_stage is not None:
                 worker_partials = parts
@@ -1060,9 +1158,9 @@ def execute_multistage(sql: str, scan_fn: ScanFn, schema_for=None) -> ResultTabl
             result = reduce_to_result(ctx, merged, aggs, group_exprs)
         phases["reduce"] = time.perf_counter() - t0
 
-    result.stats["multistage"] = True
+    result.stats[qstats.MULTISTAGE] = True
     if strategies:
-        result.stats["joinStrategy"] = (strategies[0] if len(strategies) == 1
+        result.stats[qstats.JOIN_STRATEGY] = (strategies[0] if len(strategies) == 1
                                         else ",".join(strategies))
     for key, val in st.to_public_dict().items():
         if key.startswith("join") or key == qstats.NUM_SEGMENTS_PRUNED_BY_JOIN_KEY:

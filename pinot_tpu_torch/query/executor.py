@@ -650,6 +650,18 @@ def _cell(v):
     return v.tolist() if isinstance(v, np.ndarray) else v
 
 
+def _cells(col, n: int) -> list:
+    """A column's n cells as `_cell` gives them: a numeric or string array in
+    one `tolist` (the same Python values), anything else cell by cell."""
+    if isinstance(col, np.ndarray) and col.ndim == 1 and col.dtype.kind in "biufUS":
+        return col.tolist()
+    return [_cell(col[i]) for i in range(n)]
+
+
+def _tuples(cols, n: int) -> List[Tuple]:
+    return list(zip(*[_cells(c, n) for c in cols])) if cols else [() for _ in range(n)]
+
+
 def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
     """(rows, sort keys) of the rows `parts` names, a list of (segment, row
     ids) taken in order: the select list and the ORDER BY values, evaluated on
@@ -664,10 +676,9 @@ def selection_rows(ctx: QueryContext, parts) -> Tuple[List[Tuple], List[Tuple]]:
            if parts else np.empty(0) for c in needed}
 
     out_cols = [_rows_of(eval_host(e, env), n) for e, _ in ctx.select_items]
-    rows = [tuple(_cell(c[i]) for c in out_cols) for i in range(n)]
+    rows = _tuples(out_cols, n)
     sort_cols = [_rows_of(eval_host(o.expr, env), n) for o in ctx.order_by]
-    sort_keys = [tuple(_cell(c[i]) for c in sort_cols) for i in range(n)] \
-        if sort_cols else []
+    sort_keys = _tuples(sort_cols, n) if sort_cols else []
     return rows, sort_keys
 
 

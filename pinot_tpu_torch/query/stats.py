@@ -6,7 +6,8 @@ the accounting hooks `record`, `record_min`, `record_max` and
 `record_operator`, with the segment counts the per-segment executor, the
 servers and the broker record, the consuming segments' count and freshness,
 the broker's pruning, hedge and retry keys, the mux transport's two waits,
-the join keys, `scanRowsAvoided` and the batch ingestion's keys. A server partial carries its record as a flat
+the join keys, `scanRowsAvoided`, the batch ingestion's keys, and the names
+of the multistage route's result keys. A server partial carries its record as a flat
 dict (`to_wire`, `SegmentResult.stats`), which the broker merges. Accounting
 sites record into whatever record is active on their thread, and do nothing
 when none is; a worker thread serving one query re-installs that query's
@@ -81,6 +82,20 @@ MIN_CONSUMING_FRESHNESS_TIME_MS = "minConsumingFreshnessTimeMs"
 # the stream's flow-control window (`server.mux.max.inflight`)
 MUX_FRAME_QUEUE_MS = "muxFrameQueueMs"
 MUX_FLOW_CONTROL_MS = "muxFlowControlMs"
+
+# the multistage route's result keys (a ResultTable's stats, not counters):
+# the query took the multistage engine, the peer-to-peer mailbox shuffle or
+# the distributed GROUP BY (`multistage/shuffle.py`); that GROUP BY's
+# exchange stayed in one process (one merge partition); the distinct servers
+# that ran its stages; the join stages' exchange strategies ("broadcast" or
+# "partitioned", comma-joined). The workers' join keys above ride back to
+# the broker in their stats frames.
+MULTISTAGE = "multistage"
+MAILBOX_SHUFFLE = "mailboxShuffle"
+DISTRIBUTED_GROUP_BY = "distributedGroupBy"
+DEVICE_ROUTED_SHUFFLE = "deviceRoutedShuffle"
+NUM_STAGE_WORKERS = "numStageWorkers"
+JOIN_STRATEGY = "joinStrategy"
 
 # keys that merge by MAXIMUM: a skew percentage summed over partitions means
 # nothing; the worst partition bounds the stage

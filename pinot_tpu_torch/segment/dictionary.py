@@ -134,7 +134,15 @@ def build_dictionary(raw: Union[np.ndarray, Sequence[Any]], data_type: DataType
         arr = np.asarray(raw, dtype=data_type.numpy_dtype)
         values, inverse = np.unique(arr, return_inverse=True)
         return Dictionary(values, data_type), inverse.astype(np.int64)
-    # strings/bytes/json
+    # strings/bytes/json: a hash set and one sort of the distinct values (the
+    # same dictionary and ids as np.unique, without sorting every row's
+    # Python object); cells that do not hash or order take np.unique
     objs = list(raw)
-    values_arr, inverse = np.unique(np.array(objs, dtype=object), return_inverse=True)
-    return Dictionary(list(values_arr), data_type), inverse.astype(np.int64)
+    try:
+        uniq = sorted(set(objs))
+    except TypeError:
+        values_arr, inverse = np.unique(np.array(objs, dtype=object), return_inverse=True)
+        return Dictionary(list(values_arr), data_type), inverse.astype(np.int64)
+    index = {v: i for i, v in enumerate(uniq)}
+    inverse = np.fromiter((index[v] for v in objs), dtype=np.int64, count=len(objs))
+    return Dictionary(uniq, data_type), inverse

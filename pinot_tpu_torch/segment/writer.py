@@ -388,12 +388,21 @@ def _dict_hash(dictionary: Dictionary) -> int:
     return zlib.crc32(joined.encode("utf-8"))
 
 
+def _build_part(schema: Schema, config: SegmentGeneratorConfig, part: Dict[str, Any],
+                out_dir: str, name: str, fixed: Dict[str, Any]) -> str:
+    """One segment of an aligned set (a worker process's task)."""
+    return SegmentBuilder(schema, config).build(part, out_dir, name, fixed_dictionaries=fixed)
+
+
 def build_aligned_segments(schema: Schema, columns: Dict[str, Union[np.ndarray, Sequence[Any]]],
                            out_dir: str, base_name: str, num_segments: int,
-                           config: Optional[SegmentGeneratorConfig] = None) -> List[str]:
+                           config: Optional[SegmentGeneratorConfig] = None,
+                           executor=None) -> List[str]:
     """Split one column batch into `num_segments` row-range segments that share
     dictionaries (computed over the union), so every segment of the set has
-    the same dict-id space."""
+    the same dict-id space. With an `executor` (a process pool) the segments
+    build side by side, each from its pickled rows and the shared
+    dictionaries; the files are the same."""
     config = dataclasses.replace(config or SegmentGeneratorConfig())
     config.no_dictionary_columns = list(config.no_dictionary_columns)  # private copy
     builder = SegmentBuilder(schema, config)
@@ -425,9 +434,13 @@ def build_aligned_segments(schema: Schema, columns: Dict[str, Union[np.ndarray, 
         lo, hi = int(bounds[i]), int(bounds[i + 1])
         part = {c: (v[lo:hi] if isinstance(v, np.ndarray) else list(v[lo:hi]))
                 for c, v in columns.items()}
-        paths.append(builder.build(part, out_dir, f"{base_name}_{i}",
-                                   fixed_dictionaries=fixed))
-    return paths
+        if executor is not None:
+            paths.append(executor.submit(_build_part, builder.schema, builder.config, part,
+                                         out_dir, f"{base_name}_{i}", fixed))
+        else:
+            paths.append(builder.build(part, out_dir, f"{base_name}_{i}",
+                                       fixed_dictionaries=fixed))
+    return [p.result() for p in paths] if executor is not None else paths
 
 
 def segments_from_columns(schema: Schema, columns: Dict[str, np.ndarray], out_dir: str,

@@ -255,6 +255,8 @@ def statement_to_sql(stmt: "QueryStatement") -> str:
     if stmt.order_by:
         out += " ORDER BY " + ", ".join(
             to_sql(o.expr) + (" DESC" if o.desc else "")
+            + ("" if o.nulls_last is None else " NULLS LAST" if o.nulls_last
+               else " NULLS FIRST")
             for o in stmt.order_by)
     out += f" LIMIT {stmt.limit}"
     if stmt.offset:

@@ -3,8 +3,8 @@
 A trimmed copy of `pinot_tpu/tools/admin.py` (the analog of the reference's
 `pinot-admin.sh`, `PinotAdministrator.java`): the role starters, schema and
 table management, segment push, queries and the segment tools, over the
-controller's and broker's HTTP APIs. A server runs on CUDA unless it is
-started with `--device cpu`.
+controller's and broker's HTTP APIs. A server (and a broker's local join
+partitions) runs on CUDA unless it is started with `--device cpu`.
 
     python -m pinot_tpu_torch.tools.admin start-controller --work-dir /data --run-dir /run
     python -m pinot_tpu_torch.tools.admin start-server --controller URL --work-dir /data \\
@@ -48,7 +48,7 @@ def cmd_start_role(args) -> int:
                            args.run_dir, args.port, args.config, device=args.device)
     else:
         process.run_broker(args.controller, args.instance_id or "broker_0", args.run_dir,
-                           args.port, args.config)
+                           args.port, args.config, device=args.device)
     return 0
 
 
@@ -221,7 +221,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--run-dir", required=True)
         sp.add_argument("--port", type=int, default=0)
         sp.add_argument("--config", default="")
-        if name == "start-server":
+        if name in ("start-server", "start-broker"):
             sp.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
         sp.set_defaults(fn=cmd_start_role)
     role("start-controller")

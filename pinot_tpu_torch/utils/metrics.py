@@ -6,7 +6,15 @@ registry a process, a metric's identity being its name and its sorted label
 pairs. What the cluster roles record: the broker's query, exception,
 throttle, hedge and dispatch-latency series, the server's queries, docs and
 segments scanned and partial latency, the controller's uploads and segment
-status gauges. The Prometheus text export and the gauges' time series wait
+status gauges. The multistage route's: `pinot_broker_p2p_fallbacks` (a
+join or distributed GROUP BY that took the funnel or scatter path instead of
+the mailbox shuffle), `pinot_broker_stage_dispatch_failures` (a funnel-path
+partition run on the broker after its server dispatch failed),
+`pinot_broker_data_plane_bytes` (bytes the funnel path buffered at the
+broker), `pinot_server_join_stages` (join partitions a server ran),
+`pinot_server_mailbox_frames` (frames its mailboxes took over HTTP) and
+`pinot_server_mailbox_local_sends` (partitions handed to a mailbox in the
+sender's own process). The Prometheus text export and the gauges' time series wait
 for the HTTP surface.
 """
 

@@ -622,11 +622,40 @@ def test_unported_server_knobs_raise(tmp_path):
 
 
 def test_joins_and_realtime_raise_with_their_queue_item(tmp_path):
-    cluster = QuickCluster(num_servers=1, work_dir=str(tmp_path), device="cpu")
+    """A join answers through QuickCluster's broker (the funnel path: leaf
+    scans scattered to the servers, partitions joined on the broker's
+    device), with any OPTION(numPartitions), as the JAX package's
+    QuickCluster answers it (`tests/test_multistage.py::test_cluster_join_query`,
+    `::test_num_partitions_query_option`); the minion and the peer download
+    scheme still raise with their queue item."""
+    cluster = QuickCluster(num_servers=2, work_dir=str(tmp_path), device="cpu")
+    jax = JaxQuickCluster(num_servers=2, work_dir=str(tmp_path / "jax"))
+    dim_schema = Schema("dim", [dimension("k", DataType.INT),
+                                dimension("label", DataType.STRING)])
+    fact_schema = Schema("fact", [dimension("k", DataType.INT), metric("v", DataType.DOUBLE)])
+    rng = np.random.default_rng(1)
+    ks = rng.integers(0, 5, 200).astype(np.int32)
+    vs = np.round(rng.uniform(0, 10, 200), 2)
+    for qc, schema_of, config in ((cluster, lambda s: s, TableConfig),
+                                  (jax, lambda s: JSchema.from_json(s.to_json()),
+                                   JaxTableConfig)):
+        qc.create_table(schema_of(dim_schema), config("dim"))
+        qc.create_table(schema_of(fact_schema), config("fact"))
+        qc.ingest_columns(config("dim"), {"k": np.arange(5, dtype=np.int32),
+                                          "label": [f"L{i}" for i in range(5)]})
+        qc.ingest_columns(config("fact"), {"k": ks[:100], "v": vs[:100]})
+        qc.ingest_columns(config("fact"), {"k": ks[100:], "v": vs[100:]})
+    sql = ("SELECT d.label, SUM(f.v), COUNT(*) FROM fact f JOIN dim d ON f.k = d.k "
+           "GROUP BY d.label ORDER BY d.label LIMIT 100")
+    for opt in ("", " OPTION(numPartitions=1)", " OPTION(numPartitions=3)",
+                " OPTION(numPartitions=16)"):
+        res = cluster.query(sql + opt)
+        assert res.stats.get("multistage") is True and "mailboxShuffle" not in res.stats
+        want = jax.query(sql + opt).rows
+        assert [r[0] for r in res.rows] == [r[0] for r in want] == [f"L{i}" for i in range(5)]
+        assert [r[2] for r in res.rows] == [r[2] for r in want]
+        assert all(math.isclose(a[1], b[1], rel_tol=1e-9) for a, b in zip(res.rows, want)), opt
     cluster.create_table(ssb_schema(), TableConfig("lineorder"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cluster.query("SELECT COUNT(*) FROM lineorder l JOIN lineorder r "
-                      "ON l.lo_custkey = r.lo_custkey")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cluster.run_minion_round()
     # a realtime commit whose deep-store upload runs out of retries would

@@ -104,7 +104,8 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "cluster/__init__.py", "cluster/device_server.py",
                    "query/dense_reduce.py", "query/executor.py", "engine/kernels.py",
                    "multistage/__init__.py", "multistage/planner.py",
-                   "multistage/runtime.py", "engine/join_kernels.py", "query/stats.py",
+                   "multistage/runtime.py", "multistage/shuffle.py", "engine/join_kernels.py",
+                   "query/stats.py",
                    "cluster/tiering.py", "table.py", "ingest/__init__.py",
                    "ingest/vectorized.py", "ingest/stream.py", "ingest/transform.py",
                    "ingest/realtime.py", "segment/mutable_device.py", "parallel/merged.py",

@@ -296,8 +296,7 @@ def test_a_cuda_server_without_a_card_exits_at_start(clusters, tmp_path):
 def test_role_routes_that_wait_answer_501(clusters):
     from pinot_tpu_torch.cluster.http_service import HttpError, http_call, post_json
     pc = clusters["pc"]
-    for url, method in ((f"{pc.server_url('server_0')}/stage", "POST"),
-                        (f"{pc.server_url('server_0')}/segmentData/{TABLE}/x", "GET"),
+    for url, method in ((f"{pc.server_url('server_0')}/segmentData/{TABLE}/x", "GET"),
                         (f"{pc.controller_url}/segmentConsumed", "POST"),
                         (f"{pc.controller_url}/tasks", "GET"),
                         (f"{pc.controller_url}/ui", "GET")):

@@ -237,3 +237,41 @@ def test_writer_rejects_multi_value_columns(tmp_path):
     path = SegmentBuilder(schema).build({"tags": rows}, str(tmp_path), "mv_0")
     for seg in (load_segment(path), jax_load(path)):
         assert [list(v) for v in seg.column("tags").values()] == [["x", "y"], ["null"], ["z"]]
+
+
+def test_aligned_segments_build_on_an_executor_as_in_one_process(tmp_path):
+    """`build_aligned_segments(..., executor=)` writes the same column files
+    (and checksums) as the serial build, in the same order."""
+    import concurrent.futures
+    import filecmp
+    import json
+    import os
+    cols = make_columns(30_000, 3)
+    serial = build_aligned_segments(ssb_schema(), cols, str(tmp_path / "a"), "lo", 3)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        pooled = build_aligned_segments(ssb_schema(), cols, str(tmp_path / "b"), "lo", 3,
+                                        executor=pool)
+    assert [os.path.basename(p) for p in pooled] == [os.path.basename(p) for p in serial]
+    for a, b in zip(serial, pooled):
+        files = sorted(os.listdir(os.path.join(a, "cols")))
+        assert files == sorted(os.listdir(os.path.join(b, "cols"))) and files
+        assert all(filecmp.cmp(os.path.join(a, "cols", f), os.path.join(b, "cols", f),
+                               shallow=False) for f in files)
+        crc = [json.load(open(os.path.join(d, "creation.meta.json")))["crc"] for d in (a, b)]
+        assert crc[0] == crc[1]
+
+
+@pytest.mark.parametrize("values", [
+    ["b", "a", "é", "", "a", "Z", "naïve ∑", "b"],
+    [b"\x00\xff", b"a", b"\x00\xff", b""],
+    [f"s{i % 37}" for i in range(500)],
+], ids=["unicode", "bytes", "many"])
+def test_string_dictionaries_equal_numpy_unique(values):
+    """A string column's dictionary (a hash set and one sort) has np.unique's
+    values and ids."""
+    from pinot_tpu_torch.segment.dictionary import build_dictionary
+    dt = DataType.BYTES if isinstance(values[0], bytes) else DataType.STRING
+    d, ids = build_dictionary(values, dt)
+    want, inverse = np.unique(np.array(values, dtype=object), return_inverse=True)
+    assert list(d.values) == list(want)
+    np.testing.assert_array_equal(ids, inverse)

@@ -77,6 +77,10 @@ CONTAINERS = {
     "set": frozenset({1, 2, 3}),
     "dict": {"a": 1, 2: "b", (1, "x"): [1.5, None]},
     "nested": {"groups": [((1, "ASIA"), [3, 4.5])], "stats": {"numDocsScanned": 9}},
+    # a row of the types the codec takes first and their neighbours
+    "mixed row": (1 << 70, True, np.float32(2.5), np.int64(3), -(1 << 63), (1 << 63) - 1,
+                  1 << 63, "é", None, float("inf"), [False, 0.0, -0.0, b"x"]),
+    "rows": [(i, float(i) / 3, f"r{i}") for i in range(50)],
 }
 
 
