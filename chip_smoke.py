@@ -395,7 +395,29 @@ exits non-zero:
    `custkey_rows_match`), each run's launches (from the servers' /debug) on
    JOIN_BITMAP or one `grouped_agg` a leaf server, and the broker's
    `pinot_broker_p2p_fallbacks` and `pinot_broker_stage_dispatch_failures`
-   at 0: `process_cluster_shuffle`.
+   at 0: `process_cluster_shuffle`. After the memory line, before the
+   failover, realtime tables over the processes (`process_realtime`): a
+   kafkalite `LogBrokerServer` in this process (its log on the work disk),
+   phase 18's stream (2 partitions of PCB1 blocks, `--seed + 13`) into a
+   REALTIME `lineorder_rt` table (replication 2, consuming segments staged on
+   the card, flush threshold 524,288 rows) that the server processes consume
+   on their own loops and commit over HTTP; each of the 5 rounds produced
+   through `LogBrokerClient`, a bounded wait until both replicas consumed it
+   and the HTTP broker counts it (`staleness_s`), its commits ONLINE on both
+   replicas, then phase 18's 5 queries through the HTTP broker on their
+   oracles, each run's launches read from the servers' /debug and held to the
+   servers' pipeline partials and the consuming views that hold rows:
+   `process_realtime_round`; round 3 with the deep store down: its commits
+   under `peer://`, server_1 restarted without its copies of the table loads
+   every committed segment from server_0 (the deep store's after their
+   download retries), answers a partial over them from its pipeline, and one
+   validation round heals the segments once the deep store is back:
+   `process_realtime_peer`; the committed offsets, each commit's seconds from
+   produce to ONLINE on both replicas, the consume rate and the consumers'
+   lanes: `process_realtime_commits`; warm runs, then the OFFLINE half pushed
+   over HTTP and Q1.1 and GROUP_QUERY on the hybrid table:
+   `process_realtime_hybrid`, `process_realtime_latency`; each server's
+   device memory before and after the commits: `process_realtime_memory`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -412,8 +434,9 @@ three, the scans with the valid band; the batch phase all three, none
 under EXPLAIN or LOOKUP; `grouped_agg` on every device GROUP BY pass and
 every grouped or scalar distinct and scalar power-sum pass of every phase,
 the pipeline traffic's logged only, as `bitmap_filter`'s; the
-realtime_cluster phase `masked_sums`, `masked_sums_fused` and `grouped_agg`;
-the shuffle path `bitmap_filter` and `grouped_agg`),
+realtime_cluster phase and the process_realtime path `masked_sums`,
+`masked_sums_fused` and `grouped_agg`; the shuffle path `bitmap_filter` and
+`grouped_agg`),
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -6165,7 +6188,7 @@ def run_realtime_cluster(args, work) -> dict:
     log("realtime_cluster_summary", launches=launches, rounds=rounds,
         commits=len(committed), consume_rows_per_s=pumped / pump_s,
         commit_s_max=max(commit_s.values()) if commit_s else None)
-    return launches
+    return launches, (data, blocks)
 
 
 # -- phase 19: process_cluster ---------------------------------------------------------
@@ -6330,7 +6353,394 @@ def process_cluster_shuffle(args, pc, probe, table, cols, work, numbers) -> dict
     return launches
 
 
-def run_process_cluster(args, table, cols, work) -> tuple:
+PROC_RT_TABLE = "lineorder_rt"         # its own logical table beside phase 4's lineorder
+PROC_RT_WAIT_S = 120.0                 # a round consumed, a commit ONLINE, at most
+PROC_RT_WARM_RUNS = 3
+PROC_RT_PEER_ROUND = 3                 # the round whose commits meet the deep store down
+PROC_RT_POLL_S = 0.05
+
+
+def rt_sql(sql: str) -> str:
+    """Phase 18's SQL on the process_realtime table."""
+    return sql.replace("FROM lineorder", f"FROM {PROC_RT_TABLE}")
+
+
+def rt_device_queries(debug: dict) -> int:
+    """The partials the servers ran on their pipelines over the
+    process_realtime tables' committed segments (`pinot_server_device_queries`)."""
+    return int(sum(v for d in debug.values() for k, v in d["serverMetrics"].items()
+                   if k.startswith("pinot_server_device_queries") and PROC_RT_TABLE in k))
+
+
+def process_realtime(args, pc, probe, work, stream) -> dict:
+    """Phase 19's realtime sub-phase: phase 18's table and stream across the
+    server processes. A kafkalite `LogBrokerServer` in this process (its log
+    on the work disk), 2 partitions of phase 18's PCB1 blocks (`--seed + 13`);
+    a REALTIME `lineorder_rt` table, replication 2, its consuming segments
+    staged on the card, `realtime.segment.flush.threshold.rows`
+    RT_CLUSTER_FLUSH_ROWS; the server processes consume it on their own loops
+    and commit over HTTP. Each round: the round's blocks produced through
+    `LogBrokerClient`, a bounded wait until both replicas consumed them and
+    the HTTP broker's COUNT(*) counts them (staleness: produce to that
+    answer), the commits ONLINE on both replicas, then phase 18's queries
+    through the HTTP broker on their oracles, each run's launches read from
+    the servers' /debug and held to the partials the servers ran on their
+    pipelines (`pinot_server_device_queries`) and the consuming views that
+    hold rows. Round PROC_RT_PEER_ROUND runs with the deep store down: its
+    commits take `peer://`, server_1 restarts with its copies of the table
+    gone and loads every committed segment from server_0 through
+    /segmentData (the deep store's once its download retries run out), then
+    the deep store comes back and one validation round heals the peer-scheme
+    segments. After the rounds: warm runs; the OFFLINE half (2 segments of
+    the rows up to the median date) pushed over HTTP, Q1.1 and GROUP_QUERY on
+    the hybrid table. Returns the launches of the checked runs and the new
+    URL of server_1."""
+    from pinot_tpu_torch.cluster.http_service import get_json
+    from pinot_tpu_torch.cluster.remote import RemoteServerHandle
+    from pinot_tpu_torch.ingest.kafkalite import LogBrokerClient, LogBrokerServer
+    from pinot_tpu_torch.schema import Schema
+    from pinot_tpu_torch.segment.writer import SegmentBuilder
+    from pinot_tpu_torch.ssb import ssb_schema
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+
+    data, blocks = stream
+    parts = len(data)
+    schema = Schema.from_json(dict(ssb_schema().to_json(), schemaName=PROC_RT_TABLE))
+    launches = counts_of()
+    deep = os.path.join(pc.work_dir, "deepstore")
+    t0 = time.perf_counter()
+    srv = LogBrokerServer(log_dir=os.path.join(work, "kafkalite"))
+    client = LogBrokerClient(srv.bootstrap)
+    name = off_name = None
+    try:
+        client.create_topic(PROC_RT_TABLE, parts)
+        cfg = TableConfig(PROC_RT_TABLE, table_type=TableType.REALTIME,
+                          replication=PROC_CLUSTER_REPLICATION, time_column="lo_orderdate",
+                          stream=StreamConfig(stream_type="kafkalite", topic=PROC_RT_TABLE,
+                                              decoder="columnar",
+                                              flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+                                              properties={"bootstrap": srv.bootstrap,
+                                                          "realtime.ingest.device.staging":
+                                                          "true"}))
+        name = cfg.table_name_with_type
+        pc.controller.add_schema(schema)
+        first = pc.controller.add_table(cfg, num_partitions=parts)["consumingSegments"]
+        log("process_realtime_data", rows=parts * RT_CLUSTER_PARTITION_ROWS, partitions=parts,
+            seed=args.seed + RT_CLUSTER_SEED, block_rows=RT_CLUSTER_BLOCK_ROWS,
+            round_blocks=RT_CLUSTER_ROUND_BLOCKS, flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+            replication=PROC_CLUSTER_REPLICATION, consuming=first, bootstrap=srv.bootstrap,
+            setup_s=time.perf_counter() - t0)
+        queries = [(qid, rt_sql(sql), oracle, on_committed, on_view)
+                   for qid, sql, oracle, on_committed, on_view in realtime_cluster_queries()]
+        commits = llc_commit_offsets(RT_CLUSTER_PARTITION_ROWS, RT_CLUSTER_BLOCK_ROWS,
+                                     RT_CLUSTER_ROUND_BLOCKS, RT_CLUSTER_FLUSH_ROWS)
+
+        def segment_start(at: int) -> int:
+            return max([end for _, end in commits if end <= at], default=0)
+
+        def wait(label, ready):
+            deadline = time.perf_counter() + PROC_RT_WAIT_S
+            while True:
+                try:
+                    out = ready()
+                except Exception:   # a mirror or a restarted server catching up: poll
+                    out = None
+                if out:
+                    return out
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"process_realtime: {label} not within "
+                                         f"{PROC_RT_WAIT_S} s")
+                time.sleep(PROC_RT_POLL_S)
+
+        def snapshot():
+            return get_json(f"{pc.controller_url}/catalog/snapshot", timeout=60.0)
+
+        def freshness():
+            """The least freshness of the consuming segments: the largest
+            event time (lo_orderdate) a segment holding rows indexed, None
+            where none holds rows (each then reports when it started)."""
+            return min((int(data[p]["lo_orderdate"][lo:sent[p] * RT_CLUSTER_BLOCK_ROWS].max())
+                        for p in range(parts)
+                        for lo in [segment_start(sent[p]) * RT_CLUSTER_BLOCK_ROWS]
+                        if sent[p] > segment_start(sent[p])), default=None)
+
+        def checked(label, sql, want_rows, on_committed, on_view, views, consuming):
+            """One query over HTTP: the servers' counts set to 0 just before,
+            read just after, held to on_committed a pipeline partial over the
+            committed segments plus on_view a consuming view with rows; the
+            answer to its oracle; the consuming stats to the stream's."""
+            probe.reset()
+            before = rt_device_queries(probe.debug())
+            t_q = time.perf_counter()
+            res = pc.broker.query(sql, timeout=600.0)
+            ms = (time.perf_counter() - t_q) * 1e3
+            debug = probe.debug()
+            counts = probe.launches(debug)
+            piped = rt_device_queries(debug) - before
+            want = {k: on_committed[k] * piped + on_view[k] * views for k in counts}
+            if counts != want:
+                raise AssertionError(f"process_realtime {label}: launches {counts}, expected "
+                                     f"{want} ({piped} pipeline partials, {views} views)")
+            got = res["resultTable"]["rows"]
+            if not rows_match(got, want_rows):
+                raise AssertionError(f"process_realtime {label}: {got[:5]}, oracle "
+                                     f"{want_rows[:5]}")
+            fresh, got_fresh = freshness(), res.get("minConsumingFreshnessTimeMs")
+            now_ms = time.time() * 1000
+            if res["partialResult"] or res["numSegmentsRetried"] or \
+                    res.get("numConsumingSegmentsQueried") != consuming or (
+                        got_fresh != fresh if fresh is not None
+                        else not now_ms - 3_600_000 < got_fresh <= now_ms):
+                raise AssertionError(f"process_realtime {label}: stats (freshness {fresh}) "
+                                     f"{ {k: v for k, v in res.items() if k != 'resultTable'} }")
+            for k, v in counts.items():
+                launches[k] += v
+            return res, ms, counts
+
+        sent = [0] * parts
+        rounds = -(-RT_CLUSTER_PARTITION_ROWS // (RT_CLUSTER_BLOCK_ROWS * RT_CLUSTER_ROUND_BLOCKS))
+        memory = {"before the commits": {s: d["deviceMemory"] for s, d in probe.debug().items()}}
+        consume_rate, commit_online_s = [], {}
+        lanes = set()
+        peer_segments, peer = [], {}
+        for r in range(rounds):
+            if r == PROC_RT_PEER_ROUND:
+                # the deep store down: its root a regular file
+                os.rename(deep, deep + ".parked")
+                with open(deep, "w") as f:
+                    f.write("outage")
+            t_prod = time.perf_counter()
+            for p in range(parts):
+                for blob in blocks[p][sent[p]:sent[p] + RT_CLUSTER_ROUND_BLOCKS]:
+                    client.produce(PROC_RT_TABLE, blob, partition=p)
+                sent[p] = min(sent[p] + RT_CLUSTER_ROUND_BLOCKS, len(blocks[p]))
+            produce_s = time.perf_counter() - t_prod
+            total = sum(sent) * RT_CLUSTER_BLOCK_ROWS
+            # both replicas consumed the round: every consumer at its
+            # partition's offset, and the broker counting every row
+            def consumed():
+                debug = probe.debug()
+                offs = [c["offset"] for d in debug.values()
+                        for c in d["consumers"].get(name, {}).values()
+                        if c["state"] in ("INITIAL_CONSUMING", "CATCHING_UP", "HOLDING")]
+                return len(offs) == parts * PROC_CLUSTER_REPLICATION and \
+                    sorted(offs) == sorted(sent * PROC_CLUSTER_REPLICATION) and debug
+            debug = wait(f"round {r} consumed", consumed)
+            consumed_s = time.perf_counter() - t_prod
+            consume_rate.append(PROC_CLUSTER_REPLICATION * RT_CLUSTER_ROUND_BLOCKS * parts
+                                * RT_CLUSTER_BLOCK_ROWS / consumed_s)
+            for d in debug.values():
+                lanes.update(c["lastDecodePath"] for c in d["consumers"].get(name, {}).values()
+                             if c["lastDecodePath"])
+            wait(f"round {r} counted", lambda: pc.query(
+                f"SELECT COUNT(*) FROM {PROC_RT_TABLE}")["resultTable"]["rows"] == [[total]])
+            staleness_s = time.perf_counter() - t_prod
+            # this round's commits, ONLINE on both replicas
+            want_done = sum(end <= sent[0] for _, end in commits) * parts
+
+            def online():
+                snap = snapshot()
+                done = {s: m for s, m in snap["segments"].get(name, {}).items()
+                        if m["status"] == "DONE"}
+                ev = snap["externalView"].get(name, {})
+                if len(done) == want_done and all(
+                        sorted(ev.get(s, {}).values()) == ["ONLINE"] * PROC_CLUSTER_REPLICATION
+                        for s in done):
+                    return (done,)
+                return None
+            (done,) = wait(f"round {r} commits online", online)
+            for s in done:
+                commit_online_s.setdefault(s, time.perf_counter() - t_prod)
+            fields = {}
+            if r == PROC_RT_PEER_ROUND:
+                peer_segments = sorted(s for s, m in done.items()
+                                       if m["download_path"].startswith("peer://"))
+                if len(peer_segments) != parts or any(
+                        done[s]["download_path"] != f"peer://{name}/{s}" for s in peer_segments):
+                    raise AssertionError(f"process_realtime: the outage's commits "
+                                         f"{ {s: m['download_path'] for s, m in done.items()} }")
+                # server_1 restarted without its copies of the table: every
+                # committed segment from its peer, the deep store still down
+                t_r = time.perf_counter()
+                shutil.rmtree(os.path.join(pc.work_dir, "server_1", name), ignore_errors=True)
+                probe.urls["server_1"] = pc.restart_server("server_1")
+                restart_s = time.perf_counter() - t_r   # its segments loaded at start
+                served = get_json(f"{probe.urls['server_1']}/segments/{name}",
+                                  timeout=60.0)["segments"]
+                if sorted(served) != sorted(done):
+                    raise AssertionError(f"process_realtime: the restarted replica serves "
+                                         f"{served}, committed {sorted(done)}")
+                wait("the restarted replica consuming", consumed)
+                reloaded_s = time.perf_counter() - t_r
+                # its committed copies answer from its pipeline, on the card:
+                # one partial over every committed segment, sent to it alone
+                _, sql, oracle, on_committed, _ = next(q for q in queries if q[0] == "scan_f32")
+                committed_cols = {k: np.concatenate(
+                    [data[p][k][:segment_start(sent[p]) * RT_CLUSTER_BLOCK_ROWS]
+                     for p in range(parts)]) for k in data[0]}
+                handle = RemoteServerHandle(probe.urls["server_1"], timeout_s=600.0)
+                try:
+                    probe.reset()
+                    part = handle(name, sql, sorted(done))
+                    part_counts = probe.launches()
+                finally:
+                    handle.close()
+                if sorted(part.served) != sorted(done) or part_counts != on_committed or \
+                        not rows_match([list(part.scalar)], oracle(committed_cols)):
+                    raise AssertionError(f"process_realtime: the restarted replica's partial "
+                                         f"{part.scalar} over {part.served}, launches "
+                                         f"{part_counts}")
+                for k, v in part_counts.items():
+                    launches[k] += v
+                metrics = get_json(f"{probe.urls['server_1']}/metrics", timeout=60.0)
+                peer = {"restart_s": restart_s, "restart_to_online_s": reloaded_s,
+                        "deepstore_download_quarantined": metrics.get(
+                            "pinot_deepstore_download_quarantined", 0),
+                        "deepstore_download_retries": metrics.get(
+                            "pinot_deepstore_download_retries", 0)}
+                if peer["deepstore_download_quarantined"] != want_done - parts:
+                    raise AssertionError(f"process_realtime: the restarted replica's "
+                                         f"downloads {peer}")
+            views = sum(sent[p] > segment_start(sent[p]) for p in range(parts))
+            consumed_cols = {k: np.concatenate([data[p][k][:sent[p] * RT_CLUSTER_BLOCK_ROWS]
+                                                for p in range(parts)]) for k in data[0]}
+            for qid, sql, oracle, on_committed, on_view in queries:
+                res, ms, counts = checked(f"round {r} {qid}", sql, oracle(consumed_cols),
+                                          on_committed, on_view, views, parts)
+                fields[qid] = {"ms": ms, "launches": counts,
+                               "answer": res["resultTable"]["rows"][:3],
+                               "consuming_queried": res.get("numConsumingSegmentsQueried"),
+                               "min_freshness_ms": res.get("minConsumingFreshnessTimeMs")}
+            if r == PROC_RT_PEER_ROUND:
+                os.remove(deep)
+                os.rename(deep + ".parked", deep)
+                debug = probe.debug()
+                peer["staged_bytes_server_1"] = debug["server_1"]["deviceMemory"]["stagedBytes"]
+                peer["server_1_partial"] = {"query": "scan_f32", "segments": len(done),
+                                            "answer": list(part.scalar),
+                                            "launches": part_counts}
+                t_v = time.perf_counter()
+                healed = pc.controller.validate()
+                peer["validate_s"] = time.perf_counter() - t_v
+                metas = snapshot()["segments"][name]
+                peer["healed"] = healed["healed"]
+                peer["paths"] = {s: metas[s]["download_path"] for s in peer_segments}
+                if sorted(healed["healed"]) != peer_segments or any(
+                        metas[s]["download_path"] != f"{name}/{s}.tar.gz"
+                        or not os.path.exists(os.path.join(deep, name, f"{s}.tar.gz"))
+                        for s in peer_segments):
+                    raise AssertionError(f"process_realtime: the validation round healed "
+                                         f"{healed}, paths {peer['paths']}")
+                if PROC_CLUSTER_DEVICE == "cuda" and peer["staged_bytes_server_1"] <= 0:
+                    raise AssertionError(f"process_realtime: the restarted replica staged "
+                                         f"nothing on the card: {peer}")
+                log("process_realtime_peer", segments=peer_segments, **peer)
+            if r in (1, PROC_RT_PEER_ROUND):
+                memory[f"after round {r}'s commits"] = {s: d["deviceMemory"]
+                                                         for s, d in probe.debug().items()}
+            log("process_realtime_round", round=r, rows=total, produce_s=produce_s,
+                consumed_s=consumed_s, consume_rows_per_s=consume_rate[-1],
+                staleness_s=staleness_s, committed=sorted(done), queries=fields)
+
+        # the protocol: the JAX package's offsets, the segments' rows
+        metas = snapshot()["segments"][name]
+        committed = {s: m for s, m in metas.items() if m["status"] == "DONE"}
+        for p in range(parts):
+            got = sorted((m["sequence_number"], int(m["start_offset"]), int(m["end_offset"]),
+                          m["num_docs"]) for m in committed.values()
+                         if m["partition_group"] == p)
+            want = [(i, a, b, (b - a) * RT_CLUSTER_BLOCK_ROWS) for i, (a, b) in enumerate(commits)]
+            if got != want:
+                raise AssertionError(f"process_realtime: partition {p} committed {got}, "
+                                     f"expected {want}")
+        debug = probe.debug()
+        consumers = {s: d["consumers"].get(name, {}) for s, d in debug.items()}
+        log("process_realtime_commits", committed=len(committed),
+            produce_to_online_s={s: commit_online_s.get(s) for s in sorted(committed)},
+            offsets={s: (m["partition_group"], m["start_offset"], m["end_offset"])
+                     for s, m in sorted(committed.items())},
+            consume_rows_per_s=consume_rate, lanes=sorted(lanes), consumers=consumers)
+        if lanes != {"blocks"}:
+            raise AssertionError(f"process_realtime: the consumers took the {lanes} lanes")
+
+        final = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+        views = sum(sent[p] > segment_start(sent[p]) for p in range(parts))
+        warm = {}
+
+        def warm_runs(label, qid, cols, consuming):
+            _, sql, oracle, on_committed, on_view = next(q for q in queries if q[0] == qid)
+            want_rows = oracle(cols)
+            times = [checked(label, sql, want_rows, on_committed, on_view, views,
+                             consuming)[1] for _ in range(PROC_RT_WARM_RUNS)]
+            warm[label] = {"warm_median_ms": statistics.median(times), "warm_min_ms": min(times),
+                           "warm_max_ms": max(times), "warm_runs": len(times)}
+        for qid, *_ in queries:
+            warm_runs(f"realtime {qid}", qid, final, parts)
+        memory["after the rounds"] = {s: d["deviceMemory"] for s, d in probe.debug().items()}
+
+        # the OFFLINE half: the rows up to the median date, 2 segments over HTTP
+        t_h = time.perf_counter()
+        dates = np.sort(final["lo_orderdate"])
+        low = final["lo_orderdate"] <= int(dates[len(dates) // 2])
+        offline = {k: v[low] for k, v in final.items()}
+        n_off = int(low.sum())
+        off_cfg = TableConfig(PROC_RT_TABLE, replication=PROC_CLUSTER_REPLICATION,
+                              time_column="lo_orderdate")
+        off_name = off_cfg.table_name_with_type
+        pc.controller.add_table(off_cfg)
+        builder = SegmentBuilder(schema)
+        for i, (lo, hi) in enumerate(((0, n_off // 2), (n_off // 2, n_off))):
+            seg_dir = builder.build({k: v[lo:hi] for k, v in offline.items()},
+                                    os.path.join(work, "process_realtime_offline"),
+                                    f"{PROC_RT_TABLE}_offline_{i}")
+            pc.controller.upload_segment(off_name, seg_dir)
+        boundary = int(offline["lo_orderdate"].max())
+        hybrid = {k: np.concatenate([offline[k], final[k][final["lo_orderdate"] > boundary]])
+                  for k in final}
+        n_hybrid = len(hybrid["lo_orderdate"])
+
+        def hybrid_converged():
+            status = pc.controller.table_status(off_name)
+            return status["converged"] and pc.query(
+                f"SELECT COUNT(*) FROM {PROC_RT_TABLE}")["resultTable"]["rows"] == [[n_hybrid]]
+        wait("the hybrid table", hybrid_converged)
+        offline_s = time.perf_counter() - t_h
+        hybrid_answers = {}
+        for qid in ("q1_1", "group_by"):
+            _, sql, oracle, on_committed, on_view = next(q for q in queries if q[0] == qid)
+            res, ms, counts = checked(f"hybrid {qid}", sql, oracle(hybrid), on_committed,
+                                      on_view, views, parts)
+            hybrid_answers[qid] = {"cold_ms": ms, "launches": counts,
+                                   "answer": res["resultTable"]["rows"][:3]}
+            warm_runs(f"hybrid {qid}", qid, hybrid, parts)
+        log("process_realtime_hybrid", boundary=boundary, offline_rows=n_off,
+            rows=n_hybrid, offline_build_upload_s=offline_s, queries=hybrid_answers)
+        log("process_realtime_latency", **warm)
+        log("process_realtime_memory", servers=memory)
+        missing = [k for k in ("masked_sums", "masked_sums_fused", "grouped_agg")
+                   if not launches[k]]
+        if missing:
+            raise AssertionError(f"process_realtime: no {missing} launched in the server "
+                                 f"processes: {launches}")
+    finally:
+        if os.path.isfile(deep):   # the outage ended with an error: the deep store back
+            os.remove(deep)
+            os.rename(deep + ".parked", deep)
+        for t in (name, off_name):
+            if t is not None:
+                try:
+                    pc.controller.drop_table(t)
+                except Exception:   # the phase's own error is the one to report
+                    pass
+        client.close()
+        srv.stop()
+    log("process_realtime_summary", launches=launches, seconds=time.perf_counter() - t0,
+        consume_rows_per_s_median=statistics.median(consume_rate) if consume_rate else None,
+        peer=peer)
+    return launches
+
+
+def run_process_cluster(args, table, cols, work, rt_stream) -> tuple:
     """Phase 19: the roles as OS processes joined over HTTP. A ProcessCluster:
     a controller process, PROC_CLUSTER_SERVERS server processes each owning
     the card through a DeviceQueryPipeline (`server.device.enabled`) and a
@@ -6572,6 +6982,8 @@ def run_process_cluster(args, table, cols, work) -> tuple:
                 "pinot_broker_mux_dispatches", 0)
                 for b, u in (("broker_0", pc.broker_url), ("broker_legacy", legacy.url))})
 
+        realtime_launches = process_realtime(args, pc, probe, work, rt_stream)
+
         # failover: server_1 killed; server_0 answers every segment
         pc.kill_server("server_1")
         del probe.urls["server_1"]
@@ -6594,7 +7006,7 @@ def run_process_cluster(args, table, cols, work) -> tuple:
                                    if "warm_median_ms" in v},
         mix=mix_numbers, in_process_mix=CLUSTER_NUMBERS.get("e2e_mix"),
         failover_s=failover_s, memory=memory)
-    return launches, shuffle_launches
+    return launches, shuffle_launches, realtime_launches
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -6743,12 +7155,17 @@ def main() -> int:
                                  "must run on its path")
         groupby_launches, group_numbers = phase("groupby", run_groupby, args, table, cols)
         cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
-        realtime_cluster_launches = phase("realtime_cluster", run_realtime_cluster, args, work)
-        process_cluster_launches, shuffle_launches = phase(
-            "process_cluster", run_process_cluster, args, table, cols, work)
+        realtime_cluster_launches, rt_stream = phase("realtime_cluster", run_realtime_cluster,
+                                                     args, work)
+        process_cluster_launches, shuffle_launches, process_realtime_launches = phase(
+            "process_cluster", run_process_cluster, args, table, cols, work, rt_stream)
+        del rt_stream
         missing = [k for k in ("masked_sums", "grouped_agg") if not process_cluster_launches[k]]
         missing += [f"{k} (shuffle)" for k in ("bitmap_filter", "grouped_agg")
                     if not shuffle_launches[k]]
+        missing += [f"{k} (process_realtime)" for k in
+                    ("masked_sums", "masked_sums_fused", "grouped_agg")
+                    if not process_realtime_launches[k]]
         if missing:
             raise AssertionError(f"the process_cluster phase launched no {missing} in its "
                                  "server processes")
@@ -6773,7 +7190,8 @@ def main() -> int:
                 "cluster": cluster_launches[name],
                 "realtime_cluster": realtime_cluster_launches[name],
                 "process_cluster": process_cluster_launches[name],
-                "shuffle": shuffle_launches[name]}
+                "shuffle": shuffle_launches[name],
+                "process_realtime": process_realtime_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)

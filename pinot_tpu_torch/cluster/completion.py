@@ -19,14 +19,16 @@ reference's two realtime FSM owners (SURVEY.md §3.2):
   a controller restart adopts the replica that claims the in-flight commit.
   The responses are those of the reference's SegmentCompletionProtocol.
 
-The validation round's repairs (`repair_missing_consuming_segments`,
-`reassign_dead_consuming_segments`, `validate`) are methods a caller runs:
-the periodic scheduler is not ported. Neither is the peer download scheme
-(`cluster/peers.py`, the wire): where the JAX package would commit a segment
-under `peer://` after its deep-store upload's retries ran out, and where its
-validation round heals such a segment, this package raises
-NotImplementedError (ROADMAP.md queue 1), so no segment is committed that no
-server can download.
+A commit whose deep-store upload runs out of its retries still commits, under
+the peer download scheme (the reference's PeerSchemeSplitSegmentCommitter):
+its download path is `peer://{table}/{segment}`, the segment is quarantined,
+and the replicas fetch the committed copy from a serving peer
+(`cluster/peers.py`). The validation round's repairs
+(`repair_missing_consuming_segments`, `reassign_dead_consuming_segments`,
+`validate`) are methods a caller or the controller's periodic task runs;
+`validate` also heals each `peer://` segment once the deep store takes it
+again (the reference's uploadToDeepStoreIfMissing): its tar fetched from a
+peer, uploaded, and its download path set to the deep-store URI.
 
 The catalog's dictionaries are read as copies taken under its lock, as the
 other roles of this package read them, and a commit fills in a copy of the
@@ -41,6 +43,7 @@ import dataclasses
 import os
 import threading
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -76,12 +79,6 @@ def parse_llc_name(name: str) -> dict:
     reference's LLCSegmentName)."""
     parts = name.split("__")
     return {"table": parts[0], "partition": int(parts[1]), "sequence": int(parts[2])}
-
-
-def _peer_scheme_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the peer download scheme (cluster/peers.py, the wire) is not ported "
-        "to pinot_tpu_torch: ROADMAP.md queue 1")
 
 
 @dataclass
@@ -298,12 +295,10 @@ class LLCSegmentManager:
         uri = f"{table}/{segment}.tar.gz"
         try:
             if not self._upload_with_retry(tar_path, uri, segment):
-                # the JAX package commits under peer:// here and lets the
-                # replicas fetch from the committer; without the wire no
-                # replica could download this segment
-                raise _peer_scheme_unported(
-                    f"{segment}: the deep-store upload failed "
-                    f"{self.quarantined.get(segment, 0)} times")
+                # the deep store is down: the commit goes on under the peer
+                # download scheme, and the validation round uploads the
+                # segment once the deep store takes it again
+                uri = f"{_PEER_SCHEME}{table}/{segment}"
             size = os.path.getsize(tar_path)
         finally:
             os.remove(tar_path)
@@ -316,7 +311,8 @@ class LLCSegmentManager:
         """The upload with `clusterConfig/deepstore.retry.max` tries (default
         3) and an exponential backoff from `deepstore.retry.backoff.ms`
         (default 50). False when every try failed: the segment is then
-        quarantined."""
+        quarantined (the commit takes the peer scheme, and each validation
+        round tries the deep store once until an upload lands)."""
         reg = get_registry()
         max_tries = max(1, int(self.catalog.get_property(
             "clusterConfig/deepstore.retry.max", 3)))
@@ -481,9 +477,8 @@ class LLCSegmentManager:
 
     def validate(self) -> Dict[str, List[str]]:
         """One validation round: the missing successors, the dead replicas'
-        consuming segments, and the peer-scheme segments to heal (which
-        raise NotImplementedError: no segment of this package has one, a
-        catalog restored from the JAX package may)."""
+        consuming segments, and the peer-scheme segments healed into the deep
+        store."""
         with self._lock:
             out = {"created": self._repair_missing_consuming_segments(),
                    "reassigned": self._reassign_dead_consuming_segments()}
@@ -491,14 +486,46 @@ class LLCSegmentManager:
         return out
 
     def _heal_peer_segments(self) -> List[str]:
+        """Upload each `peer://` segment's tar, fetched from a serving peer,
+        to the deep store and point its download path there. A segment whose
+        fetch or upload fails waits for the next round (its quarantine count
+        grows); the path flips under the locks, and only where the segment is
+        still a peer-scheme one (a drop or another round may have come
+        between)."""
+        from .peers import fetch_from_peer
         with self.catalog._lock:
-            peer = sorted(f"{t}/{n}" for t, segs in self.catalog.segments.items()
+            peer = sorted((t, n) for t, segs in self.catalog.segments.items()
                           for n, m in segs.items()
                           if (m.download_path or "").startswith(_PEER_SCHEME))
-        if peer:
-            raise _peer_scheme_unported(f"healing {len(peer)} peer-scheme segments "
-                                        f"({', '.join(peer[:3])})")
-        return []
+        healed = []
+        for table, name in peer:
+            uri = f"{table}/{name}.tar.gz"
+            # a name of its own a round: a POST /validate may run beside the
+            # periodic round
+            tmp = os.path.join(self.work_dir, f"heal_{name}_{uuid.uuid4().hex[:8]}.tar.gz")
+            try:
+                fetch_from_peer(self.catalog, table, name, tmp)
+                self.deepstore.upload(tmp, uri)
+            except OSError:   # no peer, or the deep store still down: the next round
+                with self._lock:
+                    if name in self.quarantined:
+                        self.quarantined[name] += 1
+                continue
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            with self._lock:
+                self.quarantined.pop(name, None)
+                with self.catalog._lock:
+                    cur = self.catalog.segments.get(table, {}).get(name)
+                    if cur is None or not (cur.download_path or "").startswith(_PEER_SCHEME):
+                        continue
+                    meta = dataclasses.replace(cur, custom=dict(cur.custom))
+                meta.download_path = uri
+                self.catalog.put_segment_meta(meta)
+            healed.append(name)
+            emit_event("deepstore.healed", node="controller", table=table, segment=name)
+        return healed
 
     def _realtime_tables(self) -> List[tuple]:
         with self.catalog._lock:

@@ -6,7 +6,11 @@ commands), here one Python process a role, started by
 `python -m pinot_tpu_torch.cluster.process --role ...` or the admin CLI
 (`tools/admin.py`). The controller process owns the catalog and the deep
 store and runs the periodic tasks; server and broker processes join through
-`RemoteCatalog` and speak the binary wire format (`wire.py`, `mux.py`).
+`RemoteCatalog` and speak the binary wire format (`wire.py`, `mux.py`). A
+server process reports to the controller's LLC segment manager over HTTP
+(`remote.RemoteCompletion`) and consumes its realtime tables on its own
+loops (`auto_consume`): a REALTIME table over a kafkalite stream is consumed,
+committed and queried across the processes.
 
 A server process runs on CUDA unless it is started with `--device cpu`: it
 owns the card through its `DeviceQueryPipeline` (`server.device.enabled`)
@@ -19,7 +23,8 @@ one does).
 `ProcessCluster` is the harness that starts the processes (new interpreters
 through `subprocess`, never a fork of a parent that may hold a CUDA
 context), waits for each role's ready file in `run_dir` and kills them all
-on exit; a kill is a real process death. `ControllerClient` and
+on exit; a kill is a real process death, and `restart_server` starts a
+fresh process under the same instance id. `ControllerClient` and
 `BrokerClient` are its HTTP clients. The minion role (`run_minion`) waits:
 ROADMAP.md queue 1, item 3.
 """
@@ -117,10 +122,11 @@ def _controller(work_dir: str, cfg):
 
 def _server(controller_url: str, instance_id: str, work_dir: str, cfg, device: str):
     """A ServerNode joined through the controller: on `device`, with the
-    pipeline and the scheduler its configuration asks for."""
+    pipeline and the scheduler its configuration asks for, reporting its
+    consuming segments over HTTP and consuming them on its own loops."""
     from ..query.scheduler import scheduler_from_config
     from .device_server import pipeline_from_config
-    from .remote import ControllerDeepStore, RemoteCatalog
+    from .remote import ControllerDeepStore, RemoteCatalog, RemoteCompletion
     from .server import ServerNode
     pipeline = pipeline_from_config(cfg, device=device)
     catalog = RemoteCatalog(controller_url)
@@ -128,7 +134,8 @@ def _server(controller_url: str, instance_id: str, work_dir: str, cfg, device: s
                       os.path.join(work_dir, instance_id),
                       tags=cfg.get_list("server.tenant.tags") or None,
                       scheduler=scheduler_from_config(cfg), device=device,
-                      device_pipeline=pipeline)
+                      device_pipeline=pipeline, completion=RemoteCompletion(controller_url),
+                      auto_consume=True)
 
 
 def run_controller(work_dir: str, run_dir: str, port: int = 0, config_path: str = "") -> None:
@@ -274,6 +281,8 @@ class ControllerClient:
         post_json(f"{self.url}/schemas", schema.to_json(), token=self.token)
 
     def add_table(self, config, num_partitions: int = 1) -> Dict:
+        """Add a table; one with a stream config gets its first consuming
+        segment in each of `num_partitions` stream partitions."""
         return post_json(f"{self.url}/tables", {"config": config.to_json(),
                                                 "numPartitions": num_partitions},
                          token=self.token)
@@ -319,6 +328,16 @@ class ControllerClient:
     def set_cluster_config(self, key: str, value) -> Dict:
         return post_json(f"{self.url}/clusterConfigs", {"key": key, "value": value},
                          token=self.token)
+
+    def pause_consumption(self, table: str) -> Dict:
+        return post_json(f"{self.url}/pauseConsumption/{table}", {}, token=self.token)
+
+    def resume_consumption(self, table: str) -> Dict:
+        return post_json(f"{self.url}/resumeConsumption/{table}", {}, token=self.token)
+
+    def validate(self) -> Dict:
+        """One realtime validation round: {"created", "reassigned", "healed"}."""
+        return post_json(f"{self.url}/validate", {}, timeout=300.0, token=self.token)
 
 
 class BrokerClient:
@@ -452,6 +471,18 @@ class ProcessCluster:
                                   "--controller-url", self.controller_url,
                                   "--device", self.device])
         return BrokerClient(self._await_ready(instance_id))
+
+    def restart_server(self, instance_id: str) -> str:
+        """Start a fresh server process under the same instance id (killing
+        the old one if it lives): it registers again, loads its assigned
+        segments (from its disk, the deep store or a peer) and consumes again
+        from the committed offsets. Returns the new process's URL."""
+        self.kill_server(instance_id)
+        ready = os.path.join(self.run_dir, f"{instance_id}.ready")
+        if os.path.exists(ready):
+            os.remove(ready)   # the wait must see the new process's file
+        self._spawn_server(instance_id)
+        return self._await_ready(instance_id)
 
     def server_url(self, instance_id: str) -> str:
         with open(os.path.join(self.run_dir, f"{instance_id}.ready")) as f:

@@ -6,28 +6,32 @@ the catalog (`catalog.py`); a remote role mirrors it through
 ZooKeeper-watch analog) that fires the in-process catalog's events from
 snapshot diffs, and forwards the mutations a remote role makes (instance
 registration, external-view reports, properties) to the controller.
-`RemoteServerHandle` is the broker's dispatch to a server: over the mux
-transport (`submit_async`, a Future that holds no thread for the round
-trip) or one `POST /query` a partial, and `join_stage` runs a funnel-path
-join partition on the server (`POST /stage`); `ControllerDeepStore` reaches
-the deep store through the controller. What the minion needs
-(`RemoteController`, `RemoteTaskQueue`) and the completion protocol's client
-(`RemoteCompletion`, realtime tables over processes) wait: ROADMAP.md queue
-1, item 3.
+`RemoteCompletion` is a server's client of the segment completion protocol
+(the reference's `ServerSegmentCompletionProtocolHandler` posting to
+`LLCSegmentCompletionHandlers`): segment consumed, commit start, and commit
+end with the built segment's tar as its body. `RemoteServerHandle` is the
+broker's dispatch to a server: over the mux transport (`submit_async`, a
+Future that holds no thread for the round trip) or one `POST /query` a
+partial, and `join_stage` runs a funnel-path join partition on the server
+(`POST /stage`); `ControllerDeepStore` reaches the deep store through the
+controller. What the minion needs (`RemoteController`, `RemoteTaskQueue`)
+waits: ROADMAP.md queue 1, item 3.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import threading
 import time
+import urllib.parse
 from typing import Optional, Sequence
 
 from ..schema import Schema
 from ..table import TableConfig
 from .catalog import Catalog, InstanceInfo, SegmentMeta
-from .deepstore import DeepStoreFS
+from .deepstore import DeepStoreFS, tar_segment
 from .http_service import HttpError, get_json, http_call, http_stream, post_json
 from .wire import decode_segment_result, encode_query_request
 
@@ -162,6 +166,36 @@ class RemoteCatalog(Catalog):
             self._notify("instance", i)
         for k in prop_changed:
             self._notify("property", k)
+
+
+class RemoteCompletion:
+    """A server's HTTP client of the segment completion protocol, with the
+    LLC segment manager's three calls (`cluster/completion.py`)."""
+
+    def __init__(self, controller_url: str):
+        self.controller_url = controller_url.rstrip("/")
+
+    def segment_consumed(self, segment: str, server: str, offset: int):
+        return post_json(f"{self.controller_url}/segmentConsumed",
+                         {"segment": segment, "server": server, "offset": offset}, retries=2)
+
+    def segment_commit_start(self, segment: str, server: str) -> str:
+        return post_json(f"{self.controller_url}/segmentCommitStart",
+                         {"segment": segment, "server": server}, retries=2)["status"]
+
+    def segment_commit_end(self, segment: str, server: str, segment_dir: str,
+                           end_offset: int) -> str:
+        """Tar the locally built segment and send it with the commit end (the
+        reference's commitSegment: the end metadata and the file upload)."""
+        with tempfile.TemporaryDirectory() as tmp:
+            tar_path = os.path.join(tmp, f"{segment}.tar.gz")
+            tar_segment(segment_dir, tar_path)
+            with open(tar_path, "rb") as f:
+                payload = f.read()
+        q = urllib.parse.urlencode({"segment": segment, "server": server, "offset": end_offset})
+        resp = http_call("POST", f"{self.controller_url}/segmentCommitEnd?{q}", payload,
+                         content_type="application/octet-stream", timeout=300.0)
+        return json.loads(resp.decode())["status"]
 
 
 class RemoteServerHandle:

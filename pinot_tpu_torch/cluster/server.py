@@ -13,8 +13,17 @@ over (the local build where this server committed it or consumed exactly to
 its end offset, else the committed copy from the deep store) and retires the
 consumer once the immutable copy is registered; a consuming segment taken
 from the server stops its consumer. `completion` is the controller's LLC
-segment manager the consumers report to; a caller pumps and completes
-them, or starts the manager's background loop (`start_loop`).
+segment manager the consumers report to (in a server process its HTTP
+client, `remote.RemoteCompletion`); a caller pumps and completes them, or,
+with `auto_consume` (a server process), each realtime table's manager runs
+its background loop (`start_loop`) from its first CONSUMING assignment until
+the table is dropped or the server shuts down.
+
+A segment's copy comes from the deep store, with the `deepstore.retry.*`
+backoff, else from a peer that serves it (`cluster/peers.py`): at once for a
+`peer://` segment, committed while the deep store was down. `GET
+/segmentData` serves a loaded segment's directory to such peers
+(`local_segment_dir`).
 
 A partial (`execute_partial`) runs over the server's copy of the segments the
 broker routed to it, under the broker's deadline (`deadlineEpochMs`) and an
@@ -73,6 +82,7 @@ from ..utils.metrics import get_registry
 from ..utils.trace import current_depth, current_trace, span
 from .catalog import CONSUMING, ONLINE, Catalog, InstanceInfo
 from .deepstore import DeepStoreFS, untar_segment
+from .peers import download_segment_tar
 
 #: cluster knobs of the JAX package's server that this package does not honour
 UNPORTED_KNOBS = {
@@ -144,7 +154,8 @@ class ServerNode:
 
     def __init__(self, instance_id: str, catalog: Catalog, deepstore: DeepStoreFS,
                  data_dir: str, tags: Optional[List[str]] = None, scheduler=None,
-                 device=None, device_pipeline=None, completion=None):
+                 device=None, device_pipeline=None, completion=None,
+                 auto_consume: bool = False):
         for knob, refused in UNPORTED_KNOBS.items():
             v = catalog.get_property(f"clusterConfig/{knob}")
             if v is not None and (refused is None or str(v).lower() == refused):
@@ -169,6 +180,9 @@ class ServerNode:
         # realtime: the LLC segment manager the consumers report to and one
         # RealtimeTableManager a realtime table
         self.completion = completion
+        # True in a server process: each realtime manager pumps and completes
+        # on its own loop; False where a caller drives them (tests, the smoke)
+        self.auto_consume = auto_consume
         self._realtime_managers: Dict[str, object] = {}
         self.status = "STARTING"
         os.makedirs(data_dir, exist_ok=True)
@@ -309,6 +323,8 @@ class ServerNode:
                 from ..ingest.realtime import RealtimeTableManager
                 handler = RealtimeTableManager(self, table, cfg, self.completion)
                 self._realtime_managers[table] = handler
+                if self.auto_consume:
+                    handler.start_loop()
             return handler
 
     def realtime_manager(self, table: str):
@@ -347,20 +363,33 @@ class ServerNode:
         try:
             local_dir = os.path.join(self.data_dir, table, seg_name)
             if not os.path.isdir(local_dir):
-                meta = self.catalog.segments.get(table, {}).get(seg_name)
-                if meta is None or not meta.download_path:
+                with self.catalog._lock:
+                    meta = self.catalog.segments.get(table, {}).get(seg_name)
+                    path = meta.download_path if meta is not None else None
+                if not path:
                     raise FileNotFoundError(f"no deep-store path for {table}/{seg_name}")
                 tar_local = f"{local_dir}.{threading.get_ident()}.tar.gz"
-                self.deepstore.download(meta.download_path, tar_local)
+                os.makedirs(os.path.dirname(local_dir), exist_ok=True)
                 try:
+                    download_segment_tar(self.deepstore, self.catalog, table, seg_name,
+                                         tar_local, path, exclude_instance=self.instance_id)
                     untar_segment(tar_local, os.path.dirname(local_dir))
                 finally:
-                    os.remove(tar_local)
+                    if os.path.exists(tar_local):
+                        os.remove(tar_local)
             if mgr.get(seg_name) is None:
                 mgr.add_segment(seg_name, load_segment(local_dir))
             return True
         finally:
             lock.release()
+
+    def local_segment_dir(self, table: str, seg_name: str) -> Optional[str]:
+        """The directory of a loaded segment (what `GET /segmentData` serves a
+        peer), None where this server does not serve it."""
+        mgr = self.tables.get(table)
+        seg = mgr.get(seg_name) if mgr is not None else None
+        path = getattr(seg, "path", None)
+        return path if path and os.path.isdir(path) else None
 
     def _segment_load_lock(self, table: str, seg_name: str) -> threading.Lock:
         with self._lock:

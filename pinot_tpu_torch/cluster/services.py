@@ -7,33 +7,38 @@ endpoints:
 * `ControllerService`: the catalog API that stands in for ZooKeeper (a
   snapshot and a long-poll watch on a version counter bumped by every
   catalog event), schema, table and segment CRUD with the segment tar
-  upload, the deep-store proxy, table status, segment metadata, tenants,
-  cluster configs, table state, instance tags, rebalance, the validation
-  round, metrics, debug, and the `sql` proxy to a live broker.
+  upload (a table with a stream config made with its consuming segments,
+  `numPartitions` of them), the segment download (a `peer://` segment's from
+  a serving peer), the segment completion protocol (`segmentConsumed`,
+  `segmentCommitStart`, `segmentCommitEnd` with the built segment's tar),
+  the consumption pause and resume, the deep-store proxy, table status,
+  segment metadata, tenants, cluster configs, table state, instance tags,
+  rebalance, the validation round, metrics, debug, and the `sql` proxy to a
+  live broker.
 * `ServerService`: `POST /query` (one binary wire exchange a partial),
   `POST /mux` (the multiplexed transport, `mux.py`), `POST /explain`,
   the multistage data plane (`POST /stage`, a funnel-path join partition;
   `POST` and `DELETE /mailbox`, the peers' partition streams and their
   cancellation; `leafStage`, `leafAgg`, `joinStage` and `aggStage`, the
   mailbox shuffle's tasks, `multistage/shuffle.py`; its URL registered as a
-  local endpoint while it runs), health and readiness, debug, segments and
+  local endpoint while it runs), health and readiness, debug, segments,
+  `segmentData` (the tar of a loaded segment: the peer download scheme) and
   metrics. Its `/debug` also
   reports this process's kernel launches (`scan.masked_sums`,
   `scan.masked_sums_fused`, `bitmap.bitmap_filter`, `grouped.grouped_agg`;
   `POST /debug/launches/reset` sets them to 0), its device memory
-  (`torch.cuda.memory_allocated` and the bytes its staged blocks hold) and
-  whether `jax` or `pinot_tpu` was ever imported in it: fields of this
-  package, which the JAX package's server does not report.
+  (`torch.cuda.memory_allocated` and the bytes its staged blocks hold), its
+  realtime consumers and whether `jax` or `pinot_tpu` was ever imported in
+  it: fields of this package, which the JAX package's server does not report.
 * `BrokerService`: `POST /query`, `POST /queryStream` (JSON lines over
   chunked HTTP), health, metrics and debug; it wires a `RemoteServerHandle`
   for every live server the catalog advertises, with its stage handle and
   URL (the mailbox shuffle's worker).
 
 Routes that wait answer 501 with the ROADMAP.md item that holds them: the
-completion routes, `segmentData` and the
-consumption pause (realtime tables over processes), the minion's `tasks`,
-`replaceSegments` and `ingestJobs`, and the admin UI. `/metrics` answers the
-registry's snapshot as JSON: the Prometheus text export waits.
+minion's `tasks`, `replaceSegments` and `ingestJobs`, and the admin UI.
+`/metrics` answers the registry's snapshot as JSON: the Prometheus text export
+waits.
 """
 
 from __future__ import annotations
@@ -64,8 +69,6 @@ from .server import ServerNode
 from .wire import (decode_block, decode_query_request, decode_segment_result, decode_value,
                    encode_segment_result, encode_value)
 
-REALTIME_WAITS = ("realtime tables over processes wait for ingest/kafkalite.py, "
-                  "RemoteCompletion and cluster/peers.py: ROADMAP.md queue 1, item 3")
 MINION_WAITS = "the minion and its task routes wait: ROADMAP.md queue 1, item 3"
 UI_WAITS = "the admin UI waits: ROADMAP.md queue 1, item 3"
 
@@ -158,9 +161,11 @@ class ControllerService:
         s.route("GET", "metrics", _metrics_route)
         s.route("GET", "debug", self._debug)
         s.route("POST", "sql", self._sql_proxy)
-        for head in ("segmentConsumed", "segmentCommitStart", "segmentCommitEnd",
-                     "pauseConsumption", "resumeConsumption"):
-            s.route("POST", head, _waits(REALTIME_WAITS), action="WRITE")
+        s.route("POST", "segmentConsumed", self._segment_consumed, action="WRITE")
+        s.route("POST", "segmentCommitStart", self._segment_commit_start, action="WRITE")
+        s.route("POST", "segmentCommitEnd", self._segment_commit_end, action="WRITE")
+        s.route("POST", "pauseConsumption", self._pause_consumption, action="ADMIN")
+        s.route("POST", "resumeConsumption", self._resume_consumption, action="ADMIN")
         for method, head in (("POST", "tasks"), ("GET", "tasks"), ("POST", "replaceSegments"),
                              ("POST", "ingestJobs")):
             s.route(method, head, _waits(MINION_WAITS))
@@ -263,7 +268,11 @@ class ControllerService:
         d = json.loads(body.decode())
         cfg = TableConfig.from_json(d["config"] if "config" in d else d)
         if cfg.stream is not None:
-            return error_response(REALTIME_WAITS, 501)
+            try:
+                segs = self.controller.add_realtime_table(cfg, int(d.get("numPartitions", 1)))
+            except ValueError as e:
+                return error_response(str(e), 400)
+            return json_response({"status": "OK", "consumingSegments": segs})
         self.controller.add_table(cfg)
         return json_response({"status": "OK"})
 
@@ -296,18 +305,21 @@ class ControllerService:
         return json_response({"status": "OK", "segment": meta.name})
 
     def _get_segment(self, parts, params, body):
-        """GET /segments/{table}/{name}: the committed tar from the deep store."""
+        """GET /segments/{table}/{name}: the committed tar, from the deep
+        store or (a `peer://` segment, a failing deep store) a serving peer."""
         table, name = parts[0], parts[1]
         from ..auth import require_table_access
+        from .peers import download_segment_tar
         require_table_access(table, "READ")   # raw data: the queries' ACL
-        meta = self.catalog.segments.get(table, {}).get(name)
-        if meta is None or not meta.download_path:
+        with self.catalog._lock:
+            meta = self.catalog.segments.get(table, {}).get(name)
+            path = meta.download_path if meta is not None else None
+        if not path:
             return error_response(f"no such segment {table}/{name}", 404)
-        if meta.download_path.startswith("peer://"):
-            return error_response(REALTIME_WAITS, 501)
         with tempfile.TemporaryDirectory() as tmp:
             local = os.path.join(tmp, "seg.tar.gz")
-            self.controller.deepstore.download(meta.download_path, local)
+            download_segment_tar(self.controller.deepstore, self.catalog, table, name, local,
+                                 path)
             with open(local, "rb") as f:
                 return binary_response(f.read())
 
@@ -379,8 +391,43 @@ class ControllerService:
 
     def _validate(self, parts, params, body):
         """POST /validate: one realtime validation round now (the periodic
-        task's work, on demand)."""
+        task's work, on demand): successors, dead replicas, peer-scheme
+        segments healed."""
         return json_response(self.controller.llc.validate())
+
+    def _pause_consumption(self, parts, params, body):
+        """POST /pauseConsumption/{tableNameWithType} (the reference's
+        PinotRealtimeTableResource.pauseConsumption)."""
+        try:
+            return json_response(self.controller.llc.pause_consumption(parts[0]))
+        except ValueError as e:
+            return error_response(str(e), 400)
+
+    def _resume_consumption(self, parts, params, body):
+        try:
+            return json_response(self.controller.llc.resume_consumption(parts[0]))
+        except ValueError as e:
+            return error_response(str(e), 400)
+
+    # -- the segment completion protocol (LLCSegmentCompletionHandlers) ------
+    def _segment_consumed(self, parts, params, body):
+        d = json.loads(body.decode())
+        return json_response(self.controller.llc.segment_consumed(
+            d["segment"], d["server"], int(d["offset"])))
+
+    def _segment_commit_start(self, parts, params, body):
+        d = json.loads(body.decode())
+        return json_response({"status": self.controller.llc.segment_commit_start(
+            d["segment"], d["server"])})
+
+    def _segment_commit_end(self, parts, params, body):
+        """POST /segmentCommitEnd?segment=&server=&offset= with the built
+        segment's tar as the body."""
+        segment, server, offset = params["segment"], params["server"], int(params["offset"])
+        with tempfile.TemporaryDirectory() as tmp:
+            seg_dir = _untar_body(body, segment, tmp)
+            status = self.controller.llc.segment_commit_end(segment, server, seg_dir, offset)
+        return json_response({"status": status})
 
     # -- deep-store proxy ---------------------------------------------------
     def _deepstore_get(self, parts, params, body):
@@ -441,9 +488,10 @@ def _tensor_bytes(obj, seen: set) -> int:
 
 
 def server_device_memory(server: ServerNode) -> Dict[str, int]:
-    """The server's device memory: the allocator's bytes on the card, and
-    the bytes its staged blocks hold (each served segment's blocks, and the
-    stacked set blocks of its pipeline's set executor)."""
+    """The server's device memory: the allocator's bytes on the card, the
+    bytes its staged blocks hold (each served segment's blocks, and the
+    stacked set blocks of its pipeline's set executor) and those of its
+    consuming segments (their staged chunks and their views' blocks)."""
     import torch
     seen: set = set()
     staged = 0
@@ -455,9 +503,17 @@ def server_device_memory(server: ServerNode) -> Dict[str, int]:
     if server.device_pipeline is not None:
         for _, blk in list(server.device_pipeline.mesh_exec._set_blocks.values()):
             staged += _tensor_bytes(vars(blk), seen)
+    consuming = 0
+    for rt in list(server._realtime_managers.values()):
+        for c in list(rt.consumers.values()):
+            store = c.mutable
+            consuming += _tensor_bytes(list(getattr(store, "_dev_chunks", {}).values()), seen)
+            view = getattr(store, "_view", None)
+            for blk in list(getattr(view, "_device_blocks", {}).values()):
+                consuming += _tensor_bytes(vars(blk), seen)
     on_card = server.executor.device.type == "cuda"
     return {"memoryAllocated": int(torch.cuda.memory_allocated(server.executor.device))
-            if on_card else 0, "stagedBytes": staged}
+            if on_card else 0, "stagedBytes": staged, "consumingStagedBytes": consuming}
 
 
 class ServerService:
@@ -494,7 +550,7 @@ class ServerService:
         s.route("POST", "leafAgg", self._leaf_agg)
         s.route("POST", "joinStage", self._join_stage)
         s.route("POST", "aggStage", self._agg_stage)
-        s.route("GET", "segmentData", _waits(REALTIME_WAITS))
+        s.route("GET", "segmentData", self._segment_data)
         self.http.start()
         # advertise the query endpoint so brokers find it (reference: the
         # Helix instance config carries host and port)
@@ -641,7 +697,8 @@ class ServerService:
 
     def _debug(self, parts, params, body):
         """GET /debug: the server's metrics, its kernels' launches, its
-        device memory, its pipeline's stats and its imported packages; GET
+        device memory, its realtime consumers (state, offset, rows, decode
+        lane), its pipeline's stats and its imported packages; GET
         /debug/events: the journal."""
         from ..utils.metrics import get_registry
         if parts and parts[0] == "events":
@@ -655,6 +712,8 @@ class ServerService:
                               if k.startswith("pinot_server")},
             "kernelLaunches": kernel_launch_counts(),
             "deviceMemory": server_device_memory(self.server),
+            "consumers": {t: m.consumer_status()
+                          for t, m in list(self.server._realtime_managers.items())},
             "pipeline": pipeline.stats() if pipeline is not None else None,
             "importedPackages": {m: m in sys.modules for m in ("jax", "pinot_tpu")},
         })
@@ -677,6 +736,23 @@ class ServerService:
 
     def _segments(self, parts, params, body):
         return json_response({"segments": self.server.segments_served(parts[0])})
+
+    def _segment_data(self, parts, params, body):
+        """GET /segmentData/{table}/{segment}: the tar of this server's loaded
+        copy (the peer download scheme: every ONLINE replica serves the
+        committed bytes when the deep store cannot)."""
+        from ..auth import require_table_access
+        from .deepstore import tar_segment
+        table, name = parts[0], parts[1]
+        require_table_access(table, "READ")   # raw data: the queries' ACL
+        seg_dir = self.server.local_segment_dir(table, name)
+        if seg_dir is None:
+            return error_response(f"{table}/{name} not served here", 404)
+        with tempfile.TemporaryDirectory() as tmp:
+            tar_path = os.path.join(tmp, "seg.tar.gz")
+            tar_segment(seg_dir, tar_path)
+            with open(tar_path, "rb") as f:
+                return binary_response(f.read())
 
     # -- the multistage data plane ------------------------------------------
     #: rows a streamed stage-output frame carries (bounded buffering both sides)

@@ -27,16 +27,28 @@ inverted index columns, or sets the stream property
 (`segment/mutable.py`), which keeps the realtime indexes and indexes row by
 row.
 
-Three decode lanes, as in the JAX package:
+The stream is the table's stream type through the factory registry
+(`stream.get_stream_factory`: a `MemoryStream` topic, or a kafkalite
+partition over its socket, which `close()` releases). The decode lanes follow
+the JAX package's, chosen by what the decoder and the consumer offer
+(`last_decode_path` names the lane the last pump took):
 * a columnar block stream (a decoder `stream.get_block_decoder` knows:
   "columnar"): each message is a PCB1 block, decoded to a `ColumnarBatch` and
-  appended with `index_arrays` (`last_decode_path` "blocks"); a table with
-  upsert or dedup cannot take it;
-* a row stream (JSON, Avro, or a registered Protobuf or Thrift decoder,
-  `stream.get_decoder`): the batch's messages decoded (in one call of the
-  stream's batch decoder where one is registered, `stream.get_batch_decoder`:
-  JSON's), coerced by the transform pipeline and appended column by column
-  with `index_batch` ("batch");
+  appended with `index_arrays` ("blocks"); the blocks come from the
+  consumer's `fetch_spliced` (one buffer, walked with `np.frombuffer` views),
+  else `fetch_raw`, else `fetch`. A table with upsert or dedup cannot take it;
+* a JSON stream over a splicing consumer (`fetch_spliced`), with no filter or
+  transforms: one native walk of the spliced values to typed arrays
+  (`vectorized.columnar_batch_from_json`, "columnar-array") where the segment
+  appends arrays, else to coerced column lists
+  (`transform.columns_from_spliced_json`, "columnar"); a row stream with a
+  spliced batch decoder: one parse of the joined values ("spliced");
+* a row stream with a batch decoder over a consumer that offers `fetch_raw`:
+  the value bytes decoded in one call ("raw"), or over `fetch` ("batch");
+  where that call fails or gives another number of rows than messages, the
+  row decoder decodes each message, so that a malformed one raises alone. The
+  decoded rows are coerced by the transform pipeline and appended column by
+  column with `index_batch`;
 * the per-row lane of an upsert or dedup table ("row"): the batch's messages
   decoded and transformed (`TransformPipeline.apply_rows`: the rows
   `apply_row` gives one at a time), then `_index_row` row by row in arrival
@@ -61,13 +73,11 @@ completes its consumers (`pump_all`, `complete_all`, or a background loop,
 `start_loop`). It keeps one upsert metadata manager for the table and one
 dedup manager per partition.
 
-Not ported: the stream factory registry and the socket broker (`kafkalite`)
-with its splicing fetch (the consumer reads a `MemoryStream` topic), the
-ingestion-lag gauges and status rollup (`lag_status`, `ingestion_status`:
-only the freshness the broker's stats read is kept). The stream properties
-`filterExpr` and `columnTransforms` configure the `TransformPipeline`: with
-either, a block lane's batches go through it as column lists before they are
-indexed.
+Not ported: the ingestion-lag gauges and status rollup (`lag_status`,
+`ingestion_status`: only the freshness the broker's stats read is kept, and
+`consumer_status` for a server's `/debug`). The stream properties `filterExpr`
+and `columnTransforms` configure the `TransformPipeline`: with either, a block
+lane's batches go through it as column lists before they are indexed.
 """
 
 from __future__ import annotations
@@ -87,8 +97,9 @@ from ..table import TableConfig
 from ..upsert import (PartitionDedupMetadataManager, TableUpsertMetadataManager,
                       merge_partial)
 from ..utils.metrics import get_registry
-from .stream import MemoryStreamConsumer, get_batch_decoder, get_block_decoder, get_decoder
-from .transform import TransformPipeline, rows_to_all_columns
+from .stream import get_batch_decoder, get_block_decoder, get_decoder, get_stream_factory
+from .transform import TransformPipeline, columns_from_spliced_json, rows_to_all_columns
+from .vectorized import columnar_batch_from_json
 
 #: messages one `pump()` fetches unless the caller or the stream property
 #: `realtime.ingest.batch.size` names another count
@@ -182,13 +193,12 @@ class RealtimePartitionConsumer:
         self.pipeline = TransformPipeline(schema, props.get("filterExpr"),
                                           props.get("columnTransforms"))
         self.partition = parse_llc_name(segment_name)["partition"]
+        self._factory = get_stream_factory(stream_cfg.stream_type, stream_cfg.topic,
+                                           stream_cfg.properties)
         # made again at the next pump where the topic does not exist yet (a
-        # producer may create it after the table)
-        try:
-            self.consumer: Optional[MemoryStreamConsumer] = MemoryStreamConsumer(
-                stream_cfg.topic, self.partition)
-        except KeyError:
-            self.consumer = None
+        # producer may create it after the table) or the broker is down
+        self.consumer = None
+        self._connect()
         # a block stream (columnar) decodes whole blocks; any other decodes rows
         self.block_decoder = get_block_decoder(stream_cfg.decoder)
         self.decoder = self.batch_decoder = None
@@ -214,8 +224,19 @@ class RealtimePartitionConsumer:
         # publish runs the handoff on it), and set when `_commit` returns
         self._commit_thread: Optional[int] = None
         self._commit_done = threading.Event()
-        # which lane the last pump took: "blocks" | "batch" | "row" | None
+        # which lane the last pump took: "blocks" | "columnar-array" |
+        # "columnar" | "spliced" | "raw" | "batch" | "row" | None
         self.last_decode_path: Optional[str] = None
+
+    def _connect(self) -> bool:
+        """Make the stream consumer; False where the topic or the broker is
+        not there yet (the next pump tries again)."""
+        try:
+            self.consumer = self._factory.create_consumer(self.table_cfg.stream.topic,
+                                                          self.partition)
+        except (KeyError, OSError):
+            return False
+        return True
 
     # -- consume loop --------------------------------------------------------
     def pump(self, max_messages: Optional[int] = None) -> int:
@@ -224,45 +245,34 @@ class RealtimePartitionConsumer:
         default); returns the rows indexed (the reference's consumeLoop, one
         iteration). Nothing is fetched once the consumer left the consuming
         states, is halted or paused; a catch-up fetches no further than its
-        target. The fetch and decode run outside `pump_lock`; the indexing
-        and the offset's publish hold it, and drop the batch where the
-        consumer was halted or another pump indexed the range meanwhile."""
+        target. The fetch and decode run outside `pump_lock` (a stalled
+        broker socket must not block the handoff); the indexing and the
+        offset's publish hold it, and drop the batch where the consumer was
+        halted or another pump indexed the range meanwhile."""
         if self.halted or self.pause_requested or self.state not in _CONSUMING_STATES:
             return 0
-        if self.consumer is None:
-            try:
-                self.consumer = MemoryStreamConsumer(self.table_cfg.stream.topic,
-                                                     self.partition)
-            except KeyError:
-                return 0   # no topic yet: the next pump tries again
+        if self.consumer is None and not self._connect():
+            return 0
         limit = max_messages if max_messages is not None else self._batch_size
         if self.catchup_target is not None:
             limit = min(limit, self.catchup_target - self.offset)
             if limit <= 0:
                 return 0
         fetch_from = self.offset
-        batch = self.consumer.fetch(fetch_from, limit)
-        blocks = rows = None
-        if self.block_decoder is not None:
-            blocks = [self.block_decoder.decode_one(m.value) for m in batch.messages]
-        elif batch.messages and self.upsert is None and self.dedup is None:
-            rows = self._decode_batch([m.value for m in batch.messages])
-        elif batch.messages:
-            rows = [self.decoder(m.value) for m in batch.messages]
+        lane, payload, next_offset, messages = self._fetch(fetch_from, limit)
         tc = self.table_cfg.time_column
         indexed = fetched = 0
         max_event: Optional[float] = None
         with self.pump_lock:
             if self.halted or self.offset != fetch_from:
                 return 0
-            if blocks is not None:
-                self.last_decode_path = "blocks"
+            if lane == "blocks":
                 # arrays index directly unless the table configures a filter
                 # or transforms, or the segment appends rows: then each block
                 # goes through the pipeline as lists
                 direct = hasattr(self.mutable, "index_arrays") and \
                     self.pipeline.filter_expr is None and not self.pipeline.column_transforms
-                for cb in blocks:
+                for cb in payload:
                     fetched += cb.n
                     ev = cb.max_of(tc) if tc else None
                     if ev is not None and (max_event is None or ev > max_event):
@@ -272,20 +282,99 @@ class RealtimePartitionConsumer:
                     else:
                         indexed += self._index_columns(
                             self.pipeline.apply(cb.to_lists(self.schema)))
-            elif rows is not None:
-                fetched = len(rows)
-                max_event = _max_event_time(rows, tc)
-                if self.upsert is None and self.dedup is None:
-                    self.last_decode_path = "batch"
-                    indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(rows)))
-                else:
-                    self.last_decode_path = "row"
-                    for row, msg in zip(self.pipeline.apply_rows(rows), batch.messages):
+            elif lane == "columnar-array":
+                fetched = payload.n
+                max_event = payload.max_of(tc) if tc else None
+                indexed = self.mutable.index_arrays(payload)
+            elif lane == "columnar":
+                fetched = len(next(iter(payload.values()))) if payload else 0
+                max_event = _max_column_value(payload.get(tc)) if tc else None
+                indexed = self._index_columns(payload)
+            elif lane == "row":
+                if payload:
+                    fetched = len(payload)
+                    max_event = _max_event_time(payload, tc)
+                    for row, msg in zip(self.pipeline.apply_rows(payload), messages):
                         if row is not None and self._index_row(row, msg.offset):
                             indexed += 1
-            self.offset = batch.next_offset
+            elif payload:   # decoded rows: "spliced", "raw" or "batch"
+                fetched = len(payload)
+                max_event = _max_event_time(payload, tc)
+                indexed = self._index_columns(self.pipeline.apply(rows_to_all_columns(payload)))
+            if fetched:
+                self.last_decode_path = lane
+            self.offset = next_offset
         self.lag.on_batch(fetched, max_event)
         return indexed
+
+    def _fetch(self, fetch_from: int, limit: int):
+        """One fetch and its decode, outside `pump_lock`: (lane, payload,
+        next offset, messages). The payload is a list of `ColumnarBatch`es
+        ("blocks"), one `ColumnarBatch` ("columnar-array"), coerced column
+        lists ("columnar") or decoded rows (the others); `messages` are the
+        fetched messages of the per-row lane, whose rows need their offsets."""
+        consumer = self.consumer
+        if self.block_decoder is not None:
+            blocks, next_offset = self._fetch_blocks(fetch_from, limit)
+            return "blocks", blocks, next_offset, None
+        per_row = self.upsert is not None or self.dedup is not None
+        fetch_spliced = getattr(consumer, "fetch_spliced", None)
+        spliced = getattr(self.batch_decoder, "spliced", None)
+        if not per_row and fetch_spliced is not None and spliced is not None:
+            prefix, sep, suffix, parse = spliced
+            data, n, next_offset = fetch_spliced(fetch_from, limit, sep=sep)
+            if n == 0:
+                return "spliced", [], next_offset, None
+            if self.table_cfg.stream.decoder == "json" and self.pipeline.filter_expr is None \
+                    and not self.pipeline.column_transforms:
+                # one native walk straight to typed arrays where the segment
+                # appends arrays, else to coerced column lists
+                if hasattr(self.mutable, "index_arrays"):
+                    try:
+                        cbatch = columnar_batch_from_json(data, n, self.schema)
+                    except (ValueError, TypeError):
+                        cbatch = None
+                    if cbatch is not None:
+                        return "columnar-array", cbatch, next_offset, None
+                try:
+                    cols = columns_from_spliced_json(data, n, self.schema)
+                except (ValueError, TypeError):
+                    cols = None
+                if cols is not None:
+                    return "columnar", cols, next_offset, None
+            try:
+                rows = parse(prefix + data + suffix)
+            except ValueError:   # a malformed member: the raw lane isolates it
+                rows = None
+            # a value holding top-level separators gives another count than
+            # the transport's: the raw lane below decodes message by message
+            if rows is not None and len(rows) == n:
+                return "spliced", rows, next_offset, None
+        fetch_raw = getattr(consumer, "fetch_raw", None)
+        if not per_row and fetch_raw is not None:
+            values, next_offset = fetch_raw(fetch_from, limit)
+            return "raw", self._decode_batch(values) if values else [], next_offset, None
+        batch = consumer.fetch(fetch_from, limit)
+        values = [m.value for m in batch.messages]
+        if per_row:
+            return "row", [self.decoder(v) for v in values], batch.next_offset, batch.messages
+        return "batch", self._decode_batch(values) if values else [], batch.next_offset, None
+
+    def _fetch_blocks(self, fetch_from: int, limit: int):
+        """One fetch of a block stream, decoded: (ColumnarBatches, next
+        offset). A splicing consumer hands one buffer of joined blocks, walked
+        with no copy per block; else the raw values, else the messages."""
+        bd = self.block_decoder
+        fetch_spliced = getattr(self.consumer, "fetch_spliced", None)
+        if fetch_spliced is not None:
+            data, n, next_offset = fetch_spliced(fetch_from, limit, sep=bd.sep)
+            return (bd.decode_spliced(data, n) if n else []), next_offset
+        fetch_raw = getattr(self.consumer, "fetch_raw", None)
+        if fetch_raw is not None:
+            values, next_offset = fetch_raw(fetch_from, limit)
+            return [bd.decode_one(v) for v in values], next_offset
+        batch = self.consumer.fetch(fetch_from, limit)
+        return [bd.decode_one(m.value) for m in batch.messages], batch.next_offset
 
     def _decode_batch(self, values: List[Any]) -> List[Dict[str, Any]]:
         """A fetch's rows: one call of the batch decoder where the stream has
@@ -358,8 +447,11 @@ class RealtimePartitionConsumer:
         return int(lt if lt is not None else self.start_consume_time * 1000)
 
     def close(self) -> None:
-        """Halt pumping (idempotent): the memory stream holds no connection."""
+        """Halt pumping and release the stream connection (idempotent)."""
         self.halted = True
+        consumer = self.consumer
+        if consumer is not None:
+            consumer.close()
 
     def end_criteria_reached(self) -> bool:
         """The flush thresholds (the reference's realtime.segment.flush.*)."""
@@ -436,6 +528,16 @@ class RealtimePartitionConsumer:
         return SegmentBuilder(self.schema, SegmentGeneratorConfig.from_indexing(
             self.table_cfg.indexing)).build(
             columns, os.path.join(self.data_dir, "realtime_build"), self.segment_name)
+
+
+def _max_column_value(values: Optional[List[Any]]) -> Optional[float]:
+    """The largest non-null value of a coerced column list, None without one
+    or where the values are not numbers."""
+    try:
+        best = max((v for v in values or () if v is not None), default=None)
+        return float(best) if best is not None else None
+    except (TypeError, ValueError):
+        return None
 
 
 def _max_event_time(rows: List[Dict[str, Any]], tc: Optional[str]) -> Optional[float]:
@@ -549,20 +651,24 @@ class RealtimeTableManager:
         own_commit = consumer._commit_thread == threading.get_ident()
         if not own_commit and consumer.state == COMMITTING:
             consumer._commit_done.wait(2.0)
-        # fence the pumps out before reading the offset
+        # fence the pumps out before reading the offset; the stream
+        # connection is done either way
         consumer.halted = True
         decision, local = DISCARD, None
-        with consumer.pump_lock:
-            if consumer.state == COMMITTED or (own_commit and consumer.state == COMMITTING):
-                seg_dir = os.path.join(consumer.data_dir, "realtime_build", segment_name)
-                if os.path.isdir(seg_dir):
-                    decision, local = COMMIT, seg_dir
-            elif consumer.state in (*_CONSUMING_STATES, RETAINED):
-                with self.server.catalog._lock:
-                    meta = self.server.catalog.segments.get(self.table, {}).get(segment_name)
-                if meta is not None and meta.end_offset is not None \
-                        and consumer.offset == int(meta.end_offset):
-                    decision, local = KEEP, consumer.build_immutable()
+        try:
+            with consumer.pump_lock:
+                if consumer.state == COMMITTED or (own_commit and consumer.state == COMMITTING):
+                    seg_dir = os.path.join(consumer.data_dir, "realtime_build", segment_name)
+                    if os.path.isdir(seg_dir):
+                        decision, local = COMMIT, seg_dir
+                elif consumer.state in (*_CONSUMING_STATES, RETAINED):
+                    with self.server.catalog._lock:
+                        meta = self.server.catalog.segments.get(self.table, {}).get(segment_name)
+                    if meta is not None and meta.end_offset is not None \
+                            and consumer.offset == int(meta.end_offset):
+                        decision, local = KEEP, consumer.build_immutable()
+        finally:
+            consumer.close()
         with self._lock:
             self.handoffs[segment_name] = decision
         return local
@@ -609,6 +715,15 @@ class RealtimeTableManager:
             for c in done:
                 self._release_device(c)
         return out, [name for name, _ in views]
+
+    def consumer_status(self) -> Dict[str, Dict[str, Any]]:
+        """Each consumer's state, offset, rows and last decode lane (a server
+        process's `/debug` reports it)."""
+        with self._lock:
+            consumers = list(self.consumers.items())
+        return {name: {"state": c.state, "offset": c.offset, "numDocs": c.mutable.num_docs,
+                       "lastDecodePath": c.last_decode_path}
+                for name, c in consumers}
 
     def min_freshness_ms(self, segment_names: Sequence[str]) -> Optional[int]:
         """The oldest freshness among the named consumers (this server's

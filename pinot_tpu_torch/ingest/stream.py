@@ -1,11 +1,16 @@
-"""Stream SPI and the in-process memory stream.
+"""Stream SPI, the stream factory registry and the in-process memory stream.
 
 A trimmed copy of `pinot_tpu/ingest/stream.py` (the analog of the reference's
-pluggable stream abstraction, `pinot-spi/.../stream/`): offsets are integers,
-a consumer fetches message batches from one partition, and `MemoryStream`
-plays the role of the embedded Kafka the reference uses in tests; it is the
-one stream type ported, so the consumer builds `MemoryStreamConsumer`
-directly (the reference's stream factory registry is not ported).
+pluggable stream abstraction, `pinot-spi/.../stream/`: `PartitionGroupConsumer`,
+`StreamConsumerFactory`, `StreamMetadataProvider`, `MessageBatch`): offsets are
+integers, a consumer fetches message batches from one partition. A stream type
+names a factory (`register_stream_factory`, `get_stream_factory`): `memory`
+(`MemoryStream`, the role of the embedded Kafka the reference uses in tests)
+and `kafkalite` (the socket log broker speaking the Kafka wire protocol,
+`ingest/kafkalite.py`, registered when first asked for). A consumer may offer
+more than `fetch`: `fetch_raw` (the value bytes) and `fetch_spliced` (the
+values joined in C with a decoder's separator), which the realtime consumer's
+lanes take where the decoder can read them.
 
 Decoders, as in the JAX package:
 
@@ -16,14 +21,16 @@ Decoders, as in the JAX package:
   `avro.make_simple_avro_decoder`) and registered under a name the table's
   `StreamConfig.decoder` gives;
 * batch decoders (`get_batch_decoder`, `register_batch_decoder`): a whole
-  fetch at once, `json` as one parse of the spliced messages. The
-  consumer's batch lane decodes a fetch with the stream's batch decoder
-  where one is registered, and with its row decoder otherwise;
+  fetch at once, `json` as one parse of the spliced messages (its `spliced`
+  attribute, `(prefix, sep, suffix, parse)`, lets a splicing transport hand
+  it the joined values). The consumer's batch lane decodes a fetch with the
+  stream's batch decoder where one is registered, and with its row decoder
+  otherwise;
 * the block decoder (`get_block_decoder`): one message carries a whole
-  columnar block, `columnar` (`ingest/vectorized.py`), the one block format.
+  columnar block, `columnar` (`ingest/vectorized.py`), the one block format,
+  with its splice separator (`sep`) and `decode_spliced`.
 
-A name that nothing registered raises NotImplementedError. The JAX package's
-socket broker (`kafkalite`) is not ported.
+A decoder or stream type that nothing registered raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,19 +38,52 @@ from __future__ import annotations
 import json
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclass(frozen=True)
 class StreamMessage:
     value: Any
     offset: int
+    key: Optional[str] = None
+    timestamp_ms: int = 0
 
 
 @dataclass
 class MessageBatch:
     messages: List[StreamMessage]
     next_offset: int                 # offset to resume from
+
+
+class PartitionGroupConsumer:
+    """Fetches from one partition (the reference's PartitionGroupConsumer)."""
+
+    def fetch(self, start_offset: int, max_messages: int, timeout_ms: int = 0) -> MessageBatch:
+        raise NotImplementedError
+
+    def latest_offset(self) -> int:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class StreamMetadataProvider:
+    def partition_count(self, topic: str) -> int:
+        raise NotImplementedError
+
+    def earliest_offset(self, topic: str, partition: int) -> int:
+        return 0
+
+
+class StreamConsumerFactory:
+    """One per stream type (the reference's StreamConsumerFactory)."""
+
+    def create_consumer(self, topic: str, partition: int) -> PartitionGroupConsumer:
+        raise NotImplementedError
+
+    def metadata_provider(self) -> StreamMetadataProvider:
+        raise NotImplementedError
 
 
 class MemoryStream:
@@ -86,19 +126,35 @@ class MemoryStream:
             return msg.offset
 
 
-class MemoryStreamConsumer:
-    """Fetches from one partition of a `MemoryStream` (the reference's
-    PartitionGroupConsumer)."""
+class MemoryStreamConsumer(PartitionGroupConsumer):
+    """Fetches from one partition of a `MemoryStream`."""
 
     def __init__(self, topic: str, partition: int):
         self.stream = MemoryStream.get(topic)
         self.partition = partition
 
-    def fetch(self, start_offset: int, max_messages: int) -> MessageBatch:
+    def fetch(self, start_offset: int, max_messages: int, timeout_ms: int = 0) -> MessageBatch:
         with self.stream._plock:
             msgs = self.stream.partitions[self.partition][
                 start_offset:start_offset + max_messages]
         return MessageBatch(list(msgs), start_offset + len(msgs))
+
+
+class MemoryStreamFactory(StreamConsumerFactory):
+    def __init__(self, topic: str, properties: Optional[Dict[str, Any]] = None):
+        self.topic = topic
+
+    def create_consumer(self, topic: str, partition: int) -> PartitionGroupConsumer:
+        return MemoryStreamConsumer(topic or self.topic, partition)
+
+    def metadata_provider(self) -> StreamMetadataProvider:
+        factory = self
+
+        class _Meta(StreamMetadataProvider):
+            def partition_count(self, topic: str) -> int:
+                return MemoryStream.get(topic or factory.topic).num_partitions
+
+        return _Meta()
 
 
 # -- decoders (the reference's StreamMessageDecoder SPI) --------------------
@@ -134,6 +190,11 @@ def _json_batch_decoder(values) -> List[Dict[str, Any]]:
     return json.loads(b"[" + b",".join(parts) + b"]")
 
 
+#: the spliced protocol: values a transport joined with `sep` parse as one
+#: JSON array, `prefix + data + suffix`
+_json_batch_decoder.spliced = (b"[", b",", b"]", json.loads)
+
+
 #: batch decoders: name -> (List[raw value] -> List[row dict])
 _BATCH_DECODERS: Dict[str, Callable[[List[Any]], List[Dict[str, Any]]]] = {
     "json": _json_batch_decoder,
@@ -154,7 +215,8 @@ def get_batch_decoder(name: str):
 
 
 def get_block_decoder(name: str):
-    """The block decoder of a block stream (an object with
+    """The block decoder of a block stream (an object with `sep`, the
+    transport's one-byte splice separator, `decode_spliced(data, n)` and
     `decode_one(value) -> ColumnarBatch`), None for a row stream."""
     if name != "columnar":
         return None
@@ -167,3 +229,37 @@ def get_decoder(name: str) -> Callable[[Any], Dict[str, Any]]:
         raise NotImplementedError(f"no stream decoder {name!r} is registered "
                                   f"(registered: {', '.join(sorted(_DECODERS))})")
     return _DECODERS[name]
+
+
+#: stream types: name -> factory class, made with (topic, properties)
+_FACTORIES: Dict[str, Callable[..., StreamConsumerFactory]] = {
+    "memory": MemoryStreamFactory,
+}
+
+#: stream types whose module registers them when it is imported
+_LAZY_FACTORIES = {"kafkalite": ".kafkalite"}
+
+
+def register_stream_factory(name: str, factory: Callable[..., StreamConsumerFactory]) -> None:
+    """A stream plugin (the reference's stream type -> factory class name)."""
+    _FACTORIES[name] = factory
+
+
+def stream_factories() -> Dict[str, Callable[..., StreamConsumerFactory]]:
+    """Every registered stream type, the lazily registered ones loaded."""
+    import importlib
+    for mod in _LAZY_FACTORIES.values():
+        importlib.import_module(mod, __package__)
+    return _FACTORIES
+
+
+def get_stream_factory(stream_type: str, topic: str,
+                       properties: Optional[Dict[str, Any]] = None) -> StreamConsumerFactory:
+    """The factory of `stream_type` for `topic`; `properties` holds the
+    plugin's connection settings (kafkalite's `bootstrap`)."""
+    if stream_type not in _FACTORIES:
+        stream_factories()
+    if stream_type not in _FACTORIES:
+        raise NotImplementedError(f"no stream type {stream_type!r} is registered "
+                                  f"(registered: {', '.join(sorted(_FACTORIES))})")
+    return _FACTORIES[stream_type](topic, properties)

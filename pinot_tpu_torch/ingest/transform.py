@@ -6,7 +6,9 @@ ordered transformer chain, `CompositeTransformer.java:33`: FilterTransformer
 expressions are SQL expressions parsed by this package's parser and
 evaluated with `engine.expr.eval_host`, so ingestion-time and query-time
 functions are one registry (the reference shares its `FunctionRegistry`
-between both for the same reason).
+between both for the same reason). `columns_from_spliced_json` is the JSON
+stream's list lane over a spliced fetch: the pipeline's output for a table
+with no filter or transforms, from one native walk (`native.json_columns`).
 """
 
 from __future__ import annotations
@@ -123,6 +125,113 @@ def rows_to_all_columns(rows: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
     for r in rows:
         keys.update(r)
     return {k: [r.get(k) for r in rows] for k in keys}
+
+
+_NUMERIC_TYPES = ("INT", "LONG", "FLOAT", "DOUBLE")
+
+
+def columns_from_spliced_json(data: bytes, n: int, schema) -> \
+        Optional[Dict[str, List[Any]]]:
+    """Native columnar decode of n spliced flat JSON records to index-ready,
+    coerced column lists: one C walk (`native.json_columns`) in place of a
+    parse per row, `rows_to_all_columns` and a coercion per value.
+
+    None where the shape cannot take it (a multi-value field, a type other
+    than INT, LONG, FLOAT, DOUBLE or STRING, a malformed outer structure):
+    the caller parses the batch instead. The output is `TransformPipeline.
+    apply`'s for a pipeline with no filter or transforms: schema columns only,
+    coerced, None at a null or missing cell. A record the walk flags (a
+    nested value under a schema key, a number past int64) is parsed alone
+    with `json.loads`."""
+    from ..native import json_columns
+    fields = list(schema.fields)
+    if any(not f.single_value or f.data_type.value not in
+           _NUMERIC_TYPES + ("STRING",) for f in fields):
+        return None
+    names = [f.name for f in fields]
+    out = json_columns(data, n, names)
+    if out is None:
+        return None
+    nums, lints, types, str_off, str_len, rec_ranges, bad = out
+    cols: Dict[str, List[Any]] = {}
+    for c, f in enumerate(fields):
+        t = types[c]
+        dt = f.data_type.value
+        if dt in ("INT", "LONG"):
+            if (t == 8).all():
+                cols[f.name] = lints[c].tolist()
+                continue
+            f_mask = t == 1
+            if ((t == 8) | f_mask).all():
+                fvals = nums[c][f_mask]
+                # cast at once only where every double fits int64: numpy casts
+                # 1e300 to INT64_MIN where int() is exact (the per-cell loop
+                # below takes those)
+                if np.isfinite(fvals).all() and (np.abs(fvals) < float(1 << 62)).all():
+                    ints = lints[c].copy()
+                    ints[f_mask] = fvals.astype(np.int64)
+                    cols[f.name] = ints.tolist()
+                    continue
+        elif dt in ("FLOAT", "DOUBLE"):
+            i_mask = t == 8
+            if (i_mask | (t == 1)).all():
+                v = nums[c].copy()
+                v[i_mask] = lints[c][i_mask].astype(np.float64)
+                cols[f.name] = v.tolist()
+                continue
+        elif dt == "STRING" and ((t == 2).all()):
+            so, sl = str_off[c], str_len[c]
+            # one decode a distinct value (dimension columns repeat)
+            cache: Dict[bytes, str] = {}
+            out_s: List[Any] = []
+            for o, l in zip(so.tolist(), sl.tolist()):
+                b = data[o:o + l]
+                s = cache.get(b)
+                if s is None:
+                    if len(cache) > 65536:
+                        cache.clear()
+                    s = cache[b] = b.decode("utf-8")
+                out_s.append(s)
+            cols[f.name] = out_s
+            continue
+        # mixed, missing or escaped cells: one cell at a time, with the
+        # pipeline's null and coercion rules (the record is not parsed again)
+        import json as _json
+        coerce = f.data_type.coerce
+        vals: List[Any] = []
+        so, sl = str_off[c], str_len[c]
+        for r in range(n):
+            tv = t[r]
+            if tv == 0 or tv == 5:
+                vals.append(None)
+            elif tv == 8:
+                vals.append(coerce(int(lints[c, r])))
+            elif tv == 1:
+                vals.append(coerce(float(nums[c, r])))
+            elif tv == 2:
+                vals.append(coerce(
+                    data[so[r]:so[r] + sl[r]].decode("utf-8")))
+            elif tv == 6:
+                raw = data[so[r] - 1:so[r] + sl[r] + 1]
+                vals.append(coerce(_json.loads(raw)))
+            elif tv == 3:
+                vals.append(coerce(True))
+            else:
+                vals.append(coerce(False))
+        cols[f.name] = vals
+    if bad.any():
+        import json as _json
+        for r in np.nonzero(bad)[0].tolist():
+            off, ln = rec_ranges[r]
+            row = _json.loads(data[off:off + ln])
+            for f in fields:
+                if f.name in row:
+                    v = row[f.name]
+                    cols[f.name][r] = None if v is None \
+                        else f.data_type.coerce(v)
+                else:
+                    cols[f.name][r] = None
+    return cols
 
 
 def _as_array(v) -> np.ndarray:

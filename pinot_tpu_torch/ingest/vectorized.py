@@ -7,11 +7,13 @@ dictionary plus narrow ids), integers frame-of-reference encoded (a base plus
 u1/u2/u4 deltas), floats raw f8. The bytes equal the JAX package's in both
 directions.
 
-`decode_columnar_blocks` walks a buffer of blocks with `np.frombuffer` views
+`decode_columnar_blocks` walks a buffer of blocks (as the socket broker's
+splicing fetch joins them, `BLOCK_SEP` between two) with `np.frombuffer` views
 into `ColumnarBatch`es, the typed-array form `DeviceMutableSegment.
-index_arrays` appends. The JSON array lane of the JAX package
-(`columnar_batch_from_json`) serves only its native splicing transport, which
-is not ported.
+index_arrays` appends. `columnar_batch_from_json` is the JSON stream's array
+lane over a spliced fetch: the native flat-JSON column walk (`native/`) kept as
+typed arrays, string columns dictionary-encoded with one fixed-width
+`np.unique`.
 
 Column representations inside a `ColumnarBatch` (plain tuples):
 
@@ -33,6 +35,9 @@ import numpy as np
 from ..schema import DataType, FieldSpec, Schema
 
 _MAGIC = b"PCB1"
+#: the one-byte separator a splicing transport puts between two blocks (the
+#: native splicer needs one; blocks describe their own length)
+BLOCK_SEP = b"\n"
 _K_RAW, _K_DICT, _K_FOR = 0, 1, 2
 _F_NULLS = 1
 
@@ -248,8 +253,15 @@ def decode_columnar_blocks(data: bytes, n_msgs: int) -> List[ColumnarBatch]:
 
 
 class ColumnarBlockDecoder:
-    """The block decoder of "columnar" streams: `decode_one` decodes one
-    message value."""
+    """The block decoder of "columnar" streams: `sep` is the transport's splice
+    separator, `decode_spliced` walks a whole spliced fetch, `decode_one`
+    decodes one message value."""
+
+    sep = BLOCK_SEP
+
+    @staticmethod
+    def decode_spliced(data: bytes, n_msgs: int) -> List[ColumnarBatch]:
+        return decode_columnar_blocks(data, n_msgs)
 
     @staticmethod
     def decode_one(value) -> ColumnarBatch:
@@ -262,3 +274,92 @@ def _as_bytes(v) -> bytes:
     if isinstance(v, memoryview):
         return bytes(v)
     return str(v).encode("utf-8", "surrogateescape")
+
+
+#: the schema types the array lane decodes (as `transform.columns_from_spliced_json`)
+_JSON_OK = ("INT", "LONG", "FLOAT", "DOUBLE", "STRING")
+
+
+def columnar_batch_from_json(data: bytes, n: int, schema: Schema
+                             ) -> Optional[ColumnarBatch]:
+    """Columnar decode of n spliced flat JSON records to typed arrays: the
+    native `json_columns` walk of `transform.columns_from_spliced_json`, kept
+    as a `ColumnarBatch`. A string column is dictionary-encoded with one
+    fixed-width `np.unique` over an [n, max_len] byte matrix.
+
+    None where a column needs the per-cell path (mixed cell types, escaped
+    strings, flagged rows): the caller then takes the list lane,
+    `columns_from_spliced_json`, which handles those exactly."""
+    from ..native import json_columns
+    fields = list(schema.fields)
+    if any(not f.single_value or f.data_type.value not in _JSON_OK
+           for f in fields):
+        return None
+    out = json_columns(data, n, [f.name for f in fields])
+    if out is None:
+        return None
+    nums, lints, types, str_off, str_len, rec_ranges, bad = out
+    if bad.any():
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    cols: Dict[str, tuple] = {}
+    for c, f in enumerate(fields):
+        t = types[c]
+        dt = f.data_type.value
+        null_mask = (t == 0) | (t == 5)
+        nulls = null_mask if null_mask.any() else None
+        if dt in ("INT", "LONG"):
+            ok = (t == 8) | null_mask
+            f_mask = t == 1
+            if not (ok | f_mask).any() or not (ok | f_mask).all():
+                return None
+            vals = lints[c].copy() if (f_mask.any() or nulls is not None) \
+                else lints[c]
+            if f_mask.any():
+                fvals = nums[c][f_mask]
+                if not (np.isfinite(fvals).all()
+                        and (np.abs(fvals) < float(1 << 62)).all()):
+                    return None   # doubles past int64: the exact per-cell path
+                vals[f_mask] = fvals.astype(np.int64)
+            if nulls is not None:
+                vals[nulls] = f.null_value
+            cols[f.name] = ("num", vals, None, nulls)
+        elif dt in ("FLOAT", "DOUBLE"):
+            i_mask = t == 8
+            if not (i_mask | (t == 1) | null_mask).all():
+                return None
+            vals = nums[c].copy()
+            if i_mask.any():
+                vals[i_mask] = lints[c][i_mask].astype(np.float64)
+            if nulls is not None:
+                vals[nulls] = f.null_value
+            cols[f.name] = ("num", vals, None, nulls)
+        else:  # STRING
+            if not ((t == 2) | null_mask).all():
+                return None   # escaped or mixed cells: the per-cell path
+            # offsets and lengths are written for t == 2 cells only: the
+            # null and missing ones hold uninitialized memory
+            s_mask = t == 2
+            so = np.where(s_mask, str_off[c], 0)
+            sl = np.where(s_mask, str_len[c], 0)
+            w = int(sl.max()) if n else 0
+            if w > 256:
+                return None   # wide strings: the list lane's interning wins
+            # an [n, w] byte matrix gathered from the fetch buffer, viewed as
+            # fixed-width bytes and made unique in one pass
+            mat = np.zeros((n, max(w, 1)), dtype=np.uint8)
+            idx = so[:, None] + np.arange(w, dtype=so.dtype)[None, :]
+            mask = np.arange(w, dtype=sl.dtype)[None, :] < sl[:, None]
+            np.copyto(mat[:, :w], buf[np.minimum(idx, len(buf) - 1)],
+                      where=mask)
+            fixed = mat.view(f"S{max(w, 1)}").ravel()
+            if nulls is not None:
+                fixed = fixed.copy()
+                fixed[nulls] = np.bytes_(str(f.null_value).encode("utf-8"))
+            uniq, inv = np.unique(fixed, return_inverse=True)
+            try:
+                values = [u.decode("utf-8") for u in uniq.tolist()]
+            except UnicodeDecodeError:
+                return None   # a multi-byte character cut by the width
+            cols[f.name] = ("dict", values, inv.astype(np.int64), nulls)
+    return ColumnarBatch(n, cols)

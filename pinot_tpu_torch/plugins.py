@@ -6,10 +6,9 @@ themselves at import time into their SPI's registry; this module lists those
 registries behind one `get` / `available` surface and imports the modules a
 configuration names (`plugins.modules=a.b,c.d`), each of which registers its
 factories as it loads. The registries are those this package has: the stream
-decoders (`ingest/stream.py`), the file readers (`ingest/readers.py`) and the
-deep-store schemes (`cluster/deepstore.py`). The stream factories wait for
-`ingest/kafkalite.py` (ROADMAP.md queue 1, item 3): `get("stream", ...)`
-and `available("stream")` raise NotImplementedError.
+factories (`memory`, `kafkalite`) and the stream decoders
+(`ingest/stream.py`), the file readers (`ingest/readers.py`) and the
+deep-store schemes (`cluster/deepstore.py`).
 """
 
 from __future__ import annotations
@@ -22,8 +21,10 @@ DECODER = "decoder"
 FS = "fs"
 READER = "reader"
 
-STREAM_WAITS = ("the stream factory registry waits for ingest/kafkalite.py and the "
-                "stream brokers: ROADMAP.md queue 1, item 3")
+
+def _stream_registry() -> Dict[str, Any]:
+    from .ingest import stream
+    return stream.stream_factories()
 
 
 def _decoder_registry() -> Dict[str, Any]:
@@ -42,6 +43,7 @@ def _reader_registry() -> Dict[str, Any]:
 
 
 _REGISTRIES: Dict[str, Callable[[], Dict[str, Any]]] = {
+    STREAM: _stream_registry,
     DECODER: _decoder_registry,
     FS: _fs_registry,
     READER: _reader_registry,
@@ -49,8 +51,6 @@ _REGISTRIES: Dict[str, Callable[[], Dict[str, Any]]] = {
 
 
 def _registry(kind: str) -> Dict[str, Any]:
-    if kind == STREAM:
-        raise NotImplementedError(STREAM_WAITS)
     reg = _REGISTRIES.get(kind)
     if reg is None:
         raise KeyError(f"unknown plugin kind {kind!r}; kinds: {sorted(_REGISTRIES)}")

@@ -62,17 +62,20 @@ class QuotaConfig:
 
 @dataclass
 class StreamConfig:
-    """The reference's stream configs (spi/stream/StreamConfig), subset. The
-    stream is a `MemoryStream` topic, the one stream type ported."""
+    """The reference's stream configs (spi/stream/StreamConfig), subset.
+    `stream_type` names the stream factory (`ingest/stream.py`: "memory", a
+    `MemoryStream` topic, or "kafkalite", the socket log broker that
+    `properties["bootstrap"]` locates)."""
     topic: str = ""
     decoder: str = "json"                 # "json" (row messages) or "columnar" (blocks)
     properties: Dict[str, Any] = field(default_factory=dict)
     # segment completion thresholds (the reference's realtime.segment.flush.*)
     flush_threshold_rows: int = 100_000
     flush_threshold_seconds: int = 6 * 3600
+    stream_type: str = "memory"
 
     def to_json(self) -> Dict[str, Any]:
-        return {"streamType": "memory", "topic": self.topic, "decoder": self.decoder,
+        return {"streamType": self.stream_type, "topic": self.topic, "decoder": self.decoder,
                 "properties": self.properties,
                 "flushThresholdRows": self.flush_threshold_rows,
                 "flushThresholdSeconds": self.flush_threshold_seconds}
@@ -81,7 +84,8 @@ class StreamConfig:
     def from_json(d: Dict[str, Any]) -> "StreamConfig":
         return StreamConfig(d.get("topic", ""), d.get("decoder", "json"),
                             d.get("properties", {}), d.get("flushThresholdRows", 100_000),
-                            d.get("flushThresholdSeconds", 6 * 3600))
+                            d.get("flushThresholdSeconds", 6 * 3600),
+                            d.get("streamType", "memory"))
 
 
 @dataclass

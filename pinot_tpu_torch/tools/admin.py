@@ -11,15 +11,18 @@ partitions) runs on CUDA unless it is started with `--device cpu`.
                                                        --run-dir /run --device cuda
     python -m pinot_tpu_torch.tools.admin start-broker --controller URL --run-dir /run
     python -m pinot_tpu_torch.tools.admin add-schema --controller URL --file schema.json
-    python -m pinot_tpu_torch.tools.admin add-table --controller URL --file table.json
+    python -m pinot_tpu_torch.tools.admin add-table --controller URL --file table.json \
+                                                    --num-partitions 2   # a REALTIME table
     python -m pinot_tpu_torch.tools.admin upload-segment --controller URL --table t_OFFLINE \\
                                                          --dir seg/
     python -m pinot_tpu_torch.tools.admin query --broker URL --sql "SELECT ..."
     python -m pinot_tpu_torch.tools.admin dump-segment --dir seg/
 
-The tuner, quickstart, data generator, ingest-job and compatibility commands
-wait: ROADMAP.md queue 1, item 5. So do the consumption pause commands
-(realtime tables over processes, queue 1, item 3).
+A REALTIME table's config carries its stream (`streamType` "kafkalite" and
+its `bootstrap`): `add-table` makes its consuming segments, the server
+processes consume them, and `pause-consumption` / `resume-consumption` stop
+and start them. The tuner, quickstart, data generator, ingest-job and
+compatibility commands wait: ROADMAP.md queue 1, item 5.
 """
 
 from __future__ import annotations
@@ -207,6 +210,16 @@ def cmd_drop_table(args) -> int:
     return 0
 
 
+def cmd_pause_consumption(args) -> int:
+    _print(_controller(args).pause_consumption(args.table))
+    return 0
+
+
+def cmd_resume_consumption(args) -> int:
+    _print(_controller(args).resume_consumption(args.table))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pinot-tpu-torch-admin", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -265,6 +278,8 @@ def build_parser() -> argparse.ArgumentParser:
                     ("--delete", {"default": None, "help": "key to delete"}))
     with_controller("drop-table", cmd_drop_table,
                     ("--table", {"required": True, "help": "table name with type"}))
+    with_controller("pause-consumption", cmd_pause_consumption, table)
+    with_controller("resume-consumption", cmd_resume_consumption, table)
 
     sp = sub.add_parser("build-segment")
     sp.add_argument("--schema", required=True)

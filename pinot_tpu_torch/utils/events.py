@@ -6,9 +6,9 @@ a per-node monotonic `seq`, a journal-wide `gseq` (the cursor of
 `events_since`) and the trace id of the query active on the emitting thread.
 `KINDS` is the closed schema: a kind not listed raises. The kinds are those
 the ported roles emit (the broker's failure detector, admission and
-backpressure; the realtime segment lifecycle and the deep-store quarantine
-of the LLC segment manager); the cold tier, tiering, leadership, deep-store
-healing and verdict kinds come with those planes.
+backpressure; the realtime segment lifecycle, the deep-store quarantine and
+the peer-scheme healing of the LLC segment manager); the cold tier, tiering,
+leadership and verdict kinds come with those planes.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ KINDS: Dict[str, Tuple[str, str]] = {
     "segment.online": ("INFO", "committed segment flipped CONSUMING->ONLINE in the ideal state"),
     "segment.reassigned": ("WARN", "consuming segment moved off a dead server"),
     "deepstore.quarantined": ("ERROR", "deepstore upload retries exhausted; segment quarantined"),
+    "deepstore.healed": ("INFO", "quarantined/missing deepstore copy healed from a server peer"),
 }
 
 

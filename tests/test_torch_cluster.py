@@ -19,7 +19,8 @@ package's `QuickCluster` (JAX on the CPU) and to this package's
 
 The JAX package's scenarios that need fault injection (`utils/faults.py`:
 the `server.crash` and `server.slow` points, deep-store upload and download
-failures) wait for that module.
+failures) wait for that module; a deep-store upload that fails is replaced by
+hand where a test needs one (the peer download scheme).
 """
 
 import concurrent.futures
@@ -626,8 +627,10 @@ def test_joins_and_realtime_raise_with_their_queue_item(tmp_path):
     scans scattered to the servers, partitions joined on the broker's
     device), with any OPTION(numPartitions), as the JAX package's
     QuickCluster answers it (`tests/test_multistage.py::test_cluster_join_query`,
-    `::test_num_partitions_query_option`); the minion and the peer download
-    scheme still raise with their queue item."""
+    `::test_num_partitions_query_option`); the minion still raises with its
+    queue item. A realtime commit whose deep-store upload runs out of retries
+    commits under the peer download scheme: `peer://` and quarantined, the
+    committer's build serving, its successor consuming."""
     cluster = QuickCluster(num_servers=2, work_dir=str(tmp_path), device="cpu")
     jax = JaxQuickCluster(num_servers=2, work_dir=str(tmp_path / "jax"))
     dim_schema = Schema("dim", [dimension("k", DataType.INT),
@@ -658,8 +661,8 @@ def test_joins_and_realtime_raise_with_their_queue_item(tmp_path):
     cluster.create_table(ssb_schema(), TableConfig("lineorder"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cluster.run_minion_round()
-    # a realtime commit whose deep-store upload runs out of retries would
-    # take the peer download scheme, which waits for the wire
+    # a realtime commit whose deep-store upload runs out of retries takes
+    # the peer download scheme
     from pinot_tpu_torch.ingest.stream import MemoryStream
     from pinot_tpu_torch.table import StreamConfig, TableType
 
@@ -675,10 +678,17 @@ def test_joins_and_realtime_raise_with_their_queue_item(tmp_path):
     row = {c: np.asarray(v)[:1].tolist()[0] for c, v in make_columns(1, SEED).items()}
     for _ in range(4):
         MemoryStream.get("lineorder_peer").produce(row, partition=0)
-    with pytest.raises(NotImplementedError, match="peer download scheme.*ROADMAP"):
-        cluster.pump_realtime("lineorder_REALTIME")
-    assert cluster.controller.llc.quarantined and all(
-        m.status == "IN_PROGRESS" for m in cluster.catalog.segments["lineorder_REALTIME"].values())
+    cluster.pump_realtime("lineorder_REALTIME")
+    metas = cluster.catalog.segments["lineorder_REALTIME"]
+    done = [m for m in metas.values() if m.status == "DONE"]
+    assert len(done) == 1 and done[0].download_path == \
+        f"peer://lineorder_REALTIME/{done[0].name}"
+    assert cluster.controller.llc.quarantined == {done[0].name: 2}
+    assert [m.start_offset for m in metas.values() if m.status == "IN_PROGRESS"] == ["4"]
+    server = next(s for s in cluster.servers if s.local_segment_dir("lineorder_REALTIME",
+                                                                     done[0].name))
+    assert server.realtime_manager("lineorder_REALTIME").handoffs[done[0].name] == "COMMIT"
+    assert cluster.query("SELECT COUNT(*) FROM lineorder_REALTIME").rows == [[4]]
 
 
 def test_the_smoke_cluster_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):

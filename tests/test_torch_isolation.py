@@ -125,7 +125,8 @@ def test_scan_covers_the_set_executor_and_the_pipeline():
                    "plugins.py", "client.py", "cluster/http_service.py", "cluster/wire.py",
                    "cluster/mux.py", "cluster/remote.py", "cluster/services.py",
                    "cluster/process.py", "tools/__init__.py", "tools/admin.py",
-                   "tools/segment.py"):
+                   "tools/segment.py", "native/__init__.py", "ingest/kafka_wire.py",
+                   "ingest/kafkalite.py", "cluster/peers.py"):
         assert os.path.join("pinot_tpu_torch", module) in rel, module
 
 

@@ -1675,3 +1675,80 @@ def test_cuda_process_cluster_answers_and_counts_its_servers_launches(cuda, tmp_
         debug = get_json(f"{urls[0]}/debug")
         assert debug["device"].startswith("cuda") and debug["deviceMemory"]["stagedBytes"] > 0
     cpu.shutdown()
+
+
+@pytest.mark.gpu
+def test_cuda_realtime_table_over_processes_matches_the_cpu(cuda, tmp_path):
+    """A REALTIME lineorder table on a kafkalite broker, consumed by two
+    server processes that stage their consuming segments on the card
+    (replication 2, two partitions of PCB1 blocks, a flush threshold crossed
+    once a partition), answers COUNT(*), Q1.1 and GROUP_QUERY over HTTP as a
+    CPU cluster holding the same rows offline does; the servers' /debug counts
+    show the kernels launched in the server processes."""
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.cluster.http_service import get_json, post_json
+    from pinot_tpu_torch.cluster.process import ProcessCluster
+    from pinot_tpu_torch.engine import cuda_lib
+    from pinot_tpu_torch.ingest.kafkalite import LogBrokerClient, LogBrokerServer
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+    from conftest import wait_until
+    cuda_lib.build(["masked_sums", "bitmap_filter", "grouped_agg"])   # before any child
+    schema, n, block = ssb.ssb_schema(), 96_000, 8_000
+    cols = ssb.make_columns(n, 29)
+    cpu = QuickCluster(num_servers=1, work_dir=str(tmp_path / "cpu"), device="cpu")
+    cpu_cfg = cpu.create_table(schema, TableConfig("lineorder"))
+    cpu.ingest_columns(cpu_cfg, cols)
+    srv = LogBrokerServer()
+    try:
+        client = LogBrokerClient(srv.bootstrap)
+        client.create_topic("lo_gpu", 2)
+        for i, lo in enumerate(range(0, n, block)):
+            client.produce("lo_gpu", encode_columnar_block(
+                schema, {k: v[lo:lo + block] for k, v in cols.items()}), partition=i % 2)
+        cfg = TableConfig("lineorder", table_type=TableType.REALTIME, replication=2,
+                          time_column="lo_orderdate", stream=StreamConfig(
+                              stream_type="kafkalite", topic="lo_gpu", decoder="columnar",
+                              flush_threshold_rows=32_000,
+                              properties={"bootstrap": srv.bootstrap,
+                                          "realtime.ingest.device.staging": "true"}))
+        with ProcessCluster(num_servers=2, device="cuda", work_dir=str(tmp_path / "proc"),
+                            server_config={"server.device.enabled": "true"},
+                            startup_timeout_s=180.0) as pc:
+            pc.controller.add_schema(schema)
+            pc.controller.add_table(cfg, num_partitions=2)
+            assert wait_until(lambda: pc.query("SELECT COUNT(*) FROM lineorder")
+                              ["resultTable"]["rows"] == [[n]], timeout=180.0)
+            # each partition's first flush commits after its rows are counted
+            assert wait_until(lambda: sum(
+                m["status"] == "DONE" for m in pc.controller.segments_meta(
+                    "lineorder_REALTIME")["segments"].values()) == 2, timeout=180.0)
+            urls = [pc.server_url(f"server_{i}") for i in range(2)]
+            # both replicas at the end of both partitions (the broker reads one)
+            blocks_a_partition = n // block // 2
+            assert wait_until(lambda: sorted(
+                c["offset"] for u in urls
+                for c in get_json(f"{u}/debug")["consumers"]["lineorder_REALTIME"].values()) ==
+                [blocks_a_partition] * 4, timeout=180.0)
+            launched = {k: 0 for k in ("masked_sums", "grouped_agg")}
+            for sql in (ssb.QUERY, ssb.GROUP_QUERY):
+                for u in urls:
+                    post_json(f"{u}/debug/launches/reset", {})
+                got = pc.query(sql)
+                for u in urls:
+                    for k, v in get_json(f"{u}/debug")["kernelLaunches"].items():
+                        launched[k] = launched.get(k, 0) + v
+                rows, want = got["resultTable"]["rows"], cpu.query(sql).rows
+                assert got["partialResult"] is False and len(rows) == len(want)
+                assert np.allclose(np.asarray([[x for x in r if not isinstance(x, str)]
+                                               for r in rows], dtype=np.float64),
+                                   np.asarray([[x for x in r if not isinstance(x, str)]
+                                               for r in want], dtype=np.float64),
+                                   rtol=1e-5, atol=0.05)
+            assert launched["masked_sums"] > 0 and launched["grouped_agg"] > 0, launched
+            debug = get_json(f"{urls[0]}/debug")
+            assert debug["device"].startswith("cuda")
+            assert debug["importedPackages"] == {"jax": False, "pinot_tpu": False}
+    finally:
+        srv.stop()
+        cpu.shutdown()

@@ -294,20 +294,30 @@ def test_a_cuda_server_without_a_card_exits_at_start(clusters, tmp_path):
 
 
 def test_role_routes_that_wait_answer_501(clusters):
+    """The minion's task routes and the admin UI answer 501 with their
+    ROADMAP.md item; the realtime routes over processes answer: a segment
+    this server does not serve is a 404 from segmentData, an unknown
+    segment's report a FAILED, and a realtime table without its schema a 400
+    (tests/test_torch_realtime_process.py drives them end to end)."""
     from pinot_tpu_torch.cluster.http_service import HttpError, http_call, post_json
     pc = clusters["pc"]
-    for url, method in ((f"{pc.server_url('server_0')}/segmentData/{TABLE}/x", "GET"),
-                        (f"{pc.controller_url}/segmentConsumed", "POST"),
-                        (f"{pc.controller_url}/tasks", "GET"),
+    for url, method in ((f"{pc.controller_url}/tasks", "GET"),
                         (f"{pc.controller_url}/ui", "GET")):
         with pytest.raises(HttpError) as e:
             http_call(method, url, b"{}" if method == "POST" else None)
         assert e.value.status == 501 and "ROADMAP" in str(e.value), url
+    with pytest.raises(HttpError) as e:
+        http_call("GET", f"{pc.server_url('server_0')}/segmentData/{TABLE}/x")
+    assert e.value.status == 404
+    assert post_json(f"{pc.controller_url}/segmentConsumed",
+                     {"segment": "x__0__0__1", "server": "server_0", "offset": 3}) == \
+        {"status": "FAILED", "offset": 3}
     from pinot_tpu_torch.table import StreamConfig, TableType
-    rt = TableConfig("lineorder", table_type=TableType.REALTIME, stream=StreamConfig(topic="t"))
+    rt = TableConfig("no_schema", table_type=TableType.REALTIME,
+                     stream=StreamConfig(topic="t"))
     with pytest.raises(HttpError) as e:
         post_json(f"{pc.controller_url}/tables", {"config": rt.to_json()})
-    assert e.value.status == 501
+    assert e.value.status == 400 and "schema" in str(e.value)
 
 
 def test_a_killed_server_process_answers_from_its_replica(clusters):

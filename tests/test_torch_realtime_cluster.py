@@ -859,8 +859,10 @@ def test_the_smoke_realtime_cluster_phase_rehearses_on_the_cpu(tmp_path, monkeyp
     class Args:
         seed, trace = SEED, False
     assert chip_smoke.llc_commit_offsets(81_920, 8_192, 2, 32_768) == [(0, 4), (4, 8)]
-    launches = chip_smoke.run_realtime_cluster(Args(), str(tmp_path))
+    launches, (data, blocks) = chip_smoke.run_realtime_cluster(Args(), str(tmp_path))
     assert launches["masked_sums"] and launches["grouped_agg"] and launches["masked_sums_fused"]
+    # the stream it hands the process_realtime runs: 2 partitions of PCB1 blocks
+    assert [len(b) for b in blocks] == [10, 10] and len(data[0]["lo_orderdate"]) == 81_920
 
 
 # -- queries racing commits ------------------------------------------------------------

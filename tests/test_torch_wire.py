@@ -467,15 +467,17 @@ def test_configuration_layers_match_the_reference(tmp_path, fmt):
 
 def test_plugins_match_the_reference_registries():
     """Each registry this package has names a subset of the JAX package's
-    (which also holds the stream brokers' decoders); a configuration's
-    modules load alike; the stream registry waits."""
-    for kind in ("decoder", "fs", "reader"):
+    (which also holds the other stream brokers and their decoders); a
+    configuration's modules load alike; the stream registry holds the memory
+    stream and the kafkalite socket broker."""
+    for kind in ("stream", "decoder", "fs", "reader"):
         names = port_plugins.available(kind)
         assert names and set(names) <= set(jax_plugins.available(kind)), kind
         assert callable(port_plugins.get(kind, names[0]))
+    assert port_plugins.available("stream") == ["kafkalite", "memory"]
     with pytest.raises(KeyError):
         port_plugins.get("decoder", "no-such-decoder")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError):
         port_plugins.get("stream", "kafka")
     cfg = port_config.Configuration({"plugins.modules": "json, textwrap"})
     jcfg = jax_config.Configuration({"plugins.modules": "json, textwrap"})
