@@ -395,7 +395,12 @@ exits non-zero:
    `custkey_rows_match`), each run's launches (from the servers' /debug) on
    JOIN_BITMAP or one `grouped_agg` a leaf server, and the broker's
    `pinot_broker_p2p_fallbacks` and `pinot_broker_stage_dispatch_failures`
-   at 0: `process_cluster_shuffle`. After the memory line, before the
+   at 0: `process_cluster_shuffle`. After the memory line, each server
+   process's memory ledger read over its `GET /debug/memory` and the
+   controller process's memory check (`POST /memoryCheck`, then `GET
+   /tables/lineorder_OFFLINE/memoryStatus`): every server's capacity the
+   card's own, the table's bytes on both, HEALTHY, the verdict's bytes the
+   servers' sum: `process_cluster_memory_plane`. Then, before the
    failover, realtime tables over the processes (`process_realtime`): a
    kafkalite `LogBrokerServer` in this process (its log on the work disk),
    phase 18's stream (2 partitions of PCB1 blocks, `--seed + 13`) into a
@@ -418,6 +423,29 @@ exits non-zero:
    over HTTP and Q1.1 and GROUP_QUERY on the hybrid table:
    `process_realtime_hybrid`, `process_realtime_latency`; each server's
    device memory before and after the commits: `process_realtime_memory`.
+20. memory — the device-memory plane (`utils/memledger.py`,
+   `cluster/tiering.py`): the memory ledger reset and the allocator's bytes
+   taken as the baseline; one server over phase 17's catalog, deep store and
+   data directory serves phase 4's table and the FOR table with
+   `server.hbm.capacity.bytes` set so that its target holds 2 of the 8
+   predicted blocks (the table four times its budget): `memory_data`. Q1.1,
+   GROUP_QUERY, the COUNT and the FOR sum through the broker, 2 passes, on
+   the per-segment route, then on a server on the serving pipeline: each
+   answer on its oracle, each run's launches exact (one a segment the gate
+   admitted; on the pipeline one a query with an admitted segment, equal to
+   its own scan count; none for the host tier), the ledger at or under the
+   capacity after every query, printed with the allocator's bytes over the
+   baseline and the transient peak: `memory_query`; each route's admissions,
+   rejections, evictions, host-tier segments, ledger watermark and
+   allocator peak (`rejections + evictions > 0`), every segment unloaded
+   back to a ledger of 0: `memory_route`. The cap lifted: the card's own
+   capacity, no segment on the host tier, the ledger reconciled against the
+   allocator with the bytes a walk of the server's blocks finds beside it:
+   `memory_lifted`; a retention round under
+   `controller.retention.cold.demote` demotes one segment, the next Q1.1
+   loads it from the deep store (its ms): `memory_cold`; every segment
+   unloaded: the ledger exactly 0, the allocator's bytes over the baseline:
+   `memory_unload`.
 
 It prints a `seconds` line (each phase's wall seconds and the total), a
 `{"kernels": [...]}` line (with the kernels' launches per path, each path's
@@ -436,7 +464,8 @@ every grouped or scalar distinct and scalar power-sum pass of every phase,
 the pipeline traffic's logged only, as `bitmap_filter`'s; the
 realtime_cluster phase and the process_realtime path `masked_sums`,
 `masked_sums_fused` and `grouped_agg`; the shuffle path `bitmap_filter` and
-`grouped_agg`),
+`grouped_agg`; the memory phase `masked_sums`, `masked_sums_fused` and
+`grouped_agg`), the memory phase's numbers,
 the nvidia-smi line, and as its last line
 `{"ok": true, "device": {...}}`. Without a CUDA card it exits non-zero and
 prints no result.
@@ -5083,6 +5112,9 @@ CLUSTER_PROFILE_TOP = 12         # functions the reduce profile lists
 # the in-process cluster's numbers by query (and "e2e_mix"), which the
 # process_cluster phase prints beside its own
 CLUSTER_NUMBERS: dict = {}
+# the in-process cluster's work directory and its restarted catalog's snapshot,
+# which the memory phase serves again from one server
+CLUSTER_STATE: dict = {}
 # the joins through the in-process broker (the funnel path): each leaf scan
 # gathers its rows as tuples on a server, 3.5-5.9 s a run at 16M rows
 CLUSTER_JOIN_QUERIES = ("join_supplier", "semi_in")
@@ -5602,6 +5634,7 @@ def run_cluster(args, table, cols, for_table, work) -> dict:
             segments=len(segs), route=route, launches=counts, answer=res.rows,
             cold_ms=cold_ms, warm_median_ms=statistics.median(times),
             restore_s=qc_restore_s, for_upload_s=qc_upload_s)
+    CLUSTER_STATE.update(root=root, snapshot=qc.catalog.snapshot())
     qc.shutdown()
     log("cluster_summary", broker_warm_median_ms=numbers, set_path_warm_median_ms=set_ms,
         broker_mix_qps=mix_qps,
@@ -6982,6 +7015,23 @@ def run_process_cluster(args, table, cols, work, rt_stream) -> tuple:
                 "pinot_broker_mux_dispatches", 0)
                 for b, u in (("broker_0", pc.broker_url), ("broker_legacy", legacy.url))})
 
+        # the memory plane between processes: each server process's own
+        # ledger behind its /debug/memory, the controller process's verdict
+        plane = {sid: get_json(f"{url}/debug/memory", timeout=60.0)
+                 for sid, url in probe.urls.items()}
+        verdicts = pc.controller.run_memory_check()
+        status = pc.controller.memory_status(name)
+        if any(p["capacityEstimated"] or not p["tables"].get(name) for p in plane.values()) \
+                or verdicts.get(name) != "HEALTHY" or sorted(status["servers"]) != sorted(sids) \
+                or status["residentBytes"] != sum(p["tables"][name] for p in plane.values()):
+            raise AssertionError(f"process_cluster memory plane: {verdicts} {status} "
+                                 f"{ {s: p['tables'] for s, p in plane.items()} }")
+        log("process_cluster_memory_plane",
+            servers={sid: {k: p[k] for k in ("totalBytes", "capacityBytes", "headroomPct",
+                                              "transientPeakBytes", "kinds", "tiering")}
+                     for sid, p in plane.items()},
+            verdicts=verdicts, memory_status=status)
+
         realtime_launches = process_realtime(args, pc, probe, work, rt_stream)
 
         # failover: server_1 killed; server_0 answers every segment
@@ -7007,6 +7057,232 @@ def run_process_cluster(args, table, cols, work, rt_stream) -> tuple:
         mix=mix_numbers, in_process_mix=CLUSTER_NUMBERS.get("e2e_mix"),
         failover_s=failover_s, memory=memory)
     return launches, shuffle_launches, realtime_launches
+
+
+# -- phase 20: memory ------------------------------------------------------------------
+
+MEMORY_TARGET_BLOCKS = 2     # predicted blocks the capped server's target holds
+MEMORY_ROUNDS = 2            # passes of the four queries on each route
+
+
+def memory_queries(cols, for_table) -> list:
+    """(id, sql, table, oracle, the kernels it launches per segment and over a
+    stacked set) of the memory phase: Q1.1, GROUP_QUERY and the COUNT over
+    phase 4's table, the FOR sum over phase 17's lineorder_for (the stacked
+    set scans its deltas widened: `masked_sums`)."""
+    from pinot_tpu_torch.ssb import FOR_QUERY, GROUP_QUERY, QUERY
+    for_cols = {k: v[:sum(s.num_docs for s in for_table)] for k, v in cols.items()}
+    return [("q1_1", QUERY, "lineorder_OFFLINE", oracle_q11(cols),
+             ("masked_sums", "masked_sums")),
+            ("group_by", GROUP_QUERY, "lineorder_OFFLINE", oracle_group(cols),
+             ("grouped_agg", "grouped_agg")),
+            ("count_quantity", SERVE_COUNT_QUERY, "lineorder_OFFLINE", oracle_count(cols),
+             ("masked_sums", "masked_sums")),
+            ("for_sum", FOR_QUERY.replace("FROM lineorder", "FROM lineorder_for"),
+             "lineorder_for_OFFLINE", oracle_for(for_cols),
+             ("masked_sums_fused", "masked_sums"))]
+
+
+def memory_server(label: str, pipeline: bool, capacity=None) -> tuple:
+    """A controller, one server and a broker over phase 17's catalog (restored
+    from its snapshot, every segment of both tables assigned to server_0),
+    deep store and server_0's data directory: the segments load from that
+    directory (the one FOR segment phase 17 held on server_1 from the deep
+    store). The server runs the per-segment executor, or a DeviceQueryPipeline
+    with `pipeline`; `capacity` sets `server.hbm.capacity.bytes`."""
+    from pinot_tpu_torch.cluster import (Broker, Catalog, Controller, DeviceQueryPipeline,
+                                         ServerNode)
+    from pinot_tpu_torch.cluster.catalog import ONLINE
+    from pinot_tpu_torch.cluster.deepstore import LocalDeepStore
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    root = CLUSTER_STATE["root"]
+    catalog = Catalog()
+    catalog.restore(CLUSTER_STATE["snapshot"])
+    for table in list(catalog.ideal_state):
+        catalog.update_ideal_state(table, {seg: {"server_0": ONLINE}
+                                           for seg in list(catalog.ideal_state[table])})
+    if capacity is not None:
+        catalog.put_property("clusterConfig/server.hbm.capacity.bytes", str(capacity))
+    store = LocalDeepStore(os.path.join(root, "deepstore"))
+    controller = Controller("controller_0", catalog, store, os.path.join(root, f"mem_{label}"))
+    server = ServerNode("server_0", catalog, store, os.path.join(root, "server_0"),
+                        device_pipeline=DeviceQueryPipeline(MeshQueryExecutor())
+                        if pipeline else None)
+    broker = Broker("broker_0", catalog)
+    broker.register_server_handle("server_0", server.execute_partial)
+    controller.memory_pollers["server_0"] = server.memory_snapshot
+    return controller, server, broker
+
+
+def unload_all(server) -> int:
+    """Unload every segment of the server (no query holds one): the ledger's
+    total afterwards."""
+    from pinot_tpu_torch.utils.memledger import get_ledger
+    for mgr in server.tables.values():
+        for name in mgr.segment_names:
+            mgr.remove_segment(name)
+    server.shutdown()
+    return get_ledger().resident_bytes()
+
+
+def run_memory(args, table, cols, for_table) -> tuple:
+    """Phase 20: the device-memory plane on the card. One server takes phase
+    4's table and the FOR table with `server.hbm.capacity.bytes` set so that
+    its target (capacity less the 10% headroom) holds MEMORY_TARGET_BLOCKS of
+    the 8 predicted blocks: the table is four times the budget. The four
+    queries through the broker, MEMORY_ROUNDS passes, on the per-segment route
+    and then on a server on the serving pipeline: every answer on its oracle;
+    the launches exact (per segment one a segment the gate admitted; on the
+    pipeline one a query with an admitted segment, the pipeline's own scan
+    count; none for the host tier); the ledger at or under capacity after
+    every query, beside the allocator's bytes over the phase's baseline and
+    the transient peak: `memory_query`; each route's rejections, evictions,
+    host-tier segments and allocator peak: `memory_route`. Then with the cap
+    lifted (the card's own capacity, printed), every segment admitted, the
+    ledger reconciled against the allocator (`memory_lifted`); a retention
+    round under `controller.retention.cold.demote` demotes one segment and
+    the next Q1.1 loads it again (`memory_cold`); unloading every segment
+    returns the ledger to 0 (`memory_unload`). Returns the launches and the
+    numbers."""
+    from pinot_tpu_torch.engine.datablock import predicted_block_bytes
+    from pinot_tpu_torch.utils.memledger import get_ledger, reset_ledger
+    from pinot_tpu_torch.cluster.services import server_device_memory
+
+    queries = memory_queries(cols, for_table)
+    segments = {"lineorder_OFFLINE": len(table), "lineorder_for_OFFLINE": len(for_table)}
+    predicted = predicted_block_bytes(table[0])
+    capacity = int(MEMORY_TARGET_BLOCKS * predicted / 0.9) + 2
+    table_bytes = sum(predicted_block_bytes(s) for s in table)
+    launches = counts_of()
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_ledger()
+    baseline = torch.cuda.memory_allocated()
+    log("memory_data", predicted_block_bytes=predicted, capacity_bytes=capacity,
+        target_bytes=int(capacity * 0.9), table_predicted_bytes=table_bytes,
+        table_over_target=table_bytes / int(capacity * 0.9), baseline_allocated=baseline)
+
+    def checked(label, server, broker, qid, sql, table, want, kernels, pipeline) -> dict:
+        pipe = server.device_pipeline
+        kernel = kernels[pipeline]
+        before = pipe.stats()["scanLaunches"] if pipe is not None else 0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = broker.handle_query(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        st = res.stats
+        host = st["segmentsServedHostTier"]
+        admitted = segments[table] - host
+        device = (1 if admitted else 0) if pipeline else admitted
+        expected = counts_of(**{kernel: device})
+        if pipe is not None and kernel != "grouped_agg":
+            scans = pipe.stats()["scanLaunches"] - before
+            if scans != device:
+                raise AssertionError(f"memory {label} {qid}: the pipeline counts {scans} "
+                                     f"scans, expected {device}")
+        if counts != expected:
+            raise AssertionError(f"memory {label} {qid}: launches {counts}, expected "
+                                 f"{expected} for {admitted} admitted segments")
+        if not rows_match(res.rows, want) or st["partialResult"] \
+                or st["numSegmentsQueried"] != segments[table]:
+            raise AssertionError(f"memory {label} {qid}: {res.rows[:3]} {st}")
+        for k, v in counts.items():
+            launches[k] += v
+        snap = get_ledger().snapshot()
+        return {"ms": ms, "host_tier": host, "admitted": admitted, "launches": counts,
+                "promotions": st["tierPromotions"], "cold_loaded": st["segmentsColdLoaded"],
+                "cold_load_ms": st["coldLoadMs"], "ledger_bytes": snap["totalBytes"],
+                "allocated_over_baseline": torch.cuda.memory_allocated() - baseline,
+                "transient_peak_bytes": snap["transientPeakBytes"],
+                "answer": res.rows[:2]}
+
+    numbers = {}
+    for label, pipeline in (("per_segment", False), ("pipeline", True)):
+        torch.cuda.reset_peak_memory_stats()
+        controller, server, broker = memory_server(label, pipeline, capacity)
+        host_total = 0
+        for r in range(MEMORY_ROUNDS):
+            for qid, sql, table, want, kernel in queries:
+                q = checked(label, server, broker, qid, sql, table, want, kernel, pipeline)
+                if q["ledger_bytes"] > capacity:
+                    raise AssertionError(f"memory {label} {qid}: the ledger holds "
+                                         f"{q['ledger_bytes']} bytes over the capacity "
+                                         f"{capacity}")
+                host_total += q["host_tier"]
+                log("memory_query", route=label, round=r, query=qid, **q)
+        tiering = server.tiering.snapshot()
+        if tiering["rejections"] + tiering["evictions"] == 0:
+            raise AssertionError(f"memory {label}: the gate never rejected nor evicted")
+        verdict = controller.run_memory_check()
+        numbers[label] = {
+            "rejections": tiering["rejections"], "evictions": tiering["evictions"],
+            "admissions": tiering["admissions"], "promotions": tiering["promotions"],
+            "segments_served_host_tier": host_total,
+            "ledger_watermark_bytes": get_ledger().snapshot()["watermarkBytes"],
+            "allocated_peak_over_baseline": torch.cuda.max_memory_allocated() - baseline,
+            "capacity_bytes": capacity, "verdicts": verdict}
+        left = unload_all(server)
+        if left:
+            raise AssertionError(f"memory {label}: {left} ledger bytes after the unload")
+        log("memory_route", route=label, **numbers[label])
+        del controller, server, broker
+        gc.collect()
+
+    # the cap lifted: the card's own capacity, every segment admitted
+    reset_ledger()
+    controller, server, broker = memory_server("lifted", False)
+    cap_bytes, estimated = get_ledger().capacity_bytes()
+    if estimated:
+        raise AssertionError("memory: the card's capacity probe came back estimated")
+    lifted = {}
+    for qid, sql, table, want, kernel in queries:
+        lifted[qid] = checked("lifted", server, broker, qid, sql, table, want, kernel, False)
+        if lifted[qid]["host_tier"]:
+            raise AssertionError(f"memory lifted {qid}: {lifted[qid]['host_tier']} "
+                                 "segments on the host tier under the card's capacity")
+    torch.cuda.synchronize()
+    walked = server_device_memory(server)
+    rec = get_ledger().reconcile(baseline)
+    numbers["lifted"] = {"capacity_bytes": cap_bytes, "capacity_estimated": estimated,
+                         "reconcile": rec, "walked_staged_bytes": walked["stagedBytes"],
+                         "unledgered_staged_bytes": walked["stagedBytes"] - rec["ledgerBytes"],
+                         "queries": {q: v["ms"] for q, v in lifted.items()}}
+    log("memory_lifted", **numbers["lifted"])
+
+    # the cold tier: retention demotes one segment, the next Q1.1 loads it
+    name = "lineorder_OFFLINE"
+    catalog = server.catalog
+    cfg = catalog.table_configs[name]
+    cfg.retention_days, cfg.time_column = 1.0, "lo_orderdate"
+    catalog.put_table_config(cfg)
+    catalog.put_property("clusterConfig/controller.retention.cold.demote", "true")
+    now_ms = int(time.time() * 1000)
+    victim = sorted(catalog.segments[name])[0]
+    for seg, meta in catalog.segments[name].items():
+        # the victim's rows end two days back, past the 1-day retention
+        meta.end_time_ms = now_ms - (2 * 86_400_000 if seg == victim else 0)
+    acted = controller.run_retention(now_ms=now_ms)
+    if acted != [f"cold:{name}/{victim}"] or victim in server.tables[name].segment_names \
+            or get_ledger().resident_bytes(table=name, segment=victim):
+        raise AssertionError(f"memory cold: retention acted {acted}")
+    qid, sql, table, want, kernel = queries[0]
+    cold = checked("cold", server, broker, qid, sql, table, want, kernel, False)
+    if cold["cold_loaded"] != 1 or victim not in server.tables[name].segment_names:
+        raise AssertionError(f"memory cold: {cold}")
+    numbers["cold"] = {"demoted": victim, "cold_load_ms": cold["cold_load_ms"],
+                       "query_ms": cold["ms"], "cold_loads": server.tiering.snapshot()["coldLoads"]}
+    log("memory_cold", **numbers["cold"])
+    left = unload_all(server)
+    gc.collect()
+    torch.cuda.synchronize()
+    numbers["unload"] = {"ledger_bytes": left,
+                         "allocated_over_baseline": torch.cuda.memory_allocated() - baseline}
+    if left:
+        raise AssertionError(f"memory: {left} ledger bytes after every segment unloaded")
+    log("memory_unload", **numbers["unload"])
+    return launches, numbers
 
 
 def trace_query(fn, runs: int = TRACED_RUNS) -> dict:
@@ -7169,6 +7445,12 @@ def main() -> int:
         if missing:
             raise AssertionError(f"the process_cluster phase launched no {missing} in its "
                                  "server processes")
+        memory_launches, memory_numbers = phase("memory", run_memory, args, table, cols,
+                                                for_table)
+        missing = [k for k in ("masked_sums", "masked_sums_fused", "grouped_agg")
+                   if not memory_launches[k]]
+        if missing:
+            raise AssertionError(f"the memory phase launched no {missing}")
     finally:
         build_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -7191,7 +7473,8 @@ def main() -> int:
                 "realtime_cluster": realtime_cluster_launches[name],
                 "process_cluster": process_cluster_launches[name],
                 "shuffle": shuffle_launches[name],
-                "process_realtime": process_realtime_launches[name]}
+                "process_realtime": process_realtime_launches[name],
+                "memory": memory_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]
         by_path = launches_by_path(name)
@@ -7242,7 +7525,8 @@ def main() -> int:
                     "shape_case": "region, one segment", "cases": group_numbers})
     log("seconds", total=time.perf_counter() - started, **seconds)
     print(json.dumps({"kernels": kernels, "note": LIBRARY_NOTE,
-                      "mv_mask_cases": mv_numbers, "batch": batch_numbers}), flush=True)
+                      "mv_mask_cases": mv_numbers, "batch": batch_numbers,
+                      "memory": memory_numbers}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

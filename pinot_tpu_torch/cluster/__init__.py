@@ -17,9 +17,12 @@ processes, else the funnel path). The roles also run as OS processes joined
 over HTTP (`process.py`, `ProcessCluster`, for offline tables): `services.py`
 puts each role behind its endpoints, `remote.py` mirrors the catalog and
 dispatches to servers, `wire.py` is the binary codec and `mux.py` the
-multiplexed transport, over `http_service.py`. What waits (realtime tables
-over processes and the peer download scheme, the HBM gate and its tiers, the
-minion) is listed in ROADMAP.md.
+multiplexed transport, over `http_service.py`. Device memory is a managed
+tier: each server's tiering gate (`tiering.py`) admits segments to the card
+against the memory ledger (`utils/memledger.py`), answers the others on the
+host, loads COLD segments from the deep store, and the controller gives each
+table a memory verdict. What waits (the minion among it) is listed in
+ROADMAP.md.
 """
 
 from .broker import Broker

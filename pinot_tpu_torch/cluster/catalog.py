@@ -36,6 +36,7 @@ from ..table import TableConfig
 ONLINE = "ONLINE"
 OFFLINE = "OFFLINE"
 CONSUMING = "CONSUMING"
+COLD = "COLD"        # the deep store holds it; the server loads it on a query
 DROPPED = "DROPPED"
 ERROR = "ERROR"
 

@@ -8,22 +8,33 @@ loop): the table and segment core, tenants, table state, rebalance and table
 status, and realtime tables through the LLC segment manager (`self.llc`,
 `cluster/completion.py`): `add_realtime_table` creates the CONSUMING segments
 of each stream partition, `pause_consumption` and `resume_consumption` stop
-and restart them, and the completion protocol commits them. The cold tier's
-demotion (`controller.retention.cold.demote`) raises NotImplementedError.
+and restart them, and the completion protocol commits them.
+`demote_segment_to_cold` flips a segment's replicas to COLD (the servers
+unload it, the deep store keeps it, its first query loads it again), and
+retention demotes instead of deleting under `controller.retention.cold.demote`.
+The memory plane: `run_memory_check` polls every server's memory ledger (an
+in-process server's `memory_snapshot` registered in `memory_pollers`, else a
+server process's `GET /debug/memory`, `remote.memory_poller`), publishes each
+server's headroom and each table's residency, and gives each table a verdict
+off `controller.memory.headroom.pct` (default 20%): HEALTHY, DEGRADED below
+it or with a server unreachable, UNHEALTHY at a quarter of it, at none left,
+or with no server reporting; `memory_status` is the table's
+`/tables/{t}/memoryStatus`. A verdict's change is counted, logged and
+journaled (`verdict.memory`); the incident recorder waits.
 `self.scheduler` holds the periodic tasks (`utils/periodic.py`): retention,
-the segment status gauges and the LLC validation round, which a controller
-process starts (`start_periodic_tasks`) and a test ticks by hand
-(`scheduler.run_all_once()`, or each method alone). The health, SLO,
-workload, memory, event and incident planes and the minion's task manager
-wait.
+the segment status gauges, the memory check and the LLC validation round,
+which a controller process starts (`start_periodic_tasks`) and a test ticks by
+hand (`scheduler.run_all_once()`, or each method alone). The health, SLO,
+workload, event and incident planes and the minion's task manager wait.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 import uuid
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from ..schema import Schema
 from ..segment.format import CREATION_META_FILE, SEGMENT_METADATA_FILE, read_json
@@ -31,10 +42,12 @@ from ..table import TableConfig, TableType
 from ..utils.metrics import get_registry
 from ..utils.periodic import PeriodicTask, PeriodicTaskScheduler
 from .assignment import balanced_assign, compute_counts, rebalance_table, replica_group_assign
-from .catalog import (COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog, InstanceInfo,
-                      SegmentMeta, column_stats_from_meta)
+from ..utils.events import emit_event
+from .catalog import (COLD, COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog,
+                      InstanceInfo, SegmentMeta, column_stats_from_meta)
 from .completion import LLCSegmentManager
 from .deepstore import DeepStoreFS, tar_segment
+from .remote import memory_poller
 from .routing import partition_for_value
 
 # deleted segments park in the deep store this long before the retention
@@ -61,6 +74,16 @@ class Controller:
                                              self.llc.validate))
         self.scheduler.register(PeriodicTask("SegmentStatusChecker", 300.0,
                                              self.run_segment_status_check))
+        # the memory plane: every server's ledger into per-table verdicts;
+        # in-process clusters register ServerNode.memory_snapshot here, server
+        # processes are found by their advertised ports
+        self._memory_tables: set = set()      # tables with exported gauges
+        self._memory_instances: set = set()   # servers with headroom gauges
+        self._memory_status: Dict[str, Dict[str, object]] = {}
+        self._memory_prev: Dict[str, str] = {}   # the verdict's last state a table
+        self.memory_pollers: Dict[str, Callable[[], Dict[str, object]]] = {}
+        self.scheduler.register(PeriodicTask("MemoryStatusChecker", 60.0,
+                                             self.run_memory_check))
         catalog.register_instance(InstanceInfo(instance_id, "controller"))
 
     def start_periodic_tasks(self) -> None:
@@ -75,6 +98,7 @@ class Controller:
         reg = get_registry()
         return {"instance": self.instance_id,
                 "periodicTasks": self.scheduler.stats(),
+                "memoryStatus": dict(self._memory_status),
                 "controllerMetrics": {k: v for k, v in reg.snapshot().items()
                                       if k.startswith(("pinot_controller", "pinot_periodic"))}}
 
@@ -278,15 +302,29 @@ class Controller:
                                       {"uri": parked,
                                        "deletedAtMs": now_ms or int(time.time() * 1000)})
 
+    def demote_segment_to_cold(self, table: str, segment: str) -> bool:
+        """Flip every replica's assignment of the segment to COLD: the servers
+        unload their copy (the deep store keeps the bytes), routing keeps the
+        segment routable, and its first query loads it again. False when the
+        segment is unknown or already COLD everywhere."""
+        with self.catalog._lock:
+            ist = dict(self.catalog.ideal_state.get(table, {}).get(segment) or {})
+        if not ist or all(st == COLD for st in ist.values()):
+            return False
+        self.catalog.update_ideal_state(table, {segment: {srv: COLD for srv in ist}})
+        get_registry().counter("pinot_controller_cold_demotions", {"table": table}).inc()
+        emit_event("segment.cold.demoted", node=self.instance_id, table=table,
+                   segment=segment, replicas=len(ist))
+        return True
+
     def run_retention(self, now_ms: Optional[int] = None) -> List[str]:
-        """Delete the segments past their table's retention, then reap the
-        parked copies past DELETED_SEGMENTS_RETENTION_DAYS."""
+        """Delete the segments past their table's retention (demote them to
+        the cold tier instead under `controller.retention.cold.demote`: still
+        queryable, recoverable), then reap the parked copies past
+        DELETED_SEGMENTS_RETENTION_DAYS."""
         now_ms = now_ms or int(time.time() * 1000)
-        if str(self.catalog.get_property("clusterConfig/controller.retention.cold.demote",
-                                         "false")).lower() == "true":
-            raise NotImplementedError(
-                "controller.retention.cold.demote: the cold tier waits for the memory "
-                "ledger and tiering (ROADMAP.md queue 1)")
+        demote = str(self.catalog.get_property("clusterConfig/controller.retention.cold.demote",
+                                               "false")).lower() == "true"
         deleted = []
         for table, cfg in list(self.catalog.table_configs.items()):
             if not cfg.retention_days or not cfg.time_column:
@@ -294,6 +332,10 @@ class Controller:
             cutoff = now_ms - cfg.retention_days * 24 * 3600 * 1000
             for seg, meta in list(self.catalog.segments.get(table, {}).items()):
                 if meta.end_time_ms is not None and meta.end_time_ms < cutoff:
+                    if demote:
+                        if self.demote_segment_to_cold(table, seg):
+                            deleted.append(f"cold:{table}/{seg}")
+                        continue
                     self.delete_segment(table, seg, now_ms=now_ms)
                     deleted.append(f"{table}/{seg}")
         park_cutoff = now_ms - DELETED_SEGMENTS_RETENTION_DAYS * 86_400_000
@@ -324,6 +366,163 @@ class Controller:
                 reg.remove(g, {"table": table})
         self._status_tables = set(out)
         return out
+
+    # -- the memory plane: the cluster's view of the servers' ledgers ------
+
+    _MEMORY_TABLE_GAUGES = ("pinot_controller_hbm_healthy",
+                            "pinot_controller_hbm_resident_bytes")
+    _MEMORY_INSTANCE_GAUGE = "pinot_controller_hbm_headroom_pct"
+    #: least per-server headroom before a table degrades; a server at or
+    #: under a quarter of it (or fully out) makes it UNHEALTHY
+    DEFAULT_MEMORY_HEADROOM_PCT = 20.0
+    VERDICT_LOGGER = "pinot_tpu_torch.verdicts"
+    _VERDICT_SEVERITY = {"HEALTHY": "INFO", "DEGRADED": "WARN", "UNHEALTHY": "ERROR"}
+
+    def _cluster_config_float(self, key: str, default: Optional[float]) -> Optional[float]:
+        v = self.catalog.get_property(f"clusterConfig/{key}")
+        if v is None:
+            return default
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return default
+
+    def _iter_memory_pollers(self):
+        """(server id, poll) for every server: the registered in-process
+        pollers first, then the live servers that advertise an HTTP port
+        (server processes), read over `GET /debug/memory`."""
+        seen = set()
+        for sid, poll in list(self.memory_pollers.items()):
+            seen.add(sid)
+            yield sid, poll
+        with self.catalog._lock:
+            infos = list(self.catalog.instances.values())
+        for info in infos:
+            if info.role != "server" or not info.port or not info.alive \
+                    or info.instance_id in seen:
+                continue
+            yield info.instance_id, memory_poller(info.url)
+
+    def run_memory_check(self) -> Dict[str, str]:
+        """Poll every server's ledger, publish each server's headroom and each
+        table's residency, and give each table a verdict off the
+        `controller.memory.headroom.pct` threshold: under it DEGRADED; at or
+        under a quarter of it, at no headroom, or with no server reporting,
+        UNHEALTHY; a server that failed its poll DEGRADED. A dropped table's
+        or a departed server's series go. A table's bytes sum over the
+        servers; in-process servers share one ledger, so each reports the
+        process view (the `servers` map shows it)."""
+        reg = get_registry()
+        thr = self._cluster_config_float("controller.memory.headroom.pct",
+                                         self.DEFAULT_MEMORY_HEADROOM_PCT)
+        snaps: Dict[str, Dict[str, object]] = {}
+        unreachable: List[str] = []
+        for sid, poll in self._iter_memory_pollers():
+            try:
+                snaps[sid] = dict(poll() or {})
+            except Exception:   # the verdict reports it; the check goes on
+                unreachable.append(sid)
+
+        for sid, snap in snaps.items():
+            reg.gauge(self._MEMORY_INSTANCE_GAUGE, {"instance": sid}).set(
+                float(snap.get("headroomPct") or 0.0))
+        for sid in self._memory_instances - set(snaps):
+            reg.remove(self._MEMORY_INSTANCE_GAUGE, {"instance": sid})
+        self._memory_instances = set(snaps)
+
+        headroom = {sid: float(snap.get("headroomPct") or 0.0) for sid, snap in snaps.items()}
+        breached = {sid: h for sid, h in headroom.items() if thr is not None and h < thr}
+        severe = {sid for sid, h in breached.items() if h <= thr / 4.0 or h <= 0.0}
+
+        out: Dict[str, Dict[str, object]] = {}
+        for table in list(self.catalog.table_configs):
+            per_server = {sid: int((snap.get("tables") or {}).get(table, 0) or 0)
+                          for sid, snap in snaps.items()}
+            verdict = "HEALTHY"
+            reasons: List[str] = []
+
+            def degrade(to: str, reason: str) -> None:
+                nonlocal verdict
+                reasons.append(reason)
+                order = ("HEALTHY", "DEGRADED", "UNHEALTHY")
+                if order.index(to) > order.index(verdict):
+                    verdict = to
+
+            if not snaps:
+                degrade("UNHEALTHY", "no server reported memory status"
+                        + (f" (unreachable: {sorted(unreachable)})" if unreachable else ""))
+            elif unreachable:
+                degrade("DEGRADED", f"memory poll failed for: {sorted(unreachable)}")
+            for sid, h in sorted(breached.items()):
+                if sid in severe:
+                    degrade("UNHEALTHY", f"server {sid} HBM headroom {h:g}% critically "
+                            f"below threshold {thr:g}%")
+                else:
+                    degrade("DEGRADED", f"server {sid} HBM headroom {h:g}% below "
+                            f"threshold {thr:g}%")
+            # the tiers' counters summed: is the cluster riding the gate
+            # (rejections and evictions climbing) or comfortably resident?
+            tiering: Dict[str, int] = {}
+            for snap in snaps.values():
+                t_snap = snap.get("tiering")
+                if isinstance(t_snap, dict):
+                    for k in ("admissions", "rejections", "evictions", "promotions",
+                              "coldLoads"):
+                        tiering[k] = tiering.get(k, 0) + int(t_snap.get(k, 0) or 0)
+            resident = sum(per_server.values())
+            labels = {"table": table}
+            reg.gauge(self._MEMORY_TABLE_GAUGES[0], labels).set(1 if verdict == "HEALTHY" else 0)
+            reg.gauge(self._MEMORY_TABLE_GAUGES[1], labels).set(resident)
+            out[table] = {
+                "table": table, "memoryState": verdict, "reasons": reasons,
+                "residentBytes": resident, "headroomThresholdPct": thr,
+                "minServerHeadroomPct": min(headroom.values(), default=None),
+                "servers": per_server, "unreachableServers": sorted(unreachable),
+                "tiering": tiering,
+            }
+            self._note_memory_verdict(table, verdict, reasons)
+        for table in self._memory_tables - set(out):
+            for g in self._MEMORY_TABLE_GAUGES:
+                reg.remove(g, {"table": table})
+        self._memory_tables = set(out)
+        self._memory_status = out
+        for table in list(self._memory_prev):
+            if table not in out:
+                self._memory_prev.pop(table)
+        return {t: str(st["memoryState"]) for t, st in out.items()}
+
+    def _note_memory_verdict(self, table: str, status: str, reasons: List[str]) -> None:
+        """Edge-trigger a table's verdict: nothing while it is unchanged; a
+        change counts `pinot_controller_verdict_transitions{kind=memory}`,
+        logs a line and journals `verdict.memory`."""
+        prev = self._memory_prev.get(table, "HEALTHY")
+        if status == prev:
+            return
+        self._memory_prev[table] = status
+        get_registry().counter("pinot_controller_verdict_transitions",
+                               {"kind": "memory"}).inc()
+        logging.getLogger(self.VERDICT_LOGGER).warning(
+            "memory verdict for %s: %s -> %s%s", table, prev, status,
+            f" ({'; '.join(map(str, reasons[:3]))})" if reasons else "")
+        emit_event("verdict.memory", node=self.instance_id, table=table,
+                   severity=self._VERDICT_SEVERITY.get(status, "WARN"),
+                   fromState=prev, toState=status, reasons=[str(r) for r in reasons[:3]])
+
+    def memory_status(self, table: str) -> Dict[str, object]:
+        """A table's memory verdict (the `/tables/{t}/memoryStatus` body);
+        UNKNOWN before the check judged it; an unknown table raises
+        ValueError."""
+        st = self._memory_status.get(table)
+        if st is None and table.endswith(("_OFFLINE", "_REALTIME")):
+            st = self._memory_status.get(table.rsplit("_", 1)[0])
+        if st is not None:
+            return st
+        if not any(name == table or name.rsplit("_", 1)[0] == table
+                   for name in self.catalog.table_configs):
+            raise ValueError(f"unknown table {table!r}")
+        return {"table": table, "memoryState": "UNKNOWN", "reasons": [],
+                "residentBytes": 0, "servers": {},
+                "message": "memory check has not run yet"}
 
     def set_table_state(self, table: str, enabled: bool) -> None:
         """A disabled table keeps its segments loaded; brokers refuse its

@@ -19,7 +19,9 @@ server on the serving pipeline is a `ServerNode` with `device_pipeline=`,
 registered on the broker). A join or an IN-subquery takes the broker's
 funnel path (its servers are in-process handles, without HTTP endpoints):
 the leaf scans scatter to the servers and every partition joins on the
-broker's device. `shutdown` stops the servers.
+broker's device. The controller's memory check polls each server's
+`memory_snapshot` (the servers share the process's memory ledger).
+`shutdown` stops the servers.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ class QuickCluster:
         for s in self.servers:
             self.broker.register_server_handle(s.instance_id, s.execute_partial,
                                                explain_handle=s.explain_partial)
+            self.controller.memory_pollers[s.instance_id] = s.memory_snapshot
         self._seg_seq: Dict[str, int] = {}
 
     def create_table(self, schema: Schema, config: Optional[TableConfig] = None

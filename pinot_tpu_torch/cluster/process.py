@@ -335,6 +335,14 @@ class ControllerClient:
     def resume_consumption(self, table: str) -> Dict:
         return post_json(f"{self.url}/resumeConsumption/{table}", {}, token=self.token)
 
+    def memory_status(self, table: str) -> Dict:
+        """The table's memory verdict (`GET /tables/{t}/memoryStatus`)."""
+        return get_json(f"{self.url}/tables/{table}/memoryStatus", token=self.token)
+
+    def run_memory_check(self) -> Dict:
+        """One memory check now: {table: verdict}."""
+        return post_json(f"{self.url}/memoryCheck", {}, timeout=60.0, token=self.token)
+
     def validate(self) -> Dict:
         """One realtime validation round: {"created", "reassigned", "healed"}."""
         return post_json(f"{self.url}/validate", {}, timeout=300.0, token=self.token)

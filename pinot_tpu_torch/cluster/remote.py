@@ -14,7 +14,8 @@ broker's dispatch to a server: over the mux transport (`submit_async`, a
 Future that holds no thread for the round trip) or one `POST /query` a
 partial, and `join_stage` runs a funnel-path join partition on the server
 (`POST /stage`); `ControllerDeepStore` reaches the deep store through the
-controller. What the minion needs (`RemoteController`, `RemoteTaskQueue`)
+controller; `memory_poller` is the controller's read of a server process's
+`GET /debug/memory` (its ledger and tiering counters). What the minion needs (`RemoteController`, `RemoteTaskQueue`)
 waits: ROADMAP.md queue 1, item 3.
 """
 
@@ -405,6 +406,14 @@ class RemoteServerHandle:
                     return decode_segment_result(d["result"])
                 blocks.append(decode_block(d["block"]))
         return _concat_blocks(blocks)
+
+
+def memory_poller(server_url: str):
+    """The controller's poll of a server process's memory ledger: a call that
+    GETs its `/debug/memory` (one retry on a connection failure)."""
+    def poll():
+        return get_json(f"{server_url}/debug/memory", timeout=5.0, retries=1)
+    return poll
 
 
 class ControllerDeepStore(DeepStoreFS):

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Set
 from ..query.context import QueryContext
 from ..sql.ast import Expr, Function, Identifier, Literal
 from ..segment.indexes.bloom import bloom_hex_might_contain
-from .catalog import COLUMN_STATS_KEY, CONSUMING, ONLINE, Catalog, SegmentMeta
+from .catalog import COLD, COLUMN_STATS_KEY, CONSUMING, ONLINE, Catalog, SegmentMeta
 
 #: pruner kinds in evaluation order — the FIRST pruner that rejects a segment
 #: gets the attribution (numSegmentsPrunedBy<Kind> in ExecutionStats)
@@ -159,13 +159,15 @@ class RoutingManager:
                 return
             rt = RoutingTable(table)
             for seg, states in ev.items():
+                # a COLD replica stays routable: its server loads the segment
+                # from the deep store on the query
                 servers = [srv for srv, st in states.items()
-                           if st in (ONLINE, CONSUMING) and srv in alive]
+                           if st in (ONLINE, CONSUMING, COLD) and srv in alive]
                 if servers:
                     rt.segment_servers[seg] = sorted(servers)
                     if any(st == CONSUMING for st in states.values()):
                         rt.consuming_segments.add(seg)
-                elif any(st in (ONLINE, CONSUMING) for st in states.values()):
+                elif any(st in (ONLINE, CONSUMING, COLD) for st in states.values()):
                     # the segment WAS being served and every such replica died
                     rt.dead_segments.add(seg)
             self._tables[table] = rt

@@ -46,14 +46,26 @@ optional time filter. Its route is chosen before anything runs:
   immutably; the partial's `served` list names both, and its stats carry
   `numConsumingSegmentsQueried` and `minConsumingFreshnessTimeMs`.
 
-No error becomes another path's answer: what the pipeline or the executor
-raises propagates to the broker, which may retry the segments on another
-replica. Every assigned segment is admitted to the device: the HBM admission
-gate, its host tier and the cold tier's lazy loads wait for the memory ledger
-(ROADMAP.md queue 1). The cluster knobs
-`server.index.bitmap.enabled`, `server.fused.enabled` and
-`server.hbm.capacity.bytes` are not ported: a server whose cluster sets one
-raises NotImplementedError rather than ignore it.
+Device memory is a managed tier (`tiering.py` over the memory ledger,
+`utils/memledger.py`). Before a route is chosen, the partial's segments
+assigned COLD here with no local copy load from the deep store under the
+broker's deadline (a spent deadline raises QueryTimeoutError naming the
+cold-tier load); then the tiering gate (`TieringManager.admit`) decides, from
+each segment's predicted block bytes and the ledger, which segments may stage
+on the device. Only the admitted ones reach the pipeline or the per-segment
+executor; the others answer on the host-tier executor (`use_device=False`),
+counted in `segmentsServedHostTier`. The host tier is the gate's planned
+route, chosen before anything stages: no error becomes another path's answer,
+and what the pipeline or an executor raises (`torch.cuda.OutOfMemoryError`
+included) propagates to the broker, which may retry the segments on another
+replica. A segment unloaded while a query holds it keeps its device block
+until the last holder releases it. `server.hbm.capacity.bytes` pins the
+ledger's capacity, `server.hbm.target.headroom.pct` the gate's headroom; a
+server process runs the pressure sweep every `PRESSURE_INTERVAL_S`
+(`start_pressure_loop`); `memory_snapshot` is its `GET /debug/memory`. The
+cluster knobs `server.index.bitmap.enabled` and `server.fused.enabled` are
+not ported: a server whose cluster sets one raises NotImplementedError rather
+than ignore it.
 
 The server runs on CUDA unless the caller passes `device="cpu"` (or a
 pipeline whose set executor runs on the CPU); without a card it raises
@@ -64,10 +76,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
+from ..engine.datablock import bind_table, has_block, release_block
 from ..parallel.combine import device_topk_screen
 from ..query import stats as qstats
 from ..query.aggregates import make_agg
@@ -78,42 +92,59 @@ from ..query.planner import plan_segment
 from ..query.reduce import SegmentResult, merge_segment_results
 from ..query.scheduler import QueryTimeoutError
 from ..segment.reader import ImmutableSegment, load_segment
+from ..utils.events import emit_event
+from ..utils.memledger import get_ledger
 from ..utils.metrics import get_registry
+from ..utils.periodic import PeriodicTask, PeriodicTaskScheduler
 from ..utils.trace import current_depth, current_trace, span
-from .catalog import CONSUMING, ONLINE, Catalog, InstanceInfo
+from .catalog import COLD, CONSUMING, ONLINE, Catalog, InstanceInfo
 from .deepstore import DeepStoreFS, untar_segment
 from .peers import download_segment_tar
+from .tiering import PRESSURE_INTERVAL_S, TieringManager
 
 #: cluster knobs of the JAX package's server that this package does not honour
 UNPORTED_KNOBS = {
     "server.index.bitmap.enabled": "false",
     "server.fused.enabled": "false",
-    "server.hbm.capacity.bytes": None,
 }
 
 
 class TableDataManager:
     """One table's loaded segments with their reference counts (the
     reference's BaseTableDataManager). A segment unloaded while a query holds
-    it stays readable by that query: the query keeps its reference."""
+    it stays readable by that query, device block included: its block and
+    ledger entries are released when the last holder releases it."""
 
     def __init__(self, table: str, data_dir: str):
         self.table = table
         self.data_dir = data_dir
         self._segments: Dict[str, ImmutableSegment] = {}
         self._refcounts: Dict[str, int] = {}
+        # segments unloaded while a query held them: released at the last release()
+        self._deferred: Dict[str, ImmutableSegment] = {}
         self._lock = threading.RLock()
 
     def add_segment(self, name: str, segment: ImmutableSegment) -> None:
         with self._lock:
+            # a deferred copy being replaced (a reload) releases now: its
+            # holders keep the old object, readable until they release it
+            old = self._deferred.pop(name, None)
             self._segments[name] = segment
             self._refcounts.setdefault(name, 0)
+        if old is not None and old is not segment:
+            release_block(old)
+        bind_table(segment, self.table)
 
     def remove_segment(self, name: str) -> None:
         with self._lock:
-            self._segments.pop(name, None)
-            if not self._refcounts.get(name):
-                self._refcounts.pop(name, None)
+            seg = self._segments.pop(name, None)
+            if seg is not None and self._refcounts.get(name, 0) > 0:
+                self._deferred[name] = seg   # a running query holds it
+                return
+            self._refcounts.pop(name, None)
+        if seg is not None:
+            release_block(seg)
+            get_ledger().release(table=self.table, segment=name)
 
     def acquire(self, names: Optional[Sequence[str]] = None) -> List[ImmutableSegment]:
         with self._lock:
@@ -124,14 +155,22 @@ class TableDataManager:
             return [self._segments[n] for n in targets]
 
     def release(self, segments: Sequence[ImmutableSegment]) -> None:
+        doomed: List[ImmutableSegment] = []
         with self._lock:
             for seg in segments:
                 if seg.name in self._refcounts:
                     self._refcounts[seg.name] -= 1
                     if self._refcounts[seg.name] <= 0 and seg.name not in self._segments:
                         self._refcounts.pop(seg.name)
+                        if seg.name in self._deferred:
+                            doomed.append(self._deferred.pop(seg.name))
+        for seg in doomed:   # the last holder of an unloaded segment
+            release_block(seg)
+            get_ledger().release(table=self.table, segment=seg.name)
 
     def refcount(self, name: str) -> int:
+        """In-flight acquisitions of `name`: the eviction's never-under-a-
+        running-query check."""
         with self._lock:
             return self._refcounts.get(name, 0)
 
@@ -169,6 +208,18 @@ class ServerNode:
         if device is None and device_pipeline is not None:
             device = device_pipeline.mesh_exec.device
         self.executor = ServerQueryExecutor(device)
+        # the host tier: what the tiering gate keeps off the card runs here
+        self.host_executor = ServerQueryExecutor(self.executor.device, use_device=False)
+        ledger = get_ledger()
+        ledger.bind_device(self.executor.device)
+        cap_raw = catalog.get_property("clusterConfig/server.hbm.capacity.bytes")
+        if cap_raw is not None:
+            try:
+                ledger.set_capacity(int(cap_raw))
+            except (TypeError, ValueError):
+                pass   # a malformed knob keeps the probed capacity
+        self.tiering = TieringManager(catalog, node=instance_id)
+        self._pressure_scheduler: Optional[PeriodicTaskScheduler] = None
         # device-backed serving: broker-routed partials run on the set
         # executor with batched fetches (cluster/device_server.py)
         self.device_pipeline = device_pipeline
@@ -224,6 +275,33 @@ class ServerNode:
             self.scheduler.stop()
         if self.device_pipeline is not None:
             self.device_pipeline.stop()
+        self.stop_pressure_loop()
+
+    def start_pressure_loop(self) -> None:
+        """Run the tiering pressure sweep every PRESSURE_INTERVAL_S (a server
+        process; tests call `tiering.run_pressure_sweep()` themselves)."""
+        if self._pressure_scheduler is not None:
+            return
+        sched = PeriodicTaskScheduler()
+        sched.register(PeriodicTask("HbmPressureLoop", PRESSURE_INTERVAL_S,
+                                    self.tiering.run_pressure_sweep))
+        sched.start()
+        self._pressure_scheduler = sched
+
+    def stop_pressure_loop(self) -> None:
+        if self._pressure_scheduler is not None:
+            self._pressure_scheduler.stop()
+            self._pressure_scheduler = None
+
+    def memory_snapshot(self) -> Dict[str, object]:
+        """The process ledger's snapshot with this server's id and its tiering
+        counters: the body of `GET /debug/memory`, and what the controller's
+        memory check polls (in process, this method itself). In-process
+        servers share the ledger, so each reports the process view."""
+        snap = get_ledger().snapshot()
+        snap["instanceId"] = self.instance_id
+        snap["tiering"] = self.tiering.snapshot()
+        return snap
 
     # -- state transitions ------------------------------------------------
     def _on_catalog_event(self, event: str, key: str) -> None:
@@ -262,12 +340,15 @@ class ServerNode:
                 if handler is not None and seg_name not in handler.consumers:
                     handler.start_consuming(seg_name)
                     self.catalog.report_state(table, seg_name, self.instance_id, CONSUMING)
+            elif state == COLD:
+                self._demote_to_cold(table, seg_name, mgr)
         # unload against the ideal state as it is now: a reconcile racing
         # another upload's must not drop a segment assigned since it began
         current = self._assigned(table)
         for seg_name in mgr.segment_names:
             if seg_name not in current:
                 mgr.remove_segment(seg_name)
+                self.tiering.forget(table, seg_name)
                 with self._lock:
                     self._load_locks.pop((table, seg_name), None)
                 self.catalog.report_state(table, seg_name, self.instance_id, None)
@@ -289,8 +370,33 @@ class ServerNode:
                     del self._load_locks[k]
             if handler is not None:
                 handler.stop()
+            # whatever residency is still attributed to the dropped table
+            # (staging a racing stop missed) leaves no stale gauge
+            get_ledger().release(table=table)
             return
         self._refresh_dim_table(table, mgr)
+
+    def _demote_to_cold(self, table: str, seg_name: str, mgr: TableDataManager) -> None:
+        """An ->COLD assignment: unload the local copy (the deep store keeps
+        the bytes) and report COLD; the segment stays routable and its first
+        query loads it again (`_run_partial`). Only on the transition's edge
+        (the external view not yet COLD here): a later reconcile must not
+        unload the copy a query loaded since."""
+        with self.catalog._lock:
+            ev_state = self.catalog.external_view.get(table, {}).get(seg_name, {}) \
+                .get(self.instance_id)
+        if ev_state == COLD:
+            return
+        if seg_name in mgr.segment_names:
+            busy = mgr.refcount(seg_name) > 0
+            mgr.remove_segment(seg_name)
+            self.tiering.forget(table, seg_name)
+            if not busy:
+                # a running query may still open column files of its copy:
+                # the disk is reclaimed only when no one holds the segment
+                shutil.rmtree(os.path.join(self.data_dir, table, seg_name),
+                              ignore_errors=True)
+        self.catalog.report_state(table, seg_name, self.instance_id, COLD)
 
     def _hand_over(self, table: str, seg_name: str, mgr: TableDataManager, handler) -> bool:
         """A consuming segment's CONSUMING -> ONLINE here: register the local
@@ -352,13 +458,15 @@ class ServerNode:
         finally:
             mgr.release(segments)
 
-    def _load_online_segment(self, table: str, seg_name: str, mgr: TableDataManager) -> bool:
+    def _load_online_segment(self, table: str, seg_name: str, mgr: TableDataManager,
+                             wait: bool = False) -> bool:
         """Download, unpack and load one segment; False when another
         reconcile is loading it (that one reports it), so that reconciles
         racing on one table load different segments at once instead of
-        queueing behind each other's."""
+        queueing behind each other's. With `wait` (a query's cold load) it
+        waits for that load instead."""
         lock = self._segment_load_lock(table, seg_name)
-        if not lock.acquire(blocking=False):
+        if not lock.acquire(blocking=wait):
             return False
         try:
             local_dir = os.path.join(self.data_dir, table, seg_name)
@@ -382,6 +490,17 @@ class ServerNode:
             return True
         finally:
             lock.release()
+
+    def _cold_unloaded(self, table: str, segment_names: Optional[Sequence[str]],
+                       mgr: TableDataManager) -> List[str]:
+        """The segments the partial wants that are assigned COLD here with no
+        loaded copy: the cold tier's lazy loads."""
+        with self.catalog._lock:
+            ist = {s: dict(a) for s, a in self.catalog.ideal_state.get(table, {}).items()}
+        loaded = set(mgr.segment_names)
+        wanted = list(ist) if segment_names is None else list(segment_names)
+        return [s for s in wanted
+                if s not in loaded and ist.get(s, {}).get(self.instance_id) == COLD]
 
     def local_segment_dir(self, table: str, seg_name: str) -> Optional[str]:
         """The directory of a loaded segment (what `GET /segmentData` serves a
@@ -476,6 +595,55 @@ class ServerNode:
         merged.stats = st.to_wire()
         return merged
 
+    def _load_cold(self, table: str, ctx: QueryContext,
+                   segment_names: Optional[Sequence[str]], mgr: TableDataManager
+                   ) -> List[ImmutableSegment]:
+        """Load the partial's COLD segments from the deep store, each under
+        the broker's deadline: one whose budget is spent raises
+        QueryTimeoutError before its download. Returns them acquired."""
+        loaded: List[ImmutableSegment] = []
+        try:
+            for seg_name in self._cold_unloaded(table, segment_names, mgr):
+                remaining_s = _deadline_remaining_s(ctx)
+                if remaining_s is not None and remaining_s <= self.MIN_DEADLINE_BUDGET_S:
+                    d_ms = ctx.options.get("deadlineEpochMs")
+                    raise QueryTimeoutError(
+                        f"deadline budget exhausted before cold-tier load of "
+                        f"{table}/{seg_name} at {self.instance_id}",
+                        deadline_epoch_ms=float(d_ms))
+                t_load = time.perf_counter()
+                with span(f"coldload:{seg_name}"):
+                    self._load_online_segment(table, seg_name, mgr, wait=True)
+                loaded.extend(mgr.acquire([seg_name]))
+                load_ms = (time.perf_counter() - t_load) * 1000
+                self.tiering.note_cold_load()
+                emit_event("segment.cold.loaded", node=self.instance_id, table=table,
+                           segment=seg_name, loadMs=round(load_ms, 3))
+                qstats.record(qstats.SEGMENTS_COLD_LOADED, 1)
+                qstats.record(qstats.COLD_LOAD_MS, load_ms)
+        except BaseException:
+            mgr.release(loaded)
+            raise
+        return loaded
+
+    def _admit(self, table: str, segments: Sequence[ImmutableSegment],
+               mgr: TableDataManager) -> tuple:
+        """(admitted, host tier): the tiering gate's decision for each
+        segment, before anything stages."""
+        admitted, host_tier = [], []
+        for seg in segments:
+            fresh = not has_block(seg)
+            if self.tiering.admit(table, seg, mgr):
+                admitted.append(seg)
+                if fresh:
+                    self.tiering.note_promotion(table, seg.name)
+                    qstats.record(qstats.TIER_PROMOTIONS, 1)
+            else:
+                host_tier.append(seg)
+        if host_tier:
+            qstats.record(qstats.SEGMENTS_SERVED_HOST_TIER, len(host_tier))
+        return admitted, host_tier
+
     def _device_route(self, ctx: QueryContext, segments: Sequence[ImmutableSegment],
                       upsert=None) -> Optional[str]:
         """The kind of the set's plan when the pipeline takes the partial (an
@@ -496,29 +664,33 @@ class ServerNode:
         handler = self._realtime_managers.get(table)
         upsert = handler.upsert if handler is not None else None
         segments = mgr.acquire(segment_names)
+        admitted: List[ImmutableSegment] = []
         try:
-            kind = self._device_route(ctx, segments, upsert)
+            segments.extend(self._load_cold(table, ctx, segment_names, mgr))
+            admitted, host_tier = self._admit(table, segments, mgr)
+            kind = self._device_route(ctx, admitted, upsert)
+            results = []
             if kind is not None:
                 t_dev = time.perf_counter()
                 with span("device"):
-                    results = [self.device_pipeline.execute_partial(ctx, segments)]
+                    results.append(self.device_pipeline.execute_partial(ctx, admitted))
                 reg.counter("pinot_server_device_queries", {"table": table}).inc()
                 # the pipeline's threads serve many queries a drain: the set's
                 # segment counts and operator rows are recorded here, on the
                 # query's thread
                 r = results[0]
-                qstats.record(qstats.NUM_SEGMENTS_QUERIED, len(segments))
+                qstats.record(qstats.NUM_SEGMENTS_QUERIED, len(admitted))
                 if r.num_docs_scanned > 0 or r.groups or r.rows or r.dense is not None:
-                    qstats.record(qstats.NUM_SEGMENTS_MATCHED, len(segments))
+                    qstats.record(qstats.NUM_SEGMENTS_MATCHED, len(admitted))
                 ms = (time.perf_counter() - t_dev) * 1000
                 for label in ("SEGMENT_PLAN", PLAN_OP_LABELS.get(kind, "DEVICE_FUSED")):
                     qstats.record_operator(label, rows=r.num_docs_scanned, ms=ms)
-            else:
-                results = []
-                for seg in segments:
-                    with span(f"segment:{seg.name}"):
-                        valid = upsert.valid_mask(seg.name, seg.num_docs) if upsert else None
-                        results.append(self.executor.execute_segment(ctx, seg, valid))
+            on_device = {seg.name for seg in admitted} if kind is None else set()
+            for seg in segments if kind is None else host_tier:
+                with span(f"segment:{seg.name}"):
+                    valid = upsert.valid_mask(seg.name, seg.num_docs) if upsert else None
+                    ex = self.executor if seg.name in on_device else self.host_executor
+                    results.append(ex.execute_segment(ctx, seg, valid))
             served = [seg.name for seg in segments]
             if handler is not None:
                 # the consuming segments, from one snapshot that leaves out
@@ -534,6 +706,9 @@ class ServerNode:
                     if fresh is not None:
                         qstats.record_min(qstats.MIN_CONSUMING_FRESHNESS_TIME_MS, fresh)
         finally:
+            # the reservations of this query's admissions end: each block
+            # staged (the ledger counts it) or will wait for a later admission
+            self.tiering.settle(table, [seg.name for seg in admitted])
             mgr.release(segments)
         aggs = [make_agg(f) for f in ctx.aggregations]
         with span("merge"):

@@ -13,8 +13,9 @@ endpoints:
   `segmentCommitStart`, `segmentCommitEnd` with the built segment's tar),
   the consumption pause and resume, the deep-store proxy, table status,
   segment metadata, tenants, cluster configs, table state, instance tags,
-  rebalance, the validation round, metrics, debug, and the `sql` proxy to a
-  live broker.
+  rebalance, the validation round, the memory check (`POST /memoryCheck`)
+  and each table's verdict (`GET /tables/{t}/memoryStatus`), metrics, debug,
+  and the `sql` proxy to a live broker.
 * `ServerService`: `POST /query` (one binary wire exchange a partial),
   `POST /mux` (the multiplexed transport, `mux.py`), `POST /explain`,
   the multistage data plane (`POST /stage`, a funnel-path join partition;
@@ -22,8 +23,9 @@ endpoints:
   cancellation; `leafStage`, `leafAgg`, `joinStage` and `aggStage`, the
   mailbox shuffle's tasks, `multistage/shuffle.py`; its URL registered as a
   local endpoint while it runs), health and readiness, debug, segments,
-  `segmentData` (the tar of a loaded segment: the peer download scheme) and
-  metrics. Its `/debug` also
+  `segmentData` (the tar of a loaded segment: the peer download scheme),
+  `/debug/memory` (its memory ledger and tiering counters) and metrics. Its
+  `/debug` also
   reports this process's kernel launches (`scan.masked_sums`,
   `scan.masked_sums_fused`, `bitmap.bitmap_filter`, `grouped.grouped_agg`;
   `POST /debug/launches/reset` sets them to 0), its device memory
@@ -158,6 +160,7 @@ class ControllerService:
         s.route("POST", "instanceTags", self._update_instance_tags, action="ADMIN")
         s.route("POST", "rebalance", self._rebalance, action="ADMIN")
         s.route("POST", "validate", self._validate, action="ADMIN")
+        s.route("POST", "memoryCheck", self._memory_check, action="ADMIN")
         s.route("GET", "metrics", _metrics_route)
         s.route("GET", "debug", self._debug)
         s.route("POST", "sql", self._sql_proxy)
@@ -277,6 +280,12 @@ class ControllerService:
         return json_response({"status": "OK"})
 
     def _get_tables(self, parts, params, body):
+        if len(parts) == 2 and parts[1] == "memoryStatus":
+            # GET /tables/{t}/memoryStatus: the memory check's verdict
+            try:
+                return json_response(self.controller.memory_status(parts[0]))
+            except ValueError as e:
+                return error_response(str(e), 404)
         with self.catalog._lock:
             if parts:   # GET /tables/{nameWithType}: the table config
                 cfg = self.catalog.table_configs.get(parts[0])
@@ -394,6 +403,11 @@ class ControllerService:
         task's work, on demand): successors, dead replicas, peer-scheme
         segments healed."""
         return json_response(self.controller.llc.validate())
+
+    def _memory_check(self, parts, params, body):
+        """POST /memoryCheck: one memory check now (the periodic task's body);
+        answers each table's verdict."""
+        return json_response(self.controller.run_memory_check())
 
     def _pause_consumption(self, parts, params, body):
         """POST /pauseConsumption/{tableNameWithType} (the reference's
@@ -562,6 +576,8 @@ class ServerService:
         # this process owns its mailbox endpoint: legs that target it skip
         # the codec and the HTTP hop (the device-routed shuffle)
         register_local_endpoint(self.http.url)
+        # a server process walks its residency back under the tiering target
+        server.start_pressure_loop()
 
     @property
     def url(self) -> str:
@@ -699,10 +715,13 @@ class ServerService:
         """GET /debug: the server's metrics, its kernels' launches, its
         device memory, its realtime consumers (state, offset, rows, decode
         lane), its pipeline's stats and its imported packages; GET
-        /debug/events: the journal."""
+        /debug/memory: its memory ledger and tiering counters
+        (`ServerNode.memory_snapshot`); GET /debug/events: the journal."""
         from ..utils.metrics import get_registry
         if parts and parts[0] == "events":
             return _events_route(params)
+        if parts and parts[0] == "memory":
+            return _json(self.server.memory_snapshot())
         reg = get_registry()
         pipeline = self.server.device_pipeline
         return _json({

@@ -16,10 +16,20 @@ Padding contract (the same as the JAX package's):
 Packed words (`valid_words`, `bitmap_words`) hold 32 rows each, row r in word
 r >> 5 at bit r & 31, as uint32 bit patterns in int32 tensors (torch has no
 bitwise ops on uint32); the bitmap filter kernel reads them as uint32.
+
+Every tensor a block stages registers with the memory ledger
+(`utils/memledger.staged`) under the segment's name and the JAX package's
+kinds: `valid`, `valid_words`, `ids`, `raw`, `dict`, `bitmap`, `null`, and
+`for` for a frame-of-reference form; a consuming view's block registers all of
+its tensors as `consuming`. `predicted_block_bytes` prices this layout from
+metadata before anything stages (the tiering gate's price), `has_block` says
+whether a segment is resident (its own block, or a member's rows in a stacked
+set block) and `release_block` drops both and their ledger entries.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,6 +37,7 @@ import torch
 
 from ..segment.format import ROW_TILE
 from ..segment.reader import ColumnReader, ImmutableSegment
+from ..utils.memledger import get_ledger, staged
 
 
 def _pow2(n: int) -> int:
@@ -105,9 +116,13 @@ def for_delta_dtype(reader: ColumnReader) -> Optional[np.dtype]:
 class SegmentBlock:
     """Lazy per-column device cache for one immutable segment on one device."""
 
-    def __init__(self, segment: ImmutableSegment, device: torch.device):
+    def __init__(self, segment: ImmutableSegment, device: torch.device,
+                 ledger_kind: Optional[str] = None):
         self.segment = segment
         self.device = device
+        # the kind every staged tensor registers under instead of its own
+        # (a consuming view's block: "consuming")
+        self.ledger_kind = ledger_kind
         self.num_docs = segment.num_docs
         self.padded = padded_rows(self.num_docs)
         self._ids: Dict[str, torch.Tensor] = {}
@@ -120,8 +135,15 @@ class SegmentBlock:
         self._bitmaps: Dict[str, Optional[torch.Tensor]] = {}
         self._valid_band: Tuple[Optional[tuple], Optional[torch.Tensor]] = (None, None)
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    def _put(self, arr: np.ndarray, kind: str, name: str = "") -> torch.Tensor:
+        return self._register(torch.from_numpy(arr).to(self.device), kind, name)
+
+    def _register(self, tensor: torch.Tensor, kind: str, name: str = "") -> torch.Tensor:
+        label = f"{kind}:{name}" if name else kind
+        if self.ledger_kind is not None:
+            kind = self.ledger_kind
+        return staged(tensor, self.segment.name, kind, name=label,
+                      table=ledger_table(self.segment))
 
     @property
     def valid(self) -> torch.Tensor:
@@ -129,7 +151,7 @@ class SegmentBlock:
         if self._valid is None:
             v = np.zeros(self.padded, dtype=bool)
             v[:self.num_docs] = True
-            self._valid = self._put(v)
+            self._valid = self._put(v, "valid")
         return self._valid
 
     def valid_band(self, mask: np.ndarray) -> torch.Tensor:
@@ -143,7 +165,7 @@ class SegmentBlock:
         rows = np.zeros(self.num_docs, dtype=np.int32)
         m = min(len(mask), self.num_docs)
         rows[:m] = np.asarray(mask)[:m]
-        band = self._put(rows)
+        band = self._put(rows, "valid", "band")
         self._valid_band = (mask.key, band)    # one store publishes the pair
         return band
 
@@ -154,7 +176,7 @@ class SegmentBlock:
         the padding rows' bits, never counts them."""
         if self._valid_words is None:
             self._valid_words = self._put(pack_words(np.ones(self.num_docs, dtype=bool),
-                                                     self.padded))
+                                                     self.padded), "valid_words")
         return self._valid_words
 
     def bitmap_words(self, col: str) -> Optional[torch.Tensor]:
@@ -171,7 +193,7 @@ class SegmentBlock:
                 self._bitmaps[col] = None
             else:
                 self._bitmaps[col] = self._put(id_bitmap_words(
-                    np.asarray(reader.fwd)[:self.num_docs], card, self.padded))
+                    np.asarray(reader.fwd)[:self.num_docs], card, self.padded), "bitmap", col)
         return self._bitmaps[col]
 
     def null_mask(self, col: str) -> torch.Tensor:
@@ -181,7 +203,7 @@ class SegmentBlock:
             padded = np.zeros(self.padded, dtype=bool)
             if nb is not None:
                 padded[:self.num_docs] = nb[:self.num_docs]
-            self._null[col] = self._put(padded)
+            self._null[col] = self._put(padded, "null", col)
         return self._null[col]
 
     def ids(self, col: str) -> torch.Tensor:
@@ -198,11 +220,12 @@ class SegmentBlock:
             if reader.is_multi_value:
                 self._ids[col] = self._put(mv_id_matrix(
                     np.asarray(reader.fwd), np.asarray(reader.mv_offsets),
-                    reader.cardinality, self.padded, max(reader.max_num_values, 1)))
+                    reader.cardinality, self.padded, max(reader.max_num_values, 1)),
+                    "ids", col)
             else:
                 padded = np.full(self.padded, reader.cardinality, dtype=np.int32)
                 padded[:self.num_docs] = np.asarray(reader.fwd)
-                self._ids[col] = self._put(padded)
+                self._ids[col] = self._put(padded, "ids", col)
         return self._ids[col]
 
     def raw(self, col: str) -> torch.Tensor:
@@ -211,18 +234,19 @@ class SegmentBlock:
             arr = _narrow(np.asarray(self.segment.column(col).fwd))
             padded = np.zeros(self.padded, dtype=arr.dtype)
             padded[:self.num_docs] = arr
-            self._raw[col] = self._put(padded)
+            self._raw[col] = self._put(padded, "raw", col)
         return self._raw[col]
 
-    def put_raw(self, col: str, tensor: torch.Tensor) -> None:
+    def put_raw(self, col: str, tensor: torch.Tensor, register: bool = True) -> None:
         """Install a resident raw column, in the layout `raw` builds: padded
-        to the block's rows with zeros, narrowed to 32 bits, on its device."""
+        to the block's rows with zeros, narrowed to 32 bits, on its device.
+        `register=False` for a tensor the ledger already accounts."""
         if tensor.shape != (self.padded,) or tensor.device.type != self.device.type \
                 or tensor.dtype not in (torch.int32, torch.float32):
             raise ValueError(f"{col}: a raw column is {self.padded} int32 or float32 "
                              f"rows on {self.device}, not {tuple(tensor.shape)} "
                              f"{tensor.dtype} on {tensor.device}")
-        self._raw[col] = tensor
+        self._raw[col] = self._register(tensor, "raw", col) if register else tensor
 
     def dict_values(self, col: str) -> torch.Tensor:
         """Decode table: dictionary values padded to `lut_size(card)` (invalid id -> 0)."""
@@ -231,7 +255,7 @@ class SegmentBlock:
             vals = _narrow(np.asarray(reader.dictionary.values))
             out = np.zeros(lut_size(reader.cardinality), dtype=vals.dtype)
             out[:len(vals)] = vals
-            self._dict_vals[col] = self._put(out)
+            self._dict_vals[col] = self._put(out, "dict", col)
         return self._dict_vals[col]
 
     def for_form(self, col: str) -> Optional[Tuple[int, torch.Tensor]]:
@@ -249,8 +273,16 @@ class SegmentBlock:
                 padded = np.zeros(self.padded, dtype=dt)
                 padded[:self.num_docs] = (np.asarray(reader.fwd).astype(np.int64)
                                           - base).astype(dt)
-                self._for[col] = (base, self._put(padded))
+                self._for[col] = (base, self._put(padded, "for", col))
         return self._for[col]
+
+    def staged_bytes(self) -> int:
+        """Bytes of every tensor the block holds."""
+        parts = [self._valid, self._valid_words, self._valid_band[1]]
+        for cache in (self._ids, self._raw, self._dict_vals, self._null, self._bitmaps):
+            parts.extend(cache.values())
+        parts.extend(f[1] for f in self._for.values() if f is not None)
+        return sum(int(t.nbytes) for t in parts if t is not None)
 
     def values(self, col: str) -> torch.Tensor:
         """Decoded numeric values of a column, whatever its encoding: the raw
@@ -278,4 +310,92 @@ def block_for(segment: ImmutableSegment, device: torch.device) -> SegmentBlock:
     if key not in blocks:
         blocks[key] = SegmentBlock(segment, device)
     return blocks[key]
+
+
+def bind_table(segment, table: str) -> None:
+    """Attribute the segment's staged bytes to `table` in the memory ledger.
+    Segment names are unique only within a table, so the segment object
+    carries its table (`ledger_table`), and the ledger's name binding serves
+    the staging sites that know only a name."""
+    segment.__dict__["_ledger_table"] = table
+    get_ledger().bind_segment(table, segment.name)
+
+
+def ledger_table(segment) -> Optional[str]:
+    """The table `bind_table` gave the segment, or None (the ledger then
+    resolves the table from the segment's name)."""
+    return getattr(segment, "__dict__", {}).get("_ledger_table")
+
+
+def note_set_member(segment, set_block) -> None:
+    """Record that a stacked set block (`parallel.combine.SegmentSetBlock`)
+    holds the segment's rows: `has_block` then sees the segment resident, and
+    `release_block` releases that set block too. Weakly held: a set block the
+    executor dropped leaves no trace here."""
+    segment.__dict__.setdefault("_set_blocks", weakref.WeakSet()).add(set_block)
+
+
+def has_block(segment) -> bool:
+    """True when the segment is resident on the device: a block of its own
+    that staged a tensor, or its rows in a stacked set block that holds
+    columns (the tiering gate's hot-path check)."""
+    d = getattr(segment, "__dict__", {})
+    if any(b.staged_bytes() for b in list(d.get("_device_blocks", {}).values())):
+        return True
+    return any(b.holds_columns() for b in list(d.get("_set_blocks", ())))
+
+
+def predicted_block_bytes(segment: ImmutableSegment) -> int:
+    """An upper bound of the device bytes a fully staged `SegmentBlock` of the
+    segment can hold, from its metadata alone (nothing staged, no column read):
+    what the tiering gate charges before `block_for` stages anything. Every
+    column is priced as if each lazy cache the block can build for it were
+    built: a dictionary column's ids (a multi-value one's `[rows, W]` matrix),
+    its decode table and its bitmap words; a raw column's narrowed values and
+    its frame-of-reference deltas; every column's null mask; and the valid
+    mask and its words. Over-pricing only sends a segment to the host tier
+    early; under-pricing is how the card runs out."""
+    padded = padded_rows(segment.num_docs)
+    total = padded + (padded // 32) * 4            # valid (bool) + valid_words
+    for meta in segment.metadata.get("columns", {}).values():
+        multi = bool(meta.get("multiValue"))
+        width = max(int(meta.get("maxNumValues", 1) or 1), 1) if multi else 1
+        if meta.get("hasDictionary"):
+            card = int(meta.get("cardinality", 0) or 0)
+            total += padded * 4 * width            # int32 ids
+            total += lut_size(card) * 4            # decode table, 32-bit
+            if 0 < card <= BITMAP_MAX_CARD and not multi:
+                total += card * (padded // 32) * 4  # bitmap words
+        else:
+            try:
+                dt = np.dtype(meta.get("fwdDtype", "float32"))
+            except TypeError:
+                dt = np.dtype(np.float32)
+            item = _narrow(np.zeros(0, dtype=dt)).dtype.itemsize if dt.kind in "iuf" else 4
+            total += padded * item                 # raw values, narrowed
+            mn, mx = meta.get("minValue"), meta.get("maxValue")
+            if not multi and isinstance(mn, int) and isinstance(mx, int) \
+                    and dt.kind == "i" and 0 <= mx - mn < (1 << 16):
+                total += padded * (1 if mx - mn < (1 << 8) else 2)   # FOR deltas
+        total += padded                            # null mask (bool)
+    return total
+
+
+def release_block(segment) -> None:
+    """Drop the segment's cached device blocks (and its star-tree views'),
+    release the stacked set blocks that hold its rows, and deregister the
+    ledger entries of all of them. The segment stays loaded: its table binding
+    in the ledger is kept. Without this the `_device_blocks` entry keeps every
+    tensor alive as long as the segment object lives."""
+    d = getattr(segment, "__dict__", {})
+    name = getattr(segment, "name", str(segment))
+    ledger = get_ledger()
+    d.pop("_device_blocks", None)
+    for tree in d.get("star_trees", ()):
+        view = tree.__dict__.get("view")
+        if view is not None and view.__dict__.pop("_device_blocks", None) is not None:
+            ledger.release(segment=view.name, keep_binding=True)
+    for set_block in list(d.get("_set_blocks", ())):
+        set_block.release()
+    ledger.release(table=ledger_table(segment), segment=name, keep_binding=True)
 

@@ -74,6 +74,10 @@ k`, the counterpart of `topk_kernel`: it picks candidate rows on the device so
 that only k row indices cross to the host. Among equal scores it keeps the
 lower row index, as `lax.top_k` does, so that the candidates and the host's
 stable sort agree on ties.
+
+`fetch_outputs` copies a launch's outputs to the host and records the bytes
+in the memory ledger's transient peak (`utils/memledger.py`), as the JAX
+package's fetch does.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ import torch
 from ..query.aggregates import AggFunc
 from ..query.predicate import CmpLeaf, DocSetLeaf, FilterProgram, LutLeaf, NullLeaf
 from ..sql.ast import Identifier
+from ..utils.memledger import get_ledger
 from .bitmap import BitmapLeaf, bitmap_filter, pack_valid, word_program
 from .expr import eval_device
 from .grouped import grouped_agg
@@ -240,27 +245,32 @@ def filter_mask(spec: KernelSpec, inputs: KernelInputs) -> torch.Tensor:
         return m.expand_as(inputs.valid) if isinstance(m, torch.Tensor) \
             else torch.full_like(inputs.valid, bool(m))
 
-    def tree_mask(node) -> torch.Tensor:
-        kind = node[0]
-        if kind == "const":
-            return inputs.valid if node[1] else torch.zeros_like(inputs.valid)
-        if kind == "leaf":
-            return leaf_mask(node[1])
-        if kind == "not":
-            return ~tree_mask(node[1])
-        masks = [tree_mask(c) for c in node[1]]
-        out = masks[0]
-        for m in masks[1:]:
-            out = (out & m) if kind == "and" else (out | m)
-        return out
-
     if spec.filter.is_match_all:
         return inputs.valid
     program = spec.word_program()
     if program is not None:
         # every leaf is a bitmap leaf: the whole tree in the word domain
         return bitmap_filter(program, inputs.bitmaps, inputs.packed_valid(), "mask")
-    return tree_mask(spec.filter.tree) & inputs.valid
+    return _tree_mask(spec.filter.tree, leaf_mask, inputs.valid) & inputs.valid
+
+
+def _tree_mask(node, leaf_mask, valid: torch.Tensor) -> torch.Tensor:
+    """A filter tree's mask from its leaves' masks. A module function, not a
+    closure: a recursive closure is a reference cycle that would keep the
+    block's tensors alive past their release until the next garbage
+    collection."""
+    kind = node[0]
+    if kind == "const":
+        return valid if node[1] else torch.zeros_like(valid)
+    if kind == "leaf":
+        return leaf_mask(node[1])
+    if kind == "not":
+        return ~_tree_mask(node[1], leaf_mask, valid)
+    masks = [_tree_mask(c, leaf_mask, valid) for c in node[1]]
+    out = masks[0]
+    for m in masks[1:]:
+        out = (out & m) if kind == "and" else (out | m)
+    return out
 
 
 def compute_filter_count(spec: KernelSpec, inputs: KernelInputs) -> Optional[int]:
@@ -391,6 +401,14 @@ def run_kernel(spec: KernelSpec, inputs: KernelInputs) -> Dict[str, torch.Tensor
             for name, r in zip(names, res[1:]):
                 out[name] = r[0]
     return out
+
+
+def fetch_outputs(outs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A launch's named outputs on the host. The bytes fetched feed the memory
+    ledger's transient peak (the JAX package's `fetch_outputs`)."""
+    host = {k: v.cpu().numpy() for k, v in outs.items()}
+    get_ledger().note_transient(sum(a.nbytes for a in host.values()))
+    return host
 
 
 _topk_lock = threading.Lock()

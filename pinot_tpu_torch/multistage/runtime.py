@@ -477,6 +477,7 @@ def _scatter_slots(lkey: Sequence[np.ndarray], rkey: Sequence[np.ndarray],
 
 
 def _join_budget_bytes(device: torch.device) -> Optional[int]:
+    """The memory ledger's budget for a join's working set on `device`."""
     return join_device_budget_bytes(device)
 
 

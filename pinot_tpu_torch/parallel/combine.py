@@ -90,6 +90,7 @@ per-segment `ServerQueryExecutor`, as in the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass
@@ -99,8 +100,8 @@ import numpy as np
 import torch
 
 from ..engine import kernels, scan
-from ..engine.datablock import (_narrow, id_bitmap_words, mv_id_matrix, pack_words,
-                                padded_rows)
+from ..engine.datablock import (_narrow, id_bitmap_words, ledger_table, mv_id_matrix,
+                                note_set_member, pack_words, padded_rows)
 from ..engine.expr import eval_device
 from ..engine.kernels import KernelInputs, KernelSpec, filter_mask, run_kernel
 from ..query.aggregates import make_agg
@@ -119,6 +120,7 @@ from ..query.startree_exec import StarTreePlan, reassemble, try_star_tree
 from ..query.result import ResultTable
 from ..segment.reader import ImmutableSegment
 from ..sql.ast import Function, Identifier, identifiers_in
+from ..utils.memledger import get_ledger
 from .merged import MergedSegmentView, view_key
 
 MAX_SCAN_ROWS = scan.INT32_MAX   # rows one scan launch takes
@@ -205,6 +207,16 @@ def _literal_key(inputs: KernelInputs) -> Tuple:
             tuple(b.rows for b in inputs.bitmaps), tuple(id(t) for t in inputs.docsets))
 
 
+_SET_BLOCK_IDS = itertools.count()
+
+
+def set_kind(cache_kind: str) -> str:
+    """The memory ledger's kind of a set block's cached tensor: a segment
+    block's kind of the same data (a doc-set mask counts as `valid`)."""
+    kind = cache_kind.split(":", 1)[0]
+    return "valid" if kind == "docset" else kind
+
+
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """One host-to-device copy, finished before it returns, so that every
     stream (the pipeline's included) may read the tensor."""
@@ -275,7 +287,50 @@ class SegmentSetBlock:
         cells = self.s_pad * self.rows
         self.pad_waste_pct = (1.0 - sum(self.seg_docs) / cells) * 100.0
         self._cache: Dict[Tuple[str, str], torch.Tensor] = {}
+        self._ledger_keys: Dict[Tuple[str, str], List] = {}
         self._lock = threading.Lock()
+        self._retired = False
+        self.emptied = False      # released by a member's eviction or unload
+        self._id = next(_SET_BLOCK_IDS)
+        for seg in self.segments:
+            note_set_member(seg, self)
+
+    def _keep(self, key: Tuple[str, str], tensor: torch.Tensor) -> torch.Tensor:
+        """Cache a stacked tensor (the lock held) and register it with the
+        memory ledger: one entry a member, under the member's name and the
+        kind a segment block would use (`set_kind`), each member its share of
+        the bytes, so that the gate sees the set's copy of every member. A
+        retired block (out of the executor's cache) caches nothing more."""
+        if self._retired:
+            return tensor
+        self._cache[key] = tensor
+        self.emptied = False
+        ledger = get_ledger()
+        share, extra = divmod(int(tensor.nbytes), len(self.segments))
+        kind, label = set_kind(key[0]), f"set{self._id}:{key[0]}:{key[1]}"
+        self._ledger_keys[key] = [
+            ledger.register(ledger_table(s), s.name, kind, label,
+                            share + (extra if i == 0 else 0))
+            for i, s in enumerate(self.segments)]
+        return tensor
+
+    def _drop(self, key: Tuple[str, str]) -> None:
+        """Uncache a stacked tensor (the lock held) and release its entries."""
+        del self._cache[key]
+        get_ledger().release_entries(self._ledger_keys.pop(key, ()))
+
+    def holds_columns(self) -> bool:
+        return bool(self._cache)
+
+    def release(self, retire: bool = False) -> None:
+        """Drop every stacked tensor and its ledger entries (a member was
+        evicted or unloaded): a later query over the same set stacks again,
+        unless the block is retired (the executor dropped it from its cache)."""
+        with self._lock:
+            self._retired = self._retired or retire
+            self.emptied = True
+            for key in list(self._cache):
+                self._drop(key)
 
     def _stack(self, kind: str, col: str, fill, per_seg, width: int = 0) -> torch.Tensor:
         """`per_seg(i, segment)`'s rows stacked `[S_pad, width or rows, ...]`
@@ -290,7 +345,7 @@ class SegmentSetBlock:
                               dtype=parts[0].dtype)
                 for i, arr in enumerate(parts):
                     out[i, :len(arr)] = arr
-                self._cache[key] = _to_device(out, self.device)
+                return self._keep(key, _to_device(out, self.device))
             return self._cache[key]
 
     def ids(self, col: str) -> torch.Tensor:
@@ -366,7 +421,7 @@ class SegmentSetBlock:
                 out = np.stack([id_bitmap_words(np.asarray(s.column(col).fwd)[:n], card,
                                                 self.rows)
                                 for s, n in zip(self.segments, self.seg_docs)])
-                self._cache[key] = _to_device(out, self.device)
+                return self._keep(key, _to_device(out, self.device))
             return self._cache[key]
 
 
@@ -405,24 +460,41 @@ class MeshQueryExecutor:
                 self._const_cache[key] = dev
             return dev
 
-    def _cached(self, cache: Dict, stable: Tuple, segments, make):
+    def _cached(self, cache: Dict, stable: Tuple, segments, make,
+                superseded: Callable[[Tuple], bool] = lambda key: False):
         """`cache[stable]`'s value, made anew when the members' `view_key`
-        changed (a consuming member grew) or was never seen."""
+        changed (a consuming member grew), when it was never seen, or when it
+        is a set block a member's eviction or unload emptied.
+        Making one drops the entry it replaces and those `superseded` names; a
+        dropped set block releases its tensors and their ledger entries."""
         vkey = view_key(segments)
+        dropped = []
         with self._lock:
             entry = cache.get(stable)
-            if entry is None or entry[0] != vkey:
-                if len(cache) >= 64:
-                    cache.clear()
+            if entry is None or entry[0] != vkey or getattr(entry[1], "emptied", False):
+                doomed = list(cache) if len(cache) >= 64 else \
+                    [k for k in cache if k == stable or superseded(k)]
+                dropped = [cache.pop(k)[1] for k in doomed]
                 entry = (vkey, make())
                 cache[stable] = entry
-            return entry[1]
+        for old in dropped:
+            if isinstance(old, SegmentSetBlock):
+                old.release(retire=True)
+        return entry[1]
 
     def _block_for(self, segments, view: Optional[MergedSegmentView] = None
                    ) -> SegmentSetBlock:
-        stable = (tuple(getattr(s, "path", s.name) for s in segments), view is not None)
+        """The set's block, cached by its members. A new block supersedes the
+        cached blocks of a strict subset of its members (a server whose
+        tiering gate admitted more of its segments): those would hold a
+        second copy of rows the new block stacks again."""
+        paths = tuple(getattr(s, "path", s.name) for s in segments)
+        stable = (paths, view is not None)
+        members = set(paths)
         return self._cached(self._set_blocks, stable, segments,
-                            lambda: SegmentSetBlock(segments, self.device, view))
+                            lambda: SegmentSetBlock(segments, self.device, view),
+                            superseded=lambda key: key[1] == stable[1]
+                            and set(key[0]) < members)
 
     def _merged_view(self, segments) -> MergedSegmentView:
         """The set's merged view, cached as its block is."""
@@ -702,7 +774,7 @@ class MeshQueryExecutor:
                 cached = [k for k in block._cache if k[0] == "docset"]
                 if len(cached) >= MAX_CACHED_DOCSETS:
                     for k in cached:
-                        del block._cache[k]
+                        block._drop(k)
             for j, key in enumerate(keys):
                 if out[j] is not None:
                     continue
@@ -713,7 +785,7 @@ class MeshQueryExecutor:
                 out[j] = _to_device(stacked, self.device)
                 if key is not None:
                     with block._lock:
-                        block._cache[key] = out[j]
+                        block._keep(key, out[j])
         return tuple(t.view(-1) for t in out)
 
     def _prepare_topk(self, ctx: QueryContext, plan: SegmentPlan,
@@ -943,6 +1015,7 @@ class MeshQueryExecutor:
             parts.append((offset, raw.numel(), t.dtype, tuple(t.shape)))
             offset += raw.numel() + fill
         host = torch.cat(chunks).cpu().numpy() if chunks else np.empty(0, np.uint8)
+        get_ledger().note_transient(host.nbytes)
         arrays = iter([host[start:start + nbytes]
                        .view(torch.empty(0, dtype=dtype).numpy().dtype).reshape(shape)
                        for start, nbytes, dtype, shape in parts])

@@ -74,7 +74,10 @@ milliseconds each segment plan, COMBINE and BROKER_REDUCE recorded.
 
 Shapes this package does not execute raise NotImplementedError with their
 reason. Nothing falls back to another path: the host runs only what the
-planner marks host.
+planner marks host, and what a server's tiering gate keeps off the card: its
+host-tier executor (`use_device=False`, the JAX package's) runs a device plan
+as a host plan, a selection's filter on the host and no top-k, and stages
+nothing.
 
 The entry points run on CUDA unless the caller passes `device="cpu"`; with
 no CUDA card they raise RuntimeError.
@@ -136,10 +139,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 class ServerQueryExecutor:
-    """Executes a QueryContext over a set of local segments on one device."""
+    """Executes a QueryContext over a set of local segments on one device;
+    with `use_device=False`, on the host alone (a server's host tier)."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, use_device: bool = True):
         self.device = resolve_device(device)
+        self.use_device = use_device
 
     def execute(self, segments: Sequence[ImmutableSegment],
                 query: Union[str, QueryContext], schema=None,
@@ -214,6 +219,10 @@ class ServerQueryExecutor:
                 reassemble(stp, sub)
                 return sub
         plan = plan_segment(ctx, segment, valid_docs=valid_docs)
+        if not self.use_device and plan.kind in ("device", "selection"):
+            if plan.kind == "device":
+                plan.kind = "host"
+            plan.fallback_reason = plan.fallback_reason or "device disabled"
         t0 = time.perf_counter()
         if plan.kind == "empty":
             r = self._empty_result(plan)
@@ -272,7 +281,7 @@ class ServerQueryExecutor:
         plan.bitmap_leaves = select_bitmap_leaves(plan, plan.segment)
         spec = kernel_spec(plan)
         outs = run_kernel(spec, self._kernel_inputs(plan, spec, block))
-        outs = {k: v.cpu().numpy() for k, v in outs.items()}
+        outs = kernels.fetch_outputs(outs)
         if plan.group_cols:
             return self._decode_group_partials(plan, outs)
         return self._decode_scalar_partials(plan, outs)

@@ -5,7 +5,8 @@ the thread-local "current record" slot (`collect_stats`, `current_stats`) and
 the accounting hooks `record`, `record_min`, `record_max` and
 `record_operator`, with the segment counts the per-segment executor, the
 servers and the broker record, the consuming segments' count and freshness,
-the broker's pruning, hedge and retry keys, the mux transport's two waits,
+the broker's pruning, hedge and retry keys, the server tiers' host-tier,
+promotion and cold-load keys, the mux transport's two waits,
 the join keys, `scanRowsAvoided`, the batch ingestion's keys, and the names
 of the multistage route's result keys. A server partial carries its record as a flat
 dict (`to_wire`, `SegmentResult.stats`), which the broker merges. Accounting
@@ -77,6 +78,15 @@ BATCH_PUSH_MS = "batchPushMs"
 NUM_CONSUMING_SEGMENTS_QUERIED = "numConsumingSegmentsQueried"
 MIN_CONSUMING_FRESHNESS_TIME_MS = "minConsumingFreshnessTimeMs"
 
+# the server's tiers (`cluster/tiering.py`): segments the admission gate kept
+# off the device (answered by the host plan), segments newly promoted to the
+# device this query, and COLD segments loaded from the deep store on a query
+# with the milliseconds those loads took
+SEGMENTS_SERVED_HOST_TIER = "segmentsServedHostTier"
+TIER_PROMOTIONS = "tierPromotions"
+SEGMENTS_COLD_LOADED = "segmentsColdLoaded"
+COLD_LOAD_MS = "coldLoadMs"
+
 # the mux transport (`cluster/mux.py`): milliseconds a request frame waited in
 # the broker's write queue, and milliseconds a server's demux loop held it at
 # the stream's flow-control window (`server.mux.max.inflight`)
@@ -108,7 +118,8 @@ MIN_KEYS = (MIN_CONSUMING_FRESHNESS_TIME_MS,)
 # a response over the mux transport and one over POST /query carry one key set
 BROKER_COUNTER_KEYS = (NUM_SEGMENTS_QUERIED, NUM_SEGMENTS_PRUNED, NUM_SEGMENTS_MATCHED,
                        HEDGED_REQUESTS, NUM_SEGMENTS_RETRIED, MUX_FRAME_QUEUE_MS,
-                       MUX_FLOW_CONTROL_MS)
+                       MUX_FLOW_CONTROL_MS, SEGMENTS_SERVED_HOST_TIER, TIER_PROMOTIONS,
+                       SEGMENTS_COLD_LOADED, COLD_LOAD_MS)
 
 #: routing pruner kind (cluster.routing.PRUNER_KINDS) -> its breakdown counter
 PRUNED_BY_KIND = {

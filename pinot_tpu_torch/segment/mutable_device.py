@@ -31,6 +31,10 @@ Concurrency: one writer (the consumer's pump) and many readers. The writer
 appends each column's chunk, then the chunk's row count (`_chunk_rows`), and
 publishes the new row count (`_num_docs`) last; a reader freezes a row count
 and reads only the chunks it covers.
+
+Memory ledger (`utils/memledger.py`): every staged chunk registers as
+`consuming` under the segment's name, and so does every tensor of a view's
+block; `release_device` (a consumer's retire or stop) releases them all.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from ..engine.datablock import SegmentBlock, _narrow, device_key
 from ..ingest.vectorized import widen_num
 from ..query.executor import resolve_device
 from ..schema import DataType, FieldSpec, Schema, normalize_mv_column
+from ..utils.memledger import get_ledger, staged
 from .dictionary import Dictionary
 from .reader import mv_rows
 
@@ -486,7 +491,8 @@ class DeviceMutableSegment:
             host = np.add(arr, base, dtype=np.int32) if base else arr.astype(np.int32)
         else:
             host = arr.astype(np.float32)
-        dev.append(torch.from_numpy(host).to(self.device))
+        dev.append(staged(torch.from_numpy(host).to(self.device), self.name, "consuming",
+                          name=f"{spec.name}#{len(dev)}"))
 
     # -- query-time materialization ----------------------------------------
     def _trim(self, items: list, n: int) -> list:
@@ -577,7 +583,7 @@ class DeviceMutableSegment:
         time: each staged column is its chunks joined on the device and
         zero-padded to the block's rows. String columns stay lazy: their
         sorted-space ids come from the view's snapshot."""
-        blk = SegmentBlock(view, self.device)
+        blk = SegmentBlock(view, self.device, ledger_kind="consuming")
         n = view.num_docs
         for name, dev in self._dev_chunks.items():
             if not dev:
@@ -597,7 +603,9 @@ class DeviceMutableSegment:
                 # chunk is staged but not yet published, joins no part
                 parts.append(torch.zeros(blk.padded - n, dtype=dev[0].dtype,
                                          device=self.device))
-            blk.put_raw(name, torch.cat(parts) if len(parts) > 1 else parts[0])
+            # one part is a staged chunk (or its slice), already registered
+            blk.put_raw(name, torch.cat(parts) if len(parts) > 1 else parts[0],
+                        register=len(parts) > 1)
         if self.device.type == "cuda":
             # joined on this thread's stream: finished before any stream reads it
             torch.cuda.current_stream(self.device).synchronize()
@@ -641,6 +649,7 @@ class DeviceMutableSegment:
             self._dev_chunks[name] = None
         if self._view is not None:
             self._view._device_blocks.clear()
+        get_ledger().release(segment=self.name, kind="consuming")
 
     def __repr__(self) -> str:
         return f"DeviceMutableSegment({self.name!r}, docs={self._num_docs})"

@@ -7,8 +7,10 @@ a per-node monotonic `seq`, a journal-wide `gseq` (the cursor of
 `KINDS` is the closed schema: a kind not listed raises. The kinds are those
 the ported roles emit (the broker's failure detector, admission and
 backpressure; the realtime segment lifecycle, the deep-store quarantine and
-the peer-scheme healing of the LLC segment manager); the cold tier, tiering,
-leadership and verdict kinds come with those planes.
+the peer-scheme healing of the LLC segment manager; the server's tiers: an
+admission rejected, an eviction, a promotion, a cold demotion and a cold
+load; the controller's memory verdict); the leadership and the other verdict
+kinds come with those planes.
 """
 
 from __future__ import annotations
@@ -34,9 +36,15 @@ KINDS: Dict[str, Tuple[str, str]] = {
     "segment.consuming.created": ("INFO", "new CONSUMING segment opened on a stream partition"),
     "segment.committed": ("INFO", "consuming segment sealed and committed to the deepstore"),
     "segment.online": ("INFO", "committed segment flipped CONSUMING->ONLINE in the ideal state"),
+    "segment.cold.demoted": ("INFO", "segment demoted to the cold tier (forms dropped, deepstore-backed)"),
+    "segment.cold.loaded": ("INFO", "cold segment lazily reloaded from the deepstore on query touch"),
     "segment.reassigned": ("WARN", "consuming segment moved off a dead server"),
+    "tier.admission.rejected": ("WARN", "HBM admission rejected a segment load (headroom below floor)"),
+    "tier.evicted": ("INFO", "tiering manager evicted a resident segment to reclaim HBM"),
+    "tier.promoted": ("INFO", "queried cold segment promoted back to the hot tier"),
     "deepstore.quarantined": ("ERROR", "deepstore upload retries exhausted; segment quarantined"),
     "deepstore.healed": ("INFO", "quarantined/missing deepstore copy healed from a server peer"),
+    "verdict.memory": ("WARN", "device-memory health verdict changed for a table"),
 }
 
 

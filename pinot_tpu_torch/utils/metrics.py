@@ -14,8 +14,16 @@ partition run on the broker after its server dispatch failed),
 broker), `pinot_server_join_stages` (join partitions a server ran),
 `pinot_server_mailbox_frames` (frames its mailboxes took over HTTP) and
 `pinot_server_mailbox_local_sends` (partitions handed to a mailbox in the
-sender's own process). The Prometheus text export and the gauges' time series wait
-for the HTTP surface.
+sender's own process). The memory plane's: the ledger's
+`pinot_server_hbm_resident_bytes{table,kind}`, `_resident_total_bytes`,
+`_capacity_bytes`, `_headroom_pct`, `_watermark_bytes` and
+`_transient_peak_bytes` gauges (`utils/memledger.py`), the tiers'
+`pinot_server_hbm_admission_rejects{table}`, `_evictions` and `_cold_loads`
+counters, and the controller's `pinot_controller_hbm_headroom_pct{instance}`,
+`_hbm_healthy{table}`, `_hbm_resident_bytes{table}` gauges and
+`pinot_controller_cold_demotions{table}`. `reset` empties the registry
+(tests). The Prometheus text export and the gauges' time series wait for the
+HTTP surface.
 """
 
 from __future__ import annotations
@@ -186,6 +194,16 @@ class MetricsRegistry:
         with self._lock:
             for series in self._series.values():
                 series.pop(k, None)
+
+    def remove_gauge(self, name: str, labels: Optional[Dict[str, str]] = None) -> None:
+        """`remove` under the JAX package's gauge-only name."""
+        self.remove(name, labels)
+
+    def reset(self) -> None:
+        """Drop every series (tests start from an empty registry)."""
+        with self._lock:
+            for series in self._series.values():
+                series.clear()
 
     def snapshot(self) -> Dict[str, float]:
         """Flat {rendered name: value}: counters, gauges, timer and histogram

@@ -1477,6 +1477,69 @@ def test_cuda_broker_answers_match_the_cpu(cuda, tmp_path, pipelines):
     assert np.allclose([r[1] for r in gg], [r[1] for r in wg], rtol=1e-5, atol=0.05)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipelines", [False, True])
+def test_cuda_capped_cluster_answers_as_the_cpu_within_its_capacity(cuda, tmp_path, pipelines):
+    """A server whose `server.hbm.capacity.bytes` holds two of its 6 segments'
+    predicted blocks (a table three times its target): Q1.1, GROUP_QUERY and
+    a COUNT through the broker equal the uncapped CPU cluster's,
+    some segments answer on the host tier, the memory ledger stays at or
+    under the capacity after every query, and the scan launches once an
+    admitted segment (once a query on the pipeline)."""
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.cluster import DeviceQueryPipeline, ServerNode
+    from pinot_tpu_torch.engine.datablock import predicted_block_bytes
+    from pinot_tpu_torch.parallel import MeshQueryExecutor
+    from pinot_tpu_torch.segment.writer import build_aligned_segments
+    from pinot_tpu_torch.table import TableConfig
+    from pinot_tpu_torch.utils.memledger import get_ledger, reset_ledger
+    cols = ssb.make_columns(6 * 65_536, 29)
+    dirs = build_aligned_segments(ssb.ssb_schema(), cols, str(tmp_path / "segs"), "lineorder", 6)
+    queries = (ssb.QUERY, ssb.GROUP_QUERY,
+               "SELECT COUNT(*) FROM lineorder WHERE lo_quantity < 10")
+    answers = {}
+    for name, device in (("cuda", cuda), ("cpu", "cpu")):
+        reset_ledger()
+        cluster = QuickCluster(num_servers=0, work_dir=str(tmp_path / name), device=device)
+        capacity = None
+        if name == "cuda":
+            from pinot_tpu_torch.segment import load_segment
+            capacity = int(2 * predicted_block_bytes(load_segment(dirs[0])) / 0.9) + 2
+            cluster.catalog.put_property("clusterConfig/server.hbm.capacity.bytes", capacity)
+        server = ServerNode("server_0", cluster.catalog, cluster.deepstore,
+                            str(tmp_path / name / "server_0"), device=device,
+                            device_pipeline=DeviceQueryPipeline(MeshQueryExecutor(device))
+                            if pipelines else None)
+        cluster.servers.append(server)
+        cluster.broker.register_server_handle(server.instance_id, server.execute_partial)
+        cluster.create_table(ssb.ssb_schema(), TableConfig("lineorder"))
+        for d in dirs:
+            cluster.controller.upload_segment("lineorder_OFFLINE", d)
+        got = []
+        for _ in range(2):
+            for sql in queries:
+                before = scan.masked_sums.launches
+                res = cluster.query(sql)
+                assert not res.stats["partialResult"] and res.stats["numSegmentsQueried"] == 6
+                got.append(res.rows)
+                if name == "cuda":
+                    host = res.stats["segmentsServedHostTier"]
+                    assert host > 0
+                    assert get_ledger().resident_bytes() <= capacity
+                    if sql != ssb.GROUP_QUERY:
+                        want = 1 if pipelines else 6 - host
+                        assert scan.masked_sums.launches - before == want
+        answers[name] = got
+        cluster.shutdown()
+        reset_ledger()
+    for g, w in zip(answers["cuda"], answers["cpu"]):
+        assert len(g) == len(w)
+        for rg, rw in zip(g, w):
+            for x, y in zip(rg, rw):
+                assert (np.isclose(x, y, rtol=1e-5, atol=0.05) if isinstance(y, float)
+                        else x == y)
+
+
 def _realtime_cluster_run(root, device, cols, rounds=5, block_rows=4_096, round_blocks=2):
     """A REALTIME lineorder table (2 partitions, replication 2, PCB1 blocks
     staged on `device`, commits of 16,384 rows) on a QuickCluster of two
