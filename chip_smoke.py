@@ -357,7 +357,17 @@ exits non-zero:
    (before each round that commits, after the last commit, after the hybrid
    queries): `realtime_cluster_memory_point` a point, naming what holds the
    device tensors that are new since the first at the last point (or where
-   the slack is passed), and `realtime_cluster_memory`.
+   the slack is passed), and `realtime_cluster_memory`. The phase's
+   controller leads through a `ControllerFailover` over the phase's deep
+   store (lease TTL RT_FAILOVER_TTL_S, renewed each round), so every catalog
+   event checkpoints the catalog; at the phase's end it renews once more and
+   stops, and a standby Controller with an empty Catalog over the same deep
+   store polls until it takes the lease: its restored snapshot equals the
+   leader's (schemas, table configs, every segment's metadata and end
+   offsets, ideal state, properties), the old leader's heartbeat fails, and
+   the standby's ingestion verdict over the same servers equals the
+   leader's: `realtime_cluster_failover` (checkpoints, their bytes and ms,
+   the takeover's ms, the leadership events journaled).
 19. process_cluster — the roles as OS processes joined over HTTP: a
    `ProcessCluster` of a controller process, two server processes that each
    own the card through a DeviceQueryPipeline (`server.device.enabled`), and
@@ -389,8 +399,9 @@ exits non-zero:
    `join_supplier` once more with OPTION(useMailboxShuffle=false), its
    partitions on the servers' POST /stage: `process_cluster_join_funnel`;
    GROUP BY lo_custkey (500,000 keys) and GROUP BY lo_suppkey VAR_POP with
-   OPTION(distributedGroupBy=true), a cold and a warm run each, beside the
-   scatter/gather answer's time: `process_cluster_distributed_group_by`.
+   OPTION(distributedGroupBy=true), a cold run each and a warm one of
+   lo_suppkey's, beside the scatter/gather answer's time:
+   `process_cluster_distributed_group_by`.
    Each answer on its oracle (joins rel 1e-9, lo_custkey as
    `custkey_rows_match`), each run's launches (from the servers' /debug) on
    JOIN_BITMAP or one `grouped_agg` a leaf server, and the broker's
@@ -423,6 +434,23 @@ exits non-zero:
    over HTTP and Q1.1 and GROUP_QUERY on the hybrid table:
    `process_realtime_hybrid`, `process_realtime_latency`; each server's
    device memory before and after the commits: `process_realtime_memory`.
+   Then, with that table still consuming, the other stream brokers and the
+   ingestion health plane (`process_streams`): a `PulsarLiteBroker` in this
+   process feeds a REALTIME `lineorder_pulsar` table (stream type "pulsar")
+   phase 18's blocks for 3 rounds (each partition commits once); the table
+   is paused before round 3, whose blocks are produced behind the pause:
+   `ingestionStatus` DEGRADED with the paused reason and each consuming
+   segment's offset lag the blocks produced since, then HEALTHY at lag 0 once
+   resumed and consumed (`process_streams_pause`); a `KinesisStub` with keys
+   (SigV4 on every request) feeds a REALTIME `lineorder_kinesis` table on 2
+   shards 3 rounds of 65,536 JSON lineorder records (`--seed + 15`,
+   PutRecords of at most 500; each shard commits at least once). After each
+   round of either: a bounded wait until both replicas consumed it, the HTTP
+   broker counts it (`staleness_s`) and its commits are ONLINE, then phase
+   18's five queries on their oracles with launches exact
+   (`process_streams_round`), and every realtime table's `ingestionStatus`
+   and each server's `/debug/consuming`, HEALTHY outside the pause
+   (`process_streams_ingestion`); `process_streams_summary`.
 20. memory — the device-memory plane (`utils/memledger.py`,
    `cluster/tiering.py`): the memory ledger reset and the allocator's bytes
    taken as the baseline; one server over phase 17's catalog, deep store and
@@ -462,8 +490,8 @@ three, the scans with the valid band; the batch phase all three, none
 under EXPLAIN or LOOKUP; `grouped_agg` on every device GROUP BY pass and
 every grouped or scalar distinct and scalar power-sum pass of every phase,
 the pipeline traffic's logged only, as `bitmap_filter`'s; the
-realtime_cluster phase and the process_realtime path `masked_sums`,
-`masked_sums_fused` and `grouped_agg`; the shuffle path `bitmap_filter` and
+realtime_cluster phase and the process_realtime and process_streams paths
+`masked_sums`, `masked_sums_fused` and `grouped_agg`; the shuffle path `bitmap_filter` and
 `grouped_agg`; the memory phase `masked_sums`, `masked_sums_fused` and
 `grouped_agg`), the memory phase's numbers,
 the nvidia-smi line, and as its last line
@@ -5659,6 +5687,8 @@ RT_CLUSTER_SEED = 13                    # --seed + 13: no other phase's data
 # column of one 65,536-row block (256 KiB) exceeds the slack, one retired
 # consumer's staging (24 MiB) exceeds it a hundredfold
 RT_CLUSTER_MEMORY_SLACK = 128 << 10
+RT_FAILOVER_TTL_S = 2.0                 # the leader's lease: a standby takes over 2 s after
+RT_FAILOVER_POLL_S = 0.05               # its last renewal, polling at this interval
 
 
 def device_bytes() -> int:
@@ -5868,12 +5898,14 @@ def run_realtime_cluster(args, work) -> dict:
     from pinot_tpu_torch.cluster.catalog import ONLINE, STATUS_DONE, STATUS_IN_PROGRESS
     from pinot_tpu_torch.cluster.completion import parse_llc_name
     from pinot_tpu_torch.cluster.deepstore import LocalDeepStore
+    from pinot_tpu_torch.cluster.leadership import ControllerFailover, LeaderElection
     from pinot_tpu_torch.ingest.stream import MemoryStream
     from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
     from pinot_tpu_torch.parallel import MeshQueryExecutor
     from pinot_tpu_torch.segment.writer import SegmentBuilder
     from pinot_tpu_torch.ssb import GROUP_QUERY, QUERY, make_columns, ssb_schema
     from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+    from pinot_tpu_torch.utils.events import get_journal
 
     root = os.path.join(work, "realtime_cluster")
     schema = ssb_schema()
@@ -5893,10 +5925,19 @@ def run_realtime_cluster(args, work) -> dict:
     catalog = Catalog()
     store = LocalDeepStore(os.path.join(root, "deepstore"))
     controller = Controller("controller_0", catalog, store, os.path.join(root, "controller"))
+    # the controller leads: every catalog event from here on checkpoints the
+    # catalog to the deep store
+    journal_since = get_journal().events_since(0)["cursor"]
+    failover = ControllerFailover(controller, LeaderElection(store, "controller_0",
+                                                             lease_ttl_s=RT_FAILOVER_TTL_S))
+    if not failover.lead():
+        raise AssertionError("realtime_cluster: the controller did not take the free lease")
     servers = [ServerNode(f"server_{i}", catalog, store, os.path.join(root, f"server_{i}"),
                           device_pipeline=DeviceQueryPipeline(MeshQueryExecutor()),
                           completion=controller.llc)
                for i in range(CLUSTER_SERVERS)]
+    for s in servers:
+        controller.ingestion_pollers[s.instance_id] = s.ingestion_snapshot
     broker = Broker("broker_0", catalog)
     dispatches = []   # (table, server, segments) of each broker dispatch
 
@@ -6097,6 +6138,8 @@ def run_realtime_cluster(args, work) -> dict:
             fields[qid] = {"ms": ms, "launches": counts, "answer": res.rows[:3],
                            "consuming_queried": res.stats.get("numConsumingSegmentsQueried"),
                            "min_freshness_ms": res.stats.get("minConsumingFreshnessTimeMs")}
+        if not failover.heartbeat():
+            raise AssertionError(f"realtime_cluster round {r}: the controller lost its lease")
         m = metas()[name]
         log("realtime_cluster_round", round=r, rows=int(sum(sent) * RT_CLUSTER_BLOCK_ROWS),
             pumped_rows=int(round_rows), pump_s=round_pump,
@@ -6215,6 +6258,8 @@ def run_realtime_cluster(args, work) -> dict:
                                  f"{RT_CLUSTER_MEMORY_SLACK} slack: {at['new_tensors']}")
     if not (launches["masked_sums"] and launches["grouped_agg"]):
         raise AssertionError(f"realtime_cluster: launches {launches}")
+    realtime_cluster_failover(root, store, controller, failover, servers, name,
+                              journal_since)
     for s in servers:
         s.shutdown()
     MemoryStream.reset_all()
@@ -6222,6 +6267,83 @@ def run_realtime_cluster(args, work) -> dict:
         commits=len(committed), consume_rows_per_s=pumped / pump_s,
         commit_s_max=max(commit_s.values()) if commit_s else None)
     return launches, (data, blocks)
+
+
+def realtime_cluster_failover(root, store, controller, failover, servers, name,
+                              journal_since) -> None:
+    """Phase 18's failover: the leader renews its lease once more and stops
+    renewing; a standby Controller with an empty Catalog over
+    the same deep store polls `try_takeover` until the lease expires and it
+    restores the last checkpoint. Its snapshot must equal the leader's, the
+    old leader's heartbeat must fail, and the standby's ingestion verdict
+    over the same servers must equal the leader's."""
+    from pinot_tpu_torch.cluster import Catalog, Controller
+    from pinot_tpu_torch.cluster.leadership import ControllerFailover, LeaderElection
+    from pinot_tpu_torch.utils.events import get_journal
+
+    def verdict(st):
+        return (st["ingestionState"], st["reasons"], st["paused"], st["numConsumingSegments"],
+                st["maxOffsetLag"], sorted(
+                    (sid, seg, x["currentOffset"], x["latestStreamOffset"], x["offsetLag"],
+                     x["numDocs"], x["freshnessTimeMs"])
+                    for sid, srv in st["servers"].items()
+                    for seg, x in srv["segments"].items()))
+
+    leader_status = controller.ingestion_status(name)
+    leader_snap = json.loads(controller.catalog.snapshot())
+    # its last renewal: the takeover is timed from here
+    if not failover.heartbeat():
+        raise AssertionError("realtime_cluster failover: the leader lost its lease early")
+    lease = failover.election._read_lease()
+    standby = Controller("controller_1", Catalog(), store, os.path.join(root, "controller_1"))
+    standing = ControllerFailover(standby, LeaderElection(store, "controller_1",
+                                                          lease_ttl_s=RT_FAILOVER_TTL_S))
+    t0 = time.perf_counter()
+    polls = 0
+    while True:
+        polls += 1
+        t_try = time.perf_counter()
+        if standing.try_takeover():
+            takeover_ms = (time.perf_counter() - t_try) * 1e3
+            break
+        if time.perf_counter() - t0 > RT_FAILOVER_TTL_S + 30.0:
+            raise AssertionError(f"realtime_cluster failover: no takeover of {lease}")
+        time.sleep(RT_FAILOVER_POLL_S)
+    detect_s = time.time() - (lease["deadline"] - RT_FAILOVER_TTL_S)
+    standby_snap = json.loads(standby.catalog.snapshot())
+    deposed = failover.heartbeat()
+    for s in servers:
+        standby.ingestion_pollers[s.instance_id] = s.ingestion_snapshot
+    standby_status = standby.ingestion_status(name)
+    done = {seg: (m["start_offset"], m["end_offset"], m["num_docs"])
+            for seg, m in standby_snap["segments"].get(name, {}).items()
+            if m["status"] == "DONE"}
+    events = [(e["kind"], e["node"]) for e in get_journal().events_since(journal_since)["events"]
+              if e["kind"].startswith("leader.")]
+    fields = dict(checkpoints=failover.checkpoints, checkpoint_bytes=failover.checkpoint_bytes,
+                  checkpoint_ms=failover.checkpoint_s * 1e3,
+                  checkpoint_mean_bytes=failover.checkpoint_bytes / max(failover.checkpoints, 1),
+                  lease_ttl_s=RT_FAILOVER_TTL_S, polls=polls, takeover_ms=takeover_ms,
+                  renewal_to_takeover_s=detect_s, epochs=[failover.election.epoch,
+                                                          standing.election.epoch],
+                  snapshot_equal=standby_snap == leader_snap,
+                  snapshot_keys={k: len(v) for k, v in standby_snap.items()},
+                  committed=done, old_leader_heartbeat=deposed,
+                  verdict=standby_status["ingestionState"],
+                  max_offset_lag=standby_status["maxOffsetLag"], events=events)
+    log("realtime_cluster_failover", **fields)
+    if standby_snap != leader_snap or not done or any(e is None for _, e, _ in done.values()):
+        raise AssertionError(f"realtime_cluster failover: the restored catalog differs from the "
+                             f"leader's ({sorted(standby_snap)} / {sorted(leader_snap)})")
+    if deposed or standing.election.epoch != failover.election.epoch + 1:
+        raise AssertionError(f"realtime_cluster failover: the old leader kept its lease {fields}")
+    if verdict(standby_status) != verdict(leader_status):
+        raise AssertionError(f"realtime_cluster failover: the standby's verdict "
+                             f"{verdict(standby_status)} differs from the leader's "
+                             f"{verdict(leader_status)}")
+    if events != [("leader.elected", "controller_0"), ("leader.elected", "controller_1"),
+                  ("leader.lost", "controller_0")]:
+        raise AssertionError(f"realtime_cluster failover: events {events}")
 
 
 # -- phase 19: process_cluster ---------------------------------------------------------
@@ -6234,7 +6356,9 @@ PROC_CLUSTER_QUERYABLE_S = 300.0       # upload -> every segment answered, at mo
 #: the servers' device: the CPU rehearsal points it at "cpu"
 PROC_CLUSTER_DEVICE = "cuda"
 PROC_SHUFFLE_JOIN_WARM_RUNS = 2        # the mailbox shuffle's joins: a cold and 2 warm
-PROC_SHUFFLE_GROUP_WARM_RUNS = 1       # the distributed GROUP BYs: a cold and 1 warm
+# the distributed GROUP BYs' warm runs after their cold one: lo_custkey's
+# 500,000 keys take none (20-26 s a run on the H100; its cold run is timed)
+PROC_SHUFFLE_GROUP_WARM_RUNS = {"custkey_group": 0, "suppkey_var": 1}
 
 
 class ServerProbe:
@@ -6359,11 +6483,11 @@ def process_cluster_shuffle(args, pc, probe, table, cols, work, numbers) -> dict
     for qid, sql, ok in group_sql:
         out = [run(qid, sql + " OPTION(distributedGroupBy=true)", ok,
                    lambda r: counts_of(grouped_agg=len(r["leafGroups"])), True)
-               for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS)]
+               for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS[qid])]
         if qid not in numbers:   # the scatter/gather answer's time, beside it
             gather = [run(f"{qid} scatter", sql, ok,
                           lambda r: counts_of(grouped_agg=r["numServersResponded"]), False)[1]
-                      for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS)]
+                      for _ in range(1 + PROC_SHUFFLE_GROUP_WARM_RUNS[qid])]
             numbers[qid] = statistics.median(gather[1:])
         res = out[0][0]
         log("process_cluster_distributed_group_by", query=qid, cold_ms=out[0][1],
@@ -6393,19 +6517,21 @@ PROC_RT_PEER_ROUND = 3                 # the round whose commits meet the deep s
 PROC_RT_POLL_S = 0.05
 
 
-def rt_sql(sql: str) -> str:
-    """Phase 18's SQL on the process_realtime table."""
-    return sql.replace("FROM lineorder", f"FROM {PROC_RT_TABLE}")
+def rt_sql(sql: str, table: str = PROC_RT_TABLE) -> str:
+    """Phase 18's SQL on a table of the process cluster (process_realtime's
+    by default)."""
+    return sql.replace("FROM lineorder", f"FROM {table}")
 
 
-def rt_device_queries(debug: dict) -> int:
-    """The partials the servers ran on their pipelines over the
-    process_realtime tables' committed segments (`pinot_server_device_queries`)."""
+def rt_device_queries(debug: dict, table: str = PROC_RT_TABLE) -> int:
+    """The partials the servers ran on their pipelines over the committed
+    segments of the logical table (`pinot_server_device_queries`),
+    process_realtime's by default."""
     return int(sum(v for d in debug.values() for k, v in d["serverMetrics"].items()
-                   if k.startswith("pinot_server_device_queries") and PROC_RT_TABLE in k))
+                   if k.startswith("pinot_server_device_queries") and f"table={table}_" in k))
 
 
-def process_realtime(args, pc, probe, work, stream) -> dict:
+def process_realtime(args, pc, probe, work, stream, cleanups=None) -> dict:
     """Phase 19's realtime sub-phase: phase 18's table and stream across the
     server processes. A kafkalite `LogBrokerServer` in this process (its log
     on the work disk), 2 partitions of phase 18's PCB1 blocks (`--seed + 13`);
@@ -6427,7 +6553,9 @@ def process_realtime(args, pc, probe, work, stream) -> dict:
     segments. After the rounds: warm runs; the OFFLINE half (2 segments of
     the rows up to the median date) pushed over HTTP, Q1.1 and GROUP_QUERY on
     the hybrid table. Returns the launches of the checked runs and the new
-    URL of server_1."""
+    URL of server_1. Where it passes and `cleanups` is a list, the tables and
+    the broker stay up (later steps read their ingestion status) and the
+    call that drops and stops them is appended to it."""
     from pinot_tpu_torch.cluster.http_service import get_json
     from pinot_tpu_torch.cluster.remote import RemoteServerHandle
     from pinot_tpu_torch.ingest.kafkalite import LogBrokerClient, LogBrokerServer
@@ -6445,6 +6573,7 @@ def process_realtime(args, pc, probe, work, stream) -> dict:
     srv = LogBrokerServer(log_dir=os.path.join(work, "kafkalite"))
     client = LogBrokerClient(srv.bootstrap)
     name = off_name = None
+    passed = False
     try:
         client.create_topic(PROC_RT_TABLE, parts)
         cfg = TableConfig(PROC_RT_TABLE, table_type=TableType.REALTIME,
@@ -6755,21 +6884,407 @@ def process_realtime(args, pc, probe, work, stream) -> dict:
         if missing:
             raise AssertionError(f"process_realtime: no {missing} launched in the server "
                                  f"processes: {launches}")
+        passed = True
     finally:
         if os.path.isfile(deep):   # the outage ended with an error: the deep store back
             os.remove(deep)
             os.rename(deep + ".parked", deep)
-        for t in (name, off_name):
-            if t is not None:
-                try:
-                    pc.controller.drop_table(t)
-                except Exception:   # the phase's own error is the one to report
-                    pass
-        client.close()
-        srv.stop()
+
+        def cleanup(tables=(name, off_name)):
+            for t in tables:
+                if t is not None:
+                    try:
+                        pc.controller.drop_table(t)
+                    except Exception:   # the phase's own error is the one to report
+                        pass
+            client.close()
+            srv.stop()
+        if passed and cleanups is not None:
+            cleanups.append(cleanup)
+        else:
+            cleanup()
     log("process_realtime_summary", launches=launches, seconds=time.perf_counter() - t0,
         consume_rows_per_s_median=statistics.median(consume_rate) if consume_rate else None,
         peer=peer)
+    return launches
+
+
+# -- phase 19's other stream brokers and the ingestion health plane ---------------------
+
+PROC_STREAMS_ROUNDS = 3                # phase 18's first rounds: 786,432 rows a partition
+PROC_STREAMS_PAUSE_ROUND = 2           # the Pulsar round produced behind a pause
+PROC_PULSAR_TABLE = "lineorder_pulsar"
+PROC_KINESIS_TABLE = "lineorder_kinesis"
+PROC_KINESIS_SHARDS = 2
+# 3 rounds of 65,536 JSON records, 196,608 in all: about 98 s of a two-shard
+# stream at Kinesis's documented write limit of 1,000 records a second a shard
+PROC_KINESIS_ROUND_ROWS = 65_536
+PROC_KINESIS_FLUSH_ROWS = 65_536       # each shard commits at least once
+PROC_KINESIS_SEED = 15                 # --seed + 15: no other phase's data
+PROC_KINESIS_PUT_RECORDS = 500         # records a PutRecords call takes at most (AWS's limit)
+PROC_KINESIS_KEYS = {"accessKey": "AKIDCHIPSMOKE", "secretKey": "chip-smoke/streams/key"}
+
+
+def process_streams(args, pc, probe, stream, rt_tables) -> dict:
+    """Phase 19's stream brokers and ingestion health, in the running
+    cluster after `process_realtime`. A `PulsarLiteBroker` in this process:
+    a REALTIME `lineorder_pulsar` table (stream type "pulsar", 2 partitions,
+    replication 2, staged on the card, flush threshold RT_CLUSTER_FLUSH_ROWS)
+    fed phase 18's PCB1 blocks (`--seed + 13`) for PROC_STREAMS_ROUNDS rounds
+    of 4 blocks a partition: each partition commits once and keeps 262,144
+    rows consuming. The table is paused before round PROC_STREAMS_PAUSE_ROUND
+    + 1, whose blocks are produced behind the pause: its `ingestionStatus`
+    must be DEGRADED with the paused reason and each consuming segment's
+    `offsetLag` the blocks produced to its partition since; after the resume
+    and the round consumed, HEALTHY at `maxOffsetLag` 0
+    (`process_streams_pause`). A `KinesisStub` with keys (every request
+    SigV4-signed and verified): a REALTIME `lineorder_kinesis` table on 2
+    shards (stream type "kinesis", JSON, the keys in its stream properties,
+    flush threshold PROC_KINESIS_FLUSH_ROWS) fed 3 rounds of 65,536 lineorder
+    rows as JSON records (`--seed + 15`), PutRecords of at most 500, each
+    row's partition key its lo_orderkey (its number in the stream). After
+    each round of either table: a bounded wait until both replicas consumed
+    it, the HTTP broker counts it (`staleness_s`) and its commits are ONLINE
+    on both replicas; phase 18's five queries through the HTTP broker on
+    their oracles, launches exact (`process_streams_round`); then every
+    realtime table of the cluster (process_realtime's too): its
+    `ingestionStatus` and each server's `/debug/consuming`, HEALTHY outside
+    the pause (`process_streams_ingestion`). Returns the checked runs'
+    launches."""
+    import zlib
+
+    from pinot_tpu_torch.cluster.http_service import get_json
+    from pinot_tpu_torch.ingest.kinesislite import KinesisClient, KinesisStub
+    from pinot_tpu_torch.ingest.pulsarlite import PulsarLiteBroker, PulsarLiteProducer
+    from pinot_tpu_torch.schema import Schema
+    from pinot_tpu_torch.ssb import make_columns, ssb_schema
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+
+    data, blocks = stream
+    parts = len(data)
+    launches = counts_of()
+    t_step = time.perf_counter()
+    broker = PulsarLiteBroker()
+    stub = KinesisStub(access_key=PROC_KINESIS_KEYS["accessKey"],
+                       secret_key=PROC_KINESIS_KEYS["secretKey"])
+    producers, made, summary = [], [], {}
+    queries = realtime_cluster_queries()
+    consuming_states = ("INITIAL_CONSUMING", "CATCHING_UP", "HOLDING")
+
+    def wait(label, ready):
+        deadline = time.perf_counter() + PROC_RT_WAIT_S
+        while True:
+            try:
+                out = last = ready()
+            except Exception as e:   # a mirror catching up: poll
+                out, last = None, e
+            if out:
+                return out
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"process_streams: {label} not within {PROC_RT_WAIT_S} s "
+                                     f"(last: {last!r})")
+            time.sleep(PROC_RT_POLL_S)
+
+    def consuming_view(name):
+        """server -> this table's consuming segments, from its /debug/consuming."""
+        return {sid: (get_json(f"{url}/debug/consuming", timeout=60.0)["tables"].get(name)
+                      or {}).get("segments", {})
+                for sid, url in probe.urls.items()}
+
+    def segments(name):
+        snap = get_json(f"{pc.controller_url}/catalog/snapshot", timeout=60.0)
+        return snap["segments"].get(name, {}), snap["externalView"].get(name, {})
+
+    def consumed(t):
+        """Every server consumes each partition at its produced offset."""
+        view = consuming_view(t["name"])
+        for segs in view.values():
+            offs = sorted(x["currentOffset"] for x in segs.values()
+                          if x["state"] in consuming_states)
+            if offs != sorted(t["totals"]):
+                return None
+        return view
+
+    def settled(t):
+        """Consumed, every commit ONLINE on both replicas, none pending."""
+        view = consumed(t)
+        if view is None or any(x["numDocs"] >= t["flush"] for segs in view.values()
+                               for x in segs.values()):
+            return None
+        metas, ev = segments(t["name"])
+        done = {s: m for s, m in metas.items() if m["status"] == "DONE"}
+        if any(sorted(ev.get(s, {}).values()) != ["ONLINE"] * PROC_CLUSTER_REPLICATION
+               for s in done):
+            return None
+        return view, metas
+
+    def checked(t, label, sql, want_rows, on_committed, on_view, views, fresh):
+        """One query through the HTTP broker: the servers' counts set to 0
+        just before, read just after, held to on_committed a pipeline
+        partial over committed segments plus on_view a consuming view with
+        rows; the answer to its oracle; the consuming stats to the stream's."""
+        probe.reset()
+        before = rt_device_queries(probe.debug(), t["logical"])
+        t_q = time.perf_counter()
+        res = pc.broker.query(sql, timeout=600.0)
+        ms = (time.perf_counter() - t_q) * 1e3
+        debug = probe.debug()
+        counts = probe.launches(debug)
+        piped = rt_device_queries(debug, t["logical"]) - before
+        want = {k: on_committed[k] * piped + on_view[k] * views for k in counts}
+        if counts != want:
+            raise AssertionError(f"process_streams {label}: launches {counts}, expected {want} "
+                                 f"({piped} pipeline partials, {views} views)")
+        got = res["resultTable"]["rows"]
+        if not rows_match(got, want_rows):
+            raise AssertionError(f"process_streams {label}: {got[:5]}, oracle {want_rows[:5]}")
+        got_fresh, now_ms = res.get("minConsumingFreshnessTimeMs"), time.time() * 1000
+        if res["partialResult"] or res["numSegmentsRetried"] or \
+                res.get("numConsumingSegmentsQueried") != parts or (
+                    got_fresh != fresh if fresh is not None
+                    else not now_ms - 3_600_000 < got_fresh <= now_ms):
+            raise AssertionError(f"process_streams {label}: stats (freshness {fresh}) "
+                                 f"{ {k: v for k, v in res.items() if k != 'resultTable'} }")
+        for k, v in counts.items():
+            launches[k] += v
+        return {"ms": ms, "launches": counts, "answer": got[:3], "pipeline_partials": piped,
+                "views": views, "min_freshness_ms": got_fresh}
+
+    def ingestion(t, r, staleness_s, expect="HEALTHY"):
+        """Every realtime table's verdict and each server's consuming
+        segments; the verdict must be `expect` for `t`, HEALTHY elsewhere."""
+        out = {}
+        for name in rt_tables + [x["name"] for x in made]:
+            t_i = time.perf_counter()
+            st = pc.controller.ingestion_status(name)
+            poll_ms = (time.perf_counter() - t_i) * 1e3
+            want = expect if name == t["name"] else "HEALTHY"
+            if st["ingestionState"] != want:
+                raise AssertionError(f"process_streams round {r} ({t['name']}): {name} is "
+                                     f"{st['ingestionState']} {st['reasons']}, want {want}")
+            out[name] = {"verdict": st["ingestionState"], "reasons": st["reasons"],
+                         "max_offset_lag": st["maxOffsetLag"],
+                         "max_freshness_lag_ms": st["maxFreshnessLagMs"],
+                         "total_rows_per_s": st["totalRowsPerSecond"],
+                         "consuming": st["numConsumingSegments"], "poll_ms": poll_ms,
+                         "servers": {sid: {seg: [x["currentOffset"], x["offsetLag"],
+                                                 x["numDocs"], x["state"]]
+                                           for seg, x in segs.items()}
+                                     for sid, segs in consuming_view(name).items()}}
+        log("process_streams_ingestion", table=t["name"], round=r, staleness_s=staleness_s,
+            tables=out)
+        return out[t["name"]]
+
+    def queries_for(t, r, view_metas):
+        """The five queries on the rows produced so far."""
+        view, metas = view_metas
+        consuming = {s: m for s, m in metas.items() if m["status"] == "IN_PROGRESS"}
+        served = [{seg: x["numDocs"] for seg, x in segs.items()} for segs in view.values()]
+        fresh, held = None, {}
+        for seg, m in consuming.items():
+            p, start = m["partition_group"], int(m["start_offset"])
+            rows = t["rows"](p, start, t["totals"][p])
+            n = len(rows["lo_orderdate"])
+            held[seg] = n
+            if n:
+                top = int(rows["lo_orderdate"].max())
+                fresh = top if fresh is None else min(fresh, top)
+        if any(x != held for x in served):
+            raise AssertionError(f"process_streams {t['name']} round {r}: the servers' "
+                                 f"consuming segments hold {served}, the stream {held}")
+        views = sum(n > 0 for n in held.values())
+        cols = {k: np.concatenate([t["rows"](p, 0, t["totals"][p])[k] for p in range(parts)])
+                for k in data[0]}
+        return {qid: checked(t, f"{t['name']} round {r} {qid}", rt_sql(sql, t["logical"]),
+                             oracle(cols), on_committed, on_view, views, fresh)
+                for qid, sql, oracle, on_committed, on_view in queries}
+
+    def lanes(t):
+        return sorted({c["lastDecodePath"] for d in probe.debug().values()
+                       for c in d["consumers"].get(t["name"], {}).values()
+                       if c["lastDecodePath"]})
+
+    def rounds(t, produce, pause_round=None):
+        rates, stale = [], []
+        for r in range(PROC_STREAMS_ROUNDS):
+            pause = {}
+            if r == pause_round:
+                t_p = time.perf_counter()
+                pc.controller.pause_consumption(t["name"])
+                wait(f"{t['name']} paused", lambda: all(
+                    len(segs) == parts and all(x["paused"] for x in segs.values())
+                    for segs in consuming_view(t["name"]).values()))
+                pause["pause_s"] = time.perf_counter() - t_p
+            t_prod = time.perf_counter()
+            before = list(t["totals"])
+            produce(t, r)
+            produce_s = time.perf_counter() - t_prod
+            if r == pause_round:
+                st = pc.controller.ingestion_status(t["name"])
+                lags = {(sid, seg): x["offsetLag"] for sid, srv in st["servers"].items()
+                        for seg, x in srv["segments"].items()}
+                want_lag = {p: t["totals"][p] - before[p] for p in range(parts)}
+                seg_part = {seg: x["partition"] for srv in st["servers"].values()
+                            for seg, x in srv["segments"].items()}
+                pause.update(verdict=st["ingestionState"], reasons=st["reasons"],
+                             max_offset_lag=st["maxOffsetLag"],
+                             offset_lags={f"{sid}/{seg}": v for (sid, seg), v in lags.items()},
+                             produced_since_pause=want_lag)
+                if st["ingestionState"] != "DEGRADED" or st["reasons"] != [
+                        "consumption is paused"] or len(lags) != parts * PROC_CLUSTER_REPLICATION \
+                        or any(v != want_lag[seg_part[seg]] for (_, seg), v in lags.items()):
+                    raise AssertionError(f"process_streams pause: {pause}")
+                t_prod = time.perf_counter()
+                pc.controller.resume_consumption(t["name"])
+            wait(f"{t['name']} round {r} consumed", lambda: consumed(t))
+            consumed_s = time.perf_counter() - t_prod
+            total = sum(t["totals"])
+            wait(f"{t['name']} round {r} counted", lambda: pc.query(
+                f"SELECT COUNT(*) FROM {t['logical']}")["resultTable"]["rows"] == [[total]]
+                or pc.query(f"SELECT COUNT(*) FROM {t['logical']}")["resultTable"]["rows"])
+            staleness_s = time.perf_counter() - t_prod
+            view_metas = wait(f"{t['name']} round {r} settled", lambda: settled(t))
+            settled_s = time.perf_counter() - t_prod
+            rows_round = sum(t["totals"]) - sum(before)
+            rates.append(PROC_CLUSTER_REPLICATION * rows_round * t["rows_per_offset"] / consumed_s)
+            stale.append(staleness_s)
+            fields = queries_for(t, r, view_metas)
+            st = ingestion(t, r, staleness_s)
+            done = sorted(s for s, m in view_metas[1].items() if m["status"] == "DONE")
+            log("process_streams_round", table=t["name"], stream_type=t["type"], round=r,
+                rows=total * t["rows_per_offset"], produce_s=produce_s, consumed_s=consumed_s,
+                consume_rows_per_s=rates[-1], staleness_s=staleness_s,
+                produce_to_settled_s=settled_s, committed=done, queries=fields,
+                verdict=st["verdict"], max_offset_lag=st["max_offset_lag"],
+                max_freshness_lag_ms=st["max_freshness_lag_ms"],
+                total_rows_per_s=st["total_rows_per_s"])
+            if r == pause_round:
+                pause.update(resume_to_consumed_s=consumed_s, resume_to_counted_s=staleness_s,
+                             healed=st["verdict"], healed_max_offset_lag=st["max_offset_lag"])
+                if st["max_offset_lag"] != 0:
+                    raise AssertionError(f"process_streams pause: after the resume {st}")
+                log("process_streams_pause", table=t["name"], round=r, **pause)
+        return rates, stale
+
+    def make_table(t, cfg):
+        pc.controller.add_schema(Schema.from_json(dict(ssb_schema().to_json(),
+                                                       schemaName=t["logical"])))
+        pc.controller.add_table(cfg, num_partitions=parts)
+        made.append(t)
+
+    try:
+        # -- the Pulsar table: phase 18's blocks -------------------------------------
+        t0 = time.perf_counter()
+        pt = {"name": f"{PROC_PULSAR_TABLE}_REALTIME", "logical": PROC_PULSAR_TABLE,
+              "type": "pulsar", "totals": [0] * parts, "flush": RT_CLUSTER_FLUSH_ROWS,
+              "rows_per_offset": RT_CLUSTER_BLOCK_ROWS,
+              "rows": lambda p, a, b: {k: v[a * RT_CLUSTER_BLOCK_ROWS:b * RT_CLUSTER_BLOCK_ROWS]
+                                       for k, v in data[p].items()}}
+        producers.extend(PulsarLiteProducer(broker.service_url, PROC_PULSAR_TABLE, p)
+                         for p in range(parts))
+        make_table(pt, TableConfig(
+            PROC_PULSAR_TABLE, table_type=TableType.REALTIME,
+            replication=PROC_CLUSTER_REPLICATION, time_column="lo_orderdate",
+            stream=StreamConfig(stream_type="pulsar", topic=PROC_PULSAR_TABLE,
+                                decoder="columnar", flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+                                properties={"serviceUrl": broker.service_url,
+                                            "realtime.ingest.device.staging": "true"})))
+
+        def produce_blocks(t, r):
+            for p in range(parts):
+                for blob in blocks[p][t["totals"][p]:t["totals"][p] + RT_CLUSTER_ROUND_BLOCKS]:
+                    producers[p].send(blob)
+                t["totals"][p] += RT_CLUSTER_ROUND_BLOCKS
+        log("process_streams_data", table=pt["name"], stream_type="pulsar",
+            service_url=broker.service_url, partitions=parts, seed=args.seed + RT_CLUSTER_SEED,
+            rows=parts * PROC_STREAMS_ROUNDS * RT_CLUSTER_ROUND_BLOCKS * RT_CLUSTER_BLOCK_ROWS,
+            block_rows=RT_CLUSTER_BLOCK_ROWS, flush_threshold_rows=RT_CLUSTER_FLUSH_ROWS,
+            replication=PROC_CLUSTER_REPLICATION, setup_s=time.perf_counter() - t0)
+        p_rates, p_stale = rounds(pt, produce_blocks, PROC_STREAMS_PAUSE_ROUND)
+        metas, _ = segments(pt["name"])
+        want = llc_commit_offsets(PROC_STREAMS_ROUNDS * RT_CLUSTER_ROUND_BLOCKS
+                                  * RT_CLUSTER_BLOCK_ROWS, RT_CLUSTER_BLOCK_ROWS,
+                                  RT_CLUSTER_ROUND_BLOCKS, RT_CLUSTER_FLUSH_ROWS)
+        for p in range(parts):
+            got = sorted((int(m["start_offset"]), int(m["end_offset"])) for m in metas.values()
+                         if m["status"] == "DONE" and m["partition_group"] == p)
+            if got != want:
+                raise AssertionError(f"process_streams pulsar: partition {p} committed {got}, "
+                                     f"expected {want}")
+        summary["pulsar"] = {"consume_rows_per_s": p_rates, "staleness_s": p_stale,
+                             "lanes": lanes(pt), "commits": len(want) * parts}
+        if summary["pulsar"]["lanes"] != ["blocks"]:
+            raise AssertionError(f"process_streams pulsar: lanes {summary['pulsar']['lanes']}")
+
+        # -- the Kinesis table: JSON records, signed requests -------------------------
+        t0 = time.perf_counter()
+        n = PROC_STREAMS_ROUNDS * PROC_KINESIS_ROUND_ROWS
+        kcols = make_columns(n, args.seed + PROC_KINESIS_SEED)
+        names = list(kcols)
+        records = [json.dumps(dict(zip(names, vals)))
+                   for vals in zip(*(np.asarray(kcols[c]).tolist() for c in names))]
+        keys = [str(i) for i in range(n)]   # lo_orderkey: the row's number in the stream
+        shard = np.array([zlib.crc32(k.encode()) % PROC_KINESIS_SHARDS for k in keys])
+        shard_rows = [np.flatnonzero(shard == p) for p in range(PROC_KINESIS_SHARDS)]
+        client = KinesisClient(stub.url, access_key=PROC_KINESIS_KEYS["accessKey"],
+                               secret_key=PROC_KINESIS_KEYS["secretKey"])
+        client.create_stream(PROC_KINESIS_TABLE, PROC_KINESIS_SHARDS)
+        kt = {"name": f"{PROC_KINESIS_TABLE}_REALTIME", "logical": PROC_KINESIS_TABLE,
+              "type": "kinesis", "totals": [0] * PROC_KINESIS_SHARDS,
+              "flush": PROC_KINESIS_FLUSH_ROWS, "rows_per_offset": 1,
+              "rows": lambda p, a, b: {k: v[shard_rows[p][a:b]] for k, v in kcols.items()}}
+        make_table(kt, TableConfig(
+            PROC_KINESIS_TABLE, table_type=TableType.REALTIME,
+            replication=PROC_CLUSTER_REPLICATION, time_column="lo_orderdate",
+            stream=StreamConfig(stream_type="kinesis", topic=PROC_KINESIS_TABLE, decoder="json",
+                                flush_threshold_rows=PROC_KINESIS_FLUSH_ROWS,
+                                properties=dict(PROC_KINESIS_KEYS, endpoint=stub.url,
+                                                **{"realtime.ingest.device.staging": "true"}))))
+        put_calls = []
+
+        def produce_records(t, r):
+            lo, hi = r * PROC_KINESIS_ROUND_ROWS, (r + 1) * PROC_KINESIS_ROUND_ROWS
+            for a in range(lo, hi, PROC_KINESIS_PUT_RECORDS):
+                b = min(a + PROC_KINESIS_PUT_RECORDS, hi)
+                out = client.put_records(PROC_KINESIS_TABLE, zip(keys[a:b], records[a:b]))
+                put_calls.append(b - a)
+                if out["FailedRecordCount"] or len(out["Records"]) != b - a:
+                    raise AssertionError(f"process_streams kinesis: PutRecords {out}")
+            for p in range(PROC_KINESIS_SHARDS):
+                t["totals"][p] = int(np.searchsorted(shard_rows[p], hi))
+        log("process_streams_data", table=kt["name"], stream_type="kinesis", endpoint=stub.url,
+            shards=PROC_KINESIS_SHARDS, seed=args.seed + PROC_KINESIS_SEED, rows=n,
+            round_rows=PROC_KINESIS_ROUND_ROWS, flush_threshold_rows=PROC_KINESIS_FLUSH_ROWS,
+            shard_rows=[len(x) for x in shard_rows], signed=True,
+            replication=PROC_CLUSTER_REPLICATION, setup_s=time.perf_counter() - t0)
+        k_rates, k_stale = rounds(kt, produce_records)
+        metas, _ = segments(kt["name"])
+        commits = {p: sorted((int(m["start_offset"]), int(m["end_offset"]), m["num_docs"])
+                             for m in metas.values()
+                             if m["status"] == "DONE" and m["partition_group"] == p)
+                   for p in range(PROC_KINESIS_SHARDS)}
+        if any(not c or any(e - s != docs for s, e, docs in c) for c in commits.values()):
+            raise AssertionError(f"process_streams kinesis: commits {commits}")
+        summary["kinesis"] = {"consume_rows_per_s": k_rates, "staleness_s": k_stale,
+                              "lanes": lanes(kt), "commits": commits,
+                              "put_records_calls": len(put_calls),
+                              "max_records_a_call": max(put_calls)}
+        missing = [k for k in ("masked_sums", "masked_sums_fused", "grouped_agg")
+                   if not launches[k]]
+        if missing:
+            raise AssertionError(f"process_streams: no {missing} launched: {launches}")
+    finally:
+        for t in made:
+            try:
+                pc.controller.drop_table(t["name"])
+            except Exception:   # the step's own error is the one to report
+                pass
+        for prod in producers:
+            prod.close()
+        broker.stop()
+        stub.stop()
+    log("process_streams_summary", launches=launches, seconds=time.perf_counter() - t_step,
+        **summary)
     return launches
 
 
@@ -7032,7 +7547,16 @@ def run_process_cluster(args, table, cols, work, rt_stream) -> tuple:
                      for sid, p in plane.items()},
             verdicts=verdicts, memory_status=status)
 
-        realtime_launches = process_realtime(args, pc, probe, work, rt_stream)
+        # the kafkalite table stays up while the other stream brokers run:
+        # their rounds read every realtime table's ingestion status
+        cleanups = []
+        try:
+            realtime_launches = process_realtime(args, pc, probe, work, rt_stream, cleanups)
+            streams_launches = process_streams(args, pc, probe, rt_stream,
+                                               [f"{PROC_RT_TABLE}_REALTIME"])
+        finally:
+            for cleanup in cleanups:
+                cleanup()
 
         # failover: server_1 killed; server_0 answers every segment
         pc.kill_server("server_1")
@@ -7056,7 +7580,7 @@ def run_process_cluster(args, table, cols, work, rt_stream) -> tuple:
                                    if "warm_median_ms" in v},
         mix=mix_numbers, in_process_mix=CLUSTER_NUMBERS.get("e2e_mix"),
         failover_s=failover_s, memory=memory)
-    return launches, shuffle_launches, realtime_launches
+    return launches, shuffle_launches, realtime_launches, streams_launches
 
 
 # -- phase 20: memory ------------------------------------------------------------------
@@ -7433,15 +7957,17 @@ def main() -> int:
         cluster_launches = phase("cluster", run_cluster, args, table, cols, for_table, work)
         realtime_cluster_launches, rt_stream = phase("realtime_cluster", run_realtime_cluster,
                                                      args, work)
-        process_cluster_launches, shuffle_launches, process_realtime_launches = phase(
-            "process_cluster", run_process_cluster, args, table, cols, work, rt_stream)
+        (process_cluster_launches, shuffle_launches, process_realtime_launches,
+         process_streams_launches) = phase("process_cluster", run_process_cluster, args, table,
+                                           cols, work, rt_stream)
         del rt_stream
         missing = [k for k in ("masked_sums", "grouped_agg") if not process_cluster_launches[k]]
         missing += [f"{k} (shuffle)" for k in ("bitmap_filter", "grouped_agg")
                     if not shuffle_launches[k]]
-        missing += [f"{k} (process_realtime)" for k in
-                    ("masked_sums", "masked_sums_fused", "grouped_agg")
-                    if not process_realtime_launches[k]]
+        missing += [f"{k} ({path})"
+                    for path, counts in (("process_realtime", process_realtime_launches),
+                                         ("process_streams", process_streams_launches))
+                    for k in ("masked_sums", "masked_sums_fused", "grouped_agg") if not counts[k]]
         if missing:
             raise AssertionError(f"the process_cluster phase launched no {missing} in its "
                                  "server processes")
@@ -7474,6 +8000,7 @@ def main() -> int:
                 "process_cluster": process_cluster_launches[name],
                 "shuffle": shuffle_launches[name],
                 "process_realtime": process_realtime_launches[name],
+                "process_streams": process_streams_launches[name],
                 "memory": memory_launches[name]}
     for name in ("masked_sums", "masked_sums_fused"):
         s = kstats[name]

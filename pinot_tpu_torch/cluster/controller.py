@@ -19,13 +19,29 @@ server's headroom and each table's residency, and gives each table a verdict
 off `controller.memory.headroom.pct` (default 20%): HEALTHY, DEGRADED below
 it or with a server unreachable, UNHEALTHY at a quarter of it, at none left,
 or with no server reporting; `memory_status` is the table's
-`/tables/{t}/memoryStatus`. A verdict's change is counted, logged and
-journaled (`verdict.memory`); the incident recorder waits.
+`/tables/{t}/memoryStatus`.
+The ingestion plane (the reference's tableIngestionStatus over the servers'
+consumingSegmentsInfo): `ingestion_status` polls every server's consuming
+rollup (an in-process server's `ingestion_snapshot` registered in
+`ingestion_pollers`, else a server process's `GET /debug/consuming`,
+`remote.ingestion_poller`) and gives a realtime table a verdict: UNHEALTHY
+with a consumer in ERROR, a consuming segment no server consumes (unless
+paused) or no server reporting; DEGRADED while paused, with a server that
+failed its poll, or past `controller.ingestion.offset.lag.threshold`
+(default 10,000 messages) or `controller.ingestion.freshness.lag.ms.threshold`
+(unset: freshness not judged); an OFFLINE table is HEALTHY. It is the
+`/tables/{t}/ingestionStatus` body; `run_ingestion_status_check` (the
+IngestionStatusChecker task) publishes each table's gauges and caches the
+rollups that `/debug` shows. A verdict's change, in either plane, is counted,
+logged and journaled (`verdict.memory`, `verdict.ingestion`: `_note_verdict`);
+the incident recorder waits. A standby controller takes over through
+`cluster/leadership.py`.
 `self.scheduler` holds the periodic tasks (`utils/periodic.py`): retention,
-the segment status gauges, the memory check and the LLC validation round,
-which a controller process starts (`start_periodic_tasks`) and a test ticks by
-hand (`scheduler.run_all_once()`, or each method alone). The health, SLO,
-workload, event and incident planes and the minion's task manager wait.
+the segment status gauges, the memory and ingestion checks and the LLC
+validation round, which a controller process starts (`start_periodic_tasks`)
+and a test ticks by hand (`scheduler.run_all_once()`, or each method alone).
+The SLO, workload, event and incident planes and the minion's task manager
+wait.
 """
 
 from __future__ import annotations
@@ -43,11 +59,11 @@ from ..utils.metrics import get_registry
 from ..utils.periodic import PeriodicTask, PeriodicTaskScheduler
 from .assignment import balanced_assign, compute_counts, rebalance_table, replica_group_assign
 from ..utils.events import emit_event
-from .catalog import (COLD, COLUMN_STATS_KEY, ONLINE, STATUS_UPLOADED, Catalog,
-                      InstanceInfo, SegmentMeta, column_stats_from_meta)
+from .catalog import (COLD, COLUMN_STATS_KEY, ONLINE, STATUS_IN_PROGRESS, STATUS_UPLOADED,
+                      Catalog, InstanceInfo, SegmentMeta, column_stats_from_meta)
 from .completion import LLCSegmentManager
 from .deepstore import DeepStoreFS, tar_segment
-from .remote import memory_poller
+from .remote import ingestion_poller, memory_poller
 from .routing import partition_for_value
 
 # deleted segments park in the deep store this long before the retention
@@ -80,10 +96,18 @@ class Controller:
         self._memory_tables: set = set()      # tables with exported gauges
         self._memory_instances: set = set()   # servers with headroom gauges
         self._memory_status: Dict[str, Dict[str, object]] = {}
-        self._memory_prev: Dict[str, str] = {}   # the verdict's last state a table
         self.memory_pollers: Dict[str, Callable[[], Dict[str, object]]] = {}
         self.scheduler.register(PeriodicTask("MemoryStatusChecker", 60.0,
                                              self.run_memory_check))
+        # the ingestion plane: every server's consuming rollup into per-table
+        # verdicts, its pollers found as the memory plane's are
+        self._ingestion_tables: set = set()   # tables with exported gauges
+        self._ingestion_status: Dict[str, Dict[str, object]] = {}
+        self.ingestion_pollers: Dict[str, Callable[[], Dict[str, dict]]] = {}
+        self.scheduler.register(PeriodicTask("IngestionStatusChecker", 60.0,
+                                             self.run_ingestion_status_check))
+        # each verdict plane's last state a key, for the edge trigger
+        self._verdict_prev: Dict[str, Dict[str, str]] = {"memory": {}, "ingestion": {}}
         catalog.register_instance(InstanceInfo(instance_id, "controller"))
 
     def start_periodic_tasks(self) -> None:
@@ -94,13 +118,18 @@ class Controller:
 
     def debug_stats(self) -> Dict[str, object]:
         """The controller's /debug rollup: each periodic task's runs, errors
-        and last run, and the controller's metrics."""
+        and last run, the last ingestion verdicts (without the per-server
+        detail) and memory verdicts, and the controller's metrics and gauge
+        rings."""
         reg = get_registry()
         return {"instance": self.instance_id,
                 "periodicTasks": self.scheduler.stats(),
+                "ingestionStatus": {t: {k: v for k, v in st.items() if k != "servers"}
+                                    for t, st in self._ingestion_status.items()},
                 "memoryStatus": dict(self._memory_status),
                 "controllerMetrics": {k: v for k, v in reg.snapshot().items()
-                                      if k.startswith(("pinot_controller", "pinot_periodic"))}}
+                                      if k.startswith(("pinot_controller", "pinot_periodic"))},
+                "gaugeHistories": reg.gauge_histories("pinot_controller")}
 
     # -- table CRUD -------------------------------------------------------
     def add_schema(self, schema: Schema) -> None:
@@ -387,12 +416,12 @@ class Controller:
         except (TypeError, ValueError):
             return default
 
-    def _iter_memory_pollers(self):
+    def _iter_pollers(self, registered: Dict[str, Callable], remote: Callable):
         """(server id, poll) for every server: the registered in-process
         pollers first, then the live servers that advertise an HTTP port
-        (server processes), read over `GET /debug/memory`."""
+        (server processes), each polled by `remote(url)`."""
         seen = set()
-        for sid, poll in list(self.memory_pollers.items()):
+        for sid, poll in list(registered.items()):
             seen.add(sid)
             yield sid, poll
         with self.catalog._lock:
@@ -401,7 +430,7 @@ class Controller:
             if info.role != "server" or not info.port or not info.alive \
                     or info.instance_id in seen:
                 continue
-            yield info.instance_id, memory_poller(info.url)
+            yield info.instance_id, remote(info.url)
 
     def run_memory_check(self) -> Dict[str, str]:
         """Poll every server's ledger, publish each server's headroom and each
@@ -417,7 +446,7 @@ class Controller:
                                          self.DEFAULT_MEMORY_HEADROOM_PCT)
         snaps: Dict[str, Dict[str, object]] = {}
         unreachable: List[str] = []
-        for sid, poll in self._iter_memory_pollers():
+        for sid, poll in self._iter_pollers(self.memory_pollers, memory_poller):
             try:
                 snaps[sid] = dict(poll() or {})
             except Exception:   # the verdict reports it; the check goes on
@@ -480,33 +509,39 @@ class Controller:
                 "servers": per_server, "unreachableServers": sorted(unreachable),
                 "tiering": tiering,
             }
-            self._note_memory_verdict(table, verdict, reasons)
+            self._note_verdict("memory", table, verdict, reasons)
         for table in self._memory_tables - set(out):
             for g in self._MEMORY_TABLE_GAUGES:
                 reg.remove(g, {"table": table})
         self._memory_tables = set(out)
         self._memory_status = out
-        for table in list(self._memory_prev):
-            if table not in out:
-                self._memory_prev.pop(table)
+        self._prune_verdicts("memory", set(out))
         return {t: str(st["memoryState"]) for t, st in out.items()}
 
-    def _note_memory_verdict(self, table: str, status: str, reasons: List[str]) -> None:
-        """Edge-trigger a table's verdict: nothing while it is unchanged; a
-        change counts `pinot_controller_verdict_transitions{kind=memory}`,
-        logs a line and journals `verdict.memory`."""
-        prev = self._memory_prev.get(table, "HEALTHY")
+    def _note_verdict(self, plane: str, key: str, status: str, reasons: List[str]) -> None:
+        """Edge-trigger one plane's verdict of a table: nothing while it is
+        unchanged; a change counts `pinot_controller_verdict_transitions{kind}`,
+        logs a line and journals `verdict.<plane>`."""
+        prev_map = self._verdict_prev[plane]
+        prev = prev_map.get(key, "HEALTHY")
         if status == prev:
             return
-        self._memory_prev[table] = status
-        get_registry().counter("pinot_controller_verdict_transitions",
-                               {"kind": "memory"}).inc()
+        prev_map[key] = status
+        get_registry().counter("pinot_controller_verdict_transitions", {"kind": plane}).inc()
         logging.getLogger(self.VERDICT_LOGGER).warning(
-            "memory verdict for %s: %s -> %s%s", table, prev, status,
+            "%s verdict for %s: %s -> %s%s", plane, key, prev, status,
             f" ({'; '.join(map(str, reasons[:3]))})" if reasons else "")
-        emit_event("verdict.memory", node=self.instance_id, table=table,
+        emit_event(f"verdict.{plane}", node=self.instance_id, table=key,
                    severity=self._VERDICT_SEVERITY.get(status, "WARN"),
                    fromState=prev, toState=status, reasons=[str(r) for r in reasons[:3]])
+
+    def _prune_verdicts(self, plane: str, live_keys) -> None:
+        """Forget the edge trigger's state of the keys a plane no longer
+        judges (a dropped table)."""
+        prev_map = self._verdict_prev[plane]
+        for k in list(prev_map):
+            if k not in live_keys:
+                prev_map.pop(k)
 
     def memory_status(self, table: str) -> Dict[str, object]:
         """A table's memory verdict (the `/tables/{t}/memoryStatus` body);
@@ -523,6 +558,114 @@ class Controller:
         return {"table": table, "memoryState": "UNKNOWN", "reasons": [],
                 "residentBytes": 0, "servers": {},
                 "message": "memory check has not run yet"}
+
+    # -- the ingestion plane: the cluster's view of the servers' consumers ---
+
+    #: offset lag (messages) past which a table degrades, where the cluster
+    #: config sets none
+    DEFAULT_OFFSET_LAG_THRESHOLD = 10_000.0
+    _INGESTION_GAUGES = ("pinot_controller_ingestion_healthy",
+                         "pinot_controller_ingestion_offset_lag",
+                         "pinot_controller_ingestion_freshness_lag_ms")
+
+    def ingestion_status(self, table: str) -> Dict[str, object]:
+        """A table's ingestion verdict (HEALTHY, DEGRADED or UNHEALTHY, with
+        its reasons), read live from every server's consuming rollup; an
+        unknown table raises ValueError."""
+        cfg = self.catalog.table_configs.get(table)
+        if cfg is None:
+            raise ValueError(f"unknown table {table!r}")
+        if cfg.stream is None or not cfg.stream.topic:
+            return {"table": table, "ingestionState": "HEALTHY", "reasons": [],
+                    "paused": False, "numConsumingSegments": 0, "maxOffsetLag": 0,
+                    "maxFreshnessLagMs": 0, "totalRowsPerSecond": 0.0, "servers": {},
+                    "unreachableServers": [], "message": "offline table: batch ingestion only"}
+        paused = bool(self.catalog.get_property(f"pause/{table}"))
+        with self.catalog._lock:
+            consuming = [m.name for m in self.catalog.segments.get(table, {}).values()
+                         if m.status == STATUS_IN_PROGRESS]
+        statuses: Dict[str, Dict[str, object]] = {}
+        unreachable: List[str] = []
+        for sid, poll in self._iter_pollers(self.ingestion_pollers, ingestion_poller):
+            try:
+                snap = poll()
+            except Exception:   # the verdict reports it
+                unreachable.append(sid)
+                continue
+            st = snap.get(table)
+            if st:
+                statuses[sid] = st
+        attached = {seg for st in statuses.values() for seg in st.get("segments", {})}
+        error_segs = sorted({seg for st in statuses.values()
+                             for seg in st.get("errorSegments", [])})
+        max_offset_lag = max((st.get("maxOffsetLag") or 0 for st in statuses.values()),
+                             default=0)
+        max_fresh_lag = max((st.get("maxFreshnessLagMs") or 0 for st in statuses.values()),
+                            default=0)
+        rows_per_s = round(sum(st.get("totalRowsPerSecond") or 0.0
+                               for st in statuses.values()), 3)
+        missing = sorted(set(consuming) - attached)
+        reasons: List[str] = []
+        verdict = "HEALTHY"
+
+        def degrade(to: str, reason: str) -> None:
+            nonlocal verdict
+            reasons.append(reason)
+            order = ("HEALTHY", "DEGRADED", "UNHEALTHY")
+            if order.index(to) > order.index(verdict):
+                verdict = to
+
+        if error_segs:
+            degrade("UNHEALTHY", f"consumers in ERROR state: {error_segs}")
+        if missing and not paused:
+            degrade("UNHEALTHY", f"consuming segments with no attached consumer: {missing}")
+        if consuming and not statuses:
+            if unreachable:
+                degrade("UNHEALTHY", f"no server reported ingestion status "
+                        f"(unreachable: {sorted(unreachable)})")
+        elif unreachable:
+            degrade("DEGRADED", f"ingestion status poll failed for: {sorted(unreachable)}")
+        if paused:
+            degrade("DEGRADED", "consumption is paused")
+        lag_thr = self._cluster_config_float("controller.ingestion.offset.lag.threshold",
+                                             self.DEFAULT_OFFSET_LAG_THRESHOLD)
+        if lag_thr is not None and max_offset_lag > lag_thr:
+            degrade("DEGRADED", f"offset lag {max_offset_lag} exceeds threshold {lag_thr:g}")
+        fresh_thr = self._cluster_config_float(
+            "controller.ingestion.freshness.lag.ms.threshold", None)
+        if fresh_thr is not None and max_fresh_lag > fresh_thr:
+            degrade("DEGRADED", f"freshness lag {max_fresh_lag}ms exceeds threshold "
+                    f"{fresh_thr:g}ms")
+        return {"table": table, "ingestionState": verdict, "reasons": reasons,
+                "paused": paused, "numConsumingSegments": len(consuming),
+                "maxOffsetLag": max_offset_lag, "maxFreshnessLagMs": max_fresh_lag,
+                "totalRowsPerSecond": rows_per_s, "servers": statuses,
+                "unreachableServers": sorted(unreachable)}
+
+    def run_ingestion_status_check(self) -> Dict[str, str]:
+        """Every realtime table's verdict into its gauges and the cached
+        rollups; a dropped table's series and edge-trigger state go."""
+        reg = get_registry()
+        out: Dict[str, Dict[str, object]] = {}
+        for table, cfg in list(self.catalog.table_configs.items()):
+            if cfg.stream is None or not cfg.stream.topic:
+                continue
+            st = self.ingestion_status(table)
+            labels = {"table": table}
+            reg.gauge(self._INGESTION_GAUGES[0], labels).set(
+                1 if st["ingestionState"] == "HEALTHY" else 0)
+            reg.gauge(self._INGESTION_GAUGES[1], labels).set(st["maxOffsetLag"])
+            reg.gauge(self._INGESTION_GAUGES[2], labels).set(st["maxFreshnessLagMs"])
+            out[table] = st
+            self._note_verdict("ingestion", table, str(st["ingestionState"]),
+                               list(st.get("reasons") or []))
+        for table in self._ingestion_tables - set(out):
+            for g in self._INGESTION_GAUGES:
+                reg.remove(g, {"table": table})
+        self._ingestion_tables = set(out)
+        self._ingestion_status = out
+        self._prune_verdicts("ingestion", set(out))
+        return {t: str(st["ingestionState"]) for t, st in out.items()}
 
     def set_table_state(self, table: str, enabled: bool) -> None:
         """A disabled table keeps its segments loaded; brokers refuse its

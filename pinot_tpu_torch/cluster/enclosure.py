@@ -19,8 +19,9 @@ server on the serving pipeline is a `ServerNode` with `device_pipeline=`,
 registered on the broker). A join or an IN-subquery takes the broker's
 funnel path (its servers are in-process handles, without HTTP endpoints):
 the leaf scans scatter to the servers and every partition joins on the
-broker's device. The controller's memory check polls each server's
-`memory_snapshot` (the servers share the process's memory ledger).
+broker's device. The controller's ingestion check polls each server's
+`ingestion_snapshot`, its memory check each server's `memory_snapshot` (the
+servers share the process's memory ledger).
 `shutdown` stops the servers.
 """
 
@@ -58,6 +59,9 @@ class QuickCluster:
         for s in self.servers:
             self.broker.register_server_handle(s.instance_id, s.execute_partial,
                                                explain_handle=s.explain_partial)
+            # in process, the controller's checks read each server's rollups
+            # (a server process's /debug/consuming and /debug/memory)
+            self.controller.ingestion_pollers[s.instance_id] = s.ingestion_snapshot
             self.controller.memory_pollers[s.instance_id] = s.memory_snapshot
         self._seg_seq: Dict[str, int] = {}
 

@@ -335,6 +335,12 @@ class ControllerClient:
     def resume_consumption(self, table: str) -> Dict:
         return post_json(f"{self.url}/resumeConsumption/{table}", {}, token=self.token)
 
+    def ingestion_status(self, table: str) -> Dict:
+        """The table's ingestion verdict (`GET /tables/{t}/ingestionStatus`),
+        polled live from the servers."""
+        return get_json(f"{self.url}/tables/{table}/ingestionStatus", timeout=60.0,
+                        token=self.token)
+
     def memory_status(self, table: str) -> Dict:
         """The table's memory verdict (`GET /tables/{t}/memoryStatus`)."""
         return get_json(f"{self.url}/tables/{table}/memoryStatus", token=self.token)

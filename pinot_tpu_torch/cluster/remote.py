@@ -14,8 +14,9 @@ broker's dispatch to a server: over the mux transport (`submit_async`, a
 Future that holds no thread for the round trip) or one `POST /query` a
 partial, and `join_stage` runs a funnel-path join partition on the server
 (`POST /stage`); `ControllerDeepStore` reaches the deep store through the
-controller; `memory_poller` is the controller's read of a server process's
-`GET /debug/memory` (its ledger and tiering counters). What the minion needs (`RemoteController`, `RemoteTaskQueue`)
+controller; `ingestion_poller` and `memory_poller` are the controller's
+reads of a server process's `GET /debug/consuming` (its consumers' lag
+rollups) and `GET /debug/memory` (its ledger and tiering counters). What the minion needs (`RemoteController`, `RemoteTaskQueue`)
 waits: ROADMAP.md queue 1, item 3.
 """
 
@@ -406,6 +407,15 @@ class RemoteServerHandle:
                     return decode_segment_result(d["result"])
                 blocks.append(decode_block(d["block"]))
         return _concat_blocks(blocks)
+
+
+def ingestion_poller(server_url: str):
+    """The controller's poll of a server process's consumers: a call that
+    GETs its `/debug/consuming` and answers its tables' rollups (one retry
+    on a connection failure)."""
+    def poll():
+        return get_json(f"{server_url}/debug/consuming", timeout=5.0, retries=1).get("tables", {})
+    return poll
 
 
 def memory_poller(server_url: str):

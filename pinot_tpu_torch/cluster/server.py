@@ -62,7 +62,10 @@ replica. A segment unloaded while a query holds it keeps its device block
 until the last holder releases it. `server.hbm.capacity.bytes` pins the
 ledger's capacity, `server.hbm.target.headroom.pct` the gate's headroom; a
 server process runs the pressure sweep every `PRESSURE_INTERVAL_S`
-(`start_pressure_loop`); `memory_snapshot` is its `GET /debug/memory`. The
+(`start_pressure_loop`); `memory_snapshot` is its `GET /debug/memory` and
+`ingestion_snapshot` (each realtime table's consumers' lag rollup) its `GET
+/debug/consuming`; a realtime table's manager stopping (the table dropped,
+the server shut down) removes its partitions' lag gauges. The
 cluster knobs `server.index.bitmap.enabled` and `server.fused.enabled` are
 not ported: a server whose cluster sets one raises NotImplementedError rather
 than ignore it.
@@ -292,6 +295,14 @@ class ServerNode:
         if self._pressure_scheduler is not None:
             self._pressure_scheduler.stop()
             self._pressure_scheduler = None
+
+    def ingestion_snapshot(self) -> Dict[str, Dict[str, object]]:
+        """{table: its realtime manager's `ingestion_status`} (which exports
+        the partitions' lag gauges): the body of `GET /debug/consuming`, and
+        what the controller's ingestion check polls (in process, this method
+        itself)."""
+        return {table: handler.ingestion_status()
+                for table, handler in list(self._realtime_managers.items())}
 
     def memory_snapshot(self) -> Dict[str, object]:
         """The process ledger's snapshot with this server's id and its tiering

@@ -14,8 +14,9 @@ endpoints:
   the consumption pause and resume, the deep-store proxy, table status,
   segment metadata, tenants, cluster configs, table state, instance tags,
   rebalance, the validation round, the memory check (`POST /memoryCheck`)
-  and each table's verdict (`GET /tables/{t}/memoryStatus`), metrics, debug,
-  and the `sql` proxy to a live broker.
+  and each table's verdicts (`GET /tables/{t}/memoryStatus`, `GET
+  /tables/{t}/ingestionStatus`), metrics, debug, and the `sql` proxy to a
+  live broker.
 * `ServerService`: `POST /query` (one binary wire exchange a partial),
   `POST /mux` (the multiplexed transport, `mux.py`), `POST /explain`,
   the multistage data plane (`POST /stage`, a funnel-path join partition;
@@ -24,7 +25,8 @@ endpoints:
   mailbox shuffle's tasks, `multistage/shuffle.py`; its URL registered as a
   local endpoint while it runs), health and readiness, debug, segments,
   `segmentData` (the tar of a loaded segment: the peer download scheme),
-  `/debug/memory` (its memory ledger and tiering counters) and metrics. Its
+  `/debug/consuming` (its consumers' lag rollups), `/debug/memory` (its
+  memory ledger and tiering counters) and metrics. Its
   `/debug` also
   reports this process's kernel launches (`scan.masked_sums`,
   `scan.masked_sums_fused`, `bitmap.bitmap_filter`, `grouped.grouped_agg`;
@@ -280,6 +282,13 @@ class ControllerService:
         return json_response({"status": "OK"})
 
     def _get_tables(self, parts, params, body):
+        if len(parts) == 2 and parts[1] == "ingestionStatus":
+            # GET /tables/{t}/ingestionStatus: the verdict, polled live from
+            # the servers (outside the catalog's lock)
+            try:
+                return json_response(self.controller.ingestion_status(parts[0]))
+            except ValueError as e:
+                return error_response(str(e), 404)
         if len(parts) == 2 and parts[1] == "memoryStatus":
             # GET /tables/{t}/memoryStatus: the memory check's verdict
             try:
@@ -712,14 +721,20 @@ class ServerService:
         return json_response(st, status=200)
 
     def _debug(self, parts, params, body):
-        """GET /debug: the server's metrics, its kernels' launches, its
-        device memory, its realtime consumers (state, offset, rows, decode
-        lane), its pipeline's stats and its imported packages; GET
-        /debug/memory: its memory ledger and tiering counters
-        (`ServerNode.memory_snapshot`); GET /debug/events: the journal."""
+        """GET /debug: the server's metrics and gauge rings, its kernels'
+        launches, its device memory, its realtime consumers (state, offset,
+        rows, decode lane), its pipeline's stats and its imported packages;
+        GET /debug/consuming: each realtime table's consumers' lag rollup
+        (`ServerNode.ingestion_snapshot`, the reference's
+        consumingSegmentsInfo); GET /debug/memory: its memory ledger and
+        tiering counters (`ServerNode.memory_snapshot`); GET /debug/events:
+        the journal."""
         from ..utils.metrics import get_registry
         if parts and parts[0] == "events":
             return _events_route(params)
+        if parts and parts[0] == "consuming":
+            return _json({"instance": self.server.instance_id,
+                          "tables": self.server.ingestion_snapshot()})
         if parts and parts[0] == "memory":
             return _json(self.server.memory_snapshot())
         reg = get_registry()
@@ -729,6 +744,7 @@ class ServerService:
             "device": str(self.server.executor.device),
             "serverMetrics": {k: v for k, v in reg.snapshot().items()
                               if k.startswith("pinot_server")},
+            "gaugeHistories": reg.gauge_histories("pinot_server"),
             "kernelLaunches": kernel_launch_counts(),
             "deviceMemory": server_device_memory(self.server),
             "consumers": {t: m.consumer_status()

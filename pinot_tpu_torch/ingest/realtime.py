@@ -73,11 +73,23 @@ completes its consumers (`pump_all`, `complete_all`, or a background loop,
 `start_loop`). It keeps one upsert metadata manager for the table and one
 dedup manager per partition.
 
-Not ported: the ingestion-lag gauges and status rollup (`lag_status`,
-`ingestion_status`: only the freshness the broker's stats read is kept, and
-`consumer_status` for a server's `/debug`). The stream properties `filterExpr`
-and `columnTransforms` configure the `TransformPipeline`: with either, a block
-lane's batches go through it as column lists before they are indexed.
+The stream properties `filterExpr` and `columnTransforms` configure the
+`TransformPipeline`: with either, a block lane's batches go through it as
+column lists before they are indexed.
+
+Ingestion health (the reference's IngestionDelayTracker and
+consumingSegmentsInfo): each consumer's `ConsumerLagTracker` counts the rows
+it indexed and filtered, its pump errors and an EWMA of its rows a second,
+and keeps its freshness; `lag_status` is one consuming segment's snapshot
+(current and latest stream offsets, offset lag, freshness lag) and exports
+the `pinot_server_realtime_*` gauges of `_LAG_GAUGES` for the (table,
+partition). The offset lag is read from the stream when asked, so a paused
+consumer's lag grows while producers go on; a stream whose probe raises, or
+that has no `latest_offset` (Kinesis), reports it as None. The manager's
+`ingestion_status` is the table's rollup (the worst offset and freshness
+lags, the rows a second, the segments in ERROR), which a server's
+`/debug/consuming` serves and the controller's verdict reads; a consumer
+stopped with its segment, or the manager's stop, removes its gauges.
 """
 
 from __future__ import annotations
@@ -124,23 +136,57 @@ COMMIT, KEEP, DISCARD = "COMMIT", "KEEP", "DISCARD"
 
 
 class ConsumerLagTracker:
-    """The freshness of one consuming partition (the part of the reference's
-    IngestionDelayTracker the broker's stats read): the wall time of the
-    last fetch that returned messages and the largest event time indexed
+    """One consuming partition's ingestion accounting (the reference's
+    IngestionDelayTracker and its realtime gauges): rows indexed and
+    filtered (fetched but dropped by the filter or dedup), pump errors, an
+    EWMA of the rows indexed a second (one batch a sample), the wall time of
+    the last fetch that returned messages and the largest event time indexed
     (epoch ms, from the table's time column)."""
 
-    def __init__(self):
+    #: the EWMA's weight of the newest batch
+    EWMA_ALPHA = 0.3
+
+    def __init__(self, table: str, partition: int):
+        self.table = table
+        self.partition = partition
+        self.rows_indexed = 0
+        self.rows_filtered = 0
+        self.errors = 0
         self.last_consumed_ms: Optional[int] = None
         self.last_event_time_ms: Optional[float] = None
+        self.rows_per_s = 0.0
+        self._last_batch_t: Optional[float] = None
         self._lock = threading.Lock()
 
-    def on_batch(self, fetched: int, max_event_time_ms: Optional[float]) -> None:
+    def on_batch(self, fetched: int, indexed: int, max_event_time_ms: Optional[float]) -> None:
+        now = time.time()
         with self._lock:
+            self.rows_indexed += indexed
+            self.rows_filtered += max(fetched - indexed, 0)
             if fetched:
-                self.last_consumed_ms = int(time.time() * 1000)
+                self.last_consumed_ms = int(now * 1000)
             if max_event_time_ms is not None:
                 self.last_event_time_ms = max(self.last_event_time_ms or 0.0,
                                               float(max_event_time_ms))
+            if self._last_batch_t is not None:
+                dt = max(now - self._last_batch_t, 1e-6)
+                self.rows_per_s = (self.EWMA_ALPHA * (indexed / dt)
+                                   + (1 - self.EWMA_ALPHA) * self.rows_per_s)
+            self._last_batch_t = now
+
+    def on_error(self) -> None:
+        with self._lock:
+            self.errors += 1
+
+
+#: the gauges `lag_status` exports a (table, partition), listed once so that
+#: a teardown removes exactly these
+_LAG_GAUGES = (
+    "pinot_server_realtime_offset_lag",
+    "pinot_server_realtime_freshness_lag_ms",
+    "pinot_server_realtime_rows_per_s",
+    "pinot_server_realtime_last_consumed_ts_ms",
+)
 
 
 class RealtimePartitionConsumer:
@@ -212,7 +258,7 @@ class RealtimePartitionConsumer:
             self.batch_decoder = get_batch_decoder(stream_cfg.decoder)
         self.offset = start_offset
         self.start_consume_time = time.time()
-        self.lag = ConsumerLagTracker()
+        self.lag = ConsumerLagTracker(table_cfg.name, self.partition)
         self.catchup_target: Optional[int] = None
         # the handoff's fence: `on_segment_online` sets `halted` and takes
         # `pump_lock` before it reads the offset, so that no pump indexes rows
@@ -304,7 +350,7 @@ class RealtimePartitionConsumer:
             if fetched:
                 self.last_decode_path = lane
             self.offset = next_offset
-        self.lag.on_batch(fetched, max_event)
+        self.lag.on_batch(fetched, indexed, max_event)
         return indexed
 
     def _fetch(self, fetch_from: int, limit: int):
@@ -445,6 +491,41 @@ class RealtimePartitionConsumer:
         indexed, else the last fetch's wall time, else when it started."""
         lt = self.lag.last_event_time_ms or self.lag.last_consumed_ms
         return int(lt if lt is not None else self.start_consume_time * 1000)
+
+    def lag_status(self, export: bool = True) -> Dict[str, Any]:
+        """This consuming segment's lag snapshot (a consumingSegmentsInfo
+        row); also sets the partition's `pinot_server_realtime_*` gauges
+        unless `export` is False."""
+        latest = None
+        consumer = self.consumer
+        if consumer is not None:
+            try:
+                latest = int(consumer.latest_offset())
+            except Exception:   # the stream's probe failed or has none: lag unknown
+                latest = None
+        offset_lag = max(latest - self.offset, 0) if latest is not None else None
+        fresh = self.freshness_time_ms()
+        freshness_lag = max(int(time.time() * 1000) - fresh, 0)
+        st = {"segment": self.segment_name, "partition": self.partition,
+              "state": self.state, "paused": self.pause_requested,
+              "currentOffset": self.offset, "latestStreamOffset": latest,
+              "offsetLag": offset_lag, "freshnessTimeMs": fresh,
+              "freshnessLagMs": freshness_lag,
+              "rowsPerSecond": round(self.lag.rows_per_s, 3),
+              "rowsIndexed": self.lag.rows_indexed,
+              "rowsFiltered": self.lag.rows_filtered,
+              "consumeErrors": self.lag.errors,
+              "lastConsumedMs": self.lag.last_consumed_ms,
+              "numDocs": self.mutable.num_docs}
+        if export:
+            reg = get_registry()
+            labels = {"table": self.table_cfg.name, "partition": str(self.partition)}
+            if offset_lag is not None:
+                reg.gauge(_LAG_GAUGES[0], labels).set(offset_lag)
+            reg.gauge(_LAG_GAUGES[1], labels).set(freshness_lag)
+            reg.gauge(_LAG_GAUGES[2], labels).set(self.lag.rows_per_s)
+            reg.gauge(_LAG_GAUGES[3], labels).set(self.lag.last_consumed_ms or 0)
+        return st
 
     def close(self) -> None:
         """Halt pumping and release the stream connection (idempotent)."""
@@ -608,6 +689,9 @@ class RealtimeTableManager:
             consumer = self.consumers.pop(segment_name, None)
         if consumer is not None:
             consumer.close()
+            # the partition's series goes with its consumer (a successor's
+            # next snapshot sets it again)
+            self._remove_lag_gauges([consumer])
             self._release_device(consumer)
         return consumer
 
@@ -725,6 +809,32 @@ class RealtimeTableManager:
                        "lastDecodePath": c.last_decode_path}
                 for name, c in consumers}
 
+    def ingestion_status(self) -> Dict[str, Any]:
+        """The table's rollup of its consumers' lag snapshots (which export
+        their gauges), with the worst numbers the controller's verdict reads."""
+        with self._lock:
+            consumers = list(self.consumers.items())
+        segs = {name: c.lag_status() for name, c in consumers}
+        offset_lags = [s["offsetLag"] for s in segs.values() if s["offsetLag"] is not None]
+        return {
+            "table": self.table,
+            "paused": self._paused,
+            "numConsumingSegments": len(segs),
+            "maxOffsetLag": max(offset_lags) if offset_lags else 0,
+            "maxFreshnessLagMs": max((s["freshnessLagMs"] for s in segs.values()), default=0),
+            "totalRowsPerSecond": round(sum(s["rowsPerSecond"] for s in segs.values()), 3),
+            "errorSegments": sorted(n for n, s in segs.items() if s["state"] == ERROR),
+            "segments": segs,
+        }
+
+    def _remove_lag_gauges(self, consumers: Sequence[RealtimePartitionConsumer]) -> None:
+        """Drop these consumers' partitions' lag series."""
+        reg = get_registry()
+        for c in consumers:
+            labels = {"table": self.table_cfg.name, "partition": str(c.partition)}
+            for g in _LAG_GAUGES:
+                reg.remove_gauge(g, labels)
+
     def min_freshness_ms(self, segment_names: Sequence[str]) -> Optional[int]:
         """The oldest freshness among the named consumers (this server's
         part of minConsumingFreshnessTimeMs)."""
@@ -743,14 +853,23 @@ class RealtimeTableManager:
         if not consumers:
             return 0
         if len(consumers) == 1:
-            return consumers[0].pump(max_messages)
+            return self._pump_one(consumers[0], max_messages)
         pool = self._pump_pool
         if pool is None:
             from concurrent.futures import ThreadPoolExecutor
             pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix=f"pump-{self.table}")
             self._pump_pool = pool
-        futures = [pool.submit(c.pump, max_messages) for c in consumers]
+        futures = [pool.submit(self._pump_one, c, max_messages) for c in consumers]
         return sum(f.result(timeout=60.0) for f in futures)
+
+    @staticmethod
+    def _pump_one(c: RealtimePartitionConsumer, max_messages: Optional[int]) -> int:
+        """One consumer's pump; an error is counted on its tracker, then raised."""
+        try:
+            return c.pump(max_messages)
+        except Exception:
+            c.lag.on_error()
+            raise
 
     def complete_all(self) -> Dict[str, str]:
         """One completion round of every consumer: segment -> its state."""
@@ -789,7 +908,7 @@ class RealtimeTableManager:
 
     def stop(self) -> None:
         """Stop the loop and the pool, and drop every consumer with its
-        device memory."""
+        device memory and its lag gauges."""
         self._stop.set()
         for t in self._threads:
             t.join(timeout=5)
@@ -802,3 +921,4 @@ class RealtimeTableManager:
         for c in consumers:
             c.close()
             self._release_device(c)
+        self._remove_lag_gauges(consumers)

@@ -5,12 +5,17 @@ pluggable stream abstraction, `pinot-spi/.../stream/`: `PartitionGroupConsumer`,
 `StreamConsumerFactory`, `StreamMetadataProvider`, `MessageBatch`): offsets are
 integers, a consumer fetches message batches from one partition. A stream type
 names a factory (`register_stream_factory`, `get_stream_factory`): `memory`
-(`MemoryStream`, the role of the embedded Kafka the reference uses in tests)
-and `kafkalite` (the socket log broker speaking the Kafka wire protocol,
-`ingest/kafkalite.py`, registered when first asked for). A consumer may offer
-more than `fetch`: `fetch_raw` (the value bytes) and `fetch_spliced` (the
-values joined in C with a decoder's separator), which the realtime consumer's
-lanes take where the decoder can read them.
+(`MemoryStream`, the role of the embedded Kafka the reference uses in tests),
+and, each registered by its module when first asked for, `kafkalite` (the
+socket log broker speaking the Kafka wire protocol, `ingest/kafkalite.py`),
+`pulsar` (the broker speaking Pulsar's binary protocol,
+`ingest/pulsarlite.py`) and `kinesis` (the Kinesis JSON API and its stub,
+`ingest/kinesislite.py`). A consumer may offer more than `fetch`:
+`fetch_raw` (the value bytes) and `fetch_spliced` (the values joined in C
+with a decoder's separator), which the realtime consumer's lanes take where
+the decoder can read them; and `latest_offset`, the offset the next message
+will take, which the consumer's lag status reads (a stream without it, as
+Kinesis, reports its offset lag as unknown).
 
 Decoders, as in the JAX package:
 
@@ -139,6 +144,10 @@ class MemoryStreamConsumer(PartitionGroupConsumer):
                 start_offset:start_offset + max_messages]
         return MessageBatch(list(msgs), start_offset + len(msgs))
 
+    def latest_offset(self) -> int:
+        with self.stream._plock:
+            return len(self.stream.partitions[self.partition])
+
 
 class MemoryStreamFactory(StreamConsumerFactory):
     def __init__(self, topic: str, properties: Optional[Dict[str, Any]] = None):
@@ -237,7 +246,8 @@ _FACTORIES: Dict[str, Callable[..., StreamConsumerFactory]] = {
 }
 
 #: stream types whose module registers them when it is imported
-_LAZY_FACTORIES = {"kafkalite": ".kafkalite"}
+_LAZY_FACTORIES = {"kafkalite": ".kafkalite", "pulsar": ".pulsarlite",
+                   "kinesis": ".kinesislite"}
 
 
 def register_stream_factory(name: str, factory: Callable[..., StreamConsumerFactory]) -> None:
@@ -256,7 +266,8 @@ def stream_factories() -> Dict[str, Callable[..., StreamConsumerFactory]]:
 def get_stream_factory(stream_type: str, topic: str,
                        properties: Optional[Dict[str, Any]] = None) -> StreamConsumerFactory:
     """The factory of `stream_type` for `topic`; `properties` holds the
-    plugin's connection settings (kafkalite's `bootstrap`)."""
+    plugin's connection settings (kafkalite's `bootstrap`, pulsar's
+    `serviceUrl`, kinesis's `endpoint` and keys)."""
     if stream_type not in _FACTORIES:
         stream_factories()
     if stream_type not in _FACTORIES:

@@ -6,7 +6,7 @@ themselves at import time into their SPI's registry; this module lists those
 registries behind one `get` / `available` surface and imports the modules a
 configuration names (`plugins.modules=a.b,c.d`), each of which registers its
 factories as it loads. The registries are those this package has: the stream
-factories (`memory`, `kafkalite`) and the stream decoders
+factories (`memory`, `kafkalite`, `pulsar`, `kinesis`) and the stream decoders
 (`ingest/stream.py`), the file readers (`ingest/readers.py`) and the
 deep-store schemes (`cluster/deepstore.py`).
 """

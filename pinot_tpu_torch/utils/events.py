@@ -9,8 +9,10 @@ the ported roles emit (the broker's failure detector, admission and
 backpressure; the realtime segment lifecycle, the deep-store quarantine and
 the peer-scheme healing of the LLC segment manager; the server's tiers: an
 admission rejected, an eviction, a promotion, a cold demotion and a cold
-load; the controller's memory verdict); the leadership and the other verdict
-kinds come with those planes.
+load; the controller's leadership (`leader.elected`, `leader.lost`,
+`cluster/leadership.py`) and its ingestion and memory verdicts). The SLO and
+workload verdicts, the fault injection and the incident recorder's kinds come
+with those planes.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ KINDS: Dict[str, Tuple[str, str]] = {
     "tier.promoted": ("INFO", "queried cold segment promoted back to the hot tier"),
     "deepstore.quarantined": ("ERROR", "deepstore upload retries exhausted; segment quarantined"),
     "deepstore.healed": ("INFO", "quarantined/missing deepstore copy healed from a server peer"),
+    "leader.elected": ("INFO", "controller won or took over the leadership lease"),
+    "leader.lost": ("WARN", "controller lost the leadership lease"),
+    "verdict.ingestion": ("WARN", "ingestion health verdict changed for a table"),
     "verdict.memory": ("WARN", "device-memory health verdict changed for a table"),
 }
 

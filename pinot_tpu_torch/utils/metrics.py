@@ -21,16 +21,24 @@ sender's own process). The memory plane's: the ledger's
 `pinot_server_hbm_admission_rejects{table}`, `_evictions` and `_cold_loads`
 counters, and the controller's `pinot_controller_hbm_headroom_pct{instance}`,
 `_hbm_healthy{table}`, `_hbm_resident_bytes{table}` gauges and
-`pinot_controller_cold_demotions{table}`. `reset` empties the registry
-(tests). The Prometheus text export and the gauges' time series wait for the
-HTTP surface.
+`pinot_controller_cold_demotions{table}`. The ingestion plane's: each
+consuming partition's `pinot_server_realtime_offset_lag{table,partition}`,
+`_freshness_lag_ms`, `_rows_per_s` and `_last_consumed_ts_ms` gauges
+(`ingest/realtime.py`), and the controller's
+`pinot_controller_ingestion_healthy{table}`, `_ingestion_offset_lag` and
+`_ingestion_freshness_lag_ms`. Every gauge keeps a bounded ring of its last
+`Gauge.HISTORY_LEN` (epoch ms, value) samples, so that a `/debug` view shows
+a trend (`gauge_histories`). `reset` empties the registry (tests). Not
+ported: the Prometheus text export (`render_prometheus`); a role's
+`/metrics` serves the flat snapshot.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from collections import deque
+from typing import Dict, List, Optional, Tuple
 
 LabelPairs = Tuple[Tuple[str, str], ...]
 
@@ -52,15 +60,26 @@ class Counter:
 
 
 class Gauge:
-    __slots__ = ("value", "_lock")
+    #: samples the ring keeps: every `set` appends (epoch ms, value); 240 is
+    #: 20 minutes at a 5 s poll
+    HISTORY_LEN = 240
+
+    __slots__ = ("value", "_history", "_lock")
 
     def __init__(self):
         self.value = 0.0
+        self._history: deque = deque(maxlen=self.HISTORY_LEN)
         self._lock = threading.Lock()
 
     def set(self, v: float) -> None:
         with self._lock:
             self.value = float(v)
+            self._history.append((int(time.time() * 1000), self.value))
+
+    def history(self) -> List[Tuple[int, float]]:
+        """The recent (epoch ms, value) samples, oldest first."""
+        with self._lock:
+            return list(self._history)
 
 
 class Timer:
@@ -224,6 +243,16 @@ class MetricsRegistry:
                 out[f"{base}_sum"] = h.total
                 out[f"{base}_p50"] = h.percentile(0.5)
         return out
+
+    def gauge_histories(self, prefix: Optional[str] = None
+                        ) -> Dict[str, List[Tuple[int, float]]]:
+        """{rendered name: [(epoch ms, value), ...]} of the gauges whose name
+        starts with `prefix` (all without one), for a role's `/debug`."""
+        with self._lock:
+            gauges = [(name, labels, g) for (name, labels), g in self._series[Gauge].items()
+                      if prefix is None or name.startswith(prefix)]
+        # each gauge's own lock, never under the registry's
+        return {_render_name(name, labels): g.history() for name, labels, g in gauges}
 
 
 def _render_name(name: str, labels: LabelPairs) -> str:

@@ -1815,3 +1815,81 @@ def test_cuda_realtime_table_over_processes_matches_the_cpu(cuda, tmp_path):
     finally:
         srv.stop()
         cpu.shutdown()
+
+
+@pytest.mark.gpu
+def test_cuda_pulsar_table_over_processes_matches_the_cpu_and_is_healthy(cuda, tmp_path):
+    """A REALTIME lineorder table on the Pulsar-protocol broker, consumed by
+    two server processes that stage their consuming segments on the card
+    (replication 2, two partitions of PCB1 blocks, a flush threshold crossed
+    once a partition, rows left on the staged views), answers the smoke's
+    five realtime queries over HTTP as a CPU cluster holding the same rows
+    offline does, with each kernel launched in the server processes (the FOR
+    scan on the views), and its ingestionStatus is HEALTHY at offset lag 0."""
+    import chip_smoke
+    from pinot_tpu_torch import QuickCluster, ssb
+    from pinot_tpu_torch.cluster.http_service import get_json, post_json
+    from pinot_tpu_torch.cluster.process import ProcessCluster
+    from pinot_tpu_torch.engine import cuda_lib
+    from pinot_tpu_torch.ingest.pulsarlite import PulsarLiteBroker, PulsarLiteProducer
+    from pinot_tpu_torch.ingest.vectorized import encode_columnar_block
+    from pinot_tpu_torch.table import StreamConfig, TableConfig, TableType
+    from conftest import wait_until
+    cuda_lib.build(["masked_sums", "bitmap_filter", "grouped_agg"])   # before any child
+    schema, n, block = ssb.ssb_schema(), 96_000, 8_000
+    cols = ssb.make_columns(n, 31)
+    cpu = QuickCluster(num_servers=1, work_dir=str(tmp_path / "cpu"), device="cpu")
+    cpu.ingest_columns(cpu.create_table(schema, TableConfig("lineorder")), cols)
+    broker = PulsarLiteBroker()
+    try:
+        producers = [PulsarLiteProducer(broker.service_url, "lo_pulsar_gpu", p) for p in range(2)]
+        for i, lo in enumerate(range(0, n, block)):
+            producers[i % 2].send(encode_columnar_block(
+                schema, {k: v[lo:lo + block] for k, v in cols.items()}))
+        cfg = TableConfig("lineorder", table_type=TableType.REALTIME, replication=2,
+                          time_column="lo_orderdate", stream=StreamConfig(
+                              stream_type="pulsar", topic="lo_pulsar_gpu", decoder="columnar",
+                              flush_threshold_rows=32_000,
+                              # a block a pump: each partition commits at 4 of
+                              # its 6 blocks and keeps 2 on its staged view
+                              properties={"serviceUrl": broker.service_url,
+                                          "realtime.ingest.batch.size": "1",
+                                          "realtime.ingest.device.staging": "true"}))
+        with ProcessCluster(num_servers=2, device="cuda", work_dir=str(tmp_path / "proc"),
+                            server_config={"server.device.enabled": "true"},
+                            startup_timeout_s=180.0) as pc:
+            pc.controller.add_schema(schema)
+            pc.controller.add_table(cfg, num_partitions=2)
+            assert wait_until(lambda: pc.query("SELECT COUNT(*) FROM lineorder")
+                              ["resultTable"]["rows"] == [[n]], timeout=180.0)
+            assert wait_until(lambda: sum(
+                m["status"] == "DONE" for m in pc.controller.segments_meta(
+                    "lineorder_REALTIME")["segments"].values()) == 2, timeout=180.0)
+            urls = [pc.server_url(f"server_{i}") for i in range(2)]
+            assert wait_until(lambda: sorted(
+                c["offset"] for u in urls
+                for c in get_json(f"{u}/debug")["consumers"]["lineorder_REALTIME"].values()) ==
+                [n // block // 2] * 4, timeout=180.0)
+            launched = {}
+            for qid, sql, _, _, _ in chip_smoke.realtime_cluster_queries():
+                for u in urls:
+                    post_json(f"{u}/debug/launches/reset", {})
+                got = pc.query(sql)
+                for u in urls:
+                    for k, v in get_json(f"{u}/debug")["kernelLaunches"].items():
+                        launched[k] = launched.get(k, 0) + v
+                rows, want = got["resultTable"]["rows"], cpu.query(sql).rows
+                assert got["partialResult"] is False, qid
+                assert chip_smoke.rows_match(rows, want), (qid, rows, want)
+            assert launched["masked_sums"] > 0 and launched["masked_sums_fused"] > 0 \
+                and launched["grouped_agg"] > 0, launched
+            status = pc.controller.ingestion_status("lineorder_REALTIME")
+            assert status["ingestionState"] == "HEALTHY", status["reasons"]
+            assert status["maxOffsetLag"] == 0 and status["numConsumingSegments"] == 2
+            assert get_json(f"{urls[0]}/debug")["importedPackages"] == \
+                {"jax": False, "pinot_tpu": False}
+        for p in producers:
+            p.close()
+    finally:
+        broker.stop()
+        cpu.shutdown()

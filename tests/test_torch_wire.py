@@ -467,14 +467,15 @@ def test_configuration_layers_match_the_reference(tmp_path, fmt):
 
 def test_plugins_match_the_reference_registries():
     """Each registry this package has names a subset of the JAX package's
-    (which also holds the other stream brokers and their decoders); a
-    configuration's modules load alike; the stream registry holds the memory
-    stream and the kafkalite socket broker."""
+    (which also holds decoders this package does not register); a
+    configuration's modules load alike; the stream registry holds the JAX
+    package's four stream types."""
     for kind in ("stream", "decoder", "fs", "reader"):
         names = port_plugins.available(kind)
         assert names and set(names) <= set(jax_plugins.available(kind)), kind
         assert callable(port_plugins.get(kind, names[0]))
-    assert port_plugins.available("stream") == ["kafkalite", "memory"]
+    assert port_plugins.available("stream") == jax_plugins.available("stream") == \
+        ["kafkalite", "kinesis", "memory", "pulsar"]
     with pytest.raises(KeyError):
         port_plugins.get("decoder", "no-such-decoder")
     with pytest.raises(KeyError):
